@@ -1,0 +1,395 @@
+"""Chip smoke for tpucap_torch: drives the port's serving path on one
+NVIDIA GPU and holds every hand-written kernel against its plain version.
+
+    python3 chip_smoke.py          # from the repo root; needs one CUDA card and nvcc
+
+Phases (any failure ends the run with a non-zero exit and no result line):
+
+1. the card's name and power limit (``nvidia-smi``), then the kernel build
+   from ``tpucap_torch/csrc`` and its time;
+2. each kernel against its plain PyTorch version on the card at the main
+   path's shapes, in f32 (TF32 off) and bf16, with the stated tolerances;
+   CUDA-event times of the kernel, the plain version and, where one PyTorch
+   call computes the same function, that call; the least time the card
+   could take (bound) from the bytes and operations of these inputs;
+3. the slice at full width: uint8 (256, 224, 224, 3) -> K1 -> ResNet-50
+   (BN folded) -> lstm1 merge decoder (embed/hidden 256, vocab 7579) ->
+   beam 3, max_len 34, bf16, random weights from a seed; launch counters
+   reset just before and read just after one batch; captions/s, ms per
+   decode step and a few captions;
+4. kernel path against plain path on the card in f32 at batch 32: the
+   first decode step's logits within tolerance, and the share of captions
+   that agree (random weights leave near-ties, so not all must);
+5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
+   as the last line.
+
+It imports torch and tpucap_torch only (no jax, nothing of tpucap).
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
+# FLOP/s by operand type (f32 without tensor cores).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+BATCH, BEAM, MAX_LEN, VOCAB, WIDTH, IMAGE = 256, 3, 34, 7579, 256, 224
+AGREE_BATCH = 32
+
+# Where each kernel's TPU counterpart calls pl.pallas_call.
+REPLACES = {
+    "preprocess_u8": "tpucap/ops/preprocess.py:84",
+    "lstm_cell": "tpucap/ops/pallas/lstm_step.py:64",
+    "merge_head": "tpucap/ops/pallas/decoder_step.py:101",
+    "vocab_proj": "tpucap/ops/pallas/decoder_step.py:101",
+}
+SOURCES = {
+    "preprocess_u8": "tpucap_torch/csrc/preprocess.cu",
+    "lstm_cell": "tpucap_torch/csrc/lstm_step.cu",
+    "merge_head": "tpucap_torch/csrc/decoder_step.cu",
+    "vocab_proj": "tpucap_torch/csrc/decoder_step.cu",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls,
+    captured in one CUDA graph and timed with CUDA events around a replay,
+    so host-side launch cost (Python, ctypes) does not stand in for the
+    device time of a microsecond-scale kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture: allocator, cuBLAS handles
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_close(name, got, want, rtol, atol):
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol, msg=lambda m: f"{name}: {m}")
+
+
+# -- phase 2: kernels against their plain versions ---------------------------
+
+
+def _affine(mode, dev):
+    from tpucap_torch.ops.preprocess import _mode_scale_bias
+
+    scale, bias, flip = _mode_scale_bias(mode)
+    return torch.from_numpy(scale).to(dev), torch.from_numpy(bias).to(dev), flip
+
+
+def check_kernels(dev) -> dict[str, dict]:
+    """Check every kernel at the main path's shapes in f32 and bf16; time
+    it in bf16 (the main path's dtype). -> per-kernel JSON fields."""
+    from tpucap_torch.ops import decoder_step, lstm_step, preprocess
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(1)
+    M, U, V = BATCH * BEAM, WIDTH, VOCAB
+    out = {}
+
+    # K1: uint8 -> normalized; caffe is exact (integer + f32 bias); the
+    # scaled modes allow one FMA rounding (2e-6 at |y| <= 2.7), and a bf16
+    # output one bf16 ulp (2**-7 relative) where that rounding crosses a
+    # bf16 rounding boundary.
+    imgs = torch.randint(0, 256, (BATCH, IMAGE, IMAGE, 3), generator=g, device=dev, dtype=torch.uint8)
+    odd = torch.randint(0, 256, (8, 300, 250, 3), generator=g, device=dev, dtype=torch.uint8)
+    for mode, tol in (("caffe", 0.0), ("tf", 2e-6), ("torch", 2e-6)):
+        for src in (imgs, odd):
+            scale, bias, flip = _affine(mode, dev)
+            rows = preprocess._index_table(IMAGE, src.shape[1], src.device)
+            cols = preprocess._index_table(IMAGE, src.shape[2], src.device)
+            for dt in (torch.float32, torch.bfloat16):
+                got = preprocess.preprocess_u8(src, (IMAGE, IMAGE), mode, dt)
+                want = preprocess.preprocess_u8_plain(src, rows, cols, scale, bias, flip, dt)
+                rt = 0.0 if dt == torch.float32 else 2**-7
+                check_close(f"preprocess_u8 {mode} {dt}", got, want, rt, tol)
+    scale, bias, flip = _affine("caffe", dev)
+    rows = preprocess._index_table(IMAGE, IMAGE, dev)
+    kern = lambda: preprocess.preprocess_u8(imgs, (IMAGE, IMAGE), "caffe", torch.bfloat16)  # noqa: E731
+    plain = lambda: preprocess.preprocess_u8_plain(imgs, rows, rows, scale, bias, flip, torch.bfloat16)  # noqa: E731
+    y = kern()
+    b_ms, b_by = bound(nbytes(imgs, y, rows, rows), 2 * y.numel(), torch.float32)
+    out["preprocess_u8"] = dict(
+        max_abs_err=max_err(y, plain()), ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+    # K2 + K3 inputs at the decode shape: 768 hypotheses, 256 units, vocab 7579.
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    base = dict(
+        x=rnd(M, U, scale=0.05), h=rnd(M, U, scale=0.5), c=rnd(M, U),
+        wk=rnd(U, 4 * U, scale=U**-0.5), wr=rnd(U, 4 * U, scale=U**-0.5), b=rnd(4 * U, scale=0.1),
+        fe=rnd(M, U).relu(), wp=rnd(U, U, scale=U**-0.5), bp=rnd(U, scale=0.1),
+        wo=rnd(U, V, scale=U**-0.5), bo=rnd(V, scale=0.1),
+    )
+    for dt in (torch.float32, torch.bfloat16):
+        p = {k: v.to(dt) for k, v in base.items()}
+        cell = (p["x"], p["h"], p["c"], p["wk"], p["wr"], p["b"])
+        got = lstm_step.lstm_cell(*cell)
+        want = lstm_step.lstm_cell_plain(*cell)
+        # h', c' in the activation dtype (one bf16 ulp); h' f32 to sum order.
+        tol = (1e-5, 1e-5) if dt == torch.float32 else (2**-7, 1e-2)
+        check_close(f"lstm_cell h {dt}", got[0], want[0], *tol)
+        check_close(f"lstm_cell c {dt}", got[1], want[1], *tol)
+        check_close(f"lstm_cell h32 {dt}", got[2], want[2], 1e-5, 1e-5)
+        h32 = want[2]
+        m_got = decoder_step.merge_head(p["fe"], h32, p["wp"], p["bp"])
+        m_want = decoder_step.merge_head_plain(p["fe"], h32, p["wp"], p["bp"])
+        check_close(f"merge_head {dt}", m_got, m_want, 1e-5, 1e-4)
+        l_got = decoder_step.vocab_proj(m_want, p["wo"], p["bo"])
+        l_want = decoder_step.vocab_proj_plain(m_want, p["wo"], p["bo"])
+        check_close(f"vocab_proj {dt}", l_got, l_want, 1e-5, 1e-4)
+        if dt != torch.bfloat16:
+            continue
+        # Timing and bounds in bf16, the main path's dtype.
+        w_ih, w_hh = p["wk"].T.contiguous(), p["wr"].T.contiguous()
+        zero_b = torch.zeros_like(p["b"])
+        out["lstm_cell"] = dict(
+            max_abs_err=max(max_err(a, b) for a, b in zip(got, want)),
+            ms=cuda_ms(lambda: lstm_step.lstm_cell(*cell)),
+            plain_ms=cuda_ms(lambda: lstm_step.lstm_cell_plain(*cell)),
+            library_ms=cuda_ms(lambda: torch.lstm_cell(p["x"], (p["h"], p["c"]), w_ih, w_hh, p["b"], zero_b)),
+        )
+        out["lstm_cell"]["bound_ms"], out["lstm_cell"]["bound_by"] = bound(
+            nbytes(*cell, *got), 2 * M * 2 * U * 4 * U, dt
+        )
+        out["merge_head"] = dict(
+            max_abs_err=max_err(m_got, m_want),
+            ms=cuda_ms(lambda: decoder_step.merge_head(p["fe"], h32, p["wp"], p["bp"])),
+            plain_ms=cuda_ms(lambda: decoder_step.merge_head_plain(p["fe"], h32, p["wp"], p["bp"])),
+            library_ms=None,
+        )
+        # K3's products take bf16 weights; an f32 operand split into bf16
+        # terms keeps f32 accuracy on bf16 tensor cores, so both stages are
+        # priced at the bf16 rate (bytes bound them either way).
+        out["merge_head"]["bound_ms"], out["merge_head"]["bound_by"] = bound(
+            nbytes(p["fe"], h32, p["wp"], p["bp"], m_got), 2 * M * U * U, dt
+        )
+        wo32, bo32 = p["wo"].float(), p["bo"].float()
+        out["vocab_proj"] = dict(
+            max_abs_err=max_err(l_got, l_want),
+            ms=cuda_ms(lambda: decoder_step.vocab_proj(m_want, p["wo"], p["bo"])),
+            plain_ms=cuda_ms(lambda: decoder_step.vocab_proj_plain(m_want, p["wo"], p["bo"])),
+            library_ms=cuda_ms(lambda: torch.addmm(bo32, m_want, wo32)),
+        )
+        out["vocab_proj"]["bound_ms"], out["vocab_proj"]["bound_by"] = bound(
+            nbytes(m_want, p["wo"], p["bo"], l_got), 2 * M * U * V, dt
+        )
+    for name, r in out.items():
+        log(
+            f"kernel {name}: ok  max_abs_err={r['max_abs_err']:.3g}  ms={r['ms']:.4f}  "
+            f"plain_ms={r['plain_ms']:.4f}  library_ms={r['library_ms']}  "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
+        )
+    return out
+
+
+# -- phase 3: the slice at full width ----------------------------------------
+
+
+def corpus(n_words: int) -> dict[str, list[str]]:
+    """n_words distinct letter-only words in sentences wrapped with the
+    sentinels: a vocabulary of n_words + 2 words, vocab n_words + 3."""
+    words = []
+    for i in range(n_words):
+        w = ""
+        for _ in range(3):
+            w += chr(97 + i % 26)
+            i //= 26
+        words.append("w" + w)
+    caps = [
+        "startseq " + " ".join(words[s : s + 12]) + " endseq"
+        for s in range(0, n_words, 12)
+    ]
+    return {"corpus": caps}
+
+
+def make_pipeline(precision: str, tokenizer=None):
+    from tpucap_torch.config import Config, DecodeConfig, DecoderConfig, encoder_config
+    from tpucap_torch.pipeline import CaptioningPipeline
+
+    cfg = Config(
+        encoder=encoder_config("resnet50"),
+        decoder=DecoderConfig(name="lstm1", embed_dim=WIDTH, hidden_dim=WIDTH),
+        decode=DecodeConfig(method="beam", beam_width=BEAM, max_len=MAX_LEN),
+        precision=precision,
+    )
+    pipe = CaptioningPipeline(cfg, tokenizer=tokenizer)
+    if tokenizer is None:
+        pipe.fit_tokenizer(corpus(VOCAB - 3))
+    if pipe.vocab_size != VOCAB:
+        raise AssertionError(f"vocab {pipe.vocab_size} != {VOCAB}")
+    pipe.build(seed=0)
+    # Random ResNet-50 features of noise images are large and nearly alike
+    # (mean |f| about 5.6, spread across images about 0.16 on the CPU at
+    # this width), so the image branch would pick the same word at every
+    # step for every image. Shrunk, it leaves the word path to choose, the
+    # captions differ, and the agreement phase compares varied sequences.
+    pipe.params["decoder"]["feat_proj"]["kernel"].mul_(1e-3)
+    pipe.fold_bn()
+    return pipe
+
+
+def timed(fn) -> tuple[object, float]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def run_slice(dev) -> tuple[dict[str, int], object]:
+    from tpucap_torch import ops
+    from tpucap_torch.ops.preprocess import fused_preprocess
+
+    pipe = make_pipeline("bf16")
+    g = torch.Generator(device=dev).manual_seed(2)
+    images = torch.randint(0, 256, (BATCH, IMAGE, IMAGE, 3), generator=g, device=dev, dtype=torch.uint8)
+
+    def encode():
+        with torch.inference_mode():
+            x = fused_preprocess(images, IMAGE, "caffe", out_dtype=torch.bfloat16)
+            return pipe._apply_encoder(pipe._inference_params()["encoder"], x)
+
+    feats, _ = timed(encode)
+    if feats.shape != (BATCH, 2048) or not torch.isfinite(feats).all():
+        raise AssertionError(f"features {tuple(feats.shape)} not finite/expected")
+    pipe.caption_batch(images)  # warm-up: cuDNN plans, allocator
+    enc_s = min(timed(encode)[1] for _ in range(3))
+
+    ops.reset_launch_counts()
+    caps, batch_s = timed(lambda: pipe.caption_batch(images))
+    counts = ops.launch_counts()
+    more = [timed(lambda: pipe.caption_batch(images))[1] for _ in range(2)]
+
+    if len(caps) != BATCH or not all(isinstance(c, str) for c in caps):
+        raise AssertionError("caption_batch returned a malformed batch")
+    steps = counts["lstm_cell"]
+    expect = {"preprocess_u8": 1, "lstm_cell": steps, "merge_head": steps, "vocab_proj": steps}
+    if not 1 <= steps <= MAX_LEN or counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+    med = float(np.median([batch_s, *more]))
+    log(f"slice: batch {BATCH} resnet50+lstm1 beam {BEAM} vocab {VOCAB} bf16")
+    log(f"slice: batch seconds {[round(s, 5) for s in (batch_s, *more)]} median {med:.5f}")
+    log(f"slice: captions/s {BATCH / med:.2f}")
+    log(f"slice: preprocess+encoder ms {enc_s * 1e3:.3f}; decode steps {steps}; "
+        f"ms per decode step {(med - enc_s) * 1e3 / steps:.3f}")
+    log(f"slice: launches in one batch {counts}")
+    for c in caps[:3]:
+        log(f"slice: caption: {c!r}")
+    return counts, pipe.tokenizer
+
+
+# -- phase 4: kernel path against plain path ---------------------------------
+
+
+def agreement(dev, tokenizer) -> None:
+    from tpucap_torch.ops.decoder_step import make_fused_merge_step
+    from tpucap_torch.ops.preprocess import _index_table, preprocess_u8_plain
+
+    pipe = make_pipeline("f32", tokenizer)
+    g = torch.Generator(device=dev).manual_seed(3)
+    images = torch.randint(0, 256, (AGREE_BATCH, IMAGE, IMAGE, 3), generator=g, device=dev, dtype=torch.uint8)
+    kernel_caps = pipe.caption_batch(images)
+
+    scale, bias, flip = _affine("caffe", dev)
+    idx = _index_table(IMAGE, IMAGE, dev)
+    params = pipe._inference_params()
+    with torch.inference_mode():
+        x = preprocess_u8_plain(images, idx, idx, scale, bias, flip, torch.float32)
+        feats = pipe._apply_encoder(params["encoder"], x)
+        state = pipe.decoder.init_state(params["decoder"], feats)
+        start = torch.full((AGREE_BATCH,), pipe._token_ids()[0], device=dev)
+        lk, _ = make_fused_merge_step(pipe.decoder)(params["decoder"], state, start)
+        lp, _ = pipe.decoder.step(params["decoder"], state, start)
+        # f32 both ways; sums of 256 products in another order.
+        check_close("first-step logits", lk, lp, 1e-5, 1e-4)
+        pipe.step_fn = lambda: pipe.decoder.step  # the plain step on the card
+        plain_caps = pipe._captions(pipe._decode(params["decoder"], feats, "beam", BEAM))
+    same = sum(a == b for a, b in zip(kernel_caps, plain_caps))
+    log(f"agreement: first-step logits max_abs_err {max_err(lk, lp):.3g} (tol 1e-4 + 1e-5 rel)")
+    log(f"agreement: f32 batch {AGREE_BATCH}: {same}/{AGREE_BATCH} captions identical "
+        f"({same / AGREE_BATCH:.3f})")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from tpucap_torch import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(_build.build_all())}")
+
+    fields = check_kernels(dev)
+    counts, tokenizer = run_slice(dev)
+    agreement(dev, tokenizer)
+
+    kernels = [
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+         "launches": counts[name], **fields[name]}
+        for name in REPLACES
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

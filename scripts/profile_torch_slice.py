@@ -1,0 +1,169 @@
+"""Where a batch of the port's serving slice spends its time on the card.
+
+    python3 scripts/profile_torch_slice.py     # from the repo root; one CUDA card
+
+Builds the same full-width slice as chip_smoke.py (ResNet-50 + 1-layer
+merge LSTM, bf16, batch 256, beam 3, vocab 7579, random weights from a
+seed), runs one warm-up batch, then traces with ``torch.profiler``:
+
+- ``batch``: one whole ``CaptioningPipeline.caption_batch``;
+- ``encode``: its first half alone (preprocess kernel K1 + ResNet-50);
+- ``decode``: its second half alone (init_state + beam search, whose step
+  is kernels K2 + K3, + the id-to-word drain).
+
+Each part is first run untraced three times (host clock around work that
+ends in a synchronize; the median is kept), then traced once, in the same
+process on the same inputs. For each it prints both wall times, the device
+time summed over kernels, the device's busy time (the union of kernel
+intervals), device time by group of kernels, and the top kernels; then one
+JSON line with those numbers. A trace adds host cost to every launch but
+not to a kernel's device time, so the busy share that counts is the traced
+busy time over the untraced wall (``busy_share``); the traced wall's share
+(``busy_share_traced``) is printed beside it to show the tracer's cost.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (the slice's shapes and pipeline)
+from tpucap_torch.ops.preprocess import fused_preprocess  # noqa: E402
+
+GROUPS = (  # first match wins; substrings of the demangled kernel name
+    ("port K1 preprocess_u8", ("preprocess_u8_kernel",)),
+    ("port K2 lstm_cell", ("lstm_cell_kernel",)),
+    ("port K3 merge_head + vocab_proj", ("linear_kernel",)),
+    ("convolution", ("conv", "cudnn", "xmma", "implicit_gemm", "nchwToNhwc", "nhwcToNchw")),
+    ("sort", ("RadixSort", "radix_sort", "sort_")),
+    ("elementwise", ("elementwise_kernel",)),
+    ("reduction", ("reduce_kernel",)),
+    ("pool", ("pool",)),
+    ("gather/index", ("index", "gather", "Index", "Gather")),
+    ("memcpy/memset", ("Memcpy", "Memset")),
+)
+
+
+def group_of(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+def busy_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s >= end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def untraced_ms(fn, runs: int = 3) -> float:
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def trace(name: str, fn) -> dict:
+    plain_wall_ms = untraced_ms(fn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start
+    ]
+    if not kernels:
+        raise AssertionError(f"{name}: the trace holds no device time")
+    by_group: dict[str, float] = defaultdict(float)
+    by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        by_group[group_of(e.name)] += us
+        by_name[e.name][0] += us
+        by_name[e.name][1] += 1
+    device_us = sum(by_group.values())
+    union_us = busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    busy_share = union_us / 1e3 / plain_wall_ms
+    print(f"{name}: untraced wall ms {plain_wall_ms:.3f}; traced wall ms {wall_us / 1e3:.3f}; "
+          f"device kernel ms {device_us / 1e3:.3f}; device busy ms {union_us / 1e3:.3f}; "
+          f"busy share {busy_share:.4f} (traced wall: {union_us / wall_us:.4f}); "
+          f"device launches {len(kernels)}")
+    for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"{name}: group {group}: ms {us / 1e3:.3f} ({us / device_us:.4f} of device time)")
+    for kname, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"{name}: kernel {us / 1e3:8.3f} ms x{n:4d} {kname[:100]}")
+    return {
+        "untraced_wall_ms": plain_wall_ms, "traced_wall_ms": wall_us / 1e3,
+        "device_kernel_ms": device_us / 1e3, "device_busy_ms": union_us / 1e3,
+        "busy_share": busy_share, "busy_share_traced": union_us / wall_us,
+        "device_launches": len(kernels),
+        "group_ms": {k: v / 1e3 for k, v in by_group.items()},
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_torch_slice: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    dev = torch.device("cuda")
+    pipe = chip_smoke.make_pipeline("bf16")
+    g = torch.Generator(device=dev).manual_seed(2)
+    B, S = chip_smoke.BATCH, chip_smoke.IMAGE
+    images = torch.randint(0, 256, (B, S, S, 3), generator=g, device=dev, dtype=torch.uint8)
+    pipe.caption_batch(images)  # warm-up: build, cuDNN plans, allocator
+    params = pipe._inference_params()
+    cfg = pipe.config.decode
+
+    # caption_batch's body, cut in two at the features.
+    @torch.inference_mode()
+    def encode():
+        x = fused_preprocess(images, S, pipe.encoder.preprocess_mode, out_dtype=torch.bfloat16)
+        return pipe._apply_encoder(params["encoder"], x)
+
+    feats = encode()
+
+    @torch.inference_mode()
+    def decode():
+        return pipe._captions(pipe._decode(params["decoder"], feats, "beam", cfg.beam_width))
+
+    result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    result["batch"] = trace("batch", lambda: pipe.caption_batch(images))
+    result["encode"] = trace("encode", encode)
+    result["decode"] = trace("decode", decode)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,83 @@
+"""tpucap_torch stands alone: no module of it, nor chip_smoke.py, imports
+jax or anything of tpucap; its entry points refuse to run on the CPU
+unless asked; chip_smoke.py fails, printing no result, without a card or
+outside the repo."""
+
+import json
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import tpucap_torch
+from tpucap_torch.config import Config
+from tpucap_torch.pipeline import CaptioningPipeline
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# Runs in a fresh interpreter: a finder that refuses jax and tpucap, then
+# every module of the package and chip_smoke, then a look at sys.modules.
+_PROBE = """
+import importlib, importlib.abc, json, pkgutil, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "tpucap"):
+            raise ImportError("refused: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import tpucap_torch
+names = ["chip_smoke"] + [
+    m.name for m in pkgutil.walk_packages(tpucap_torch.__path__, "tpucap_torch.")
+]
+for n in names:
+    importlib.import_module(n)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpucap"))
+print(json.dumps({"imported": names, "loaded": loaded}))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_tpucap():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    want = {m.name for m in pkgutil.walk_packages(tpucap_torch.__path__, "tpucap_torch.")}
+    assert want <= set(res["imported"])
+    assert {"tpucap_torch.pipeline", "tpucap_torch.ops.decoder_step"} <= want
+
+
+def test_pipeline_without_device_refuses_a_cpu_only_host(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CaptioningPipeline(Config())
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        CaptioningPipeline(Config(), device="cuda")
+    assert CaptioningPipeline(Config(), device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_card_or_repo(tmp_path, where):
+    """Here there is no card; alone, chip_smoke.py also has no package."""
+    if torch.cuda.is_available() and where == "repo":
+        pytest.skip("a card is present: chip_smoke.py would run")
+    cwd = ROOT
+    if where == "alone":
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+        cwd = tmp_path
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

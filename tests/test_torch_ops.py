@@ -1,0 +1,211 @@
+"""Plain versions of the port's kernels against the JAX package's kernels.
+
+K1 (preprocess) against tpucap.ops.preprocess.fused_preprocess (its XLA
+path on the CPU) and the host oracle tpucap.data.preprocess; K2 (LSTM cell)
+against fused_lstm_step(interpret=True); K3 (merge step) against
+fused_merge_step(interpret=True) with a ragged last vocab tile. On CPU
+tensors every wrapper runs its plain version and counts no launch; the
+CUDA kernels themselves are checked against these plain versions on the
+card by chip_smoke.py.
+
+Tolerances: K1 is exact in caffe mode (integer + f32 bias) and within
+2e-6 absolute in tf/torch mode (a fused multiply-add against a separate
+multiply and add); K2/K3 differ by summation order, 1e-5 absolute in f32
+at O(1) values; bf16 outputs may differ by one bf16 ulp (1e-2).
+"""
+
+import shutil
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpucap.data.preprocess import preprocess_input
+from tpucap.models.layers import lstm_cell_step
+from tpucap.ops.pallas.decoder_step import fused_merge_step as jax_merge_step
+from tpucap.ops.pallas.lstm_step import fused_lstm_step as jax_lstm_step
+from tpucap.ops.preprocess import fused_preprocess as jax_fused_preprocess
+from tpucap.ops.preprocess import normalize_images as jax_normalize_images
+from tpucap_torch import _build, ops
+from tpucap_torch.ops import decoder_step, lstm_step, preprocess
+
+torch.set_num_threads(2)
+
+TOL = {
+    "f32": dict(rtol=0, atol=1e-5),
+    "bf16": dict(rtol=1e-2, atol=1e-2),
+}
+DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(arr, name):
+    jdt, tdt = DT[name]
+    t = torch.from_numpy(np.asarray(arr, np.float32)).to(tdt)
+    return jnp.asarray(t.float().numpy(), jdt), t
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+# -- K1 ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["caffe", "tf", "torch"])
+@pytest.mark.parametrize("src_hw", [(16, 16), (23, 11)])
+def test_preprocess_matches_jax_and_host_oracle(mode, src_hw):
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, size=(3, *src_hw, 3), dtype=np.uint8)
+    size = 16
+    atol = 0 if mode == "caffe" else 2e-6
+    ref = np.asarray(jax_fused_preprocess(jnp.asarray(imgs), size, mode))
+    out = preprocess.fused_preprocess(torch.from_numpy(imgs), size, mode)
+    assert out.shape == (3, size, size, 3) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=atol)
+    rows = preprocess._nearest_indices(size, src_hw[0])
+    cols = preprocess._nearest_indices(size, src_hw[1])
+    host = preprocess_input(imgs[:, rows][:, :, cols].astype(np.float32), mode)
+    np.testing.assert_allclose(out.numpy(), host, rtol=0, atol=max(atol, 1e-6))
+
+
+def test_preprocess_out_dtype_and_normalize_images():
+    rng = np.random.default_rng(1)
+    imgs = rng.integers(0, 256, size=(2, 9, 7, 3), dtype=np.uint8)
+    ref = jax_normalize_images(jnp.asarray(imgs), "caffe", out_dtype=jnp.bfloat16)
+    out = preprocess.normalize_images(
+        torch.from_numpy(imgs), "caffe", out_dtype=torch.bfloat16
+    )
+    assert out.shape == (2, 9, 7, 3) and out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(out), _np(ref))
+    np.testing.assert_array_equal(
+        preprocess.resize_nearest(torch.from_numpy(imgs), 5).numpy(),
+        imgs[:, preprocess._nearest_indices(5, 9)][
+            :, :, preprocess._nearest_indices(5, 7)
+        ],
+    )
+    with pytest.raises(ValueError, match="unknown preprocess mode"):
+        preprocess.fused_preprocess(torch.from_numpy(imgs), 9, "bgr")
+
+
+# -- K2 ---------------------------------------------------------------------
+
+
+def _lstm_inputs(dt, B=8, E=16, U=32, seed=0):
+    rng = np.random.default_rng(seed)
+    vals = {
+        "x": rng.normal(size=(B, E)),
+        "h": rng.normal(size=(B, U)),
+        "c": rng.normal(size=(B, U)),
+        "kernel": rng.normal(size=(E, 4 * U)) * 0.3,
+        "recurrent": rng.normal(size=(U, 4 * U)) * 0.3,
+        "bias": rng.normal(size=(4 * U,)),
+    }
+    return {k: _pair(v, dt) for k, v in vals.items()}
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_lstm_cell_plain_matches_pallas_kernel(dt):
+    """f32 against the Pallas kernel; its ref stores refuse bf16, so bf16
+    is held against the function it replaces, layers.lstm_cell_step."""
+    v = _lstm_inputs(dt)
+    J = {k: a for k, (a, _) in v.items()}
+    T = {k: b for k, (_, b) in v.items()}
+    p = {k: J[k] for k in ("kernel", "recurrent", "bias")}
+    ref_fn = (
+        partial(jax_lstm_step, interpret=True) if dt == "f32" else lstm_cell_step
+    )
+    h_ref, c_ref = ref_fn(p, J["x"], J["h"], J["c"])
+    h, c, h32 = lstm_step.lstm_cell_plain(
+        T["x"], T["h"], T["c"], T["kernel"], T["recurrent"], T["bias"]
+    )
+    assert h.dtype == c.dtype == DT[dt][1] and h32.dtype == torch.float32
+    np.testing.assert_allclose(_np(h), _np(h_ref), **TOL[dt])
+    np.testing.assert_allclose(_np(c), _np(c_ref), **TOL[dt])
+    np.testing.assert_allclose(_np(h32), _np(h), **TOL[dt])
+
+
+# -- K3 ---------------------------------------------------------------------
+
+
+def _merge_inputs(dt, B=8, E=16, U=32, V=80, seed=3):
+    rng = np.random.default_rng(seed)
+    cell = {
+        "kernel": _pair(rng.normal(size=(E, 4 * U)) * 0.3, dt),
+        "recurrent": _pair(rng.normal(size=(U, 4 * U)) * 0.3, dt),
+        "bias": _pair(rng.normal(size=(4 * U,)), dt),
+    }
+    dense = lambda i, o: {  # noqa: E731
+        "kernel": _pair(rng.normal(size=(i, o)) * 0.2, dt),
+        "bias": _pair(rng.normal(size=(o,)), dt),
+    }
+    tree = {"cells": [cell], "pre_out": dense(U, U), "out": dense(U, V)}
+    state = {
+        "fe": _pair(np.abs(rng.normal(size=(B, U))), dt),
+        "h": _pair(rng.normal(size=(B, 1, U)), dt),
+        "c": _pair(rng.normal(size=(B, 1, U)), dt),
+    }
+    x = _pair(rng.normal(size=(B, E)), dt)
+    pick = lambda tree, i: jax.tree.map(  # noqa: E731
+        lambda pr: pr[i], tree, is_leaf=lambda n: isinstance(n, tuple)
+    )
+    return (pick(tree, 0), pick(state, 0), x[0]), (pick(tree, 1), pick(state, 1), x[1])
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_merge_step_plain_matches_pallas_kernel_ragged_vocab(dt):
+    (pj, sj, xj), (pt, st, xt) = _merge_inputs(dt)
+    logits_ref, st_ref = jax_merge_step(pj, sj, xj, tile_v=32, interpret=True)
+    logits, new = decoder_step.fused_merge_step(pt, st, xt)
+    assert logits.shape == (8, 80) and logits.dtype == torch.float32
+    # logits are f32 on both sides; in bf16 only h'/c' are rounded.
+    np.testing.assert_allclose(_np(logits), _np(logits_ref), **TOL["f32"])
+    for key in ("h", "c"):
+        assert new[key].dtype == DT[dt][1]
+        np.testing.assert_allclose(_np(new[key]), _np(st_ref[key]), **TOL[dt])
+    assert new["fe"] is st["fe"]
+
+
+def test_wrappers_on_cpu_run_plain_versions_and_count_no_launch():
+    ops.reset_launch_counts()
+    (_, _, _), (pt, st, xt) = _merge_inputs("f32")
+    cell = pt["cells"][0]
+    h, c = st["h"][:, 0], st["c"][:, 0]
+    got = lstm_step.lstm_cell(xt, h, c, cell["kernel"], cell["recurrent"], cell["bias"])
+    want = lstm_step.lstm_cell_plain(
+        xt, h, c, cell["kernel"], cell["recurrent"], cell["bias"]
+    )
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    merged = decoder_step.merge_head(st["fe"], got[2], **_wb(pt["pre_out"], "wp", "bp"))
+    torch.testing.assert_close(
+        merged,
+        decoder_step.merge_head_plain(st["fe"], got[2], **_wb(pt["pre_out"], "wp", "bp")),
+        rtol=0, atol=0,
+    )
+    logits = decoder_step.vocab_proj(merged, **_wb(pt["out"], "wo", "bo"))
+    torch.testing.assert_close(
+        logits,
+        decoder_step.vocab_proj_plain(merged, **_wb(pt["out"], "wo", "bo")),
+        rtol=0, atol=0,
+    )
+    imgs = torch.randint(0, 256, (2, 6, 6, 3), dtype=torch.uint8)
+    preprocess.preprocess_u8(imgs, (4, 4), "tf")
+    assert ops.launch_counts() == {
+        "preprocess_u8": 0, "lstm_cell": 0, "merge_head": 0, "vocab_proj": 0
+    }
+
+
+def _wb(p, wname, bname):
+    return {wname: p["kernel"], bname: p["bias"]}
+
+
+def test_kernel_build_reports_missing_nvcc():
+    if shutil.which("nvcc"):
+        pytest.skip("nvcc present: the build itself runs in chip_smoke.py")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()

@@ -1,0 +1,132 @@
+"""The slice as a whole: a uint8 batch through tpucap_torch's
+``caption_batch`` (preprocess -> ResNet-50 with BN folded -> merge LSTM ->
+beam or greedy) against the body of tpucap's ``caption_dataset`` on the
+CPU, same weights (bridged), f32, ResNet-50 at input 64. The batch arrives
+at another size, so both sides resize nearest (tpucap through
+``fused_preprocess``, which is the host loader's resize + the body's
+normalize). Captions must be identical.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpucap.config import Config, DecodeConfig, DecoderConfig, EncoderConfig
+from tpucap.decode import beam_decode, greedy_decode, ids_to_captions
+from tpucap.ops.preprocess import fused_preprocess
+from tpucap.pipeline import CaptioningPipeline as JaxPipeline
+from tpucap_torch import config as tcfg
+from tpucap_torch.convert import load_npz, params_from_jax, save_npz
+from tpucap_torch.pipeline import CaptioningPipeline
+from tpucap_torch.text import Tokenizer
+
+torch.set_num_threads(2)
+
+SIZE = 64
+WORDS = [f"w{a}{b}" for a in "abcdefg" for b in "xyz"]
+CORPUS = {
+    "img": [
+        "startseq " + " ".join(WORDS[i : i + 5]) + " endseq"
+        for i in range(0, len(WORDS), 3)
+    ]
+}
+DEC = dict(embed_dim=16, hidden_dim=32, dropout_rate=0.0)
+DECODE = dict(max_len=10, beam_width=3)
+
+
+@pytest.fixture(scope="module")
+def pipelines(tmp_path_factory):
+    jpipe = JaxPipeline(
+        Config(
+            encoder=EncoderConfig(name="resnet50", feature_dim=2048),
+            decoder=DecoderConfig(**DEC),
+            decode=DecodeConfig(**DECODE),
+            precision="f32",
+        )
+    )
+    jpipe.encoder = dataclasses.replace(jpipe.encoder, input_size=SIZE)
+    jpipe.fit_tokenizer(CORPUS)
+    jpipe.build(rng=jax.random.key(0))
+    # Random ResNet-50 features are large enough to fix every step's
+    # argmax, so shrink the image branch, sharpen the head and tilt it
+    # toward endseq: captions then differ and some end early.
+    dec = jpipe.params["decoder"]
+    dec["feat_proj"]["kernel"] = dec["feat_proj"]["kernel"] * 0.01
+    dec["out"]["kernel"] = dec["out"]["kernel"] * 4
+    dec["out"]["bias"] = dec["out"]["bias"].at[jpipe.tokenizer.word_index["endseq"]].add(0.5)
+    params = jax.tree.map(np.asarray, jpipe.params)
+
+    pipe = CaptioningPipeline(
+        tcfg.Config(
+            decoder=tcfg.DecoderConfig(**DEC),
+            decode=tcfg.DecodeConfig(**DECODE),
+            precision="f32",
+        ),
+        tokenizer=Tokenizer.from_json(jpipe.tokenizer.to_json()),
+        device="cpu",
+    )
+    pipe.encoder = dataclasses.replace(pipe.encoder, input_size=SIZE)
+    pipe.build(init_params=False)
+    # Through the .npz bridge the card side uses (no jax, no orbax there).
+    path = tmp_path_factory.mktemp("w") / "params.npz"
+    save_npz(path, params_from_jax(params))
+    pipe.set_params(load_npz(path))
+    jpipe.fold_bn()
+    pipe.fold_bn()
+    return jpipe, pipe
+
+
+def _jax_body(jpipe, images_u8, method):
+    """tpucap's caption_dataset body (pipeline.py:491-525) after the host
+    loader's nearest resize, with its ids_to_captions drain."""
+    start_id, end_id = jpipe._token_ids()
+    dcfg = jpipe.config.decode
+    p = jpipe._inference_params()
+    x = fused_preprocess(jnp.asarray(images_u8), SIZE, "caffe", out_dtype=jnp.float32)
+    feats = jpipe._apply_encoder(p["encoder"], x)
+    state = jpipe.decoder.init_state(p["decoder"], feats)
+    kw = dict(start_id=start_id, end_id=end_id, max_len=dcfg.max_len)
+    if method == "greedy":
+        res = greedy_decode(jpipe.decoder.step, p["decoder"], state, **kw)
+    else:
+        res = beam_decode(
+            jpipe.decoder.step, p["decoder"], state, beam_width=dcfg.beam_width,
+            decoder=jpipe.decoder, **kw,
+        )
+    return ids_to_captions(jpipe.tokenizer, res.tokens, res.lengths, end_id=end_id), res
+
+
+@pytest.mark.parametrize("method", ["beam", "greedy"])
+def test_caption_batch_matches_jax_body(pipelines, method):
+    jpipe, pipe = pipelines
+    images = np.random.default_rng(7).integers(0, 256, size=(4, 80, 72, 3), dtype=np.uint8)
+    want, res = _jax_body(jpipe, images, method)
+    got = pipe.caption_batch(images, method=method)
+    assert got == want
+    assert len(set(want)) > 1 and (np.asarray(res.lengths) < DECODE["max_len"]).any()
+
+
+def test_encode_images_matches_jax(pipelines):
+    """Preprocessed batch -> pooled features; f32 convolutions summed in
+    another order through 53 layers: 1e-4 of the output's scale."""
+    jpipe, pipe = pipelines
+    images = np.random.default_rng(8).integers(0, 256, size=(2, SIZE, SIZE, 3), dtype=np.uint8)
+    x = np.array(fused_preprocess(jnp.asarray(images), SIZE, "caffe", out_dtype=jnp.float32))
+    want = np.asarray(jpipe.encode_images(x))
+    got = pipe.encode_images(x)
+    assert got.shape == want.shape == (2, 2048)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+def test_npz_round_trip_keeps_tree(tmp_path):
+    gen = torch.Generator().manual_seed(0)
+    tree = {"cells": [{"kernel": torch.randn(3, 4, generator=gen)}], "out": {"bias": torch.zeros(2)}}
+    save_npz(tmp_path / "p.npz", tree)
+    back = load_npz(tmp_path / "p.npz")
+    assert isinstance(back["cells"], list)
+    torch.testing.assert_close(back["cells"][0]["kernel"], tree["cells"][0]["kernel"])
+    torch.testing.assert_close(back["out"]["bias"], tree["out"]["bias"])

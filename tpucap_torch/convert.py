@@ -1,0 +1,74 @@
+"""Weight bridge from the JAX package's param pytrees, and ``.npz``
+persistence that needs neither jax nor orbax.
+
+The layouts are the same except for convolution kernels: ``tpucap`` keeps
+them HWIO, the port OIHW. Dense kernels stay ``(in, out)``; key names are
+unchanged (``conv2_block1_1_conv``, ``cells/0/kernel``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def params_from_jax(tree):
+    """A tpucap param tree (nested dicts/lists whose leaves are arrays) ->
+    the port's params: float32 CPU tensors, conv kernels HWIO -> OIHW."""
+
+    def convert(node, key=None):
+        if isinstance(node, dict):
+            return {k: convert(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
+        arr = np.asarray(node, dtype=np.float32)
+        t = torch.from_numpy(arr.copy())
+        if key == "kernel" and t.ndim == 4:
+            t = t.permute(3, 2, 0, 1).contiguous()
+        return t
+
+    return convert(tree)
+
+
+def _flatten(tree, prefix, out):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if "/" in str(k):
+                raise ValueError(f"param key {k!r} contains '/'")
+            _flatten(v, f"{prefix}{k}/", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}{i}/", out)
+    else:
+        out[prefix[:-1]] = tree.detach().float().cpu().numpy()
+
+
+def save_npz(path, params) -> None:
+    """Write a param tree as one ``.npz``: keys are '/'-joined paths, list
+    positions are their indices, values are f32 (numpy has no bf16)."""
+    flat: dict[str, np.ndarray] = {}
+    _flatten(params, "", flat)
+    np.savez(path, **flat)
+
+
+def load_npz(path, device="cpu"):
+    """Inverse of ``save_npz``: a nested tree of f32 tensors on ``device``;
+    a level whose keys are all 0..n-1 becomes a list."""
+    root: dict = {}
+    with np.load(path) as z:
+        for name in z.files:
+            node = root
+            *parents, leaf = name.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = torch.from_numpy(z[name]).to(device)
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and sorted(node) == sorted(str(i) for i in range(len(node))):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(root)

@@ -1,0 +1,78 @@
+"""Device and precision policy of the port, and a small tree map.
+
+Device: entry points run on ``cuda`` unless the caller passes
+``device="cpu"`` (as the tests do). Without a card and without an explicit
+device they raise; they never fall back to the CPU silently.
+
+``Config.precision`` maps onto PyTorch as follows:
+
+====== ================================= ===================================
+value  tensors                           matmul / convolution flags
+====== ================================= ===================================
+f32    params and activations in f32     ``torch.backends.cuda.matmul.
+                                         allow_tf32`` and ``torch.backends.
+                                         cudnn.allow_tf32`` both False: full
+                                         f32, XLA's HIGHEST precision
+bf16   params and activations cast to    TF32 allowed for the few f32
+       bf16 (``_inference_params``)      matmuls left (XLA's DEFAULT); bf16
+                                         GEMMs reduce in f32
+mixed  params and activations in f32     TF32 allowed: the counterpart of
+                                         XLA's DEFAULT bf16 MXU passes
+====== ================================= ===================================
+
+The flags are process-wide PyTorch settings; ``apply_precision`` sets all
+three explicitly every time a pipeline is built.
+"""
+
+from __future__ import annotations
+
+import torch
+
+PRECISIONS = ("f32", "bf16", "mixed")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card; a CPU run must be asked for by name."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: tpucap_torch runs on the GPU unless the "
+                "caller passes device='cpu'"
+            )
+        return torch.device("cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is unavailable")
+    return device
+
+
+def apply_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; have {PRECISIONS}")
+    tf32 = precision != "f32"
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    # bf16 GEMMs accumulate and reduce in f32, as the JAX package's
+    # preferred_element_type=f32 dots do.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def infer_dtype(precision: str) -> torch.dtype:
+    return torch.bfloat16 if precision == "bf16" else torch.float32
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every tensor leaf of nested dicts/lists/tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]

@@ -1,0 +1,92 @@
+"""Conv-net primitives with Keras-equivalent semantics (port of
+``tpucap.models.encoders.common``).
+
+Activations are NHWC at every public function, as in the JAX package.
+Inside, a convolution views them as NCHW in ``channels_last`` memory format
+(the same bytes, so the permute is free) and runs ``F.conv2d`` — cuDNN on
+the card, which the JAX package likewise leaves to XLA. Conv kernels are
+stored OIHW (``tpucap_torch.convert`` turns the JAX package's HWIO into it).
+
+Inference-mode BatchNorm only.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from tpucap_torch.models.layers import glorot_uniform
+
+
+def init_conv(gen, kh, kw, cin, cout, use_bias=True):
+    p = {
+        "kernel": glorot_uniform(
+            gen, (cout, cin, kh, kw), kh * kw * cin, kh * kw * cout
+        )
+    }
+    if use_bias:
+        p["bias"] = torch.zeros(cout)
+    return p
+
+
+def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
+    """TF 'SAME' padding (the extra pixel goes after)."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv(p, x, stride=(1, 1), padding="SAME"):
+    """x (B, H, W, Cin) -> (B, H', W', Cout); kernel OIHW. The bias is
+    added inside the convolution call: one rounding of the f32 sum in a
+    bf16 flow where the JAX package rounds the convolution, then adds the
+    bias in bf16 (identical in f32)."""
+    w = p["kernel"].to(x.dtype)
+    b = p["bias"].to(x.dtype) if "bias" in p else None
+    xn = x.permute(0, 3, 1, 2)
+    if padding == "VALID":
+        pad = 0
+    elif padding == "SAME":
+        (t, bt) = _same_pads(x.shape[1], w.shape[2], stride[0])
+        (l, r) = _same_pads(x.shape[2], w.shape[3], stride[1])
+        if t == bt and l == r:
+            pad = (t, l)
+        else:
+            xn = F.pad(xn, (l, r, t, bt))
+            pad = 0
+    else:
+        raise ValueError(f"unknown padding {padding!r}")
+    y = F.conv2d(xn, w, b, stride=stride, padding=pad)
+    return y.permute(0, 2, 3, 1)
+
+
+def init_bn(c, scale=True):
+    p = {"beta": torch.zeros(c), "mean": torch.zeros(c), "var": torch.ones(c)}
+    if scale:
+        p["gamma"] = torch.ones(c)
+    return p
+
+
+def batch_norm(p, x, eps=1e-3):
+    """Inference BN over the channel (last) axis, in the activation dtype;
+    eps defaults to the Keras BatchNormalization default."""
+    inv = torch.rsqrt(p["var"].to(x.dtype) + eps)
+    if "gamma" in p:
+        inv = inv * p["gamma"].to(x.dtype)
+    return (x - p["mean"].to(x.dtype)) * inv + p["beta"].to(x.dtype)
+
+
+def max_pool(x, window, stride, padding="VALID"):
+    if padding != "VALID":
+        raise NotImplementedError("max_pool: only VALID is ported")
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def zero_pad(x, pad):
+    """ZeroPadding2D: pad ((top, bottom), (left, right))."""
+    (t, b), (l, r) = pad
+    return F.pad(x, (0, 0, l, r, t, b))
+
+
+def global_avg_pool(x):
+    return x.mean(dim=(1, 2))

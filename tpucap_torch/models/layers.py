@@ -1,0 +1,103 @@
+"""Dense / Embedding / LSTM primitives with Keras-default initialization
+(port of ``tpucap.models.layers``).
+
+Params are plain dicts of tensors in the JAX package's layout: a dense
+kernel is ``(in, out)``, an LSTM cell holds ``kernel (in, 4U)``,
+``recurrent (U, 4U)`` and ``bias (4U,)`` in Keras gate order i, f, g, o.
+Init draws from an explicit ``torch.Generator`` (CPU), so a seed fixes the
+weights; the numbers differ from ``jax.random``'s for the same seed.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# ---------------------------------------------------------------------------
+# Keras-default initializers
+
+
+def glorot_uniform(gen, shape, fan_in: int, fan_out: int) -> torch.Tensor:
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * limit
+
+
+def orthogonal(gen, rows: int, cols: int) -> torch.Tensor:
+    """(rows, cols) with orthonormal rows or columns, the jax/Keras
+    orthogonal initializer: QR of a normal matrix, signs fixed by diag(R)."""
+    a = torch.randn((max(rows, cols), min(rows, cols)), generator=gen)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    return q if rows >= cols else q.T
+
+
+# ---------------------------------------------------------------------------
+# Dense
+
+
+def init_dense(gen, in_dim: int, out_dim: int):
+    return {
+        "kernel": glorot_uniform(gen, (in_dim, out_dim), in_dim, out_dim),
+        "bias": torch.zeros(out_dim),
+    }
+
+
+def dense(p, x, activation=None):
+    """y = x @ kernel in the activation dtype with f32 accumulation, cast
+    to that dtype, then the bias added in that dtype (the int8 branch of
+    the JAX package is not ported)."""
+    y = torch.matmul(x, p["kernel"].to(x.dtype)) + p["bias"].to(x.dtype)
+    return activation(y) if activation is not None else y
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+
+
+def init_embedding(gen, vocab_size: int, embed_dim: int):
+    table = torch.rand((vocab_size, embed_dim), generator=gen) * 0.1 - 0.05
+    return {"table": table}
+
+
+def embed(p, token_ids):
+    """Lookup: (...,) int -> (..., embed_dim)."""
+    return p["table"][token_ids]
+
+
+# ---------------------------------------------------------------------------
+# LSTM cell (Keras gate order/equations)
+
+
+def init_lstm_cell(gen, in_dim: int, units: int):
+    kernel = glorot_uniform(gen, (in_dim, 4 * units), in_dim, 4 * units)
+    recurrent = orthogonal(gen, units, 4 * units)
+    # unit_forget_bias: f-gate bias = 1 (second quarter in i,f,g,o order).
+    bias = torch.cat(
+        [torch.zeros(units), torch.ones(units), torch.zeros(2 * units)]
+    )
+    return {"kernel": kernel, "recurrent": recurrent, "bias": bias}
+
+
+def lstm_gates_f32(kernel, recurrent, bias, x, h, c):
+    """The cell update in f32: z = x@W + h@U + b with f32 accumulation
+    (operands upcast exactly), gates i, f, g, o, then
+    c' = f*c + i*tanh(g), h' = sigmoid(o)*tanh(c'). -> (h' f32, c' f32)."""
+    z = (
+        torch.matmul(x.float(), kernel.float())
+        + torch.matmul(h.float(), recurrent.float())
+        + bias.float()
+    )
+    zi, zf, zg, zo = torch.chunk(z, 4, dim=-1)
+    c_new = torch.sigmoid(zf) * c.float() + torch.sigmoid(zi) * torch.tanh(zg)
+    h_new = torch.sigmoid(zo) * torch.tanh(c_new)
+    return h_new, c_new
+
+
+def lstm_cell_step(p, x, h, c):
+    """One LSTM step. x (B, in), h/c (B, units) -> (h', c') in the dtypes
+    of h and c, so a bf16 flow stays bf16 across steps."""
+    h_new, c_new = lstm_gates_f32(
+        p["kernel"], p["recurrent"], p["bias"], x, h, c
+    )
+    return h_new.to(h.dtype), c_new.to(c.dtype)

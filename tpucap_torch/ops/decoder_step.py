@@ -1,0 +1,128 @@
+"""Fused merge-decoder step: kernel K3 and its plain version (port of
+``tpucap.ops.pallas.decoder_step``).
+
+One step of a 1-layer ``MergeDecoder`` after the embedding gather, with
+the TPU kernel's numerics (``fe + h'`` and ``merged`` stay f32):
+
+    h', c', h'32 = K2(x, h, c)                        (lstm_step.lstm_cell)
+    merged       = relu((fe + h'32) @ W_p + b_p)      (merge_head, f32)
+    logits       = merged @ W_o + b_o                 (vocab_proj, f32)
+
+Three launches per step on one stream replace the TPU's single sequential
+grid; ``csrc/decoder_step.cu`` says why and what bounds each. The
+embedding lookup stays a plain gather outside the kernels, as in the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpucap_torch import _build
+from tpucap_torch.models.layers import embed
+from tpucap_torch.ops.lstm_step import lstm_cell
+
+
+def merge_head_plain(fe, h32, wp, bp):
+    """relu((fe + h'32) @ W_p + b_p) in f32."""
+    pre = torch.matmul(fe.float() + h32, wp.float()) + bp.float()
+    return torch.relu(pre)
+
+
+def vocab_proj_plain(merged, wo, bo):
+    """merged (f32) @ W_o + b_o in f32."""
+    return torch.matmul(merged, wo.float()) + bo.float()
+
+
+def _linear(fn_name, counter, a_args, w, b, M, N, K, dt, device):
+    _build.require(w, "weight", dt, (K, N))
+    _build.require(b, "bias", dt, (N,))
+    out = torch.empty((M, N), dtype=torch.float32, device=device)
+    fn = _build.kernel("decoder_step", fn_name, _ARGTYPES[fn_name])
+    err = fn(
+        *a_args, w.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+        _build.DTYPE_CODES[dt], torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check("decoder_step", fn_name, err)
+    counter.launches += 1
+    return out
+
+
+def merge_head(fe, h32, wp, bp):
+    """fe (B, U) in the weights' dtype, h32 (B, U) f32, wp (U, U), bp (U,)
+    -> merged (B, U) f32. Launches the merge-head stage of K3 on CUDA
+    tensors; runs ``merge_head_plain`` on CPU tensors."""
+    if fe.device.type == "cpu":
+        return merge_head_plain(fe, h32, wp, bp)
+    M, K = fe.shape
+    _build.require(fe, "fe", wp.dtype, (M, K))
+    _build.require(h32, "h32", torch.float32, (M, K))
+    return _linear(
+        "tpucap_merge_head", merge_head, (fe.data_ptr(), h32.data_ptr()),
+        wp, bp, M, wp.shape[1], K, wp.dtype, fe.device,
+    )
+
+
+merge_head.launches = 0
+
+
+def vocab_proj(merged, wo, bo):
+    """merged (B, U) f32, wo (U, V), bo (V,) -> logits (B, V) f32. Launches
+    the projection stage of K3 on CUDA tensors; runs ``vocab_proj_plain``
+    on CPU tensors."""
+    if merged.device.type == "cpu":
+        return vocab_proj_plain(merged, wo, bo)
+    M, K = merged.shape
+    _build.require(merged, "merged", torch.float32)
+    return _linear(
+        "tpucap_vocab_proj", vocab_proj, (merged.data_ptr(),),
+        wo, bo, M, wo.shape[1], K, wo.dtype, merged.device,
+    )
+
+
+vocab_proj.launches = 0
+
+_ARGTYPES = {
+    "tpucap_merge_head": (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4
+    + (ctypes.c_void_p,),
+    "tpucap_vocab_proj": (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
+    + (ctypes.c_void_p,),
+}
+
+
+def fused_merge_step(params, state, x):
+    """Fused MergeDecoder (1-layer) step after the embedding lookup.
+
+    params: MergeDecoder params (cells[0], pre_out, out). state: {fe, h, c}
+    with h/c shaped (B, 1, U). x: (B, E) embedded last tokens.
+    -> (logits (B, V) f32, new_state)."""
+    cell = params["cells"][0]
+    h = state["h"][:, 0].contiguous()
+    c = state["c"][:, 0].contiguous()
+    h_new, c_new, h32 = lstm_cell(
+        x, h, c, cell["kernel"], cell["recurrent"], cell["bias"]
+    )
+    merged = merge_head(
+        state["fe"], h32, params["pre_out"]["kernel"], params["pre_out"]["bias"]
+    )
+    logits = vocab_proj(merged, params["out"]["kernel"], params["out"]["bias"])
+    new_state = {
+        "fe": state["fe"],
+        "h": h_new[:, None, :],
+        "c": c_new[:, None, :],
+    }
+    return logits, new_state
+
+
+def make_fused_merge_step(decoder):
+    """Drop-in step_fn for the decode engines (1-layer MergeDecoder only)."""
+    if decoder.num_layers != 1:
+        raise ValueError("fused step supports single-layer MergeDecoder")
+
+    def step(params, state, token):
+        x = embed(params["embedding"], token)
+        return fused_merge_step(params, state, x)
+
+    return step
