@@ -1,4 +1,4 @@
-"""Chip smoke for tpucap_torch: drives the port's serving path on one
+"""Chip smoke for tpucap_torch: drives the port's serving paths on one
 NVIDIA GPU and holds every hand-written kernel against its plain version.
 
     python3 chip_smoke.py          # from the repo root; needs one CUDA card and nvcc
@@ -8,18 +8,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 1. the card's name and power limit (``nvidia-smi``), then the kernel build
    from ``tpucap_torch/csrc`` and its time;
 2. each kernel against its plain PyTorch version on the card at the main
-   path's shapes, in f32 (TF32 off) and bf16, with the stated tolerances;
+   paths' shapes, in f32 (TF32 off) and bf16, with the stated tolerances;
    CUDA-event times of the kernel, the plain version and, where one PyTorch
    call computes the same function, that call; the least time the card
-   could take (bound) from the bytes and operations of these inputs;
+   could take (bound) from the bytes and operations of these inputs. K4
+   (the fused identity block) at each of ResNet-50's four stage shapes,
+   beside the port's unfused block (three cuDNN convs and their
+   elementwise passes); K5 (flash attention) at ViT-B/16's shape, beside
+   ``F.scaled_dot_product_attention``;
 3. the slice at full width: uint8 (256, 224, 224, 3) -> K1 -> ResNet-50
    (BN folded) -> lstm1 merge decoder (embed/hidden 256, vocab 7579) ->
    beam 3, max_len 34, bf16, random weights from a seed; launch counters
    reset just before and read just after one batch; captions/s, ms per
    decode step and a few captions;
+3b. path A, the same with ``fused_blocks=True``: ResNet-50's 12 identity
+   blocks as K4 (12 launches per batch);
+3c. path B: ViT-B/16 at 224 (tf mode, 12 x 768, 12 heads, MLP 3072,
+   pooled 768-d) with ``attention_impl="flash"`` (K5, 12 launches per
+   batch), then the same decoder and beam search;
 4. kernel path against plain path on the card in f32 at batch 32: the
    first decode step's logits within tolerance, and the share of captions
    that agree (random weights leave near-ties, so not all must);
+4b. in f32 at batch 32: fused-block against unfused ResNet-50 features,
+   ViT flash against ViT xla features, each within tolerance, and the share
+   of identical captions on each path;
 5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
    as the last line.
 
@@ -28,6 +40,7 @@ It imports torch and tpucap_torch only (no jax, nothing of tpucap).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -53,13 +66,27 @@ REPLACES = {
     "lstm_cell": "tpucap/ops/pallas/lstm_step.py:64",
     "merge_head": "tpucap/ops/pallas/decoder_step.py:101",
     "vocab_proj": "tpucap/ops/pallas/decoder_step.py:101",
+    "identity_block": "tpucap/ops/pallas/bottleneck.py:145",
+    "flash_attention": "tpucap/models/encoders/vit.py:78",
 }
 SOURCES = {
     "preprocess_u8": "tpucap_torch/csrc/preprocess.cu",
     "lstm_cell": "tpucap_torch/csrc/lstm_step.cu",
     "merge_head": "tpucap_torch/csrc/decoder_step.cu",
     "vocab_proj": "tpucap_torch/csrc/decoder_step.cu",
+    "identity_block": "tpucap_torch/csrc/bottleneck.cu",
+    "flash_attention": "tpucap_torch/csrc/flash_attention.cu",
 }
+# ResNet-50's identity-block shapes at 224: (stage, H = W, C, M, blocks).
+STAGES = (
+    ("conv2", 56, 256, 64, 2),
+    ("conv3", 28, 512, 128, 3),
+    ("conv4", 14, 1024, 256, 5),
+    ("conv5", 7, 2048, 512, 2),
+)
+K4_F32_BATCH = 8
+# ViT-B/16 at 224: tokens, heads, head width.
+VIT_L, VIT_HEADS, VIT_D = 196, 12, 64
 
 
 def log(msg: str) -> None:
@@ -229,6 +256,124 @@ def check_kernels(dev) -> dict[str, dict]:
     return out
 
 
+def _block_params(C, M, g, dev, dt):
+    """Folded identity-block params as the bf16 pipeline holds them: OIHW
+    kernels in channels_last memory, glorot-scale weights, small biases."""
+
+    def conv(o, i, k):
+        w = torch.randn((o, i, k, k), generator=g, device=dev) * (i * k * k) ** -0.5
+        return {
+            "kernel": w.to(dt).contiguous(memory_format=torch.channels_last),
+            "bias": (torch.randn(o, generator=g, device=dev) * 0.1).to(dt),
+        }
+
+    return conv(M, C, 1), conv(M, M, 3), conv(C, M, 1)
+
+
+def check_identity_block(dev) -> dict:
+    """K4 at each stage shape: bf16 at batch 256 (checked and timed) and
+    f32 at batch K4_F32_BATCH (checked). -> JSON fields per launch, as for
+    every other kernel (the mean over one encoder pass's 12 launches, each
+    stage weighted by its blocks); the pass totals under ``pass_*`` and the
+    stages beside."""
+    from tpucap_torch.models.encoders.resnet50 import ResNet50
+    from tpucap_torch.ops.bottleneck import fused_identity_block, fused_identity_block_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(4)
+    stages, err = {}, 0.0
+    for name, S, C, M, blocks in STAGES:
+        for dt, batch in ((torch.float32, K4_F32_BATCH), (torch.bfloat16, BATCH)):
+            p1, p2, p3 = _block_params(C, M, g, dev, dt)
+            x = torch.randn((batch, S, S, C), generator=g, device=dev).relu().to(dt)
+            got = fused_identity_block(p1, p2, p3, x)
+            want = fused_identity_block_plain(p1, p2, p3, x)
+            torch.cuda.synchronize()
+            if dt == torch.float32:
+                # f32 sums of C, 9M and M products in another order
+                # (tpucap's own kernel test: atol 1e-4, rtol 1e-5).
+                check_close(f"identity_block {name} f32", got, want, 1e-5, 1e-4)
+                continue
+            # Each of the three convs rounds an f32 sum to bf16; a sum in
+            # another order can land on the neighbouring bf16 value, and
+            # that carries into the next conv: two bf16 ulps (2**-6
+            # relative, 2**-6 of the output's scale absolute).
+            scale = float(want.float().abs().max())
+            check_close(f"identity_block {name} bf16", got, want, 2**-6, 2**-6 * scale)
+            err = max(err, max_err(got, want))
+            blk = {f"b_{i}_conv": q for i, q in zip((1, 2, 3), (p1, p2, p3))}
+            w_bytes = nbytes(*(t for q in (p1, p2, p3) for t in q.values()))
+            b_ms, b_by = bound(nbytes(x, got) + w_bytes, 2 * batch * S * S * (2 * C * M + 9 * M * M), dt)
+            stages[name] = dict(
+                blocks=blocks, max_abs_err=max_err(got, want),
+                ms=cuda_ms(lambda: fused_identity_block(p1, p2, p3, x), 10),
+                plain_ms=cuda_ms(lambda: fused_identity_block_plain(p1, p2, p3, x), 3),
+                unfused_ms=cuda_ms(lambda: ResNet50()._block(blk, x, "b", 1, False), 10),
+                bound_ms=b_ms, bound_by=b_by,
+            )
+            r = stages[name]
+            log(f"kernel identity_block {name} x{tuple(x.shape)} M={M}: ok  max_abs_err={r['max_abs_err']:.3g}  "
+                f"ms={r['ms']:.4f}  plain_ms={r['plain_ms']:.4f}  unfused_ms={r['unfused_ms']:.4f}  "
+                f"bound_ms={b_ms:.4f} ({b_by})")
+            del got, want, x
+    launches = sum(r["blocks"] for r in stages.values())
+    keys = ("ms", "plain_ms", "unfused_ms", "bound_ms")
+    total = {k: sum(r[k] * r["blocks"] for r in stages.values()) for k in keys}
+    by_bytes = sum(r["bound_ms"] * r["blocks"] for r in stages.values() if r["bound_by"] == "bytes")
+    out = dict(
+        max_abs_err=err, library_ms=None,
+        bound_by="bytes" if by_bytes >= total["bound_ms"] / 2 else "operations",
+        **{k: total[k] / launches for k in keys},
+        **{f"pass_{k}": total[k] for k in keys},
+        stages=stages,
+    )
+    log(f"kernel identity_block: per launch (mean of {launches}) ms={out['ms']:.4f}  "
+        f"plain_ms={out['plain_ms']:.4f}  unfused_ms={out['unfused_ms']:.4f}  "
+        f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']}); per pass ms={out['pass_ms']:.4f}  "
+        f"bound_ms={out['pass_bound_ms']:.4f}")
+    return out
+
+
+def check_flash_attention(dev) -> dict:
+    """K5 at ViT-B/16's shape, q, k, v as views of one (B, L, 3H) qkv."""
+    import torch.nn.functional as F
+
+    from tpucap_torch.ops.attention import flash_attention, flash_attention_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(5)
+    H = VIT_HEADS * VIT_D
+    scale = VIT_D**-0.5
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = torch.randn((BATCH, VIT_L, 3 * H), generator=g, device=dev).to(dt)
+        q, k, v = (qkv[..., i * H : (i + 1) * H].view(BATCH, VIT_L, VIT_HEADS, VIT_D) for i in range(3))
+        got = flash_attention(q, k, v, scale)
+        want = flash_attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        # f32: sums of 64 and 196 terms in another order. bf16: the
+        # probabilities and the output are rounded to bf16, each rounding
+        # may land one ulp away (1e-2 at |ctx| <= 1).
+        tol = (1e-5, 2e-5) if dt == torch.float32 else (1e-2, 1e-2)
+        check_close(f"flash_attention {dt}", got, want, *tol)
+        if dt != torch.bfloat16:
+            continue
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        b_ms, b_by = bound(nbytes(q, k, v, got), 4 * BATCH * VIT_HEADS * VIT_L * VIT_L * VIT_D, dt)
+        out = dict(
+            max_abs_err=max_err(got, want),
+            ms=cuda_ms(lambda: flash_attention(q, k, v, scale)),
+            plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, scale), 5),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+    log(f"kernel flash_attention q{tuple(q.shape)}: ok  max_abs_err={out['max_abs_err']:.3g}  "
+        f"ms={out['ms']:.4f}  plain_ms={out['plain_ms']:.4f}  library_ms={out['library_ms']:.4f}  "
+        f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']})")
+    return out
+
+
 # -- phase 3: the slice at full width ----------------------------------------
 
 
@@ -249,12 +394,12 @@ def corpus(n_words: int) -> dict[str, list[str]]:
     return {"corpus": caps}
 
 
-def make_pipeline(precision: str, tokenizer=None):
+def make_pipeline(precision: str, tokenizer=None, encoder: str = "resnet50"):
     from tpucap_torch.config import Config, DecodeConfig, DecoderConfig, encoder_config
     from tpucap_torch.pipeline import CaptioningPipeline
 
     cfg = Config(
-        encoder=encoder_config("resnet50"),
+        encoder=encoder_config(encoder),
         decoder=DecoderConfig(name="lstm1", embed_dim=WIDTH, hidden_dim=WIDTH),
         decode=DecodeConfig(method="beam", beam_width=BEAM, max_len=MAX_LEN),
         precision=precision,
@@ -270,6 +415,7 @@ def make_pipeline(precision: str, tokenizer=None):
     # this width), so the image branch would pick the same word at every
     # step for every image. Shrunk, it leaves the word path to choose, the
     # captions differ, and the agreement phase compares varied sequences.
+    # The ViT path takes the same scaling.
     pipe.params["decoder"]["feat_proj"]["kernel"].mul_(1e-3)
     pipe.fold_bn()
     return pipe
@@ -283,22 +429,25 @@ def timed(fn) -> tuple[object, float]:
     return r, time.perf_counter() - t0
 
 
-def run_slice(dev) -> tuple[dict[str, int], object]:
+def run_path(dev, label: str, pipe, encoder_launches: dict[str, int]) -> dict[str, int]:
+    """One full-width batch of ``pipe.caption_batch`` with the counters
+    reset just before and read just after; then two more for the median.
+    ``encoder_launches``: the encoder kernels' launches per batch."""
     from tpucap_torch import ops
     from tpucap_torch.ops.preprocess import fused_preprocess
 
-    pipe = make_pipeline("bf16")
+    enc = pipe.encoder
     g = torch.Generator(device=dev).manual_seed(2)
     images = torch.randint(0, 256, (BATCH, IMAGE, IMAGE, 3), generator=g, device=dev, dtype=torch.uint8)
 
     def encode():
         with torch.inference_mode():
-            x = fused_preprocess(images, IMAGE, "caffe", out_dtype=torch.bfloat16)
+            x = fused_preprocess(images, enc.input_size, enc.preprocess_mode, out_dtype=torch.bfloat16)
             return pipe._apply_encoder(pipe._inference_params()["encoder"], x)
 
     feats, _ = timed(encode)
-    if feats.shape != (BATCH, 2048) or not torch.isfinite(feats).all():
-        raise AssertionError(f"features {tuple(feats.shape)} not finite/expected")
+    if feats.shape != (BATCH, enc.feature_dim) or not torch.isfinite(feats).all():
+        raise AssertionError(f"{label}: features {tuple(feats.shape)} not finite/expected")
     pipe.caption_batch(images)  # warm-up: cuDNN plans, allocator
     enc_s = min(timed(encode)[1] for _ in range(3))
 
@@ -308,21 +457,45 @@ def run_slice(dev) -> tuple[dict[str, int], object]:
     more = [timed(lambda: pipe.caption_batch(images))[1] for _ in range(2)]
 
     if len(caps) != BATCH or not all(isinstance(c, str) for c in caps):
-        raise AssertionError("caption_batch returned a malformed batch")
+        raise AssertionError(f"{label}: caption_batch returned a malformed batch")
     steps = counts["lstm_cell"]
-    expect = {"preprocess_u8": 1, "lstm_cell": steps, "merge_head": steps, "vocab_proj": steps}
+    expect = {name: 0 for name in counts}
+    expect.update(preprocess_u8=1, lstm_cell=steps, merge_head=steps, vocab_proj=steps, **encoder_launches)
     if not 1 <= steps <= MAX_LEN or counts != expect:
-        raise AssertionError(f"launch counts {counts} != {expect}")
+        raise AssertionError(f"{label}: launch counts {counts} != {expect}")
     med = float(np.median([batch_s, *more]))
-    log(f"slice: batch {BATCH} resnet50+lstm1 beam {BEAM} vocab {VOCAB} bf16")
-    log(f"slice: batch seconds {[round(s, 5) for s in (batch_s, *more)]} median {med:.5f}")
-    log(f"slice: captions/s {BATCH / med:.2f}")
-    log(f"slice: preprocess+encoder ms {enc_s * 1e3:.3f}; decode steps {steps}; "
+    log(f"{label}: batch seconds {[round(s, 5) for s in (batch_s, *more)]} median {med:.5f}")
+    log(f"{label}: captions/s {BATCH / med:.2f}")
+    log(f"{label}: preprocess+encoder ms {enc_s * 1e3:.3f}; decode steps {steps}; "
         f"ms per decode step {(med - enc_s) * 1e3 / steps:.3f}")
-    log(f"slice: launches in one batch {counts}")
+    log(f"{label}: launches in one batch {counts}")
     for c in caps[:3]:
-        log(f"slice: caption: {c!r}")
-    return counts, pipe.tokenizer
+        log(f"{label}: caption: {c!r}")
+    return counts
+
+
+def run_slice(dev) -> tuple[dict[str, int], object]:
+    pipe = make_pipeline("bf16")
+    log(f"slice: batch {BATCH} resnet50+lstm1 beam {BEAM} vocab {VOCAB} bf16")
+    return run_path(dev, "slice", pipe, {}), pipe.tokenizer
+
+
+def run_fused(dev, tokenizer) -> dict[str, int]:
+    """Path A: ResNet-50 with its 12 identity blocks as K4."""
+    pipe = make_pipeline("bf16", tokenizer)
+    pipe.encoder = dataclasses.replace(pipe.encoder, fused_blocks=True)
+    log(f"fused: batch {BATCH} resnet50(fused_blocks=True)+lstm1 beam {BEAM} vocab {VOCAB} bf16")
+    return run_path(dev, "fused", pipe, {"identity_block": 12})
+
+
+def run_vit(dev, tokenizer) -> dict[str, int]:
+    """Path B: ViT-B/16 with its 12 attention layers as K5."""
+    pipe = make_pipeline("bf16", tokenizer, encoder="vit_b16")
+    pipe.encoder = dataclasses.replace(pipe.encoder, attention_impl="flash")
+    e = pipe.encoder
+    log(f"vit: batch {BATCH} vit_b16 ({e.input_size}px/{e.patch_size}, {e.num_layers}x{e.hidden_dim}, "
+        f"{e.num_heads} heads, mlp {e.mlp_dim}, flash)+lstm1 beam {BEAM} vocab {VOCAB} bf16")
+    return run_path(dev, "vit", pipe, {"flash_attention": e.num_layers})
 
 
 # -- phase 4: kernel path against plain path ---------------------------------
@@ -357,6 +530,38 @@ def agreement(dev, tokenizer) -> None:
         f"({same / AGREE_BATCH:.3f})")
 
 
+def agreement_encoders(dev, tokenizer) -> None:
+    """f32 at batch 32: K4 against the unfused ResNet-50 and K5 against
+    the ViT's xla attention, on features and on captions."""
+    from tpucap_torch.ops.preprocess import fused_preprocess
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    images = torch.randint(0, 256, (AGREE_BATCH, IMAGE, IMAGE, 3), generator=g, device=dev, dtype=torch.uint8)
+    for label, encoder, field, kernel_value in (
+        ("fused blocks", "resnet50", "fused_blocks", True),
+        ("vit flash", "vit_b16", "attention_impl", "flash"),
+    ):
+        pipe = make_pipeline("f32", tokenizer, encoder=encoder)
+        plain_enc = pipe.encoder
+        kernel_enc = dataclasses.replace(plain_enc, **{field: kernel_value})
+        with torch.inference_mode():
+            x = fused_preprocess(images, plain_enc.input_size, plain_enc.preprocess_mode)
+            params = pipe._inference_params()["encoder"]
+            want = plain_enc.apply(params, x)
+            got = kernel_enc.apply(params, x)
+        # f32 both ways (TF32 off): sums in another order through every
+        # layer; tpucap's own tolerance for the fused blocks (atol 5e-4,
+        # rtol 1e-4, tests/test_ops.py), for both encoders.
+        check_close(f"{label} features", got, want, 1e-4, 5e-4)
+        plain_caps = pipe.caption_batch(images)
+        pipe.encoder = kernel_enc
+        kernel_caps = pipe.caption_batch(images)
+        same = sum(a == b for a, b in zip(kernel_caps, plain_caps))
+        log(f"agreement: {label} f32 batch {AGREE_BATCH}: features max_abs_err {max_err(got, want):.3g} "
+            f"(tol 5e-4 + 1e-4 rel); {same}/{AGREE_BATCH} captions identical "
+            f"({same / AGREE_BATCH:.3f})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -376,8 +581,13 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(_build.build_all())}")
 
     fields = check_kernels(dev)
+    fields["identity_block"] = check_identity_block(dev)
+    fields["flash_attention"] = check_flash_attention(dev)
     counts, tokenizer = run_slice(dev)
+    counts["identity_block"] = run_fused(dev, tokenizer)["identity_block"]
+    counts["flash_attention"] = run_vit(dev, tokenizer)["flash_attention"]
     agreement(dev, tokenizer)
+    agreement_encoders(dev, tokenizer)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

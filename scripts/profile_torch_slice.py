@@ -1,13 +1,16 @@
 """Where a batch of the port's serving slice spends its time on the card.
 
-    python3 scripts/profile_torch_slice.py     # from the repo root; one CUDA card
+    python3 scripts/profile_torch_slice.py   # from the repo root; one CUDA card
 
-Builds the same full-width slice as chip_smoke.py (ResNet-50 + 1-layer
-merge LSTM, bf16, batch 256, beam 3, vocab 7579, random weights from a
-seed), runs one warm-up batch, then traces with ``torch.profiler``:
+Builds the same full-width pipelines as chip_smoke.py (1-layer merge LSTM,
+bf16, batch 256, beam 3, vocab 7579, random weights from a seed) with the
+encoder of each path: ``slice`` ResNet-50 (BN folded), ``fused`` the same
+with its identity blocks as kernel K4, ``vit`` ViT-B/16 with flash
+attention (kernel K5). For each it runs one warm-up
+batch, then traces with ``torch.profiler``:
 
 - ``batch``: one whole ``CaptioningPipeline.caption_batch``;
-- ``encode``: its first half alone (preprocess kernel K1 + ResNet-50);
+- ``encode``: its first half alone (preprocess kernel K1 + the encoder);
 - ``decode``: its second half alone (init_state + beam search, whose step
   is kernels K2 + K3, + the id-to-word drain).
 
@@ -24,6 +27,7 @@ busy time over the untraced wall (``busy_share``); the traced wall's share
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -45,7 +49,10 @@ GROUPS = (  # first match wins; substrings of the demangled kernel name
     ("port K1 preprocess_u8", ("preprocess_u8_kernel",)),
     ("port K2 lstm_cell", ("lstm_cell_kernel",)),
     ("port K3 merge_head + vocab_proj", ("linear_kernel",)),
-    ("convolution", ("conv", "cudnn", "xmma", "implicit_gemm", "nchwToNhwc", "nhwcToNchw")),
+    ("port K4 identity_block", ("identity_block_kernel",)),
+    ("port K5 flash_attention", ("flash_kernel",)),
+    ("convolution", ("conv", "cudnn", "fprop", "implicit_gemm", "nchwToNhwc", "nhwcToNchw")),
+    ("matmul (cuBLAS)", ("gemm", "Gemm", "xmma", "cutlass", "nvjet")),
     ("sort", ("RadixSort", "radix_sort", "sort_")),
     ("elementwise", ("elementwise_kernel",)),
     ("reduction", ("reduce_kernel",)),
@@ -127,17 +134,20 @@ def trace(name: str, fn) -> dict:
     }
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_torch_slice: no CUDA device; nothing was run", file=sys.stderr)
-        return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    dev = torch.device("cuda")
+def make_path(path: str):
+    if path == "vit":
+        pipe = chip_smoke.make_pipeline("bf16", encoder="vit_b16")
+        pipe.encoder = dataclasses.replace(pipe.encoder, attention_impl="flash")
+        return pipe
     pipe = chip_smoke.make_pipeline("bf16")
+    if path == "fused":
+        pipe.encoder = dataclasses.replace(pipe.encoder, fused_blocks=True)
+    return pipe
+
+
+def profile_path(path: str, dev) -> dict:
+    pipe = make_path(path)
+    enc = pipe.encoder
     g = torch.Generator(device=dev).manual_seed(2)
     B, S = chip_smoke.BATCH, chip_smoke.IMAGE
     images = torch.randint(0, 256, (B, S, S, 3), generator=g, device=dev, dtype=torch.uint8)
@@ -148,7 +158,7 @@ def main() -> int:
     # caption_batch's body, cut in two at the features.
     @torch.inference_mode()
     def encode():
-        x = fused_preprocess(images, S, pipe.encoder.preprocess_mode, out_dtype=torch.bfloat16)
+        x = fused_preprocess(images, enc.input_size, enc.preprocess_mode, out_dtype=torch.bfloat16)
         return pipe._apply_encoder(params["encoder"], x)
 
     feats = encode()
@@ -157,10 +167,26 @@ def main() -> int:
     def decode():
         return pipe._captions(pipe._decode(params["decoder"], feats, "beam", cfg.beam_width))
 
+    return {
+        "batch": trace(f"{path} batch", lambda: pipe.caption_batch(images)),
+        "encode": trace(f"{path} encode", encode),
+        "decode": trace(f"{path} decode", decode),
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_torch_slice: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    dev = torch.device("cuda")
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
-    result["batch"] = trace("batch", lambda: pipe.caption_batch(images))
-    result["encode"] = trace("encode", encode)
-    result["decode"] = trace("decode", decode)
+    for path in ("slice", "fused", "vit"):
+        result[path] = profile_path(path, dev)
     print(json.dumps(result))
     return 0
 

@@ -1,10 +1,16 @@
-"""tpucap_torch's ResNet-50 and BN folding against tpucap's, on params
-bridged through params_from_jax (HWIO -> OIHW), at input 64, batch 2, f32.
+"""tpucap_torch's ResNet-50, BN folding and fused identity block (kernel
+K4's plain version) against tpucap's, on params bridged through
+params_from_jax (HWIO -> OIHW), at input 64, batch 2, f32.
 
 BN statistics are drawn at random so folding is not the identity.
 Tolerance: both sides run f32 convolutions that sum in different orders
 through 53 layers; activations grow to O(10^2..10^3) under glorot init, so
-the bound is relative to the output's scale: 1e-4 * max|ref|.
+the bound is relative to the output's scale: 1e-4 * max|ref|. A single
+fused block against tpucap's Pallas kernel in interpret mode: f32 within
+atol 1e-4 + rtol 1e-5 (tpucap's own test of the kernel); bf16 within two
+bf16 ulps (2**-6 relative, and 2**-6 of the output's scale absolute),
+since each of the three convs rounds its f32 sum to bf16 and a sum taken
+in another order can round to the neighbouring value.
 """
 
 import jax
@@ -15,9 +21,12 @@ import torch
 
 from tpucap.models.encoders.fold_bn import fold_resnet50 as jax_fold
 from tpucap.models.encoders.resnet50 import ResNet50 as JaxResNet50
+from tpucap.ops.pallas.bottleneck import fused_identity_block as jax_block
+from tpucap_torch import ops
 from tpucap_torch.convert import params_from_jax
-from tpucap_torch.models.encoders import ResNet50, build_encoder
+from tpucap_torch.models.encoders import ResNet50, build_encoder, resnet50
 from tpucap_torch.models.encoders.fold_bn import fold_resnet50
+from tpucap_torch.ops.bottleneck import fused_identity_block_plain
 
 torch.set_num_threads(2)
 
@@ -88,7 +97,84 @@ def test_resnet50_layout_and_options():
         for k, v in jp[name].items():
             want = v.shape if v.ndim != 4 else (v.shape[3], v.shape[2], v.shape[0], v.shape[1])
             assert tuple(tp[name][k].shape) == want
-    with pytest.raises(NotImplementedError, match="bottleneck"):
-        ResNet50(fused_blocks=True)
+    assert (enc.fused_blocks, enc.fused_stages) == (
+        JaxResNet50().fused_blocks, JaxResNet50().fused_stages
+    )
     with pytest.raises(NotImplementedError):
         build_encoder("vgg16")
+
+
+# -- K4: the fused identity block --------------------------------------------
+
+BLOCK_TOL = {
+    "f32": lambda ref: dict(rtol=1e-5, atol=1e-4),
+    "bf16": lambda ref: dict(rtol=2**-6, atol=2**-6 * float(np.abs(ref).max())),
+}
+DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize(
+    "blk,shape", [("conv2_block2", (2, 8, 8, 256)), ("conv4_block2", (2, 4, 4, 1024))]
+)
+def test_fused_identity_block_plain_matches_pallas_kernel(jax_params, blk, shape, dt):
+    jdt, tdt = DT[dt]
+    folded = params_from_jax(jax_fold(jax_params))
+    tp = [{k: v.to(tdt) for k, v in folded[f"{blk}_{i}_conv"].items()} for i in (1, 2, 3)]
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=shape).astype(np.float32)).to(tdt)
+    # The same (rounded) values on the JAX side, kernels back to HWIO.
+    jp = [
+        {
+            "kernel": jnp.asarray(p["kernel"].float().permute(2, 3, 1, 0).numpy(), jdt),
+            "bias": jnp.asarray(p["bias"].float().numpy(), jdt),
+        }
+        for p in tp
+    ]
+    ref = np.asarray(jax_block(*jp, jnp.asarray(x.float().numpy(), jdt)), np.float32)
+    got = fused_identity_block_plain(*tp, x)
+    assert got.dtype == tdt and tuple(got.shape) == shape
+    np.testing.assert_allclose(got.float().numpy(), ref, **BLOCK_TOL[dt](ref))
+
+
+def test_resnet50_fused_blocks_matches_jax(jax_params, images):
+    """Fused blocks (plain K4 on the CPU) on folded params against
+    tpucap's fused encoder (Pallas in interpret mode); on unfolded params
+    the flag changes nothing."""
+    jenc = JaxResNet50(input_size=SIZE, fused_blocks=True)
+    tenc = ResNet50(input_size=SIZE, fused_blocks=True)
+    ref = jax.jit(jenc.apply)(jax_fold(jax_params), jnp.asarray(images))
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = tenc.apply(fold_resnet50(params_from_jax(jax_params)), torch.from_numpy(images))
+        tp = params_from_jax(jax_params)
+        unfolded = tenc.apply(tp, torch.from_numpy(images))
+        plain = ResNet50(input_size=SIZE).apply(tp, torch.from_numpy(images))
+    _close(got.numpy(), ref)
+    torch.testing.assert_close(unfolded, plain, rtol=0, atol=0)
+    assert ops.launch_counts()["identity_block"] == 0  # CPU: plain version
+
+
+@pytest.mark.parametrize(
+    "stages,folded,calls",
+    [(("conv3",), True, 3), (ResNet50.fused_stages, True, 12), (ResNet50.fused_stages, False, 0)],
+)
+def test_fused_stages_route_only_their_identity_blocks(monkeypatch, stages, folded, calls):
+    """12 identity blocks with every stage (16 blocks less each stack's
+    first, which has a conv shortcut); counted with a spy, since the launch
+    counter counts kernel launches only."""
+    seen = []
+
+    def spy(p1, p2, p3, x):
+        seen.append(tuple(x.shape))
+        return fused_identity_block_plain(p1, p2, p3, x)
+
+    monkeypatch.setattr(resnet50, "fused_identity_block", spy)
+    enc = ResNet50(input_size=32, fused_blocks=True, fused_stages=stages)
+    p = enc.init(torch.Generator().manual_seed(0))
+    if folded:
+        p = fold_resnet50(p)
+    with torch.inference_mode():
+        enc.apply(p, torch.zeros(1, 32, 32, 3))
+    assert len(seen) == calls
+    if stages == ("conv3",):
+        assert all(s[-1] == 512 for s in seen)

@@ -54,7 +54,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_tpucap():
     assert res["loaded"] == []
     want = {m.name for m in pkgutil.walk_packages(tpucap_torch.__path__, "tpucap_torch.")}
     assert want <= set(res["imported"])
-    assert {"tpucap_torch.pipeline", "tpucap_torch.ops.decoder_step"} <= want
+    assert {
+        "tpucap_torch.pipeline", "tpucap_torch.ops.decoder_step",
+        "tpucap_torch.ops.bottleneck", "tpucap_torch.ops.attention",
+        "tpucap_torch.models.encoders.vit",
+    } <= want
 
 
 def test_pipeline_without_device_refuses_a_cpu_only_host(monkeypatch):

@@ -102,3 +102,64 @@ def test_inits_follow_keras_defaults():
     assert emb.shape == (V, E) and float(emb.abs().max()) <= 0.05
     d = tl.init_dense(gen, E, U)
     assert d["kernel"].shape == (E, U) and not d["bias"].any()
+
+
+# -- ViT primitives ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_layer_norm_matches_jax(dt):
+    """f32 statistics with the population variance on both sides; the
+    offset mean makes a sample variance visibly wrong (by 1/(n-1))."""
+    rng = np.random.default_rng(3)
+    x_j, x_t = _pair(rng.normal(size=(3, 5, 48)) * 2 + 0.5, dt)
+    s_j, s_t = _pair(rng.uniform(0.5, 1.5, size=(48,)), dt)
+    b_j, b_t = _pair(rng.normal(size=(48,)) * 0.1, dt)
+    y_j = jl.layer_norm({"scale": s_j, "bias": b_j}, x_j)
+    y_t = tl.layer_norm({"scale": s_t, "bias": b_t}, x_t)
+    assert y_t.dtype == DTYPES[dt][1]
+    np.testing.assert_allclose(_np(y_t), _np(y_j), **DTYPES[dt][2])
+    init = tl.init_layer_norm(7)
+    np.testing.assert_array_equal(init["scale"].numpy(), np.asarray(jl.init_layer_norm(7)["scale"]))
+    np.testing.assert_array_equal(init["bias"].numpy(), np.asarray(jl.init_layer_norm(7)["bias"]))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_gelu_is_jax_tanh_approximation(dt):
+    """jax.nn.gelu defaults to the tanh form; the erf form differs by up
+    to 4.7e-4 (near |x| = 2.7), far outside the f32 tolerance."""
+    x_j, x_t = _pair(np.linspace(-6, 6, 401), dt)
+    np.testing.assert_allclose(_np(tl.gelu(x_t)), _np(jax.nn.gelu(x_j)), **DTYPES[dt][2])
+    if dt == "f32":
+        erf = torch.nn.functional.gelu(x_t)
+        assert float((erf - tl.gelu(x_t)).abs().max()) > 1e-4
+
+
+def test_split_and_merge_heads_match_jax():
+    x = np.arange(2 * 3 * 24, dtype=np.float32).reshape(2, 3, 24)
+    s_t = tl.split_heads(torch.from_numpy(x), 4)
+    s_j = jl.split_heads(jnp.asarray(x), 4)
+    assert tuple(s_t.shape) == s_j.shape == (2, 3, 4, 6)
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    np.testing.assert_array_equal(tl.merge_heads(s_t).numpy(), x)
+    # A column slice of a fused projection splits as a view.
+    qkv = torch.from_numpy(np.tile(x, (1, 1, 3)))
+    assert tl.split_heads(qkv[..., 24:48], 4).data_ptr() == qkv[..., 24:].data_ptr()
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_sdpa_matches_jax(dt, masked):
+    rng = np.random.default_rng(4)
+    q_j, q_t = _pair(rng.normal(size=(2, 5, 3, 8)), dt)
+    k_j, k_t = _pair(rng.normal(size=(2, 7, 3, 8)), dt)
+    v_j, v_t = _pair(rng.normal(size=(2, 7, 3, 8)), dt)
+    mask = None
+    if masked:
+        mask = rng.random(size=(2, 5, 7)) > 0.3
+        mask[..., 0] = True  # every query sees a key
+    ctx_j, w_j = jl.sdpa(q_j, k_j, v_j, None if mask is None else jnp.asarray(mask), 0.35)
+    ctx_t, w_t = tl.sdpa(q_t, k_t, v_t, None if mask is None else torch.from_numpy(mask), 0.35)
+    assert ctx_t.dtype == DTYPES[dt][1] and w_t.dtype == torch.float32
+    np.testing.assert_allclose(_np(ctx_t), _np(ctx_j), **DTYPES[dt][2])
+    np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), **DTYPES[dt][2])

@@ -3,8 +3,9 @@
 K1 (preprocess) against tpucap.ops.preprocess.fused_preprocess (its XLA
 path on the CPU) and the host oracle tpucap.data.preprocess; K2 (LSTM cell)
 against fused_lstm_step(interpret=True); K3 (merge step) against
-fused_merge_step(interpret=True) with a ragged last vocab tile. On CPU
-tensors every wrapper runs its plain version and counts no launch; the
+fused_merge_step(interpret=True) with a ragged last vocab tile. (K4 and K5
+are held against tpucap in test_torch_encoder.py and test_torch_vit.py.)
+On CPU tensors every wrapper runs its plain version and counts no launch; the
 CUDA kernels themselves are checked against these plain versions on the
 card by chip_smoke.py.
 
@@ -30,7 +31,7 @@ from tpucap.ops.pallas.lstm_step import fused_lstm_step as jax_lstm_step
 from tpucap.ops.preprocess import fused_preprocess as jax_fused_preprocess
 from tpucap.ops.preprocess import normalize_images as jax_normalize_images
 from tpucap_torch import _build, ops
-from tpucap_torch.ops import decoder_step, lstm_step, preprocess
+from tpucap_torch.ops import attention, bottleneck, decoder_step, lstm_step, preprocess
 
 torch.set_num_threads(2)
 
@@ -196,8 +197,33 @@ def test_wrappers_on_cpu_run_plain_versions_and_count_no_launch():
     imgs = torch.randint(0, 256, (2, 6, 6, 3), dtype=torch.uint8)
     preprocess.preprocess_u8(imgs, (4, 4), "tf")
     assert ops.launch_counts() == {
-        "preprocess_u8": 0, "lstm_cell": 0, "merge_head": 0, "vocab_proj": 0
+        "preprocess_u8": 0, "lstm_cell": 0, "merge_head": 0, "vocab_proj": 0,
+        "identity_block": 0, "flash_attention": 0,
     }
+
+
+def test_encoder_kernel_wrappers_on_cpu_run_plain_versions_and_count_no_launch():
+    """K4 and K5 on CPU tensors: the plain versions, bit for bit."""
+    ops.reset_launch_counts()
+    gen = torch.Generator().manual_seed(0)
+    C, M = 128, 64
+
+    def conv(o, i, k):
+        return {"kernel": torch.randn(o, i, k, k, generator=gen) * (i * k * k) ** -0.5,
+                "bias": torch.randn(o, generator=gen) * 0.1}
+
+    p1, p2, p3 = conv(M, C, 1), conv(M, M, 3), conv(C, M, 1)
+    x = torch.randn(2, 5, 6, C, generator=gen).relu()
+    torch.testing.assert_close(
+        bottleneck.fused_identity_block(p1, p2, p3, x),
+        bottleneck.fused_identity_block_plain(p1, p2, p3, x), rtol=0, atol=0,
+    )
+    q, k, v = torch.randn(3, 2, 7, 4, 64, generator=gen)
+    torch.testing.assert_close(
+        attention.flash_attention(q, k, v, 0.125),
+        attention.flash_attention_plain(q, k, v, 0.125), rtol=0, atol=0,
+    )
+    assert set(ops.launch_counts().values()) == {0}
 
 
 def _wb(p, wname, bname):

@@ -1,8 +1,11 @@
 """The slice as a whole: a uint8 batch through tpucap_torch's
-``caption_batch`` (preprocess -> ResNet-50 with BN folded -> merge LSTM ->
-beam or greedy) against the body of tpucap's ``caption_dataset`` on the
-CPU, same weights (bridged), f32, ResNet-50 at input 64. The batch arrives
-at another size, so both sides resize nearest (tpucap through
+``caption_batch`` (preprocess -> encoder -> merge LSTM -> beam or greedy)
+against the body of tpucap's ``caption_dataset`` on the CPU, same weights
+(bridged), f32. Encoders: ResNet-50 at input 64 with BN folded, unfused and
+with fused identity blocks (kernel K4's plain version on the CPU, tpucap's
+Pallas kernel in interpret mode); and ``vit_tiny`` with ``xla`` and
+``flash`` attention (kernel K5's plain version on the CPU). The batch
+arrives at another size, so both sides resize nearest (tpucap through
 ``fused_preprocess``, which is the host loader's resize + the body's
 normalize). Captions must be identical.
 """
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from tpucap.config import Config, DecodeConfig, DecoderConfig, EncoderConfig
+from tpucap.config import encoder_config as jax_encoder_config
 from tpucap.decode import beam_decode, greedy_decode, ids_to_captions
 from tpucap.ops.preprocess import fused_preprocess
 from tpucap.pipeline import CaptioningPipeline as JaxPipeline
@@ -86,7 +90,10 @@ def _jax_body(jpipe, images_u8, method):
     start_id, end_id = jpipe._token_ids()
     dcfg = jpipe.config.decode
     p = jpipe._inference_params()
-    x = fused_preprocess(jnp.asarray(images_u8), SIZE, "caffe", out_dtype=jnp.float32)
+    enc = jpipe.encoder
+    x = fused_preprocess(
+        jnp.asarray(images_u8), enc.input_size, enc.preprocess_mode, out_dtype=jnp.float32
+    )
     feats = jpipe._apply_encoder(p["encoder"], x)
     state = jpipe.decoder.init_state(p["decoder"], feats)
     kw = dict(start_id=start_id, end_id=end_id, max_len=dcfg.max_len)
@@ -106,6 +113,74 @@ def test_caption_batch_matches_jax_body(pipelines, method):
     images = np.random.default_rng(7).integers(0, 256, size=(4, 80, 72, 3), dtype=np.uint8)
     want, res = _jax_body(jpipe, images, method)
     got = pipe.caption_batch(images, method=method)
+    assert got == want
+    assert len(set(want)) > 1 and (np.asarray(res.lengths) < DECODE["max_len"]).any()
+
+
+def test_caption_batch_with_fused_blocks_matches_jax_body(pipelines):
+    """Both sides with fused identity blocks; the port's fused captions
+    also equal its unfused ones (the plain K4 rounds as the unfused f32
+    path does)."""
+    jpipe, pipe = pipelines
+    images = np.random.default_rng(9).integers(0, 256, size=(4, 80, 72, 3), dtype=np.uint8)
+    unfused = pipe.caption_batch(images, method="beam")
+    encoders = jpipe.encoder, pipe.encoder
+    try:
+        jpipe.encoder = dataclasses.replace(jpipe.encoder, fused_blocks=True)
+        pipe.encoder = dataclasses.replace(pipe.encoder, fused_blocks=True)
+        want, res = _jax_body(jpipe, images, "beam")
+        got = pipe.caption_batch(images, method="beam")
+    finally:
+        jpipe.encoder, pipe.encoder = encoders
+    assert got == want == unfused
+    assert len(set(want)) > 1
+
+
+@pytest.fixture(scope="module")
+def vit_pipelines():
+    """vit_tiny (32 px, tf mode) + lstm1 on both sides, params bridged."""
+    jpipe = JaxPipeline(
+        Config(
+            encoder=jax_encoder_config("vit_tiny"),
+            decoder=DecoderConfig(**DEC),
+            decode=DecodeConfig(**DECODE),
+            precision="f32",
+        )
+    )
+    jpipe.fit_tokenizer(CORPUS)
+    jpipe.build(rng=jax.random.key(1))
+    dec = jpipe.params["decoder"]
+    dec["feat_proj"]["kernel"] = dec["feat_proj"]["kernel"] * 0.1
+    dec["out"]["kernel"] = dec["out"]["kernel"] * 4
+    dec["out"]["bias"] = dec["out"]["bias"].at[jpipe.tokenizer.word_index["endseq"]].add(0.3)
+    pipe = CaptioningPipeline(
+        tcfg.Config(
+            encoder=tcfg.encoder_config("vit_tiny"),
+            decoder=tcfg.DecoderConfig(**DEC),
+            decode=tcfg.DecodeConfig(**DECODE),
+            precision="f32",
+        ),
+        tokenizer=Tokenizer.from_json(jpipe.tokenizer.to_json()),
+        device="cpu",
+    )
+    pipe.build(init_params=False)
+    pipe.set_params(params_from_jax(jax.tree.map(np.asarray, jpipe.params)))
+    jpipe.fold_bn()
+    pipe.fold_bn()  # no BatchNorm: a no-op on both sides
+    return jpipe, pipe
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_caption_batch_vit_matches_jax_body(vit_pipelines, impl):
+    jpipe, pipe = vit_pipelines
+    images = np.random.default_rng(11).integers(0, 256, size=(6, 40, 36, 3), dtype=np.uint8)
+    want, res = _jax_body(jpipe, images, "beam")
+    encoder = pipe.encoder
+    try:
+        pipe.encoder = dataclasses.replace(pipe.encoder, attention_impl=impl)
+        got = pipe.caption_batch(images, method="beam")
+    finally:
+        pipe.encoder = encoder
     assert got == want
     assert len(set(want)) > 1 and (np.asarray(res.lengths) < DECODE["max_len"]).any()
 

@@ -1,7 +1,7 @@
 """Frozen config tree of the port: the subset of ``tpucap.config`` that the
 serving slice reads (same field names, defaults and meaning).
 
-The encoder default is ResNet-50, the one encoder the port has; the JAX
+The encoder default is ResNet-50, the first encoder the port had; the JAX
 package defaults to VGG16.
 """
 
@@ -69,10 +69,15 @@ class Config:
 
 
 #: Feature width of each ported encoder per feature kind: ResNet-50's
-#: global-average 2048-d vector and its conv4 1024-channel grid.
+#: global-average 2048-d vector and its conv4 1024-channel grid; the ViT
+#: family's width either way (pooled = token mean, spatial = token grid).
 FEATURE_DIMS = {
     ("resnet50", "pooled"): 2048,
     ("resnet50", "spatial"): 1024,
+    ("vit_b16", "pooled"): 768,
+    ("vit_b16", "spatial"): 768,
+    ("vit_tiny", "pooled"): 64,
+    ("vit_tiny", "spatial"): 64,
 }
 
 

@@ -1,2 +1,2 @@
-"""Models of the port: layers, the ResNet-50 encoder and the merge LSTM
-decoder."""
+"""Models of the port: layers, the ResNet-50 and ViT encoders and the
+merge LSTM decoder."""

@@ -1,12 +1,16 @@
-"""Image encoders of the port: ResNet-50 (pooled and conv4 spatial)."""
+"""Image encoders of the port: ResNet-50 (pooled and conv4 spatial) and the
+ViT family (ViT-B/16, vit_tiny)."""
 
 from tpucap_torch.models.encoders.fold_bn import fold_batch_norms
 from tpucap_torch.models.encoders.registry import ENCODERS, build_encoder
 from tpucap_torch.models.encoders.resnet50 import ResNet50
+from tpucap_torch.models.encoders.vit import ViT, vit_tiny
 
 __all__ = [
     "ENCODERS",
     "ResNet50",
+    "ViT",
     "build_encoder",
     "fold_batch_norms",
+    "vit_tiny",
 ]

@@ -1,5 +1,6 @@
 """Fold inference BatchNorm into the preceding conv's weights (port of
-``tpucap.models.encoders.fold_bn`` for ResNet-50):
+``tpucap.models.encoders.fold_bn`` for ResNet-50; an encoder without
+BatchNorm, such as the ViT family, keeps its params unchanged):
 
     scale   = gamma / sqrt(var + eps)        (gamma = 1 when scale=False)
     kernel' = kernel * scale                 (per output channel: OIHW dim 0)
@@ -45,4 +46,4 @@ def fold_resnet50(params: dict) -> dict:
 def fold_batch_norms(encoder_name: str, params: dict) -> dict:
     if encoder_name == "resnet50":
         return fold_resnet50(params)
-    raise NotImplementedError(f"fold_batch_norms: {encoder_name!r} is not ported")
+    return params  # no BatchNorm (the ViT family)

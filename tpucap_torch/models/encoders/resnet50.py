@@ -6,6 +6,11 @@ conv2..conv5 of [3, 4, 6, 3] blocks, stride 2 in each stack's first block
 except conv2, placed in the block's first 1x1 conv (v1, not v1.5); BN eps
 1.001e-5; global average pool -> 2048-d feature. 'spatial' mode returns the
 conv4 output (14x14x1024 at 224). Param names are the Keras layer names.
+
+``fused_blocks=True`` routes the stride-1 identity blocks of the stages in
+``fused_stages`` through kernel K4 (``ops.bottleneck``) once BN is folded:
+12 blocks with all four stages (each stack's first block has a conv
+shortcut). On unfolded params the flag does nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from tpucap_torch.models.encoders.common import (
     max_pool,
     zero_pad,
 )
+from tpucap_torch.ops.bottleneck import fused_identity_block
 
 BN_EPS = 1.001e-5
 STACKS = [  # (name, filters, blocks, stride1)
@@ -38,16 +44,10 @@ class ResNet50:
     features: str = "pooled"  # 'pooled' (2048) | 'spatial' (14x14x1024)
     input_size: int = 224
     preprocess_mode: str = "caffe"
-    # The JAX package's opt-in fused identity-bottleneck kernel (its TPU
-    # kernel K4, ops/pallas/bottleneck.py). Not ported yet: True raises.
+    # Inference-only opt-in: stride-1 identity blocks of fused_stages run
+    # as kernel K4 once BN is folded (a no-op on unfolded params).
     fused_blocks: bool = False
-
-    def __post_init__(self):
-        if self.fused_blocks:
-            raise NotImplementedError(
-                "ResNet50(fused_blocks=True) needs the bottleneck kernel, "
-                "which tpucap_torch has not ported yet"
-            )
+    fused_stages: tuple = ("conv2", "conv3", "conv4", "conv5")
 
     @property
     def feature_dim(self) -> int:
@@ -91,6 +91,16 @@ class ResNet50:
         return y
 
     def _block(self, p, x, blk, stride, conv_shortcut):
+        if (
+            self.fused_blocks
+            and stride == 1
+            and not conv_shortcut
+            and blk.split("_")[0] in self.fused_stages
+            and f"{blk}_1_bn" not in p  # BN folded -> kernel+bias convs
+        ):
+            return fused_identity_block(
+                p[f"{blk}_1_conv"], p[f"{blk}_2_conv"], p[f"{blk}_3_conv"], x
+            )
         if conv_shortcut:
             shortcut = conv(
                 p[f"{blk}_0_conv"], x, stride=(stride, stride), padding="VALID"

@@ -1,5 +1,5 @@
-"""Dense / Embedding / LSTM primitives with Keras-default initialization
-(port of ``tpucap.models.layers``).
+"""Dense / Embedding / LSTM / LayerNorm / attention primitives with
+Keras-default initialization (port of ``tpucap.models.layers``).
 
 Params are plain dicts of tensors in the JAX package's layout: a dense
 kernel is ``(in, out)``, an LSTM cell holds ``kernel (in, 4U)``,
@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 # ---------------------------------------------------------------------------
 # Keras-default initializers
@@ -101,3 +102,58 @@ def lstm_cell_step(p, x, h, c):
         p["kernel"], p["recurrent"], p["bias"], x, h, c
     )
     return h_new.to(h.dtype), c_new.to(c.dtype)
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm and activations (ViT encoder)
+
+
+def init_layer_norm(dim: int):
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
+def layer_norm(p, x, eps: float = 1e-5):
+    """Normalize the last axis. Statistics in f32 with the population
+    variance (``jnp.var``), output cast back to x.dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation (PyTorch's default
+    is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# Multi-head attention primitives
+
+
+def split_heads(x, num_heads: int):
+    """(..., H) -> (..., num_heads, head_dim), a view."""
+    return x.reshape(*x.shape[:-1], num_heads, x.shape[-1] // num_heads)
+
+
+def merge_heads(x):
+    """(..., num_heads, head_dim) -> (..., H)."""
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+
+def sdpa(q, k, v, mask, scale: float):
+    """Scaled dot-product attention, q (..., Q, h, d) over k/v (..., T, h, d).
+
+    mask (..., Q, T) bool, True = attend, or None for dense attention.
+    Scores in the operands' dtype, then f32 for the scale and the softmax;
+    the weights are cast to q.dtype for the product with v. Returns
+    ``(ctx, w)`` with w (..., h, Q, T) f32. The products stay library
+    matmuls, as the JAX package leaves them to XLA."""
+    scores = torch.einsum("...qhd,...thd->...hqt", q, k).float() * scale
+    if mask is not None:
+        scores = torch.where(mask[..., None, :, :], scores, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("...hqt,...thd->...qhd", w.to(q.dtype), v)
+    return ctx, w

@@ -9,11 +9,17 @@
     caption_batch(images_u8, ...) uint8 (B, H, W, 3) -> captions: the body
                                   of the JAX package's caption_dataset
 
-``caption_batch`` is the slice's main path: preprocess kernel K1 -> ResNet-50
--> MergeDecoder.init_state -> beam search whose step, on the card with a
+``caption_batch`` is the main path: preprocess kernel K1 -> encoder ->
+MergeDecoder.init_state -> beam search whose step, on the card with a
 1-layer MergeDecoder, is ``make_fused_merge_step`` (kernels K2 and K3: the
 JAX package's own drop-in step_fn hook). On the CPU the step is the plain
-``MergeDecoder.step``. Reading JPEG files (``caption_dataset(paths)``) and
+``MergeDecoder.step``. The encoder is ResNet-50 (caffe mode), or with
+``encoder_config("vit_b16")`` ViT-B/16 (tf mode). As in the JAX package the
+encoder's kernel paths are opt-in on the built encoder:
+``pipe.encoder = dataclasses.replace(pipe.encoder, fused_blocks=True)``
+(ResNet-50's identity blocks as kernel K4, after ``fold_bn()``) or
+``dataclasses.replace(pipe.encoder, attention_impl="flash")`` (ViT
+attention as kernel K5). Reading JPEG files (``caption_dataset(paths)``) and
 training are not ported yet.
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed; see
