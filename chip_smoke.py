@@ -1,7 +1,7 @@
 """Chip smoke for tpucap_torch: drives the port's serving paths on one
 NVIDIA GPU and holds every hand-written kernel against its plain version.
 
-    python3 chip_smoke.py          # from the repo root; needs one CUDA card and nvcc
+    python3 chip_smoke.py    # from the repo root; needs one CUDA card and nvcc
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -15,7 +15,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (the fused identity block) at each of ResNet-50's four stage shapes,
    beside the port's unfused block (three cuDNN convs and their
    elementwise passes); K5 (flash attention) at ViT-B/16's shape, beside
-   ``F.scaled_dot_product_attention``;
+   ``F.scaled_dot_product_attention``. K2 is also checked at a ragged
+   batch (111 rows, E = 512, U = 256), K5 at L = 49 and L = 257 with 4
+   heads. Each kernel's line ends with its share of its bound (bound_ms /
+   ms) and its time over the library call's;
 3. the slice at full width: uint8 (256, 224, 224, 3) -> K1 -> ResNet-50
    (BN folded) -> lstm1 merge decoder (embed/hidden 256, vocab 7579) ->
    beam 3, max_len 34, bf16, random weights from a seed; launch counters
@@ -136,6 +139,12 @@ def check_close(name, got, want, rtol, atol):
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol, msg=lambda m: f"{name}: {m}")
 
 
+def against_bound(r: dict) -> str:
+    """A kernel's share of its bound and its time over the library call's."""
+    lib = f"{r['ms'] / r['library_ms']:.2f}x library" if r["library_ms"] else "no library call"
+    return f"share of bound {r['bound_ms'] / r['ms']:.4f}; {lib}"
+
+
 # -- phase 2: kernels against their plain versions ---------------------------
 
 
@@ -194,16 +203,29 @@ def check_kernels(dev) -> dict[str, dict]:
         fe=rnd(M, U).relu(), wp=rnd(U, U, scale=U**-0.5), bp=rnd(U, scale=0.1),
         wo=rnd(U, V, scale=U**-0.5), bo=rnd(V, scale=0.1),
     )
-    for dt in (torch.float32, torch.bfloat16):
-        p = {k: v.to(dt) for k, v in base.items()}
-        cell = (p["x"], p["h"], p["c"], p["wk"], p["wr"], p["b"])
+    # K2 also at a ragged batch (37 images x beam 3, no multiple of a row
+    # tile) with E = 2U, so x and h split the reduction unevenly.
+    Br, Er = 111, 2 * U
+    ragged = dict(
+        x=rnd(Br, Er, scale=0.05), h=rnd(Br, U, scale=0.5), c=rnd(Br, U),
+        wk=rnd(Er, 4 * U, scale=Er**-0.5), wr=rnd(U, 4 * U, scale=U**-0.5), b=rnd(4 * U, scale=0.1),
+    )
+
+    def check_cell(label, cell, dt):
         got = lstm_step.lstm_cell(*cell)
         want = lstm_step.lstm_cell_plain(*cell)
         # h', c' in the activation dtype (one bf16 ulp); h' f32 to sum order.
         tol = (1e-5, 1e-5) if dt == torch.float32 else (2**-7, 1e-2)
-        check_close(f"lstm_cell h {dt}", got[0], want[0], *tol)
-        check_close(f"lstm_cell c {dt}", got[1], want[1], *tol)
-        check_close(f"lstm_cell h32 {dt}", got[2], want[2], 1e-5, 1e-5)
+        check_close(f"lstm_cell h {label} {dt}", got[0], want[0], *tol)
+        check_close(f"lstm_cell c {label} {dt}", got[1], want[1], *tol)
+        check_close(f"lstm_cell h32 {label} {dt}", got[2], want[2], 1e-5, 1e-5)
+        return got, want
+
+    for dt in (torch.float32, torch.bfloat16):
+        check_cell(f"B={Br} E={Er} U={U}", tuple(ragged[k].to(dt) for k in ("x", "h", "c", "wk", "wr", "b")), dt)
+        p = {k: v.to(dt) for k, v in base.items()}
+        cell = (p["x"], p["h"], p["c"], p["wk"], p["wr"], p["b"])
+        got, want = check_cell(f"B={M} E={U} U={U}", cell, dt)
         h32 = want[2]
         m_got = decoder_step.merge_head(p["fe"], h32, p["wp"], p["bp"])
         m_want = decoder_step.merge_head_plain(p["fe"], h32, p["wp"], p["bp"])
@@ -251,7 +273,7 @@ def check_kernels(dev) -> dict[str, dict]:
         log(
             f"kernel {name}: ok  max_abs_err={r['max_abs_err']:.3g}  ms={r['ms']:.4f}  "
             f"plain_ms={r['plain_ms']:.4f}  library_ms={r['library_ms']}  "
-            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); {against_bound(r)}"
         )
     return out
 
@@ -331,32 +353,35 @@ def check_identity_block(dev) -> dict:
     log(f"kernel identity_block: per launch (mean of {launches}) ms={out['ms']:.4f}  "
         f"plain_ms={out['plain_ms']:.4f}  unfused_ms={out['unfused_ms']:.4f}  "
         f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']}); per pass ms={out['pass_ms']:.4f}  "
-        f"bound_ms={out['pass_bound_ms']:.4f}")
+        f"bound_ms={out['pass_bound_ms']:.4f}; {against_bound(out)}")
     return out
 
 
 def check_flash_attention(dev) -> dict:
-    """K5 at ViT-B/16's shape, q, k, v as views of one (B, L, 3H) qkv."""
+    """K5 at ViT-B/16's shape, q, k, v as views of one (B, L, 3H) qkv;
+    also at ragged lengths (one partial query and key tile; a last tile of
+    one key) with 4 heads."""
     import torch.nn.functional as F
 
     from tpucap_torch.ops.attention import flash_attention, flash_attention_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(5)
-    H = VIT_HEADS * VIT_D
     scale = VIT_D**-0.5
     out = {}
     for dt in (torch.float32, torch.bfloat16):
-        qkv = torch.randn((BATCH, VIT_L, 3 * H), generator=g, device=dev).to(dt)
-        q, k, v = (qkv[..., i * H : (i + 1) * H].view(BATCH, VIT_L, VIT_HEADS, VIT_D) for i in range(3))
-        got = flash_attention(q, k, v, scale)
-        want = flash_attention_plain(q, k, v, scale)
-        torch.cuda.synchronize()
-        # f32: sums of 64 and 196 terms in another order. bf16: the
-        # probabilities and the output are rounded to bf16, each rounding
-        # may land one ulp away (1e-2 at |ctx| <= 1).
-        tol = (1e-5, 2e-5) if dt == torch.float32 else (1e-2, 1e-2)
-        check_close(f"flash_attention {dt}", got, want, *tol)
+        for B, L, heads in ((8, 49, 4), (8, 257, 4), (BATCH, VIT_L, VIT_HEADS)):
+            H = heads * VIT_D
+            qkv = torch.randn((B, L, 3 * H), generator=g, device=dev).to(dt)
+            q, k, v = (qkv[..., i * H : (i + 1) * H].view(B, L, heads, VIT_D) for i in range(3))
+            got = flash_attention(q, k, v, scale)
+            want = flash_attention_plain(q, k, v, scale)
+            torch.cuda.synchronize()
+            # f32: sums of 64 and L terms in another order. bf16: the
+            # probabilities and the output are rounded to bf16, each
+            # rounding may land one ulp away (1e-2 at |ctx| <= 1).
+            tol = (1e-5, 2e-5) if dt == torch.float32 else (1e-2, 1e-2)
+            check_close(f"flash_attention q{tuple(q.shape)} {dt}", got, want, *tol)
         if dt != torch.bfloat16:
             continue
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
@@ -370,7 +395,7 @@ def check_flash_attention(dev) -> dict:
         )
     log(f"kernel flash_attention q{tuple(q.shape)}: ok  max_abs_err={out['max_abs_err']:.3g}  "
         f"ms={out['ms']:.4f}  plain_ms={out['plain_ms']:.4f}  library_ms={out['library_ms']:.4f}  "
-        f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']})")
+        f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']}); {against_bound(out)}")
     return out
 
 

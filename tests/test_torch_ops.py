@@ -109,11 +109,18 @@ def _lstm_inputs(dt, B=8, E=16, U=32, seed=0):
     return {k: _pair(v, dt) for k, v in vals.items()}
 
 
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_lstm_cell_plain_matches_pallas_kernel(dt):
+# (B, E, U): the small case, and a ragged one like the card's check (a
+# batch of 37 rows, no multiple of any row tile, with E != U).
+@pytest.mark.parametrize(
+    "dt, shape",
+    [("f32", (8, 16, 32)), ("bf16", (8, 16, 32)), ("f32", (37, 24, 40)), ("bf16", (37, 24, 40))],
+    ids=["f32", "bf16", "f32-B37-E24-U40", "bf16-B37-E24-U40"],
+)
+def test_lstm_cell_plain_matches_pallas_kernel(dt, shape):
     """f32 against the Pallas kernel; its ref stores refuse bf16, so bf16
     is held against the function it replaces, layers.lstm_cell_step."""
-    v = _lstm_inputs(dt)
+    B, E, U = shape
+    v = _lstm_inputs(dt, B=B, E=E, U=U)
     J = {k: a for k, (a, _) in v.items()}
     T = {k: b for k, (_, b) in v.items()}
     p = {k: J[k] for k in ("kernel", "recurrent", "bias")}
@@ -128,6 +135,15 @@ def test_lstm_cell_plain_matches_pallas_kernel(dt):
     np.testing.assert_allclose(_np(h), _np(h_ref), **TOL[dt])
     np.testing.assert_allclose(_np(c), _np(c_ref), **TOL[dt])
     np.testing.assert_allclose(_np(h32), _np(h), **TOL[dt])
+
+
+def test_lstm_cell_wrapper_rejects_widths_off_16_bytes():
+    """The kernel copies 16-byte rows: off the CPU, E and U must be
+    multiples of 8 (checked before any device is touched)."""
+    B, E, U = 4, 12, 16
+    t = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="multiples of 8"):
+        lstm_step.lstm_cell(t(B, E), t(B, U), t(B, U), t(E, 4 * U), t(U, 4 * U), t(4 * U))
 
 
 # -- K3 ---------------------------------------------------------------------

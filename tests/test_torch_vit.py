@@ -72,10 +72,16 @@ def _stock_reference(q, k, v, scale):
     return jnp.moveaxis(out[:, :, :L, :], 1, 2)
 
 
+# L -> (heads, head width): ViT-B/16's 196 tokens, and the card check's
+# ragged lengths (one partial query and key tile; a last key tile of one).
+SHAPES = {40: (3, 16), 196: (3, 64), 49: (4, 64), 257: (4, 64)}
+
+
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("L", [40, 196])
+@pytest.mark.parametrize("L", [40, 196, 49, 257])
 def test_flash_attention_plain_matches_stock_reference_and_sdpa(dt, L):
-    (q, k, v), (qj, kj, vj) = _qkv(dt, L=L, d=64 if L == 196 else 16)
+    h, d = SHAPES[L]
+    (q, k, v), (qj, kj, vj) = _qkv(dt, L=L, h=h, d=d)
     scale = 1.0 / q.shape[-1] ** 0.5
     got = flash_attention_plain(q, k, v, scale)
     assert got.dtype == DT[dt][1] and got.shape == q.shape

@@ -4,58 +4,335 @@
 //
 // Replaces the stock TPU flash attention that
 // tpucap/models/encoders/vit.py:_flash_ctx calls (its forward pallas_call,
-// jax/experimental/pallas/ops/tpu/flash_attention.py), and keeps its
-// numerics: s = q k^T accumulated in f32, then s *= scale; a running max
-// and sum in f32; p = exp(s - m) cast to v's dtype for p @ v, accumulated
-// in f32; normalised by the sum; cast to q's dtype. On the TPU the 196
-// tokens are padded to 256 and the pad fenced off by segment ids; here the
-// keys at index >= L are masked inside the kernel and nothing is padded.
+// jax/experimental/pallas/ops/tpu/flash_attention.py). Its numerics: s =
+// q k^T accumulated in f32; a running max and sum in f32; p = exp(scale s
+// - scale m) cast to v's dtype for p @ v, accumulated in f32; normalised
+// by the sum once at the end; cast to q's dtype. The f32 route computes
+// exactly that (scale, then expf; one division per element). The bf16
+// route computes p as 2^(s c - m c), c = scale log2(e), the scale folded
+// into one f32 FMA and 2^x taken on the special-function unit (relative
+// error 2^-22), and normalises by multiplying with the reciprocal of the
+// row sum: each differs from the stock kernel by an f32 ulp or two before
+// the cast to bf16 (PERF.md, K5's versions). On the
+// TPU the 196 tokens are padded to 256 and the pad fenced off by segment
+// ids; here the keys at index >= L are masked inside the kernel and nothing
+// is padded. q, k and v are read with strides straight from the (B, L, 3H)
+// output of the qkv projection and ctx is written (B, L, heads, 64).
 //
 // Bound on an H100 (ViT-B/16, batch 256, 12 heads, bf16): 231 MB of
 // q, k, v read and 77 MB of ctx written take 0.092 ms at 3.35 TB/s against
-// 30.2 GFLOP (0.031 ms at 989 TFLOP/s): bound by bytes.
+// 30.2 GFLOP (0.031 ms at 989 TFLOP/s): bound by bytes. What the kernel
+// must avoid is reading K and V many times and waiting on its own loads.
 //
-// Design: one block per (64-query tile, head, image); a loop over 64-key
-// tiles with an online softmax, the last tile ragged (196 = 3 * 64 + 4).
-// q, k and v are read with strides straight from the (B, L, 3H) output of
-// the qkv projection (the split, transpose and pad copies of the TPU path
-// are gone) and ctx is written (B, L, heads, 64). Q, K, V, the scores S,
-// the probabilities P and the f32 output accumulator O live in shared
-// memory; S = Q K^T and O += P V are warp-level 16x16 tiles (tile.cuh):
-// bf16 tensor cores with f32 accumulators for bf16, f32 FMAs for f32. Each
-// warp owns 8 rows for the softmax update. The simple version: no
-// pipelining of the K/V loads, no warp specialisation.
+// bf16 route (flash_kernel_mma), FlashAttention-2's shape on Hopper's
+// warpgroup MMA: a block of two warpgroups (8 warps) covers 128 queries of
+// one (image, head), so K and V come from device memory about once per
+// (image, head) (the second block of the pair, launched next to it, reads
+// them from L2). Per 64-key tile, each warpgroup computes its 64 x 64
+// scores S = Q K^T with four wgmma.m64n64k16 whose A, Q, comes from
+// registers (ldmatrix from Q in shared memory) and whose B, K, the tensor
+// cores read straight from the ring (no ldmatrix, no copy per warp). The
+// online softmax runs on the accumulator registers, which hold each row
+// within one quad of lanes as mma.sync's do (max and sum reduce by two
+// shuffles; 2^x on the special-function unit with the scale folded into
+// one FMA). P is repacked in registers as the bf16 A operand of four more
+// wgmmas, O += P V, with V read from the ring as an MN-major B; O stays in
+// registers and is scaled by the reciprocal of its row sum once, at the
+// end. K and V tiles arrive through a 4-stage cp.async ring (the 4 tiles
+// of 196 keys in flight at once), made visible to the tensor cores' async
+// proxy by a fence, with one barrier per tile; two blocks share an SM.
+// The ring's rows are 128 bytes with the XOR swizzle of mma.cuh, which is
+// wgmma's 128-byte swizzle when each tile starts on 1024 bytes: the
+// kernel rounds its shared-memory base up to 1024 itself (CUDA promises
+// the dynamic base only 16), from 1 KB of slack.
+// What holds it back (PERF.md, K5's versions): besides the device bytes,
+// each tile is a chain the warpgroup runs in order, MMA, then softmax (34
+// exponentials a lane on the special-function unit, an eighth of the
+// FMA rate), then MMA, and the four warpgroups of an SM overlap those
+// phases only in part. A persistent grid and 32 rows a warp were slower;
+// FlashAttention-3's producer warps and ping-pong between warpgroups are
+// what comes next.
+//
+// f32 route (flash_kernel_f32): 64 queries per block, S, P and O in shared
+// memory, 16 x 16 f32 FMA tiles (tile.cuh), no TF32.
 #include <math.h>
 
+#include <cstdint>
+
+#include "mma.cuh"
 #include "tile.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+constexpr int kD = 64;  // head width
+
+// -- bf16: tensor cores -------------------------------------------------------
+
+constexpr int kWarps = 8;
+constexpr int kMinBlocks = 2;      // per SM: at most 128 registers a thread
+constexpr int kBM = 16 * kWarps;   // queries per block
+constexpr int kBN = 64;            // keys per tile
+constexpr int kStages = 4;         // K/V ring: the 4 tiles of 196 keys in flight at once
+constexpr int kTile = kBN * 128;   // bytes of a 64 x 64 bf16 tile
+// Q, then (K, V) x kStages, from a 1024-byte aligned base: 1 KB of slack.
+constexpr size_t kSmemMma = 1024 + kBM * 128 + kStages * 2 * kTile;
+
+// 2^x on the special-function unit (relative error 2^-22; 2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// wgmma operand B in shared memory: a 64-row tile of 128-byte rows with the
+// 128-byte swizzle (chunk c of row r at c ^ (r % 8), the layout of
+// mma.cuh's swz), its base 1024-byte aligned; 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t smem_desc(unsigned addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// d (64 x 64 per warpgroup, f32) = a b (+ d if acc): a from registers (each
+// warp its 16 rows, in mma.sync's A layout), b from shared memory, K-major
+// (kTrans 0: B[k][n] at row n, column k) or MN-major (kTrans 1: at row k,
+// column n). The accumulator layout per warp is mma.sync's, n-tile n in d[n].
+template <int kTrans>
+__device__ __forceinline__ void wgmma(float (&d)[8][4], const unsigned (&a)[4], uint64_t b,
+                                      bool acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(acc)),
+        "n"(kTrans));
+}
+
+// Orders every earlier write of d and a before the wgmmas that follow
+// (empty asm that claims to change them keeps the compiler from sinking
+// those writes below the fence).
+template <int kA>
+__device__ __forceinline__ void wgmma_fence(float (&d)[8][4], unsigned (&a)[kA][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
+#pragma unroll
+  for (int i = 0; i < kA; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Commits the warpgroup's wgmmas so far and waits for them. The wgmmas
+// read a and write d after their asm has returned, so the compiler is
+// kept from reading d before the wait and from reusing a's registers
+// (for the next tile's values) until after it.
+template <int kA>
+__device__ __forceinline__ void wgmma_wait(float (&d)[8][4], unsigned (&a)[kA][4]) {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
+#pragma unroll
+  for (int i = 0; i < kA; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+__global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
+    flash_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out, int L,
+                     int heads, int64_t sb, int64_t sl, int64_t sh, float scale) {
+  using namespace tpucap::mma;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  // Every tile's swizzle (swz, smem_desc) needs a 1024-byte aligned start.
+  const unsigned q_s = (smem_addr(smem) + 1023u) & ~1023u;
+  const unsigned kv_s = q_s + kBM * 128;  // stage st: K at kv_s + 2 st kTile, V after
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * kBM, head = blockIdx.y, b = blockIdx.z;
+  const int64_t base = b * sb + head * sh;
+  const float c = scale * 1.4426950408889634f;  // scale log2(e)
+
+  // Rows row0 .. row0 + rows of q, k or v, 8 chunks each, zero at or past L.
+  auto load_rows = [&](unsigned dst, const bf16* src, int row0, int rows) {
+    for (int i = tid; i < rows * 8; i += 32 * kWarps) {
+      const int r = i / 8, ch = i % 8;
+      const bool ok = row0 + r < L;
+      copy16(dst + swz(r, ch), ok ? src + base + (row0 + r) * sl + 8 * ch : src, ok);
+    }
+  };
+  auto load_kv = [&](int j) {
+    const unsigned st = kv_s + (j % kStages) * 2 * kTile;
+    load_rows(st, k, j * kBN, kBN);
+    load_rows(st + kTile, v, j * kBN, kBN);
+  };
+
+  const int nt = (L + kBN - 1) / kBN;
+  load_rows(q_s, q, q0, kBM);
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nt) load_kv(st);
+    commit();
+  }
+
+  // A warpgroup (4 warps, 64 rows) whose rows all lie past L only helps
+  // with the copies; a wgmma takes all four of its warps.
+  const bool active = q0 + 64 * (warp / 4) < L;
+  float o[kD / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // rows g, g + 8
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+
+  for (int j = 0; j < nt; ++j) {
+    wait_pending<kStages - 2>();  // tile j (and Q) landed: this thread's copies
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // ... for wgmma too
+    __syncthreads();              // ... every thread's; nobody reads tile j - 1 now
+    if (j + kStages - 1 < nt) load_kv(j + kStages - 1);
+    commit();
+    if (!active) continue;
+    // Q's fragments, read again for each tile: Q stays in shared memory.
+    unsigned qf[kD / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      ldmatrix_x4(qf[kk], q_s + swz(16 * warp + (lane & 15), 2 * kk + (lane >> 4)));
+    const unsigned k_t = kv_s + (j % kStages) * 2 * kTile, v_t = k_t + kTile;
+
+    // S = Q K^T, the warpgroup's 64 rows by the tile's 64 keys: n-tile n
+    // holds keys 8 n .. 8 n + 7. K is B, K-major; a 16-deep step of d is
+    // 32 bytes along its rows.
+    float s[kBN / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+    wgmma_fence(s, qf);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) wgmma<0>(s, qf[kk], smem_desc(k_t + 32 * kk), kk > 0);
+    wgmma_wait(s, qf);
+
+    // Online softmax on the fragments: s[n][e] is row g + 8 (e / 2), key
+    // j * 64 + 8 n + 2 t + e % 2. The max is taken over the unscaled f32
+    // scores (scale > 0), and exp(scale s - scale m) is evaluated as
+    // 2^(s c - m c) with c = scale log2(e), the scale applied in f32 in
+    // the one FMA.
+    const int k0 = j * kBN;
+    const bool ragged = k0 + kBN > L;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < kBN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (ragged && k0 + 8 * n + 2 * t + (e & 1) >= L) s[n][e] = -INFINITY;
+        mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
+      }
+    float alpha[2], mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // 0 on the first tile; its key 0 is below L, so mx is finite.
+      alpha[r] = exp2_approx((m[r] - mx[r]) * c);
+      m[r] = mx[r];
+      mc[r] = mx[r] * c;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kBN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_approx(fmaf(s[n][e], c, -mc[e / 2]));
+        l[e / 2] += p;  // this lane's share of the row sum, of unrounded p
+        s[n][e] = p;
+        o[n][e] *= alpha[e / 2];
+      }
+
+    // O += P V: k-step kk covers keys 16 kk .. 16 kk + 15, i.e. n-tiles
+    // 2 kk and 2 kk + 1 of S, which are already P's A fragment. V is B,
+    // MN-major; a 16-deep step of keys is 16 rows, 2048 bytes.
+    unsigned pf[kBN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      pf[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pf[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pf[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pf[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    wgmma_fence(o, pf);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) wgmma<1>(o, pf[kk], smem_desc(v_t + 2048 * kk), true);
+    wgmma_wait(o, pf);
+  }
+  if (!active) return;
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = 1.0f / l[r];  // one reciprocal a row, then products
+    const int row = q0 + 16 * warp + g + 8 * r;
+    if (row >= L) continue;
+    bf16* dst = out + ((static_cast<int64_t>(b) * L + row) * heads + head) * kD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+          __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+  }
+}
+
+int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int L,
+               int heads, int64_t sb, int64_t sl, int64_t sh, float scale,
+               cudaStream_t stream) {
+  static bool attr_set = false;  // once, before any graph capture
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_kernel_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemMma));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  const dim3 grid((L + kBM - 1) / kBM, heads, B);
+  flash_kernel_mma<<<grid, 32 * kWarps, kSmemMma, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), L, heads, sb, sl, sh, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- f32: FMAs ----------------------------------------------------------------
+
 using tpucap::Tile;
 
-constexpr int kD = 64;     // head width
 constexpr int kB = 64;     // queries and keys per tile
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kLdT = kD + 8;  // row stride (elements) of Q, K, V, P
+constexpr int kWarpsF = 8;
+constexpr int kThreads = 32 * kWarpsF;
+constexpr int kLdT = kD + 8;  // row stride (floats) of Q, K, V, P
 constexpr int kLdF = kB + 4;  // row stride (floats) of S, O
-
-template <typename T>
-constexpr size_t smem_bytes() {
-  return 4 * kB * kLdT * sizeof(T) + 2 * kB * kLdF * sizeof(float) + 2 * kB * sizeof(float);
-}
+constexpr size_t kSmemF32 = (4 * kB * kLdT + 2 * kB * kLdF + 2 * kB) * sizeof(float);
 
 // 64 rows x 64 columns from global (row stride ld) into shared memory,
 // 16 bytes per thread per step; rows at or past L are zero.
-template <typename T>
-__device__ void load_tile(T* dst, const T* src, int row0, int L, int64_t ld) {
-  constexpr int kVec = 16 / sizeof(T);
-  for (int i = threadIdx.x; i < kB * (kD / kVec); i += kThreads) {
-    const int r = i / (kD / kVec), c = (i % (kD / kVec)) * kVec;
-    uint4 v = make_uint4(0, 0, 0, 0);
+__device__ void load_tile(float* dst, const float* src, int row0, int L, int64_t ld) {
+  for (int i = threadIdx.x; i < kB * (kD / 4); i += kThreads) {
+    const int r = i / (kD / 4), c = (i % (kD / 4)) * 4;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (row0 + r < L)
-      v = *reinterpret_cast<const uint4*>(src + (row0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * kLdT + c) = v;
+      v = *reinterpret_cast<const float4*>(src + (row0 + r) * ld + c);
+    *reinterpret_cast<float4*>(dst + r * kLdT + c) = v;
   }
 }
 
@@ -71,17 +348,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int L, int heads,
-                 int64_t sb, int64_t sl, int64_t sh, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* ks = qs + kB * kLdT;
-  T* vs = ks + kB * kLdT;
-  T* ps = vs + kB * kLdT;
-  float* ss = reinterpret_cast<float*>(ps + kB * kLdT);
+    flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out, int L,
+                     int heads, int64_t sb, int64_t sl, int64_t sh, float scale) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ks = qs + kB * kLdT;
+  float* vs = ks + kB * kLdT;
+  float* ps = vs + kB * kLdT;
+  float* ss = ps + kB * kLdT;
   float* os = ss + kB * kLdF;
   float* m_s = os + kB * kLdF;
   float* l_s = m_s + kB;
@@ -106,8 +382,8 @@ __global__ void __launch_bounds__(kThreads)
     // S = Q K^T: 16 tiles, two per warp.
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const int tt = warp + kWarps * j, rt = tt / 4, ct = tt % 4;
-      Tile<T, true> t;
+      const int tt = warp + kWarpsF * j, rt = tt / 4, ct = tt % 4;
+      Tile<float, true> t;
       t.zero();
 #pragma unroll
       for (int kk = 0; kk < kD; kk += 16)
@@ -117,8 +393,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // Online softmax, one row at a time per warp, two columns per lane.
-    for (int rr = 0; rr < kB / kWarps; ++rr) {
-      const int r = warp * (kB / kWarps) + rr;
+    for (int rr = 0; rr < kB / kWarpsF; ++rr) {
+      const int r = warp * (kB / kWarpsF) + rr;
       float s0 = ss[r * kLdF + lane] * scale;
       float s1 = ss[r * kLdF + lane + 32] * scale;
       if (k0 + lane >= L) s0 = -INFINITY;
@@ -128,8 +404,8 @@ __global__ void __launch_bounds__(kThreads)
       const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
       const float alpha = expf(m_old - m_new);
       const float sum = warp_sum(p0 + p1);
-      ps[r * kLdT + lane] = tpucap::from_f32<T>(p0);
-      ps[r * kLdT + lane + 32] = tpucap::from_f32<T>(p1);
+      ps[r * kLdT + lane] = p0;
+      ps[r * kLdT + lane + 32] = p1;
       os[r * kLdF + lane] *= alpha;
       os[r * kLdF + lane + 32] *= alpha;
       __syncwarp();
@@ -143,8 +419,8 @@ __global__ void __launch_bounds__(kThreads)
     // O += P V.
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const int tt = warp + kWarps * j, rt = tt / 4, ct = tt % 4;
-      Tile<T, false> t;
+      const int tt = warp + kWarpsF * j, rt = tt / 4, ct = tt % 4;
+      Tile<float, false> t;
       t.load(os + rt * 16 * kLdF + ct * 16, kLdF);
 #pragma unroll
       for (int kk = 0; kk < kB; kk += 16)
@@ -158,29 +434,25 @@ __global__ void __launch_bounds__(kThreads)
     const int r = i / kD, c = i % kD;
     if (q0 + r >= L) continue;
     const int64_t o = ((static_cast<int64_t>(b) * L + q0 + r) * heads + head) * kD + c;
-    out[o] = tpucap::from_f32<T>(os[r * kLdF + c] / l_s[r]);
+    out[o] = os[r * kLdF + c] / l_s[r];
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int L, int heads, int64_t sb, int64_t sl, int64_t sh, float scale,
-           cudaStream_t stream) {
-  if (B < 1 || B > 65535 || heads < 1 || heads > 65535 || L < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  static bool attr_set = false;  // once per dtype, before any graph capture
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int L,
+               int heads, int64_t sb, int64_t sl, int64_t sh, float scale,
+               cudaStream_t stream) {
+  static bool attr_set = false;  // once, before any graph capture
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes<T>()));
+        flash_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemF32));
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   const dim3 grid((L + kB - 1) / kB, heads, B);
-  flash_kernel<T><<<grid, kThreads, smem_bytes<T>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), L, heads, sb, sl, sh,
-      scale);
+  flash_kernel_f32<<<grid, kThreads, kSmemF32, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), L, heads, sb, sl, sh, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -194,13 +466,14 @@ extern "C" int tpucap_flash_attention(const void* q, const void* k,
                                       int heads, int64_t sb, int64_t sl,
                                       int64_t sh, float scale, int dtype,
                                       void* stream) {
+  if (B < 1 || B > 65535 || heads < 1 || heads > 65535 || L < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case tpucap::kF32:
-      return launch<float>(q, k, v, out, B, L, heads, sb, sl, sh, scale, s);
+      return launch_f32(q, k, v, out, B, L, heads, sb, sl, sh, scale, s);
     case tpucap::kBF16:
-      return launch<__nv_bfloat16>(q, k, v, out, B, L, heads, sb, sl, sh,
-                                   scale, s);
+      return launch_mma(q, k, v, out, B, L, heads, sb, sl, sh, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

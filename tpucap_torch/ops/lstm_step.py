@@ -27,8 +27,9 @@ def lstm_cell(x, h, c, kernel, recurrent, bias):
     """x (B, E), h/c (B, U), kernel (E, 4U), recurrent (U, 4U), bias (4U,),
     all of one dtype (f32 or bf16) -> (h', c', h' in f32).
 
-    On CUDA tensors this launches kernel K2; on CPU tensors it runs
-    ``lstm_cell_plain``."""
+    On CUDA tensors this launches kernel K2, which copies 16-byte rows:
+    E and U must be multiples of 8 and every tensor 16-byte aligned. On
+    CPU tensors it runs ``lstm_cell_plain``."""
     if x.device.type == "cpu":
         return lstm_cell_plain(x, h, c, kernel, recurrent, bias)
     B, E = x.shape
@@ -36,6 +37,8 @@ def lstm_cell(x, h, c, kernel, recurrent, bias):
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"lstm_cell takes f32 or bf16, got {dt}")
+    if E % 8 or U % 8:
+        raise ValueError(f"lstm_cell needs E and U multiples of 8 (16-byte rows), got E={E}, U={U}")
     for name, t, shape in (
         ("x", x, (B, E)),
         ("h", h, (B, U)),
@@ -45,6 +48,8 @@ def lstm_cell(x, h, c, kernel, recurrent, bias):
         ("bias", bias, (4 * U,)),
     ):
         _build.require(t, name, dt, shape)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
     h32 = torch.empty((B, U), dtype=torch.float32, device=x.device)
