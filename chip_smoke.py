@@ -16,8 +16,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    beside the port's unfused block (three cuDNN convs and their
    elementwise passes); K5 (flash attention) at ViT-B/16's shape, beside
    ``F.scaled_dot_product_attention``. K2 is also checked at a ragged
-   batch (111 rows, E = 512, U = 256), K5 at L = 49 and L = 257 with 4
-   heads. Each kernel's line ends with its share of its bound (bound_ms /
+   batch (111 rows, E = 512, U = 256), K3's projection at 111 rows and a
+   vocabulary of 1001, K4 at (3, 13, 11, 256) with M = 64 (no tile divides
+   the image, odd batch) and at (3, 7, 7, 2048) with M = 512, K5 at L = 49
+   and L = 257 with 4 heads. Each kernel's line ends with its share of its bound (bound_ms /
    ms) and its time over the library call's;
 3. the slice at full width: uint8 (256, 224, 224, 3) -> K1 -> ResNet-50
    (BN folded) -> lstm1 merge decoder (embed/hidden 256, vocab 7579) ->
@@ -88,6 +90,9 @@ STAGES = (
     ("conv5", 7, 2048, 512, 2),
 )
 K4_F32_BATCH = 8
+# K4 also where no tile divides the image and the batch is odd, and at
+# conv5's widths on a small batch: (label, B, H, W, C, M).
+K4_RAGGED = (("ragged", 3, 13, 11, 256, 64), ("conv5 B=3", 3, 7, 7, 2048, 512))
 # ViT-B/16 at 224: tokens, heads, head width.
 VIT_L, VIT_HEADS, VIT_D = 196, 12, 64
 
@@ -204,11 +209,14 @@ def check_kernels(dev) -> dict[str, dict]:
         wo=rnd(U, V, scale=U**-0.5), bo=rnd(V, scale=0.1),
     )
     # K2 also at a ragged batch (37 images x beam 3, no multiple of a row
-    # tile) with E = 2U, so x and h split the reduction unevenly.
-    Br, Er = 111, 2 * U
+    # tile) with E = 2U, so x and h split the reduction unevenly; K3's
+    # projection at that batch and an odd vocabulary of 1001 (a ragged last
+    # row tile and column tile).
+    Br, Er, Vr = 111, 2 * U, 1001
     ragged = dict(
         x=rnd(Br, Er, scale=0.05), h=rnd(Br, U, scale=0.5), c=rnd(Br, U),
         wk=rnd(Er, 4 * U, scale=Er**-0.5), wr=rnd(U, 4 * U, scale=U**-0.5), b=rnd(4 * U, scale=0.1),
+        merged=rnd(Br, U).relu(), wo=rnd(U, Vr, scale=U**-0.5), bo=rnd(Vr, scale=0.1),
     )
 
     def check_cell(label, cell, dt):
@@ -223,6 +231,9 @@ def check_kernels(dev) -> dict[str, dict]:
 
     for dt in (torch.float32, torch.bfloat16):
         check_cell(f"B={Br} E={Er} U={U}", tuple(ragged[k].to(dt) for k in ("x", "h", "c", "wk", "wr", "b")), dt)
+        wo_r, bo_r = ragged["wo"].to(dt), ragged["bo"].to(dt)
+        check_close(f"vocab_proj M={Br} V={Vr} {dt}", decoder_step.vocab_proj(ragged["merged"], wo_r, bo_r),
+                    decoder_step.vocab_proj_plain(ragged["merged"], wo_r, bo_r), 1e-5, 1e-4)
         p = {k: v.to(dt) for k, v in base.items()}
         cell = (p["x"], p["h"], p["c"], p["wk"], p["wr"], p["b"])
         got, want = check_cell(f"B={M} E={U} U={U}", cell, dt)
@@ -259,10 +270,12 @@ def check_kernels(dev) -> dict[str, dict]:
         out["merge_head"]["bound_ms"], out["merge_head"]["bound_by"] = bound(
             nbytes(p["fe"], h32, p["wp"], p["bp"], m_got), 2 * M * U * U, dt
         )
+        # The decode's step keeps W_o's K-major copy for the whole decode.
         wo32, bo32 = p["wo"].float(), p["bo"].float()
+        wo_t = decoder_step.vocab_weight_kmajor(p["wo"])
         out["vocab_proj"] = dict(
             max_abs_err=max_err(l_got, l_want),
-            ms=cuda_ms(lambda: decoder_step.vocab_proj(m_want, p["wo"], p["bo"])),
+            ms=cuda_ms(lambda: decoder_step.vocab_proj(m_want, p["wo"], p["bo"], wo_t)),
             plain_ms=cuda_ms(lambda: decoder_step.vocab_proj_plain(m_want, p["wo"], p["bo"])),
             library_ms=cuda_ms(lambda: torch.addmm(bo32, m_want, wo32)),
         )
@@ -304,25 +317,38 @@ def check_identity_block(dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(4)
-    stages, err = {}, 0.0
-    for name, S, C, M, blocks in STAGES:
-        for dt, batch in ((torch.float32, K4_F32_BATCH), (torch.bfloat16, BATCH)):
-            p1, p2, p3 = _block_params(C, M, g, dev, dt)
-            x = torch.randn((batch, S, S, C), generator=g, device=dev).relu().to(dt)
-            got = fused_identity_block(p1, p2, p3, x)
-            want = fused_identity_block_plain(p1, p2, p3, x)
-            torch.cuda.synchronize()
-            if dt == torch.float32:
-                # f32 sums of C, 9M and M products in another order
-                # (tpucap's own kernel test: atol 1e-4, rtol 1e-5).
-                check_close(f"identity_block {name} f32", got, want, 1e-5, 1e-4)
-                continue
+
+    def check(label, p1, p2, p3, x):
+        got = fused_identity_block(p1, p2, p3, x)
+        want = fused_identity_block_plain(p1, p2, p3, x)
+        torch.cuda.synchronize()
+        if x.dtype == torch.float32:
+            # f32 sums of C, 9M and M products in another order
+            # (tpucap's own kernel test: atol 1e-4, rtol 1e-5).
+            check_close(f"identity_block {label} f32", got, want, 1e-5, 1e-4)
+        else:
             # Each of the three convs rounds an f32 sum to bf16; a sum in
             # another order can land on the neighbouring bf16 value, and
             # that carries into the next conv: two bf16 ulps (2**-6
             # relative, 2**-6 of the output's scale absolute).
             scale = float(want.float().abs().max())
-            check_close(f"identity_block {name} bf16", got, want, 2**-6, 2**-6 * scale)
+            check_close(f"identity_block {label} bf16", got, want, 2**-6, 2**-6 * scale)
+        return got, want
+
+    for label, B, H, W, C, M in K4_RAGGED:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn((B, H, W, C), generator=g, device=dev).relu().to(dt)
+            got, want = check(f"{label} x{tuple(x.shape)} M={M}", *_block_params(C, M, g, dev, dt), x)
+            log(f"kernel identity_block {label} x{tuple(x.shape)} M={M} {dt}: ok  "
+                f"max_abs_err={max_err(got, want):.3g}")
+    stages, err = {}, 0.0
+    for name, S, C, M, blocks in STAGES:
+        for dt, batch in ((torch.float32, K4_F32_BATCH), (torch.bfloat16, BATCH)):
+            p1, p2, p3 = _block_params(C, M, g, dev, dt)
+            x = torch.randn((batch, S, S, C), generator=g, device=dev).relu().to(dt)
+            got, want = check(name, p1, p2, p3, x)
+            if dt == torch.float32:
+                continue
             err = max(err, max_err(got, want))
             blk = {f"b_{i}_conv": q for i, q in zip((1, 2, 3), (p1, p2, p3))}
             w_bytes = nbytes(*(t for q in (p1, p2, p3) for t in q.values()))

@@ -48,7 +48,7 @@ from tpucap_torch.ops.preprocess import fused_preprocess  # noqa: E402
 GROUPS = (  # first match wins; substrings of the demangled kernel name
     ("port K1 preprocess_u8", ("preprocess_u8_kernel",)),
     ("port K2 lstm_cell", ("lstm_cell_kernel",)),
-    ("port K3 merge_head + vocab_proj", ("linear_kernel",)),
+    ("port K3 merge_head + vocab_proj", ("linear_kernel", "vocab_proj_kernel")),
     ("port K4 identity_block", ("identity_block_kernel",)),
     ("port K5 flash_attention", ("flash_kernel",)),
     ("convolution", ("conv", "cudnn", "fprop", "implicit_gemm", "nchwToNhwc", "nhwcToNchw")),

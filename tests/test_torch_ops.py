@@ -3,8 +3,9 @@
 K1 (preprocess) against tpucap.ops.preprocess.fused_preprocess (its XLA
 path on the CPU) and the host oracle tpucap.data.preprocess; K2 (LSTM cell)
 against fused_lstm_step(interpret=True); K3 (merge step) against
-fused_merge_step(interpret=True) with a ragged last vocab tile. (K4 and K5
-are held against tpucap in test_torch_encoder.py and test_torch_vit.py.)
+fused_merge_step(interpret=True) with a ragged last vocab tile; the exact
+three-term bf16 split behind K3's bf16 projection. (K4 and K5 are held
+against tpucap in test_torch_encoder.py and test_torch_vit.py.)
 On CPU tensors every wrapper runs its plain version and counts no launch; the
 CUDA kernels themselves are checked against these plain versions on the
 card by chip_smoke.py.
@@ -16,6 +17,7 @@ at O(1) values; bf16 outputs may differ by one bf16 ulp (1e-2).
 """
 
 import shutil
+import types
 from functools import partial
 
 import jax
@@ -185,6 +187,78 @@ def test_merge_step_plain_matches_pallas_kernel_ragged_vocab(dt):
         assert new[key].dtype == DT[dt][1]
         np.testing.assert_allclose(_np(new[key]), _np(st_ref[key]), **TOL[dt])
     assert new["fe"] is st["fe"]
+
+
+def test_split3_is_exact_over_f32_magnitudes():
+    """hi + mid + lo == m exactly in f32, at magnitudes 1e-30 to 1e30 of
+    both signs: each term is the previous remainder rounded to bf16, and
+    a round-to-nearest's remainder is exact in f32."""
+    rng = np.random.default_rng(7)
+    mag = 10.0 ** rng.uniform(-30, 30, size=(64, 96))
+    sign = rng.choice([-1.0, 1.0], size=mag.shape)
+    m = torch.from_numpy((sign * mag * rng.uniform(1, 2, size=mag.shape)).astype(np.float32))
+    hi, mid, lo = decoder_step.split3(m)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi.float() + mid.float() + lo.float(), m)
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), m)
+    # Two terms would not do: they leave about 2**-17 of each value.
+    assert not torch.equal(hi.float() + mid.float(), m)
+
+
+@pytest.mark.parametrize("shape", [(8, 32, 80), (111, 64, 1001)], ids=["small", "ragged"])
+def test_vocab_proj_split_matches_plain(shape):
+    """The bf16 kernel's arithmetic (three exact bf16 x bf16 products per
+    term, one f32 sum) against the f32 product: summation order only."""
+    B, U, V = shape
+    rng = np.random.default_rng(8)
+    merged = torch.from_numpy(np.abs(rng.normal(size=(B, U))).astype(np.float32))
+    wo = torch.from_numpy(rng.normal(size=(U, V)) * U**-0.5).to(torch.bfloat16)
+    bo = torch.from_numpy(rng.normal(size=(V,))).to(torch.bfloat16)
+    got = decoder_step.vocab_proj_split_plain(merged, wo, bo)
+    want = decoder_step.vocab_proj_plain(merged, wo, bo)
+    assert got.dtype == torch.float32 and got.shape == (B, V)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _fused_step_inputs(dt):
+    """tpucap's inputs, and the port's with x as the embedding table:
+    token i's embedding is x[i]."""
+    (pj, sj, xj), (pt, st, xt) = _merge_inputs(dt)
+    return pj, sj, xj, dict(pt, embedding={"table": xt}), st
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_fused_step_makes_kmajor_copy_once_and_matches_pallas_kernel(dt, monkeypatch):
+    """The step from make_fused_merge_step equals tpucap's fused_merge_step
+    on the same inputs at every call, and makes W_o's K-major copy once
+    (bf16 weights only), not once per step; a new W_o tensor gets its own."""
+    pj, sj, xj, pt, st = _fused_step_inputs(dt)
+    copies = []
+    real = decoder_step.vocab_weight_kmajor
+    monkeypatch.setattr(
+        decoder_step, "vocab_weight_kmajor", lambda wo: copies.append(wo) or real(wo)
+    )
+    step = decoder_step.make_fused_merge_step(types.SimpleNamespace(num_layers=1))
+    token = torch.arange(8)
+    logits_ref, _ = jax_merge_step(pj, sj, xj, tile_v=32, interpret=True)
+    for _ in range(3):
+        logits, new = step(pt, st, token)
+        np.testing.assert_allclose(_np(logits), _np(logits_ref), **TOL["f32"])
+    want = 1 if dt == "bf16" else 0
+    assert len(copies) == want and all(c is pt["out"]["kernel"] for c in copies)
+    pt2 = dict(pt, out={"kernel": pt["out"]["kernel"].clone(), "bias": pt["out"]["bias"]})
+    step(pt2, st, token)
+    step(pt2, st, token)
+    assert len(copies) == 2 * want
+
+
+def test_identity_block_wrapper_rejects_widths_its_bf16_kernel_does_not_take():
+    """Checked before any device is touched: K4's bf16 kernel takes C a
+    multiple of 128 (its output passes are 128 channels wide)."""
+    t = lambda *shape: torch.empty(shape, device="meta", dtype=torch.bfloat16)  # noqa: E731
+    conv = lambda o, i, k: {"kernel": t(o, i, k, k), "bias": t(o)}  # noqa: E731
+    with pytest.raises(ValueError, match="C a multiple of 128"):
+        bottleneck.fused_identity_block(conv(64, 192, 1), conv(64, 64, 3), conv(192, 64, 1), t(1, 4, 4, 192))
 
 
 def test_wrappers_on_cpu_run_plain_versions_and_count_no_launch():

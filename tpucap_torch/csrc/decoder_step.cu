@@ -2,31 +2,60 @@
 // merge-decoder step.
 //
 // Replaces tpucap/ops/pallas/decoder_step.py:fused_merge_step (Pallas
-// kernel _kernel). On the TPU one call runs the LSTM cell, the merge head
-// and the vocab tiles in a sequential grid, keeping h' and `merged` in VMEM
-// scratch from grid step 0. Hopper blocks run in parallel and nothing
-// carries between them, so the step is three launches on one stream:
+// kernel _kernel; its projection tiles at :73-80). On the TPU one call runs
+// the LSTM cell, the merge head and the vocab tiles in a sequential grid,
+// keeping h' and `merged` in VMEM scratch from grid step 0. Hopper blocks
+// run in parallel and nothing carries between them, so the step is three
+// launches on one stream:
 //   1. K2 (lstm_step.cu), which also writes h' in f32;
 //   2. merge head:  merged = relu((fe + h') @ W_p + b_p), f32, into a (B, U)
 //      f32 scratch the wrapper allocates;
 //   3. projection:  logits = merged @ W_o + b_o, f32.
-// Stages 2 and 3 are one templated "linear + bias (+ relu)" kernel. Both
-// keep the TPU kernel's numerics: fe + h' and merged stay f32, weights are
-// upcast to f32, products and sums are f32 FMAs.
+// Both keep the TPU kernel's numerics: fe + h' and merged stay f32, the
+// products of merged with the weights are exact and summed in f32.
 //
 // Bound on an H100: the projection at (768 x 256) @ (256 x 7579) moves
 // 28 MB (W_o in bf16, merged in f32, mostly the 23 MB of f32 logits
 // written): about 8.3 us at 3.35 TB/s. Its 3.0 GFLOP take about 3 us on
-// bf16 tensor cores, and still about 9 us with merged split into three
-// bf16 terms (hi + mid + lo, f32 accumulation), which keeps f32 accuracy
-// against the bf16 W_o. So it is bound by the logits write. The merge head
-// (0.1 GFLOP, 2.1 MB) is bound by bytes too, at about 0.6 us. Design, for
-// now: a classic SIMT tiled GEMM on f32 FMAs, far from that bound: 256
-// threads, a 16 x 16 thread grid, each thread owning a (BM/16) x (BN/16)
-// register tile with strided rows/columns so shared reads are broadcast or
-// conflict-free; bias and relu in the epilogue; ragged edges masked. The
-// bf16-split tensor-core version (wgmma, TMA) is later work.
+// bf16 tensor cores, and about 9 us with merged split into three bf16
+// terms. The merge head (0.1 GFLOP, 2.1 MB) is bound by bytes, at about
+// 0.6 us.
+//
+// bf16 projection (vocab_proj_kernel): tensor cores on an exact split.
+// Each f32 value m of `merged` is split, in the kernel, into three bf16
+// terms hi = bf16(m), mid = bf16(m - hi), lo = bf16(m - hi - mid), whose
+// sum is m exactly (for |m| above about 1e-33); every bf16 x bf16 product
+// is exact in f32, so hi W + mid W + lo W, summed in one f32 accumulator,
+// differs from the f32 product only in summation order. (Two terms would
+// leave about 2^-17 of each product: a change of numerics, not of speed.)
+// A persistent block owns 64 rows of merged, splits them once into shared
+// memory (3 x 64 x U bf16, 96 KB at U = 256), then walks every G-th
+// 256-column tile of the vocabulary. W_o is read K-major, as the (V, U)
+// copy W_o^T that the fused step makes once per decode (V = 7579 is odd,
+// so rows of W_o itself are not 16-byte aligned): each 64-deep slab of a
+// tile is one TMA request (zero past V, 128-byte swizzle) into a 3-stage
+// ring on mbarriers, running on across tiles. Two warpgroups each own 128
+// columns: per 16-deep step, three wgmma.m64n128k16 (one per term) with the
+// terms' fragments from ldmatrix and W_o^T read by the tensor cores from
+// the ring. Logits rows are only 4-byte aligned (V odd), so each warp
+// stages its 16 x 32 pieces in shared memory and writes whole rows of 32
+// consecutive floats per store; bias added, ragged rows and columns
+// masked. U must be a multiple of 64, at most 256; other widths take the
+// SIMT kernel below. What the versions taught (PERF.md, K3's versions):
+// with per-thread cp.async and mma.sync each warp's serial instruction
+// stream set the time, not the tensor cores or L2; the staged stores,
+// wgmma and TMA each cut it. Leaving a slab's wgmmas in flight under the
+// next slab (A's fragments double-buffered) was slower: the compiler
+// fences registers that an in-flight wgmma uses.
+//
+// f32 (both stages) and the bf16 merge head (linear_kernel): a classic
+// SIMT tiled GEMM on f32 FMAs with weights upcast to f32: 256 threads, a
+// 16 x 16 thread grid, each thread owning a (BM/16) x (BN/16) register tile
+// with strided rows/columns so shared reads are broadcast or conflict-free;
+// bias and relu in the epilogue; ragged edges masked.
 #include "common.cuh"
+#include "mma.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -115,6 +144,186 @@ void launch(const void* A, const float* A2, const void* W, const void* bias,
           static_cast<const TW*>(bias), C, M, N, K);
 }
 
+// -- bf16 projection: tensor cores on the three-term split ------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kVpWarps = 8;                 // warpgroup g: columns 128 g .. of a tile
+constexpr int kVpBM = 64;                   // rows of merged per block
+constexpr int kVpBN = 256;                  // vocab columns per tile
+constexpr int kVpKC = 64;                   // depth of a ring stage
+constexpr int kVpMaxK = 256;
+constexpr int kVpStages = 3;
+constexpr int kVpStageBytes = kVpBN * 128;  // 256 rows of 64 bf16
+constexpr int kVpSmemA = 3 * kVpBM * kVpMaxK * 2;
+constexpr int kStgLd = 33;                  // row stride (floats) of a warp's staging tile
+constexpr int kVpStg = kVpWarps * 16 * kStgLd * 4;
+constexpr size_t kVpSmem = 1024 + kVpSmemA + kVpStages * kVpStageBytes + kVpStg + 8 * kVpStages;
+
+__global__ void __launch_bounds__(32 * kVpWarps, 1)
+    vocab_proj_kernel(const float* __restrict__ merged, const __grid_constant__ CUtensorMap wo_t,
+                      const bf16* __restrict__ bias, float* __restrict__ out, int M,
+                      int N, int K) {
+  using namespace tpucap::mma;
+  using namespace tpucap::tma;
+  extern __shared__ __align__(128) unsigned char smem[];
+  // The ring's wgmma swizzle needs 1024-byte aligned tiles.
+  const unsigned raw = smem_addr(smem), a_s = (raw + 1023) & ~1023u;
+  const unsigned w_s = a_s + kVpSmemA;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, wl = warp % 4;
+  float* stg = reinterpret_cast<float*>(smem + (w_s - raw) + kVpStages * kVpStageBytes) +
+               warp * 16 * kStgLd;
+  const unsigned bar = w_s + kVpStages * kVpStageBytes + kVpStg;  // an mbarrier a stage
+  const int m0 = blockIdx.y * kVpBM;
+  const int kchunks = K / 8;  // 16-byte chunks of a row
+  // Chunk c of row r of split term t, swizzled within the row's 8-chunk groups.
+  auto a_addr = [&](int t, int r, int c) {
+    return a_s + static_cast<unsigned>((t * kVpBM + r) * 2 * K) +
+           static_cast<unsigned>(((c & ~7) | ((c ^ r) & 7)) << 4);
+  };
+
+  // This block's tiles: blockIdx.x, + gridDim.x, ...; a ring stage per
+  // (tile, 64-deep slab).
+  const int tiles = (N + kVpBN - 1) / kVpBN;
+  const int my_tiles = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const int nk = K / kVpKC;
+  const int Q = my_tiles * nk;
+  // Stage q: rows n0 .. n0 + 256 of W_o^T (zero past N), columns k0 ..
+  // k0 + 64, one TMA request by thread 0.
+  auto load_stage = [&](int q) {
+    const int n0 = (blockIdx.x + (q / nk) * gridDim.x) * kVpBN, k0 = (q % nk) * kVpKC;
+    const unsigned b = bar + 8 * (q % kVpStages);
+    mbar_expect(b, kVpStageBytes);
+    load_2d(w_s + (q % kVpStages) * kVpStageBytes, &wo_t, b, k0, n0);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kVpStages; ++s) mbar_init(bar + 8 * s, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < kVpStages - 1 && s < Q; ++s) load_stage(s);
+
+  // Split merged[m0 .. m0 + 64) into hi, mid, lo while the ring fills.
+  for (int i = tid; i < kVpBM * kchunks; i += 32 * kVpWarps) {
+    const int r = i / kchunks, c = i % kchunks;
+    float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (m0 + r < M) {
+      const float4* src = reinterpret_cast<const float4*>(merged + static_cast<int64_t>(m0 + r) * K + 8 * c);
+      const float4 p = src[0], q = src[1];
+      v[0] = p.x; v[1] = p.y; v[2] = p.z; v[3] = p.w;
+      v[4] = q.x; v[5] = q.y; v[6] = q.z; v[7] = q.w;
+    }
+    unsigned t[3][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x0 = v[2 * e], x1 = v[2 * e + 1];
+#pragma unroll
+      for (int term = 0; term < 3; ++term) {
+        const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+        t[term][e] = *reinterpret_cast<const unsigned*>(&b);
+        const float2 f = __bfloat1622float2(b);
+        x0 -= f.x;  // exact: the rounding error of a round-to-nearest
+        x1 -= f.y;
+      }
+    }
+#pragma unroll
+    for (int term = 0; term < 3; ++term)
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a_addr(term, r, c)),
+                   "r"(t[term][0]), "r"(t[term][1]), "r"(t[term][2]), "r"(t[term][3])
+                   : "memory");
+  }
+
+  float d[16][4];  // this warp's 16 rows x the warpgroup's 128 columns
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[j][e] = 0.0f;
+
+  for (int q = 0; q < Q; ++q) {
+    mbar_wait(bar + 8 * (q % kVpStages), (q / kVpStages) & 1);  // stage q has landed
+    __syncthreads();  // every warp is done with stage q - 1
+    if (tid == 0 && q + kVpStages - 1 < Q) load_stage(q + kVpStages - 1);
+    const unsigned w_t = w_s + (q % kVpStages) * kVpStageBytes + wg * (kVpStageBytes / 2);
+    const int c0 = (q % nk) * (kVpKC / 8);  // first chunk of this slab in a row of A
+    unsigned a[12][4];                       // term t, step kk: a[4 t + kk]
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldmatrix_x4(a[4 * t + kk], a_addr(t, 16 * wl + (lane & 15), c0 + 2 * kk + (lane >> 4)));
+    pin(d, a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int t = 0; t < 3; ++t) Wgmma<128>::run(d, a[4 * t + kk], smem_desc(w_t + 32 * kk), true);
+    wgmma_commit_wait<0>();
+    pin(d, a);
+    if (q % nk != nk - 1) continue;
+
+    // The tile's logits through this warp's staging tile, 32 columns at a
+    // time, so each store instruction writes 32 consecutive floats of a row
+    // (rows of an odd V are only 4-byte aligned).
+    const int n0 = (blockIdx.x + (q / nk) * gridDim.x) * kVpBN + wg * 128;
+    const int g = lane / 4, t = lane % 4;
+    const int rows = M - (m0 + 16 * wl) < 16 ? M - (m0 + 16 * wl) : 16;
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      __syncwarp();
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* s = stg + (g + 8 * h) * kStgLd + 8 * jj + 2 * t;
+          s[0] = d[4 * qq + jj][2 * h];
+          s[1] = d[4 * qq + jj][2 * h + 1];
+          d[4 * qq + jj][2 * h] = 0.0f;
+          d[4 * qq + jj][2 * h + 1] = 0.0f;
+        }
+      __syncwarp();
+      const int n = n0 + 32 * qq + lane;
+      if (n >= N) continue;
+      const float bn = __bfloat162float(bias[n]);
+      float* dst = out + static_cast<int64_t>(m0 + 16 * wl) * N + n;
+      for (int r = 0; r < rows; ++r) dst[static_cast<int64_t>(r) * N] = stg[r * kStgLd + lane] + bn;
+    }
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+int launch_vocab_proj(const float* merged, const bf16* wo_t, const bf16* bias, float* out,
+                      int M, int N, int K, cudaStream_t stream) {
+  CUtensorMap map;
+  const int err = tpucap::tma::encode_2d(&map, wo_t, N, K, K, kVpBN);
+  if (err) return err;
+  static bool attr_set = false;  // once, before any graph capture
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        vocab_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kVpSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  const int m_tiles = (M + kVpBM - 1) / kVpBM;
+  const int tiles = (N + kVpBN - 1) / kVpBN;
+  int groups = sm_count() / m_tiles;
+  groups = groups < 1 ? 1 : (groups > tiles ? tiles : groups);
+  if (m_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  vocab_proj_kernel<<<dim3(groups, m_tiles), 32 * kVpWarps, kVpSmem, stream>>>(
+      merged, map, bias, out, M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // merged (M, N) f32 = relu((fe (M, K) in dtype + h32 (M, K) f32)
@@ -142,7 +351,8 @@ extern "C" int tpucap_merge_head(const void* fe, const void* h32,
   return static_cast<int>(cudaGetLastError());
 }
 
-// logits (M, N) f32 = merged (M, K) f32 @ wo (K, N) in dtype + bo (N,).
+// logits (M, N) f32 = merged (M, K) f32 @ wo (K, N) in dtype + bo (N,): the
+// f32 route, and the bf16 one for widths tpucap_vocab_proj_t does not take.
 extern "C" int tpucap_vocab_proj(const void* merged, const void* wo,
                                  const void* bo, void* out, int M, int N,
                                  int K, int dtype, void* stream) {
@@ -161,4 +371,17 @@ extern "C" int tpucap_vocab_proj(const void* merged, const void* wo,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// logits (M, N) f32 = merged (M, K) f32 @ wo_t (N, K)^T bf16 + bo (N,) bf16:
+// the bf16 route on tensor cores, W_o given K-major. K a multiple of 64, at
+// most 256; merged and wo_t 16-byte aligned.
+extern "C" int tpucap_vocab_proj_t(const void* merged, const void* wo_t,
+                                   const void* bo, void* out, int M, int N,
+                                   int K, void* stream) {
+  if (M < 1 || N < 1 || K < kVpKC || K % kVpKC || K > kVpMaxK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_vocab_proj(static_cast<const float*>(merged), static_cast<const bf16*>(wo_t),
+                           static_cast<const bf16*>(bo), static_cast<float*>(out), M, N, K,
+                           static_cast<cudaStream_t>(stream));
 }

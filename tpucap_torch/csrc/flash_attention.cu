@@ -86,12 +86,8 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// wgmma operand B in shared memory: a 64-row tile of 128-byte rows with the
-// 128-byte swizzle (chunk c of row r at c ^ (r % 8), the layout of
-// mma.cuh's swz), its base 1024-byte aligned; 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t smem_desc(unsigned addr) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
+// wgmma operand B in shared memory: mma.cuh's smem_desc (a 1024-byte aligned
+// tile of 128-byte rows with the 128-byte swizzle).
 
 // d (64 x 64 per warpgroup, f32) = a b (+ d if acc): a from registers (each
 // warp its 16 rows, in mma.sync's A layout), b from shared memory, K-major

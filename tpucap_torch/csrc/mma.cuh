@@ -1,8 +1,10 @@
-// Warp-level tensor-core and asynchronous-copy primitives for sm_90a, the
-// building blocks of the bf16 routes of kernels K2 (lstm_step.cu) and K5
-// (flash_attention.cu): 16-byte cp.async with zero fill, ldmatrix (plain
-// and transposed) and mma.sync m16n8k16 with bf16 operands and f32
-// accumulators.
+// Tensor-core and asynchronous-copy primitives for sm_90a, the building
+// blocks of the bf16 routes of kernels K2 (lstm_step.cu), K3's projection
+// (decoder_step.cu), K4 (bottleneck.cu) and K5 (flash_attention.cu):
+// 16-byte cp.async with zero fill, ldmatrix (plain and transposed),
+// mma.sync m16n8k16 with bf16 operands and f32 accumulators, and
+// warpgroup wgmma m64n64k16 / m64n128k16 with A from registers and a
+// K-major B from shared memory.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
 // lane = 4 g + t:
@@ -78,6 +80,100 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// -- wgmma (sm_90a): a warpgroup's 64 x N product --------------------------
+//
+// d (64 x N, f32) += a b with A from registers (each warp of the warpgroup
+// its 16 rows, in mma.sync's A layout, e.g. from ldmatrix_x4) and B read by
+// the tensor cores from shared memory: N rows of 128 bytes (64 bf16 of K
+// each, K-major, mma.sync's .col operand), stored with swz above from a
+// 1024-byte aligned base, so that the layout is wgmma's 128-byte swizzle;
+// 8-row groups 1024 bytes apart. Step kk (16 deep) of such a tile is
+// smem_desc(base + 32 kk). Each warp's accumulators are in mma.sync's C
+// layout, n8 tile j in d[j]. Data that cp.async wrote must be made visible
+// to the tensor cores (fence.proxy.async) before the barrier that publishes
+// it; TMA's writes are visible once their mbarrier phase completes.
+__device__ __forceinline__ uint64_t smem_desc(unsigned addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void run(float (&d)[8][4], const unsigned (&a)[4],
+                                             uint64_t b, bool acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(acc)));
+  }
+};
+template <>
+struct Wgmma<128> {
+  __device__ __forceinline__ static void run(float (&d)[16][4], const unsigned (&a)[4],
+                                             uint64_t b, bool acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(acc)));
+  }
+};
+
+// Keeps the compiler from moving writes of d or a below the wgmma fence,
+// or reads of d (and reuse of a's registers) above the wait: the wgmmas
+// read a and write d after their asm has returned.
+template <int NT, int NA>
+__device__ __forceinline__ void pin(float (&d)[NT][4], unsigned (&a)[NA][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
+#pragma unroll
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Commits the warpgroup's wgmmas so far and waits until at most kPending
+// groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
 }
 
 }  // namespace mma

@@ -46,7 +46,7 @@ def fused_identity_block_plain(p1, p2, p3, x):
 def fused_identity_block(p1, p2, p3, x):
     """p1/p2/p3: {"kernel", "bias"} with OIHW kernels (M, C, 1, 1),
     (M, M, 3, 3), (C, M, 1, 1); x (B, H, W, C) NHWC, f32 or bf16. C and M
-    must be multiples of 64.
+    must be multiples of 64, and C of 128 in bf16 (every ResNet-50 block).
 
     On CUDA tensors this launches kernel K4 (one launch per call); on CPU
     tensors it runs ``fused_identity_block_plain``."""
@@ -59,6 +59,8 @@ def fused_identity_block(p1, p2, p3, x):
         raise ValueError(f"fused_identity_block takes f32 or bf16, got {dt}")
     if C % 64 or M % 64:
         raise ValueError(f"fused_identity_block needs C and M multiples of 64, got {C}, {M}")
+    if dt == torch.bfloat16 and C % 128:
+        raise ValueError(f"fused_identity_block's bf16 kernel needs C a multiple of 128, got {C}")
     x = x.contiguous()
     # OIHW kernels on the card are channels_last, i.e. (out, kh, kw, in)
     # bytes: these views are then contiguous and nothing is copied.
@@ -71,6 +73,9 @@ def fused_identity_block(p1, p2, p3, x):
         ("w3", w3, (C, M)), ("b1", b1, (M,)), ("b2", b2, (M,)), ("b3", b3, (C,)),
     ):
         _build.require(t, name, dt, shape)
+        align = 4 if name.startswith("b") else 16  # 16-byte copies; bf16 pairs of bias
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
     out = torch.empty_like(x)
     fn = _build.kernel("bottleneck", "tpucap_identity_block", _ARGTYPES)
     err = fn(

@@ -9,9 +9,12 @@ the TPU kernel's numerics (``fe + h'`` and ``merged`` stay f32):
     logits       = merged @ W_o + b_o                 (vocab_proj, f32)
 
 Three launches per step on one stream replace the TPU's single sequential
-grid; ``csrc/decoder_step.cu`` says why and what bounds each. The
-embedding lookup stays a plain gather outside the kernels, as in the JAX
-package.
+grid; ``csrc/decoder_step.cu`` says why and what bounds each. With bf16
+weights the projection runs on tensor cores on an exact three-term bf16
+split of ``merged`` (``split3``), reading W_o K-major: the step that
+``make_fused_merge_step`` returns makes that (V, U) copy once, at its first
+call, and keeps it while the weight tensor stays the same. The embedding
+lookup stays a plain gather outside the kernels, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +37,31 @@ def merge_head_plain(fe, h32, wp, bp):
 def vocab_proj_plain(merged, wo, bo):
     """merged (f32) @ W_o + b_o in f32."""
     return torch.matmul(merged, wo.float()) + bo.float()
+
+
+def split3(m):
+    """f32 m -> bf16 (hi, mid, lo) with hi + mid + lo == m exactly in f32:
+    each term is the previous remainder rounded to nearest bf16, and the
+    remainder of a round-to-nearest is exact in f32. The bf16 projection
+    kernel splits ``merged`` so, in shared memory."""
+    hi = m.to(torch.bfloat16)
+    r = m - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def vocab_proj_split_plain(merged, wo, bo):
+    """The bf16 kernel's arithmetic in plain PyTorch: the three terms'
+    products with the bf16 W_o (each exact in f32), summed in f32."""
+    w = wo.float()
+    return sum(torch.matmul(t.float(), w) for t in split3(merged)) + bo.float()
+
+
+def vocab_weight_kmajor(wo):
+    """W_o (U, V) -> W_o^T (V, U), contiguous: the bf16 projection's B
+    operand, every row 16-byte aligned whatever V is."""
+    return wo.t().contiguous()
 
 
 def _linear(fn_name, counter, a_args, w, b, M, N, K, dt, device):
@@ -68,18 +96,40 @@ def merge_head(fe, h32, wp, bp):
 merge_head.launches = 0
 
 
-def vocab_proj(merged, wo, bo):
+def vocab_proj(merged, wo, bo, wo_t=None):
     """merged (B, U) f32, wo (U, V), bo (V,) -> logits (B, V) f32. Launches
     the projection stage of K3 on CUDA tensors; runs ``vocab_proj_plain``
-    on CPU tensors."""
+    on CPU tensors. With bf16 weights and U a multiple of 64 up to 256 the
+    kernel runs on tensor cores and reads W_o K-major: ``wo_t`` is
+    ``vocab_weight_kmajor(wo)``, made here when not given. Other widths,
+    and f32, take the SIMT kernel."""
     if merged.device.type == "cpu":
         return vocab_proj_plain(merged, wo, bo)
     M, K = merged.shape
     _build.require(merged, "merged", torch.float32)
-    return _linear(
-        "tpucap_vocab_proj", vocab_proj, (merged.data_ptr(),),
-        wo, bo, M, wo.shape[1], K, wo.dtype, merged.device,
+    if wo.dtype != torch.bfloat16 or K % 64 or K > 256:
+        return _linear(
+            "tpucap_vocab_proj", vocab_proj, (merged.data_ptr(),),
+            wo, bo, M, wo.shape[1], K, wo.dtype, merged.device,
+        )
+    N = wo.shape[1]
+    if wo_t is None:
+        wo_t = vocab_weight_kmajor(wo)
+    _build.require(wo, "wo", torch.bfloat16, (K, N))
+    _build.require(wo_t, "wo_t", torch.bfloat16, (N, K))
+    _build.require(bo, "bo", torch.bfloat16, (N,))
+    for name, t in (("merged", merged), ("wo_t", wo_t)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty((M, N), dtype=torch.float32, device=merged.device)
+    fn = _build.kernel("decoder_step", "tpucap_vocab_proj_t", _ARGTYPES["tpucap_vocab_proj_t"])
+    err = fn(
+        merged.data_ptr(), wo_t.data_ptr(), bo.data_ptr(), out.data_ptr(), M, N, K,
+        _build.stream_ptr(merged),
     )
+    _build.check("decoder_step", "tpucap_vocab_proj_t", err)
+    vocab_proj.launches += 1
+    return out
 
 
 vocab_proj.launches = 0
@@ -89,14 +139,17 @@ _ARGTYPES = {
     + (ctypes.c_void_p,),
     "tpucap_vocab_proj": (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
     + (ctypes.c_void_p,),
+    "tpucap_vocab_proj_t": (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3
+    + (ctypes.c_void_p,),
 }
 
 
-def fused_merge_step(params, state, x):
+def fused_merge_step(params, state, x, wo_t=None):
     """Fused MergeDecoder (1-layer) step after the embedding lookup.
 
     params: MergeDecoder params (cells[0], pre_out, out). state: {fe, h, c}
-    with h/c shaped (B, 1, U). x: (B, E) embedded last tokens.
+    with h/c shaped (B, 1, U). x: (B, E) embedded last tokens. wo_t: the
+    K-major copy of a bf16 W_o, if the caller keeps one (``vocab_proj``).
     -> (logits (B, V) f32, new_state)."""
     cell = params["cells"][0]
     h = state["h"][:, 0].contiguous()
@@ -107,7 +160,7 @@ def fused_merge_step(params, state, x):
     merged = merge_head(
         state["fe"], h32, params["pre_out"]["kernel"], params["pre_out"]["bias"]
     )
-    logits = vocab_proj(merged, params["out"]["kernel"], params["out"]["bias"])
+    logits = vocab_proj(merged, params["out"]["kernel"], params["out"]["bias"], wo_t)
     new_state = {
         "fe": state["fe"],
         "h": h_new[:, None, :],
@@ -117,12 +170,19 @@ def fused_merge_step(params, state, x):
 
 
 def make_fused_merge_step(decoder):
-    """Drop-in step_fn for the decode engines (1-layer MergeDecoder only)."""
+    """Drop-in step_fn for the decode engines (1-layer MergeDecoder only).
+    The pipeline makes one per decode; with bf16 weights it keeps W_o's
+    K-major copy from its first call for as long as W_o is the same tensor."""
     if decoder.num_layers != 1:
         raise ValueError("fused step supports single-layer MergeDecoder")
 
+    kmajor = [None, None]  # (W_o, its K-major copy): one copy per decode
+
     def step(params, state, token):
+        wo = params["out"]["kernel"]
+        if wo.dtype == torch.bfloat16 and kmajor[0] is not wo:
+            kmajor[:] = [wo, vocab_weight_kmajor(wo)]
         x = embed(params["embedding"], token)
-        return fused_merge_step(params, state, x)
+        return fused_merge_step(params, state, x, kmajor[1] if kmajor[0] is wo else None)
 
     return step
