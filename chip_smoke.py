@@ -15,12 +15,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (the fused identity block) at each of ResNet-50's four stage shapes,
    beside the port's unfused block (three cuDNN convs and their
    elementwise passes); K5 (flash attention) at ViT-B/16's shape, beside
-   ``F.scaled_dot_product_attention``. K2 is also checked at a ragged
-   batch (111 rows, E = 512, U = 256), K3's projection at 111 rows and a
-   vocabulary of 1001, K4 at (3, 13, 11, 256) with M = 64 (no tile divides
-   the image, odd batch) and at (3, 7, 7, 2048) with M = 512, K5 at L = 49
-   and L = 257 with 4 heads. Each kernel's line ends with its share of its bound (bound_ms /
-   ms) and its time over the library call's;
+   ``F.scaled_dot_product_attention``. K1 is also checked from 300 x 250
+   to 224 and to 299 (rows that fill no whole 16-byte chunk), at the same
+   size with a pixel count that is no multiple of 8, and from a source
+   that is not 8-byte aligned; K2 at a ragged batch (111 rows, E = 512,
+   U = 256), K3's merge head at 111 rows and its projection at 111 rows
+   and a vocabulary of 1001, K4 at (3, 13, 11, 256) with M = 64 (no tile
+   divides the image, odd batch) and at (3, 7, 7, 2048) with M = 512, K5
+   at L = 49 and L = 257 with 4 heads. Each kernel's line ends with its
+   share of its bound (bound_ms / ms) and its time over the library call's;
 3. the slice at full width: uint8 (256, 224, 224, 3) -> K1 -> ResNet-50
    (BN folded) -> lstm1 merge decoder (embed/hidden 256, vocab 7579) ->
    beam 3, max_len 34, bf16, random weights from a seed; launch counters
@@ -177,16 +180,21 @@ def check_kernels(dev) -> dict[str, dict]:
     # bf16 rounding boundary.
     imgs = torch.randint(0, 256, (BATCH, IMAGE, IMAGE, 3), generator=g, device=dev, dtype=torch.uint8)
     odd = torch.randint(0, 256, (8, 300, 250, 3), generator=g, device=dev, dtype=torch.uint8)
+    # The same-size kernel's tail (3 x 9 x 7 pixels, no multiple of 8), and
+    # a source 189 bytes into its tensor (not 8-byte aligned: the gather
+    # kernel takes it).
+    small = torch.randint(0, 256, (4, 9, 7, 3), generator=g, device=dev, dtype=torch.uint8)
+    cases = ((imgs, IMAGE), (odd, IMAGE), (odd, 299), (small[1:], 9), (small[:3], 9))
     for mode, tol in (("caffe", 0.0), ("tf", 2e-6), ("torch", 2e-6)):
-        for src in (imgs, odd):
+        for src, size in cases:
             scale, bias, flip = _affine(mode, dev)
-            rows = preprocess._index_table(IMAGE, src.shape[1], src.device)
-            cols = preprocess._index_table(IMAGE, src.shape[2], src.device)
+            rows = preprocess._index_table(size, src.shape[1], src.device)
+            cols = preprocess._index_table(size, src.shape[2], src.device)
             for dt in (torch.float32, torch.bfloat16):
-                got = preprocess.preprocess_u8(src, (IMAGE, IMAGE), mode, dt)
+                got = preprocess.preprocess_u8(src, (size, size), mode, dt)
                 want = preprocess.preprocess_u8_plain(src, rows, cols, scale, bias, flip, dt)
                 rt = 0.0 if dt == torch.float32 else 2**-7
-                check_close(f"preprocess_u8 {mode} {dt}", got, want, rt, tol)
+                check_close(f"preprocess_u8 {mode} {tuple(src.shape)} -> {size} {dt}", got, want, rt, tol)
     scale, bias, flip = _affine("caffe", dev)
     rows = preprocess._index_table(IMAGE, IMAGE, dev)
     kern = lambda: preprocess.preprocess_u8(imgs, (IMAGE, IMAGE), "caffe", torch.bfloat16)  # noqa: E731
@@ -217,7 +225,15 @@ def check_kernels(dev) -> dict[str, dict]:
         x=rnd(Br, Er, scale=0.05), h=rnd(Br, U, scale=0.5), c=rnd(Br, U),
         wk=rnd(Er, 4 * U, scale=Er**-0.5), wr=rnd(U, 4 * U, scale=U**-0.5), b=rnd(4 * U, scale=0.1),
         merged=rnd(Br, U).relu(), wo=rnd(U, Vr, scale=U**-0.5), bo=rnd(Vr, scale=0.1),
+        fe=rnd(Br, U).relu(), h32=rnd(Br, U, scale=0.5),
     )
+
+    def check_head(label, fe, h32, wp, bp, dt):
+        got = decoder_step.merge_head(fe, h32, wp, bp)
+        want = decoder_step.merge_head_plain(fe, h32, wp, bp)
+        # f32 both ways: sums of U exact (bf16) or f32 products in another order.
+        check_close(f"merge_head {label} {dt}", got, want, 1e-5, 1e-4)
+        return got, want
 
     def check_cell(label, cell, dt):
         got = lstm_step.lstm_cell(*cell)
@@ -231,6 +247,7 @@ def check_kernels(dev) -> dict[str, dict]:
 
     for dt in (torch.float32, torch.bfloat16):
         check_cell(f"B={Br} E={Er} U={U}", tuple(ragged[k].to(dt) for k in ("x", "h", "c", "wk", "wr", "b")), dt)
+        check_head(f"M={Br}", ragged["fe"].to(dt), ragged["h32"], base["wp"].to(dt), base["bp"].to(dt), dt)
         wo_r, bo_r = ragged["wo"].to(dt), ragged["bo"].to(dt)
         check_close(f"vocab_proj M={Br} V={Vr} {dt}", decoder_step.vocab_proj(ragged["merged"], wo_r, bo_r),
                     decoder_step.vocab_proj_plain(ragged["merged"], wo_r, bo_r), 1e-5, 1e-4)
@@ -238,9 +255,7 @@ def check_kernels(dev) -> dict[str, dict]:
         cell = (p["x"], p["h"], p["c"], p["wk"], p["wr"], p["b"])
         got, want = check_cell(f"B={M} E={U} U={U}", cell, dt)
         h32 = want[2]
-        m_got = decoder_step.merge_head(p["fe"], h32, p["wp"], p["bp"])
-        m_want = decoder_step.merge_head_plain(p["fe"], h32, p["wp"], p["bp"])
-        check_close(f"merge_head {dt}", m_got, m_want, 1e-5, 1e-4)
+        m_got, m_want = check_head(f"M={M}", p["fe"], h32, p["wp"], p["bp"], dt)
         l_got = decoder_step.vocab_proj(m_want, p["wo"], p["bo"])
         l_want = decoder_step.vocab_proj_plain(m_want, p["wo"], p["bo"])
         check_close(f"vocab_proj {dt}", l_got, l_want, 1e-5, 1e-4)
@@ -258,11 +273,16 @@ def check_kernels(dev) -> dict[str, dict]:
         out["lstm_cell"]["bound_ms"], out["lstm_cell"]["bound_by"] = bound(
             nbytes(*cell, *got), 2 * M * 2 * U * 4 * U, dt
         )
+        # The decode's step keeps W_p's and W_o's K-major copies for the
+        # whole decode. The nearest one-call yardstick of the head,
+        # torch.addmm in f32 on fe + h', leaves out the add and the relu.
+        wp_t = decoder_step.weight_kmajor(p["wp"])
+        a32, wp32, bp32 = p["fe"].float() + h32, p["wp"].float(), p["bp"].float()
         out["merge_head"] = dict(
             max_abs_err=max_err(m_got, m_want),
-            ms=cuda_ms(lambda: decoder_step.merge_head(p["fe"], h32, p["wp"], p["bp"])),
+            ms=cuda_ms(lambda: decoder_step.merge_head(p["fe"], h32, p["wp"], p["bp"], wp_t)),
             plain_ms=cuda_ms(lambda: decoder_step.merge_head_plain(p["fe"], h32, p["wp"], p["bp"])),
-            library_ms=None,
+            library_ms=cuda_ms(lambda: torch.addmm(bp32, a32, wp32)),
         )
         # K3's products take bf16 weights; an f32 operand split into bf16
         # terms keeps f32 accuracy on bf16 tensor cores, so both stages are
@@ -270,9 +290,8 @@ def check_kernels(dev) -> dict[str, dict]:
         out["merge_head"]["bound_ms"], out["merge_head"]["bound_by"] = bound(
             nbytes(p["fe"], h32, p["wp"], p["bp"], m_got), 2 * M * U * U, dt
         )
-        # The decode's step keeps W_o's K-major copy for the whole decode.
         wo32, bo32 = p["wo"].float(), p["bo"].float()
-        wo_t = decoder_step.vocab_weight_kmajor(p["wo"])
+        wo_t = decoder_step.weight_kmajor(p["wo"])
         out["vocab_proj"] = dict(
             max_abs_err=max_err(l_got, l_want),
             ms=cuda_ms(lambda: decoder_step.vocab_proj(m_want, p["wo"], p["bo"], wo_t)),

@@ -46,9 +46,11 @@ import chip_smoke  # noqa: E402  (the slice's shapes and pipeline)
 from tpucap_torch.ops.preprocess import fused_preprocess  # noqa: E402
 
 GROUPS = (  # first match wins; substrings of the demangled kernel name
-    ("port K1 preprocess_u8", ("preprocess_u8_kernel",)),
+    ("port K1 preprocess_u8", ("preprocess_u8_same_kernel", "preprocess_u8_gather_kernel")),
     ("port K2 lstm_cell", ("lstm_cell_kernel",)),
-    ("port K3 merge_head + vocab_proj", ("linear_kernel", "vocab_proj_kernel")),
+    ("port K3 merge_head", ("merge_head_kernel",)),
+    ("port K3 vocab_proj", ("vocab_proj_kernel",)),
+    ("port K3 SIMT (f32, other widths)", ("linear_kernel",)),
     ("port K4 identity_block", ("identity_block_kernel",)),
     ("port K5 flash_attention", ("flash_kernel",)),
     ("convolution", ("conv", "cudnn", "fprop", "implicit_gemm", "nchwToNhwc", "nhwcToNchw")),

@@ -1,10 +1,11 @@
 """Plain versions of the port's kernels against the JAX package's kernels.
 
 K1 (preprocess) against tpucap.ops.preprocess.fused_preprocess (its XLA
-path on the CPU) and the host oracle tpucap.data.preprocess; K2 (LSTM cell)
-against fused_lstm_step(interpret=True); K3 (merge step) against
+path on the CPU; also at an output of 299) and the host oracle
+tpucap.data.preprocess; K2 (LSTM cell) against
+fused_lstm_step(interpret=True); K3 (merge step) against
 fused_merge_step(interpret=True) with a ragged last vocab tile; the exact
-three-term bf16 split behind K3's bf16 projection. (K4 and K5 are held
+three-term bf16 split behind K3's bf16 merge head and projection. (K4 and K5 are held
 against tpucap in test_torch_encoder.py and test_torch_vit.py.)
 On CPU tensors every wrapper runs its plain version and counts no launch; the
 CUDA kernels themselves are checked against these plain versions on the
@@ -74,6 +75,30 @@ def test_preprocess_matches_jax_and_host_oracle(mode, src_hw):
     cols = preprocess._nearest_indices(size, src_hw[1])
     host = preprocess_input(imgs[:, rows][:, :, cols].astype(np.float32), mode)
     np.testing.assert_allclose(out.numpy(), host, rtol=0, atol=max(atol, 1e-6))
+
+
+@pytest.mark.parametrize("mode", ["caffe", "torch"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_preprocess_plain_at_299_matches_jax_resize_and_normalize(mode, dt):
+    """An output of 299 from 300 x 250: rows of 299 x 3 outputs fill no
+    whole 16-byte chunk, the ragged case of the card's gather kernel. The
+    plain version, as the card's check runs it, against tpucap's resize
+    gather and normalize; bf16 outputs within one bf16 ulp."""
+    rng = np.random.default_rng(2)
+    imgs = rng.integers(0, 256, size=(2, 300, 250, 3), dtype=np.uint8)
+    jdt, tdt = DT[dt]
+    ref = jax_fused_preprocess(jnp.asarray(imgs), 299, mode, out_dtype=jdt)
+    scale, bias, flip = preprocess._mode_scale_bias(mode)
+    cpu = torch.device("cpu")
+    out = preprocess.preprocess_u8_plain(
+        torch.from_numpy(imgs), preprocess._index_table(299, 300, cpu),
+        preprocess._index_table(299, 250, cpu), torch.from_numpy(scale),
+        torch.from_numpy(bias), flip, tdt,
+    )
+    assert out.shape == (2, 299, 299, 3) and out.dtype == tdt
+    atol = 0 if mode == "caffe" else 2e-6
+    rtol = 0 if dt == "f32" else 2**-7
+    np.testing.assert_allclose(_np(out), _np(ref), rtol=rtol, atol=atol)
 
 
 def test_preprocess_out_dtype_and_normalize_images():
@@ -230,13 +255,14 @@ def _fused_step_inputs(dt):
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_fused_step_makes_kmajor_copy_once_and_matches_pallas_kernel(dt, monkeypatch):
     """The step from make_fused_merge_step equals tpucap's fused_merge_step
-    on the same inputs at every call, and makes W_o's K-major copy once
-    (bf16 weights only), not once per step; a new W_o tensor gets its own."""
+    on the same inputs at every call, and makes the K-major copies of W_p
+    and W_o once each (bf16 weights only), not once per step; a new W_o
+    tensor gets its own copy and W_p keeps its."""
     pj, sj, xj, pt, st = _fused_step_inputs(dt)
     copies = []
-    real = decoder_step.vocab_weight_kmajor
+    real = decoder_step.weight_kmajor
     monkeypatch.setattr(
-        decoder_step, "vocab_weight_kmajor", lambda wo: copies.append(wo) or real(wo)
+        decoder_step, "weight_kmajor", lambda w: copies.append(w) or real(w)
     )
     step = decoder_step.make_fused_merge_step(types.SimpleNamespace(num_layers=1))
     token = torch.arange(8)
@@ -244,12 +270,36 @@ def test_fused_step_makes_kmajor_copy_once_and_matches_pallas_kernel(dt, monkeyp
     for _ in range(3):
         logits, new = step(pt, st, token)
         np.testing.assert_allclose(_np(logits), _np(logits_ref), **TOL["f32"])
-    want = 1 if dt == "bf16" else 0
-    assert len(copies) == want and all(c is pt["out"]["kernel"] for c in copies)
+    want = [pt["pre_out"]["kernel"], pt["out"]["kernel"]] if dt == "bf16" else []
+    assert len(copies) == len(want) and all(c is w for c, w in zip(copies, want))
     pt2 = dict(pt, out={"kernel": pt["out"]["kernel"].clone(), "bias": pt["out"]["bias"]})
     step(pt2, st, token)
     step(pt2, st, token)
-    assert len(copies) == 2 * want
+    want += [pt2["out"]["kernel"]] if dt == "bf16" else []
+    assert len(copies) == len(want) and all(c is w for c, w in zip(copies, want))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_merge_head_split_plain_matches_pallas_kernel(dt):
+    """The bf16 merge-head kernel's arithmetic (fe + h'32 in f32, split
+    into three bf16 terms, exact products summed in f32), followed by the
+    projection's, against tpucap's fused_merge_step: f32 logits, summation
+    order only. U = 64, the narrowest width the kernel takes."""
+    (pj, sj, xj), (pt, st, xt) = _merge_inputs(dt, U=64)
+    logits_ref, _ = jax_merge_step(pj, sj, xj, tile_v=32, interpret=True)
+    cell = pt["cells"][0]
+    _, _, h32 = lstm_step.lstm_cell_plain(
+        xt, st["h"][:, 0], st["c"][:, 0], cell["kernel"], cell["recurrent"], cell["bias"]
+    )
+    merged = decoder_step.merge_head_split_plain(st["fe"], h32, **_wb(pt["pre_out"], "wp", "bp"))
+    assert merged.dtype == torch.float32 and merged.shape == (8, 64)
+    torch.testing.assert_close(
+        merged,
+        decoder_step.merge_head_plain(st["fe"], h32, **_wb(pt["pre_out"], "wp", "bp")),
+        rtol=0, atol=1e-5,
+    )
+    logits = decoder_step.vocab_proj_split_plain(merged, **_wb(pt["out"], "wo", "bo"))
+    np.testing.assert_allclose(_np(logits), _np(logits_ref), **TOL["f32"])
 
 
 def test_identity_block_wrapper_rejects_widths_its_bf16_kernel_does_not_take():

@@ -48,7 +48,26 @@
 // next slab (A's fragments double-buffered) was slower: the compiler
 // fences registers that an in-flight wgmma uses.
 //
-// f32 (both stages) and the bf16 merge head (linear_kernel): a classic
+// bf16 merge head (merge_head_kernel): the same exact split, of a = fe + h'
+// (summed in f32, as the reference does), on wgmma.m64n32k16. At M = 768,
+// U = 256 the work is tiny (0.3 GFLOP with the split, 2.1 MB), so the time
+// is latency: launch, one round trip to memory, and each warp's serial
+// stream. One warpgroup a block owns 64 rows x 32 columns, so 96 blocks
+// fill most of the card (the SIMT kernel's 64 x 64 tiles made 48). Thread 0
+// asks for the block's 32 columns of W_p (16 KB at U = 256) in one TMA
+// request per 64-deep slab, all on one mbarrier, while each warp loads its
+// own 16 rows of fe and h' straight into registers in mma's A layout (no
+// shared memory, no barrier for A; the next slab's loads in flight under
+// this slab's split and wgmmas) and splits them there into the three terms'
+// fragments. W_p is read K-major, as the (U, U) copy W_p^T that the fused
+// step makes once per decode beside W_o^T: the proven 128-byte-swizzled
+// K-major tile of the projection, where reading W_p as stored would take
+// wgmma's transposed (MN-major) B layout, which at 32 columns needs another
+// swizzle. No thread divides in the loop; bias and relu come from the
+// accumulators. U must be a multiple of 64, at most 256; other widths take
+// the SIMT kernel below.
+//
+// f32 (both stages), and bf16 at other widths (linear_kernel): a classic
 // SIMT tiled GEMM on f32 FMAs with weights upcast to f32: 256 threads, a
 // 16 x 16 thread grid, each thread owning a (BM/16) x (BN/16) register tile
 // with strided rows/columns so shared reads are broadcast or conflict-free;
@@ -324,10 +343,153 @@ int launch_vocab_proj(const float* merged, const bf16* wo_t, const bf16* bias, f
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- bf16 merge head: tensor cores on the three-term split of fe + h' -------
+
+constexpr int kMhBM = 64;                  // rows per block: one warpgroup's wgmma
+constexpr int kMhBN = 32;                  // output columns per block
+constexpr int kMhKC = 64;                  // depth of a slab (one TMA box, 128 bytes a row)
+constexpr int kMhMaxK = 256;
+constexpr int kMhSlabs = kMhMaxK / kMhKC;
+constexpr int kMhSlabBytes = kMhBN * 128;  // 32 rows of W_p^T x 64 deep
+constexpr size_t kMhSmem = 1024 + kMhSlabs * kMhSlabBytes + 8;
+
+// This lane's pieces of rows g and g + 8 of a 64-deep slab of fe and h', in
+// mma's A layout: step kk, register e holds (row g + 8 (e & 1), columns
+// 16 kk + 2t + 8 (e >> 1) and the next).
+struct MhSlab {
+  unsigned fe[4][4];
+  float2 h[4][4];
+};
+
+__global__ void __launch_bounds__(128, 1)
+    merge_head_kernel(const bf16* __restrict__ fe, const float* __restrict__ h32,
+                      const __grid_constant__ CUtensorMap wp_t, const bf16* __restrict__ bias,
+                      float* __restrict__ out, int M, int N, int K) {
+  using namespace tpucap::mma;
+  using namespace tpucap::tma;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const unsigned w_s = (smem_addr(smem) + 1023) & ~1023u;  // the swizzle's alignment
+  const unsigned bar = w_s + kMhSlabs * kMhSlabBytes;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * kMhBN, m0 = blockIdx.y * kMhBM;
+  const int nk = K / kMhKC;
+
+  // The block's 32 columns of W_p, as rows n0 .. n0 + 32 of W_p^T: one TMA
+  // request a slab, all on one mbarrier, in flight while fe + h' is split.
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(bar, nk * kMhSlabBytes);
+    for (int s = 0; s < nk; ++s) load_2d(w_s + s * kMhSlabBytes, &wp_t, bar, s * kMhKC, n0);
+  }
+
+  // Rows past M read nothing and split to zeros.
+  const int r0 = m0 + 16 * warp + g, r1 = r0 + 8;
+  const bool v0 = r0 < M, v1 = r1 < M;
+  const bf16* fe_row[2] = {fe + static_cast<int64_t>(v0 ? r0 : 0) * K + 2 * t,
+                           fe + static_cast<int64_t>(v1 ? r1 : 0) * K + 2 * t};
+  const float* h_row[2] = {h32 + static_cast<int64_t>(v0 ? r0 : 0) * K + 2 * t,
+                           h32 + static_cast<int64_t>(v1 ? r1 : 0) * K + 2 * t};
+  auto load = [&](MhSlab& sl, int s) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = s * kMhKC + 16 * kk + 8 * (e >> 1);
+        const bool v = (e & 1) ? v1 : v0;
+        sl.fe[kk][e] = v ? *reinterpret_cast<const unsigned*>(fe_row[e & 1] + col) : 0u;
+        sl.h[kk][e] = v ? *reinterpret_cast<const float2*>(h_row[e & 1] + col) : make_float2(0.0f, 0.0f);
+      }
+  };
+
+  float d[4][4];  // this warp's 16 rows x the block's 32 columns
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[j][e] = 0.0f;
+
+  MhSlab buf[2];
+  load(buf[0], 0);
+#pragma unroll
+  for (int s = 0; s < kMhSlabs; ++s) {
+    if (s >= nk) break;
+    if (s + 1 < nk) load(buf[(s + 1) & 1], s + 1);  // the next slab's loads fly under this one
+    // a = fe + h' in f32, split into hi, mid, lo (term t, step kk: a[4 t + kk]).
+    unsigned a[12][4];
+    const MhSlab& sl = buf[s & 1];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sl.fe[kk][e]));
+        float x0 = f.x + sl.h[kk][e].x, x1 = f.y + sl.h[kk][e].y;
+#pragma unroll
+        for (int term = 0; term < 3; ++term) {
+          const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+          a[4 * term + kk][e] = *reinterpret_cast<const unsigned*>(&b);
+          const float2 r = __bfloat1622float2(b);
+          x0 -= r.x;  // exact: the rounding error of a round-to-nearest
+          x1 -= r.y;
+        }
+      }
+    if (s == 0) mbar_wait(bar, 0);  // W_p's columns have landed
+    pin(d, a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+        Wgmma<32>::run(d, a[4 * term + kk], smem_desc(w_s + s * kMhSlabBytes + 32 * kk), true);
+    wgmma_commit_wait<0>();
+    pin(d, a);
+  }
+
+  // Bias and relu from the registers; each store writes 2 floats of a row.
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = n0 + 8 * j + 2 * t;
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + n));
+    if (v0)
+      *reinterpret_cast<float2*>(out + static_cast<int64_t>(r0) * N + n) =
+          make_float2(fmaxf(d[j][0] + b.x, 0.0f), fmaxf(d[j][1] + b.y, 0.0f));
+    if (v1)
+      *reinterpret_cast<float2*>(out + static_cast<int64_t>(r1) * N + n) =
+          make_float2(fmaxf(d[j][2] + b.x, 0.0f), fmaxf(d[j][3] + b.y, 0.0f));
+  }
+}
+
+int launch_merge_head(const bf16* fe, const float* h32, const bf16* wp_t, const bf16* bias,
+                      float* out, int M, int N, int K, cudaStream_t stream) {
+  CUtensorMap map;
+  const int err = tpucap::tma::encode_2d(&map, wp_t, N, K, K, kMhBN);
+  if (err) return err;
+  const int m_tiles = (M + kMhBM - 1) / kMhBM;
+  if (m_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  merge_head_kernel<<<dim3(N / kMhBN, m_tiles), 128, kMhSmem, stream>>>(fe, h32, map, bias, out,
+                                                                         M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// merged (M, N) f32 = relu((fe (M, K) in dtype + h32 (M, K) f32)
-//                          @ wp (K, N) in dtype + bp (N,) in dtype).
+// merged (M, N) f32 = relu((fe (M, K) bf16 + h32 (M, K) f32) @ wp_t (N, K)^T
+// bf16 + bp (N,) bf16): the bf16 route on tensor cores, W_p given K-major.
+// K a multiple of 64, at most 256; N a multiple of 32; all 16-byte aligned.
+extern "C" int tpucap_merge_head_t(const void* fe, const void* h32, const void* wp_t,
+                                   const void* bp, void* out, int M, int N, int K,
+                                   void* stream) {
+  if (M < 1 || N < kMhBN || N % kMhBN || K < kMhKC || K % kMhKC || K > kMhMaxK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_merge_head(static_cast<const bf16*>(fe), static_cast<const float*>(h32),
+                           static_cast<const bf16*>(wp_t), static_cast<const bf16*>(bp),
+                           static_cast<float*>(out), M, N, K, static_cast<cudaStream_t>(stream));
+}
+
+// The same in f32, and in bf16 for widths tpucap_merge_head_t does not take.
 // N = K = hidden width, small: 64 x 64 tiles keep enough blocks in flight.
 extern "C" int tpucap_merge_head(const void* fe, const void* h32,
                                  const void* wp, const void* bp, void* out,

@@ -1,9 +1,10 @@
 // Tensor-core and asynchronous-copy primitives for sm_90a, the building
-// blocks of the bf16 routes of kernels K2 (lstm_step.cu), K3's projection
-// (decoder_step.cu), K4 (bottleneck.cu) and K5 (flash_attention.cu):
+// blocks of the bf16 routes of kernels K2 (lstm_step.cu), K3's merge head
+// and projection (decoder_step.cu), K4 (bottleneck.cu) and K5
+// (flash_attention.cu):
 // 16-byte cp.async with zero fill, ldmatrix (plain and transposed),
 // mma.sync m16n8k16 with bf16 operands and f32 accumulators, and
-// warpgroup wgmma m64n64k16 / m64n128k16 with A from registers and a
+// warpgroup wgmma m64n32k16 / m64n64k16 / m64n128k16 with A from registers and a
 // K-major B from shared memory.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
@@ -100,6 +101,22 @@ __device__ __forceinline__ uint64_t smem_desc(unsigned addr) {
 
 template <int N>
 struct Wgmma;
+template <>
+struct Wgmma<32> {
+  __device__ __forceinline__ static void run(float (&d)[4][4], const unsigned (&a)[4],
+                                             uint64_t b, bool acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(acc)));
+  }
+};
 template <>
 struct Wgmma<64> {
   __device__ __forceinline__ static void run(float (&d)[8][4], const unsigned (&a)[4],

@@ -3,8 +3,8 @@
 // 128-byte swizzle (the layout of mma.cuh's swz, and of wgmma's B operand,
 // when the destination is 1024-byte aligned), zero-filling whatever of the
 // box lies outside the tensor; completion is counted in bytes on an
-// mbarrier in shared memory. Used by kernels K3's projection
-// (decoder_step.cu) and K4 (bottleneck.cu).
+// mbarrier in shared memory. Used by kernels K3's merge head and
+// projection (decoder_step.cu) and K4 (bottleneck.cu).
 //
 // The tensor map is encoded on the host with the driver's
 // cuTensorMapEncodeTiled, found through the runtime, so nothing links

@@ -9,9 +9,11 @@ channel-flipped) uint8 input, y = scale * x' + bias, in f32:
     torch: (x/255 - mean)/std       (scale + bias)
 
 with the nearest resize (PIL convention, Keras ``load_img`` parity) as a
-gather of rows and columns in front. On the card one CUDA kernel
+gather of rows and columns in front. On the card one CUDA launch
 (``csrc/preprocess.cu``) does gather, flip, affine, cast and NHWC store in
-one pass; see that file for what bounds it.
+one pass: at the same size (the maps are the identity) a kernel that takes
+8 whole pixels a thread, at any other size one that stages the source rows
+in shared memory and gathers from there; see that file for what bounds it.
 """
 
 from __future__ import annotations
@@ -94,8 +96,8 @@ def preprocess_u8(images, size_hw, mode: str, out_dtype=torch.float32):
     _build.require(images, "images", torch.uint8)
     if out_dtype not in _build.DTYPE_CODES:
         raise ValueError(f"unsupported out_dtype {out_dtype}")
-    if S_h > 65535 or B > 65535:
-        raise ValueError("preprocess_u8: grid limit is 65535 rows and images")
+    if B > 65535 and (S_h, S_w) != (H, W):
+        raise ValueError("preprocess_u8: a resize takes at most 65535 images a call")
     out = torch.empty((B, S_h, S_w, 3), dtype=out_dtype, device=images.device)
     fn = _build.kernel("preprocess", "tpucap_preprocess_u8", _ARGTYPES)
     err = fn(
