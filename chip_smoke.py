@@ -1,5 +1,6 @@
-"""Chip smoke for tpucap_torch: drives the port's serving paths on one
-NVIDIA GPU and holds every hand-written kernel against its plain version.
+"""Chip smoke for tpucap_torch: drives the port's serving and training
+paths on one NVIDIA GPU and holds every hand-written kernel against its
+plain version.
 
     python3 chip_smoke.py    # from the repo root; needs one CUDA card and nvcc
 
@@ -24,6 +25,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    divides the image, odd batch) and at (3, 7, 7, 2048) with M = 512, K5
    at L = 49 and L = 257 with 4 heads. Each kernel's line ends with its
    share of its bound (bound_ms / ms) and its time over the library call's;
+2d. K5's two backward kernels (dK/dV and dQ) and K5's row-statistics
+   output against their plain versions, f32 and bf16, at ViT-B/16's
+   training shape (batch 64, L 196, 12 heads) and at L = 49 and 257 with 4
+   heads; times beside the plain versions, the backward of
+   ``F.scaled_dot_product_attention`` (forward + backward, less the
+   forward) and the bound;
 3. the slice at full width: uint8 (256, 224, 224, 3) -> K1 -> ResNet-50
    (BN folded) -> lstm1 merge decoder (embed/hidden 256, vocab 7579) ->
    beam 3, max_len 34, bf16, random weights from a seed; launch counters
@@ -39,8 +46,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    that agree (random weights leave near-ties, so not all must);
 4b. in f32 at batch 32: fused-block against unfused ResNet-50 features,
    ViT flash against ViT xla features, each within tolerance, and the share
-   of identical captions on each path;
-5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
+   of identical captions on each path; in bf16, the fused blocks against
+   the unfused ones, one block and the whole encoder;
+5. training at full width: (a) ``make_train_step`` at ``bench.py --mode
+   train``'s shapes (lstm1, batch 256, T 34 + 1, vocab 7579, bf16 compute,
+   f32 masters; no kernel launches: the teacher-forced loop is plain), step
+   ms and samples/s; (b) ``fit_finetune`` with ViT-B/16 at 224 and flash
+   attention, lstm1, vocab 7579, batch 64, f32 and bf16: counters reset
+   just before and read just after, 12 launches each of K5 forward, dK/dV
+   and dQ per step, loss descending over repeated steps on one batch, step
+   ms, images/s, peak memory; (c) f32, one joint step's loss and gradients
+   with the kernels against the same with ``attention_impl="xla"``;
+6. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
    as the last line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
@@ -76,6 +93,10 @@ REPLACES = {
     "vocab_proj": "tpucap/ops/pallas/decoder_step.py:101",
     "identity_block": "tpucap/ops/pallas/bottleneck.py:145",
     "flash_attention": "tpucap/models/encoders/vit.py:78",
+    # jax 0.9.0's stock TPU flash attention, reached from vit.py:78 when
+    # tpucap's joint fine-tuning differentiates it.
+    "flash_attention_bwd_dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+    "flash_attention_bwd_dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
 }
 SOURCES = {
     "preprocess_u8": "tpucap_torch/csrc/preprocess.cu",
@@ -84,6 +105,8 @@ SOURCES = {
     "vocab_proj": "tpucap_torch/csrc/decoder_step.cu",
     "identity_block": "tpucap_torch/csrc/bottleneck.cu",
     "flash_attention": "tpucap_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dkv": "tpucap_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dq": "tpucap_torch/csrc/flash_attention_bwd.cu",
 }
 # ResNet-50's identity-block shapes at 224: (stage, H = W, C, M, blocks).
 STAGES = (
@@ -98,6 +121,10 @@ K4_F32_BATCH = 8
 K4_RAGGED = (("ragged", 3, 13, 11, 256, 64), ("conv5 B=3", 3, 7, 7, 2048, 512))
 # ViT-B/16 at 224: tokens, heads, head width.
 VIT_L, VIT_HEADS, VIT_D = 196, 12, 64
+# Training: the joint step's image batch (TrainConfig.batch_size's
+# default), its steps on one batch, and the decoder step's batch and
+# feature width (bench.py --mode train: batch 256, ResNet-50's 2048).
+TRAIN_BATCH, TRAIN_STEPS, DEC_TRAIN_BATCH, DEC_FEATURES = 64, 4, 256, 2048
 
 
 def log(msg: str) -> None:
@@ -444,6 +471,106 @@ def check_flash_attention(dev) -> dict:
     return out
 
 
+def check_flash_attention_bwd(dev) -> dict[str, dict]:
+    """Phase 2d: K5's row statistics and its two backward kernels against
+    their plain versions at ViT-B/16's training shape and the ragged ones;
+    q, k, v as views of one qkv projection, the gradients written into
+    views of one gradient buffer. Timed in bf16 at the training shape."""
+    import torch.nn.functional as F
+
+    from tpucap_torch.ops import attention as A
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(7)
+    scale = VIT_D**-0.5
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for B, L, heads in ((8, 49, 4), (8, 257, 4), (TRAIN_BATCH, VIT_L, VIT_HEADS)):
+            H = heads * VIT_D
+            qkv = torch.randn((B, L, 3 * H), generator=g, device=dev).to(dt)
+            do = torch.randn((B, L, heads, VIT_D), generator=g, device=dev).to(dt)
+            q, k, v = A.qkv_views(qkv, heads)
+            o, lse = A.flash_attention(q, k, v, scale, with_lse=True)
+            o_p, lse_p = A.flash_attention_plain(q, k, v, scale, with_lse=True)
+            di = A.attention_di(o_p, do)
+            grads = torch.full_like(qkv, float("nan"))  # every element must be written
+            dq, dk, dv = A.qkv_views(grads, heads)
+            A.flash_attention_bwd_dkv(q, k, v, do, lse_p, di, scale, dk, dv)
+            A.flash_attention_bwd_dq(q, k, v, do, lse_p, di, scale, dq)
+            want = (
+                A.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, di, scale),
+                *A.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p, di, scale),
+            )
+            torch.cuda.synchronize()
+            label = f"q{tuple(q.shape)} {dt}"
+            # The statistics: f32 either way; the bf16 route sums 2^x from
+            # the special-function unit (relative error 2^-22 a term).
+            check_close(f"flash_attention lse {label}", lse, lse_p, 0.0, 1e-5)
+            # Gradients against each one's scale (max |plain|): f32, sums in
+            # another order; bf16, p and ds are rounded to bf16 before their
+            # products and the gradients at the end: one bf16 ulp (2**-7).
+            share = 1e-5 if dt == torch.float32 else 2.0**-7
+            errs = []
+            for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+                scale_ref = float(ref.float().abs().max())
+                check_close(f"flash_attention_bwd {name} {label}", got, ref, 0.0, share * scale_ref)
+                errs.append(max_err(got, ref))
+            log(f"kernel flash_attention_bwd {label}: ok  lse max_abs_err={max_err(lse, lse_p):.3g}  "
+                f"dq/dk/dv max_abs_err={', '.join(f'{e:.3g}' for e in errs)} (tol {share:.3g} x scale)")
+        if dt != torch.bfloat16:
+            continue
+        # Timing and bounds at the training shape, bf16.
+        n = TRAIN_BATCH * VIT_HEADS * VIT_L * VIT_L * VIT_D
+        stats = nbytes(lse_p, di)
+        qt, kt, vt = (a.detach().transpose(1, 2).requires_grad_() for a in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+
+        sdpa_bwd_ms = cuda_ms(sdpa_fwd_bwd) - cuda_ms(sdpa_fwd)
+        # Bytes: q, k, v and dO read, the gradients written, the f32
+        # statistics read; operations: four products of 2 B h L^2 d for
+        # dK/dV (S, dP, dV, dK), three for dQ (S, dP, dQ).
+        for name, err, kern, plain, moved, products in (
+            (
+                "flash_attention_bwd_dkv",
+                max(errs[1:]),
+                lambda: A.flash_attention_bwd_dkv(q, k, v, do, lse_p, di, scale, dk, dv),
+                lambda: A.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p, di, scale),
+                nbytes(q, k, v, do, dk, dv) + stats,
+                4,
+            ),
+            (
+                "flash_attention_bwd_dq",
+                errs[0],
+                lambda: A.flash_attention_bwd_dq(q, k, v, do, lse_p, di, scale, dq),
+                lambda: A.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, di, scale),
+                nbytes(q, k, v, do, dq) + stats,
+                3,
+            ),
+        ):
+            b_ms, b_by = bound(moved, products * 2 * n, dt)
+            out[name] = dict(
+                max_abs_err=err, ms=cuda_ms(kern), plain_ms=cuda_ms(plain, 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=sdpa_bwd_ms,
+            )
+        fwd_ms = cuda_ms(lambda: A.flash_attention(q, k, v, scale))
+        fwd_lse_ms = cuda_ms(lambda: A.flash_attention(q, k, v, scale, with_lse=True))
+        log(f"kernel flash_attention q{tuple(q.shape)} bf16: ms={fwd_ms:.4f} without statistics, "
+            f"{fwd_lse_ms:.4f} with")
+    for name, r in out.items():
+        log(
+            f"kernel {name} q{tuple(q.shape)}: ok  max_abs_err={r['max_abs_err']:.3g}  ms={r['ms']:.4f}  "
+            f"plain_ms={r['plain_ms']:.4f}  library_ms={r['library_ms']:.4f} (SDPA backward, both "
+            f"kernels' work)  bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); {against_bound(r)}"
+        )
+    return out
+
+
 # -- phase 3: the slice at full width ----------------------------------------
 
 
@@ -631,6 +758,195 @@ def agreement_encoders(dev, tokenizer) -> None:
             f"(tol 5e-4 + 1e-4 rel); {same}/{AGREE_BATCH} captions identical "
             f"({same / AGREE_BATCH:.3f})")
 
+    # bf16: K4 against the unfused bf16 block (cuDNN convs, each rounded to
+    # bf16 before its bias is added in bf16, as K4 rounds), one block, then
+    # the whole encoder.
+    pipe = make_pipeline("bf16", tokenizer)
+    plain_enc = pipe.encoder
+    kernel_enc = dataclasses.replace(plain_enc, fused_blocks=True)
+    params = pipe._inference_params()["encoder"]
+    with torch.inference_mode():
+        x = fused_preprocess(images, plain_enc.input_size, plain_enc.preprocess_mode, out_dtype=torch.bfloat16)
+        y = torch.randn((AGREE_BATCH, 28, 28, 512), generator=g, device=x.device).relu().to(torch.bfloat16)
+        b_got = kernel_enc._block(params, y, "conv3_block2", 1, False)
+        b_want = plain_enc._block(params, y, "conv3_block2", 1, False)
+        got, want = kernel_enc.apply(params, x), plain_enc.apply(params, x)
+    # One block: three convs, each sum rounded to bf16 in another order,
+    # the difference carried into the next conv: two bf16 ulps (K4's own
+    # tolerance against its plain version). The encoder: those last bits
+    # compound through 12 fused blocks: 2 % of the features' scale (about
+    # two and a half bf16 ulps; the port against tpucap in bf16 on the CPU
+    # measured 0.6 %, tests/test_torch_bf16.py).
+    b_scale = float(b_want.float().abs().max())
+    check_close("fused blocks bf16 block conv3_block2", b_got, b_want, 2**-6, 2**-6 * b_scale)
+    f_scale = float(want.float().abs().max())
+    check_close("fused blocks bf16 features", got, want, 0.0, 0.02 * f_scale)
+    log(f"agreement: fused blocks bf16 batch {AGREE_BATCH}: block max_abs_err {max_err(b_got, b_want):.3g} "
+        f"(tol 2**-6 rel + 2**-6 x {b_scale:.3g}); features max_abs_err {max_err(got, want):.3g} "
+        f"(tol 0.02 x {f_scale:.3g})")
+
+
+# -- phase 5: training at full width -----------------------------------------
+
+
+def training_corpus(tokenizer, n: int, seed: int) -> dict[str, list[str]]:
+    """n captions of 8 to 30 of the vocabulary's words, one an image."""
+    rng = np.random.default_rng(seed)
+    words = [w for w in tokenizer.word_index if w not in ("startseq", "endseq")]
+    return {
+        f"img{i}": ["startseq " + " ".join(rng.choice(words, rng.integers(8, 31))) + " endseq"]
+        for i in range(n)
+    }
+
+
+def train_decoder(dev) -> None:
+    """5(a): ``make_train_step`` at bench.py --mode train's shapes, bf16
+    compute with f32 master params. The teacher-forced loop runs the plain
+    cell under autograd (tpucap trains with its plain scan; K2 is
+    forward-only), so no kernel of the port launches."""
+    from tpucap_torch import ops
+    from tpucap_torch.config import TrainConfig
+    from tpucap_torch.models.decoders import build_decoder
+    from tpucap_torch.train import TrainState, build_optimizer, make_train_step
+
+    dec = build_decoder("lstm1", VOCAB, DEC_FEATURES, embed_dim=WIDTH, hidden_dim=WIDTH)
+    params = tree_to(dec.init(torch.Generator().manual_seed(0)), dev)
+    opt = build_optimizer(TrainConfig())
+    state = TrainState.create(params, opt, torch.Generator(device=dev).manual_seed(0))
+    step = make_train_step(dec, opt, compute_dtype=torch.bfloat16, donate=True)
+    g = torch.Generator(device=dev).manual_seed(8)
+    feats = torch.randn((DEC_TRAIN_BATCH, DEC_FEATURES), generator=g, device=dev)
+    tokens = torch.randint(1, VOCAB, (DEC_TRAIN_BATCH, MAX_LEN + 1), generator=g, device=dev)
+    state, m = step(state, feats, tokens)  # warm-up: allocator, cuBLAS
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(5):
+        (state, m), s = timed(lambda: step(state, feats, tokens))
+        times.append(s)
+        losses.append(float(m["loss"]))
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"train_decoder: kernels launched {counts}; the training loop is plain")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_decoder: losses {losses} not finite")
+    med = float(np.median(times))
+    log(f"train decoder: lstm1 batch {DEC_TRAIN_BATCH} T {MAX_LEN + 1} vocab {VOCAB} bf16 compute, f32 masters: "
+        f"step ms {[round(t * 1e3, 3) for t in times]} median {med * 1e3:.3f}; samples/s {DEC_TRAIN_BATCH / med:.2f}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses {[round(x, 4) for x in losses]}")
+
+
+def tree_to(tree, dev):
+    from tpucap_torch.core import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def finetune_pipeline(tokenizer, precision: str):
+    from tpucap_torch.config import Config, DecodeConfig, DecoderConfig, TrainConfig, encoder_config
+    from tpucap_torch.pipeline import CaptioningPipeline
+
+    cfg = Config(
+        encoder=encoder_config("vit_b16"),
+        decoder=DecoderConfig(name="lstm1", embed_dim=WIDTH, hidden_dim=WIDTH),
+        decode=DecodeConfig(max_len=MAX_LEN),
+        train=TrainConfig(batch_size=TRAIN_BATCH, precision=precision),
+        precision="bf16" if precision == "bf16" else "f32",
+    )
+    pipe = CaptioningPipeline(cfg, tokenizer=tokenizer)
+    pipe.encoder = dataclasses.replace(pipe.encoder, attention_impl="flash")
+    pipe.build(seed=0)
+    return pipe
+
+
+def train_finetune(dev, tokenizer) -> dict[str, int]:
+    """5(b): ``fit_finetune`` with ViT-B/16 (flash) and lstm1 on one batch
+    of TRAIN_BATCH images for TRAIN_STEPS steps, in f32 and in bf16, the
+    counters reset just before and read just after each run. -> the bf16
+    run's counts."""
+    from tpucap_torch import ops
+
+    desc = training_corpus(tokenizer, TRAIN_BATCH, 9)
+    rng = np.random.default_rng(10)
+    images = {k: rng.uniform(-1, 1, size=(IMAGE, IMAGE, 3)).astype(np.float32) for k in desc}
+    counts = {}
+    for precision in ("f32", "bf16"):
+        pipe = finetune_pipeline(tokenizer, precision)
+        pipe.fit_finetune(desc, images, epochs=1, log=None)  # warm-up: allocator, cuBLAS, cuDNN
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        hist, s = timed(lambda: pipe.fit_finetune(desc, images, epochs=TRAIN_STEPS, log=None))
+        counts = ops.launch_counts()
+        layers = pipe.encoder.num_layers
+        expect = {name: 0 for name in counts}
+        expect.update(
+            flash_attention=layers * TRAIN_STEPS,
+            flash_attention_bwd_dkv=layers * TRAIN_STEPS,
+            flash_attention_bwd_dq=layers * TRAIN_STEPS,
+        )
+        if counts != expect:
+            raise AssertionError(f"fit_finetune {precision}: launch counts {counts} != {expect}")
+        losses = [h["loss"] for h in hist]
+        if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"fit_finetune {precision}: losses {losses} not finite and descending")
+        step_s = s / TRAIN_STEPS
+        log(f"train finetune {precision}: vit_b16 flash + lstm1, batch {TRAIN_BATCH}, vocab {VOCAB}, "
+            f"{TRAIN_STEPS} steps: step ms {step_s * 1e3:.3f} (wall of fit_finetune over its steps, host batch "
+            f"assembly included); images/s {TRAIN_BATCH / step_s:.2f}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches per step "
+            f"{ {k: v // TRAIN_STEPS for k, v in counts.items() if v} }; losses {[round(x, 4) for x in losses]}")
+        del pipe
+    return counts
+
+
+def train_agreement(dev, tokenizer) -> None:
+    """5(c): f32, one joint step's loss and gradients with the kernels
+    (flash: K5 forward with statistics, dK/dV, dQ) against the same with
+    the plain attention (xla), same params and batch, TF32 off."""
+    from tpucap_torch.core import apply_precision, tree_leaves
+    from tpucap_torch.train import (
+        build_training_tokens,
+        caption_loss_sums,
+        encode_for_decoder,
+        loss_from_sums,
+    )
+    from tpucap_torch.train.loop import grads_of, trainable
+
+    pipe = finetune_pipeline(tokenizer, "f32")
+    apply_precision("f32")
+    desc = training_corpus(tokenizer, TRAIN_BATCH, 11)
+    _, tokens = build_training_tokens(tokenizer, desc, MAX_LEN)
+    tokens = torch.from_numpy(tokens).to(dev).long()
+    g = torch.Generator(device=dev).manual_seed(12)
+    images = torch.rand((TRAIN_BATCH, IMAGE, IMAGE, 3), generator=g, device=dev) * 2 - 1
+    results = {}
+    for impl in ("flash", "xla"):
+        enc = dataclasses.replace(pipe.encoder, attention_impl=impl)
+        params = trainable(pipe.params)
+        feats = encode_for_decoder(enc, params["encoder"], images)
+        loss, _ = loss_from_sums(caption_loss_sums(pipe.decoder, params["decoder"], feats, tokens))
+        results[impl] = (loss.item(), tree_leaves(grads_of(loss, params)))
+    (lk, gk), (lp, gp) = results["flash"], results["xla"]
+    # f32 both ways, TF32 off: the attention's sums in another order (online
+    # softmax against one pass), carried through twelve layers' backward,
+    # where sums over all tokens cancel (a layer norm's bias gradient): the
+    # loss within 1e-5 relative, each gradient within 1e-4 of its tensor's
+    # scale (the CPU tests saw up to 2e-5 from summation order alone).
+    if abs(lk - lp) > 1e-5 * abs(lp):
+        raise AssertionError(f"train agreement: loss {lk} (kernels) against {lp} (plain)")
+    worst = 0.0
+    for a, b in zip(gk, gp):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if err > 1e-4 * scale:
+            raise AssertionError(f"train agreement: a gradient differs by {err} at scale {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    log(f"train agreement: f32 joint step, batch {TRAIN_BATCH}: loss {lk:.7f} (kernels) against {lp:.7f} "
+        f"(plain), relative {abs(lk - lp) / abs(lp):.3g} (tol 1e-5); gradients' worst share of scale "
+        f"{worst:.3g} over {len(gk)} tensors (tol 1e-4)")
+    apply_precision(pipe.config.precision)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -653,11 +969,17 @@ def main() -> int:
     fields = check_kernels(dev)
     fields["identity_block"] = check_identity_block(dev)
     fields["flash_attention"] = check_flash_attention(dev)
+    fields.update(check_flash_attention_bwd(dev))
     counts, tokenizer = run_slice(dev)
     counts["identity_block"] = run_fused(dev, tokenizer)["identity_block"]
     counts["flash_attention"] = run_vit(dev, tokenizer)["flash_attention"]
     agreement(dev, tokenizer)
     agreement_encoders(dev, tokenizer)
+    train_decoder(dev)
+    trained = train_finetune(dev, tokenizer)
+    counts["flash_attention_bwd_dkv"] = trained["flash_attention_bwd_dkv"]
+    counts["flash_attention_bwd_dq"] = trained["flash_attention_bwd_dq"]
+    train_agreement(dev, tokenizer)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

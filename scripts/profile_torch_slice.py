@@ -1,4 +1,5 @@
-"""Where a batch of the port's serving slice spends its time on the card.
+"""Where a batch of the port's serving slice, and a training step, spend
+their time on the card.
 
     python3 scripts/profile_torch_slice.py   # from the repo root; one CUDA card
 
@@ -13,6 +14,13 @@ batch, then traces with ``torch.profiler``:
 - ``encode``: its first half alone (preprocess kernel K1 + the encoder);
 - ``decode``: its second half alone (init_state + beam search, whose step
   is kernels K2 + K3, + the id-to-word drain).
+
+Then ``train``: the joint step of ``fit_finetune`` (ViT-B/16 with flash
+attention + lstm1, batch 64, bf16 compute with f32 masters, Adam;
+``make_joint_train_step``, whose attention launches kernel K5 forward and
+K5's dK/dV and dQ kernels), as ``joint step``, and the decoder's step on
+features (``make_train_step``, lstm1, batch 256, T 35, bf16) as ``decoder
+step``, the shapes of chip_smoke.py's phase 5.
 
 Each part is first run untraced three times (host clock around work that
 ends in a synchronize; the median is kept), then traced once, in the same
@@ -44,6 +52,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (the slice's shapes and pipeline)
 from tpucap_torch.ops.preprocess import fused_preprocess  # noqa: E402
+from tpucap_torch.text import Tokenizer  # noqa: E402
 
 GROUPS = (  # first match wins; substrings of the demangled kernel name
     ("port K1 preprocess_u8", ("preprocess_u8_same_kernel", "preprocess_u8_gather_kernel")),
@@ -53,6 +62,8 @@ GROUPS = (  # first match wins; substrings of the demangled kernel name
     ("port K3 SIMT (f32, other widths)", ("linear_kernel",)),
     ("port K4 identity_block", ("identity_block_kernel",)),
     ("port K5 flash_attention", ("flash_kernel",)),
+    ("port K5b dK/dV", ("dkv_kernel",)),
+    ("port K5b dQ", ("dq_kernel",)),
     ("convolution", ("conv", "cudnn", "fprop", "implicit_gemm", "nchwToNhwc", "nhwcToNchw")),
     ("matmul (cuBLAS)", ("gemm", "Gemm", "xmma", "cutlass", "nvjet")),
     ("sort", ("RadixSort", "radix_sort", "sort_")),
@@ -176,6 +187,55 @@ def profile_path(path: str, dev) -> dict:
     }
 
 
+def profile_train(dev, tokenizer) -> dict:
+    """One joint step and one decoder step, each after a warm-up step."""
+    from tpucap_torch.config import TrainConfig
+    from tpucap_torch.models.decoders import build_decoder
+    from tpucap_torch.train import (
+        TrainState,
+        build_optimizer,
+        build_training_tokens,
+        encoder_learning_rate_optimizer,
+        make_joint_train_step,
+        make_train_step,
+    )
+
+    pipe = chip_smoke.finetune_pipeline(tokenizer, "bf16")
+    opt = encoder_learning_rate_optimizer(build_optimizer(TrainConfig()), encoder_lr_scale=0.1)
+    joint = make_joint_train_step(pipe.encoder, pipe.decoder, opt, compute_dtype=torch.bfloat16, donate=True)
+    state = TrainState.create(pipe.params, opt, torch.Generator(device=dev).manual_seed(0))
+    desc = chip_smoke.training_corpus(tokenizer, chip_smoke.TRAIN_BATCH, 9)
+    _, tokens = build_training_tokens(tokenizer, desc, chip_smoke.MAX_LEN)
+    tokens = torch.from_numpy(tokens).to(dev).long()
+    g = torch.Generator(device=dev).manual_seed(12)
+    S = chip_smoke.IMAGE
+    images = torch.rand((chip_smoke.TRAIN_BATCH, S, S, 3), generator=g, device=dev) * 2 - 1
+    box = [state]
+
+    def joint_step():
+        box[0], _ = joint(box[0], images, tokens)
+
+    joint_step()  # warm-up: allocator, cuBLAS
+    out = {"joint step": trace("train joint step", joint_step)}
+
+    dec = build_decoder("lstm1", chip_smoke.VOCAB, chip_smoke.DEC_FEATURES,
+                        embed_dim=chip_smoke.WIDTH, hidden_dim=chip_smoke.WIDTH)
+    dopt = build_optimizer(TrainConfig())
+    step = make_train_step(dec, dopt, compute_dtype=torch.bfloat16, donate=True)
+    dparams = chip_smoke.tree_to(dec.init(torch.Generator().manual_seed(0)), dev)
+    dbox = [TrainState.create(dparams, dopt, torch.Generator(device=dev).manual_seed(0))]
+    B = chip_smoke.DEC_TRAIN_BATCH
+    feats = torch.randn((B, chip_smoke.DEC_FEATURES), generator=g, device=dev)
+    dtokens = torch.randint(1, chip_smoke.VOCAB, (B, chip_smoke.MAX_LEN + 1), generator=g, device=dev)
+
+    def decoder_step():
+        dbox[0], _ = step(dbox[0], feats, dtokens)
+
+    decoder_step()
+    out["decoder step"] = trace("train decoder step", decoder_step)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device; nothing was run", file=sys.stderr)
@@ -189,6 +249,9 @@ def main() -> int:
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     for path in ("slice", "fused", "vit"):
         result[path] = profile_path(path, dev)
+    tokenizer = Tokenizer()
+    tokenizer.fit_on_texts(chip_smoke.corpus(chip_smoke.VOCAB - 3)["corpus"])
+    result["train"] = profile_train(dev, tokenizer)
     print(json.dumps(result))
     return 0
 

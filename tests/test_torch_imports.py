@@ -57,7 +57,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_tpucap():
     assert {
         "tpucap_torch.pipeline", "tpucap_torch.ops.decoder_step",
         "tpucap_torch.ops.bottleneck", "tpucap_torch.ops.attention",
-        "tpucap_torch.models.encoders.vit",
+        "tpucap_torch.models.encoders.vit", "tpucap_torch.text.padding",
+        "tpucap_torch.train", "tpucap_torch.train.sequences",
+        "tpucap_torch.train.loss", "tpucap_torch.train.loop",
+        "tpucap_torch.train.finetune",
     } <= want
 
 

@@ -339,6 +339,7 @@ def test_wrappers_on_cpu_run_plain_versions_and_count_no_launch():
     assert ops.launch_counts() == {
         "preprocess_u8": 0, "lstm_cell": 0, "merge_head": 0, "vocab_proj": 0,
         "identity_block": 0, "flash_attention": 0,
+        "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
     }
 
 

@@ -12,6 +12,16 @@ Tolerances: f32 differs only by summation order, 1e-5 absolute at O(1)
 values (2e-5 through a whole ViT); bf16 rounds the probabilities and the
 output to bf16 on both sides after f32 sums in another order: one bf16 ulp
 (1e-2 relative + 1e-2 absolute), and through two transformer layers 5e-2.
+
+K5's backward (``flash_attention_bwd_plain``, the plain version of the two
+backward kernels) is held against ``jax.vjp`` of the same stock reference
+(padded, with segment ids; the pad rows' cotangent is zero, as slicing
+them off makes it) and of tpucap's ``sdpa``, each in f32 (the reference
+in bf16 rounds its scores before the scale, which the kernels do not).
+Each gradient within a share of its own scale (max |ref|): f32 1e-5
+(measured at most 1e-6: sums in another order); bf16 inputs one bf16 ulp,
+2**-7 (measured at most 4.2e-3: p and ds are rounded to bf16 before their
+products, and the gradients to bf16 at the end).
 """
 
 import dataclasses
@@ -33,7 +43,7 @@ from tpucap.models.encoders import vit_tiny as jax_vit_tiny
 from tpucap.models.encoders.fold_bn import fold_batch_norms as jax_fold
 from tpucap_torch import config as tcfg
 from tpucap_torch import ops
-from tpucap_torch.convert import params_from_jax
+from tpucap_torch.convert import params_from_jax, params_to_numpy
 from tpucap_torch.core import tree_map
 from tpucap_torch.models.encoders import (
     ViT,
@@ -41,7 +51,17 @@ from tpucap_torch.models.encoders import (
     fold_batch_norms,
     vit_tiny,
 )
-from tpucap_torch.ops.attention import flash_attention, flash_attention_plain
+from tpucap_torch.ops.attention import (
+    FlashAttentionQKV,
+    attention_di,
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+    flash_attention_qkv,
+    qkv_views,
+)
 
 torch.set_num_threads(2)
 
@@ -102,6 +122,78 @@ def test_flash_wrapper_on_cpu_runs_plain_and_counts_no_launch():
         flash_attention(q, k, v, 0.25), flash_attention_plain(q, k, v, 0.25), rtol=0, atol=0
     )
     assert ops.launch_counts()["flash_attention"] == 0
+
+
+# -- K5's backward ---------------------------------------------------------
+
+BWD_TOL = {"f32": 1e-5, "bf16": 2.0**-7}
+
+
+def _cotangent(dt, q, seed=1):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=tuple(q.shape)).astype(np.float32)).to(DT[dt][1])
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("L", [40, 196, 49, 257])
+def test_flash_attention_bwd_plain_matches_stock_vjp_and_sdpa_vjp(dt, L):
+    h, d = SHAPES[L]
+    (q, k, v), (qj, kj, vj) = _qkv(dt, L=L, h=h, d=d)
+    scale = 1.0 / d**0.5
+    do = _cotangent(dt, q)
+    o, lse = flash_attention_plain(q, k, v, scale, with_lse=True)
+    got = flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    f32 = [a.astype(jnp.float32) for a in (qj, kj, vj)]
+    doj = jnp.asarray(do.float().numpy())
+    _, stock_vjp = jax.vjp(lambda a, b, c: _stock_reference(a, b, c, scale), *f32)
+    _, sdpa_vjp = jax.vjp(lambda a, b, c: jl.sdpa(a, b, c, None, scale)[0], *f32)
+    for ref in (stock_vjp(doj), sdpa_vjp(doj)):
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            assert g.dtype == DT[dt][1] and g.shape == q.shape, name
+            r = np.asarray(r)
+            np.testing.assert_allclose(
+                g.float().numpy(), r, rtol=0, atol=BWD_TOL[dt] * np.abs(r).max(), err_msg=name
+            )
+
+
+def test_flash_attention_plain_lse_is_the_rows_logsumexp():
+    (q, k, v), _ = _qkv("f32", L=49, h=4, d=64)
+    out, lse = flash_attention_plain(q, k, v, 0.125, with_lse=True)
+    s = torch.einsum("blhd,bthd->bhlt", q, k) * 0.125
+    torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1), rtol=0, atol=2e-6)
+    assert torch.equal(out, flash_attention_plain(q, k, v, 0.125))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_attention_qkv_autograd_on_cpu_runs_plain_and_counts_no_launch(dt):
+    """The Function's gradient is one (B, L, 3H) buffer: dq, dk, dv at the
+    projection's strides, the plain backward's values; without a gradient
+    the forward keeps its no-statistics route."""
+    h, d, L = 4, 64, 49
+    (q, k, v), _ = _qkv(dt, L=L, h=h, d=d)
+    qkv = torch.cat([t.reshape(2, L, h * d) for t in (q, k, v)], dim=-1)
+    do = _cotangent(dt, q)
+    ops.reset_launch_counts()
+    x = qkv.clone().requires_grad_()
+    ctx = flash_attention_qkv(x, h, 0.125)
+    assert ctx.grad_fn is not None and type(ctx.grad_fn).__name__ == "FlashAttentionQKVBackward"
+    ctx.backward(do)
+    o, lse = flash_attention_plain(q, k, v, 0.125, with_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, 0.125)
+    for got, w in zip(qkv_views(x.grad, h), want):
+        assert torch.equal(got, w)
+    # The wrappers, called on their own, write into views of one buffer.
+    buf = torch.zeros_like(qkv)
+    dq, dk, dv = qkv_views(buf, h)
+    di = attention_di(o, do)
+    flash_attention_bwd_dkv(q, k, v, do, lse, di, 0.125, dk, dv)
+    flash_attention_bwd_dq(q, k, v, do, lse, di, 0.125, dq)
+    assert torch.equal(buf, x.grad)
+    with torch.no_grad():
+        assert flash_attention_qkv(x, h, 0.125).grad_fn is None
+    assert torch.equal(FlashAttentionQKV.apply(qkv, h, 0.125), ctx.detach())
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == counts["flash_attention_bwd_dkv"] == counts["flash_attention_bwd_dq"] == 0
 
 
 # -- the ViT encoder ---------------------------------------------------------
@@ -173,3 +265,28 @@ def test_registry_config_and_validation():
         ViT(hidden_dim=64, num_heads=5)
     with pytest.raises(ValueError, match="attention_impl"):
         ViT(attention_impl="fused")
+
+
+def test_vit_tiny_gradients_match_jax(vit_params):
+    """ViT.apply is differentiable: the gradient of a scalar of the pooled
+    features with respect to every param and the images, the port with
+    flash attention (K5's Function, plain versions on the CPU) against jax
+    with xla attention, f32: within 1e-5 of each tensor's scale."""
+    x = np.random.default_rng(7).uniform(-1, 1, size=(2, 32, 32, 3)).astype(np.float32)
+    w = np.random.default_rng(8).normal(size=(2, 64)).astype(np.float32)
+    jenc = jax_vit_tiny()
+
+    def jloss(p, img):
+        return jnp.sum(jenc.apply(p, img) * w)
+
+    jg = jax.grad(jloss, argnums=(0, 1))(jax.tree.map(jnp.asarray, vit_params), jnp.asarray(x))
+    enc = dataclasses.replace(vit_tiny(), attention_impl="flash")
+    tp = tree_map(lambda t: t.requires_grad_(True), params_from_jax(vit_params))
+    img = torch.from_numpy(x).requires_grad_(True)
+    loss = (enc.apply(tp, img) * torch.from_numpy(w)).sum()
+    loss.backward()
+    got = jax.tree.leaves(params_to_numpy(tree_map(lambda t: t.grad, tp))) + [img.grad.numpy()]
+    want = jax.tree.leaves(jax.tree.map(np.asarray, jg[0])) + [np.asarray(jg[1])]
+    assert len(got) == len(want)
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g, r, rtol=0, atol=1e-5 * np.abs(r).max())

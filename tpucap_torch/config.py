@@ -1,5 +1,6 @@
 """Frozen config tree of the port: the subset of ``tpucap.config`` that the
-serving slice reads (same field names, defaults and meaning).
+serving and training slices read (same field names, defaults and
+meaning).
 
 The encoder default is ResNet-50, the first encoder the port had; the JAX
 package defaults to VGG16.
@@ -53,7 +54,23 @@ class DecodeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    seed: int = 0  # seeds the random init in CaptioningPipeline.build
+    """The fields of ``tpucap.config.TrainConfig`` that the port's training
+    reads, with tpucap's defaults."""
+
+    batch_size: int = 64
+    learning_rate: float = 1e-3  # Keras Adam default
+    epochs: int = 20
+    # Seeds the random init in CaptioningPipeline.build, the shuffle of
+    # training rows and the dropout generator.
+    seed: int = 0
+    label_smoothing: float = 0.0
+    optimizer: str = "adam"  # adam | adamw
+    weight_decay: float = 0.0  # adamw's decoupled weight decay
+    grad_clip_norm: float = 0.0  # global-norm clip; 0 = off
+    # Training compute dtype: 'f32' (TF32 off) | 'bf16' (forward and
+    # backward in bf16, f32 master params, optimizer state and loss
+    # reductions). Distinct from Config.precision, the inference policy.
+    precision: str = "f32"
 
 
 @dataclasses.dataclass(frozen=True)

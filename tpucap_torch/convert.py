@@ -1,9 +1,10 @@
-"""Weight bridge from the JAX package's param pytrees, and ``.npz``
-persistence that needs neither jax nor orbax.
+"""Weight bridge from the JAX package's param pytrees and training state,
+and ``.npz`` persistence that needs neither jax nor orbax.
 
 The layouts are the same except for convolution kernels: ``tpucap`` keeps
 them HWIO, the port OIHW. Dense kernels stay ``(in, out)``; key names are
-unchanged (``conv2_block1_1_conv``, ``cells/0/kernel``).
+unchanged (``conv2_block1_1_conv``, ``cells/0/kernel``). Adam's moments
+have their params' layout and convert the same way.
 """
 
 from __future__ import annotations
@@ -28,6 +29,63 @@ def params_from_jax(tree):
         return t
 
     return convert(tree)
+
+
+def params_to_numpy(tree):
+    """The inverse of ``params_from_jax``: the port's tree -> nested
+    dicts/lists of f32 numpy arrays in tpucap's layout (conv kernels OIHW
+    -> HWIO)."""
+
+    def convert(node, key=None):
+        if isinstance(node, dict):
+            return {k: convert(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
+        t = node.detach().float().cpu()
+        if key == "kernel" and t.ndim == 4:
+            t = t.permute(2, 3, 1, 0)
+        return t.contiguous().numpy()
+
+    return convert(tree)
+
+
+def adam_state_from_jax(opt_state):
+    """An optax optimizer state (``adam``, ``adamw``, clipped or with the
+    encoder's update scale: the chains ``tpucap.train`` builds) -> the
+    port's Adam state ``{"count", "mu", "nu"}``: the one member of the
+    chain that carries Adam's ``count``, ``mu`` and ``nu``."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return {
+            "count": torch.tensor(int(np.asarray(opt_state.count)), dtype=torch.int32),
+            "mu": params_from_jax(opt_state.mu),
+            "nu": params_from_jax(opt_state.nu),
+        }
+    if isinstance(opt_state, (list, tuple)):
+        found = [s for s in (_adam_or_none(x) for x in opt_state) if s is not None]
+        if len(found) == 1:
+            return found[0]
+    raise ValueError("no single Adam state (count, mu, nu) in this optimizer state")
+
+
+def _adam_or_none(node):
+    try:
+        return adam_state_from_jax(node)
+    except ValueError:
+        return None
+
+
+def train_state_from_jax(state, rng=None):
+    """A tpucap ``TrainState`` (step, params, Adam's state) -> the port's,
+    so a step can be compared from a shared state. The jax key has no torch
+    counterpart: ``rng`` (a ``torch.Generator``) takes its place."""
+    from tpucap_torch.train.loop import TrainState
+
+    return TrainState(
+        step=int(np.asarray(state.step)),
+        params=params_from_jax(state.params),
+        opt_state=adam_state_from_jax(state.opt_state),
+        rng=rng,
+    )
 
 
 def _flatten(tree, prefix, out):

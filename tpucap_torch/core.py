@@ -61,13 +61,17 @@ def infer_dtype(precision: str) -> torch.dtype:
     return torch.bfloat16 if precision == "bf16" else torch.float32
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of nested dicts/lists/tuples."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every tensor leaf of nested dicts/lists/tuples; with
+    more trees of the same structure, ``fn`` takes their leaves side by
+    side."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(
+            tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)
+        )
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:

@@ -55,6 +55,13 @@
 //
 // f32 route (flash_kernel_f32): 64 queries per block, S, P and O in shared
 // memory, 16 x 16 f32 FMA tiles (tile.cuh), no TF32.
+//
+// Row statistics for the backward (flash_attention_bwd.cu): given an `lse`
+// pointer, both routes also write each row's f32 log-sum-exp of the scaled
+// scores, lse = scale m + ln l (m the row's max, l its sum of exp), at
+// lse[(b heads + head) L + row]; a null pointer writes nothing (inference).
+// The stock kernel saves m and l for its backward instead; the backward
+// here takes p = exp(scale s - lse) where it takes exp(scale s - m) / l.
 #include <math.h>
 
 #include <cstdint>
@@ -149,8 +156,9 @@ __device__ __forceinline__ void wgmma_wait(float (&d)[8][4], unsigned (&a)[kA][4
 
 __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
     flash_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out, int L,
-                     int heads, int64_t sb, int64_t sl, int64_t sh, float scale) {
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int L, int heads, int64_t sb, int64_t sl,
+                     int64_t sh, float scale) {
   using namespace tpucap::mma;
   extern __shared__ __align__(1024) unsigned char smem[];
   // Every tile's swizzle (swz, smem_desc) needs a 1024-byte aligned start.
@@ -283,6 +291,9 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
     const float inv = 1.0f / l[r];  // one reciprocal a row, then products
     const int row = q0 + 16 * warp + g + 8 * r;
     if (row >= L) continue;
+    // m is the unscaled max and l sums 2^(s c - m c) = exp(scale (s - m)).
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<int64_t>(b) * heads + head) * L + row] = m[r] * scale + logf(l[r]);
     bf16* dst = out + ((static_cast<int64_t>(b) * L + row) * heads + head) * kD + 2 * t;
 #pragma unroll
     for (int n = 0; n < kD / 8; ++n)
@@ -291,8 +302,8 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
   }
 }
 
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int L,
-               int heads, int64_t sb, int64_t sl, int64_t sh, float scale,
+int launch_mma(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+               int L, int heads, int64_t sb, int64_t sl, int64_t sh, float scale,
                cudaStream_t stream) {
   static bool attr_set = false;  // once, before any graph capture
   if (!attr_set) {
@@ -305,7 +316,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
   const dim3 grid((L + kBM - 1) / kBM, heads, B);
   flash_kernel_mma<<<grid, 32 * kWarps, kSmemMma, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), L, heads, sb, sl, sh, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, L, heads, sb, sl, sh,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -346,8 +358,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __global__ void __launch_bounds__(kThreads)
     flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out, int L,
-                     int heads, int64_t sb, int64_t sl, int64_t sh, float scale) {
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int L, int heads, int64_t sb, int64_t sl,
+                     int64_t sh, float scale) {
   extern __shared__ __align__(1024) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* ks = qs + kB * kLdT;
@@ -432,10 +445,13 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t o = ((static_cast<int64_t>(b) * L + q0 + r) * heads + head) * kD + c;
     out[o] = os[r * kLdF + c] / l_s[r];
   }
+  if (lse != nullptr)  // m_s holds the scaled max here
+    for (int r = tid; r < kB; r += kThreads)
+      if (q0 + r < L) lse[(static_cast<int64_t>(b) * heads + head) * L + q0 + r] = m_s[r] + logf(l_s[r]);
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int L,
-               int heads, int64_t sb, int64_t sl, int64_t sh, float scale,
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+               int L, int heads, int64_t sb, int64_t sl, int64_t sh, float scale,
                cudaStream_t stream) {
   static bool attr_set = false;  // once, before any graph capture
   if (!attr_set) {
@@ -448,7 +464,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   const dim3 grid((L + kB - 1) / kB, heads, B);
   flash_kernel_f32<<<grid, kThreads, kSmemF32, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), L, heads, sb, sl, sh, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, L, heads, sb, sl, sh,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -456,10 +473,10 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
 
 // q, k, v (B, L, heads, 64) sharing element strides (sb, sl, sh) with unit
 // stride on the last axis, 16-byte aligned rows; out (B, L, heads, 64)
-// contiguous.
+// contiguous; lse (B, heads, L) f32 contiguous, or null.
 extern "C" int tpucap_flash_attention(const void* q, const void* k,
-                                      const void* v, void* out, int B, int L,
-                                      int heads, int64_t sb, int64_t sl,
+                                      const void* v, void* out, void* lse, int B,
+                                      int L, int heads, int64_t sb, int64_t sl,
                                       int64_t sh, float scale, int dtype,
                                       void* stream) {
   if (B < 1 || B > 65535 || heads < 1 || heads > 65535 || L < 1)
@@ -467,9 +484,11 @@ extern "C" int tpucap_flash_attention(const void* q, const void* k,
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case tpucap::kF32:
-      return launch_f32(q, k, v, out, B, L, heads, sb, sl, sh, scale, s);
+      return launch_f32(q, k, v, out, static_cast<float*>(lse), B, L, heads, sb, sl, sh,
+                        scale, s);
     case tpucap::kBF16:
-      return launch_mma(q, k, v, out, B, L, heads, sb, sl, sh, scale, s);
+      return launch_mma(q, k, v, out, static_cast<float*>(lse), B, L, heads, sb, sl, sh,
+                        scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

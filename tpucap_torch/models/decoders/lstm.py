@@ -4,9 +4,12 @@
     tokens     -> Embedding -> LSTM stack              (se branch)
     add(fe, se) -> Dense(hidden, relu) -> Dense(vocab) (logits)
 
-as an incremental step function for the decode engines. The 2-layer
-variant stacks cells; layer l consumes layer l-1's hidden state. Dropout
-acts only in training, which the port does not have yet.
+as an incremental step function for the decode engines, and as a
+teacher-forced pass over whole token rows for training (``forward_train``),
+with dropout on the image feature and on the embedded tokens. The 2-layer
+variant stacks cells; layer l consumes layer l-1's hidden state. Training
+runs the plain cell (``layers.lstm_cell_step``) under autograd, as tpucap
+trains with its plain scan: kernel K2 is forward-only.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from tpucap_torch.models.layers import (
     dense,
+    dropout,
     embed,
     init_dense,
     init_embedding,
@@ -59,7 +63,9 @@ class MergeDecoder:
             "out": init_dense(gen, self.hidden_dim, self.vocab_size),
         }
 
-    def init_state(self, params, features):
+    def init_state(self, params, features, rng=None, deterministic=True):
+        if rng is not None and not deterministic:
+            features = dropout(rng, features, self.dropout_rate, False)
         fe = dense(params["feat_proj"], features, torch.relu)
         B = fe.shape[0]
         zeros = torch.zeros(
@@ -77,3 +83,28 @@ class MergeDecoder:
     def step(self, params, state, token):
         hidden, new_state = self.step_hidden(params, state, token)
         return dense(params["out"], hidden), new_state
+
+    # -- training ------------------------------------------------------------
+
+    def forward_hidden(self, params, features, tokens, rng=None, deterministic=True):
+        """Teacher-forced hidden states before the output projection:
+        tokens (B, T) -> (B, T, H). ``rng`` (a ``torch.Generator``) draws
+        the feature dropout, then the embedding dropout."""
+        state = self.init_state(params, features, rng=rng, deterministic=deterministic)
+        xs = embed(params["embedding"], tokens)  # (B, T, E)
+        if rng is not None and not deterministic:
+            xs = dropout(rng, xs, self.dropout_rate, False)
+        h, c = state["h"], state["c"]
+        tops = []
+        for t in range(xs.shape[1]):
+            top, h, c = _stacked_step(params["cells"], xs[:, t], h, c)
+            tops.append(top)
+        tops = torch.stack(tops, dim=1)  # (B, T, U)
+        return dense(params["pre_out"], state["fe"][:, None, :] + tops, torch.relu)
+
+    def forward_train(self, params, features, tokens, rng=None, deterministic=True):
+        """tokens (B, T) post-padded input ids -> logits (B, T, V)."""
+        hidden = self.forward_hidden(
+            params, features, tokens, rng=rng, deterministic=deterministic
+        )
+        return dense(params["out"], hidden)

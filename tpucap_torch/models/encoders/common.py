@@ -36,12 +36,10 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
 
 
 def conv(p, x, stride=(1, 1), padding="SAME"):
-    """x (B, H, W, Cin) -> (B, H', W', Cout); kernel OIHW. The bias is
-    added inside the convolution call: one rounding of the f32 sum in a
-    bf16 flow where the JAX package rounds the convolution, then adds the
-    bias in bf16 (identical in f32)."""
+    """x (B, H, W, Cin) -> (B, H', W', Cout); kernel OIHW. The convolution
+    comes out in x's dtype and the bias is added after it, in that dtype,
+    as in the JAX package and kernel K4."""
     w = p["kernel"].to(x.dtype)
-    b = p["bias"].to(x.dtype) if "bias" in p else None
     xn = x.permute(0, 3, 1, 2)
     if padding == "VALID":
         pad = 0
@@ -55,8 +53,13 @@ def conv(p, x, stride=(1, 1), padding="SAME"):
             pad = 0
     else:
         raise ValueError(f"unknown padding {padding!r}")
-    y = F.conv2d(xn, w, b, stride=stride, padding=pad)
-    return y.permute(0, 2, 3, 1)
+    # No bias inside the call: in a bf16 flow the f32 sum is rounded to
+    # bf16 first and the bias added in bf16 after, two roundings as
+    # tpucap does them (one, with the bias inside, differs in the last bit).
+    y = F.conv2d(xn, w, None, stride=stride, padding=pad).permute(0, 2, 3, 1)
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
 
 
 def init_bn(c, scale=True):

@@ -10,8 +10,11 @@ final LayerNorm. 'pooled' features are the mean over tokens (B, H);
 
 ``attention_impl="xla"`` runs ``layers.sdpa`` (library matmuls, as the JAX
 package leaves them to XLA); ``"flash"`` runs kernel K5
-(``ops.attention.flash_attention``) on the card, straight on the views of
-the qkv projection. BatchNorm folding is a no-op (the family has none).
+(``ops.attention.flash_attention_qkv``) on the card, straight on the views
+of the qkv projection, and when the projection needs a gradient K5's
+backward kernels too. Every other op is plain PyTorch, so ``apply`` is
+differentiable as it stands. BatchNorm folding is a no-op (the family has
+none).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from tpucap_torch.models.layers import (
     sdpa,
     split_heads,
 )
-from tpucap_torch.ops.attention import flash_attention
+from tpucap_torch.ops.attention import flash_attention_qkv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,15 +114,15 @@ class ViT:
         for block in params["blocks"]:
             h1 = layer_norm(block["ln1"], t)
             qkv = dense(block["qkv"], h1)  # (B, L, 3H)
-            q = split_heads(qkv[..., :H], self.num_heads)
-            k = split_heads(qkv[..., H : 2 * H], self.num_heads)
-            v = split_heads(qkv[..., 2 * H :], self.num_heads)
             if self.attention_impl == "flash":
                 # tpucap's _flash_ctx pads L to a multiple of 128 and
                 # masks with segment ids; K5 masks keys past L itself,
                 # so nothing is padded or sliced here.
-                ctx = flash_attention(q, k, v, scale)
+                ctx = flash_attention_qkv(qkv, self.num_heads, scale)
             else:
+                q = split_heads(qkv[..., :H], self.num_heads)
+                k = split_heads(qkv[..., H : 2 * H], self.num_heads)
+                v = split_heads(qkv[..., 2 * H :], self.num_heads)
                 ctx, _ = sdpa(q, k, v, None, scale)
             t = t + dense(block["o"], merge_heads(ctx))
             h2 = layer_norm(block["ln2"], t)

@@ -1,5 +1,5 @@
-"""Dense / Embedding / LSTM / LayerNorm / attention primitives with
-Keras-default initialization (port of ``tpucap.models.layers``).
+"""Dense / Embedding / LSTM / LayerNorm / dropout / attention primitives
+with Keras-default initialization (port of ``tpucap.models.layers``).
 
 Params are plain dicts of tensors in the JAX package's layout: a dense
 kernel is ``(in, out)``, an LSTM cell holds ``kernel (in, 4U)``,
@@ -127,6 +127,21 @@ def gelu(x):
     """``jax.nn.gelu``'s default: the tanh approximation (PyTorch's default
     is the exact erf form)."""
     return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# Dropout (inverted, Keras/flax scaling)
+
+
+def dropout(rng, x, rate: float, deterministic: bool):
+    """Keep each element with probability 1 - rate and scale it by
+    1 / (1 - rate), in x's dtype. The mask is drawn from ``rng``, a
+    ``torch.Generator`` on x's device; its bits are not jax's."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 # ---------------------------------------------------------------------------

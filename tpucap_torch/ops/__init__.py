@@ -15,13 +15,21 @@ _block                                                  fused_identity_block
 attention.flash_attention  flash_attention.cu (K5)      models/encoders/vit.py
                                                         _flash_ctx (jax's stock
                                                         TPU flash attention)
+attention.flash_attention  flash_attention_bwd.cu       the stock kernel's
+_bwd_dkv                   (K5b, dK/dV)                 _flash_attention_bwd_dkv
+attention.flash_attention  flash_attention_bwd.cu       the stock kernel's
+_bwd_dq                    (K5b, dQ)                    _flash_attention_bwd_dq
 ========================== ============================ ========================
 
 Each wrapper counts its launches in a ``launches`` attribute: it adds one
 where it launches its kernel and nowhere else.
 """
 
-from tpucap_torch.ops.attention import flash_attention
+from tpucap_torch.ops.attention import (
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+)
 from tpucap_torch.ops.bottleneck import fused_identity_block
 from tpucap_torch.ops.decoder_step import merge_head, vocab_proj
 from tpucap_torch.ops.lstm_step import lstm_cell
@@ -34,6 +42,8 @@ KERNEL_WRAPPERS = {
     "vocab_proj": vocab_proj,
     "identity_block": fused_identity_block,
     "flash_attention": flash_attention,
+    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+    "flash_attention_bwd_dq": flash_attention_bwd_dq,
 }
 
 

@@ -8,8 +8,8 @@ conv shortcut: the 12 identity blocks of ResNet-50 (each stack's first
 block has a conv shortcut, so 16 - 4). Numerics as in the TPU kernel: each
 conv accumulates in f32 and is rounded to the activation dtype before its
 bias is added in that dtype; the 3x3's nine taps share one f32 sum; the
-output is relu((y3 + b3) + x). That order differs from the unfused
-``encoders.common.conv``, which lets cuDNN add the bias before rounding.
+output is relu((y3 + b3) + x). The unfused ``encoders.common.conv``
+rounds the same way.
 
 The TPU kernel sizes whole images into VMEM (``_group_for``); the CUDA
 kernel (``csrc/bottleneck.cu``) tiles each image spatially instead, so it

@@ -66,11 +66,15 @@ def _index_table(dst: int, src: int, device: torch.device) -> torch.Tensor:
 
 def preprocess_u8_plain(images, rows, cols, scale, bias, flip, out_dtype):
     """Plain PyTorch version of K1: the same gather, flip and f32 affine.
-    ``scale``/``bias`` are (3,) f32 tensors on the images' device."""
+    ``scale``/``bias`` are (3,) f32 tensors on the images' device. The
+    affine is rounded to f32 once, as the fused multiply-add of K1 and of
+    XLA: in f64, where the product of a byte and an f32 and the sum with
+    an f32 bias are exact, then to f32."""
     x = images[:, rows.long()][:, :, cols.long()]
     if flip:
         x = x.flip(-1)
-    return (x.float() * scale + bias).to(out_dtype)
+    y = x.double() * scale.double() + bias.double()
+    return y.float().to(out_dtype)
 
 
 def preprocess_u8(images, size_hw, mode: str, out_dtype=torch.float32):

@@ -9,6 +9,10 @@
     caption_batch(images_u8, ...) uint8 (B, H, W, 3) -> captions: the body
                                   of the JAX package's caption_dataset
 
+    fit(descriptions, features)   train the decoder on extracted features
+    fit_finetune(descriptions,    train encoder and decoder jointly on
+                 images)          preprocessed images
+
 ``caption_batch`` is the main path: preprocess kernel K1 -> encoder ->
 MergeDecoder.init_state -> beam search whose step, on the card with a
 1-layer MergeDecoder, is ``make_fused_merge_step`` (kernels K2 and K3: the
@@ -19,8 +23,9 @@ encoder's kernel paths are opt-in on the built encoder:
 ``pipe.encoder = dataclasses.replace(pipe.encoder, fused_blocks=True)``
 (ResNet-50's identity blocks as kernel K4, after ``fold_bn()``) or
 ``dataclasses.replace(pipe.encoder, attention_impl="flash")`` (ViT
-attention as kernel K5). Reading JPEG files (``caption_dataset(paths)``) and
-training are not ported yet.
+attention as kernel K5; under ``fit_finetune`` K5's two backward kernels
+too). Training is single-device, Adam (``tpucap_torch.train``); reading
+JPEG files (``caption_dataset(paths)``) is not ported yet.
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed; see
 ``tpucap_torch.core`` for the precision policy.
@@ -28,6 +33,7 @@ Runs on ``cuda`` unless ``device="cpu"`` is passed; see
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tpucap_torch.config import Config
@@ -44,6 +50,17 @@ from tpucap_torch.ops.decoder_step import make_fused_merge_step
 from tpucap_torch.ops.preprocess import fused_preprocess
 from tpucap_torch.text import END_TOKEN, START_TOKEN, Tokenizer
 from tpucap_torch.text.tokenizer import text_to_word_sequence
+from tpucap_torch.train import (
+    TrainState,
+    batch_iterator,
+    build_optimizer,
+    build_training_batch,
+    encoder_learning_rate_optimizer,
+    make_joint_train_step,
+    make_train_step,
+    own_state,
+)
+from tpucap_torch.train.loop import refuse_unported
 
 
 class CaptioningPipeline:
@@ -263,3 +280,216 @@ class CaptioningPipeline:
         feats = self._apply_encoder(params["encoder"], x)
         res = self._decode(params["decoder"], feats, method, beam_width)
         return self._captions(res)
+
+    # -- training ------------------------------------------------------------
+
+    def _train_setup(self, n_rows: int, batch_size: int | None, log):
+        cfg = self.config.train
+        batch_size = batch_size or cfg.batch_size
+        if n_rows < batch_size:
+            # batch_iterator drops the remainder, so a dataset smaller than
+            # one batch would run no step at all.
+            if log:
+                log(
+                    f"batch_size {batch_size} > {n_rows} training rows; "
+                    f"clamping batch_size to {n_rows}"
+                )
+            batch_size = n_rows
+        if cfg.precision not in ("f32", "bf16"):
+            raise ValueError(f"TrainConfig.precision={cfg.precision!r}; have f32|bf16")
+        # f32 training runs in full f32 (TF32 off); the inference policy is
+        # restored when training ends.
+        apply_precision("f32" if cfg.precision == "f32" else "bf16")
+        compute_dtype = torch.bfloat16 if cfg.precision == "bf16" else None
+        return batch_size, compute_dtype
+
+    def _run_epochs(self, step, state, arrays, batch, epochs, batch_size, log):
+        """Shared epoch loop: shuffled batches (numpy, seeded with
+        TrainConfig.seed as tpucap draws them), metrics summed on the card
+        and read once per epoch. -> (state, history)."""
+        rng = np.random.default_rng(self.config.train.seed)
+        history = []
+        for epoch in range(epochs):
+            sums: dict = {}
+            n = 0
+            for rows in batch_iterator(arrays, batch_size, rng=rng):
+                state, metrics = step(state, *batch(*rows))
+                n += 1
+                for k, v in metrics.items():
+                    sums[k] = sums.get(k, 0.0) + v
+            entry = {k: float(v) / max(n, 1) for k, v in sums.items()}
+            entry["epoch"] = epoch
+            history.append(entry)
+            if log:
+                log(
+                    f"epoch {epoch}: loss={entry.get('loss', 0):.4f} "
+                    f"acc={entry.get('accuracy', 0):.4f}"
+                )
+        return state, history
+
+    def fit(
+        self,
+        descriptions: dict[str, list[str]],
+        features: dict[str, np.ndarray],
+        *,
+        epochs: int | None = None,
+        batch_size: int | None = None,
+        data_parallel: bool = False,
+        parallelism: str | None = None,
+        checkpoint_manager=None,
+        val_data=None,
+        stream: bool = False,
+        prefetch: int = 2,
+        resume: bool = False,
+        handle_preemption: bool = False,
+        preemption_guard=None,
+        sharded_checkpoints: bool = False,
+        log=print,
+    ) -> list[dict]:
+        """Train the decoder on extracted features (teacher-forced masked
+        CE, Adam), one device. -> per-epoch metric dicts (loss, accuracy,
+        tokens, perplexity, epoch); updates ``self.params["decoder"]``.
+        Dropout is on (``DecoderConfig.dropout_rate``); the rows are
+        shuffled by ``np.random.default_rng(TrainConfig.seed)`` as tpucap
+        shuffles them."""
+        refuse_unported(
+            data_parallel=(data_parallel, False),
+            parallelism=(parallelism if parallelism != "none" else None, None),
+            checkpoint_manager=(checkpoint_manager, None),
+            val_data=(val_data, None),
+            stream=(stream, False),
+            prefetch=(prefetch, 2),
+            resume=(resume, False),
+            handle_preemption=(handle_preemption, False),
+            preemption_guard=(preemption_guard, None),
+            sharded_checkpoints=(sharded_checkpoints, False),
+        )
+        cfg = self.config.train
+        epochs = epochs or cfg.epochs
+        if self.decoder is None:
+            self.build()
+        F, T = build_training_batch(
+            self.tokenizer, descriptions, features, self.config.decode.max_len
+        )
+        batch_size, compute_dtype = self._train_setup(T.shape[0], batch_size, log)
+        try:
+            optimizer = build_optimizer(cfg)
+            state = own_state(
+                TrainState.create(
+                    self.params["decoder"], optimizer, self._train_generator()
+                )
+            )
+            step = make_train_step(
+                self.decoder,
+                optimizer,
+                pad_id=0,
+                label_smoothing=cfg.label_smoothing,
+                compute_dtype=compute_dtype,
+                donate=True,
+            )
+            state, history = self._run_epochs(
+                step, state, (F, T), self._to_device, epochs, batch_size, log
+            )
+        finally:
+            apply_precision(self.config.precision)
+        self.params["decoder"] = state.params
+        self._bf16_params = None
+        return history
+
+    def fit_finetune(
+        self,
+        descriptions: dict[str, list[str]],
+        images: dict[str, np.ndarray],
+        *,
+        epochs: int | None = None,
+        batch_size: int | None = None,
+        encoder_lr_scale: float = 0.1,
+        freeze_encoder: bool = False,
+        remat_encoder: bool = False,
+        parallelism: str | None = None,
+        augment: bool = False,
+        augment_shift: int = 0,
+        lora_rank: int = 0,
+        lora_alpha: float | None = None,
+        checkpoint_manager=None,
+        resume: bool = False,
+        handle_preemption: bool = False,
+        preemption_guard=None,
+        sharded_checkpoints: bool = False,
+        log=print,
+    ) -> list[dict]:
+        """Train the encoder and the decoder jointly through the captioning
+        loss, one device. ``images``: id -> preprocessed (H, W, 3) float
+        array. ``encoder_lr_scale`` scales the encoder's updates after Adam;
+        ``freeze_encoder=True`` stops gradients at the features and zeroes
+        the encoder's updates. Each token row indexes an image store, which
+        is gathered per batch on the host (as tpucap does). Updates
+        ``self.params``."""
+        refuse_unported(
+            remat_encoder=(remat_encoder, False),
+            parallelism=(parallelism if parallelism != "none" else None, None),
+            augment=(augment, False),
+            augment_shift=(augment_shift, 0),
+            lora_rank=(lora_rank, 0),
+            lora_alpha=(lora_alpha, None),
+            checkpoint_manager=(checkpoint_manager, None),
+            resume=(resume, False),
+            handle_preemption=(handle_preemption, False),
+            preemption_guard=(preemption_guard, None),
+            sharded_checkpoints=(sharded_checkpoints, False),
+        )
+        cfg = self.config.train
+        epochs = epochs or cfg.epochs
+        if self.decoder is None:
+            self.build()
+        store_ids = list(descriptions.keys())
+        store = np.stack([np.asarray(images[i], np.float32) for i in store_ids])
+        index_of = {i: np.asarray(k, np.int32) for k, i in enumerate(store_ids)}
+        F_idx, T = build_training_batch(
+            self.tokenizer, descriptions, index_of, self.config.decode.max_len
+        )
+        batch_size, compute_dtype = self._train_setup(T.shape[0], batch_size, log)
+        try:
+            optimizer = build_optimizer(cfg)
+            if encoder_lr_scale != 1.0 and not freeze_encoder:
+                optimizer = encoder_learning_rate_optimizer(
+                    optimizer, encoder_lr_scale=encoder_lr_scale
+                )
+            params = {"encoder": self.params["encoder"], "decoder": self.params["decoder"]}
+            state = own_state(TrainState.create(params, optimizer, self._train_generator()))
+            step = make_joint_train_step(
+                self.encoder,
+                self.decoder,
+                optimizer,
+                pad_id=0,
+                label_smoothing=cfg.label_smoothing,
+                freeze_encoder=freeze_encoder,
+                compute_dtype=compute_dtype,
+                donate=True,
+            )
+            state, history = self._run_epochs(
+                step,
+                state,
+                (F_idx, T),
+                lambda bi, bt: self._to_device(store[np.asarray(bi)], bt),
+                epochs,
+                batch_size,
+                log,
+            )
+        finally:
+            apply_precision(self.config.precision)
+        self.params["encoder"] = state.params["encoder"]
+        self.params["decoder"] = state.params["decoder"]
+        self._bf16_params = None
+        return history
+
+    def _train_generator(self) -> torch.Generator:
+        """The dropout generator, on the pipeline's device, seeded with
+        TrainConfig.seed (its bits are not jax's)."""
+        return torch.Generator(device=self.device).manual_seed(self.config.train.seed)
+
+    def _to_device(self, features, tokens):
+        return (
+            torch.as_tensor(features).to(self.device, torch.float32),
+            torch.as_tensor(tokens).to(self.device, torch.long),
+        )

@@ -1,8 +1,9 @@
 """Pure-Python tokenizer with tf_keras-parity semantics.
 
 A copy of ``tpucap.text.tokenizer.Tokenizer`` restricted to what serving
-needs (fit, reverse lookup, vocab size, JSON persistence), so a vocabulary
-fitted or saved by either package loads in the other:
+and training need (fit, words to ids, reverse lookup, vocab size, JSON
+persistence), so a vocabulary fitted or saved by either package loads in
+the other:
 
 - index 0 is reserved for padding and never assigned to a word;
 - the vocabulary is sorted by descending frequency, ties in first-seen
@@ -83,6 +84,27 @@ class Tokenizer:
         self.index_word = {i: w for w, i in self.word_index.items()}
         for w, c in self.word_docs.items():
             self.index_docs[self.word_index[w]] = c
+
+    def texts_to_sequences(self, texts: Iterable[str]) -> list[list[int]]:
+        """Words -> ids; unknown words dropped (or the OOV id), ids at or
+        above ``num_words`` dropped (or the OOV id)."""
+        num_words = self.num_words
+        oov_index = self.word_index.get(self.oov_token)
+        out = []
+        for text in texts:
+            vect: list[int] = []
+            for w in self._analyze(text):
+                i = self.word_index.get(w)
+                if i is not None:
+                    if num_words and i >= num_words:
+                        if oov_index is not None:
+                            vect.append(oov_index)
+                    else:
+                        vect.append(i)
+                elif self.oov_token is not None:
+                    vect.append(oov_index)
+            out.append(vect)
+        return out
 
     def word_for_id(self, index: int) -> str | None:
         """Reverse lookup used by the caption join."""

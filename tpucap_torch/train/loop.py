@@ -1,0 +1,295 @@
+"""Train step, Adam and its state (port of ``tpucap.train.loop``).
+
+Single device, one optimizer step per batch. The optimizer is a pair of
+plain functions over param trees, ``init(params) -> state`` and
+``update(grads, state, params) -> (updates, state)``, in optax's order:
+Adam's moments, bias correction, ``m / (sqrt(v) + eps)``, adamw's decayed
+weights, then ``-lr``; ``apply_updates`` adds the updates to the params.
+The arithmetic is optax's, written out in torch; where the two round
+differently the tests say by how much.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from tpucap_torch.core import tree_leaves, tree_map
+from tpucap_torch.train.loss import caption_loss_sums, loss_from_sums
+
+
+@dataclasses.dataclass
+class TrainState:
+    """``rng`` is the ``torch.Generator`` dropout draws from (tpucap keeps
+    a jax key there and splits it every step)."""
+
+    step: int
+    params: Any
+    opt_state: Any
+    rng: Any
+
+    @classmethod
+    def create(cls, params, optimizer, rng):
+        return cls(step=0, params=params, opt_state=optimizer.init(params), rng=rng)
+
+
+def own_state(state: TrainState) -> TrainState:
+    """Copy every tensor of the state, so that a step that updates in
+    place (``donate=True``) leaves the caller's tensors alone."""
+    return TrainState(
+        step=state.step,
+        params=tree_map(torch.clone, state.params),
+        opt_state=tree_map(torch.clone, state.opt_state),
+        rng=state.rng,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class GradientTransformation:
+    init: Callable
+    update: Callable
+
+
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """optax.scale_by_adam: state {count, mu, nu}; the update is
+    mu_hat / (sqrt(nu_hat) + eps) with the moments bias-corrected by
+    1 - b**count, computed in f32."""
+
+    def init(params):
+        leaf = tree_leaves(params)[0]
+        return {
+            "count": torch.zeros((), dtype=torch.int32, device=leaf.device),
+            "mu": tree_map(torch.zeros_like, params),
+            "nu": tree_map(torch.zeros_like, params),
+        }
+
+    def update(grads, state, params=None):
+        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state["mu"])
+        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state["nu"])
+        count = state["count"] + 1
+        c = count.float()
+        bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=c.device) ** c
+        bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=c.device) ** c
+        updates = tree_map(lambda m, v: (m / bc1) / (torch.sqrt(v / bc2) + eps), mu, nu)
+        return updates, {"count": count, "mu": mu, "nu": nu}
+
+    return GradientTransformation(init, update)
+
+
+def _stateless(fn):
+    """A transformation whose state is passed through untouched: the port
+    keeps Adam's dict as the whole optimizer state."""
+    return GradientTransformation(lambda params: None, fn)
+
+
+def add_decayed_weights(weight_decay: float):
+    return _stateless(
+        lambda u, s, p: (tree_map(lambda a, b: a + weight_decay * b, u, p), s)
+    )
+
+
+def scale_by_learning_rate(lr: float):
+    return _stateless(lambda u, s, p=None: (tree_map(lambda a: -lr * a, u), s))
+
+
+def clip_by_global_norm(max_norm: float):
+    """optax.clip_by_global_norm: g / ||g|| * max_norm where the global
+    norm is at least max_norm."""
+
+    def update(u, s, p=None):
+        norm = torch.sqrt(sum((g * g).sum() for g in tree_leaves(u)))
+        keep = norm < max_norm
+        return tree_map(lambda g: torch.where(keep, g, (g / norm) * max_norm), u), s
+
+    return _stateless(update)
+
+
+def chain(*transforms):
+    """optax.chain with at most one stateful member, whose state is the
+    chain's."""
+
+    def init(params):
+        states = [t.init(params) for t in transforms]
+        live = [s for s in states if s is not None]
+        if len(live) > 1:
+            raise ValueError("the port's chain holds one stateful transformation")
+        return live[0] if live else None
+
+    def update(updates, state, params=None):
+        for t in transforms:
+            updates, s = t.update(updates, state, params)
+            if s is not None:
+                state = s
+        return updates, state
+
+    return GradientTransformation(init, update)
+
+
+def adam(lr: float):
+    return chain(scale_by_adam(), scale_by_learning_rate(lr))
+
+
+def adamw(lr: float, weight_decay: float):
+    return chain(scale_by_adam(), add_decayed_weights(weight_decay), scale_by_learning_rate(lr))
+
+
+def apply_updates(params, updates, *, in_place: bool = False):
+    """params + updates; with ``in_place`` the params' own tensors take the
+    sums (the step owns them, ``donate=True``)."""
+    if in_place:
+        return tree_map(lambda p, u: p.copy_(p + u), params, updates)
+    return tree_map(lambda p, u: p + u, params, updates)
+
+
+def build_optimizer(cfg):
+    """TrainConfig -> optimizer. Plain Adam at a constant lr (the default),
+    or adamw; ``grad_clip_norm`` > 0 clips by the global norm first. The
+    port has no lr schedule, so tpucap's ``total_steps`` (a schedule's
+    horizon) has no counterpart."""
+    if cfg.optimizer == "adam":
+        base = adam(cfg.learning_rate)
+    elif cfg.optimizer == "adamw":
+        base = adamw(cfg.learning_rate, cfg.weight_decay)
+    elif cfg.optimizer in ("sgd", "rmsprop", "adagrad"):
+        raise NotImplementedError(
+            f"optimizer {cfg.optimizer!r} is not ported; have adam, adamw"
+        )
+    else:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}; have adam, adamw")
+    if cfg.grad_clip_norm:
+        return chain(clip_by_global_norm(cfg.grad_clip_norm), base)
+    return base
+
+
+def trainable(tree):
+    """Leaves of ``tree`` as new autograd leaves (sharing storage)."""
+    return tree_map(lambda t: t.detach().requires_grad_(True), tree)
+
+
+def grads_of(loss, tree):
+    """d loss / d leaf for every leaf of ``tree``; a leaf that does not
+    require grad, or that the loss does not reach, gets zeros."""
+    leaves = tree_leaves(tree)
+    live = [t for t in leaves if t.requires_grad]
+    got = iter(torch.autograd.grad(loss, live, allow_unused=True))
+    out = iter(
+        [
+            (g if (g := next(got)) is not None else torch.zeros_like(t))
+            if t.requires_grad
+            else torch.zeros_like(t)
+            for t in leaves
+        ]
+    )
+    return tree_map(lambda _: next(out), tree)
+
+
+def check_compute_dtype(compute_dtype):
+    """None (f32) or bf16, with f32 master params, as tpucap trains."""
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"compute_dtype={compute_dtype} is not ported (None or bfloat16)")
+
+
+def refuse_unported(**knobs):
+    """knobs: name -> (value, default). Raise for the first knob of
+    tpucap's signature that the port does not have and that was given a
+    value other than its default."""
+    for name, (value, default) in knobs.items():
+        if value != default:
+            raise NotImplementedError(f"{name}={value!r} is not ported (only {default!r})")
+
+
+def make_train_step(
+    decoder,
+    optimizer,
+    *,
+    pad_id: int = 0,
+    label_smoothing: float = 0.0,
+    attention_reg: float = 0.0,
+    deterministic: bool = False,
+    grad_accum_steps: int = 1,
+    compute_dtype=None,
+    donate: bool = False,
+    scheduled_sampling: bool = False,
+    multi_steps: int = 1,
+) -> Callable:
+    """Single-device step: (state, features, tokens) -> (state, metrics),
+    metrics as device scalars.
+
+    ``compute_dtype=torch.bfloat16`` is mixed precision: the forward and
+    backward in bf16 from a cast made inside the differentiated function,
+    f32 master params, optimizer state and loss reductions.
+    ``donate=True`` updates the state's tensors in place (the caller owns
+    the state and rebinds it every call, ``state, m = step(state, ...)``).
+    """
+    refuse_unported(
+        attention_reg=(attention_reg, 0.0),
+        grad_accum_steps=(grad_accum_steps, 1),
+        scheduled_sampling=(scheduled_sampling, False),
+        multi_steps=(multi_steps, 1),
+    )
+    check_compute_dtype(compute_dtype)
+
+    def step(state: TrainState, features, tokens):
+        params = trainable(state.params)
+        sums = caption_loss_sums(
+            decoder,
+            params,
+            features,
+            tokens,
+            rng=state.rng,
+            deterministic=deterministic,
+            pad_id=pad_id,
+            label_smoothing=label_smoothing,
+            compute_dtype=compute_dtype,
+        )
+        loss, metrics = loss_from_sums(sums)
+        grads = grads_of(loss, params)
+        return optimizer_step(state, optimizer, grads, metrics, donate)
+
+    return step
+
+
+def optimizer_step(state, optimizer, grads, metrics, donate, mask_updates=None):
+    """The step's second half: updates from the gradients (then
+    ``mask_updates``), the new params and optimizer state (in the state's
+    own tensors with ``donate``), metrics detached."""
+    with torch.no_grad():
+        updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+        if mask_updates is not None:
+            updates = mask_updates(updates)
+        if donate:
+            opt_state = tree_map(lambda old, new: old.copy_(new), state.opt_state, opt_state)
+        params = apply_updates(state.params, updates, in_place=donate)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return TrainState(step=state.step + 1, params=params, opt_state=opt_state, rng=state.rng), metrics
+
+
+def make_eval_step(
+    decoder,
+    *,
+    pad_id: int = 0,
+    attention_reg: float = 0.0,
+    label_smoothing: float = 0.0,
+    compute_dtype=None,
+) -> Callable:
+    """(params, features, tokens) -> metrics of the training objective,
+    dropout off, no gradient."""
+    refuse_unported(attention_reg=(attention_reg, 0.0))
+
+    @torch.no_grad()
+    def step(params, features, tokens):
+        sums = caption_loss_sums(
+            decoder,
+            params,
+            features,
+            tokens,
+            deterministic=True,
+            pad_id=pad_id,
+            label_smoothing=label_smoothing,
+            compute_dtype=compute_dtype,
+        )
+        return loss_from_sums(sums)[1]
+
+    return step
