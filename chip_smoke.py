@@ -28,9 +28,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2d. K5's two backward kernels (dK/dV and dQ) and K5's row-statistics
    output against their plain versions, f32 and bf16, at ViT-B/16's
    training shape (batch 64, L 196, 12 heads) and at L = 49 and 257 with 4
-   heads; times beside the plain versions, the backward of
+   heads, every element of a NaN-filled gradient buffer written; in bf16
+   at the training shape, two launches of each kernel give identical bits;
+   times beside the plain versions, the backward of
    ``F.scaled_dot_product_attention`` (forward + backward, less the
-   forward) and the bound;
+   forward) and the bound, with each kernel's registers a thread, shared
+   memory a block and blocks an SM (``cudaFuncGetAttributes``);
 3. the slice at full width: uint8 (256, 224, 224, 3) -> K1 -> ResNet-50
    (BN folded) -> lstm1 merge decoder (embed/hidden 256, vocab 7579) ->
    beam 3, max_len 34, bf16, random weights from a seed; launch counters
@@ -519,6 +522,19 @@ def check_flash_attention_bwd(dev) -> dict[str, dict]:
                 f"dq/dk/dv max_abs_err={', '.join(f'{e:.3g}' for e in errs)} (tol {share:.3g} x scale)")
         if dt != torch.bfloat16:
             continue
+        # Determinism at the training shape: each block owns its output rows
+        # and no kernel adds with atomics, so a second launch of each writes
+        # the same bits.
+        again = torch.full_like(qkv, float("nan"))
+        dq2, dk2, dv2 = A.qkv_views(again, heads)
+        A.flash_attention_bwd_dkv(q, k, v, do, lse_p, di, scale, dk2, dv2)
+        A.flash_attention_bwd_dq(q, k, v, do, lse_p, di, scale, dq2)
+        torch.cuda.synchronize()
+        for name, first, second in (("dkv", (dk, dv), (dk2, dv2)), ("dq", (dq,), (dq2,))):
+            if not all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(first, second)):
+                raise AssertionError(f"flash_attention_bwd_{name} q{tuple(q.shape)} bf16: two launches differ")
+        log(f"kernel flash_attention_bwd q{tuple(q.shape)} bf16: two launches of each kernel give identical bits")
+        del again, dq2, dk2, dv2
         # Timing and bounds at the training shape, bf16.
         n = TRAIN_BATCH * VIT_HEADS * VIT_L * VIT_L * VIT_D
         stats = nbytes(lse_p, di)
@@ -532,6 +548,7 @@ def check_flash_attention_bwd(dev) -> dict[str, dict]:
             return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
 
         sdpa_bwd_ms = cuda_ms(sdpa_fwd_bwd) - cuda_ms(sdpa_fwd)
+        attrs = A.flash_attention_bwd_attributes(dt)  # registers, shared memory, blocks an SM
         # Bytes: q, k, v and dO read, the gradients written, the f32
         # statistics read; operations: four products of 2 B h L^2 d for
         # dK/dV (S, dP, dV, dK), three for dQ (S, dP, dQ).
@@ -556,7 +573,7 @@ def check_flash_attention_bwd(dev) -> dict[str, dict]:
             b_ms, b_by = bound(moved, products * 2 * n, dt)
             out[name] = dict(
                 max_abs_err=err, ms=cuda_ms(kern), plain_ms=cuda_ms(plain, 3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=sdpa_bwd_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=sdpa_bwd_ms, **attrs[name],
             )
         fwd_ms = cuda_ms(lambda: A.flash_attention(q, k, v, scale))
         fwd_lse_ms = cuda_ms(lambda: A.flash_attention(q, k, v, scale, with_lse=True))
@@ -566,7 +583,9 @@ def check_flash_attention_bwd(dev) -> dict[str, dict]:
         log(
             f"kernel {name} q{tuple(q.shape)}: ok  max_abs_err={r['max_abs_err']:.3g}  ms={r['ms']:.4f}  "
             f"plain_ms={r['plain_ms']:.4f}  library_ms={r['library_ms']:.4f} (SDPA backward, both "
-            f"kernels' work)  bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); {against_bound(r)}"
+            f"kernels' work)  bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); {against_bound(r)}; "
+            f"{r['registers']} registers a thread, {r['smem_bytes']} bytes of shared memory a block, "
+            f"{r['blocks_per_sm']} blocks an SM"
         )
     return out
 

@@ -1,8 +1,12 @@
 """Times kernels K1 (preprocess), K3 (bf16 merge head and vocab
-projection) and K4 (bf16 identity block) from one or more copies of the
-port, in turns, on one CUDA card.
+projection), K4 (bf16 identity block), K5 (bf16 flash attention) and K5b
+(its two bf16 backward kernels) from one or more copies of the port, in
+turns, on one CUDA card.
 
-    python3 scripts/kernel_versions.py TREE [TREE ...]
+    python3 scripts/kernel_versions.py [--only GROUP,...] TREE [TREE ...]
+
+GROUP is one of k1, k3, k4, k5b (default: all); ``--only k5b`` times K5
+and K5b alone.
 
 Each TREE is a directory that holds a ``tpucap_torch/`` package, for
 example a copy of the repository with one kernel source edited: this is how
@@ -32,6 +36,16 @@ that a drift of the card shows. Per tree it prints one JSON line:
   ResNet-50's four stage shapes, bf16, batch 256, against
   ``fused_identity_block_plain``; ``pass_ms``, the best of each stage
   weighted by its blocks (12 launches).
+- ``dkv_ms`` and ``dq_ms``: K5b's dK/dV and dQ kernels at the joint
+  training step's shape (batch 64, L 196, 12 heads of 64), bf16, q, k, v
+  as views of one qkv projection and the gradients into views of one
+  buffer, three timings each; ``dkv_err``, ``dq_err``, the max abs errors
+  against their plain versions; ``sdpa_bwd_ms``, the backward of
+  ``F.scaled_dot_product_attention`` on the same inputs, measured as
+  ``chip_smoke.py`` measures it (forward + backward, less the forward);
+  ``k5_ms``, K5's forward (no statistics) on the same q, k, v, three
+  timings; ``k5b_attributes``, each backward kernel's registers, shared
+  memory and blocks an SM, where the tree can report them.
 
 Times are ``chip_smoke.cuda_ms``: CUDA events around launches replayed from
 one CUDA graph. The card's name and power limit are printed first. Needs
@@ -48,25 +62,32 @@ import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+GROUPS = ("k1", "k3", "k4", "k5b")
 
 
-def time_tree(tree: str) -> dict:
+def time_tree(tree: str, groups: tuple[str, ...] = GROUPS) -> dict:
     sys.path[:0] = [tree, str(ROOT)]
     import torch
 
-    import chip_smoke as cs
     import tpucap_torch
-    from tpucap_torch.ops import decoder_step, lstm_step, preprocess
-    from tpucap_torch.ops.bottleneck import fused_identity_block, fused_identity_block_plain
 
     if not Path(tpucap_torch.__file__).resolve().is_relative_to(Path(tree).resolve()):
         raise RuntimeError(f"tpucap_torch came from {tpucap_torch.__file__}, not {tree}")
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1)
     res = {"tree": tree}
-    # Older trees name the K-major copy vocab_weight_kmajor and make none of W_p.
-    kmajor = getattr(decoder_step, "weight_kmajor", None) or decoder_step.vocab_weight_kmajor
+    for group in groups:  # each group's inputs from a generator of its own
+        g = torch.Generator(device=dev).manual_seed(1)
+        res |= {"k1": time_k1, "k3": time_k3, "k4": time_k4, "k5b": time_k5b}[group](dev, g)
+    return res
 
+
+def time_k1(dev, g) -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from tpucap_torch.ops import preprocess
+
+    res = {}
     scale, bias, flip = cs._affine("caffe", dev)
     for key, shape, size in (("k1", (cs.BATCH, cs.IMAGE, cs.IMAGE, 3), cs.IMAGE),
                              ("k1_299", (cs.BATCH, 300, 250, 3), 299)):
@@ -81,7 +102,18 @@ def time_tree(tree: str) -> dict:
             for _ in range(3)
         ]
         del imgs, got, want
+    return res
 
+
+def time_k3(dev, g) -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from tpucap_torch.ops import decoder_step, lstm_step
+
+    res = {}
+    # Older trees name the K-major copy vocab_weight_kmajor and make none of W_p.
+    kmajor = getattr(decoder_step, "weight_kmajor", None) or decoder_step.vocab_weight_kmajor
     M, U, V = cs.BATCH * cs.BEAM, cs.WIDTH, cs.VOCAB
     fe = torch.randn((M, U), generator=g, device=dev).relu().bfloat16()
     h32 = torch.randn((M, U), generator=g, device=dev) * 0.5
@@ -124,6 +156,16 @@ def time_tree(tree: str) -> dict:
         "k3_ms": [cs.cuda_ms(lambda: decoder_step.vocab_proj(merged, wo, bo, wo_t)) for _ in range(3)],
         "addmm_ms": cs.cuda_ms(lambda: torch.addmm(bo.float(), merged, wo.float())),
     }
+    return res
+
+
+def time_k4(dev, g) -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from tpucap_torch.ops.bottleneck import fused_identity_block, fused_identity_block_plain
+
+    res = {}
     for name, S, C, Mc, _ in cs.STAGES:
         p1, p2, p3 = cs._block_params(C, Mc, g, dev, torch.bfloat16)
         x = torch.randn((cs.BATCH, S, S, C), generator=g, device=dev).relu().bfloat16()
@@ -135,13 +177,61 @@ def time_tree(tree: str) -> dict:
     return res
 
 
+def time_k5b(dev, g) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from tpucap_torch.ops import attention as A
+
+    B, L, heads, d = cs.TRAIN_BATCH, cs.VIT_L, cs.VIT_HEADS, cs.VIT_D
+    scale = d**-0.5
+    qkv = torch.randn((B, L, 3 * heads * d), generator=g, device=dev).bfloat16()
+    do = torch.randn((B, L, heads, d), generator=g, device=dev).bfloat16()
+    q, k, v = A.qkv_views(qkv, heads)
+    o, lse = A.flash_attention_plain(q, k, v, scale, with_lse=True)
+    di = A.attention_di(o, do)
+    grads = torch.empty_like(qkv)
+    dq, dk, dv = A.qkv_views(grads, heads)
+
+    def dkv():
+        A.flash_attention_bwd_dkv(q, k, v, do, lse, di, scale, dk, dv)
+
+    def dqk():
+        A.flash_attention_bwd_dq(q, k, v, do, lse, di, scale, dq)
+
+    dkv()
+    dqk()
+    want_dk, want_dv = A.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, scale)
+    res = {
+        "dkv_err": max(cs.max_err(dk, want_dk), cs.max_err(dv, want_dv)),
+        "dq_err": cs.max_err(dq, A.flash_attention_bwd_dq_plain(q, k, v, do, lse, di, scale)),
+        "dkv_ms": [cs.cuda_ms(dkv) for _ in range(3)],
+        "dq_ms": [cs.cuda_ms(dqk) for _ in range(3)],
+        "k5_ms": [cs.cuda_ms(lambda: A.flash_attention(q, k, v, scale)) for _ in range(3)],
+    }
+    qt, kt, vt = (a.detach().transpose(1, 2).requires_grad_() for a in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+    res["sdpa_bwd_ms"] = cs.cuda_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)) - cs.cuda_ms(sdpa_fwd)
+    if hasattr(A, "flash_attention_bwd_attributes"):
+        res["k5b_attributes"] = A.flash_attention_bwd_attributes(torch.bfloat16)
+    return res
+
+
 def main(argv: list[str]) -> int:
-    if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(time_tree(argv[1])), flush=True)
-        return 0
-    if not argv:
+    groups = GROUPS
+    if argv[:1] == ["--only"]:
+        groups, argv = tuple(argv[1].split(",")) if len(argv) > 1 else (), argv[2:]
+    if not argv or not groups or not set(groups) <= set(GROUPS):
         print(__doc__, file=sys.stderr)
         return 2
+    if argv[0] == "--one":
+        print(json.dumps(time_tree(argv[1], groups)), flush=True)
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -158,7 +248,8 @@ def main(argv: list[str]) -> int:
     ).stdout.strip(), flush=True)
     rc = 0
     for tree in [*argv, argv[0]]:
-        r = subprocess.run([sys.executable, __file__, "--one", tree], capture_output=True, text=True)
+        r = subprocess.run([sys.executable, __file__, "--only", ",".join(groups), "--one", tree],
+                           capture_output=True, text=True)
         print(r.stdout.strip() or r.stderr[-2000:], flush=True)
         rc |= r.returncode
     return rc

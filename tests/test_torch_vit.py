@@ -56,6 +56,7 @@ from tpucap_torch.ops.attention import (
     attention_di,
     flash_attention,
     flash_attention_bwd_dkv,
+    flash_attention_bwd_attributes,
     flash_attention_bwd_dq,
     flash_attention_bwd_plain,
     flash_attention_plain,
@@ -194,6 +195,13 @@ def test_flash_attention_qkv_autograd_on_cpu_runs_plain_and_counts_no_launch(dt)
     assert torch.equal(FlashAttentionQKV.apply(qkv, h, 0.125), ctx.detach())
     counts = ops.launch_counts()
     assert counts["flash_attention"] == counts["flash_attention_bwd_dkv"] == counts["flash_attention_bwd_dq"] == 0
+
+
+def test_flash_attention_bwd_attributes_take_the_kernels_dtypes_only():
+    """The query of the backward kernels' registers and shared memory names
+    one of their two routes; any other dtype is refused before a build."""
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        flash_attention_bwd_attributes(torch.float16)
 
 
 # -- the ViT encoder ---------------------------------------------------------

@@ -1,5 +1,6 @@
 // Shared helpers of the port's CUDA kernels: dtype codes that match
-// tpucap_torch/_build.py, f32 conversions, and the error-string export.
+// tpucap_torch/_build.py, f32 conversions, 2^x on the special-function
+// unit, and the error-string export.
 //
 // Every kernel source includes this header once and is built on its own
 // into a shared library with a plain C interface (route (b): nvcc, ctypes).
@@ -36,6 +37,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// 2^x on the special-function unit (relative error 2^-22; 2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace tpucap

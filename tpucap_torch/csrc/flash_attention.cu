@@ -86,74 +86,6 @@ constexpr int kTile = kBN * 128;   // bytes of a 64 x 64 bf16 tile
 // Q, then (K, V) x kStages, from a 1024-byte aligned base: 1 KB of slack.
 constexpr size_t kSmemMma = 1024 + kBM * 128 + kStages * 2 * kTile;
 
-// 2^x on the special-function unit (relative error 2^-22; 2^-inf = 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// wgmma operand B in shared memory: mma.cuh's smem_desc (a 1024-byte aligned
-// tile of 128-byte rows with the 128-byte swizzle).
-
-// d (64 x 64 per warpgroup, f32) = a b (+ d if acc): a from registers (each
-// warp its 16 rows, in mma.sync's A layout), b from shared memory, K-major
-// (kTrans 0: B[k][n] at row n, column k) or MN-major (kTrans 1: at row k,
-// column n). The accumulator layout per warp is mma.sync's, n-tile n in d[n].
-template <int kTrans>
-__device__ __forceinline__ void wgmma(float (&d)[8][4], const unsigned (&a)[4], uint64_t b,
-                                      bool acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
-        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(acc)),
-        "n"(kTrans));
-}
-
-// Orders every earlier write of d and a before the wgmmas that follow
-// (empty asm that claims to change them keeps the compiler from sinking
-// those writes below the fence).
-template <int kA>
-__device__ __forceinline__ void wgmma_fence(float (&d)[8][4], unsigned (&a)[kA][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
-#pragma unroll
-  for (int i = 0; i < kA; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-// Commits the warpgroup's wgmmas so far and waits for them. The wgmmas
-// read a and write d after their asm has returned, so the compiler is
-// kept from reading d before the wait and from reusing a's registers
-// (for the next tile's values) until after it.
-template <int kA>
-__device__ __forceinline__ void wgmma_wait(float (&d)[8][4], unsigned (&a)[kA][4]) {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
-#pragma unroll
-  for (int i = 0; i < kA; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
-}
-
 __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
     flash_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -225,10 +157,13 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
     for (int n = 0; n < kBN / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-    wgmma_fence(s, qf);
+    pin(s, qf);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) wgmma<0>(s, qf[kk], smem_desc(k_t + 32 * kk), kk > 0);
-    wgmma_wait(s, qf);
+    for (int kk = 0; kk < kD / 16; ++kk)
+      Wgmma<64>::run(s, qf[kk], smem_desc(k_t + 32 * kk), kk > 0);
+    wgmma_commit_wait<0>();
+    pin(s, qf);
 
     // Online softmax on the fragments: s[n][e] is row g + 8 (e / 2), key
     // j * 64 + 8 n + 2 t + e % 2. The max is taken over the unscaled f32
@@ -251,7 +186,7 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       // 0 on the first tile; its key 0 is below L, so mx is finite.
-      alpha[r] = exp2_approx((m[r] - mx[r]) * c);
+      alpha[r] = tpucap::exp2_approx((m[r] - mx[r]) * c);
       m[r] = mx[r];
       mc[r] = mx[r] * c;
       l[r] *= alpha[r];
@@ -260,7 +195,7 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
     for (int n = 0; n < kBN / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2_approx(fmaf(s[n][e], c, -mc[e / 2]));
+        const float p = tpucap::exp2_approx(fmaf(s[n][e], c, -mc[e / 2]));
         l[e / 2] += p;  // this lane's share of the row sum, of unrounded p
         s[n][e] = p;
         o[n][e] *= alpha[e / 2];
@@ -277,10 +212,13 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
       pf[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pf[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
     }
-    wgmma_fence(o, pf);
+    pin(o, pf);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) wgmma<1>(o, pf[kk], smem_desc(v_t + 2048 * kk), true);
-    wgmma_wait(o, pf);
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      Wgmma<64, 1>::run(o, pf[kk], smem_desc(v_t + 2048 * kk), true);
+    wgmma_commit_wait<0>();
+    pin(o, pf);
   }
   if (!active) return;
 

@@ -1,11 +1,14 @@
 // Tensor-core and asynchronous-copy primitives for sm_90a, the building
-// blocks of the bf16 routes of kernels K2 (lstm_step.cu), K3's merge head
-// and projection (decoder_step.cu), K4 (bottleneck.cu) and K5
-// (flash_attention.cu):
-// 16-byte cp.async with zero fill, ldmatrix (plain and transposed),
-// mma.sync m16n8k16 with bf16 operands and f32 accumulators, and
-// warpgroup wgmma m64n32k16 / m64n64k16 / m64n128k16 with A from registers and a
-// K-major B from shared memory.
+// blocks of the bf16 routes of the port's kernels:
+// 16-byte cp.async with zero fill (K2, K4, K5, K5b), ldmatrix (K2-K5b;
+// transposed, K2 only), mma.sync m16n8k16 with
+// bf16 operands and f32 accumulators (K2 only), and warpgroup wgmma
+// m64nNk16 with A from registers and B from shared memory: N = 32 (K3's
+// merge head), 64 (K4, K5, K5b), 128 (K3's projection, K4), 8 (K5b's
+// ragged last tile); B K-major everywhere, and MN-major where K5 and K5b
+// multiply by a tile stored by rows of the contraction (P V, dS K, P^T dO,
+// dS^T Q). lstm_step.cu, decoder_step.cu, bottleneck.cu,
+// flash_attention.cu and flash_attention_bwd.cu.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
 // lane = 4 g + t:
@@ -87,45 +90,61 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 //
 // d (64 x N, f32) += a b with A from registers (each warp of the warpgroup
 // its 16 rows, in mma.sync's A layout, e.g. from ldmatrix_x4) and B read by
-// the tensor cores from shared memory: N rows of 128 bytes (64 bf16 of K
-// each, K-major, mma.sync's .col operand), stored with swz above from a
-// 1024-byte aligned base, so that the layout is wgmma's 128-byte swizzle;
-// 8-row groups 1024 bytes apart. Step kk (16 deep) of such a tile is
-// smem_desc(base + 32 kk). Each warp's accumulators are in mma.sync's C
-// layout, n8 tile j in d[j]. Data that cp.async wrote must be made visible
-// to the tensor cores (fence.proxy.async) before the barrier that publishes
-// it; TMA's writes are visible once their mbarrier phase completes.
+// the tensor cores from shared memory, a tile of 128-byte rows (64 bf16)
+// stored with swz above from a 1024-byte aligned base, so that the layout
+// is wgmma's 128-byte swizzle; 8-row groups 1024 bytes apart.
+//   kTrans 0, K-major (mma.sync's .col operand): B[k][n] at row n, column
+//     k; N rows of 64 k. Step kk (16 deep) is smem_desc(base + 32 kk).
+//   kTrans 1, MN-major: B[k][n] at row k, column n, N = 64; step kk is 16
+//     rows, smem_desc(base + 2048 kk).
+// Each warp's accumulators are in mma.sync's C layout, n8 tile j in d[j].
+// Data that cp.async wrote must be made visible to the tensor cores
+// (fence.proxy.async) before the barrier that publishes it; TMA's writes
+// are visible once their mbarrier phase completes.
 __device__ __forceinline__ uint64_t smem_desc(unsigned addr) {
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
-template <int N>
+template <int N, int kTrans = 0>
 struct Wgmma;
-template <>
-struct Wgmma<32> {
+template <int kTrans>
+struct Wgmma<8, kTrans> {
+  __device__ __forceinline__ static void run(float (&d)[1][4], const unsigned (&a)[4], uint64_t b,
+                                             bool acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(acc)),
+          "n"(kTrans));
+  }
+};
+template <int kTrans>
+struct Wgmma<32, kTrans> {
   __device__ __forceinline__ static void run(float (&d)[4][4], const unsigned (&a)[4],
                                              uint64_t b, bool acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(acc)));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(acc)), "n"(kTrans));
   }
 };
-template <>
-struct Wgmma<64> {
+template <int kTrans>
+struct Wgmma<64, kTrans> {
   __device__ __forceinline__ static void run(float (&d)[8][4], const unsigned (&a)[4],
                                              uint64_t b, bool acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -134,18 +153,18 @@ struct Wgmma<64> {
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(acc)));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(acc)), "n"(kTrans));
   }
 };
-template <>
-struct Wgmma<128> {
+template <int kTrans>
+struct Wgmma<128, kTrans> {
   __device__ __forceinline__ static void run(float (&d)[16][4], const unsigned (&a)[4],
                                              uint64_t b, bool acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -162,7 +181,7 @@ struct Wgmma<128> {
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(acc)));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(acc)), "n"(kTrans));
   }
 };
 

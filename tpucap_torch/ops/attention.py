@@ -200,6 +200,22 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, scale: float, dq) -> None:
 flash_attention_bwd_dq.launches = 0
 
 
+def flash_attention_bwd_attributes(dtype) -> dict[str, dict[str, int]]:
+    """The compiled backward kernels of ``dtype``'s route, read from the
+    CUDA runtime: registers a thread, shared memory a block (static and
+    dynamic) and blocks an SM holds at once, by wrapper name."""
+    if dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"flash attention takes f32 or bf16, got {dtype}")
+    fn = _build.kernel("flash_attention_bwd", "tpucap_flash_attention_bwd_attributes", _ATTR_ARGTYPES)
+    out = {}
+    for which, name in enumerate(("flash_attention_bwd_dkv", "flash_attention_bwd_dq")):
+        vals = [ctypes.c_int() for _ in range(3)]
+        err = fn(which, _build.DTYPE_CODES[dtype], *(ctypes.byref(x) for x in vals))
+        _build.check("flash_attention_bwd", "tpucap_flash_attention_bwd_attributes", err)
+        out[name] = dict(zip(("registers", "smem_bytes", "blocks_per_sm"), (x.value for x in vals)))
+    return out
+
+
 def qkv_views(qkv, heads: int):
     """(B, L, 3H) -> q, k, v (B, L, heads, H / heads), views."""
     B, L, H3 = qkv.shape
@@ -256,3 +272,4 @@ _BWD_DQ_ARGTYPES = (
     (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3 + (ctypes.c_int64,) * 3
     + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 )
+_ATTR_ARGTYPES = (ctypes.c_int, ctypes.c_int) + (ctypes.POINTER(ctypes.c_int),) * 3
