@@ -2,12 +2,14 @@
 paths on one NVIDIA GPU and holds every hand-written kernel against its
 plain version.
 
-    python3 chip_smoke.py    # from the repo root; needs one CUDA card and nvcc
+    python3 chip_smoke.py    # from the repo root; needs one CUDA card, nvcc and g++
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
-1. the card's name and power limit (``nvidia-smi``), then the kernel build
-   from ``tpucap_torch/csrc`` and its time;
+1. the card's name and power limit (``nvidia-smi``); the host's g++, CPU
+   count and whether libjpeg and PIL are present (logged only: the port
+   uses neither); then the kernel build from ``tpucap_torch/csrc`` (nvcc)
+   beside the JPEG decoder's (g++), and its time;
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, in f32 (TF32 off) and bf16, with the stated tolerances;
    CUDA-event times of the kernel, the plain version and, where one PyTorch
@@ -60,7 +62,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and dQ per step, loss descending over repeated steps on one batch, step
    ms, images/s, peak memory; (c) f32, one joint step's loss and gradients
    with the kernels against the same with ``attention_impl="xla"``;
-6. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
+6. JPEG files to captions: (b) the port's own JPEG decoder, built on this
+   machine, decodes the committed fixtures (``tests/data/torch_jpeg/``) to
+   the SHA-256 digests that tpucap's libjpeg decode recorded, at their own
+   size and at 224; (c) path A (fused blocks, bf16) through
+   ``caption_dataset(paths, fast_scale=False)`` on 1024 paths (the fixtures
+   tiled, four batches of 256 from 500 x 375 and 375 x 500 photos),
+   counters reset just before and read just after: K1 once a batch (its
+   same-size route: the host resizes), K2 and K3 once a decode step, K4 12
+   times a batch, the same launches and the same captions as
+   ``caption_batch`` on the same decoded batches; (d) the host decoder's images/s at one thread and at
+   the default, captions/s of ``caption_dataset`` against ``caption_batch``
+   on decoded batches, and the share of the decode time the loader's
+   overlap hides;
+7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
    as the last line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
@@ -69,7 +84,10 @@ It imports torch and tpucap_torch only (no jax, nothing of tpucap).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -128,6 +146,10 @@ VIT_L, VIT_HEADS, VIT_D = 196, 12, 64
 # default), its steps on one batch, and the decoder step's batch and
 # feature width (bench.py --mode train: batch 256, ResNet-50's 2048).
 TRAIN_BATCH, TRAIN_STEPS, DEC_TRAIN_BATCH, DEC_FEATURES = 64, 4, 256, 2048
+# JPEG files -> captions: the committed fixtures (500 x 375 and 375 x 500)
+# tiled to four batches.
+FIXTURES = ROOT / "tests" / "data" / "torch_jpeg"
+DATASET_IMAGES = 4 * BATCH
 
 
 def log(msg: str) -> None:
@@ -967,6 +989,121 @@ def train_agreement(dev, tokenizer) -> None:
     apply_precision(pipe.config.precision)
 
 
+# -- phase 6: JPEG files -> captions -----------------------------------------
+
+
+def host_info() -> None:
+    """What the host offers the decoder; the log only reads it."""
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
+    try:
+        ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True).stdout
+        libjpeg = "libjpeg" in ldconfig
+    except FileNotFoundError:
+        libjpeg = "no ldconfig"
+    pil = importlib.util.find_spec("PIL") is not None
+    log(f"jpeg: host {gxx.splitlines()[0] if gxx else 'no g++'}; os.cpu_count() {os.cpu_count()}; "
+        f"libjpeg in ldconfig: {libjpeg}; PIL importable: {pil} (the port uses neither)")
+
+
+def sha256(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def check_jpeg_fixtures() -> list[Path]:
+    """6b: this machine's build of the decoder against the digests tpucap's
+    libjpeg decode recorded (scripts/make_torch_jpeg_fixtures.py), at each
+    fixture's own size and at 224."""
+    from tpucap_torch.ops import jpeg
+
+    digests = json.loads((FIXTURES / "digests.json").read_text())
+    size = digests["size"]
+    paths = []
+    for name, want in sorted(digests["files"].items()):
+        path = FIXTURES / name
+        blob = path.read_bytes()
+        if list(jpeg.jpeg_dims(blob)) != want["shape"]:
+            raise AssertionError(f"jpeg: {name}: dims {jpeg.jpeg_dims(blob)} != {want['shape']}")
+        native = sha256(jpeg.decode_jpeg(blob))
+        resized = sha256(jpeg.decode_jpeg_files([path], size, fast_scale=False)[0])
+        if native != want["native"] or resized != want[str(size)]:
+            raise AssertionError(f"jpeg: {name}: decode differs from libjpeg's digests")
+        paths.append(path)
+    log(f"jpeg: {len(paths)} fixtures ({', '.join(sorted(digests['files']))}) decode to libjpeg's "
+        f"SHA-256 at their own size and at {size}")
+    return paths
+
+
+def decode_rate(blobs, size: int, n_threads: int) -> float:
+    """Images/s of the host decoder on one batch, best of three."""
+    from tpucap_torch.ops import jpeg
+
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        jpeg.decode_jpeg_batch(blobs, size, n_threads=n_threads, fast_scale=False)
+        best = min(best, time.perf_counter() - t0)
+    return len(blobs) / best
+
+
+def run_dataset(dev, tokenizer, fixtures: list[Path]) -> None:
+    """6c/6d: path A (ResNet-50 with fused blocks, lstm1, beam 3, bf16) from
+    DATASET_IMAGES JPEG paths through caption_dataset, against caption_batch
+    on the same decoded batches."""
+    from tpucap_torch import ops
+    from tpucap_torch.ops import jpeg
+
+    pipe = make_pipeline("bf16", tokenizer)
+    pipe.encoder = dataclasses.replace(pipe.encoder, fused_blocks=True)
+    size = pipe.encoder.input_size
+    paths = [str(fixtures[i % len(fixtures)]) for i in range(DATASET_IMAGES)]
+    n_batches = DATASET_IMAGES // BATCH
+    log(f"dataset: {DATASET_IMAGES} JPEG paths (the fixtures tiled, 500x375 and 375x500) -> {size}, "
+        f"{n_batches} batches of {BATCH}, resnet50(fused_blocks=True)+lstm1 beam {BEAM} bf16")
+
+    blobs = [Path(p).read_bytes() for p in paths[:BATCH]]
+    one = decode_rate(blobs, size, 1)
+    every = decode_rate(blobs, size, 0)
+    log(f"dataset: host decode (8/8 + nearest resize) images/s: {one:.2f} at n_threads=1, "
+        f"{every:.2f} at the default ({os.cpu_count()} cpus)")
+
+    t0 = time.perf_counter()
+    batches = [jpeg.decode_jpeg_files(paths[s : s + BATCH], size, fast_scale=False)
+               for s in range(0, DATASET_IMAGES, BATCH)]
+    decode_s = time.perf_counter() - t0
+    pipe.caption_batch(batches[0])  # warm-up: cuDNN plans, allocator
+
+    ops.reset_launch_counts()
+    caps, dataset_s = timed(lambda: pipe.caption_dataset(paths, batch_size=BATCH, fast_scale=False))
+    counts = ops.launch_counts()
+
+    ops.reset_launch_counts()
+    want, batch_s = timed(lambda: [c for b in batches for c in pipe.caption_batch(b)])
+    want_counts = ops.launch_counts()
+
+    if caps != want:
+        same = sum(a == b for a, b in zip(caps, want))
+        raise AssertionError(f"dataset: caption_dataset agrees with caption_batch on {same} of "
+                             f"{len(want)} captions")
+    steps = counts["lstm_cell"]
+    expect = {name: 0 for name in counts}
+    expect.update(preprocess_u8=n_batches, identity_block=12 * n_batches,
+                  lstm_cell=steps, merge_head=steps, vocab_proj=steps)
+    if counts != expect or counts != want_counts or not n_batches <= steps <= MAX_LEN * n_batches:
+        raise AssertionError(f"dataset: launch counts {counts} (caption_batch's {want_counts}), "
+                             f"expected {expect}")
+    hidden = (decode_s + batch_s - dataset_s) / decode_s
+    log(f"dataset: launches over {n_batches} batches {counts}: K1 {counts['preprocess_u8'] / n_batches:g}, "
+        f"K2 {steps / n_batches:g}, K3 {counts['merge_head'] / n_batches:g} + "
+        f"{counts['vocab_proj'] / n_batches:g}, K4 {counts['identity_block'] / n_batches:g} a batch")
+    log(f"dataset: caption_dataset {dataset_s:.5f} s, {DATASET_IMAGES / dataset_s:.2f} captions/s; "
+        f"caption_batch on decoded batches {batch_s:.5f} s, {DATASET_IMAGES / batch_s:.2f} captions/s; "
+        f"host decode alone {decode_s:.5f} s")
+    log(f"dataset: the overlap hides {100 * hidden:.1f} % of the decode time "
+        f"((decode + caption_batch - caption_dataset) / decode); captions identical to caption_batch")
+    for c in caps[:2]:
+        log(f"dataset: caption: {c!r}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -981,9 +1118,13 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     dev = torch.device("cuda")
+    host_info()
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(_build.build_all())}")
+    t1 = time.perf_counter()
+    _build.build_host("jpeg_decode")
+    log(f"build: {t1 - t0:.2f} s for {sorted(_build.build_all())}, "
+        f"then {time.perf_counter() - t1:.2f} s for jpeg_decode")
 
     fields = check_kernels(dev)
     fields["identity_block"] = check_identity_block(dev)
@@ -999,6 +1140,7 @@ def main() -> int:
     counts["flash_attention_bwd_dkv"] = trained["flash_attention_bwd_dkv"]
     counts["flash_attention_bwd_dq"] = trained["flash_attention_bwd_dq"]
     train_agreement(dev, tokenizer)
+    run_dataset(dev, tokenizer, check_jpeg_fixtures())
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -1,5 +1,7 @@
 """tpucap_torch stands alone: no module of it, nor chip_smoke.py, imports
-jax or anything of tpucap; its entry points refuse to run on the CPU
+jax, anything of tpucap or PIL (its JPEG files go through its own decoder
+only, whatever the host has installed), and its JPEG decoder links no
+libjpeg; its entry points refuse to run on the CPU
 unless asked; chip_smoke.py fails, printing no result, without a card or
 outside the repo."""
 
@@ -21,14 +23,14 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# Runs in a fresh interpreter: a finder that refuses jax and tpucap, then
+# Runs in a fresh interpreter: a finder that refuses jax, tpucap and PIL, then
 # every module of the package and chip_smoke, then a look at sys.modules.
 _PROBE = """
 import importlib, importlib.abc, json, pkgutil, sys
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "tpucap"):
+        if name.split(".")[0] in ("jax", "jaxlib", "tpucap", "PIL"):
             raise ImportError("refused: " + name)
         return None
 
@@ -39,7 +41,9 @@ names = ["chip_smoke"] + [
 ]
 for n in names:
     importlib.import_module(n)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpucap"))
+loaded = sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpucap", "PIL")
+)
 print(json.dumps({"imported": names, "loaded": loaded}))
 """
 
@@ -60,8 +64,20 @@ def test_port_and_chip_smoke_import_no_jax_and_no_tpucap():
         "tpucap_torch.models.encoders.vit", "tpucap_torch.text.padding",
         "tpucap_torch.train", "tpucap_torch.train.sequences",
         "tpucap_torch.train.loss", "tpucap_torch.train.loop",
-        "tpucap_torch.train.finetune",
+        "tpucap_torch.train.finetune", "tpucap_torch.ops.jpeg",
+        "tpucap_torch.data.preprocess", "tpucap_torch.data.pipeline",
     } <= want
+
+
+def test_jpeg_decoder_links_no_libjpeg():
+    from tpucap_torch import _build
+
+    src = (ROOT / "tpucap_torch" / "csrc" / "jpeg_decode.cpp").read_text()
+    assert "jpeglib" not in src
+    lib = _build.build_host("jpeg_decode")
+    out = subprocess.run(["ldd", lib._name], capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert "libjpeg" not in out.stdout and "libstdc++" in out.stdout
 
 
 def test_pipeline_without_device_refuses_a_cpu_only_host(monkeypatch):

@@ -4,7 +4,7 @@ Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, into a shared library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/<name>-<digest>.so csrc/<name>.cu
+         -Xcompiler -fPIC csrc/<name>.cu -o build/<name>-<digest>.so
 
 and loaded with ``ctypes``. No PyTorch header is compiled, which keeps the
 build to seconds. The build runs at first use, from the sources in the
@@ -12,6 +12,13 @@ checkout only, into ``tpucap_torch/build/`` (git-ignored); the file name
 carries a digest of the sources and flags, so an edited kernel is rebuilt.
 If ``nvcc`` is missing or a compile fails, the error carries the
 compiler's output.
+
+Host code (``csrc/*.cpp``: the JPEG decoder) is built apart from the
+kernels, by ``build_host(name)`` with ``g++`` (no ``nvcc``, no card), into
+the same directory under the same digest naming:
+
+    g++ -O3 -std=c++17 -shared -fPIC -pthread csrc/<name>.cpp \\
+        -o build/<name>-<digest>.so
 """
 
 from __future__ import annotations
@@ -33,11 +40,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 #: Must match csrc/common.cuh:DType.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_host_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -50,11 +59,35 @@ def _nvcc() -> str:
     return path
 
 
-def _digest(src: Path, headers: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(src: Path, headers: list[Path], flags=NVCC_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in [src, *headers]:
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _compile(jobs: list[tuple[list[str], Path]], what: str) -> None:
+    """Run every (command, output) compile at once, each into a temporary
+    file that replaces ``output`` once it succeeds. Raises with each failed
+    command and its output."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for cmd, out in jobs:
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [*cmd, "-o", str(tmp)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        procs.append((proc, cmd, tmp, out))
+    failures = []
+    for proc, cmd, tmp, out in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"$ {' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError(f"building {what} failed:\n" + "\n".join(failures))
 
 
 def build_all() -> dict[str, ctypes.CDLL]:
@@ -68,41 +101,39 @@ def build_all() -> dict[str, ctypes.CDLL]:
             src.stem: (src, BUILD / f"{src.stem}-{_digest(src, headers)}.so")
             for src in sorted(CSRC.glob("*.cu"))
         }
-        BUILD.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for name, (src, out) in targets.items():
-            if out.exists():
-                continue
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            procs[name] = (
-                subprocess.Popen(
-                    cmd,
-                    stdout=subprocess.PIPE,
-                    stderr=subprocess.STDOUT,
-                    text=True,
-                ),
-                tmp,
-                out,
-                cmd,
-            )
-        failures = []
-        for name, (proc, tmp, out, cmd) in procs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                failures.append(f"$ {' '.join(cmd)}\n{log}")
-                continue
-            os.replace(tmp, out)
-        if failures:
-            raise RuntimeError(
-                "building tpucap_torch kernels failed:\n" + "\n".join(failures)
-            )
+        jobs = [
+            ([_nvcc(), *NVCC_FLAGS, str(src)], out)
+            for src, out in targets.values()
+            if not out.exists()
+        ]
+        if jobs:
+            _compile(jobs, "tpucap_torch kernels")
         for name, (_, out) in targets.items():
             lib = ctypes.CDLL(str(out))
             lib.tpucap_error_string.argtypes = [ctypes.c_int]
             lib.tpucap_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return _libs
+
+
+def build_host(name: str) -> ctypes.CDLL:
+    """Compile (if needed) and load the host library ``csrc/<name>.cpp``
+    with ``g++``; thread-safe, done once per process. Raises with the
+    compiler's output if the build fails."""
+    with _lock:
+        lib = _host_libs.get(name)
+        if lib is not None:
+            return lib
+        src = CSRC / f"{name}.cpp"
+        out = BUILD / f"{name}-{_digest(src, [], HOST_FLAGS)}.so"
+        if not out.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found on PATH: it builds {src.name}")
+            _compile([([gxx, *HOST_FLAGS, str(src)], out)], src.name)
+        lib = ctypes.CDLL(str(out))
+        _host_libs[name] = lib
+        return lib
 
 
 @functools.cache

@@ -1,2 +1,2 @@
-"""Data layer of the port. Host JPEG decode and the batch loader are not
-ported yet; serving starts from a uint8 batch."""
+"""Data layer of the port: host JPEG decode and normalization
+(``preprocess``) and the prefetching batch loader (``pipeline``)."""

@@ -1,0 +1,196 @@
+"""Host JPEG decode through the port's own decoder (``csrc/jpeg_decode.cpp``,
+built by ``g++`` at first use): the counterpart of
+``tpucap/ops/jpeg/__init__.py``.
+
+``decode_jpeg_batch(blobs, size)`` -> (N, size, size, 3) uint8 RGB,
+nearest-resized (PIL convention), the same bytes as tpucap's libjpeg-turbo
+decode at scale 8/8. The decoder covers baseline Huffman JPEG: 8-bit gray or
+YCbCr at 4:4:4, 4:2:2 or 4:2:0, restart intervals, optimized tables. There
+is no libjpeg, no PIL and no other route: an image outside that scope
+raises ``ValueError`` naming it and why.
+
+``fast_scale=True`` is tpucap's default, which decodes at the smallest
+libjpeg scale num/8 that still covers ``size``. Where that search picks
+8/8 the result is exact; where it picks less, libjpeg's scaled IDCTs would
+be needed (ROADMAP queue 1, slice 2b), and the call raises
+``NotImplementedError`` instead of decoding approximately.
+``fast_scale=False`` decodes at 8/8 and resizes: PIL's bytes for a
+baseline JPEG.
+
+The C call releases the GIL, so a loader thread decodes while Python drives
+the card. ``decode_jpeg_files`` hands the C call the paths, and its worker
+threads read the files: read in Python, file by file, a loader thread would
+trade the GIL with the thread driving the card (beside it, path A's
+``caption_batch`` went from 57-65 to 136-145 ms a batch of 256 on an H100's
+8-core host; ``scripts/loader_overlap.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+from collections.abc import Sequence
+from pathlib import Path
+
+import numpy as np
+
+from tpucap_torch import _build
+
+#: csrc/jpeg_decode.cpp:Status -> why an image was refused.
+STATUS = {
+    1: "corrupt or truncated JPEG data",
+    2: "not a JPEG (no SOI marker)",
+    3: "not baseline Huffman (progressive, arithmetic, lossless or "
+    "hierarchical: ROADMAP queue 1, slice 2b)",
+    4: "sample precision other than 8 bits (ROADMAP queue 1, slice 2b)",
+    5: "color space other than gray or YCbCr (CMYK, YCCK, RGB: ROADMAP "
+    "queue 1, slice 2b)",
+    6: "chroma sampling other than 4:4:4, 4:2:2 or 4:2:0 (ROADMAP queue 1, "
+    "slice 2b)",
+    8: "cannot be read",
+    9: "wider or taller than 65500 pixels, libjpeg's limit",
+    10: "the host could not allocate its decoded planes",
+}
+SCALE_NOT_PORTED = 7
+
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_intp = ctypes.POINTER(ctypes.c_int)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.build_host("jpeg_decode")
+    lib.tpucap_decode_jpeg_batch.restype = ctypes.c_int
+    lib.tpucap_decode_jpeg_batch.argtypes = [
+        _u8p, _i64p, _i64p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _u8p, _intp, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.tpucap_decode_jpeg_files.restype = ctypes.c_int
+    lib.tpucap_decode_jpeg_files.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _u8p, _intp, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.tpucap_jpeg_dims.restype = ctypes.c_int
+    lib.tpucap_jpeg_dims.argtypes = [_u8p, ctypes.c_int64, _intp, _intp]
+    return lib
+
+
+def scale_num(height: int, width: int, size: int) -> int:
+    """tpucap's scale search (``tpucap/ops/jpeg/jpeg_decode.cpp:81-92``): the
+    smallest num in 1..8 with both sides * num // 8 >= size, else 8."""
+    for num in range(1, 9):
+        if height * num // 8 >= size and width * num // 8 >= size:
+            return num
+    return 8
+
+
+def jpeg_dims(blob: bytes) -> tuple[int, int]:
+    """(height, width) from a JPEG's header; ``ValueError`` if unreadable."""
+    data = np.frombuffer(blob, np.uint8)
+    h, w = ctypes.c_int(), ctypes.c_int()
+    rc = _lib().tpucap_jpeg_dims(
+        data.ctypes.data_as(_u8p), len(blob), ctypes.byref(h), ctypes.byref(w)
+    )
+    if rc:
+        raise ValueError(f"JPEG header unreadable: {STATUS.get(rc, rc)}")
+    return h.value, w.value
+
+
+def _raise_for(status, size, names, blob_of):
+    """The error for a failed call: ValueError naming the images refused,
+    else NotImplementedError naming those that fast_scale would decode
+    below 8/8."""
+    bad = np.nonzero(status)[0].tolist()
+    refused = [i for i in bad if status[i] != SCALE_NOT_PORTED]
+    if refused:
+        why = "; ".join(f"{names[i]}: {STATUS[int(status[i])]}" for i in refused)
+        raise ValueError(f"JPEG decode failed for images {refused}: {why}")
+    scaled = []
+    for i in bad:
+        h, w = jpeg_dims(blob_of(i))
+        scaled.append(f"{names[i]} ({w}x{h}) at {scale_num(h, w, size)}/8")
+    raise NotImplementedError(
+        f"fast_scale decode to {size}x{size} needs libjpeg's scaled IDCTs, "
+        f"not ported (ROADMAP queue 1, slice 2b): {'; '.join(scaled)}. "
+        "fast_scale=False decodes at 8/8 and resizes."
+    )
+
+
+def _decode_blobs(blobs, out, target, n_threads, fast_scale) -> np.ndarray:
+    """The C batch call; returns the per-image status."""
+    n = len(blobs)
+    data = np.frombuffer(b"".join(blobs), np.uint8)
+    sizes = np.array([len(b) for b in blobs], np.int64)
+    offsets = np.zeros(n, np.int64)
+    np.cumsum(sizes[:-1], out=offsets[1:])
+    status = np.zeros(n, np.int32)
+    _lib().tpucap_decode_jpeg_batch(
+        data.ctypes.data_as(_u8p),
+        offsets.ctypes.data_as(_i64p),
+        sizes.ctypes.data_as(_i64p),
+        n,
+        target,
+        target,
+        out.ctypes.data_as(_u8p),
+        status.ctypes.data_as(_intp),
+        int(n_threads),
+        int(fast_scale),
+    )
+    return status
+
+
+def decode_jpeg_batch(
+    blobs: Sequence[bytes],
+    size: int,
+    *,
+    n_threads: int = 0,
+    fast_scale: bool = True,
+) -> np.ndarray:
+    """JPEG byte strings -> (N, size, size, 3) uint8 RGB, nearest-resized
+    (PIL convention). ``n_threads`` 0 = one worker per hardware thread."""
+    n = len(blobs)
+    out = np.empty((n, size, size, 3), np.uint8)
+    if n == 0:
+        return out
+    status = _decode_blobs(blobs, out, size, n_threads, fast_scale)
+    if status.any():
+        _raise_for(status, size, [f"image {i}" for i in range(n)], blobs.__getitem__)
+    return out
+
+
+def decode_jpeg(blob: bytes) -> np.ndarray:
+    """One JPEG at its own size -> (H, W, 3) uint8 RGB."""
+    h, w = jpeg_dims(blob)
+    out = np.empty((h, w, 3), np.uint8)
+    status = _decode_blobs([blob], out, 0, 1, False)
+    if status.any():
+        _raise_for(status, 0, ["image 0"], [blob].__getitem__)
+    return out
+
+
+def decode_jpeg_files(
+    paths, size: int, *, n_threads: int = 0, fast_scale: bool = True
+) -> np.ndarray:
+    """Image files -> (N, size, size, 3) uint8 RGB, as ``decode_jpeg_batch``;
+    the C call's workers read the files. Errors name the file."""
+    paths = [str(p) for p in paths]
+    n = len(paths)
+    out = np.empty((n, size, size, 3), np.uint8)
+    if n == 0:
+        return out
+    status = np.zeros(n, np.int32)
+    _lib().tpucap_decode_jpeg_files(
+        (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths]),
+        n,
+        size,
+        size,
+        out.ctypes.data_as(_u8p),
+        status.ctypes.data_as(_intp),
+        int(n_threads),
+        int(fast_scale),
+    )
+    if status.any():
+        _raise_for(status, size, paths, lambda i: Path(paths[i]).read_bytes())
+    return out

@@ -8,6 +8,11 @@
     generate(features, ...)       features -> captions (greedy | beam)
     caption_batch(images_u8, ...) uint8 (B, H, W, 3) -> captions: the body
                                   of the JAX package's caption_dataset
+    caption_dataset(paths, ...)   JPEG files -> captions: host decode in a
+                                  loader thread, each batch through the
+                                  body of caption_batch
+    extract_features(paths)       JPEG files -> encoder features (numpy)
+    caption_images(paths)         extract_features, then generate
 
     fit(descriptions, features)   train the decoder on extracted features
     fit_finetune(descriptions,    train encoder and decoder jointly on
@@ -24,8 +29,15 @@ encoder's kernel paths are opt-in on the built encoder:
 (ResNet-50's identity blocks as kernel K4, after ``fold_bn()``) or
 ``dataclasses.replace(pipe.encoder, attention_impl="flash")`` (ViT
 attention as kernel K5; under ``fit_finetune`` K5's two backward kernels
-too). Training is single-device, Adam (``tpucap_torch.train``); reading
-JPEG files (``caption_dataset(paths)``) is not ported yet.
+too). Training is single-device, Adam (``tpucap_torch.train``).
+
+JPEG files are read by the port's own baseline decoder
+(``tpucap_torch.ops.jpeg``, host C++, no libjpeg and no PIL): the same
+bytes as tpucap's libjpeg decode at scale 8/8. ``caption_dataset`` keeps
+tpucap's default ``fast_scale=True``, which raises where tpucap's scale
+search would decode below 8/8 (ROADMAP queue 1, slice 2b);
+``fast_scale=False`` decodes any baseline JPEG. The host resizes to the
+encoder's input size, so K1 takes its same-size route there.
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed; see
 ``tpucap_torch.core`` for the precision policy.
@@ -43,6 +55,8 @@ from tpucap_torch.core import (
     resolve_device,
     tree_map,
 )
+from tpucap_torch.data.pipeline import image_batch_loader
+from tpucap_torch.data.preprocess import preprocess_batch
 from tpucap_torch.decode import beam_decode, greedy_decode, ids_to_captions
 from tpucap_torch.models.decoders import MergeDecoder, build_decoder
 from tpucap_torch.models.encoders import build_encoder, fold_batch_norms
@@ -256,6 +270,20 @@ class CaptioningPipeline:
         )
         return self._captions(res)
 
+    def _caption_device(self, images_u8, method, beam_width):
+        """One batch's device work: K1 (resize to the encoder's input size
+        and normalize), encoder, decode. -> the decode result."""
+        params = self._inference_params()
+        images = torch.as_tensor(images_u8).to(self.device)
+        x = fused_preprocess(
+            images,
+            self.encoder.input_size,
+            self.encoder.preprocess_mode,
+            out_dtype=self._infer_dtype(),
+        )
+        feats = self._apply_encoder(params["encoder"], x)
+        return self._decode(params["decoder"], feats, method, beam_width)
+
     @torch.inference_mode()
     def caption_batch(
         self,
@@ -269,17 +297,88 @@ class CaptioningPipeline:
         encoder's input size and normalize in one kernel, encode, decode)."""
         method = method or self.config.decode.method
         beam_width = beam_width or self.config.decode.beam_width
-        params = self._inference_params()
-        images = torch.as_tensor(images_u8).to(self.device)
-        x = fused_preprocess(
-            images,
-            self.encoder.input_size,
-            self.encoder.preprocess_mode,
-            out_dtype=self._infer_dtype(),
+        return self._captions(self._caption_device(images_u8, method, beam_width))
+
+    @torch.inference_mode()
+    def caption_dataset(
+        self,
+        image_paths,
+        *,
+        batch_size: int = 256,
+        method: str | None = None,
+        beam_width: int | None = None,
+        num_workers: int = 0,
+        fast_scale: bool = True,
+        parallelism: str | None = None,
+    ) -> list[str]:
+        """JPEG files -> captions, in path order: host decode (and nearest
+        resize to the encoder's input size) in the loader's thread, each
+        batch through ``caption_batch``'s device body, the tail batch
+        zero-padded to ``batch_size``. The next batch decodes while the card
+        works on this one; captions are read back one batch behind, as in
+        tpucap."""
+        refuse_unported(
+            parallelism=(parallelism if parallelism != "none" else None, None)
         )
-        feats = self._apply_encoder(params["encoder"], x)
-        res = self._decode(params["decoder"], feats, method, beam_width)
-        return self._captions(res)
+        method = method or self.config.decode.method
+        beam_width = beam_width or self.config.decode.beam_width
+        _, end_id = self._token_ids()
+        captions: list[str] = []
+        pending = []
+
+        def drain(res, n):
+            captions.extend(
+                ids_to_captions(
+                    self.tokenizer, res.tokens[:n], res.lengths[:n], end_id=end_id
+                )
+            )
+
+        for _, images in image_batch_loader(
+            list(image_paths),
+            size=self.encoder.input_size,
+            batch_size=batch_size,
+            num_workers=num_workers,
+            fast_scale=fast_scale,
+        ):
+            n = images.shape[0]
+            res = self._caption_device(pad_rows(images, batch_size), method, beam_width)
+            pending.append((res, n))
+            if len(pending) > 1:
+                drain(*pending.pop(0))
+        for entry in pending:
+            drain(*entry)
+        return captions
+
+    @torch.inference_mode()
+    def extract_features(
+        self,
+        image_paths,
+        batch_size: int = 32,
+        *,
+        parallelism: str | None = None,
+    ) -> np.ndarray:
+        """JPEG files -> encoder features, f32 numpy: decode, nearest resize
+        and normalize on the host (``data.preprocess.preprocess_batch``),
+        encode on the device; the tail chunk is zero-padded to
+        ``batch_size`` and trimmed."""
+        refuse_unported(
+            parallelism=(parallelism if parallelism != "none" else None, None)
+        )
+        paths = list(image_paths)
+        size = self.encoder.input_size
+        mode = self.encoder.preprocess_mode
+        outs = []
+        for s in range(0, len(paths), batch_size):
+            x = preprocess_batch(paths[s : s + batch_size], size=size, mode=mode)
+            n = x.shape[0]
+            feats = self.encode_images(pad_rows(x, batch_size))
+            outs.append(feats.float().cpu().numpy()[:n])
+        return np.concatenate(outs, axis=0)
+
+    def caption_images(self, image_paths, **kw) -> list[str]:
+        """JPEG files -> captions through ``extract_features`` and
+        ``generate`` (tpucap's one-call demo path)."""
+        return self.generate(self.extract_features(list(image_paths)), **kw)
 
     # -- training ------------------------------------------------------------
 
@@ -493,3 +592,14 @@ class CaptioningPipeline:
             torch.as_tensor(features).to(self.device, torch.float32),
             torch.as_tensor(tokens).to(self.device, torch.long),
         )
+
+
+def pad_rows(arr: np.ndarray, target: int) -> np.ndarray:
+    """Zero-pad the leading (batch) axis up to ``target`` rows (tpucap's
+    tail-batch idiom: one batch shape on the device)."""
+    n = arr.shape[0]
+    if n > target:
+        raise ValueError(f"batch has {n} rows, larger than target {target}")
+    if n == target:
+        return arr
+    return np.pad(arr, [(0, target - n)] + [(0, 0)] * (arr.ndim - 1))
