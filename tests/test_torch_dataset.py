@@ -21,7 +21,7 @@ from PIL import Image
 from test_torch_pipeline import pipelines  # noqa: F401  (module-scoped fixture)
 
 from tpucap_torch.data.pipeline import image_batch_loader, prefetch
-from tpucap_torch.ops.jpeg import decode_jpeg_files
+from tpucap_torch.ops.jpeg import decode_jpeg_files, jpeg_dims, scale_num
 
 torch.set_num_threads(2)
 
@@ -132,17 +132,36 @@ def test_caption_dataset_matches_jax(pipelines, jpeg_paths, method):  # noqa: F8
     assert len(got) == len(jpeg_paths) and len(set(want)) > 1
 
 
-def test_caption_dataset_fast_scale_and_unported_knobs(pipelines, jpeg_paths):  # noqa: F811
-    """tpucap's default fast_scale=True picks 8/8 for these sizes at 64, so
-    it decodes exactly; parallelism other than none raises."""
-    _, pipe = pipelines
+def test_caption_dataset_fast_scale_and_unported_knobs(pipelines, jpeg_paths, tmp_path):  # noqa: F811
+    """tpucap's default fast_scale=True: these files pick 8/8 at 64, and
+    three larger ones pick 4/8, 5/8 and 3/8 (their chroma IDCT'd at 8, 10
+    and 6), with the captions tpucap gives; parallelism other than none
+    raises."""
+    jpipe, pipe = pipelines
     assert pipe.caption_dataset(jpeg_paths, batch_size=3) == pipe.caption_dataset(
         jpeg_paths, batch_size=3, fast_scale=False
     )
+    rng = np.random.default_rng(23)
+    large = []
+    for i, (h, w, sub) in enumerate([(150, 200, 2), (110, 170, 1), (210, 180, 2)]):
+        path = tmp_path / f"large{i}.jpg"
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            path, quality=90, subsampling=sub)
+        large.append(str(path))
+    paths = [*large, *jpeg_paths[:2]]
+    assert [decode_scale(p) for p in large] == [4, 5, 3]
+    want = jpipe.caption_dataset(paths, batch_size=3)
+    assert pipe.caption_dataset(paths, batch_size=3) == want
     with pytest.raises(NotImplementedError, match="parallelism"):
         pipe.caption_dataset(jpeg_paths, parallelism="dp")
     with pytest.raises(NotImplementedError, match="parallelism"):
         pipe.extract_features(jpeg_paths, parallelism="dp")
+
+
+def decode_scale(path):
+    """The scale tpucap's search picks for a file at the encoder's 64."""
+    h, w = jpeg_dims(open(path, "rb").read())
+    return scale_num(h, w, 64)
 
 
 def test_extract_features_matches_jax(pipelines, jpeg_paths):  # noqa: F811

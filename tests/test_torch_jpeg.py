@@ -336,10 +336,13 @@ print(failed, status[0], status[1])
     assert dims == ["0", "65500", "65500"]
     assert decode[0] == "2" and decode[1] == decode[2]
     with pytest.raises(ValueError, match=r"\[0, 1\]: image 0: the host could not allocate"):
-        jpeg._raise_for(np.array([int(decode[1])] * 2), 8, ["image 0", "image 1"], None)
+        jpeg._raise_for(np.array([int(decode[1])] * 2), ["image 0", "image 1"])
 
 
 def test_fast_scale_is_exact_at_full_scale_and_refuses_below():
+    """fast_scale=True (the default) is tpucap's decode at the scale its
+    search picks: 8/8 for 40 x 30 -> 32, 5/8 for a 500 x 375 photo -> 224.
+    Below 8/8 the port used to refuse; it now decodes libjpeg's bytes."""
     rng = np.random.default_rng(7)
     # tpucap's search picks 8/8 for 40 x 30 -> 32 (7/8 gives 35 x 26).
     blob = encode(make_image(rng, 30, 40), 85, 2)
@@ -347,29 +350,26 @@ def test_fast_scale_is_exact_at_full_scale_and_refuses_below():
     full = jpeg.decode_jpeg_batch([blob], 32, fast_scale=True)
     np.testing.assert_array_equal(full, jpeg.decode_jpeg_batch([blob], 32, fast_scale=False))
     np.testing.assert_array_equal(full, jax_jpeg.decode_jpeg_batch([blob], 32, fast_scale=True))
-    # 500 x 375 -> 224 is decoded at 5/8 by tpucap: not ported.
     photo = (FIXTURES / "a_420.jpg").read_bytes()
     assert jpeg.scale_num(375, 500, 224) == 5
-    with pytest.raises(NotImplementedError, match=r"slice 2b\): image 1 \(500x375\) at 5/8\. fast_scale=False"):
-        jpeg.decode_jpeg_batch([blob, photo], 224)
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        jpeg.decode_jpeg_files([FIXTURES / "a_420.jpg"], 224)
+    want = jax_jpeg.decode_jpeg_batch([blob, photo], 224)
+    np.testing.assert_array_equal(jpeg.decode_jpeg_batch([blob, photo], 224), want)
+    np.testing.assert_array_equal(jpeg.decode_jpeg_files([FIXTURES / "a_420.jpg"], 224), want[1:])
+    assert not np.array_equal(want[1:], jax_jpeg.decode_jpeg_batch([photo], 224, fast_scale=False))
 
 
 @pytest.mark.parametrize(
     "h,w,size", [(30, 40, 32), (375, 500, 224), (500, 375, 299), (8, 8, 1), (9, 70, 9), (64, 64, 64)]
 )
 def test_scale_search_is_tpucaps(h, w, size):
-    """The port refuses fast_scale exactly where tpucap's search leaves 8/8:
-    where it picks 8/8, tpucap's fast decode equals its full-scale one."""
+    """The port's fast_scale decode equals tpucap's at whatever scale the
+    search picks; where it picks 8/8, that is the full-scale decode."""
     blob = encode(make_image(np.random.default_rng(h + w), h, w), 90, 0)
     full = jax_jpeg.decode_jpeg_batch([blob], size, fast_scale=False)
+    fast = jax_jpeg.decode_jpeg_batch([blob], size)
+    np.testing.assert_array_equal(jpeg.decode_jpeg_batch([blob], size), fast)
     if jpeg.scale_num(h, w, size) == 8:
-        np.testing.assert_array_equal(jax_jpeg.decode_jpeg_batch([blob], size), full)
-        np.testing.assert_array_equal(jpeg.decode_jpeg_batch([blob], size), full)
-    else:
-        with pytest.raises(NotImplementedError):
-            jpeg.decode_jpeg_batch([blob], size)
+        np.testing.assert_array_equal(fast, full)
 
 
 def test_out_of_scope_images_raise_value_error_naming_them(tmp_path):

@@ -74,7 +74,6 @@ enum Status {
   kPrecision = 4,         // sample precision other than 8 bits
   kColorSpace = 5,        // CMYK, YCCK, RGB-coded, two components
   kSampling = 6,          // sampling factors other than 4:4:4/4:2:2/4:2:0
-  kScaleNotPorted = 7,    // fast_scale would decode below 8/8
   kUnreadable = 8,        // the file cannot be opened or read
   kTooBig = 9,            // a side above 65500 (libjpeg's JERR_IMAGE_TOO_BIG)
   kNoMemory = 10,         // the host could not allocate the image's planes
@@ -336,6 +335,424 @@ void idct_islow(const int16_t* coef, const int16_t* qt, uint8_t* out,
 #endif  // __SSE2__
 
 // ---------------------------------------------------------------------------
+// The scaled IDCTs that jddctmgr.c selects for a component whose
+// DCT_scaled_size is not 8: 8 x 8 coefficients in, N x N samples out.
+//
+// - 1: jpeg_idct_1x1 (jidctred.c), the DC alone.
+// - 2, 4: jidctred.c's 2x2 and 4x4 as libjpeg-turbo's SSE2 build computes
+//   them (jidctred-sse2.asm, selected on every x86-64 host because
+//   ISLOW_MULT_TYPE is short there): dequantization in 16-bit lanes, each
+//   product pair in 32 bits, the output saturated to bytes.
+// - 3, 5, 6, 7, 10, 12, 14: jidctint.c's jpeg_idct_NxN, plain C in every
+//   build: 64-bit JLONG arithmetic, an int workspace between the passes,
+//   the output through the range-limit table, which wraps.
+//
+// On valid data the SSE2 and C forms of 2x2 and 4x4 agree; on corrupt,
+// high-energy blocks they part, and tpucap's libjpeg runs the SSE2 one.
+
+constexpr int64_t fix(double x) {
+  return static_cast<int64_t>(x * (1 << kConstBits) + 0.5);
+}
+
+// IDCT_range_limit(cinfo)[x & RANGE_MASK]: a 10-bit wrap, then the clamp.
+inline uint8_t range_limit(int64_t x) {
+  int v = static_cast<int>(x & 1023);
+  if (v >= 512) v -= 1024;
+  return static_cast<uint8_t>((v < -128 ? -128 : (v > 127 ? 127 : v)) + 128);
+}
+
+// DEQUANTIZE with ISLOW_MULT_TYPE short: int16 times int16, in int.
+inline int64_t deq(const int16_t* coef, const int16_t* qt, int i) {
+  return int64_t{coef[i]} * qt[i];
+}
+
+// RIGHT_SHIFT, and the (int) cast of a JLONG into the workspace.
+inline int64_t rsh(int64_t x, int n) { return x >> n; }
+inline int64_t to_int(int64_t x) { return static_cast<int32_t>(static_cast<uint32_t>(x)); }
+
+void idct_1x1(const int16_t* coef, const int16_t* qt, uint8_t* out, int) {
+  const int32_t dc = static_cast<int32_t>(deq(coef, qt, 0));
+  out[0] = range_limit(add32(dc, 4) >> 3);
+}
+
+// jsimd_idct_4x4_sse2.
+void idct_4x4(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride) {
+  int16_t ws[4][8];  // pass 1's rows 0-3, saturated to 16 bits
+  auto q = [&](int r, int c) { return wrap16(coef[8 * r + c] * qt[8 * r + c]); };
+  bool ac_zero = true;
+  for (int r : {1, 2, 3, 5, 6, 7}) {
+    for (int c = 0; c < 8; ++c) ac_zero &= coef[8 * r + c] == 0;
+  }
+  constexpr int32_t F184 = 15137, F076 = 6270, F256 = 20995, F089 = 7373,
+                    F106 = 8697, F217 = 17799, F060 = 4926, F050 = 4176,
+                    F145 = 11893, F021 = 1730;
+  // One 8 -> 4 pass on x[0..7] (x[4] unused), descaled by n bits.
+  auto pass = [](const int32_t* x, int n, int32_t* y) {
+    const int32_t tmp0 = x[0] * (1 << (kConstBits + 1));
+    const int32_t tmp2e = add32(x[2] * F184, x[6] * -F076);
+    const int32_t tmp10 = add32(tmp0, tmp2e), tmp12 = sub32(tmp0, tmp2e);
+    const int32_t odd0 = add32(add32(x[1] * F106, x[3] * -F217),
+                               add32(x[5] * F145, x[7] * -F021));
+    const int32_t odd2 = add32(add32(x[1] * F256, x[3] * F089),
+                               add32(x[5] * -F060, x[7] * -F050));
+    const int32_t r = 1 << (n - 1);
+    y[0] = add32(add32(tmp10, odd2), r) >> n;
+    y[3] = add32(sub32(tmp10, odd2), r) >> n;
+    y[1] = add32(add32(tmp12, odd0), r) >> n;
+    y[2] = add32(sub32(tmp12, odd0), r) >> n;
+  };
+  for (int c = 0; c < 8; ++c) {
+    if (ac_zero) {
+      const int16_t v = wrap16(static_cast<uint16_t>(q(0, c)) << kPass1Bits);
+      for (int r = 0; r < 4; ++r) ws[r][c] = v;
+      continue;
+    }
+    int32_t x[8], y[4];
+    for (int r = 0; r < 8; ++r) x[r] = q(r, c);
+    pass(x, kConstBits - kPass1Bits + 1, y);
+    for (int r = 0; r < 4; ++r) ws[r][c] = sat16(y[r]);
+  }
+  for (int r = 0; r < 4; ++r) {
+    int32_t x[8], y[4];
+    for (int c = 0; c < 8; ++c) x[c] = ws[r][c];
+    pass(x, kConstBits + kPass1Bits + 3 + 1, y);
+    for (int c = 0; c < 4; ++c) {
+      const int32_t v = sat16(y[c]);
+      out[r * stride + c] = static_cast<uint8_t>((v < -128 ? -128 : (v > 127 ? 127 : v)) + 128);
+    }
+  }
+}
+
+// jsimd_idct_2x2_sse2: pass 1's DC column stays in 32 bits; its odd
+// columns are saturated to 16 bits before pass 2's products.
+void idct_2x2(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride) {
+  constexpr int32_t F362 = 29692, F127 = 10426, F085 = 6967, F072 = 5906;
+  auto q = [&](int r, int c) -> int32_t { return wrap16(coef[8 * r + c] * qt[8 * r + c]); };
+  auto odd = [](int32_t x1, int32_t x3, int32_t x5, int32_t x7) {
+    return add32(add32(x1 * F362, x3 * -F127), add32(x5 * F085, x7 * -F072));
+  };
+  constexpr int n1 = kConstBits - kPass1Bits + 2, n2 = kConstBits + kPass1Bits + 3 + 2;
+  int32_t a[8], b[8];  // pass 1's two rows, columns 0, 1, 3, 5, 7
+  for (int c : {0, 1, 3, 5, 7}) {
+    const int32_t tmp10 = q(0, c) * (1 << (kConstBits + 2));
+    const int32_t tmp0 = odd(q(1, c), q(3, c), q(5, c), q(7, c));
+    a[c] = add32(add32(tmp10, tmp0), 1 << (n1 - 1)) >> n1;
+    b[c] = add32(sub32(tmp10, tmp0), 1 << (n1 - 1)) >> n1;
+  }
+  for (int r = 0; r < 2; ++r) {
+    const int32_t* x = r ? b : a;
+    const int32_t tmp10 = static_cast<int32_t>(static_cast<uint32_t>(x[0]) << (kConstBits + 2));
+    const int32_t tmp0 = odd(sat16(x[1]), sat16(x[3]), sat16(x[5]), sat16(x[7]));
+    const int32_t v0 = sat16(add32(add32(tmp10, tmp0), 1 << (n2 - 1)) >> n2);
+    const int32_t v1 = sat16(add32(sub32(tmp10, tmp0), 1 << (n2 - 1)) >> n2);
+    out[r * stride] = static_cast<uint8_t>((v0 < -128 ? -128 : (v0 > 127 ? 127 : v0)) + 128);
+    out[r * stride + 1] = static_cast<uint8_t>((v1 < -128 ? -128 : (v1 > 127 ? 127 : v1)) + 128);
+  }
+}
+
+// jidctint.c's scaled IDCTs share this frame: pass 1 over the input's
+// columns (N of them, 8 for N > 8) into an int workspace of N rows, pass 2
+// over those rows. Each kernel takes the 1-D inputs (x[0..7], zero where
+// the pass has fewer) and the term added to x[0] << CONST_BITS, and
+// returns N outputs before the final shift; pass 1's outputs that
+// jidctint.c shifts by another amount are given with `pre` set.
+template <int N, typename Kernel>
+void idct_scaled(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride,
+                 Kernel kernel) {
+  constexpr int cols = N > 8 ? 8 : N;
+  int64_t ws[N][8] = {};
+  for (int c = 0; c < cols; ++c) {
+    int64_t x[8];
+    for (int r = 0; r < 8; ++r) x[r] = deq(coef + c, qt + c, 8 * r);
+    int64_t y[N];
+    kernel(x, int64_t{1} << (kConstBits - kPass1Bits - 1), true, y);
+    for (int r = 0; r < N; ++r) ws[r][c] = to_int(y[r]);
+  }
+  for (int r = 0; r < N; ++r) {
+    int64_t x[8] = {};
+    for (int c = 0; c < cols; ++c) x[c] = ws[r][c];
+    int64_t y[N];
+    kernel(x, int64_t{1} << (kPass1Bits + 2 + kConstBits), false, y);
+    for (int c = 0; c < N; ++c) out[r * stride + c] = range_limit(rsh(y[c], kConstBits + kPass1Bits + 3));
+  }
+}
+
+// In pass 1, jidctint.c right-shifts every output by CONST_BITS -
+// PASS1_BITS, except the few it builds pre-shifted (`pre` marks them).
+#define IDCT_OUT(i, v, shifted_in_pass1)                                      \
+  y[i] = pass1 ? ((shifted_in_pass1) ? (v) : rsh((v), kConstBits - kPass1Bits)) \
+               : (v)
+
+void idct_3x3(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride) {
+  idct_scaled<3>(coef, qt, out, stride, [](const int64_t* x, int64_t fudge, bool pass1, int64_t* y) {
+    const int64_t tmp0 = x[0] * (int64_t{1} << kConstBits) + fudge;
+    const int64_t tmp12 = x[2] * fix(0.707106781);
+    const int64_t tmp10 = tmp0 + tmp12;
+    const int64_t tmp2 = tmp0 - tmp12 - tmp12;
+    const int64_t odd = x[1] * fix(1.224744871);
+    IDCT_OUT(0, tmp10 + odd, false);
+    IDCT_OUT(2, tmp10 - odd, false);
+    IDCT_OUT(1, tmp2, false);
+  });
+}
+
+void idct_5x5(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride) {
+  idct_scaled<5>(coef, qt, out, stride, [](const int64_t* x, int64_t fudge, bool pass1, int64_t* y) {
+    int64_t tmp12 = x[0] * (int64_t{1} << kConstBits) + fudge;
+    const int64_t z1 = (x[2] + x[4]) * fix(0.790569415);
+    int64_t z2 = (x[2] - x[4]) * fix(0.353553391);
+    int64_t z3 = tmp12 + z2;
+    const int64_t tmp10 = z3 + z1, tmp11 = z3 - z1;
+    tmp12 -= z2 * 4;
+    z2 = x[1];
+    z3 = x[3];
+    const int64_t zo = (z2 + z3) * fix(0.831253876);
+    const int64_t tmp0 = zo + z2 * fix(0.513743148);
+    const int64_t tmp1 = zo - z3 * fix(2.176250899);
+    IDCT_OUT(0, tmp10 + tmp0, false);
+    IDCT_OUT(4, tmp10 - tmp0, false);
+    IDCT_OUT(1, tmp11 + tmp1, false);
+    IDCT_OUT(3, tmp11 - tmp1, false);
+    IDCT_OUT(2, tmp12, false);
+  });
+}
+
+void idct_6x6(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride) {
+  idct_scaled<6>(coef, qt, out, stride, [](const int64_t* x, int64_t fudge, bool pass1, int64_t* y) {
+    int64_t tmp0 = x[0] * (int64_t{1} << kConstBits) + fudge;
+    int64_t tmp10 = x[4] * fix(0.707106781);
+    int64_t tmp1 = tmp0 + tmp10;
+    int64_t tmp11 = tmp0 - tmp10 - tmp10;
+    if (pass1) tmp11 = rsh(tmp11, kConstBits - kPass1Bits);
+    tmp0 = x[2] * fix(1.224744871);
+    tmp10 = tmp1 + tmp0;
+    const int64_t tmp12 = tmp1 - tmp0;
+    const int64_t z1 = x[1], z2 = x[3], z3 = x[5];
+    tmp1 = (z1 + z3) * fix(0.366025404);
+    tmp0 = tmp1 + (z1 + z2) * (int64_t{1} << kConstBits);
+    const int64_t tmp2 = tmp1 + (z3 - z2) * (int64_t{1} << kConstBits);
+    tmp1 = (z1 - z2 - z3) * (int64_t{1} << (pass1 ? kPass1Bits : kConstBits));
+    IDCT_OUT(0, tmp10 + tmp0, false);
+    IDCT_OUT(5, tmp10 - tmp0, false);
+    IDCT_OUT(1, tmp11 + tmp1, true);
+    IDCT_OUT(4, tmp11 - tmp1, true);
+    IDCT_OUT(2, tmp12 + tmp2, false);
+    IDCT_OUT(3, tmp12 - tmp2, false);
+  });
+}
+
+void idct_7x7(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride) {
+  idct_scaled<7>(coef, qt, out, stride, [](const int64_t* x, int64_t fudge, bool pass1, int64_t* y) {
+    int64_t tmp13 = x[0] * (int64_t{1} << kConstBits) + fudge;
+    int64_t z1 = x[2], z2 = x[4], z3 = x[6];
+    int64_t tmp10 = (z2 - z3) * fix(0.881747734);
+    int64_t tmp12 = (z1 - z2) * fix(0.314692123);
+    const int64_t tmp11 = tmp10 + tmp12 + tmp13 - z2 * fix(1.841218003);
+    int64_t tmp0 = z1 + z3;
+    z2 -= tmp0;
+    tmp0 = tmp0 * fix(1.274162392) + tmp13;
+    tmp10 += tmp0 - z3 * fix(0.077722536);
+    tmp12 += tmp0 - z1 * fix(2.470602249);
+    tmp13 += z2 * fix(1.414213562);
+    z1 = x[1];
+    z2 = x[3];
+    z3 = x[5];
+    int64_t tmp1 = (z1 + z2) * fix(0.935414347);
+    int64_t tmp2 = (z1 - z2) * fix(0.170262339);
+    tmp0 = tmp1 - tmp2;
+    tmp1 += tmp2;
+    tmp2 = (z2 + z3) * -fix(1.378756276);
+    tmp1 += tmp2;
+    z2 = (z1 + z3) * fix(0.613604268);
+    tmp0 += z2;
+    tmp2 += z2 + z3 * fix(1.870828693);
+    IDCT_OUT(0, tmp10 + tmp0, false);
+    IDCT_OUT(6, tmp10 - tmp0, false);
+    IDCT_OUT(1, tmp11 + tmp1, false);
+    IDCT_OUT(5, tmp11 - tmp1, false);
+    IDCT_OUT(2, tmp12 + tmp2, false);
+    IDCT_OUT(4, tmp12 - tmp2, false);
+    IDCT_OUT(3, tmp13, false);
+  });
+}
+
+void idct_10x10(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride) {
+  idct_scaled<10>(coef, qt, out, stride, [](const int64_t* x, int64_t fudge, bool pass1, int64_t* y) {
+    int64_t z3 = x[0] * (int64_t{1} << kConstBits) + fudge;
+    int64_t z4 = x[4];
+    int64_t z1 = z4 * fix(1.144122806);
+    int64_t z2 = z4 * fix(0.437016024);
+    int64_t tmp10 = z3 + z1, tmp11 = z3 - z2;
+    int64_t tmp22 = z3 - (z1 - z2) * 2;
+    if (pass1) tmp22 = rsh(tmp22, kConstBits - kPass1Bits);
+    z2 = x[2];
+    z3 = x[6];
+    z1 = (z2 + z3) * fix(0.831253876);
+    int64_t tmp12 = z1 + z2 * fix(0.513743148);
+    int64_t tmp13 = z1 - z3 * fix(2.176250899);
+    const int64_t tmp20 = tmp10 + tmp12, tmp24 = tmp10 - tmp12;
+    const int64_t tmp21 = tmp11 + tmp13, tmp23 = tmp11 - tmp13;
+    z1 = x[1];
+    z2 = x[3];
+    z3 = x[5];
+    z4 = x[7];
+    tmp11 = z2 + z4;
+    tmp13 = z2 - z4;
+    tmp12 = tmp13 * fix(0.309016994);
+    const int64_t z5 = z3 * (int64_t{1} << kConstBits);
+    z2 = tmp11 * fix(0.951056516);
+    z4 = z5 + tmp12;
+    tmp10 = z1 * fix(1.396802247) + z2 + z4;
+    const int64_t tmp14 = z1 * fix(0.221231742) - z2 + z4;
+    z2 = tmp11 * fix(0.587785252);
+    z4 = z5 - tmp12 - tmp13 * (int64_t{1} << (kConstBits - 1));
+    tmp12 = pass1 ? (z1 - tmp13 - z3) * (1 << kPass1Bits)
+                  : (z1 - tmp13) * (int64_t{1} << kConstBits) - z5;
+    tmp11 = z1 * fix(1.260073511) - z2 - z4;
+    tmp13 = z1 * fix(0.642039522) - z2 + z4;
+    IDCT_OUT(0, tmp20 + tmp10, false);
+    IDCT_OUT(9, tmp20 - tmp10, false);
+    IDCT_OUT(1, tmp21 + tmp11, false);
+    IDCT_OUT(8, tmp21 - tmp11, false);
+    IDCT_OUT(2, tmp22 + tmp12, true);
+    IDCT_OUT(7, tmp22 - tmp12, true);
+    IDCT_OUT(3, tmp23 + tmp13, false);
+    IDCT_OUT(6, tmp23 - tmp13, false);
+    IDCT_OUT(4, tmp24 + tmp14, false);
+    IDCT_OUT(5, tmp24 - tmp14, false);
+  });
+}
+
+void idct_12x12(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride) {
+  idct_scaled<12>(coef, qt, out, stride, [](const int64_t* x, int64_t fudge, bool pass1, int64_t* y) {
+    constexpr int64_t one = int64_t{1} << kConstBits;
+    int64_t z3 = x[0] * one + fudge;
+    int64_t z4 = x[4] * fix(1.224744871);
+    int64_t tmp10 = z3 + z4, tmp11 = z3 - z4;
+    int64_t z1 = x[2];
+    z4 = z1 * fix(1.366025404);
+    z1 *= one;
+    int64_t z2 = x[6] * one;
+    int64_t tmp12 = z1 - z2;
+    const int64_t tmp21 = z3 + tmp12, tmp24 = z3 - tmp12;
+    tmp12 = z4 + z2;
+    const int64_t tmp20 = tmp10 + tmp12, tmp25 = tmp10 - tmp12;
+    tmp12 = z4 - z1 - z2;
+    const int64_t tmp22 = tmp11 + tmp12, tmp23 = tmp11 - tmp12;
+    z1 = x[1];
+    z2 = x[3];
+    z3 = x[5];
+    z4 = x[7];
+    tmp11 = z2 * fix(1.306562965);
+    int64_t tmp14 = z2 * -F0_541;
+    tmp10 = z1 + z3;
+    int64_t tmp15 = (tmp10 + z4) * fix(0.860918669);
+    tmp12 = tmp15 + tmp10 * fix(0.261052384);
+    tmp10 = tmp12 + tmp11 + z1 * fix(0.280143716);
+    int64_t tmp13 = (z3 + z4) * -fix(1.045510580);
+    tmp12 += tmp13 + tmp14 - z3 * fix(1.478575242);
+    tmp13 += tmp15 - tmp11 + z4 * fix(1.586706681);
+    tmp15 += tmp14 - z1 * fix(0.676326758) - z4 * fix(1.982889723);
+    z1 -= z4;
+    z2 -= z3;
+    z3 = (z1 + z2) * F0_541;
+    tmp11 = z3 + z1 * F0_765;
+    tmp14 = z3 - z2 * F1_847;
+    IDCT_OUT(0, tmp20 + tmp10, false);
+    IDCT_OUT(11, tmp20 - tmp10, false);
+    IDCT_OUT(1, tmp21 + tmp11, false);
+    IDCT_OUT(10, tmp21 - tmp11, false);
+    IDCT_OUT(2, tmp22 + tmp12, false);
+    IDCT_OUT(9, tmp22 - tmp12, false);
+    IDCT_OUT(3, tmp23 + tmp13, false);
+    IDCT_OUT(8, tmp23 - tmp13, false);
+    IDCT_OUT(4, tmp24 + tmp14, false);
+    IDCT_OUT(7, tmp24 - tmp14, false);
+    IDCT_OUT(5, tmp25 + tmp15, false);
+    IDCT_OUT(6, tmp25 - tmp15, false);
+  });
+}
+
+void idct_14x14(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride) {
+  idct_scaled<14>(coef, qt, out, stride, [](const int64_t* x, int64_t fudge, bool pass1, int64_t* y) {
+    constexpr int64_t one = int64_t{1} << kConstBits;
+    int64_t z1 = x[0] * one + fudge;
+    int64_t z4 = x[4];
+    int64_t z2 = z4 * fix(1.274162392);
+    int64_t z3 = z4 * fix(0.314692123);
+    z4 = z4 * fix(0.881747734);
+    int64_t tmp10 = z1 + z2, tmp11 = z1 + z3, tmp12 = z1 - z4;
+    int64_t tmp23 = z1 - (z2 + z3 - z4) * 2;
+    if (pass1) tmp23 = rsh(tmp23, kConstBits - kPass1Bits);
+    z1 = x[2];
+    z2 = x[6];
+    z3 = (z1 + z2) * fix(1.105676686);
+    int64_t tmp13 = z3 + z1 * fix(0.273079590);
+    int64_t tmp14 = z3 - z2 * fix(1.719280954);
+    int64_t tmp15 = z1 * fix(0.613604268) - z2 * fix(1.378756276);
+    const int64_t tmp20 = tmp10 + tmp13, tmp26 = tmp10 - tmp13;
+    const int64_t tmp21 = tmp11 + tmp14, tmp25 = tmp11 - tmp14;
+    const int64_t tmp22 = tmp12 + tmp15, tmp24 = tmp12 - tmp15;
+    z1 = x[1];
+    z2 = x[3];
+    z3 = x[5];
+    const int64_t z4s = x[7] * one;
+    tmp14 = z1 + z3;
+    tmp11 = (z1 + z2) * fix(1.334852607);
+    tmp12 = tmp14 * fix(1.197448846);
+    tmp10 = tmp11 + tmp12 + z4s - z1 * fix(1.126980169);
+    tmp14 = tmp14 * fix(0.752406978);
+    int64_t tmp16 = tmp14 - z1 * fix(1.061150426);
+    z1 -= z2;
+    tmp15 = z1 * fix(0.467085129) - z4s;
+    tmp16 += tmp15;
+    tmp13 = (z2 + z3) * -fix(0.158341681) - z4s;
+    tmp11 += tmp13 - z2 * fix(0.424103948);
+    tmp12 += tmp13 - z3 * fix(2.373959773);
+    tmp13 = (z3 - z2) * fix(1.405321284);
+    tmp14 += tmp13 + z4s - z3 * fix(1.6906431334);
+    tmp15 += tmp13 + z2 * fix(0.674957567);
+    tmp13 = pass1 ? (z1 + x[7] - z3) * (1 << kPass1Bits) : (z1 - z3) * one + z4s;
+    IDCT_OUT(0, tmp20 + tmp10, false);
+    IDCT_OUT(13, tmp20 - tmp10, false);
+    IDCT_OUT(1, tmp21 + tmp11, false);
+    IDCT_OUT(12, tmp21 - tmp11, false);
+    IDCT_OUT(2, tmp22 + tmp12, false);
+    IDCT_OUT(11, tmp22 - tmp12, false);
+    IDCT_OUT(3, tmp23 + tmp13, true);
+    IDCT_OUT(10, tmp23 - tmp13, true);
+    IDCT_OUT(4, tmp24 + tmp14, false);
+    IDCT_OUT(9, tmp24 - tmp14, false);
+    IDCT_OUT(5, tmp25 + tmp15, false);
+    IDCT_OUT(8, tmp25 - tmp15, false);
+    IDCT_OUT(6, tmp26 + tmp16, false);
+    IDCT_OUT(7, tmp26 - tmp16, false);
+  });
+}
+
+#undef IDCT_OUT
+
+using IdctFn = void (*)(const int16_t*, const int16_t*, uint8_t*, int);
+
+// jddctmgr.c's choice for a DCT_scaled_size; null where it has none.
+IdctFn idct_for(int size) {
+  switch (size) {
+    case 1: return idct_1x1;
+    case 2: return idct_2x2;
+    case 3: return idct_3x3;
+    case 4: return idct_4x4;
+    case 5: return idct_5x5;
+    case 6: return idct_6x6;
+    case 7: return idct_7x7;
+    case 8: return idct_islow;
+    case 10: return idct_10x10;
+    case 12: return idct_12x12;
+    case 14: return idct_14x14;
+    default: return nullptr;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Huffman tables: the DHT contents, and jpeg_make_d_derived_tbl's decoding
 // tables with a 9-bit lookahead.
 
@@ -589,18 +1006,29 @@ inline int extend(int x, int s) {
 // ---------------------------------------------------------------------------
 // The decoder.
 
+// jdsample.c's method for one direction of a component.
+enum Upsample {
+  kSame = 0,    // fullsize_upsample
+  kFancy = 1,   // the triangle filter of h2v1 / h1v2 / h2v2_fancy_upsample
+  kRepeat = 2,  // int_upsample (and h2v1 / h2v2_upsample): replication
+};
+
 struct Component {
   int id, h, v, tq;
   int dc_tbl, ac_tbl;
   int wib, hib;      // width_in_blocks, height_in_blocks
   int bw, bh;        // coefficient grid, padded to whole MCUs
-  int dw, dh;        // downsampled_width / height
+  int ds = 8;        // DCT_scaled_size: the side of a block's IDCT output
+  int dw, dh;        // downsampled_width / height at that size
+  int up_h = kSame, up_v = kSame;  // Upsample, per direction
+  int hx = 1, vx = 1;              // h_expand, v_expand where kRepeat
   bool latched = false;
-  int16_t qt[64];
+  int16_t qt[64];     // the IDCT's multipliers (ISLOW_MULT_TYPE is short)
+  uint16_t qraw[64];  // the quantization table as latched
   // Coefficients: one MCU row's block rows in a single-pass image, else
   // all bh block rows; bw blocks a row.
   std::vector<int16_t> coef;
-  std::vector<uint8_t> plane;  // wib * 8 x hib * 8 samples
+  std::vector<uint8_t> plane;  // wib * ds x hib * ds samples
 };
 
 struct Decoder {
@@ -612,7 +1040,10 @@ struct Decoder {
   int restart_interval = 0;
   bool saw_sof = false, saw_jfif = false, saw_adobe = false;
   int adobe_transform = 0;
+  bool rgb = false;  // jpeg_color_space JCS_RGB: three components, no transform
   int width = 0, height = 0, max_h = 1, max_v = 1;
+  int scale = 8;               // scale_num / 8, the luma IDCT's side
+  int out_w = 0, out_h = 0;    // output_width / height at that scale
   std::vector<Component> comps;
   int scans = 0;
   bool single_pass = false;  // the first scan holds every component
@@ -816,8 +1247,9 @@ struct Decoder {
     return kOk;
   }
 
-  // What libjpeg settles at the end of jpeg_read_header and in
-  // jinit_upsampler: the color space, the sampling, the component sizes.
+  // What libjpeg settles at the end of jpeg_read_header: the color space
+  // (default_decompress_parms) and the component sizes (initial_setup);
+  // then the 8/8 output.
   int setup() {
     const int nc = static_cast<int>(comps.size());
     if (nc == 3) {
@@ -829,7 +1261,8 @@ struct Decoder {
       } else if (comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66) {
         ycc = false;
       }
-      if (!ycc) return kColorSpace;
+      rgb = !ycc;
+      if (rgb) return kColorSpace;
     } else if (nc != 1) {
       return kColorSpace;
     }
@@ -837,6 +1270,8 @@ struct Decoder {
       max_h = std::max(max_h, c.h);
       max_v = std::max(max_v, c.v);
     }
+    const int mcux = (width + 8 * max_h - 1) / (8 * max_h);
+    const int mcuy = (height + 8 * max_v - 1) / (8 * max_v);
     for (auto& c : comps) {
       const int rh = max_h / c.h, rv = max_v / c.v;
       const bool exact = max_h % c.h == 0 && max_v % c.v == 0;
@@ -844,14 +1279,52 @@ struct Decoder {
                       (rh == 2 && rv == 2))) {
         return kSampling;
       }
-      c.dw = static_cast<int>((int64_t{width} * c.h + max_h - 1) / max_h);
-      c.dh = static_cast<int>((int64_t{height} * c.v + max_v - 1) / max_v);
-      c.wib = (c.dw + 7) / 8;
-      c.hib = (c.dh + 7) / 8;
-      const int mcux = (width + 8 * max_h - 1) / (8 * max_h);
-      const int mcuy = (height + 8 * max_v - 1) / (8 * max_v);
+      c.wib = static_cast<int>((int64_t{width} * c.h + 8 * max_h - 1) / (8 * max_h));
+      c.hib = static_cast<int>((int64_t{height} * c.v + 8 * max_v - 1) / (8 * max_v));
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
+    }
+    return choose_scale(8);
+  }
+
+  // jpeg_calc_output_dimensions at scale n / 8, then jinit_upsampler's
+  // method per component. Luma's IDCT gives n x n samples a block; a
+  // component sampled below it takes twice that while both of its ratios
+  // allow, so 4:2:0 chroma below 8/8 is IDCT'd at 2n and not upsampled.
+  int choose_scale(int n) {
+    scale = n;
+    out_w = static_cast<int>((int64_t{width} * n + 7) / 8);
+    out_h = static_cast<int>((int64_t{height} * n + 7) / 8);
+    // do_fancy_upsampling, off where min_DCT_scaled_size is 1.
+    const bool fancy = n > 1;
+    for (auto& c : comps) {
+      int s = n;
+      while (s < 8 && (max_h * n) % (c.h * s * 2) == 0 &&
+             (max_v * n) % (c.v * s * 2) == 0) {
+        s *= 2;
+      }
+      c.ds = s;
+      c.dw = static_cast<int>((int64_t{width} * c.h * s + 8 * max_h - 1) / (8 * max_h));
+      c.dh = static_cast<int>((int64_t{height} * c.v * s + 8 * max_v - 1) / (8 * max_v));
+      // An input group of hin x vin samples becomes max_h x max_v pixels.
+      const int hin = c.h * s / n, vin = c.v * s / n;
+      c.up_h = c.up_v = kSame;
+      c.hx = c.vx = 1;
+      if (hin == max_h && vin == max_v) {
+        // fullsize_upsample
+      } else if (hin * 2 == max_h && vin == max_v && fancy && c.dw > 2) {
+        c.up_h = kFancy;  // h2v1_fancy_upsample
+      } else if (hin == max_h && vin * 2 == max_v && fancy) {
+        c.up_v = kFancy;  // h1v2_fancy_upsample
+      } else if (hin * 2 == max_h && vin * 2 == max_v && fancy && c.dw > 2) {
+        c.up_h = c.up_v = kFancy;  // h2v2_fancy_upsample
+      } else if (max_h % hin == 0 && max_v % vin == 0) {
+        c.up_h = c.up_v = kRepeat;  // int_upsample, h2v1_upsample, h2v2_upsample
+        c.hx = max_h / hin;
+        c.vx = max_v / vin;
+      } else {
+        return kSampling;  // JERR_FRACT_SAMPLE_NOTIMPL
+      }
     }
     return kOk;
   }
@@ -1033,7 +1506,7 @@ struct Decoder {
   int decode_scans(int ncomp, int idx[4]) {
     single_pass = ncomp == static_cast<int>(comps.size());
     for (auto& c : comps) {
-      c.plane.assign(static_cast<size_t>(c.wib) * 8 * c.hib * 8, 0);
+      c.plane.assign(static_cast<size_t>(c.wib) * c.ds * c.hib * c.ds, 0);
       const int rows = !single_pass ? c.bh : (ncomp == 1 ? 1 : c.v);
       c.coef.assign(static_cast<size_t>(c.bw) * rows * 64, 0);
     }
@@ -1065,40 +1538,39 @@ struct Decoder {
   // The IDCT of c's block rows from `first`, n of them (those inside the
   // image), read from c.coef's block rows from 0.
   void idct_rows(Component& c, int first, int n) {
-    const size_t stride = static_cast<size_t>(c.wib) * 8;
+    const size_t stride = static_cast<size_t>(c.wib) * c.ds;
+    const IdctFn idct = idct_for(c.ds);
     for (int r = 0; r < n && first + r < c.hib; ++r) {
-      uint8_t* dst = c.plane.data() + static_cast<size_t>(first + r) * 8 * stride;
+      uint8_t* dst = c.plane.data() + static_cast<size_t>(first + r) * c.ds * stride;
       const int16_t* src = c.coef.data() + static_cast<size_t>(r) * c.bw * 64;
       for (int bx = 0; bx < c.wib; ++bx) {
-        idct_islow(src + bx * 64, c.qt, dst + bx * 8, static_cast<int>(stride));
+        idct(src + bx * 64, c.qt, dst + bx * c.ds, static_cast<int>(stride));
       }
     }
   }
 
-  // How component c's samples reach image columns xs: jdsample.c's fancy
-  // upsampling reads sample i and its neighbor nb with a rounding bias,
-  // and at the edges the same formula holds with nb clamped to the edge
-  // sample (h2v1: in[0], then (3 in[i] + in[i -+ 1] + 1 or 2) >> 2; h2v2:
+  // How component c's samples reach image columns xs. jdsample.c's fancy
+  // upsampling reads sample i and its neighbor nb with a rounding bias, and
+  // at the edges the same formula holds with nb clamped to the edge sample
+  // (h2v1: in[0], then (3 in[i] + in[i -+ 1] + 1 or 2) >> 2; h2v2:
   // (3 cs[i] + cs[i -+ 1] + 8 or 7) >> 4 on column sums cs of 3 rows).
+  // Replication reads sample x / h_expand.
   struct Columns {
-    int kind;  // 0 full size, 1 h2v1, 2 h2v2, 3 replicated
     std::vector<int> i, nb, bias;
   };
 
   Columns columns(const Component& c, const std::vector<int>& xs) const {
     Columns m;
-    const int rh = max_h / c.h, rv = max_v / c.v;
-    m.kind = rh == 1 ? 0 : (c.dw <= 2 ? 3 : (rv == 1 ? 1 : 2));
     for (int x : xs) {
-      if (m.kind == 0) {
-        m.i.push_back(x);
+      if (c.up_h != kFancy) {
+        m.i.push_back(x / c.hx);
         continue;
       }
       const int i = x >> 1;
       const bool odd = x & 1;
       m.i.push_back(i);
       m.nb.push_back(odd ? std::min(i + 1, c.dw - 1) : std::max(i - 1, 0));
-      m.bias.push_back(m.kind == 1 ? (odd ? 2 : 1) : (odd ? 7 : 8));
+      m.bias.push_back(c.up_v == kFancy ? (odd ? 7 : 8) : (odd ? 2 : 1));
     }
     return m;
   }
@@ -1106,32 +1578,42 @@ struct Decoder {
   // Component c's upsampled samples on image row y at the mapped columns.
   void component_row(const Component& c, const Columns& m, int y,
                      uint8_t* dst) const {
-    const size_t stride = static_cast<size_t>(c.wib) * 8;
+    const size_t stride = static_cast<size_t>(c.wib) * c.ds;
     const int n = static_cast<int>(m.i.size());
-    const int rv = max_v / c.v;
-    const uint8_t* in0 = c.plane.data() + static_cast<size_t>(y / rv) * stride;
-    if (m.kind == 0 || m.kind == 3) {
-      for (int j = 0; j < n; ++j) dst[j] = in0[m.i[j]];
-    } else if (m.kind == 1) {
+    if (c.up_v == kFancy) {
+      // h1v2 and h2v2: the row above for an even output row, below for an
+      // odd one, the edge rows repeated (jdmainct.c's context rows).
+      const int r = y / 2;
+      const int r1 = std::min(std::max((y & 1) ? r + 1 : r - 1, 0), c.dh - 1);
+      const uint8_t* in0 = c.plane.data() + static_cast<size_t>(r) * stride;
+      const uint8_t* in1 = c.plane.data() + static_cast<size_t>(r1) * stride;
+      if (c.up_h == kFancy) {
+        for (int j = 0; j < n; ++j) {
+          const int cs = in0[m.i[j]] * 3 + in1[m.i[j]];
+          const int cn = in0[m.nb[j]] * 3 + in1[m.nb[j]];
+          dst[j] = static_cast<uint8_t>((cs * 3 + cn + m.bias[j]) >> 4);
+        }
+      } else {
+        const int bias = (y & 1) ? 2 : 1;
+        for (int j = 0; j < n; ++j) {
+          dst[j] = static_cast<uint8_t>((in0[m.i[j]] * 3 + in1[m.i[j]] + bias) >> 2);
+        }
+      }
+      return;
+    }
+    const uint8_t* in0 = c.plane.data() + static_cast<size_t>(y / c.vx) * stride;
+    if (c.up_h == kFancy) {
       for (int j = 0; j < n; ++j) {
         dst[j] = static_cast<uint8_t>((in0[m.i[j]] * 3 + in0[m.nb[j]] + m.bias[j]) >> 2);
       }
     } else {
-      // h2v2: the row above for an even output row, below for an odd one,
-      // the edge rows repeated (jdmainct.c's context rows).
-      const int r = y / 2;
-      const int r1 = std::min(std::max((y & 1) ? r + 1 : r - 1, 0), c.dh - 1);
-      const uint8_t* in1 = c.plane.data() + static_cast<size_t>(r1) * stride;
-      for (int j = 0; j < n; ++j) {
-        const int cs = in0[m.i[j]] * 3 + in1[m.i[j]];
-        const int cn = in0[m.nb[j]] * 3 + in1[m.nb[j]];
-        dst[j] = static_cast<uint8_t>((cs * 3 + cn + m.bias[j]) >> 4);
-      }
+      for (int j = 0; j < n; ++j) dst[j] = in0[m.i[j]];
     }
   }
 
   // Image row y at the mapped columns as RGB (3 bytes a column); tmp holds
-  // three rows of samples.
+  // three rows of samples. Gray is replicated, RGB-coded samples copied
+  // (rgb_rgb_convert), YCbCr converted with jdcolor.c's tables.
   void rgb_row(int y, const Columns* m, uint8_t* out, uint8_t* tmp) const {
     const int n = static_cast<int>(m[0].i.size());
     if (comps.size() == 1) {
@@ -1139,15 +1621,23 @@ struct Decoder {
       for (int j = 0; j < n; ++j) out[3 * j] = out[3 * j + 1] = out[3 * j + 2] = tmp[j];
       return;
     }
-    uint8_t* yr = tmp;
-    uint8_t* cb = tmp + n;
-    uint8_t* cr = tmp + 2 * n;
-    component_row(comps[0], m[0], y, yr);
-    component_row(comps[1], m[1], y, cb);
-    component_row(comps[2], m[2], y, cr);
+    uint8_t* c0 = tmp;
+    uint8_t* c1 = tmp + n;
+    uint8_t* c2 = tmp + 2 * n;
+    component_row(comps[0], m[0], y, c0);
+    component_row(comps[1], m[1], y, c1);
+    component_row(comps[2], m[2], y, c2);
+    if (rgb) {
+      for (int j = 0; j < n; ++j) {
+        out[3 * j] = c0[j];
+        out[3 * j + 1] = c1[j];
+        out[3 * j + 2] = c2[j];
+      }
+      return;
+    }
     const Tables& t = kTables;
     for (int j = 0; j < n; ++j) {
-      const int Y = yr[j], B = cb[j], R = cr[j];
+      const int Y = c0[j], B = c1[j], R = c2[j];
       out[3 * j] = clamp255(Y + t.cr_r[R]);
       out[3 * j + 1] = clamp255(Y + static_cast<int>((t.cb_g[B] + t.cr_g[R]) >> 16));
       out[3 * j + 2] = clamp255(Y + t.cb_b[B]);
@@ -1181,16 +1671,16 @@ int decode_one(const uint8_t* data, size_t size, int target_h, int target_w,
   int ncomp = 0, idx[4] = {0, 0, 0, 0};
   int rc = d.read_header(&ncomp, idx);
   if (rc != kOk) return rc;
-  if (fast_scale && target_h > 0 && target_w > 0 &&
-      scale_num(d.height, d.width, target_h, target_w) != 8) {
-    return kScaleNotPorted;
+  if (fast_scale && target_h > 0 && target_w > 0) {
+    const int n = scale_num(d.height, d.width, target_h, target_w);
+    if (n != 8 && (rc = d.choose_scale(n)) != kOk) return rc;
   }
   rc = d.decode_scans(ncomp, idx);
   if (rc != kOk) return rc;
 
   // Without a resize every row and column; with one (the nearest, PIL
   // convention), only the rows and columns it samples.
-  const int sw = d.width, sh = d.height;
+  const int sw = d.out_w, sh = d.out_h;
   const bool same = target_h <= 0 || target_w <= 0 ||
                     (sh == target_h && sw == target_w);
   const int th = same ? sh : target_h, tw = same ? sw : target_w;
@@ -1306,6 +1796,19 @@ int tpucap_jpeg_dims(const uint8_t* data, int64_t size, int* h, int* w) {
   if (rc != kOk) return rc;
   *h = d.height;
   *w = d.width;
+  return 0;
+}
+
+// n blocks (64 coefficients each, natural order) through the IDCT that a
+// component of DCT_scaled_size `size` takes, with one quantization table
+// (64 entries, natural order, as libjpeg's dct_table holds it); block i's
+// size x size samples at out + i * size * size. Returns -1 for a size
+// libjpeg has no IDCT for. For tests against libjpeg's own functions.
+int tpucap_jpeg_idct(int size, const int16_t* coef, const int16_t* qt, int n,
+                     uint8_t* out) {
+  const IdctFn fn = idct_for(size);
+  if (fn == nullptr) return -1;
+  for (int i = 0; i < n; ++i) fn(coef + 64 * i, qt, out + i * size * size, size);
   return 0;
 }
 

@@ -31,7 +31,6 @@ import ctypes
 import functools
 import os
 from collections.abc import Sequence
-from pathlib import Path
 
 import numpy as np
 
@@ -52,7 +51,6 @@ STATUS = {
     9: "wider or taller than 65500 pixels, libjpeg's limit",
     10: "the host could not allocate its decoded planes",
 }
-SCALE_NOT_PORTED = 7
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i64p = ctypes.POINTER(ctypes.c_int64)
@@ -98,24 +96,11 @@ def jpeg_dims(blob: bytes) -> tuple[int, int]:
     return h.value, w.value
 
 
-def _raise_for(status, size, names, blob_of):
-    """The error for a failed call: ValueError naming the images refused,
-    else NotImplementedError naming those that fast_scale would decode
-    below 8/8."""
+def _raise_for(status, names):
+    """ValueError naming the images refused and why."""
     bad = np.nonzero(status)[0].tolist()
-    refused = [i for i in bad if status[i] != SCALE_NOT_PORTED]
-    if refused:
-        why = "; ".join(f"{names[i]}: {STATUS[int(status[i])]}" for i in refused)
-        raise ValueError(f"JPEG decode failed for images {refused}: {why}")
-    scaled = []
-    for i in bad:
-        h, w = jpeg_dims(blob_of(i))
-        scaled.append(f"{names[i]} ({w}x{h}) at {scale_num(h, w, size)}/8")
-    raise NotImplementedError(
-        f"fast_scale decode to {size}x{size} needs libjpeg's scaled IDCTs, "
-        f"not ported (ROADMAP queue 1, slice 2b): {'; '.join(scaled)}. "
-        "fast_scale=False decodes at 8/8 and resizes."
-    )
+    why = "; ".join(f"{names[i]}: {STATUS[int(status[i])]}" for i in bad)
+    raise ValueError(f"JPEG decode failed for images {bad}: {why}")
 
 
 def _decode_blobs(blobs, out, target, n_threads, fast_scale) -> np.ndarray:
@@ -156,7 +141,7 @@ def decode_jpeg_batch(
         return out
     status = _decode_blobs(blobs, out, size, n_threads, fast_scale)
     if status.any():
-        _raise_for(status, size, [f"image {i}" for i in range(n)], blobs.__getitem__)
+        _raise_for(status, [f"image {i}" for i in range(n)])
     return out
 
 
@@ -166,7 +151,7 @@ def decode_jpeg(blob: bytes) -> np.ndarray:
     out = np.empty((h, w, 3), np.uint8)
     status = _decode_blobs([blob], out, 0, 1, False)
     if status.any():
-        _raise_for(status, 0, ["image 0"], [blob].__getitem__)
+        _raise_for(status, ["image 0"])
     return out
 
 
@@ -192,5 +177,5 @@ def decode_jpeg_files(
         int(fast_scale),
     )
     if status.any():
-        _raise_for(status, size, paths, lambda i: Path(paths[i]).read_bytes())
+        _raise_for(status, paths)
     return out
