@@ -385,7 +385,7 @@ def test_out_of_scope_images_raise_value_error_naming_them(tmp_path):
     im.save(buf, "PNG")
     png = buf.getvalue()
     good = encode(im, 75, 2)
-    with pytest.raises(ValueError, match=r"\[1, 2, 3\].*image 1: not baseline.*image 2: color space.*image 3: not a JPEG"):
+    with pytest.raises(ValueError, match=r"\[1, 2, 3\].*image 1: arithmetic-coded.*image 2: color space.*image 3: not a JPEG"):
         jpeg.decode_jpeg_batch([good, progressive, cmyk, png], 24, fast_scale=False)
     path = tmp_path / "photo.png"
     path.write_bytes(png)

@@ -91,6 +91,88 @@ int main(void) {
 }
 """
 
+# A libjpeg compressor for what PIL cannot write: any integral sampling
+# factors, RGB-coded files, scan scripts, arithmetic coding.
+# argv: raw in, jpeg out, width, height, components (1 or 3), quality,
+# sampling "HxV,HxV,HxV", color ("ycc", "rgb"), scans ("0" sequential,
+# "1" jpeg_simple_progression, else a script "c,c/Ss/Se/Ah/Al;..."),
+# restart interval in MCUs, arithmetic (0/1), optimized tables (0/1).
+COMPRESS_C = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <jpeglib.h>
+
+int main(int argc, char **argv) {
+  if (argc != 13) return 2;
+  int w = atoi(argv[3]), h = atoi(argv[4]), nc = atoi(argv[5]);
+  size_t n = (size_t)w * h * nc;
+  unsigned char *px = malloc(n);
+  FILE *f = fopen(argv[1], "rb");
+  if (!f || fread(px, 1, n, f) != n) return 3;
+  fclose(f);
+  struct jpeg_compress_struct c;
+  struct jpeg_error_mgr e;
+  c.err = jpeg_std_error(&e);
+  jpeg_create_compress(&c);
+  FILE *o = fopen(argv[2], "wb");
+  jpeg_stdio_dest(&c, o);
+  c.image_width = w;
+  c.image_height = h;
+  c.input_components = nc;
+  c.in_color_space = nc == 1 ? JCS_GRAYSCALE : JCS_RGB;
+  jpeg_set_defaults(&c);
+  if (!strcmp(argv[8], "rgb")) jpeg_set_colorspace(&c, JCS_RGB);
+  jpeg_set_quality(&c, atoi(argv[6]), TRUE);
+  const char *sp = argv[7];
+  for (int i = 0; i < c.num_components && *sp; i++) {
+    int hs, vs, used;
+    if (sscanf(sp, "%dx%d%n", &hs, &vs, &used) != 2) return 4;
+    c.comp_info[i].h_samp_factor = hs;
+    c.comp_info[i].v_samp_factor = vs;
+    sp += used;
+    if (*sp == ',') sp++;
+  }
+  c.restart_interval = atoi(argv[10]);
+  c.arith_code = atoi(argv[11]);
+  c.optimize_coding = atoi(argv[12]);
+  const char *scans = argv[9];
+  static jpeg_scan_info script[64];
+  if (!strcmp(scans, "1")) {
+    jpeg_simple_progression(&c);
+  } else if (strcmp(scans, "0")) {
+    int k = 0;
+    for (const char *q = scans; *q && k < 64; k++) {
+      jpeg_scan_info *si = &script[k];
+      si->comps_in_scan = 0;
+      while (1) {
+        int v, used;
+        if (sscanf(q, "%d%n", &v, &used) != 1) return 5;
+        si->component_index[si->comps_in_scan++] = v;
+        q += used;
+        if (*q != ',') break;
+        q++;
+      }
+      int used;
+      if (sscanf(q, "/%d/%d/%d/%d%n", &si->Ss, &si->Se, &si->Ah, &si->Al, &used) != 4) return 6;
+      q += used;
+      if (*q == ';') q++;
+    }
+    c.scan_info = script;
+    c.num_scans = k;
+  }
+  jpeg_start_compress(&c, TRUE);
+  while (c.next_scanline < c.image_height) {
+    JSAMPROW row = px + (size_t)c.next_scanline * w * nc;
+    jpeg_write_scanlines(&c, &row, 1);
+  }
+  jpeg_finish_compress(&c);
+  fclose(o);
+  jpeg_destroy_compress(&c);
+  return 0;
+}
+"""
+
 IDCT_SIZES = [1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14]
 
 
@@ -99,6 +181,28 @@ def compile_c(source, out, *args):
     src.write_text(source)
     subprocess.run(["gcc", "-O2", "-o", str(out), str(src), *args], check=True, capture_output=True)
     return out
+
+
+@pytest.fixture(scope="module")
+def compress(tmp_path_factory):
+    """compress(image, ...) -> JPEG bytes through this host's libjpeg."""
+    d = tmp_path_factory.mktemp("cjpeg")
+    exe = compile_c(COMPRESS_C, d / "compress", "-ljpeg")
+    count = [0]
+
+    def run(img, quality=85, sampling="2x2,1x1,1x1", color="ycc", scans="0", restart=0,
+            arith=False, optimize=False):
+        img = np.ascontiguousarray(img, np.uint8)
+        h, w = img.shape[:2]
+        nc = 1 if img.ndim == 2 else img.shape[2]
+        count[0] += 1
+        raw, out = d / f"{count[0]}.raw", d / f"{count[0]}.jpg"
+        raw.write_bytes(img.tobytes())
+        args = [raw, out, w, h, nc, quality, sampling, color, scans, restart, int(arith), int(optimize)]
+        subprocess.run([str(exe), *map(str, args)], check=True, capture_output=True)
+        return out.read_bytes()
+
+    return run
 
 
 @pytest.fixture(scope="module")
@@ -248,3 +352,82 @@ def test_scaled_corrupt_and_truncated_data_follow_libjpeg():
         np.testing.assert_array_equal(jpeg.decode_jpeg_batch([blob], size), want)
         decoded += 1
     assert decoded > 80 and refused > 5
+
+
+def photo(rng, h, w):
+    """Smooth color with noise, as test_torch_jpeg.make_image, as an array."""
+    return np.asarray(make_image(rng, h, w))
+
+
+# Sampling factors (Y, Cb, Cr) that only libjpeg writes; the first two are
+# 4:4:0 and 4:1:1, then 3:1 and others whose ratios are integral.
+HELPER_SAMPLINGS = {
+    "440": "1x2,1x1,1x1",
+    "411": "4x1,1x1,1x1",
+    "31": "3x1,1x1,1x1",
+    "13": "1x3,1x1,1x1",
+    "42": "4x2,1x1,1x1",
+    "22_12": "2x2,1x2,1x2",
+    "22_12_11": "2x2,1x2,1x1",
+    "32": "3x2,1x1,1x1",
+}
+HELPER_SIZES = [(1, 1), (3, 5), (7, 2), (17, 11), (40, 71), (96, 130)]
+
+
+@pytest.mark.parametrize("sampling", list(HELPER_SAMPLINGS))
+@pytest.mark.parametrize("hw", HELPER_SIZES, ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_other_samplings_match_libjpeg(compress, hw, sampling):
+    """4:4:0 through h1v2_fancy_upsample (its context rows as h2v2's),
+    4:1:1, 3:1 and other integral ratios through int_upsample, at every
+    scale, at the image's own size, and with restarts."""
+    h, w = hw
+    rng = np.random.default_rng(h * 7 + w)
+    for q, restart in [(40, 0), (92, 1)]:
+        blob = compress(photo(rng, h, w), q, HELPER_SAMPLINGS[sampling], restart=restart)
+        assert_scaled_decodes(blob, h, w, extra=[max(h, w) + 3])
+        np.testing.assert_array_equal(jpeg.decode_jpeg(blob), native(blob, h, w))
+
+
+def native(blob, h, w):
+    from test_torch_jpeg import fixtures_script
+
+    return fixtures_script.tpucap_native(blob, h, w)
+
+
+@pytest.mark.parametrize("sampling", ["1x1,1x1,1x1", "2x2,1x1,1x1", "2x1,1x1,1x1", "1x2,1x1,1x1"])
+def test_rgb_coded_images_match_libjpeg(compress, sampling):
+    """Three components with jpeg_color_space RGB: the Adobe marker's
+    transform 0, or component IDs 'R', 'G', 'B' with neither JFIF nor
+    Adobe; samples copied (rgb_rgb_convert), at every scale."""
+    rng = np.random.default_rng(41)
+    for h, w in [(1, 1), (13, 22), (64, 50)]:
+        blob = compress(photo(rng, h, w), 80, sampling, color="rgb")
+        assert b"Adobe" in blob and b"JFIF" not in blob
+        assert_scaled_decodes(blob, h, w)
+        i = blob.index(b"\xff\xee")
+        plain = blob[:i] + blob[i + 2 + int.from_bytes(blob[i + 2 : i + 4], "big"):]
+        assert b"Adobe" not in plain and b"\x03R" in plain
+        assert_scaled_decodes(plain, h, w)
+        np.testing.assert_array_equal(jpeg.decode_jpeg(plain), native(plain, h, w))
+
+
+def with_sampling(blob, factors):
+    """The JPEG with its SOF0 component sampling bytes replaced."""
+    i = blob.index(b"\xff\xc0") + 10
+    out = bytearray(blob)
+    for k, hv in enumerate(factors):
+        out[i + 3 * k + 1] = hv
+    return bytes(out)
+
+
+def test_fractional_sampling_is_refused_as_libjpeg_refuses_it(compress):
+    """Y 3x1 with chroma 2x1 has no integral upsampling ratio:
+    JERR_FRACT_SAMPLE_NOTIMPL in libjpeg, a ValueError naming the sampling
+    in the port, at every scale."""
+    blob = with_sampling(compress(photo(np.random.default_rng(43), 32, 48), 80, "1x1,1x1,1x1"),
+                         [0x31, 0x21, 0x21])
+    for size in (4, 24, 48):
+        with pytest.raises(ValueError):
+            jax_jpeg.decode_jpeg_batch([blob], size)
+        with pytest.raises(ValueError, match="chroma sampling"):
+            jpeg.decode_jpeg_batch([blob], size)

@@ -70,10 +70,10 @@ enum Status {
   kOk = 0,
   kCorrupt = 1,           // malformed data that libjpeg rejects too
   kNotJpeg = 2,           // no SOI marker at the start
-  kProcess = 3,           // progressive, arithmetic, lossless, hierarchical
+  kProcess = 3,           // arithmetic (not yet), lossless, hierarchical
   kPrecision = 4,         // sample precision other than 8 bits
-  kColorSpace = 5,        // CMYK, YCCK, RGB-coded, two components
-  kSampling = 6,          // sampling factors other than 4:4:4/4:2:2/4:2:0
+  kColorSpace = 5,        // CMYK, YCCK, two components
+  kSampling = 6,          // no integral upsampling ratio
   kUnreadable = 8,        // the file cannot be opened or read
   kTooBig = 9,            // a side above 65500 (libjpeg's JERR_IMAGE_TOO_BIG)
   kNoMemory = 10,         // the host could not allocate the image's planes
@@ -1262,7 +1262,6 @@ struct Decoder {
         ycc = false;
       }
       rgb = !ycc;
-      if (rgb) return kColorSpace;
     } else if (nc != 1) {
       return kColorSpace;
     }
@@ -1273,12 +1272,6 @@ struct Decoder {
     const int mcux = (width + 8 * max_h - 1) / (8 * max_h);
     const int mcuy = (height + 8 * max_v - 1) / (8 * max_v);
     for (auto& c : comps) {
-      const int rh = max_h / c.h, rv = max_v / c.v;
-      const bool exact = max_h % c.h == 0 && max_v % c.v == 0;
-      if (!exact || !((rh == 1 && rv == 1) || (rh == 2 && rv == 1) ||
-                      (rh == 2 && rv == 2))) {
-        return kSampling;
-      }
       c.wib = static_cast<int>((int64_t{width} * c.h + 8 * max_h - 1) / (8 * max_h));
       c.hib = static_cast<int>((int64_t{height} * c.v + 8 * max_v - 1) / (8 * max_v));
       c.bw = mcux * c.h;

@@ -40,13 +40,14 @@ from tpucap_torch import _build
 STATUS = {
     1: "corrupt or truncated JPEG data",
     2: "not a JPEG (no SOI marker)",
-    3: "not baseline Huffman (progressive, arithmetic, lossless or "
-    "hierarchical: ROADMAP queue 1, slice 2b)",
-    4: "sample precision other than 8 bits (ROADMAP queue 1, slice 2b)",
-    5: "color space other than gray or YCbCr (CMYK, YCCK, RGB: ROADMAP "
-    "queue 1, slice 2b)",
-    6: "chroma sampling other than 4:4:4, 4:2:2 or 4:2:0 (ROADMAP queue 1, "
-    "slice 2b)",
+    3: "arithmetic-coded (ROADMAP queue 1, slice 2c), or a lossless or "
+    "hierarchical JPEG, which libjpeg-turbo refuses too",
+    4: "sample precision other than 8 bits, which libjpeg-turbo's 8-bit "
+    "build refuses too",
+    5: "color space other than gray, YCbCr or RGB (CMYK, YCCK, two "
+    "components), which libjpeg-turbo does not convert to RGB either",
+    6: "chroma sampling with no integral ratio to the largest sampling "
+    "factors, which libjpeg refuses too",
     8: "cannot be read",
     9: "wider or taller than 65500 pixels, libjpeg's limit",
     10: "the host could not allocate its decoded planes",
