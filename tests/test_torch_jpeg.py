@@ -112,13 +112,21 @@ def test_batch_of_mixed_images_matches_libjpeg():
     restart=st.integers(0, 3),
     size=st.integers(1, 90),
     seed=st.integers(0, 2**16),
+    progressive=st.booleans(),
+    fast_size=st.integers(1, 72),
 )
-def test_decode_matches_libjpeg_hypothesis(h, w, sampling, quality, optimize, restart, size, seed):
+def test_decode_matches_libjpeg_hypothesis(h, w, sampling, quality, optimize, restart, size, seed,
+                                           progressive, fast_size):
+    """Baseline or progressive, at full scale and at the scale tpucap's
+    fast_scale search picks for a target up to the image's size."""
     im = make_image(np.random.default_rng(seed), h, w, gray=sampling == "gray")
-    opts = {"optimize": optimize}
+    opts = {"optimize": optimize, "progressive": progressive}
     if restart:
         opts["restart_marker_blocks"] = restart
-    assert_same_decode(encode(im, quality, SAMPLING[sampling], **opts), [size])
+    blob = encode(im, quality, SAMPLING[sampling], **opts)
+    assert_same_decode(blob, [size])
+    np.testing.assert_array_equal(jpeg.decode_jpeg_batch([blob], fast_size),
+                                  jax_jpeg.decode_jpeg_batch([blob], fast_size))
 
 
 def test_corrupt_and_truncated_data_follow_libjpeg():
@@ -372,7 +380,18 @@ def test_scale_search_is_tpucaps(h, w, size):
         np.testing.assert_array_equal(fast, full)
 
 
+def with_dqt_entries(blob, n):
+    """The JPEG with its first DQT segment holding n entries of table 0."""
+    i = blob.index(b"\xff\xdb")
+    length = int.from_bytes(blob[i + 2 : i + 4], "big")
+    return blob[:i] + segment(0xDB, bytes([0]) + bytes([2] * n)) + blob[i + 2 + length :]
+
+
 def test_out_of_scope_images_raise_value_error_naming_them(tmp_path):
+    """What libjpeg-turbo refuses, the port refuses with a ValueError naming
+    it: CMYK, 12-bit samples (SOF0 and SOF1), a DQT table of 32 entries
+    (libjpeg-turbo reads 64 and the segment's length comes out wrong), PNG.
+    A progressive JPEG, once refused, decodes to tpucap's bytes."""
     rng = np.random.default_rng(9)
     im = make_image(rng, 24, 24)
     buf = io.BytesIO()
@@ -385,8 +404,20 @@ def test_out_of_scope_images_raise_value_error_naming_them(tmp_path):
     im.save(buf, "PNG")
     png = buf.getvalue()
     good = encode(im, 75, 2)
-    with pytest.raises(ValueError, match=r"\[1, 2, 3\].*image 1: arithmetic-coded.*image 2: color space.*image 3: not a JPEG"):
-        jpeg.decode_jpeg_batch([good, progressive, cmyk, png], 24, fast_scale=False)
+    sof = good.index(b"\xff\xc0")
+    twelve = good[: sof + 4] + bytes([12]) + good[sof + 5 :]
+    twelve_sof1 = twelve[: sof + 1] + b"\xc1" + twelve[sof + 2 :]
+    short_dqt = with_dqt_entries(good, 32)
+    refused = [cmyk, twelve, twelve_sof1, short_dqt, png]
+    for blob in refused:
+        with pytest.raises(ValueError):
+            jax_jpeg.decode_jpeg_batch([blob], 24, fast_scale=False)
+    with pytest.raises(ValueError, match=r"\[1, 2, 3, 4, 5\].*image 1: color space.*CMYK"
+                       r".*image 2: sample precision.*image 3: sample precision"
+                       r".*image 4: corrupt.*image 5: not a JPEG"):
+        jpeg.decode_jpeg_batch([good, *refused], 24, fast_scale=False)
+    np.testing.assert_array_equal(jpeg.decode_jpeg_batch([good, progressive], 24),
+                                  jax_jpeg.decode_jpeg_batch([good, progressive], 24))
     path = tmp_path / "photo.png"
     path.write_bytes(png)
     with pytest.raises(ValueError, match="photo.png: not a JPEG"):
@@ -435,7 +466,7 @@ def test_build_host_names_the_library_by_digest():
 def test_scalar_idct_build_matches_libjpeg(tmp_path):
     """Hosts without SSE2 build the scalar IDCT (the same arithmetic, lane by
     lane): built here with TPUCAP_JPEG_SCALAR, it must give libjpeg's bytes
-    too, on valid and on corrupt data."""
+    too, on valid and on corrupt data, at 8/8 and at the scaled sizes."""
     import ctypes
     import subprocess
 
@@ -450,16 +481,19 @@ def test_scalar_idct_build_matches_libjpeg(tmp_path):
     corrupt = bytearray(blobs[-1])
     corrupt[len(corrupt) // 2] ^= 0x5A
     blobs.append(bytes(corrupt))
-    size = 30
-    out = np.zeros((len(blobs), size, size, 3), np.uint8)
     data = np.frombuffer(b"".join(blobs), np.uint8)
     sizes = np.array([len(b) for b in blobs], np.int64)
     offsets = np.concatenate([[0], np.cumsum(sizes[:-1])]).astype(np.int64)
-    status = np.zeros(len(blobs), np.int32)
     ptr = ctypes.c_void_p
-    lib.tpucap_decode_jpeg_batch(
-        ptr(data.ctypes.data), ptr(offsets.ctypes.data), ptr(sizes.ctypes.data),
-        len(blobs), size, size, ptr(out.ctypes.data), ptr(status.ctypes.data), 2, 0,
-    )
-    assert not status.any()
-    np.testing.assert_array_equal(out, jax_jpeg.decode_jpeg_batch(blobs, size, fast_scale=False))
+    # 30 at 8/8; with fast_scale, every scale these sizes pick (1/8-8/8),
+    # through each scaled IDCT (4:2:0 chroma at 2, 4, ..., 14).
+    for size, fast in [(30, 0), *[(s, 1) for s in (1, 2, 3, 4, 5, 6, 7, 9, 11, 13)]]:
+        out = np.zeros((len(blobs), size, size, 3), np.uint8)
+        status = np.zeros(len(blobs), np.int32)
+        lib.tpucap_decode_jpeg_batch(
+            ptr(data.ctypes.data), ptr(offsets.ctypes.data), ptr(sizes.ctypes.data),
+            len(blobs), size, size, ptr(out.ctypes.data), ptr(status.ctypes.data), 2, fast,
+        )
+        assert not status.any()
+        np.testing.assert_array_equal(
+            out, jax_jpeg.decode_jpeg_batch(blobs, size, fast_scale=bool(fast)), err_msg=f"{size}")

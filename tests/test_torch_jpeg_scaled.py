@@ -431,3 +431,16 @@ def test_fractional_sampling_is_refused_as_libjpeg_refuses_it(compress):
             jax_jpeg.decode_jpeg_batch([blob], size)
         with pytest.raises(ValueError, match="chroma sampling"):
             jpeg.decode_jpeg_batch([blob], size)
+
+
+def test_arithmetic_coding_is_refused_naming_it(compress):
+    """Arithmetic-coded JPEGs (SOF9 sequential, SOF10 progressive): tpucap's
+    libjpeg-turbo decodes them; the port refuses them with a ValueError
+    naming arithmetic coding, never an approximation."""
+    img = photo(np.random.default_rng(61), 20, 30)
+    for scans, marker in [("0", b"\xff\xc9"), ("1", b"\xff\xca")]:
+        blob = compress(img, 80, arith=True, scans=scans)
+        assert marker in blob
+        assert jax_jpeg.decode_jpeg_batch([blob], 16).shape == (1, 16, 16, 3)
+        with pytest.raises(ValueError, match="image 0: arithmetic-coded"):
+            jpeg.decode_jpeg_batch([blob], 16)

@@ -1,53 +1,64 @@
-// The port's own baseline JPEG decoder (host C++17, no libjpeg), with the
-// nearest resize of the PIL convention and a thread pool over images.
+// The port's own JPEG decoder (host C++17, no libjpeg), with the nearest
+// resize of the PIL convention and a thread pool over images.
 //
 // Counterpart of tpucap/ops/jpeg/jpeg_decode.cpp, which calls libjpeg-turbo
 // (jpeg_read_header, out_color_space = JCS_RGB, default decompression
-// parameters). This file gives the same bytes as that call at scale 8/8 by
-// doing what libjpeg-turbo 2.1 does on that route:
+// parameters, scale_num / 8 from its scale search). This file gives the
+// same bytes as that call at every scale by doing what libjpeg-turbo 2.1
+// does on that route:
 //
 // - markers as jdmarker.c reads them: SOI, APPn / COM / DNL (skipped), DQT
-//   (8- and 16-bit tables, latched per component at its first scan), SOF0 /
-//   SOF1, DHT, DRI, SOS, RSTn, EOI; garbage between markers skipped;
+//   (8- and 16-bit tables, latched per component at its first scan),
+//   SOF0 / SOF1 / SOF2, DHT, DRI, SOS, RSTn, EOI; garbage between markers
+//   skipped;
 // - Huffman decode as jdhuff.c does it: receive/extend, DC predictors reset
 //   at each restart, the restart marker resync of jpeg_resync_to_restart;
 //   past the end of the data (or a marker inside a scan) the bit reader
 //   feeds zeros, and once a block has needed such bits the rest of the
 //   segment is left as zero coefficients (libjpeg's uniform gray);
-// - jpeg_idct_islow (jidctint.c) as libjpeg-turbo's SIMD build computes it
-//   (see idct_islow);
+// - progressive decode as jdphuff.c does it: DC first and refine, AC first
+//   with EOB runs and AC refine with correction bits, the scan checks of
+//   start_pass_phuff_decoder; past the end of the data the rest of a
+//   segment keeps what earlier scans left; then jdcoefct.c's block
+//   smoothing where low coefficients are left inexact (a file cut between
+//   scans);
+// - jpeg_calc_output_dimensions at scale n / 8: luma IDCT'd to n x n a
+//   block, a subsampled component to 2n (or 4n) while its ratios allow, so
+//   4:2:0 chroma below 8/8 needs no upsampling; the IDCT of each size as
+//   jddctmgr.c picks it (see idct_for), jpeg_idct_islow at 8 as
+//   libjpeg-turbo's SIMD build computes it (see idct_islow);
 // - jdsample.c's upsamplers with do_fancy_upsampling on (no merged
-//   upsampler): h2v1_fancy_upsample, h2v2_fancy_upsample with the context
-//   rows of jdmainct.c (the first row above the image and the last row
-//   below it repeat the edge rows), plain replication where the component's
-//   downsampled_width <= 2;
+//   upsampler): h2v1, h1v2 and h2v2_fancy_upsample with the context rows of
+//   jdmainct.c (the first row above the image and the last row below it
+//   repeat the edge rows), replication (int_upsample) for other integral
+//   ratios, where downsampled_width <= 2, and at 1/8;
 // - jdcolor.c's fixed-point YCbCr -> RGB tables (SCALEBITS 16, ONE_HALF
-//   rounding, range limit); gray is replicated to RGB.
+//   rounding, range limit); RGB-coded samples copied; gray replicated.
 //
 // libjpeg-turbo's SIMD fancy upsampling and color conversion are bit-exact
-// with its C code. Its SIMD islow is too wherever the values stay in 16 bits
-// (every valid JPEG); idct_islow follows the SIMD build past that, on corrupt
-// data, since that build is the one tpucap loads.
+// with its C code. Its SIMD IDCTs are too wherever the values stay in 16
+// bits (every valid JPEG); the IDCTs here follow the SIMD build past that,
+// on corrupt data, since that build is the one tpucap loads.
 //
-// Scope: baseline Huffman JPEG, 8-bit, gray or YCbCr with each chroma
-// component at 1x1, 2x1 or 2x2 below the largest sampling factors (4:4:4,
-// 4:2:2, 4:2:0), one interleaved scan or several baseline scans. Anything
-// else returns its own status code (see Status), never an approximation.
-// Scaled decode (libjpeg's scale_num / 8 < 1) is not here: a caller asking
-// for fast_scale where tpucap's scale search picks less than 8/8 gets
-// kScaleNotPorted.
+// Scope: Huffman JPEG, baseline or progressive, 8-bit, gray, YCbCr or RGB,
+// any sampling factors with integral ratios. Anything else returns its own
+// status code (see Status), never an approximation: arithmetic coding,
+// which libjpeg-turbo decodes, is not here yet; 12-bit, CMYK / YCCK,
+// lossless and hierarchical JPEGs libjpeg-turbo 2.1 refuses too.
 //
 // Memory: an image's samples (its component planes, 1.5 bytes a pixel at
-// 4:2:0, 3 at 4:4:4), and the coefficients of one MCU row where one scan
-// holds every component (a multi-scan image holds all of them, as libjpeg
-// does). A side above 65500 is refused as libjpeg refuses it, and a failed
-// allocation becomes the image's status, never an abort.
+// 4:2:0, 3 at 4:4:4, less below 8/8), and the coefficients of one MCU row
+// where one scan holds every component (a multi-scan or progressive image
+// holds all of them, as libjpeg does). A side above 65500 is refused as
+// libjpeg refuses it, and a failed allocation becomes the image's status,
+// never an abort.
 //
 // C ABI (ctypes), shaped like tpucap's: tpucap_decode_jpeg_batch and
 // tpucap_jpeg_dims, and tpucap_decode_jpeg_files, which reads the files in
 // its worker threads (a Python loader thread reading them would trade the
 // GIL with the thread that drives the card, file by file); see
-// tpucap_torch/ops/jpeg.py for the binding.
+// tpucap_torch/ops/jpeg.py for the binding. tpucap_jpeg_idct runs the IDCT
+// of one DCT size on given blocks, for tests against libjpeg's own.
 
 #include <algorithm>
 #include <atomic>
@@ -1025,6 +1036,9 @@ struct Component {
   bool latched = false;
   int16_t qt[64];     // the IDCT's multipliers (ISLOW_MULT_TYPE is short)
   uint16_t qraw[64];  // the quantization table as latched
+  // jdphuff.c's progression status: the Al each coefficient was last
+  // coded with (-1 never), and the same before the component's last scan.
+  int coef_bits[64], prev_bits[64];
   // Coefficients: one MCU row's block rows in a single-pass image, else
   // all bh block rows; bw blocks a row.
   std::vector<int16_t> coef;
@@ -1045,8 +1059,12 @@ struct Decoder {
   int scale = 8;               // scale_num / 8, the luma IDCT's side
   int out_w = 0, out_h = 0;    // output_width / height at that scale
   std::vector<Component> comps;
-  int scans = 0;
+  bool progressive = false;    // SOF2
+  int ss = 0, se = 63, ah = 0, al = 0;  // the scan's spectral selection
+  int scans = 0;               // SOS markers read (input_scan_number)
   bool single_pass = false;  // the first scan holds every component
+  unsigned eobrun = 0;       // jdphuff.c's EOBRUN
+  int last_good_imcu = 0;    // master->last_good_iMCU_row
 
   Decoder(const uint8_t* data, size_t size) {
     src.p = data;
@@ -1131,7 +1149,8 @@ struct Decoder {
     return len == 0 ? kOk : kCorrupt;
   }
 
-  int read_sof() {
+  int read_sof(bool prog) {
+    progressive = prog;
     const long len = u16() - 8;
     const int precision = src.byte();
     height = u16();
@@ -1142,6 +1161,8 @@ struct Decoder {
     if (len != nc * 3) return kCorrupt;
     comps.resize(nc);
     for (auto& c : comps) {
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      std::fill(c.prev_bits, c.prev_bits + 64, 0);
       c.id = src.byte();
       const int hv = src.byte();
       c.h = hv >> 4;
@@ -1186,10 +1207,12 @@ struct Decoder {
       const int m = src.unread_marker;
       src.unread_marker = 0;
       int rc = kOk;
-      if (m == 0xC0 || m == 0xC1) {
-        rc = read_sof();
-      } else if ((m >= 0xC2 && m <= 0xCB && m != 0xC4) || (m >= 0xCD && m <= 0xCF)) {
-        return saw_sof ? kCorrupt : kProcess;  // SOF2-15, JPG
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+        rc = read_sof(m == 0xC2);
+      } else if ((m >= 0xC3 && m <= 0xCB && m != 0xC4) || (m >= 0xCD && m <= 0xCF)) {
+        // SOF9/10 (arithmetic: not here yet), SOF3/5-7/11/13-15 (lossless,
+        // hierarchical: libjpeg-turbo 2.1 refuses them), JPG.
+        return saw_sof ? kCorrupt : kProcess;
       } else if (m == 0xC4) {
         rc = read_dht();
       } else if (m == 0xCC) {
@@ -1240,9 +1263,13 @@ struct Decoder {
       comps[found].dc_tbl = t >> 4;
       comps[found].ac_tbl = t & 15;
     }
-    src.byte();  // Ss, Se, Ah/Al: a sequential scan only warns on them
-    src.byte();
-    src.byte();
+    // Ss, Se, Ah/Al: a sequential scan only warns on them.
+    ss = src.byte();
+    se = src.byte();
+    const int a = src.byte();
+    ah = a >> 4;
+    al = a & 15;
+    ++scans;
     *ncomp = n;
     return kOk;
   }
@@ -1364,8 +1391,31 @@ struct Decoder {
         std_spec(kStdAcLumaBits, kStdAcLumaVals),
         std_spec(kStdAcChromaBits, kStdAcChromaVals)};
     const HuffSpec& s = (ac ? ac_spec : dc_spec)[slot];
-    if (s.defined || slot >= 2) return s;
+    if (s.defined || slot >= 2 || progressive) return s;  // jdhuff.c only
     return (ac ? std_ac : std_dc)[slot];
+  }
+
+  // start_pass_phuff_decoder: the scan parameters' checks (a bad
+  // progression is fatal; a bogus one only warns, and decoding goes on) and
+  // the progression status of the scan's components.
+  int start_progressive_scan(int ncomp, const int idx[4]) {
+    bool bad = false;
+    if (ss == 0) {
+      bad = se != 0;
+    } else {
+      bad = ss > se || se >= 64 || ncomp != 1;  // AC scans hold one component
+    }
+    if (ah != 0 && al != ah - 1) bad = true;
+    if (al > 13) bad = true;
+    if (bad) return kCorrupt;  // JERR_BAD_PROGRESSION
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comps[idx[i]];
+      for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k) {
+        c.prev_bits[k] = scans > 1 ? c.coef_bits[k] : 0;
+      }
+      for (int k = ss; k <= se; ++k) c.coef_bits[k] = al;
+    }
+    return kOk;
   }
 
   // One scan. In a single-pass image each MCU row goes through the IDCT
@@ -1375,23 +1425,39 @@ struct Decoder {
     HuffTable dct[4], act[4];
     int blocks_in_mcu = 0;
     for (int i = 0; i < ncomp; ++i) {
+      const Component& c = comps[idx[i]];
+      blocks_in_mcu += ncomp == 1 ? 1 : c.h * c.v;
+    }
+    if (blocks_in_mcu > 10) return kCorrupt;  // JERR_BAD_MCU_SIZE
+    for (int i = 0; i < ncomp; ++i) {
       Component& c = comps[idx[i]];
       if (!c.latched) {
         if (c.tq >= 4 || !qdefined[c.tq]) return kCorrupt;  // JERR_NO_QUANT_TABLE
         for (int k = 0; k < 64; ++k) {
+          c.qraw[k] = qtables[c.tq][k];
           c.qt[k] = static_cast<int16_t>(qtables[c.tq][k]);
         }
         c.latched = true;
       }
-      if (c.dc_tbl >= 4 || c.ac_tbl >= 4) return kCorrupt;
-      const HuffSpec& dcs = huff_spec(false, c.dc_tbl);
-      const HuffSpec& acs = huff_spec(true, c.ac_tbl);
-      if (!dcs.defined || !acs.defined) return kCorrupt;  // JERR_NO_HUFF_TABLE
-      if (!dct[i].build(dcs, true)) return kCorrupt;
-      if (!act[i].build(acs, false)) return kCorrupt;
-      blocks_in_mcu += ncomp == 1 ? 1 : c.h * c.v;
     }
-    if (blocks_in_mcu > 10) return kCorrupt;  // JERR_BAD_MCU_SIZE
+    if (progressive) {
+      const int rc = start_progressive_scan(ncomp, idx);
+      if (rc != kOk) return rc;
+    }
+    // The tables the scan reads: a DC refinement none, an AC scan only AC.
+    const bool need_dc = !progressive || (ss == 0 && ah == 0);
+    const bool need_ac = !progressive || ss != 0;
+    for (int i = 0; i < ncomp; ++i) {
+      const Component& c = comps[idx[i]];
+      if (need_dc) {
+        const HuffSpec& spec = c.dc_tbl < 4 ? huff_spec(false, c.dc_tbl) : HuffSpec();
+        if (!spec.defined || !dct[i].build(spec, true)) return kCorrupt;  // JERR_NO_HUFF_TABLE
+      }
+      if (need_ac) {
+        const HuffSpec& spec = c.ac_tbl < 4 ? huff_spec(true, c.ac_tbl) : HuffSpec();
+        if (!spec.defined || !act[i].build(spec, false)) return kCorrupt;
+      }
+    }
 
     int mcus_x, mcus_y;
     if (ncomp == 1) {
@@ -1401,24 +1467,31 @@ struct Decoder {
       mcus_x = (width + 8 * max_h - 1) / (8 * max_h);
       mcus_y = (height + 8 * max_v - 1) / (8 * max_v);
     }
+    const int imcu_div = ncomp == 1 ? comps[idx[0]].v : 1;
     bits.reset();
     bits.insufficient = false;
     int pred[4] = {0, 0, 0, 0};
+    eobrun = 0;
     int restarts_to_go = restart_interval;
     int next_restart = 0;
 
     for (int my = 0; my < mcus_y; ++my) {
       for (int mx = 0; mx < mcus_x; ++mx) {
+        if (!bits.insufficient) last_good_imcu = my / imcu_div;
         if (restart_interval) {
           if (restarts_to_go == 0) {
             bits.reset();
             read_restart(&next_restart);
             pred[0] = pred[1] = pred[2] = pred[3] = 0;
+            eobrun = 0;
             restarts_to_go = restart_interval;
             if (src.unread_marker == 0) bits.insufficient = false;
           }
         }
-        if (!bits.insufficient) {
+        // Past the end of the data a sequential scan leaves its blocks zero;
+        // a progressive one leaves what earlier scans put there (a DC
+        // refinement reads on, its zero bits change nothing).
+        if (!bits.insufficient || (progressive && ss == 0 && ah != 0)) {
           for (int i = 0; i < ncomp; ++i) {
             Component& c = comps[idx[i]];
             const int nh = ncomp == 1 ? 1 : c.h, nv = ncomp == 1 ? 1 : c.v;
@@ -1428,7 +1501,16 @@ struct Decoder {
                     single_pass ? by : static_cast<size_t>(my) * nv + by;
                 const size_t col = static_cast<size_t>(mx) * nh + bx;
                 int16_t* blk = c.coef.data() + (row * c.bw + col) * 64;
-                int rc = decode_block(blk, dct[i], act[i], &pred[i]);
+                int rc = kOk;
+                if (!progressive) {
+                  rc = decode_block(blk, dct[i], act[i], &pred[i]);
+                } else if (ss == 0) {
+                  rc = ah == 0 ? decode_dc_first(blk, dct[i], &pred[i]) : decode_dc_refine(blk);
+                } else if (ah == 0) {
+                  decode_ac_first(blk, act[i]);
+                } else {
+                  decode_ac_refine(blk, act[i]);
+                }
                 if (rc != kOk) return rc;
               }
             }
@@ -1446,6 +1528,93 @@ struct Decoder {
       }
     }
     return kOk;
+  }
+
+  // decode_mcu_DC_first: the DC difference, scaled by Al.
+  int decode_dc_first(int16_t* blk, const HuffTable& dc, int* pred) {
+    int s = bits.huff(dc);
+    if (s) s = extend(bits.get(s), s);
+    if ((*pred >= 0 && s > INT_MAX - *pred) ||
+        (*pred < 0 && s < INT_MIN - *pred)) {
+      return kCorrupt;  // JERR_BAD_DCT_COEF
+    }
+    *pred += s;
+    blk[0] = static_cast<int16_t>(static_cast<uint32_t>(*pred) << al);
+    return kOk;
+  }
+
+  // decode_mcu_DC_refine: one more bit of the DC's two's complement.
+  int decode_dc_refine(int16_t* blk) {
+    if (bits.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+    return kOk;
+  }
+
+  // decode_mcu_AC_first: the band's first pass, with end-of-band runs.
+  void decode_ac_first(int16_t* blk, const HuffTable& ac) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int s = bits.huff(ac);
+      int r = s >> 4;
+      s &= 15;
+      if (s) {
+        k += r;
+        s = extend(bits.get(s), s);
+        blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(s) << al);
+      } else if (r == 15) {
+        k += 15;  // ZRL
+      } else {
+        eobrun = 1u << r;  // EOBr: 2^r + r appended bits
+        if (r) eobrun += static_cast<unsigned>(bits.get(r));
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  // decode_mcu_AC_refine: newly nonzero coefficients of +-1 << Al, and a
+  // correction bit for each coefficient already nonzero.
+  void decode_ac_refine(int16_t* blk, const HuffTable& ac) {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    auto correct = [&](int16_t* c) {
+      if (bits.get(1) && (*c & p1) == 0) {
+        *c = static_cast<int16_t>(*c >= 0 ? *c + p1 : *c + m1);
+      }
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int s = bits.huff(ac);
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          s = bits.get(1) ? p1 : m1;  // a size other than 1 only warns
+        } else if (r != 15) {
+          eobrun = 1u << r;
+          if (r) eobrun += static_cast<unsigned>(bits.get(r));
+          break;  // the rest of the block is handled by the EOB logic
+        }
+        do {
+          int16_t* c = blk + kNatural[k];
+          if (*c != 0) {
+            correct(c);
+          } else if (--r < 0) {
+            break;  // the zero coefficient the new one goes to
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t* c = blk + kNatural[k];
+        if (*c != 0) correct(c);
+      }
+      --eobrun;
+    }
   }
 
   int decode_block(int16_t* blk, const HuffTable& dc, const HuffTable& ac,
@@ -1497,35 +1666,181 @@ struct Decoder {
   // a fake EOI), then the IDCT of what no scan put through it yet; the
   // samples are in each component's plane.
   int decode_scans(int ncomp, int idx[4]) {
-    single_pass = ncomp == static_cast<int>(comps.size());
+    single_pass = !progressive && ncomp == static_cast<int>(comps.size());
     for (auto& c : comps) {
       c.plane.assign(static_cast<size_t>(c.wib) * c.ds * c.hib * c.ds, 0);
       const int rows = !single_pass ? c.bh : (ncomp == 1 ? 1 : c.v);
       c.coef.assign(static_cast<size_t>(c.bw) * rows * 64, 0);
     }
-    for (;;) {
-      if (scans > 0 && single_pass) {
+    for (bool first = true;; first = false) {
+      if (!first && single_pass) {
         return kCorrupt;  // JERR_EOI_EXPECTED: libjpeg ends a one-pass image
       }
       int rc = decode_scan(ncomp, idx);
       if (rc != kOk) return rc;
-      ++scans;
       rc = read_markers(&ncomp, idx);
       if (rc == -2) break;
       if (rc != -1) return rc;
     }
-    for (auto& c : comps) {
+    const bool smooth = progressive && smoothing_ok();
+    for (size_t ci = 0; ci < comps.size(); ++ci) {
+      Component& c = comps[ci];
       if (!single_pass) {
         if (!c.latched) {
           // Never scanned: libjpeg leaves its coefficients zero, and its
           // quant table is latched at output time with the zeros it scales.
           for (int k = 0; k < 64; ++k) c.qt[k] = 0;
         }
-        idct_rows(c, 0, c.hib);
+        if (smooth) {
+          smooth_rows(ci);
+        } else {
+          idct_rows(c, 0, c.hib);
+        }
       }
       std::vector<int16_t>().swap(c.coef);
     }
     return kOk;
+  }
+
+  // jdcoefct.c's block smoothing (libjpeg-turbo 2.1), which a progressive
+  // image gets where its scans left any of the first nine AC coefficients
+  // of some component short of full precision: a file cut between scans,
+  // or a scan script that never refines them. smoothing_ok latches each
+  // component's coef_bits[0..9], and those from before its last scan.
+  int latch_now[4][10], latch_prev[4][10];
+
+  bool smoothing_ok() {
+    if (comps.size() > 4) return false;
+    bool useful = false;
+    for (size_t ci = 0; ci < comps.size(); ++ci) {
+      const Component& c = comps[ci];
+      if (!c.latched) return false;
+      for (int pos : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24}) {
+        if (c.qraw[pos] == 0) return false;  // no divide by zero
+      }
+      if (c.coef_bits[0] < 0) return false;  // no DC at all
+      latch_now[ci][0] = c.coef_bits[0];
+      for (int k = 1; k < 10; ++k) {
+        latch_prev[ci][k] = scans > 1 ? c.prev_bits[k] : -1;
+        latch_now[ci][k] = c.coef_bits[k];
+        if (c.coef_bits[k] != 0) useful = true;
+      }
+    }
+    return useful;
+  }
+
+  // decompress_smooth_data for component ci: each block's IDCT on a copy
+  // whose still-zero, imprecise low AC coefficients (and, where no AC
+  // coefficient is known at all, its DC) are estimated from the DC values
+  // of a 5 x 5 neighborhood of blocks.
+  void smooth_rows(size_t ci) {
+    Component& c = comps[ci];
+    const int v = c.v;
+    const int last_imcu = (height + 8 * max_v - 1) / (8 * max_v) - 1;
+    const size_t stride = static_cast<size_t>(c.wib) * c.ds;
+    const IdctFn idct = idct_for(c.ds);
+    const int64_t q00 = c.qraw[0];
+    auto dc = [&](int row, int col) -> int {
+      return c.coef[(static_cast<size_t>(row) * c.bw + col) * 64];
+    };
+    for (int out_row = 0; out_row <= last_imcu; ++out_row) {
+      int block_rows = v;
+      if (out_row == last_imcu) {
+        block_rows = c.hib % v;
+        if (block_rows == 0) block_rows = v;
+      }
+      // The status before the last scan where that scan stopped short of
+      // this row (a file cut inside it).
+      const int* bits_of = out_row > last_good_imcu ? latch_prev[ci] : latch_now[ci];
+      const bool change_dc = bits_of[1] == -1 && bits_of[2] == -1 && bits_of[3] == -1 &&
+                             bits_of[4] == -1 && bits_of[5] == -1 && bits_of[6] == -1 &&
+                             bits_of[7] == -1 && bits_of[8] == -1 && bits_of[9] == -1;
+      for (int block_row = 0; block_row < block_rows; ++block_row) {
+        const int g = out_row * v + block_row;
+        const int prev = (block_row > 0 || out_row > 0) ? g - 1 : g;
+        const int prev2 = (block_row > 1 || out_row > 1) ? g - 2 : prev;
+        const int next = (block_row < block_rows - 1 || out_row < last_imcu) ? g + 1 : g;
+        const int next2 =
+            (block_row < block_rows - 2 || out_row + 1 < last_imcu) ? g + 2 : next;
+        const int rows[5] = {prev2, prev, g, next, next2};
+        // DC[r][0..4]: the sliding registers DC01-DC25 of jdcoefct.c, which
+        // start as column 0 everywhere (narrow images keep some of that).
+        int d[5][5];
+        for (int r = 0; r < 5; ++r) {
+          for (int k = 0; k < 5; ++k) d[r][k] = dc(rows[r], 0);
+        }
+        const int last_col = c.wib - 1;
+        uint8_t* out = c.plane.data() + static_cast<size_t>(g) * c.ds * stride;
+        for (int b = 0; b <= last_col; ++b) {
+          int16_t ws[64];
+          std::memcpy(ws, c.coef.data() + (static_cast<size_t>(g) * c.bw + b) * 64, sizeof(ws));
+          if (b == 0 && b < last_col) {
+            for (int r = 0; r < 5; ++r) d[r][3] = dc(rows[r], 1);
+          }
+          if (b + 1 < last_col) {
+            for (int r = 0; r < 5; ++r) d[r][4] = dc(rows[r], b + 2);
+          }
+          smooth_block(ws, d, bits_of, change_dc, c.qraw, q00);
+          idct(ws, c.qt, out + static_cast<size_t>(b) * c.ds, static_cast<int>(stride));
+          for (int r = 0; r < 5; ++r) {
+            for (int k = 0; k < 4; ++k) d[r][k] = d[r][k + 1];
+          }
+        }
+      }
+    }
+  }
+
+  // The estimates of one block. DCnn of jdcoefct.c is d[(nn - 1) / 5][(nn - 1) % 5].
+  static void smooth_block(int16_t* ws, const int (&d)[5][5], const int* bits_of,
+                           bool change_dc, const uint16_t* q, int64_t q00) {
+#define DC(nn) int64_t{d[((nn) - 1) / 5][((nn) - 1) % 5]}
+    auto estimate = [&](int bit, int pos, int64_t num) {
+      const int a = bits_of[bit];
+      if (a == 0 || ws[pos] != 0) return;
+      const int64_t qk = q[pos];
+      num *= q00;
+      // (int) of the quotient, then the clamp to what Al leaves unknown.
+      int64_t pred = to_int(((qk << 7) + (num >= 0 ? num : -num)) / (qk << 8));
+      if (a > 0 && pred >= (int64_t{1} << a)) pred = (int64_t{1} << a) - 1;
+      ws[pos] = static_cast<int16_t>(num >= 0 ? pred : -pred);
+    };
+    // AC01, AC10, AC20, AC11, AC02 (coef_bits 1-5).
+    estimate(1, 1, change_dc ?
+        -DC(1) - DC(2) + DC(4) + DC(5) - 3 * DC(6) + 13 * DC(7) - 13 * DC(9) + 3 * DC(10) -
+        3 * DC(11) + 38 * DC(12) - 38 * DC(14) + 3 * DC(15) - 3 * DC(16) + 13 * DC(17) -
+        13 * DC(19) + 3 * DC(20) - DC(21) - DC(22) + DC(24) + DC(25) :
+        -7 * DC(11) + 50 * DC(12) - 50 * DC(14) + 7 * DC(15));
+    estimate(2, 8, change_dc ?
+        -DC(1) - 3 * DC(2) - 3 * DC(3) - 3 * DC(4) - DC(5) - DC(6) + 13 * DC(7) +
+        38 * DC(8) + 13 * DC(9) - DC(10) + DC(16) - 13 * DC(17) - 38 * DC(18) -
+        13 * DC(19) + DC(20) + DC(21) + 3 * DC(22) + 3 * DC(23) + 3 * DC(24) + DC(25) :
+        -7 * DC(3) + 50 * DC(8) - 50 * DC(18) + 7 * DC(23));
+    estimate(3, 16, change_dc ?
+        DC(3) + 2 * DC(7) + 7 * DC(8) + 2 * DC(9) - 5 * DC(12) - 14 * DC(13) - 5 * DC(14) +
+        2 * DC(17) + 7 * DC(18) + 2 * DC(19) + DC(23) :
+        -DC(3) + 13 * DC(8) - 24 * DC(13) + 13 * DC(18) - DC(23));
+    estimate(4, 9, change_dc ?
+        -DC(1) + DC(5) + 9 * DC(7) - 9 * DC(9) - 9 * DC(17) + 9 * DC(19) + DC(21) - DC(25) :
+        DC(10) + DC(16) - 10 * DC(17) + 10 * DC(19) - DC(2) - DC(20) + DC(22) - DC(24) +
+        DC(4) - DC(6) + 10 * DC(7) - 10 * DC(9));
+    estimate(5, 2, change_dc ?
+        2 * DC(7) - 5 * DC(8) + 2 * DC(9) + DC(11) + 7 * DC(12) - 14 * DC(13) + 7 * DC(14) +
+        DC(15) + 2 * DC(17) - 5 * DC(18) + 2 * DC(19) :
+        -DC(11) + 13 * DC(12) - 24 * DC(13) + 13 * DC(14) - DC(15));
+    if (!change_dc) return;
+    // AC03, AC12, AC21, AC30, then the DC itself.
+    estimate(6, 3, DC(7) - DC(9) + 2 * DC(12) - 2 * DC(14) + DC(17) - DC(19));
+    estimate(7, 10, DC(7) - 3 * DC(8) + DC(9) - DC(17) + 3 * DC(18) - DC(19));
+    estimate(8, 17, DC(7) - DC(9) - 3 * DC(12) + 3 * DC(14) + DC(17) - DC(19));
+    estimate(9, 24, DC(7) + 2 * DC(8) + DC(9) - DC(17) - 2 * DC(18) - DC(19));
+    const int64_t num = q00 * (
+        -2 * DC(1) - 6 * DC(2) - 8 * DC(3) - 6 * DC(4) - 2 * DC(5) - 6 * DC(6) + 6 * DC(7) +
+        42 * DC(8) + 6 * DC(9) - 6 * DC(10) - 8 * DC(11) + 42 * DC(12) + 152 * DC(13) +
+        42 * DC(14) - 8 * DC(15) - 6 * DC(16) + 6 * DC(17) + 42 * DC(18) + 6 * DC(19) -
+        6 * DC(20) - 2 * DC(21) - 6 * DC(22) - 8 * DC(23) - 6 * DC(24) - 2 * DC(25));
+    const int64_t pred = to_int(((q00 << 7) + (num >= 0 ? num : -num)) / (q00 << 8));
+    ws[0] = static_cast<int16_t>(num >= 0 ? pred : -pred);
+#undef DC
   }
 
   // The IDCT of c's block rows from `first`, n of them (those inside the

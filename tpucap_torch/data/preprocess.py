@@ -7,8 +7,9 @@
 
 ``preprocess_batch`` reads image files through the port's own JPEG decoder
 at scale 8/8 with the nearest resize (``fast_scale=False``), which gives
-PIL's bytes for a baseline JPEG, where tpucap's ``load_image`` calls PIL.
-Other formats (PNG, ...) raise ``ValueError``: the port has no PIL.
+PIL's bytes for a baseline or progressive JPEG in gray, YCbCr or RGB, where
+tpucap's ``load_image`` calls PIL. Other formats (PNG, ...) and CMYK JPEGs,
+which PIL converts, raise ``ValueError``: the port has no PIL.
 """
 
 from __future__ import annotations

@@ -4,18 +4,18 @@ built by ``g++`` at first use): the counterpart of
 
 ``decode_jpeg_batch(blobs, size)`` -> (N, size, size, 3) uint8 RGB,
 nearest-resized (PIL convention), the same bytes as tpucap's libjpeg-turbo
-decode at scale 8/8. The decoder covers baseline Huffman JPEG: 8-bit gray or
-YCbCr at 4:4:4, 4:2:2 or 4:2:0, restart intervals, optimized tables. There
-is no libjpeg, no PIL and no other route: an image outside that scope
-raises ``ValueError`` naming it and why.
+decode. The decoder covers Huffman-coded JPEG, baseline and progressive:
+8-bit gray, YCbCr or RGB-coded, any sampling with integral ratios (4:4:4,
+4:2:2, 4:2:0, 4:4:0, 4:1:1, ...), restart intervals, optimized tables, and
+files cut short as libjpeg reads them. There is no libjpeg, no PIL and no
+other route: an image outside that scope raises ``ValueError`` naming it
+and why (arithmetic coding is ROADMAP queue 1, slice 2c; CMYK, 12-bit,
+lossless and hierarchical JPEGs libjpeg-turbo refuses too).
 
-``fast_scale=True`` is tpucap's default, which decodes at the smallest
-libjpeg scale num/8 that still covers ``size``. Where that search picks
-8/8 the result is exact; where it picks less, libjpeg's scaled IDCTs would
-be needed (ROADMAP queue 1, slice 2b), and the call raises
-``NotImplementedError`` instead of decoding approximately.
-``fast_scale=False`` decodes at 8/8 and resizes: PIL's bytes for a
-baseline JPEG.
+``fast_scale=True`` is tpucap's default: it decodes at the smallest libjpeg
+scale N/8 that still covers ``size`` (libjpeg's scaled IDCTs, chroma IDCT'd
+at twice luma's size where its sampling allows), then resizes.
+``fast_scale=False`` decodes at 8/8 and resizes: PIL's bytes.
 
 The C call releases the GIL, so a loader thread decodes while Python drives
 the card. ``decode_jpeg_files`` hands the C call the paths, and its worker

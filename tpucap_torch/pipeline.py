@@ -31,13 +31,13 @@ encoder's kernel paths are opt-in on the built encoder:
 attention as kernel K5; under ``fit_finetune`` K5's two backward kernels
 too). Training is single-device, Adam (``tpucap_torch.train``).
 
-JPEG files are read by the port's own baseline decoder
-(``tpucap_torch.ops.jpeg``, host C++, no libjpeg and no PIL): the same
-bytes as tpucap's libjpeg decode at scale 8/8. ``caption_dataset`` keeps
-tpucap's default ``fast_scale=True``, which raises where tpucap's scale
-search would decode below 8/8 (ROADMAP queue 1, slice 2b);
-``fast_scale=False`` decodes any baseline JPEG. The host resizes to the
-encoder's input size, so K1 takes its same-size route there.
+JPEG files are read by the port's own decoder (``tpucap_torch.ops.jpeg``,
+host C++, no libjpeg and no PIL): baseline and progressive Huffman JPEG,
+the same bytes as tpucap's libjpeg decode at every scale. ``caption_dataset``
+keeps tpucap's default ``fast_scale=True``, the smallest libjpeg scale N/8
+that covers the encoder's input; ``fast_scale=False`` decodes at 8/8. The
+host resizes to the encoder's input size, so K1 takes its same-size route
+there.
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed; see
 ``tpucap_torch.core`` for the precision policy.
