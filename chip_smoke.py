@@ -63,18 +63,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ms, images/s, peak memory; (c) f32, one joint step's loss and gradients
    with the kernels against the same with ``attention_impl="xla"``;
 6. JPEG files to captions: (b) the port's own JPEG decoder, built on this
-   machine, decodes the committed fixtures (``tests/data/torch_jpeg/``) to
-   the SHA-256 digests that tpucap's libjpeg decode recorded, at their own
-   size and at 224; (c) path A (fused blocks, bf16) through
-   ``caption_dataset(paths, fast_scale=False)`` on 1024 paths (the fixtures
-   tiled, four batches of 256 from 500 x 375 and 375 x 500 photos),
-   counters reset just before and read just after: K1 once a batch (its
-   same-size route: the host resizes), K2 and K3 once a decode step, K4 12
-   times a batch, the same launches and the same captions as
-   ``caption_batch`` on the same decoded batches; (d) the host decoder's images/s at one thread and at
-   the default, captions/s of ``caption_dataset`` against ``caption_batch``
-   on decoded batches, and the share of the decode time the loader's
-   overlap hides;
+   machine, decodes the committed fixtures (``tests/data/torch_jpeg/``:
+   six baseline, one progressive, a 4:1:1 and a 4:4:0) to the SHA-256
+   digests that tpucap's libjpeg decode recorded, at their own size and at
+   224 with ``fast_scale`` False (8/8) and True (tpucap's default, 5/8);
+   (c) path A (fused blocks, bf16) through ``caption_dataset(paths)`` at
+   the default ``fast_scale=True``, then with ``fast_scale=False``, on 1024
+   paths (the six baseline fixtures tiled, four batches of 256 from
+   500 x 375 and 375 x 500 photos), counters reset just before and read
+   just after: K1 once a batch (its same-size route: the host resizes), K2
+   and K3 once a decode step, K4 12 times a batch, the same launches and
+   the same captions as ``caption_batch`` on the same decoded batches;
+   (d) the host decoder's images/s at one thread and at the default for
+   both settings, on the baseline batch and on a progressive one,
+   captions/s of ``caption_dataset`` against ``caption_batch`` on decoded
+   batches, and the share of the decode time the loader's overlap hides;
 7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
    as the last line.
 
@@ -146,9 +149,12 @@ VIT_L, VIT_HEADS, VIT_D = 196, 12, 64
 # default), its steps on one batch, and the decoder step's batch and
 # feature width (bench.py --mode train: batch 256, ResNet-50's 2048).
 TRAIN_BATCH, TRAIN_STEPS, DEC_TRAIN_BATCH, DEC_FEATURES = 64, 4, 256, 2048
-# JPEG files -> captions: the committed fixtures (500 x 375 and 375 x 500)
-# tiled to four batches.
+# JPEG files -> captions: the committed fixtures (500 x 375 and 375 x 500);
+# the six baseline ones tiled to four batches, as in earlier runs.
 FIXTURES = ROOT / "tests" / "data" / "torch_jpeg"
+BASELINE_FIXTURES = ("a_420.jpg", "b_422.jpg", "c_444.jpg", "d_gray.jpg", "e_restart.jpg",
+                     "f_optimized.jpg")
+PROGRESSIVE_FIXTURE = "g_progressive.jpg"
 DATASET_IMAGES = 4 * BATCH
 
 
@@ -1009,99 +1015,123 @@ def sha256(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
-def check_jpeg_fixtures() -> list[Path]:
+def check_jpeg_fixtures() -> dict[str, Path]:
     """6b: this machine's build of the decoder against the digests tpucap's
     libjpeg decode recorded (scripts/make_torch_jpeg_fixtures.py), at each
-    fixture's own size and at 224."""
+    fixture's own size and at 224, at 8/8 (fast_scale=False) and at
+    tpucap's default fast_scale=True (5/8 for these sizes)."""
     from tpucap_torch.ops import jpeg
 
     digests = json.loads((FIXTURES / "digests.json").read_text())
     size = digests["size"]
-    paths = []
+    paths = {}
     for name, want in sorted(digests["files"].items()):
         path = FIXTURES / name
         blob = path.read_bytes()
         if list(jpeg.jpeg_dims(blob)) != want["shape"]:
             raise AssertionError(f"jpeg: {name}: dims {jpeg.jpeg_dims(blob)} != {want['shape']}")
-        native = sha256(jpeg.decode_jpeg(blob))
-        resized = sha256(jpeg.decode_jpeg_files([path], size, fast_scale=False)[0])
-        if native != want["native"] or resized != want[str(size)]:
-            raise AssertionError(f"jpeg: {name}: decode differs from libjpeg's digests")
-        paths.append(path)
-    log(f"jpeg: {len(paths)} fixtures ({', '.join(sorted(digests['files']))}) decode to libjpeg's "
-        f"SHA-256 at their own size and at {size}")
+        got = {
+            "native": sha256(jpeg.decode_jpeg(blob)),
+            str(size): sha256(jpeg.decode_jpeg_files([path], size, fast_scale=False)[0]),
+            f"{size}_fast": sha256(jpeg.decode_jpeg_files([path], size)[0]),
+        }
+        if sha256(jpeg.decode_jpeg_batch([blob], size)[0]) != got[f"{size}_fast"]:
+            raise AssertionError(f"jpeg: {name}: decode_jpeg_batch and decode_jpeg_files differ")
+        wrong = [k for k, v in got.items() if v != want[k]]
+        if wrong:
+            raise AssertionError(f"jpeg: {name}: decode differs from libjpeg's digests at {wrong}")
+        paths[name] = path
+    log(f"jpeg: {len(paths)} fixtures ({', '.join(paths)}) decode to libjpeg's SHA-256 at their "
+        f"own size and at {size} with fast_scale False (8/8) and True (5/8)")
     return paths
 
 
-def decode_rate(blobs, size: int, n_threads: int) -> float:
+def decode_rate(blobs, size: int, n_threads: int, fast_scale: bool) -> float:
     """Images/s of the host decoder on one batch, best of three."""
     from tpucap_torch.ops import jpeg
 
     best = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
-        jpeg.decode_jpeg_batch(blobs, size, n_threads=n_threads, fast_scale=False)
+        jpeg.decode_jpeg_batch(blobs, size, n_threads=n_threads, fast_scale=fast_scale)
         best = min(best, time.perf_counter() - t0)
     return len(blobs) / best
 
 
-def run_dataset(dev, tokenizer, fixtures: list[Path]) -> None:
+def log_decode_rates(label: str, blobs, size: int) -> None:
+    """6d: the host decoder's images/s at one thread and at the default,
+    with fast_scale True (tpucap's default) and False."""
+    rates = {fast: (decode_rate(blobs, size, 1, fast), decode_rate(blobs, size, 0, fast))
+             for fast in (True, False)}
+    log(f"dataset: host decode of {label} -> {size}, images/s at n_threads=1 / the default "
+        f"({os.cpu_count()} cpus): fast_scale=True (5/8 + nearest resize) "
+        f"{rates[True][0]:.2f} / {rates[True][1]:.2f}; fast_scale=False (8/8 + nearest resize) "
+        f"{rates[False][0]:.2f} / {rates[False][1]:.2f}")
+
+
+def run_dataset(dev, tokenizer, fixtures: dict[str, Path]) -> None:
     """6c/6d: path A (ResNet-50 with fused blocks, lstm1, beam 3, bf16) from
-    DATASET_IMAGES JPEG paths through caption_dataset, against caption_batch
-    on the same decoded batches."""
+    DATASET_IMAGES JPEG paths through caption_dataset, at tpucap's default
+    fast_scale=True and at fast_scale=False, each against caption_batch on
+    the same decoded batches."""
     from tpucap_torch import ops
     from tpucap_torch.ops import jpeg
 
     pipe = make_pipeline("bf16", tokenizer)
     pipe.encoder = dataclasses.replace(pipe.encoder, fused_blocks=True)
     size = pipe.encoder.input_size
-    paths = [str(fixtures[i % len(fixtures)]) for i in range(DATASET_IMAGES)]
+    baseline = [fixtures[name] for name in BASELINE_FIXTURES]
+    paths = [str(baseline[i % len(baseline)]) for i in range(DATASET_IMAGES)]
     n_batches = DATASET_IMAGES // BATCH
-    log(f"dataset: {DATASET_IMAGES} JPEG paths (the fixtures tiled, 500x375 and 375x500) -> {size}, "
-        f"{n_batches} batches of {BATCH}, resnet50(fused_blocks=True)+lstm1 beam {BEAM} bf16")
+    log(f"dataset: {DATASET_IMAGES} JPEG paths (the six baseline fixtures tiled, 500x375 and "
+        f"375x500) -> {size}, {n_batches} batches of {BATCH}, resnet50(fused_blocks=True)+lstm1 "
+        f"beam {BEAM} bf16")
+    log_decode_rates("the baseline batch", [Path(p).read_bytes() for p in paths[:BATCH]], size)
+    log_decode_rates("a progressive batch (g_progressive.jpg)",
+                     [fixtures[PROGRESSIVE_FIXTURE].read_bytes()] * BATCH, size)
 
-    blobs = [Path(p).read_bytes() for p in paths[:BATCH]]
-    one = decode_rate(blobs, size, 1)
-    every = decode_rate(blobs, size, 0)
-    log(f"dataset: host decode (8/8 + nearest resize) images/s: {one:.2f} at n_threads=1, "
-        f"{every:.2f} at the default ({os.cpu_count()} cpus)")
+    for fast_scale in (True, False):
+        label = f"fast_scale={fast_scale}"
+        t0 = time.perf_counter()
+        batches = [jpeg.decode_jpeg_files(paths[s : s + BATCH], size, fast_scale=fast_scale)
+                   for s in range(0, DATASET_IMAGES, BATCH)]
+        decode_s = time.perf_counter() - t0
+        pipe.caption_batch(batches[0])  # warm-up: cuDNN plans, allocator
 
-    t0 = time.perf_counter()
-    batches = [jpeg.decode_jpeg_files(paths[s : s + BATCH], size, fast_scale=False)
-               for s in range(0, DATASET_IMAGES, BATCH)]
-    decode_s = time.perf_counter() - t0
-    pipe.caption_batch(batches[0])  # warm-up: cuDNN plans, allocator
+        kwargs = {} if fast_scale else {"fast_scale": False}  # True is the default
+        ops.reset_launch_counts()
+        caps, dataset_s = timed(lambda: pipe.caption_dataset(paths, batch_size=BATCH, **kwargs))
+        counts = ops.launch_counts()
 
-    ops.reset_launch_counts()
-    caps, dataset_s = timed(lambda: pipe.caption_dataset(paths, batch_size=BATCH, fast_scale=False))
-    counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        want, batch_s = timed(lambda: [c for b in batches for c in pipe.caption_batch(b)])
+        want_counts = ops.launch_counts()
 
-    ops.reset_launch_counts()
-    want, batch_s = timed(lambda: [c for b in batches for c in pipe.caption_batch(b)])
-    want_counts = ops.launch_counts()
-
-    if caps != want:
-        same = sum(a == b for a, b in zip(caps, want))
-        raise AssertionError(f"dataset: caption_dataset agrees with caption_batch on {same} of "
-                             f"{len(want)} captions")
-    steps = counts["lstm_cell"]
-    expect = {name: 0 for name in counts}
-    expect.update(preprocess_u8=n_batches, identity_block=12 * n_batches,
-                  lstm_cell=steps, merge_head=steps, vocab_proj=steps)
-    if counts != expect or counts != want_counts or not n_batches <= steps <= MAX_LEN * n_batches:
-        raise AssertionError(f"dataset: launch counts {counts} (caption_batch's {want_counts}), "
-                             f"expected {expect}")
-    hidden = (decode_s + batch_s - dataset_s) / decode_s
-    log(f"dataset: launches over {n_batches} batches {counts}: K1 {counts['preprocess_u8'] / n_batches:g}, "
-        f"K2 {steps / n_batches:g}, K3 {counts['merge_head'] / n_batches:g} + "
-        f"{counts['vocab_proj'] / n_batches:g}, K4 {counts['identity_block'] / n_batches:g} a batch")
-    log(f"dataset: caption_dataset {dataset_s:.5f} s, {DATASET_IMAGES / dataset_s:.2f} captions/s; "
-        f"caption_batch on decoded batches {batch_s:.5f} s, {DATASET_IMAGES / batch_s:.2f} captions/s; "
-        f"host decode alone {decode_s:.5f} s")
-    log(f"dataset: the overlap hides {100 * hidden:.1f} % of the decode time "
-        f"((decode + caption_batch - caption_dataset) / decode); captions identical to caption_batch")
-    for c in caps[:2]:
-        log(f"dataset: caption: {c!r}")
+        if caps != want:
+            same = sum(a == b for a, b in zip(caps, want))
+            raise AssertionError(f"dataset {label}: caption_dataset agrees with caption_batch on "
+                                 f"{same} of {len(want)} captions")
+        steps = counts["lstm_cell"]
+        expect = {name: 0 for name in counts}
+        expect.update(preprocess_u8=n_batches, identity_block=12 * n_batches,
+                      lstm_cell=steps, merge_head=steps, vocab_proj=steps)
+        if (counts != expect or counts != want_counts
+                or not n_batches <= steps <= MAX_LEN * n_batches):
+            raise AssertionError(f"dataset {label}: launch counts {counts} (caption_batch's "
+                                 f"{want_counts}), expected {expect}")
+        hidden = (decode_s + batch_s - dataset_s) / decode_s
+        log(f"dataset {label}: launches over {n_batches} batches {counts}: K1 "
+            f"{counts['preprocess_u8'] / n_batches:g}, K2 {steps / n_batches:g}, K3 "
+            f"{counts['merge_head'] / n_batches:g} + {counts['vocab_proj'] / n_batches:g}, K4 "
+            f"{counts['identity_block'] / n_batches:g} a batch")
+        log(f"dataset {label}: caption_dataset {dataset_s:.5f} s, {DATASET_IMAGES / dataset_s:.2f} "
+            f"captions/s; caption_batch on decoded batches {batch_s:.5f} s, "
+            f"{DATASET_IMAGES / batch_s:.2f} captions/s; host decode alone {decode_s:.5f} s")
+        log(f"dataset {label}: the overlap hides {100 * hidden:.1f} % of the decode time "
+            f"((decode + caption_batch - caption_dataset) / decode); captions identical to "
+            f"caption_batch")
+        for c in caps[:2]:
+            log(f"dataset {label}: caption: {c!r}")
 
 
 def main() -> int:

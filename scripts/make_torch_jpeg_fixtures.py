@@ -3,15 +3,19 @@ digests.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_jpeg_fixtures.py
 
-Needs PIL (to encode) and tpucap's libjpeg-turbo decoder (the reference),
-so it runs on a host that has both, not on the card's machine. It writes
+Needs PIL and libjpeg's headers (to encode) and tpucap's libjpeg-turbo
+decoder (the reference), so it runs on a host that has them, not on the
+card's machine. It writes
 into ``tests/data/torch_jpeg/``:
 
 - six baseline JPEGs, 500x375 and 375x500, of smooth content with some
   texture: 4:2:0, 4:2:2, 4:4:4, gray, one with restart markers, one with
-  optimized Huffman tables;
-- ``digests.json``: for each, the SHA-256 of tpucap's decode with
-  ``fast_scale=False`` at its own size and at 224 x 224 (nearest resize).
+  optimized Huffman tables; then a progressive 4:2:0 one (PIL), and a
+  4:1:1 and a 4:4:0 one, which only libjpeg writes (its compressor is
+  built here with ``gcc -ljpeg``);
+- ``digests.json``: for each, the SHA-256 of tpucap's decode at its own
+  size, and at 224 x 224 (nearest resize) with ``fast_scale=False`` (8/8)
+  and with tpucap's default ``fast_scale=True`` (5/8 for these sizes).
 
 ``chip_smoke.py`` phase 6 holds the card machine's build of the port's
 decoder against these digests (that machine has no libjpeg, and the port
@@ -27,7 +31,9 @@ import ctypes
 import hashlib
 import io
 import json
+import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -41,7 +47,8 @@ from tpucap.ops import jpeg as jpeg_ops  # noqa: E402
 OUT = ROOT / "tests" / "data" / "torch_jpeg"
 SIZE = 224
 
-# name -> (height, width, PIL mode, save options)
+# name -> (height, width, PIL mode or "libjpeg", PIL's save options or
+# libjpeg_compressor's)
 FIXTURES = {
     "a_420.jpg": (375, 500, "RGB", dict(quality=90, subsampling=2)),
     "b_422.jpg": (500, 375, "RGB", dict(quality=85, subsampling=1)),
@@ -49,7 +56,120 @@ FIXTURES = {
     "d_gray.jpg": (500, 375, "L", dict(quality=90)),
     "e_restart.jpg": (375, 500, "RGB", dict(quality=75, subsampling=2, restart_marker_blocks=7)),
     "f_optimized.jpg": (500, 375, "RGB", dict(quality=95, subsampling=2, optimize=True)),
+    "g_progressive.jpg": (375, 500, "RGB", dict(quality=90, subsampling=2, progressive=True)),
+    "h_411.jpg": (375, 500, "libjpeg", dict(quality=85, sampling="4x1,1x1,1x1")),
+    "i_440.jpg": (500, 375, "libjpeg", dict(quality=85, sampling="1x2,1x1,1x1")),
 }
+# The baseline fixtures that chip_smoke.py's decode rates tile.
+BASELINE = [name for name in FIXTURES if name < "g"]
+
+# A libjpeg compressor for what PIL cannot write: any integral sampling
+# factors, RGB-coded files, scan scripts, arithmetic coding.
+# argv: raw in, jpeg out, width, height, components (1 or 3), quality,
+# sampling "HxV,HxV,HxV", color ("ycc", "rgb"), scans ("0" sequential,
+# "1" jpeg_simple_progression, else a script "c,c/Ss/Se/Ah/Al;..."),
+# restart interval in MCUs, arithmetic (0/1), optimized tables (0/1).
+COMPRESS_C = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <jpeglib.h>
+
+int main(int argc, char **argv) {
+  if (argc != 13) return 2;
+  int w = atoi(argv[3]), h = atoi(argv[4]), nc = atoi(argv[5]);
+  size_t n = (size_t)w * h * nc;
+  unsigned char *px = malloc(n);
+  FILE *f = fopen(argv[1], "rb");
+  if (!f || fread(px, 1, n, f) != n) return 3;
+  fclose(f);
+  struct jpeg_compress_struct c;
+  struct jpeg_error_mgr e;
+  c.err = jpeg_std_error(&e);
+  jpeg_create_compress(&c);
+  FILE *o = fopen(argv[2], "wb");
+  jpeg_stdio_dest(&c, o);
+  c.image_width = w;
+  c.image_height = h;
+  c.input_components = nc;
+  c.in_color_space = nc == 1 ? JCS_GRAYSCALE : JCS_RGB;
+  jpeg_set_defaults(&c);
+  if (!strcmp(argv[8], "rgb")) jpeg_set_colorspace(&c, JCS_RGB);
+  jpeg_set_quality(&c, atoi(argv[6]), TRUE);
+  const char *sp = argv[7];
+  for (int i = 0; i < c.num_components && *sp; i++) {
+    int hs, vs, used;
+    if (sscanf(sp, "%dx%d%n", &hs, &vs, &used) != 2) return 4;
+    c.comp_info[i].h_samp_factor = hs;
+    c.comp_info[i].v_samp_factor = vs;
+    sp += used;
+    if (*sp == ',') sp++;
+  }
+  c.restart_interval = atoi(argv[10]);
+  c.arith_code = atoi(argv[11]);
+  c.optimize_coding = atoi(argv[12]);
+  const char *scans = argv[9];
+  static jpeg_scan_info script[64];
+  if (!strcmp(scans, "1")) {
+    jpeg_simple_progression(&c);
+  } else if (strcmp(scans, "0")) {
+    int k = 0;
+    for (const char *q = scans; *q && k < 64; k++) {
+      jpeg_scan_info *si = &script[k];
+      si->comps_in_scan = 0;
+      while (1) {
+        int v, used;
+        if (sscanf(q, "%d%n", &v, &used) != 1) return 5;
+        si->component_index[si->comps_in_scan++] = v;
+        q += used;
+        if (*q != ',') break;
+        q++;
+      }
+      int used;
+      if (sscanf(q, "/%d/%d/%d/%d%n", &si->Ss, &si->Se, &si->Ah, &si->Al, &used) != 4) return 6;
+      q += used;
+      if (*q == ';') q++;
+    }
+    c.scan_info = script;
+    c.num_scans = k;
+  }
+  jpeg_start_compress(&c, TRUE);
+  while (c.next_scanline < c.image_height) {
+    JSAMPROW row = px + (size_t)c.next_scanline * w * nc;
+    jpeg_write_scanlines(&c, &row, 1);
+  }
+  jpeg_finish_compress(&c);
+  fclose(o);
+  jpeg_destroy_compress(&c);
+  return 0;
+}
+"""
+
+
+def libjpeg_compressor(workdir: Path):
+    """Builds COMPRESS_C in workdir; returns compress(image, quality=85,
+    sampling="2x2,1x1,1x1", color="ycc", scans="0", restart=0,
+    arith=False, optimize=False) -> JPEG bytes."""
+    src, exe = workdir / "compress.c", workdir / "compress"
+    src.write_text(COMPRESS_C)
+    subprocess.run(["gcc", "-O2", "-o", str(exe), str(src), "-ljpeg"], check=True,
+                   capture_output=True)
+    count = [0]
+
+    def compress(img, quality=85, sampling="2x2,1x1,1x1", color="ycc", scans="0", restart=0,
+                 arith=False, optimize=False):
+        img = np.ascontiguousarray(img, np.uint8)
+        h, w = img.shape[:2]
+        nc = 1 if img.ndim == 2 else img.shape[2]
+        count[0] += 1
+        raw, out = workdir / f"{count[0]}.raw", workdir / f"{count[0]}.jpg"
+        raw.write_bytes(img.tobytes())
+        args = [raw, out, w, h, nc, quality, sampling, color, scans, restart, int(arith),
+                int(optimize)]
+        subprocess.run([str(exe), *map(str, args)], check=True, capture_output=True)
+        return out.read_bytes()
+
+    return compress
 
 
 def content(h: int, w: int, seed: int) -> np.ndarray:
@@ -101,6 +221,7 @@ def reference_digests(blob: bytes) -> dict:
         "shape": [h, w],
         "native": sha256(tpucap_native(blob, h, w)),
         str(SIZE): sha256(jpeg_ops.decode_jpeg_batch([blob], SIZE, fast_scale=False)[0]),
+        f"{SIZE}_fast": sha256(jpeg_ops.decode_jpeg_batch([blob], SIZE, fast_scale=True)[0]),
     }
 
 
@@ -110,19 +231,25 @@ def main() -> None:
     args = ap.parse_args()
     args.out.mkdir(parents=True, exist_ok=True)
     digests = {
-        "reference": "tpucap.ops.jpeg.decode_jpeg_batch(fast_scale=False) "
-        "(libjpeg-turbo); 'native' at the image's own size",
+        "reference": "tpucap.ops.jpeg.decode_jpeg_batch (libjpeg-turbo): "
+        "'native' at the image's own size, '<size>' with fast_scale=False, "
+        "'<size>_fast' with fast_scale=True",
         "size": SIZE,
         "files": {},
     }
     total = 0
+    workdir = Path(tempfile.mkdtemp())
+    compress = libjpeg_compressor(workdir)
     for seed, (name, (h, w, mode, opts)) in enumerate(FIXTURES.items()):
-        im = Image.fromarray(content(h, w, seed))
-        if mode == "L":
-            im = im.convert("L")
-        buf = io.BytesIO()
-        im.save(buf, "JPEG", **opts)
-        blob = buf.getvalue()
+        if mode == "libjpeg":
+            blob = compress(content(h, w, seed), **opts)
+        else:
+            im = Image.fromarray(content(h, w, seed))
+            if mode == "L":
+                im = im.convert("L")
+            buf = io.BytesIO()
+            im.save(buf, "JPEG", **opts)
+            blob = buf.getvalue()
         (args.out / name).write_bytes(blob)
         total += len(blob)
         digests["files"][name] = reference_digests(blob)

@@ -430,8 +430,9 @@ def test_out_of_scope_images_raise_value_error_naming_them(tmp_path):
 
 @pytest.mark.parametrize("name", sorted(json.loads((FIXTURES / "digests.json").read_text())["files"]))
 def test_committed_fixtures_decode_to_their_digests(name):
-    """The digests chip_smoke.py holds the card's build against: the port
-    gives them, and tpucap still does (so the file cannot go stale)."""
+    """The digests chip_smoke.py holds the card's build against, at 8/8 and
+    at tpucap's default fast_scale (5/8): the port gives them, and tpucap
+    still does (so the file cannot go stale)."""
     digests = json.loads((FIXTURES / "digests.json").read_text())
     want = digests["files"][name]
     blob = (FIXTURES / name).read_bytes()
@@ -443,6 +444,8 @@ def test_committed_fixtures_decode_to_their_digests(name):
     assert fixtures_script.sha256(got) == want[str(size)]
     got = jpeg.decode_jpeg_batch([blob], size, fast_scale=False)[0]
     assert fixtures_script.sha256(got) == want[str(size)]
+    got = jpeg.decode_jpeg_files([FIXTURES / name], size)[0]
+    assert fixtures_script.sha256(got) == want[f"{size}_fast"]
 
 
 def test_build_host_raises_with_the_compilers_output(tmp_path, monkeypatch):

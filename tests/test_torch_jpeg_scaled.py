@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import ImageFile
-from test_torch_jpeg import SAMPLING, encode, make_image
+from test_torch_jpeg import SAMPLING, encode, fixtures_script, make_image
 
 from tpucap.ops import jpeg as jax_jpeg
 from tpucap_torch import _build
@@ -91,88 +91,6 @@ int main(void) {
 }
 """
 
-# A libjpeg compressor for what PIL cannot write: any integral sampling
-# factors, RGB-coded files, scan scripts, arithmetic coding.
-# argv: raw in, jpeg out, width, height, components (1 or 3), quality,
-# sampling "HxV,HxV,HxV", color ("ycc", "rgb"), scans ("0" sequential,
-# "1" jpeg_simple_progression, else a script "c,c/Ss/Se/Ah/Al;..."),
-# restart interval in MCUs, arithmetic (0/1), optimized tables (0/1).
-COMPRESS_C = r"""
-#include <stdio.h>
-#include <stdlib.h>
-#include <string.h>
-#include <jpeglib.h>
-
-int main(int argc, char **argv) {
-  if (argc != 13) return 2;
-  int w = atoi(argv[3]), h = atoi(argv[4]), nc = atoi(argv[5]);
-  size_t n = (size_t)w * h * nc;
-  unsigned char *px = malloc(n);
-  FILE *f = fopen(argv[1], "rb");
-  if (!f || fread(px, 1, n, f) != n) return 3;
-  fclose(f);
-  struct jpeg_compress_struct c;
-  struct jpeg_error_mgr e;
-  c.err = jpeg_std_error(&e);
-  jpeg_create_compress(&c);
-  FILE *o = fopen(argv[2], "wb");
-  jpeg_stdio_dest(&c, o);
-  c.image_width = w;
-  c.image_height = h;
-  c.input_components = nc;
-  c.in_color_space = nc == 1 ? JCS_GRAYSCALE : JCS_RGB;
-  jpeg_set_defaults(&c);
-  if (!strcmp(argv[8], "rgb")) jpeg_set_colorspace(&c, JCS_RGB);
-  jpeg_set_quality(&c, atoi(argv[6]), TRUE);
-  const char *sp = argv[7];
-  for (int i = 0; i < c.num_components && *sp; i++) {
-    int hs, vs, used;
-    if (sscanf(sp, "%dx%d%n", &hs, &vs, &used) != 2) return 4;
-    c.comp_info[i].h_samp_factor = hs;
-    c.comp_info[i].v_samp_factor = vs;
-    sp += used;
-    if (*sp == ',') sp++;
-  }
-  c.restart_interval = atoi(argv[10]);
-  c.arith_code = atoi(argv[11]);
-  c.optimize_coding = atoi(argv[12]);
-  const char *scans = argv[9];
-  static jpeg_scan_info script[64];
-  if (!strcmp(scans, "1")) {
-    jpeg_simple_progression(&c);
-  } else if (strcmp(scans, "0")) {
-    int k = 0;
-    for (const char *q = scans; *q && k < 64; k++) {
-      jpeg_scan_info *si = &script[k];
-      si->comps_in_scan = 0;
-      while (1) {
-        int v, used;
-        if (sscanf(q, "%d%n", &v, &used) != 1) return 5;
-        si->component_index[si->comps_in_scan++] = v;
-        q += used;
-        if (*q != ',') break;
-        q++;
-      }
-      int used;
-      if (sscanf(q, "/%d/%d/%d/%d%n", &si->Ss, &si->Se, &si->Ah, &si->Al, &used) != 4) return 6;
-      q += used;
-      if (*q == ';') q++;
-    }
-    c.scan_info = script;
-    c.num_scans = k;
-  }
-  jpeg_start_compress(&c, TRUE);
-  while (c.next_scanline < c.image_height) {
-    JSAMPROW row = px + (size_t)c.next_scanline * w * nc;
-    jpeg_write_scanlines(&c, &row, 1);
-  }
-  jpeg_finish_compress(&c);
-  fclose(o);
-  jpeg_destroy_compress(&c);
-  return 0;
-}
-"""
-
 IDCT_SIZES = [1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14]
 
 
@@ -185,24 +103,9 @@ def compile_c(source, out, *args):
 
 @pytest.fixture(scope="module")
 def compress(tmp_path_factory):
-    """compress(image, ...) -> JPEG bytes through this host's libjpeg."""
-    d = tmp_path_factory.mktemp("cjpeg")
-    exe = compile_c(COMPRESS_C, d / "compress", "-ljpeg")
-    count = [0]
-
-    def run(img, quality=85, sampling="2x2,1x1,1x1", color="ycc", scans="0", restart=0,
-            arith=False, optimize=False):
-        img = np.ascontiguousarray(img, np.uint8)
-        h, w = img.shape[:2]
-        nc = 1 if img.ndim == 2 else img.shape[2]
-        count[0] += 1
-        raw, out = d / f"{count[0]}.raw", d / f"{count[0]}.jpg"
-        raw.write_bytes(img.tobytes())
-        args = [raw, out, w, h, nc, quality, sampling, color, scans, restart, int(arith), int(optimize)]
-        subprocess.run([str(exe), *map(str, args)], check=True, capture_output=True)
-        return out.read_bytes()
-
-    return run
+    """compress(image, ...) -> JPEG bytes through this host's libjpeg
+    (``scripts/make_torch_jpeg_fixtures.py``'s compressor)."""
+    return fixtures_script.libjpeg_compressor(tmp_path_factory.mktemp("cjpeg"))
 
 
 @pytest.fixture(scope="module")
@@ -389,8 +292,6 @@ def test_other_samplings_match_libjpeg(compress, hw, sampling):
 
 
 def native(blob, h, w):
-    from test_torch_jpeg import fixtures_script
-
     return fixtures_script.tpucap_native(blob, h, w)
 
 
