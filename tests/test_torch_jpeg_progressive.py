@@ -196,3 +196,35 @@ def test_bad_progression_is_refused_and_a_bogus_one_decodes():
         jax_jpeg.decode_jpeg_batch([missing], 24)
     with pytest.raises(ValueError, match="corrupt"):
         jpeg.decode_jpeg_batch([missing], 24)
+
+
+def test_a_huge_progressive_image_is_a_status_not_an_abort(tmp_path):
+    """A progressive image holds every coefficient, as libjpeg does: 65500 x
+    65500 gray needs 8.6 GB of them. Under a 1 GiB address-space limit the
+    allocation fails in the worker thread and becomes the image's status."""
+    import subprocess
+    import sys
+
+    from test_torch_jpeg import with_size
+
+    blob = encode_progressive(make_image(np.random.default_rng(67), 16, 16, gray=True), 75, None)
+    i = blob.index(b"\xff\xc2")
+    huge = with_size(blob[:i] + b"\xff\xc0" + blob[i + 2 :], 65500, 65500)
+    huge = huge[:i] + b"\xff\xc2" + huge[i + 2 :]
+    (tmp_path / "huge.jpg").write_bytes(huge)
+    lib = jpeg._lib()
+    child = f"""
+import ctypes, resource
+resource.setrlimit(resource.RLIMIT_AS, (1 << 30, 1 << 30))
+lib = ctypes.CDLL({lib._name!r})
+blob = open({str(tmp_path / "huge.jpg")!r}, "rb").read()
+out = (ctypes.c_uint8 * (8 * 8 * 3))()
+status = (ctypes.c_int * 1)()
+offsets = (ctypes.c_int64 * 1)(0)
+sizes = (ctypes.c_int64 * 1)(len(blob))
+print(lib.tpucap_decode_jpeg_batch(blob, offsets, sizes, 1, 8, 8, out, status, 2, 1), status[0])
+"""
+    proc = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["1", "10"]
+    assert "allocate" in jpeg.STATUS[10]

@@ -377,8 +377,7 @@ inline int64_t deq(const int16_t* coef, const int16_t* qt, int i) {
   return int64_t{coef[i]} * qt[i];
 }
 
-// RIGHT_SHIFT, and the (int) cast of a JLONG into the workspace.
-inline int64_t rsh(int64_t x, int n) { return x >> n; }
+// The (int) cast of a JLONG, into the workspace or of a quotient.
 inline int64_t to_int(int64_t x) { return static_cast<int32_t>(static_cast<uint32_t>(x)); }
 
 void idct_1x1(const int16_t* coef, const int16_t* qt, uint8_t* out, int) {
@@ -464,9 +463,9 @@ void idct_2x2(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride) 
 // jidctint.c's scaled IDCTs share this frame: pass 1 over the input's
 // columns (N of them, 8 for N > 8) into an int workspace of N rows, pass 2
 // over those rows. Each kernel takes the 1-D inputs (x[0..7], zero where
-// the pass has fewer) and the term added to x[0] << CONST_BITS, and
-// returns N outputs before the final shift; pass 1's outputs that
-// jidctint.c shifts by another amount are given with `pre` set.
+// the pass has fewer), the rounding term added to x[0] << CONST_BITS and
+// which pass it is, and returns N outputs (pass 1's descaled, pass 2's
+// before the final shift).
 template <int N, typename Kernel>
 void idct_scaled(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride,
                  Kernel kernel) {
@@ -484,14 +483,14 @@ void idct_scaled(const int16_t* coef, const int16_t* qt, uint8_t* out, int strid
     for (int c = 0; c < cols; ++c) x[c] = ws[r][c];
     int64_t y[N];
     kernel(x, int64_t{1} << (kPass1Bits + 2 + kConstBits), false, y);
-    for (int c = 0; c < N; ++c) out[r * stride + c] = range_limit(rsh(y[c], kConstBits + kPass1Bits + 3));
+    for (int c = 0; c < N; ++c) out[r * stride + c] = range_limit(y[c] >> (kConstBits + kPass1Bits + 3));
   }
 }
 
 // In pass 1, jidctint.c right-shifts every output by CONST_BITS -
-// PASS1_BITS, except the few it builds pre-shifted (`pre` marks them).
+// PASS1_BITS, except the few it builds already shifted.
 #define IDCT_OUT(i, v, shifted_in_pass1)                                      \
-  y[i] = pass1 ? ((shifted_in_pass1) ? (v) : rsh((v), kConstBits - kPass1Bits)) \
+  y[i] = pass1 ? ((shifted_in_pass1) ? (v) : (v) >> (kConstBits - kPass1Bits)) \
                : (v)
 
 void idct_3x3(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride) {
@@ -534,7 +533,7 @@ void idct_6x6(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride) 
     int64_t tmp10 = x[4] * fix(0.707106781);
     int64_t tmp1 = tmp0 + tmp10;
     int64_t tmp11 = tmp0 - tmp10 - tmp10;
-    if (pass1) tmp11 = rsh(tmp11, kConstBits - kPass1Bits);
+    if (pass1) tmp11 >>= kConstBits - kPass1Bits;
     tmp0 = x[2] * fix(1.224744871);
     tmp10 = tmp1 + tmp0;
     const int64_t tmp12 = tmp1 - tmp0;
@@ -595,7 +594,7 @@ void idct_10x10(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride
     int64_t z2 = z4 * fix(0.437016024);
     int64_t tmp10 = z3 + z1, tmp11 = z3 - z2;
     int64_t tmp22 = z3 - (z1 - z2) * 2;
-    if (pass1) tmp22 = rsh(tmp22, kConstBits - kPass1Bits);
+    if (pass1) tmp22 >>= kConstBits - kPass1Bits;
     z2 = x[2];
     z3 = x[6];
     z1 = (z2 + z3) * fix(0.831253876);
@@ -694,7 +693,7 @@ void idct_14x14(const int16_t* coef, const int16_t* qt, uint8_t* out, int stride
     z4 = z4 * fix(0.881747734);
     int64_t tmp10 = z1 + z2, tmp11 = z1 + z3, tmp12 = z1 - z4;
     int64_t tmp23 = z1 - (z2 + z3 - z4) * 2;
-    if (pass1) tmp23 = rsh(tmp23, kConstBits - kPass1Bits);
+    if (pass1) tmp23 >>= kConstBits - kPass1Bits;
     z1 = x[2];
     z2 = x[6];
     z3 = (z1 + z2) * fix(1.105676686);
@@ -1447,16 +1446,16 @@ struct Decoder {
     // The tables the scan reads: a DC refinement none, an AC scan only AC.
     const bool need_dc = !progressive || (ss == 0 && ah == 0);
     const bool need_ac = !progressive || ss != 0;
+    // False where libjpeg raises JERR_NO_HUFF_TABLE or JERR_BAD_HUFF_TABLE.
+    auto table = [&](bool ac, int slot, HuffTable* t) {
+      if (slot >= 4) return false;
+      const HuffSpec& spec = huff_spec(ac, slot);
+      return spec.defined && t->build(spec, !ac);
+    };
     for (int i = 0; i < ncomp; ++i) {
       const Component& c = comps[idx[i]];
-      if (need_dc) {
-        const HuffSpec& spec = c.dc_tbl < 4 ? huff_spec(false, c.dc_tbl) : HuffSpec();
-        if (!spec.defined || !dct[i].build(spec, true)) return kCorrupt;  // JERR_NO_HUFF_TABLE
-      }
-      if (need_ac) {
-        const HuffSpec& spec = c.ac_tbl < 4 ? huff_spec(true, c.ac_tbl) : HuffSpec();
-        if (!spec.defined || !act[i].build(spec, false)) return kCorrupt;
-      }
+      if (need_dc && !table(false, c.dc_tbl, &dct[i])) return kCorrupt;
+      if (need_ac && !table(true, c.ac_tbl, &act[i])) return kCorrupt;
     }
 
     int mcus_x, mcus_y;
@@ -1505,7 +1504,11 @@ struct Decoder {
                 if (!progressive) {
                   rc = decode_block(blk, dct[i], act[i], &pred[i]);
                 } else if (ss == 0) {
-                  rc = ah == 0 ? decode_dc_first(blk, dct[i], &pred[i]) : decode_dc_refine(blk);
+                  if (ah == 0) {
+                    rc = decode_dc_first(blk, dct[i], &pred[i]);
+                  } else {
+                    decode_dc_refine(blk);
+                  }
                 } else if (ah == 0) {
                   decode_ac_first(blk, act[i]);
                 } else {
@@ -1544,9 +1547,8 @@ struct Decoder {
   }
 
   // decode_mcu_DC_refine: one more bit of the DC's two's complement.
-  int decode_dc_refine(int16_t* blk) {
+  void decode_dc_refine(int16_t* blk) {
     if (bits.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
-    return kOk;
   }
 
   // decode_mcu_AC_first: the band's first pass, with end-of-band runs.
@@ -1707,10 +1709,10 @@ struct Decoder {
   // of some component short of full precision: a file cut between scans,
   // or a scan script that never refines them. smoothing_ok latches each
   // component's coef_bits[0..9], and those from before its last scan.
-  int latch_now[4][10], latch_prev[4][10];
+  // setup() admits one or three components.
+  int latch_now[3][10], latch_prev[3][10];
 
   bool smoothing_ok() {
-    if (comps.size() > 4) return false;
     bool useful = false;
     for (size_t ci = 0; ci < comps.size(); ++ci) {
       const Component& c = comps[ci];
