@@ -1533,15 +1533,22 @@ struct Decoder {
     return kOk;
   }
 
-  // decode_mcu_DC_first: the DC difference, scaled by Al.
-  int decode_dc_first(int16_t* blk, const HuffTable& dc, int* pred) {
+  // The next DC difference added to the predictor; false where the sum
+  // would overflow (JERR_BAD_DCT_COEF).
+  bool add_dc(const HuffTable& dc, int* pred) {
     int s = bits.huff(dc);
     if (s) s = extend(bits.get(s), s);
     if ((*pred >= 0 && s > INT_MAX - *pred) ||
         (*pred < 0 && s < INT_MIN - *pred)) {
-      return kCorrupt;  // JERR_BAD_DCT_COEF
+      return false;
     }
     *pred += s;
+    return true;
+  }
+
+  // decode_mcu_DC_first: the DC, scaled by Al.
+  int decode_dc_first(int16_t* blk, const HuffTable& dc, int* pred) {
+    if (!add_dc(dc, pred)) return kCorrupt;
     blk[0] = static_cast<int16_t>(static_cast<uint32_t>(*pred) << al);
     return kOk;
   }
@@ -1621,13 +1628,7 @@ struct Decoder {
 
   int decode_block(int16_t* blk, const HuffTable& dc, const HuffTable& ac,
                    int* pred) {
-    int s = bits.huff(dc);
-    if (s) s = extend(bits.get(s), s);
-    if ((*pred >= 0 && s > INT_MAX - *pred) ||
-        (*pred < 0 && s < INT_MIN - *pred)) {
-      return kCorrupt;  // JERR_BAD_DCT_COEF
-    }
-    *pred += s;
+    if (!add_dc(dc, pred)) return kCorrupt;
     blk[0] = static_cast<int16_t>(*pred);
     for (int k = 1; k < 64; ++k) {
       const int32_t fast = ac.fast_ac[bits.peek(kLook)];
@@ -1637,7 +1638,7 @@ struct Decoder {
         blk[kNatural[k]] = static_cast<int16_t>(fast >> 16);
         continue;
       }
-      s = bits.huff(ac);
+      int s = bits.huff(ac);
       int r = s >> 4;
       s &= 15;
       if (s) {
