@@ -60,9 +60,6 @@ FIXTURES = {
     "h_411.jpg": (375, 500, "libjpeg", dict(quality=85, sampling="4x1,1x1,1x1")),
     "i_440.jpg": (500, 375, "libjpeg", dict(quality=85, sampling="1x2,1x1,1x1")),
 }
-# The baseline fixtures that chip_smoke.py's decode rates tile.
-BASELINE = [name for name in FIXTURES if name < "g"]
-
 # A libjpeg compressor for what PIL cannot write: any integral sampling
 # factors, RGB-coded files, scan scripts, arithmetic coding.
 # argv: raw in, jpeg out, width, height, components (1 or 3), quality,

@@ -177,3 +177,24 @@ def test_caption_images_matches_jax(pipelines, jpeg_paths):  # noqa: F811
     want = jpipe.caption_images(jpeg_paths, method="beam")
     assert pipe.caption_images(jpeg_paths, method="beam") == want
     assert len(set(want)) > 1
+
+
+def test_caption_images_takes_progressive_and_rgb_coded_files(pipelines, tmp_path):  # noqa: F811
+    """extract_features / caption_images (tpucap reads through PIL at full
+    scale) on a progressive file, a progressive 4:2:2 one and an RGB-coded
+    one (the Adobe marker's transform 0): the same captions as tpucap."""
+    jpipe, pipe = pipelines
+    rng = np.random.default_rng(29)
+    paths = []
+    for i, opts in enumerate([{"progressive": True, "subsampling": 2},
+                              {"progressive": True, "subsampling": 1},
+                              {"keep_rgb": True, "subsampling": 0}]):
+        path = tmp_path / f"kind{i}.jpg"
+        Image.fromarray(rng.integers(0, 256, (70, 90, 3), dtype=np.uint8)).save(
+            path, quality=90, **opts)
+        paths.append(str(path))
+    assert b"Adobe" in open(paths[2], "rb").read()
+    want = np.asarray(jpipe.extract_features(paths, batch_size=3))
+    got = pipe.extract_features(paths, batch_size=3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+    assert pipe.caption_images(paths, method="beam") == jpipe.caption_images(paths, method="beam")
