@@ -500,3 +500,64 @@ def test_scalar_idct_build_matches_libjpeg(tmp_path):
         assert not status.any()
         np.testing.assert_array_equal(
             out, jax_jpeg.decode_jpeg_batch(blobs, size, fast_scale=bool(fast)), err_msg=f"{size}")
+
+
+@pytest.mark.parametrize("name", ["a_420.jpg", "c_444.jpg", "d_gray.jpg", "e_restart.jpg"])
+def test_fill_bytes_before_a_stuffed_ff_follow_libjpegs_fast_path(name):
+    """An FF inserted before a stuffed FF 00 in the scan (not valid JPEG):
+    libjpeg-turbo's slow path reads FF FF 00 as one FF byte, its fast path
+    (no restart interval, 512 bytes a block still to come) as a marker,
+    decoding zeros from there, then decodes the MCU again on the slow path
+    over what the fast one wrote. The port follows both, so the bytes agree
+    wherever the FF lands; with restart markers (e_restart) only the slow
+    path runs."""
+    blob = (FIXTURES / name).read_bytes()
+    sos = blob.index(b"\xff\xda")
+    stuffed = [i for i in range(sos + 12, len(blob) - 2) if blob[i] == 0xFF and blob[i + 1] == 0]
+    for i in stuffed[:: max(1, len(stuffed) // 24)]:
+        bad = blob[:i] + b"\xff" + blob[i:]
+        for fast in (False, True):
+            np.testing.assert_array_equal(
+                jpeg.decode_jpeg_batch([bad], 224, fast_scale=fast),
+                jax_jpeg.decode_jpeg_batch([bad], 224, fast_scale=fast), err_msg=f"FF at {i}")
+
+
+def gray_dc_jpeg(blocks_h, blocks_w, diff, progressive=False):
+    """A gray JPEG of blocks_h x blocks_w blocks, every DC difference diff and
+    no AC (a progressive one: its DC scan alone)."""
+    size = abs(diff).bit_length()
+    h, w = 8 * blocks_h, 8 * blocks_w
+    dht = bytes([0x00, 0, 0, 0, 0, 16] + [0] * 11) + bytes(range(16))
+    if not progressive:
+        dht += bytes([0x10, 1] + [0] * 15) + bytes([0x00])
+    sof = bytes([8, h >> 8, h & 255, w >> 8, w & 255, 1, 1, 0x11, 0])
+    out = b"\xff\xd8" + segment(0xDB, bytes([0] + [1] * 64))
+    out += segment(0xC2 if progressive else 0xC0, sof) + segment(0xC4, dht)
+    out += segment(0xDA, bytes([1, 1, 0, 0, 0 if progressive else 63, 0]))
+    bits = BitWriter()
+    for _ in range(blocks_h * blocks_w):
+        bits.put(size, 5)
+        bits.put(diff if diff > 0 else diff - 1, size)
+        if not progressive:
+            bits.put(0, 1)  # EOB
+    return out + bits.flush() + b"\xff\xd9"
+
+
+def test_dc_predictor_overflow_follows_libjpeg():
+    """-32767 a block overflows the DC predictor at block 65539:
+    libjpeg-turbo's sequential decoder lets it wrap (on its fast path and,
+    13 blocks before the end, on its slow path) and the port gives the same
+    bytes; its progressive decoder refuses it (JERR_BAD_DCT_COEF), and so
+    does the port."""
+    for blocks_h, blocks_w in [(16, 4097), (32, 2060)]:
+        blob = gray_dc_jpeg(blocks_h, blocks_w, -32767)
+        np.testing.assert_array_equal(jpeg.decode_jpeg_batch([blob], 48),
+                                      jax_jpeg.decode_jpeg_batch([blob], 48))
+    blob = gray_dc_jpeg(16, 4097, -32767, progressive=True)
+    with pytest.raises(ValueError):
+        jax_jpeg.decode_jpeg_batch([blob], 48)
+    with pytest.raises(ValueError, match="corrupt"):
+        jpeg.decode_jpeg_batch([blob], 48)
+    ok = gray_dc_jpeg(16, 4096, -32767, progressive=True)
+    np.testing.assert_array_equal(jpeg.decode_jpeg_batch([ok], 48),
+                                  jax_jpeg.decode_jpeg_batch([ok], 48))

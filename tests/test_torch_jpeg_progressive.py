@@ -228,3 +228,30 @@ print(lib.tpucap_decode_jpeg_batch(blob, offsets, sizes, 1, 8, 8, out, status, 2
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["1", "10"]
     assert "allocate" in jpeg.STATUS[10]
+
+
+def test_scan_component_lists_follow_libjpeg():
+    """Every list of three component ids (1-3 and an unknown 9) in the first
+    SOS of a baseline and of a progressive file: libjpeg-turbo refuses a
+    component named twice, an unknown id, and (its slot search) a component
+    listed before one that precedes it in the frame, so only the frame's
+    order decodes; the port refuses and decodes the same files."""
+    import itertools
+
+    rng = np.random.default_rng(71)
+    im = make_image(rng, 24, 32)
+    baseline = io.BytesIO()
+    im.save(baseline, "JPEG", quality=80, subsampling=0)
+    blobs = [baseline.getvalue(), encode_progressive(im, 80, 0)]
+    decoded = refused = 0
+    for blob in blobs:
+        i = scan_starts(blob)[0]
+        assert blob[i + 4] == 3
+        for ids in itertools.product([1, 2, 3, 9], repeat=3):
+            b = bytearray(blob)
+            for k, cid in enumerate(ids):
+                b[i + 5 + 2 * k] = cid
+            ok = same_or_both_refuse(bytes(b), 16)
+            decoded += ok
+            refused += not ok
+    assert decoded == 2 and refused == 2 * 4**3 - 2

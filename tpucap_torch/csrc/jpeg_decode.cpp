@@ -772,15 +772,18 @@ struct HuffSpec {
   uint8_t vals[256] = {};
 };
 
-constexpr int kLook = 9;
+// HUFF_LOOKAHEAD.
+constexpr int kLook = 8;
 
 struct HuffTable {
   int32_t maxcode[18];
   int32_t valoffset[18];
   uint8_t vals[256];
-  uint16_t lookup[1 << kLook];  // (length << 8) | symbol, 0 = longer code
+  // (length << 8) | symbol; length kLook + 1 for a longer code.
+  uint16_t lookup[1 << kLook];
   // For an AC table: where the code and its extra bits fit in the
-  // lookahead, (value << 16) | (run << 8) | (bits in all); else 0.
+  // lookahead, (value << 16) | (run << 8) | (code length << 4) | size;
+  // else 0.
   int32_t fast_ac[1 << kLook];
 
   // Returns false where libjpeg raises JERR_BAD_HUFF_TABLE.
@@ -819,7 +822,7 @@ struct HuffTable {
     valoffset[17] = 0;
     maxcode[17] = 0xFFFFF;
     std::memcpy(vals, s.vals, 256);
-    std::memset(lookup, 0, sizeof(lookup));
+    for (auto& e : lookup) e = (kLook + 1) << 8;
     p = 0;
     for (int l = 1; l <= kLook; ++l) {
       for (int i = 1; i <= s.bits[l]; ++i, ++p) {
@@ -833,11 +836,11 @@ struct HuffTable {
       fast_ac[look] = 0;
       const int l = lookup[look] >> 8, sym = lookup[look] & 0xFF;
       const int size = sym & 15;
-      if (is_dc || l == 0 || size == 0 || l + size > kLook) continue;
+      if (is_dc || l > kLook || size == 0 || l + size > kLook) continue;
       const int extra = (look >> (kLook - l - size)) & ((1 << size) - 1);
       const int value = extra < (1 << (size - 1)) ? extra - (1 << size) + 1 : extra;
       fast_ac[look] = static_cast<int32_t>(static_cast<uint32_t>(value) << 16) |
-                      ((sym >> 4) << 8) | (l + size);
+                      ((sym >> 4) << 8) | (l << 4) | size;
     }
     if (is_dc) {
       for (int i = 0; i < nsym; ++i) {
@@ -930,21 +933,21 @@ struct Source {
   }
 };
 
+// jdhuff.c's bit reader as its slow path runs it (jpeg_fill_bit_buffer,
+// HUFF_DECODE, CHECK_BIT_BUFFER / GET_BITS), byte for byte, since where
+// it stands decides libjpeg-turbo's choice of path for the next MCU.
 struct BitReader {
   Source* src;
-  uint64_t buf = 0;
-  int n = 0;    // bits held, low end of buf
-  int pad = 0;  // of which the lowest `pad` are zeros fed past a marker
+  uint64_t buf = 0;  // get_buffer: the low n bits are unread
+  int n = 0;         // bits_left
   bool insufficient = false;
 
-  void reset() {
-    n = 0;
-    pad = 0;
-  }
+  void reset() { n = 0; }
 
-  // jpeg_fill_bit_buffer: read bytes up to a marker; past it, zeros.
-  void need(int k) {
-    if (n >= k) return;
+  // jpeg_fill_bit_buffer: at least 57 bits, up to a marker; past one,
+  // zeros, and insufficient_data, where nbits are needed and not there.
+  // FF (FF...) 00 is one FF data byte.
+  void fill(int nbits) {
     while (src->unread_marker == 0 && n < 57) {
       int c = src->byte();
       if (c == 0xFF) {
@@ -959,53 +962,93 @@ struct BitReader {
       buf = (buf << 8) | static_cast<uint64_t>(c);
       n += 8;
     }
-    if (n < k) {
-      const int add = 57 - n;
-      buf <<= add;
-      n += add;
-      pad += add;
+    if (src->unread_marker != 0 && nbits > n) {
+      insufficient = true;
+      buf <<= 57 - n;
+      n = 57;
     }
   }
-  uint32_t peek(int k) {
-    need(k);
-    return static_cast<uint32_t>(buf >> (n - k)) & ((1u << k) - 1);
+  int get(int k) {  // CHECK_BIT_BUFFER and GET_BITS
+    if (n < k) fill(k);
+    n -= k;
+    return static_cast<int>(buf >> n) & ((1 << k) - 1);
   }
-  // libjpeg sets insufficient_data when a bit past the marker is consumed.
-  void drop(int k) {
-    if (pad) {  // zeros past a marker are held
-      if (k > n - pad) insufficient = true;
-      n -= k;
-      if (pad > n) pad = n;
-      return;
-    }
-    n -= k;  // need(k) left at least k real bits
-  }
-  int get(int k) {
-    if (k == 0) return 0;
-    int v = static_cast<int>(peek(k));
-    drop(k);
-    return v;
+  // The lookahead, filled first as HUFF_DECODE fills it; -1 where fewer
+  // than kLook bits remain even then.
+  int look() {
+    if (n < kLook) fill(0);
+    return n < kLook ? -1 : static_cast<int>(buf >> (n - kLook)) & ((1 << kLook) - 1);
   }
 
+  // HUFF_DECODE, and jpeg_huff_decode for a code longer than the
+  // lookahead (or where the lookahead is short).
   int huff(const HuffTable& t) {
-    uint32_t look = peek(kLook);
-    uint16_t e = t.lookup[look];
-    if (e) {
-      drop(e >> 8);
-      return e & 0xFF;
-    }
-    // Longer than the lookahead: jpeg_huff_decode's bit-by-bit search.
-    const uint32_t code = peek(16);
-    for (int l = kLook + 1; l <= 16; ++l) {
-      const int32_t c = static_cast<int32_t>(code >> (16 - l));
-      if (c <= t.maxcode[l]) {
-        drop(l);
-        return t.vals[(c + t.valoffset[l]) & 0xFF];
+    const int lk = look();
+    int l = 1;
+    if (lk >= 0) {
+      const int e = t.lookup[lk];
+      l = e >> 8;
+      if (l <= kLook) {
+        n -= l;
+        return e & 0xFF;
       }
     }
-    need(17);
-    drop(17);
-    return 0;  // JWRN_HUFF_BAD_CODE: libjpeg fakes a zero
+    int32_t code = get(l);
+    while (code > t.maxcode[l]) {
+      code = (code << 1) | get(1);
+      ++l;
+    }
+    if (l > 16) return 0;  // JWRN_HUFF_BAD_CODE: libjpeg fakes a zero
+    return t.vals[(code + t.valoffset[l]) & 0xFF];
+  }
+};
+
+// The bit reader of jdhuff.c's decode_mcu_fast (jdhuff.h's GET_BYTE and
+// FILL_BIT_BUFFER_FAST): six bytes at a time once 16 bits or fewer are
+// left, straight from the buffer. Unlike the slow path it takes any FF
+// not followed by 00 for a marker, FF FF 00 too (fill bytes before a
+// stuffed FF, which the slow path reads as one FF): from there it reads
+// zeros, and libjpeg-turbo decodes the MCU again on the slow path.
+struct FastBits {
+  const uint8_t* p;
+  uint64_t buf;
+  int n;
+  bool marker = false;
+
+  void fill() {
+    if (n > 16) return;
+    for (int i = 0; i < 6; ++i) {
+      const int c0 = *p++, c1 = *p;
+      buf = (buf << 8) | static_cast<uint64_t>(c0);
+      n += 8;
+      if (c0 == 0xFF) {
+        ++p;
+        if (c1 != 0) {
+          marker = true;
+          p -= 2;
+          buf &= ~uint64_t{0xFF};
+        }
+      }
+    }
+  }
+  int get(int k) {  // GET_BITS, after a fill
+    n -= k;
+    return static_cast<int>(buf >> n) & ((1 << k) - 1);
+  }
+  int look() const { return static_cast<int>(buf >> (n - kLook)) & ((1 << kLook) - 1); }
+  // HUFF_DECODE_FAST.
+  int huff(const HuffTable& t) {
+    fill();
+    const int e = t.lookup[look()];
+    int l = e >> 8;
+    n -= l;
+    if (l <= kLook) return e & 0xFF;
+    int32_t code = static_cast<int32_t>(buf >> n) & ((1 << l) - 1);
+    while (code > t.maxcode[l]) {
+      code = (code << 1) | get(1);
+      ++l;
+    }
+    return l > 16 ? 0 : t.vals[(code + t.valoffset[l]) & 0xFF];
   }
 };
 
@@ -1258,6 +1301,11 @@ struct Decoder {
         }
       }
       if (found < 0) return kCorrupt;  // JERR_BAD_COMPONENT_ID
+      // libjpeg-turbo's check that this component is not already in the
+      // scan (the slot search alone lets a repeated id through).
+      for (int pi = 0; pi < i; ++pi) {
+        if (idx[pi] == found) return kCorrupt;  // JERR_BAD_COMPONENT_ID
+      }
       idx[i] = found;
       comps[found].dc_tbl = t >> 4;
       comps[found].ac_tbl = t & 15;
@@ -1487,37 +1535,45 @@ struct Decoder {
             if (src.unread_marker == 0) bits.insufficient = false;
           }
         }
+        // jdhuff.c's decode_mcu: the fast path where no restart interval is
+        // set and 512 bytes a block remain before the end of the data;
+        // where it meets what it takes for a marker, the MCU again on the
+        // slow path, over the blocks the fast one wrote (only the slow
+        // path's nonzero ACs overwrite them).
+        if (!progressive && !bits.insufficient && restart_interval == 0 &&
+            src.unread_marker == 0 && src.end - src.p >= 512 * blocks_in_mcu) {
+          FastBits f{src.p, bits.buf, bits.n};
+          int fpred[4] = {pred[0], pred[1], pred[2], pred[3]};
+          for_each_block(ncomp, idx, my, mx, [&](int i, int16_t* blk) {
+            decode_block_fast(f, blk, dct[i], act[i], &fpred[i]);
+            return static_cast<int>(kOk);
+          });
+          if (!f.marker) {
+            src.p = f.p;
+            bits.buf = f.buf;
+            bits.n = f.n;
+            std::copy(fpred, fpred + 4, pred);
+            continue;
+          }
+        }
         // Past the end of the data a sequential scan leaves its blocks zero;
         // a progressive one leaves what earlier scans put there (a DC
         // refinement reads on, its zero bits change nothing).
         if (!bits.insufficient || (progressive && ss == 0 && ah != 0)) {
-          for (int i = 0; i < ncomp; ++i) {
-            Component& c = comps[idx[i]];
-            const int nh = ncomp == 1 ? 1 : c.h, nv = ncomp == 1 ? 1 : c.v;
-            for (int by = 0; by < nv; ++by) {
-              for (int bx = 0; bx < nh; ++bx) {
-                const size_t row =
-                    single_pass ? by : static_cast<size_t>(my) * nv + by;
-                const size_t col = static_cast<size_t>(mx) * nh + bx;
-                int16_t* blk = c.coef.data() + (row * c.bw + col) * 64;
-                int rc = kOk;
-                if (!progressive) {
-                  rc = decode_block(blk, dct[i], act[i], &pred[i]);
-                } else if (ss == 0) {
-                  if (ah == 0) {
-                    rc = decode_dc_first(blk, dct[i], &pred[i]);
-                  } else {
-                    decode_dc_refine(blk);
-                  }
-                } else if (ah == 0) {
-                  decode_ac_first(blk, act[i]);
-                } else {
-                  decode_ac_refine(blk, act[i]);
-                }
-                if (rc != kOk) return rc;
-              }
+          const int rc = for_each_block(ncomp, idx, my, mx, [&](int i, int16_t* blk) {
+            if (!progressive) {
+              decode_block(blk, dct[i], act[i], &pred[i]);
+            } else if (ss == 0) {
+              if (ah == 0) return decode_dc_first(blk, dct[i], &pred[i]);
+              decode_dc_refine(blk);
+            } else if (ah == 0) {
+              decode_ac_first(blk, act[i]);
+            } else {
+              decode_ac_refine(blk, act[i]);
             }
-          }
+            return static_cast<int>(kOk);
+          });
+          if (rc != kOk) return rc;
         }
         if (restart_interval) --restarts_to_go;
       }
@@ -1533,22 +1589,40 @@ struct Decoder {
     return kOk;
   }
 
-  // The next DC difference added to the predictor; false where the sum
-  // would overflow (JERR_BAD_DCT_COEF).
-  bool add_dc(const HuffTable& dc, int* pred) {
-    int s = bits.huff(dc);
-    if (s) s = extend(bits.get(s), s);
-    if ((*pred >= 0 && s > INT_MAX - *pred) ||
-        (*pred < 0 && s < INT_MIN - *pred)) {
-      return false;
-    }
-    *pred += s;
-    return true;
+  // The next DC difference.
+  int dc_diff(const HuffTable& dc) {
+    const int s = bits.huff(dc);
+    return s ? extend(bits.get(s), s) : 0;
   }
 
-  // decode_mcu_DC_first: the DC, scaled by Al.
+  // fn(i, block) on the blocks of MCU (mx, my) of a scan in order, i the
+  // component's place in the scan; stops at the first status fn returns.
+  template <typename Fn>
+  int for_each_block(int ncomp, const int idx[4], int my, int mx, Fn fn) {
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comps[idx[i]];
+      const int nh = ncomp == 1 ? 1 : c.h, nv = ncomp == 1 ? 1 : c.v;
+      for (int by = 0; by < nv; ++by) {
+        for (int bx = 0; bx < nh; ++bx) {
+          const size_t row = single_pass ? by : static_cast<size_t>(my) * nv + by;
+          const size_t col = static_cast<size_t>(mx) * nh + bx;
+          const int rc = fn(i, c.coef.data() + (row * c.bw + col) * 64);
+          if (rc != kOk) return rc;
+        }
+      }
+    }
+    return kOk;
+  }
+
+  // decode_mcu_DC_first: the DC, scaled by Al. Unlike jdhuff.c, jdphuff.c
+  // refuses a predictor that would overflow (JERR_BAD_DCT_COEF).
   int decode_dc_first(int16_t* blk, const HuffTable& dc, int* pred) {
-    if (!add_dc(dc, pred)) return kCorrupt;
+    const int s = dc_diff(dc);
+    if ((*pred >= 0 && s > INT_MAX - *pred) ||
+        (*pred < 0 && s < INT_MIN - *pred)) {
+      return kCorrupt;
+    }
+    *pred += s;
     blk[0] = static_cast<int16_t>(static_cast<uint32_t>(*pred) << al);
     return kOk;
   }
@@ -1626,14 +1700,18 @@ struct Decoder {
     }
   }
 
-  int decode_block(int16_t* blk, const HuffTable& dc, const HuffTable& ac,
-                   int* pred) {
-    if (!add_dc(dc, pred)) return kCorrupt;
+  // decode_mcu_slow's block. The DC predictor wraps where it overflows,
+  // as libjpeg-turbo's does.
+  void decode_block(int16_t* blk, const HuffTable& dc, const HuffTable& ac,
+                    int* pred) {
+    *pred = static_cast<int>(static_cast<uint32_t>(*pred) +
+                             static_cast<uint32_t>(dc_diff(dc)));
     blk[0] = static_cast<int16_t>(*pred);
     for (int k = 1; k < 64; ++k) {
-      const int32_t fast = ac.fast_ac[bits.peek(kLook)];
-      if (fast) {  // code, run and value in one lookup
-        bits.drop(fast & 0xFF);
+      const int lk = bits.look();
+      const int32_t fast = lk >= 0 ? ac.fast_ac[lk] : 0;
+      if (fast) {  // code, run and value in one lookup: no fill between
+        bits.n -= ((fast >> 4) & 15) + (fast & 15);
         k += (fast >> 8) & 0xFF;
         blk[kNatural[k]] = static_cast<int16_t>(fast >> 16);
         continue;
@@ -1649,7 +1727,40 @@ struct Decoder {
         k += 15;
       }
     }
-    return kOk;
+  }
+
+  // decode_mcu_fast's block: the six-byte fills before each code and
+  // before its extra bits.
+  static void decode_block_fast(FastBits& f, int16_t* blk, const HuffTable& dc,
+                                const HuffTable& ac, int* pred) {
+    int s = f.huff(dc);
+    if (s) {
+      f.fill();
+      s = extend(f.get(s), s);
+    }
+    *pred = static_cast<int>(static_cast<uint32_t>(*pred) + static_cast<uint32_t>(s));
+    blk[0] = static_cast<int16_t>(*pred);
+    for (int k = 1; k < 64; ++k) {
+      f.fill();
+      const int32_t fast = ac.fast_ac[f.look()];
+      if (fast && f.n - ((fast >> 4) & 15) > 16) {  // no fill before its bits
+        f.n -= ((fast >> 4) & 15) + (fast & 15);
+        k += (fast >> 8) & 0xFF;
+        blk[kNatural[k]] = static_cast<int16_t>(fast >> 16);
+        continue;
+      }
+      s = f.huff(ac);
+      const int r = s >> 4;
+      s &= 15;
+      if (s) {
+        k += r;
+        f.fill();
+        blk[kNatural[k]] = static_cast<int16_t>(extend(f.get(s), s));
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
   }
 
   // Header: SOI, then markers up to the first SOS.
