@@ -11,11 +11,13 @@
 //   (8- and 16-bit tables, latched per component at its first scan),
 //   SOF0 / SOF1 / SOF2, DHT, DRI, SOS, RSTn, EOI; garbage between markers
 //   skipped;
-// - Huffman decode as jdhuff.c does it: receive/extend, DC predictors reset
-//   at each restart, the restart marker resync of jpeg_resync_to_restart;
-//   past the end of the data (or a marker inside a scan) the bit reader
-//   feeds zeros, and once a block has needed such bits the rest of the
-//   segment is left as zero coefficients (libjpeg's uniform gray);
+// - Huffman decode as jdhuff.c does it: its bit reader byte for byte, its
+//   fast path beside the slow one where libjpeg-turbo takes it (see
+//   FastBits), receive/extend, DC predictors reset at each restart, the
+//   restart marker resync of jpeg_resync_to_restart; past the end of the
+//   data (or a marker inside a scan) the bit reader feeds zeros, and once
+//   a block has needed such bits the rest of the segment is left as zero
+//   coefficients (libjpeg's uniform gray);
 // - progressive decode as jdphuff.c does it: DC first and refine, AC first
 //   with EOB runs and AC refine with correction bits, the scan checks of
 //   start_pass_phuff_decoder; past the end of the data the rest of a
@@ -764,7 +766,7 @@ IdctFn idct_for(int size) {
 
 // ---------------------------------------------------------------------------
 // Huffman tables: the DHT contents, and jpeg_make_d_derived_tbl's decoding
-// tables with a 9-bit lookahead.
+// tables with jdhuff.c's 8-bit lookahead.
 
 struct HuffSpec {
   bool defined = false;
