@@ -6,7 +6,7 @@ arithmetic lane by lane), both built here by ``g++`` from
 
     python3 scripts/jpeg_idct_builds.py    # from the repo root
 
-The input is ``chip_smoke.py`` phase 6's: the committed fixtures (500 x 375
+The input is ``chip_smoke.py`` phase 6's: the six baseline fixtures (500 x 375
 and 375 x 500) tiled, decoded at scale 8/8 and resized to 224 x 224. Each
 round times calls at one thread (256 images) and at the default thread
 count (1024 images), the builds in the order default, scalar, scalar,
@@ -32,6 +32,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from chip_smoke import BASELINE_FIXTURES  # noqa: E402
 from tpucap_torch import _build  # noqa: E402
 
 FIXTURES = ROOT / "tests" / "data" / "torch_jpeg"
@@ -73,7 +74,7 @@ def main() -> int:
                 if line.startswith("model name")), platform.processor())
     print(f"host: {cpu}; os.cpu_count() {os.cpu_count()}; {platform.machine()}", flush=True)
     builds = {"default": _build.build_host("jpeg_decode"), "scalar": scalar_build()}
-    files = sorted(FIXTURES.glob("*.jpg"))
+    files = [FIXTURES / name for name in BASELINE_FIXTURES]
     blobs = [files[i % len(files)].read_bytes() for i in range(1024)]
     cases = {"1 thread, 256 images": (blobs[:256], 1),
              "default threads, 1024 images": (blobs, 0)}

@@ -11,8 +11,8 @@ that reads its files in Python adds); ``decode_jpeg_files``, whose C
 workers read the files. Then ``caption_dataset(fast_scale=False)`` on 1024
 paths with the decoder at 8 (the default), 7 and 6 threads and one or two
 batches in flight, three rounds, captions checked against
-``caption_batch``'s. The inputs are ``chip_smoke.py`` phase 6's: the
-committed fixtures tiled. Prints one line per measurement.
+``caption_batch``'s. The inputs are ``chip_smoke.py`` phase 6's: the six
+baseline fixtures tiled. Prints one line per measurement.
 """
 
 from __future__ import annotations
@@ -68,9 +68,10 @@ def main() -> int:
     _build.build_all()
     _build.build_host("jpeg_decode")
     fixtures = cs.check_jpeg_fixtures()
+    baseline = [fixtures[name] for name in cs.BASELINE_FIXTURES]
     pipe = cs.make_pipeline("bf16")
     pipe.encoder = dataclasses.replace(pipe.encoder, fused_blocks=True)
-    paths = [str(fixtures[i % len(fixtures)]) for i in range(N)]
+    paths = [str(baseline[i % len(baseline)]) for i in range(N)]
     batches = [jpeg.decode_jpeg_files(paths[s : s + BATCH], SIZE, fast_scale=False)
                for s in range(0, N, BATCH)]
     blobs = [Path(p).read_bytes() for p in paths[:BATCH]]
