@@ -155,6 +155,8 @@ FIXTURES = ROOT / "tests" / "data" / "torch_jpeg"
 BASELINE_FIXTURES = ("a_420.jpg", "b_422.jpg", "c_444.jpg", "d_gray.jpg", "e_restart.jpg",
                      "f_optimized.jpg")
 PROGRESSIVE_FIXTURE = "g_progressive.jpg"
+# Arithmetic-coded: SOF9 4:2:0 with restarts, SOF10.
+ARITH_FIXTURES = ("j_arith.jpg", "k_arith_progressive.jpg")
 DATASET_IMAGES = 4 * BATCH
 
 
@@ -1019,7 +1021,11 @@ def check_jpeg_fixtures() -> dict[str, Path]:
     """6b: this machine's build of the decoder against the digests tpucap's
     libjpeg decode recorded (scripts/make_torch_jpeg_fixtures.py), at each
     fixture's own size and at 224, at 8/8 (fast_scale=False) and at
-    tpucap's default fast_scale=True (5/8 for these sizes)."""
+    tpucap's default fast_scale=True (5/8 for these sizes); the CMYK and
+    YCCK fixtures against tpucap's load_image digests, through the port's
+    load_image route (its own decoder: no JPEG reaches PIL), and refused on
+    the RGB route as libjpeg-turbo refuses them."""
+    from tpucap_torch.data.preprocess import load_images
     from tpucap_torch.ops import jpeg
 
     digests = json.loads((FIXTURES / "digests.json").read_text())
@@ -1030,6 +1036,17 @@ def check_jpeg_fixtures() -> dict[str, Path]:
         blob = path.read_bytes()
         if list(jpeg.jpeg_dims(blob)) != want["shape"]:
             raise AssertionError(f"jpeg: {name}: dims {jpeg.jpeg_dims(blob)} != {want['shape']}")
+        if want.get("reference") == "load_image":
+            got = {"native": sha256(jpeg.decode_jpeg(blob, load_image=True)),
+                   str(size): sha256(load_images([path], size=size)[0])}
+            if jpeg.decode_files([path], size)[1][0] != 5:
+                raise AssertionError(f"jpeg: {name}: the RGB route does not refuse it (status 5)")
+            wrong = [k for k, v in got.items() if v != want[k]]
+            if wrong:
+                raise AssertionError(f"jpeg: {name}: load_image route differs from tpucap's "
+                                     f"load_image digests at {wrong}")
+            paths[name] = path
+            continue
         got = {
             "native": sha256(jpeg.decode_jpeg(blob)),
             str(size): sha256(jpeg.decode_jpeg_files([path], size, fast_scale=False)[0]),
@@ -1041,8 +1058,9 @@ def check_jpeg_fixtures() -> dict[str, Path]:
         if wrong:
             raise AssertionError(f"jpeg: {name}: decode differs from libjpeg's digests at {wrong}")
         paths[name] = path
-    log(f"jpeg: {len(paths)} fixtures ({', '.join(paths)}) decode to libjpeg's SHA-256 at their "
-        f"own size and at {size} with fast_scale False (8/8) and True (5/8)")
+    log(f"jpeg: {len(paths)} fixtures ({', '.join(paths)}) decode to their SHA-256 at their "
+        f"own size and at {size}: libjpeg's with fast_scale False (8/8) and True (5/8), "
+        f"load_image's for the CMYK and YCCK ones")
     return paths
 
 
@@ -1072,11 +1090,9 @@ def log_decode_rates(label: str, blobs, size: int) -> None:
 def run_dataset(dev, tokenizer, fixtures: dict[str, Path]) -> None:
     """6c/6d: path A (ResNet-50 with fused blocks, lstm1, beam 3, bf16) from
     DATASET_IMAGES JPEG paths through caption_dataset, at tpucap's default
-    fast_scale=True and at fast_scale=False, each against caption_batch on
-    the same decoded batches."""
-    from tpucap_torch import ops
-    from tpucap_torch.ops import jpeg
-
+    fast_scale=True and at fast_scale=False, then from as many
+    arithmetic-coded paths, each against caption_batch on the same decoded
+    batches."""
     pipe = make_pipeline("bf16", tokenizer)
     pipe.encoder = dataclasses.replace(pipe.encoder, fused_blocks=True)
     size = pipe.encoder.input_size
@@ -1089,49 +1105,66 @@ def run_dataset(dev, tokenizer, fixtures: dict[str, Path]) -> None:
     log_decode_rates("the baseline batch", [Path(p).read_bytes() for p in paths[:BATCH]], size)
     log_decode_rates("a progressive batch (g_progressive.jpg)",
                      [fixtures[PROGRESSIVE_FIXTURE].read_bytes()] * BATCH, size)
+    for name in ARITH_FIXTURES:
+        log_decode_rates(f"an arithmetic batch ({name})", [fixtures[name].read_bytes()] * BATCH,
+                         size)
 
     for fast_scale in (True, False):
-        label = f"fast_scale={fast_scale}"
-        t0 = time.perf_counter()
-        batches = [jpeg.decode_jpeg_files(paths[s : s + BATCH], size, fast_scale=fast_scale)
-                   for s in range(0, DATASET_IMAGES, BATCH)]
-        decode_s = time.perf_counter() - t0
-        pipe.caption_batch(batches[0])  # warm-up: cuDNN plans, allocator
+        dataset_against_batches(pipe, paths, f"fast_scale={fast_scale}", fast_scale)
+    arith = [str(fixtures[ARITH_FIXTURES[i % 2]]) for i in range(DATASET_IMAGES)]
+    log(f"dataset: {DATASET_IMAGES} arithmetic-coded paths ({' and '.join(ARITH_FIXTURES)} "
+        f"alternately) -> {size}")
+    dataset_against_batches(pipe, arith, "arithmetic, fast_scale=True", True)
 
-        kwargs = {} if fast_scale else {"fast_scale": False}  # True is the default
-        ops.reset_launch_counts()
-        caps, dataset_s = timed(lambda: pipe.caption_dataset(paths, batch_size=BATCH, **kwargs))
-        counts = ops.launch_counts()
 
-        ops.reset_launch_counts()
-        want, batch_s = timed(lambda: [c for b in batches for c in pipe.caption_batch(b)])
-        want_counts = ops.launch_counts()
+def dataset_against_batches(pipe, paths, label: str, fast_scale: bool) -> None:
+    """caption_dataset(paths) against caption_batch on the same decoded
+    batches: captions equal, K1 1, K2 and K3 a step each, K4 12 a batch."""
+    from tpucap_torch import ops
+    from tpucap_torch.ops import jpeg
 
-        if caps != want:
-            same = sum(a == b for a, b in zip(caps, want))
-            raise AssertionError(f"dataset {label}: caption_dataset agrees with caption_batch on "
-                                 f"{same} of {len(want)} captions")
-        steps = counts["lstm_cell"]
-        expect = {name: 0 for name in counts}
-        expect.update(preprocess_u8=n_batches, identity_block=12 * n_batches,
-                      lstm_cell=steps, merge_head=steps, vocab_proj=steps)
-        if (counts != expect or counts != want_counts
-                or not n_batches <= steps <= MAX_LEN * n_batches):
-            raise AssertionError(f"dataset {label}: launch counts {counts} (caption_batch's "
-                                 f"{want_counts}), expected {expect}")
-        hidden = (decode_s + batch_s - dataset_s) / decode_s
-        log(f"dataset {label}: launches over {n_batches} batches {counts}: K1 "
-            f"{counts['preprocess_u8'] / n_batches:g}, K2 {steps / n_batches:g}, K3 "
-            f"{counts['merge_head'] / n_batches:g} + {counts['vocab_proj'] / n_batches:g}, K4 "
-            f"{counts['identity_block'] / n_batches:g} a batch")
-        log(f"dataset {label}: caption_dataset {dataset_s:.5f} s, {DATASET_IMAGES / dataset_s:.2f} "
-            f"captions/s; caption_batch on decoded batches {batch_s:.5f} s, "
-            f"{DATASET_IMAGES / batch_s:.2f} captions/s; host decode alone {decode_s:.5f} s")
-        log(f"dataset {label}: the overlap hides {100 * hidden:.1f} % of the decode time "
-            f"((decode + caption_batch - caption_dataset) / decode); captions identical to "
-            f"caption_batch")
-        for c in caps[:2]:
-            log(f"dataset {label}: caption: {c!r}")
+    size = pipe.encoder.input_size
+    n_batches = len(paths) // BATCH
+    t0 = time.perf_counter()
+    batches = [jpeg.decode_jpeg_files(paths[s : s + BATCH], size, fast_scale=fast_scale)
+               for s in range(0, len(paths), BATCH)]
+    decode_s = time.perf_counter() - t0
+    pipe.caption_batch(batches[0])  # warm-up: cuDNN plans, allocator
+
+    kwargs = {} if fast_scale else {"fast_scale": False}  # True is the default
+    ops.reset_launch_counts()
+    caps, dataset_s = timed(lambda: pipe.caption_dataset(paths, batch_size=BATCH, **kwargs))
+    counts = ops.launch_counts()
+
+    ops.reset_launch_counts()
+    want, batch_s = timed(lambda: [c for b in batches for c in pipe.caption_batch(b)])
+    want_counts = ops.launch_counts()
+
+    if caps != want:
+        same = sum(a == b for a, b in zip(caps, want))
+        raise AssertionError(f"dataset {label}: caption_dataset agrees with caption_batch on "
+                             f"{same} of {len(want)} captions")
+    steps = counts["lstm_cell"]
+    expect = {name: 0 for name in counts}
+    expect.update(preprocess_u8=n_batches, identity_block=12 * n_batches,
+                  lstm_cell=steps, merge_head=steps, vocab_proj=steps)
+    if (counts != expect or counts != want_counts
+            or not n_batches <= steps <= MAX_LEN * n_batches):
+        raise AssertionError(f"dataset {label}: launch counts {counts} (caption_batch's "
+                             f"{want_counts}), expected {expect}")
+    hidden = (decode_s + batch_s - dataset_s) / decode_s
+    log(f"dataset {label}: launches over {n_batches} batches {counts}: K1 "
+        f"{counts['preprocess_u8'] / n_batches:g}, K2 {steps / n_batches:g}, K3 "
+        f"{counts['merge_head'] / n_batches:g} + {counts['vocab_proj'] / n_batches:g}, K4 "
+        f"{counts['identity_block'] / n_batches:g} a batch")
+    log(f"dataset {label}: caption_dataset {dataset_s:.5f} s, {len(paths) / dataset_s:.2f} "
+        f"captions/s; caption_batch on decoded batches {batch_s:.5f} s, "
+        f"{len(paths) / batch_s:.2f} captions/s; host decode alone {decode_s:.5f} s")
+    log(f"dataset {label}: the overlap hides {100 * hidden:.1f} % of the decode time "
+        f"((decode + caption_batch - caption_dataset) / decode); captions identical to "
+        f"caption_batch")
+    for c in caps[:2]:
+        log(f"dataset {label}: caption: {c!r}")
 
 
 def main() -> int:

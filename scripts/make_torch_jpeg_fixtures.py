@@ -12,14 +12,19 @@ into ``tests/data/torch_jpeg/``:
   texture: 4:2:0, 4:2:2, 4:4:4, gray, one with restart markers, one with
   optimized Huffman tables; then a progressive 4:2:0 one (PIL), and a
   4:1:1 and a 4:4:0 one, which only libjpeg writes (its compressor is
-  built here with ``gcc -ljpeg``);
+  built here with ``gcc -ljpeg``); then from that compressor an
+  arithmetic-coded 4:2:0 one with restarts (SOF9), an arithmetic
+  progressive one (SOF10), an Adobe CMYK one and a YCCK one;
 - ``digests.json``: for each, the SHA-256 of tpucap's decode at its own
   size, and at 224 x 224 (nearest resize) with ``fast_scale=False`` (8/8)
-  and with tpucap's default ``fast_scale=True`` (5/8 for these sizes).
+  and with tpucap's default ``fast_scale=True`` (5/8 for these sizes). The
+  CMYK and YCCK files, which tpucap's decoder refuses as libjpeg-turbo
+  refuses them out as RGB, have ``"reference": "load_image"``: the digests
+  of tpucap's ``load_image`` (PIL) at their own size and at 224.
 
 ``chip_smoke.py`` phase 6 holds the card machine's build of the port's
 decoder against these digests (that machine has no libjpeg, and the port
-imports no PIL);
+reads no JPEG through PIL);
 ``tests/test_torch_jpeg.py`` checks that the port and tpucap both still give
 them.
 """
@@ -59,13 +64,20 @@ FIXTURES = {
     "g_progressive.jpg": (375, 500, "RGB", dict(quality=90, subsampling=2, progressive=True)),
     "h_411.jpg": (375, 500, "libjpeg", dict(quality=85, sampling="4x1,1x1,1x1")),
     "i_440.jpg": (500, 375, "libjpeg", dict(quality=85, sampling="1x2,1x1,1x1")),
+    "j_arith.jpg": (375, 500, "libjpeg", dict(quality=85, arith=True, restart=4)),
+    "k_arith_progressive.jpg": (500, 375, "libjpeg", dict(quality=90, arith=True, scans="1")),
+    "l_cmyk.jpg": (375, 500, "cmyk", dict(quality=90, sampling="1x1,1x1,1x1,1x1", color="cmyk")),
+    "m_ycck.jpg": (500, 375, "cmyk", dict(quality=90, sampling="2x2,1x1,1x1,2x2", color="ycck")),
 }
 # A libjpeg compressor for what PIL cannot write: any integral sampling
-# factors, RGB-coded files, scan scripts, arithmetic coding.
-# argv: raw in, jpeg out, width, height, components (1 or 3), quality,
-# sampling "HxV,HxV,HxV", color ("ycc", "rgb"), scans ("0" sequential,
-# "1" jpeg_simple_progression, else a script "c,c/Ss/Se/Ah/Al;..."),
-# restart interval in MCUs, arithmetic (0/1), optimized tables (0/1).
+# factors, RGB-coded files, CMYK and YCCK files (with libjpeg's Adobe
+# marker), scan scripts, arithmetic coding with its DAC conditioning.
+# argv: raw in, jpeg out, width, height, components (1, 3, or 4 for CMYK
+# input), quality, sampling "HxV,HxV,...", color ("ycc", "rgb", "cmyk",
+# "ycck"), scans ("0" sequential, "1" jpeg_simple_progression, else a
+# script "c,c/Ss/Se/Ah/Al;..."), restart interval in MCUs, arithmetic
+# (0/1), optimized tables (0/1), and every arithmetic table's DC L, DC U
+# and AC Kx.
 COMPRESS_C = r"""
 #include <stdio.h>
 #include <stdlib.h>
@@ -73,7 +85,7 @@ COMPRESS_C = r"""
 #include <jpeglib.h>
 
 int main(int argc, char **argv) {
-  if (argc != 13) return 2;
+  if (argc != 16) return 2;
   int w = atoi(argv[3]), h = atoi(argv[4]), nc = atoi(argv[5]);
   size_t n = (size_t)w * h * nc;
   unsigned char *px = malloc(n);
@@ -89,9 +101,11 @@ int main(int argc, char **argv) {
   c.image_width = w;
   c.image_height = h;
   c.input_components = nc;
-  c.in_color_space = nc == 1 ? JCS_GRAYSCALE : JCS_RGB;
+  c.in_color_space = nc == 1 ? JCS_GRAYSCALE : (nc == 4 ? JCS_CMYK : JCS_RGB);
   jpeg_set_defaults(&c);
   if (!strcmp(argv[8], "rgb")) jpeg_set_colorspace(&c, JCS_RGB);
+  if (!strcmp(argv[8], "cmyk")) jpeg_set_colorspace(&c, JCS_CMYK);
+  if (!strcmp(argv[8], "ycck")) jpeg_set_colorspace(&c, JCS_YCCK);
   jpeg_set_quality(&c, atoi(argv[6]), TRUE);
   const char *sp = argv[7];
   for (int i = 0; i < c.num_components && *sp; i++) {
@@ -105,6 +119,11 @@ int main(int argc, char **argv) {
   c.restart_interval = atoi(argv[10]);
   c.arith_code = atoi(argv[11]);
   c.optimize_coding = atoi(argv[12]);
+  for (int i = 0; i < NUM_ARITH_TBLS; i++) {
+    c.arith_dc_L[i] = (UINT8)atoi(argv[13]);
+    c.arith_dc_U[i] = (UINT8)atoi(argv[14]);
+    c.arith_ac_K[i] = (UINT8)atoi(argv[15]);
+  }
   const char *scans = argv[9];
   static jpeg_scan_info script[64];
   if (!strcmp(scans, "1")) {
@@ -146,7 +165,9 @@ int main(int argc, char **argv) {
 def libjpeg_compressor(workdir: Path):
     """Builds COMPRESS_C in workdir; returns compress(image, quality=85,
     sampling="2x2,1x1,1x1", color="ycc", scans="0", restart=0,
-    arith=False, optimize=False) -> JPEG bytes."""
+    arith=False, optimize=False, dac=(0, 1, 5)) -> JPEG bytes; an image
+    of four channels is CMYK input. ``dac`` is (L, U, Kx) for every
+    arithmetic table."""
     src, exe = workdir / "compress.c", workdir / "compress"
     src.write_text(COMPRESS_C)
     subprocess.run(["gcc", "-O2", "-o", str(exe), str(src), "-ljpeg"], check=True,
@@ -154,7 +175,7 @@ def libjpeg_compressor(workdir: Path):
     count = [0]
 
     def compress(img, quality=85, sampling="2x2,1x1,1x1", color="ycc", scans="0", restart=0,
-                 arith=False, optimize=False):
+                 arith=False, optimize=False, dac=(0, 1, 5)):
         img = np.ascontiguousarray(img, np.uint8)
         h, w = img.shape[:2]
         nc = 1 if img.ndim == 2 else img.shape[2]
@@ -162,7 +183,7 @@ def libjpeg_compressor(workdir: Path):
         raw, out = workdir / f"{count[0]}.raw", workdir / f"{count[0]}.jpg"
         raw.write_bytes(img.tobytes())
         args = [raw, out, w, h, nc, quality, sampling, color, scans, restart, int(arith),
-                int(optimize)]
+                int(optimize), *dac]
         subprocess.run([str(exe), *map(str, args)], check=True, capture_output=True)
         return out.read_bytes()
 
@@ -211,9 +232,20 @@ def sha256(a: np.ndarray) -> str:
 
 
 def reference_digests(blob: bytes) -> dict:
-    """The digests.json entry of one JPEG, from tpucap's decoder."""
+    """The digests.json entry of one JPEG, from tpucap's decoder; of a CMYK
+    or YCCK one, from tpucap's ``load_image``."""
     with Image.open(io.BytesIO(blob)) as im:
         w, h = im.size
+        cmyk = im.mode == "CMYK"
+    if cmyk:
+        from tpucap.data.preprocess import load_image
+
+        return {
+            "shape": [h, w],
+            "reference": "load_image",
+            "native": sha256(load_image(io.BytesIO(blob)).astype(np.uint8)),
+            str(SIZE): sha256(load_image(io.BytesIO(blob), (SIZE, SIZE)).astype(np.uint8)),
+        }
     return {
         "shape": [h, w],
         "native": sha256(tpucap_native(blob, h, w)),
@@ -230,7 +262,8 @@ def main() -> None:
     digests = {
         "reference": "tpucap.ops.jpeg.decode_jpeg_batch (libjpeg-turbo): "
         "'native' at the image's own size, '<size>' with fast_scale=False, "
-        "'<size>_fast' with fast_scale=True",
+        "'<size>_fast' with fast_scale=True; where 'reference' is 'load_image', "
+        "tpucap.data.preprocess.load_image (PIL) at the image's own size and at <size>",
         "size": SIZE,
         "files": {},
     }
@@ -240,6 +273,9 @@ def main() -> None:
     for seed, (name, (h, w, mode, opts)) in enumerate(FIXTURES.items()):
         if mode == "libjpeg":
             blob = compress(content(h, w, seed), **opts)
+        elif mode == "cmyk":
+            ink = np.concatenate([content(h, w, seed), content(h, w, seed + 1)[..., :1]], -1)
+            blob = compress(ink, **opts)
         else:
             im = Image.fromarray(content(h, w, seed))
             if mode == "L":

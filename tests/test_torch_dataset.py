@@ -198,3 +198,177 @@ def test_caption_images_takes_progressive_and_rgb_coded_files(pipelines, tmp_pat
     got = pipe.extract_features(paths, batch_size=3)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
     assert pipe.caption_images(paths, method="beam") == jpipe.caption_images(paths, method="beam")
+
+
+# The load_image route (extract_features, caption_images) on every kind of
+# file tpucap's load_image opens through PIL: CMYK JPEGs with and without
+# the Adobe marker, YCCK, arithmetic-coded, and PNG, BMP and GIF files.
+OTHER_KINDS = ["cmyk_adobe", "cmyk_plain", "ycck", "cmyk_progressive", "arith", "png_rgb",
+               "png_rgba", "png_palette", "png_gray", "bmp", "gif"]
+
+
+@pytest.fixture(scope="module")
+def other_paths(tmp_path_factory):
+    """{kind: path}, 70 x 90 (wider than tall) and 90 x 70 alternately."""
+    from test_torch_jpeg import fixtures_script
+
+    d = tmp_path_factory.mktemp("other")
+    compress = fixtures_script.libjpeg_compressor(d)
+    rng = np.random.default_rng(31)
+    paths = {}
+    for i, kind in enumerate(OTHER_KINDS):
+        h, w = (70, 90) if i % 2 else (90, 70)
+        rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        ink = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+        path = d / f"{kind}.{kind.split('_')[0] if kind[:3] in ('png', 'bmp', 'gif') else 'jpg'}"
+        if kind in ("cmyk_adobe", "cmyk_plain"):
+            blob = compress(ink, 90, "1x1,1x1,1x1,1x1", color="cmyk")
+            if kind == "cmyk_plain":
+                i0 = blob.index(b"\xff\xee")
+                blob = blob[:i0] + blob[i0 + 2 + int.from_bytes(blob[i0 + 2 : i0 + 4], "big"):]
+                assert b"Adobe" not in blob
+            path.write_bytes(blob)
+        elif kind == "ycck":
+            path.write_bytes(compress(ink, 90, "2x2,1x1,1x1,2x2", color="ycck"))
+        elif kind == "cmyk_progressive":
+            path.write_bytes(compress(ink, 85, "2x1,1x1,1x1,1x1", color="cmyk", scans="1", arith=True))
+        elif kind == "arith":
+            path.write_bytes(compress(rgb, 85, "2x2,1x1,1x1", arith=True, restart=2))
+        elif kind == "png_rgba":
+            Image.fromarray(ink, "RGBA").save(path)
+        elif kind == "png_palette":
+            Image.fromarray(rgb).quantize(64).save(path)
+        elif kind == "png_gray":
+            Image.fromarray(rgb[..., 0]).save(path)
+        else:
+            Image.fromarray(rgb).save(path)
+        paths[kind] = str(path)
+    return paths
+
+
+@pytest.mark.parametrize("kind", OTHER_KINDS)
+def test_load_images_give_tpucaps_load_image_bytes(other_paths, kind):
+    """The port's load_images against tpucap's load_image (PIL), uint8 equal:
+    at 64 (down) and 96 (up), and at 63 and 75, where Pillow's NEAREST,
+    summing its steps in double, takes another row or column than tpucap's
+    C resize (floor((i + 0.5) * src / dst)) for both 70 and 90."""
+    from tpucap.data.preprocess import load_image
+    from tpucap_torch.data.preprocess import load_images
+
+    def c_resize(dst, src):
+        return [min(int((i + 0.5) * (src / dst)), src - 1) for i in range(dst)]
+
+    def pil_resize(dst, src):
+        step, out = src / dst, []
+        x = step * 0.5
+        for _ in range(dst):
+            out.append(min(int(x), src - 1))
+            x += step
+        return out
+
+    for size in (63, 75):
+        assert all(c_resize(size, src) != pil_resize(size, src) for src in (70, 90))
+    path = other_paths[kind]
+    for size in (64, 96, 63, 75):
+        want = load_image(path, (size, size)).astype(np.uint8)
+        np.testing.assert_array_equal(load_images([path], size=size)[0], want,
+                                      err_msg=f"{kind} -> {size}")
+
+
+def test_extract_features_and_caption_images_take_every_format(pipelines, other_paths,  # noqa: F811
+                                                               jpeg_paths):
+    """One call over all the kinds and two baseline JPEGs, in batches of 4
+    (the JPEGs decoded in one C call, the rest through PIL, the rows put
+    back in order): tpucap's features within the encoder tolerance, its
+    captions token for token."""
+    jpipe, pipe = pipelines
+    paths = [*other_paths.values(), *jpeg_paths[:2]]
+    want = np.asarray(jpipe.extract_features(paths, batch_size=4))
+    got = pipe.extract_features(paths, batch_size=4)
+    assert got.shape == want.shape == (len(paths), 2048)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+    assert pipe.caption_images(paths, method="beam") == jpipe.caption_images(paths, method="beam")
+
+
+def test_caption_dataset_still_refuses_cmyk(pipelines, other_paths, jpeg_paths):  # noqa: F811
+    """caption_dataset's decoder converts to RGB, which libjpeg-turbo does not
+    do from CMYK or YCCK: tpucap refuses them, and so does the port."""
+    jpipe, pipe = pipelines
+    for kind in ("cmyk_adobe", "ycck"):
+        paths = [jpeg_paths[0], other_paths[kind]]
+        with pytest.raises(ValueError):
+            jpipe.caption_dataset(paths, batch_size=2)
+        with pytest.raises(ValueError, match=f"{kind}.jpg: color space"):
+            pipe.caption_dataset(paths, batch_size=2)
+
+
+def test_refused_jpegs_never_reach_pil(other_paths, jpeg_paths, tmp_path, monkeypatch):
+    """A file that starts with a JPEG SOI is the port decoder's alone: one it
+    refuses raises naming the file and why, with PIL never asked. Without
+    PIL, a JPEG still decodes and any other file raises ImportError naming
+    PIL, as tpucap's load_image would."""
+    from tpucap_torch.data import preprocess
+
+    def no_pil(path, size):
+        raise AssertionError(f"{path} reached PIL")
+
+    twelve = tmp_path / "twelve.jpg"
+    blob = open(jpeg_paths[0], "rb").read()
+    sof = blob.index(b"\xff\xc0")
+    twelve.write_bytes(blob[: sof + 4] + bytes([12]) + blob[sof + 5 :])
+    cut = tmp_path / "cut.jpg"
+    cut.write_bytes(b"\xff\xd8\xff\xdb")
+    monkeypatch.setattr(preprocess, "pil_load", no_pil)
+    with pytest.raises(ValueError, match=r"twelve.jpg: sample precision.*cut.jpg: corrupt"):
+        preprocess.load_images([jpeg_paths[0], str(twelve), other_paths["ycck"], str(cut)], size=32)
+    monkeypatch.undo()
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    jpegs = preprocess.load_images([jpeg_paths[0], other_paths["cmyk_adobe"]], size=32)
+    assert jpegs.shape == (2, 32, 32, 3)
+    with pytest.raises(ImportError, match="PIL"):
+        preprocess.load_images([jpeg_paths[0], other_paths["png_rgb"]], size=32)
+
+
+def test_cut_and_corrupt_jpegs_follow_load_image(other_paths, jpeg_paths, tmp_path):
+    """96 cut or corrupted mutants of baseline, progressive, arithmetic and
+    CMYK / YCCK files on the load_image route. PIL's source suspends where
+    libjpeg's would feed a fake EOI, and load_image raises "image file is
+    truncated" (or, for arithmetic data, "broken data stream") unless every
+    row was out by then; corrupt data only warns. The port refuses the same
+    files and gives the same bytes for the rest; a single-scan file whose
+    EOI is missing after another marker decodes in both."""
+    from tpucap.data.preprocess import load_image
+    from tpucap_torch.data.preprocess import load_images
+
+    rng = np.random.default_rng(37)
+    bases = [open(p, "rb").read() for p in
+             [jpeg_paths[0], other_paths["arith"], other_paths["ycck"],
+              other_paths["cmyk_progressive"]]]
+    baseline = bases[0]
+    mutants = [baseline[:-2] + b"\xff\xfe\x00\x04ab", baseline[:-2] + b"\xff\xd3"]
+    for trial in range(96):
+        blob = bytearray(bases[trial % len(bases)])
+        sos = bytes(blob).index(b"\xff\xda")
+        if trial % 3 == 0:
+            blob = blob[: rng.integers(sos, len(blob))]
+        elif trial % 3 == 1:
+            blob = blob[: len(blob) - rng.integers(1, 4)]
+        else:
+            for _ in range(rng.integers(1, 4)):
+                blob[rng.integers(sos + 10, len(blob) - 2)] = rng.integers(0, 256)
+        mutants.append(bytes(blob))
+    decoded = refused = 0
+    for k, blob in enumerate(mutants):
+        path = tmp_path / f"m{k}.jpg"
+        path.write_bytes(blob)
+        size = [16, 33, 64][k % 3]
+        try:
+            want = load_image(str(path), (size, size)).astype(np.uint8)
+        except OSError:
+            with pytest.raises(ValueError, match=f"m{k}.jpg: (truncated|corrupt)"):
+                load_images([path], size=size)
+            refused += 1
+            continue
+        np.testing.assert_array_equal(load_images([path], size=size)[0], want, err_msg=f"m{k}")
+        decoded += 1
+    assert decoded > 25 and refused > 25

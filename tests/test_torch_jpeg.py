@@ -432,13 +432,24 @@ def test_out_of_scope_images_raise_value_error_naming_them(tmp_path):
 def test_committed_fixtures_decode_to_their_digests(name):
     """The digests chip_smoke.py holds the card's build against, at 8/8 and
     at tpucap's default fast_scale (5/8): the port gives them, and tpucap
-    still does (so the file cannot go stale)."""
+    still does (so the file cannot go stale). The CMYK and YCCK files hold
+    tpucap's load_image digests, which the port's load_image route gives;
+    the decoder's RGB route refuses them, as tpucap's does."""
+    from tpucap_torch.data.preprocess import load_images
+
     digests = json.loads((FIXTURES / "digests.json").read_text())
     want = digests["files"][name]
     blob = (FIXTURES / name).read_bytes()
     size = digests["size"]
     assert fixtures_script.reference_digests(blob) == want
     assert list(jpeg.jpeg_dims(blob)) == want["shape"]
+    if want.get("reference") == "load_image":
+        assert fixtures_script.sha256(jpeg.decode_jpeg(blob, load_image=True)) == want["native"]
+        got = load_images([FIXTURES / name], size=size)[0]
+        assert fixtures_script.sha256(got) == want[str(size)]
+        with pytest.raises(ValueError, match="color space"):
+            jpeg.decode_jpeg_files([FIXTURES / name], size)
+        return
     assert fixtures_script.sha256(jpeg.decode_jpeg(blob)) == want["native"]
     got = jpeg.decode_jpeg_files([FIXTURES / name], size, fast_scale=False)[0]
     assert fixtures_script.sha256(got) == want[str(size)]

@@ -9,8 +9,8 @@
 //
 // - markers as jdmarker.c reads them: SOI, APPn / COM / DNL (skipped), DQT
 //   (8- and 16-bit tables, latched per component at its first scan),
-//   SOF0 / SOF1 / SOF2, DHT, DRI, SOS, RSTn, EOI; garbage between markers
-//   skipped;
+//   SOF0 / SOF1 / SOF2 / SOF9 / SOF10, DHT, DAC, DRI, SOS, RSTn, EOI;
+//   garbage between markers skipped;
 // - Huffman decode as jdhuff.c does it: its bit reader byte for byte, its
 //   fast path beside the slow one where libjpeg-turbo takes it (see
 //   FastBits), receive/extend, DC predictors reset at each restart, the
@@ -24,6 +24,12 @@
 //   segment keeps what earlier scans left; then jdcoefct.c's block
 //   smoothing where low coefficients are left inexact (a file cut between
 //   scans);
+// - arithmetic decode (SOF9 sequential, SOF10 progressive) as jdarith.c
+//   does it: the coder of T.81 Annex D with jaricom.c's Qe table, the
+//   statistics bins zeroed at each scan and each restart, DAC's
+//   conditioning (L, U, Kx); a marker inside the data is legal and zeros
+//   are fed after it; a bad code leaves the rest of the scan (up to the
+//   next restart) as earlier scans left it;
 // - jpeg_calc_output_dimensions at scale n / 8: luma IDCT'd to n x n a
 //   block, a subsampled component to 2n (or 4n) while its ratios allow, so
 //   4:2:0 chroma below 8/8 needs no upsampling; the IDCT of each size as
@@ -35,18 +41,24 @@
 //   repeat the edge rows), replication (int_upsample) for other integral
 //   ratios, where downsampled_width <= 2, and at 1/8;
 // - jdcolor.c's fixed-point YCbCr -> RGB tables (SCALEBITS 16, ONE_HALF
-//   rounding, range limit); RGB-coded samples copied; gray replicated.
-//
+//   rounding, range limit); RGB-coded samples copied; gray replicated;
+// - with kLoadImage (the bytes of tpucap's load_image, which calls PIL):
+//   CMYK and YCCK files out as JCS_CMYK (ycck_cmyk_convert for YCCK), then
+//   what Pillow does with them: the inverted raw mode CMYK;I and its
+//   integer CMYK -> RGB conversion (cmyk2rgb); Pillow's NEAREST resize
+//   (see pil_nearest); and PIL's refusal of a file whose data ends before
+//   its last row is out (kTruncated).
+
 // libjpeg-turbo's SIMD fancy upsampling and color conversion are bit-exact
 // with its C code. Its SIMD IDCTs are too wherever the values stay in 16
 // bits (every valid JPEG); the IDCTs here follow the SIMD build past that,
 // on corrupt data, since that build is the one tpucap loads.
 //
-// Scope: Huffman JPEG, baseline or progressive, 8-bit, gray, YCbCr or RGB,
-// any sampling factors with integral ratios. Anything else returns its own
-// status code (see Status), never an approximation: arithmetic coding,
-// which libjpeg-turbo decodes, is not here yet; 12-bit, CMYK / YCCK,
-// lossless and hierarchical JPEGs libjpeg-turbo 2.1 refuses too.
+// Scope: Huffman or arithmetic JPEG, sequential or progressive, 8-bit,
+// gray, YCbCr or RGB (and CMYK / YCCK with kLoadImage), any sampling factors
+// with integral ratios. Anything else returns its own status code (see
+// Status), never an approximation: 12-bit, lossless and hierarchical JPEGs,
+// and CMYK / YCCK out as RGB, libjpeg-turbo 2.1 refuses too.
 //
 // Memory: an image's samples (its component planes, 1.5 bytes a pixel at
 // 4:2:0, 3 at 4:4:4, less below 8/8), and the coefficients of one MCU row
@@ -83,17 +95,22 @@ enum Status {
   kOk = 0,
   kCorrupt = 1,           // malformed data that libjpeg rejects too
   kNotJpeg = 2,           // no SOI marker at the start
-  kProcess = 3,           // arithmetic (not yet), lossless, hierarchical
+  kProcess = 3,           // lossless, hierarchical
   kPrecision = 4,         // sample precision other than 8 bits
-  kColorSpace = 5,        // CMYK, YCCK, two components
+  kColorSpace = 5,        // two components; CMYK, YCCK without kLoadImage
   kSampling = 6,          // no integral upsampling ratio
   kUnreadable = 8,        // the file cannot be opened or read
   kTooBig = 9,            // a side above 65500 (libjpeg's JERR_IMAGE_TOO_BIG)
   kNoMemory = 10,         // the host could not allocate the image's planes
+  kTruncated = 11,        // kLoadImage: data past the end (PIL's OSError)
 };
 
 // jmorecfg.h JPEG_MAX_DIMENSION.
 constexpr int kMaxDimension = 65500;
+
+// The flags of the C entry points.
+constexpr int kFastScale = 1;  // tpucap's scale search (fast_scale=True)
+constexpr int kLoadImage = 2;  // load_image's bytes: PIL's CMYK and resize
 
 // Zig-zag index -> natural index, with libjpeg's 16 extra entries of 63 that
 // absorb a run past the end of a block in corrupt data (jutils.c).
@@ -914,9 +931,11 @@ struct Source {
   const uint8_t* end;
   int fake = 0;
   int unread_marker = 0;
+  long past_end = 0;  // reads past the end of the data
 
   int byte() {
     if (p < end) return *p++;
+    ++past_end;
     fake ^= 1;  // jpeg_mem_src inserts FF D9 each time the data runs out
     return fake ? 0xFF : 0xD9;
   }
@@ -1059,6 +1078,102 @@ inline int extend(int x, int s) {
 }
 
 // ---------------------------------------------------------------------------
+// jdarith.c's arithmetic decoder.
+
+// jaricom.c's jpeg_aritab, T.81 Table D.2: (Qe_Value << 16) |
+// (Next_Index_MPS << 8) | (Switch_MPS << 7) | Next_Index_LPS; the last
+// entry is the fixed probability 0.5 of T.851.
+const uint32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+// arith_decode: the C and A registers and the bit counter ct (-16 before
+// the two bytes that start a segment, -1 after a bad code). Bytes come
+// from the source as get_byte reads them; after a marker, zeros.
+struct ArithCoder {
+  Source* src;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+
+  void reset() {
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+
+  // One binary decision with statistics bin *st (sections D.2.4-D.2.6).
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data = 0;
+        if (src->unread_marker == 0) {
+          data = src->byte();
+          if (data == 0xFF) {
+            do data = src->byte(); while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;  // a stuffed zero
+            } else {
+              src->unread_marker = data;  // legal here: zeros from now on
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the first two bytes
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);  // Switch_MPS, Next_Index_LPS
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);  // Next_Index_MPS
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      // Conditional LPS exchange.
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      // Conditional MPS exchange.
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+// ---------------------------------------------------------------------------
 // The decoder.
 
 // jdsample.c's method for one direction of a component.
@@ -1092,6 +1207,7 @@ struct Component {
 struct Decoder {
   Source src;
   BitReader bits;
+  ArithCoder arith;
   uint16_t qtables[4][64];
   bool qdefined[4] = {false, false, false, false};
   HuffSpec dc_spec[4], ac_spec[4];
@@ -1099,14 +1215,24 @@ struct Decoder {
   bool saw_sof = false, saw_jfif = false, saw_adobe = false;
   int adobe_transform = 0;
   bool rgb = false;  // jpeg_color_space JCS_RGB: three components, no transform
+  bool pil = false;       // kLoadImage: four components admitted
+  bool ycck = false;      // jpeg_color_space JCS_YCCK (else CMYK) of four
   int width = 0, height = 0, max_h = 1, max_v = 1;
   int scale = 8;               // scale_num / 8, the luma IDCT's side
   int out_w = 0, out_h = 0;    // output_width / height at that scale
   std::vector<Component> comps;
-  bool progressive = false;    // SOF2
+  bool progressive = false;    // SOF2, SOF10
+  bool arithmetic = false;     // SOF9, SOF10
+  // get_dac's conditioning of each arithmetic table (get_soi's defaults),
+  // and jdarith.c's statistics bins.
+  uint8_t dac_l[16], dac_u[16], dac_k[16];
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed_bin = 113;
+  int dc_context[4] = {0, 0, 0, 0};
   int ss = 0, se = 63, ah = 0, al = 0;  // the scan's spectral selection
   int scans = 0;               // SOS markers read (input_scan_number)
   bool single_pass = false;  // the first scan holds every component
+  long scan_past_end = 0;    // src.past_end when a single-pass scan ended
   unsigned eobrun = 0;       // jdphuff.c's EOBRUN
   int last_good_imcu = 0;    // master->last_good_iMCU_row
 
@@ -1114,6 +1240,10 @@ struct Decoder {
     src.p = data;
     src.end = data + size;
     bits.src = &src;
+    arith.src = &src;
+    std::fill(dac_l, dac_l + 16, 0);
+    std::fill(dac_u, dac_u + 16, 1);
+    std::fill(dac_k, dac_k + 16, 5);
   }
 
   // Two bytes, big-endian, as INPUT_2BYTES reads them.
@@ -1132,6 +1262,7 @@ struct Decoder {
     }
     src.p = src.end;
     src.fake ^= static_cast<int>((n - have) & 1);
+    src.past_end += n - have;
   }
 
   int read_dqt() {
@@ -1178,23 +1309,28 @@ struct Decoder {
     return len == 0 ? kOk : kCorrupt;
   }
 
-  // get_dac: arithmetic conditioning, checked and of no use to a Huffman
-  // scan.
+  // get_dac: arithmetic conditioning for the scans after it (of no use to
+  // a Huffman scan): Kx of an AC table, L and U of a DC table.
   int read_dac() {
     long len = u16() - 2;
     while (len > 0) {
       const int index = src.byte(), val = src.byte();
       len -= 2;
-      if (index >= 32) return kCorrupt;
-      if (index >= 16 ? (val < 1 || val > 63) : ((val & 15) > (val >> 4))) {
-        return kCorrupt;
+      if (index >= 32) return kCorrupt;  // JERR_DAC_INDEX
+      if (index >= 16) {
+        dac_k[index - 16] = static_cast<uint8_t>(val);  // any value
+      } else {
+        if ((val & 15) > (val >> 4)) return kCorrupt;  // JERR_DAC_VALUE
+        dac_l[index] = static_cast<uint8_t>(val & 15);
+        dac_u[index] = static_cast<uint8_t>(val >> 4);
       }
     }
     return len == 0 ? kOk : kCorrupt;
   }
 
-  int read_sof(bool prog) {
+  int read_sof(bool prog, bool arith_coded) {
     progressive = prog;
+    arithmetic = arith_coded;
     const long len = u16() - 8;
     const int precision = src.byte();
     height = u16();
@@ -1251,11 +1387,11 @@ struct Decoder {
       const int m = src.unread_marker;
       src.unread_marker = 0;
       int rc = kOk;
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
-        rc = read_sof(m == 0xC2);
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA) {
+        rc = read_sof(m == 0xC2 || m == 0xCA, m >= 0xC9);
       } else if ((m >= 0xC3 && m <= 0xCB && m != 0xC4) || (m >= 0xCD && m <= 0xCF)) {
-        // SOF9/10 (arithmetic: not here yet), SOF3/5-7/11/13-15 (lossless,
-        // hierarchical: libjpeg-turbo 2.1 refuses them), JPG.
+        // SOF3/5-7/11/13-15 (lossless, hierarchical: libjpeg-turbo 2.1
+        // refuses them), JPG.
         return saw_sof ? kCorrupt : kProcess;
       } else if (m == 0xC4) {
         rc = read_dht();
@@ -1338,8 +1474,11 @@ struct Decoder {
         ycc = false;
       }
       rgb = !ycc;
+    } else if (nc == 4 && pil) {
+      // Adobe's transform 0 is CMYK, any other YCCK; no Adobe marker, CMYK.
+      ycck = saw_adobe && adobe_transform != 0;
     } else if (nc != 1) {
-      return kColorSpace;
+      return kColorSpace;  // JERR_CONVERSION_NOTIMPL out as RGB
     }
     for (auto& c : comps) {
       max_h = std::max(max_h, c.h);
@@ -1502,7 +1641,7 @@ struct Decoder {
       const HuffSpec& spec = huff_spec(ac, slot);
       return spec.defined && t->build(spec, !ac);
     };
-    for (int i = 0; i < ncomp; ++i) {
+    for (int i = 0; i < ncomp && !arithmetic; ++i) {
       const Component& c = comps[idx[i]];
       if (need_dc && !table(false, c.dc_tbl, &dct[i])) return kCorrupt;
       if (need_ac && !table(true, c.ac_tbl, &act[i])) return kCorrupt;
@@ -1523,10 +1662,44 @@ struct Decoder {
     eobrun = 0;
     int restarts_to_go = restart_interval;
     int next_restart = 0;
+    // jdarith.c's start_pass; its decoder never sets insufficient_data.
+    if (arithmetic) start_arith(ncomp, idx, pred, need_dc, need_ac);
 
     for (int my = 0; my < mcus_y; ++my) {
       for (int mx = 0; mx < mcus_x; ++mx) {
         if (!bits.insufficient) last_good_imcu = my / imcu_div;
+        if (arithmetic) {
+          // process_restart: the marker resync, then fresh statistics and
+          // a fresh coder; after a bad code (ct -1) the rest of the segment
+          // is skipped (a DC refinement, which skips nothing, has none).
+          if (restart_interval && restarts_to_go-- == 0) {
+            read_restart(&next_restart);
+            start_arith(ncomp, idx, pred, need_dc, need_ac);
+            restarts_to_go = restart_interval - 1;
+          }
+          for_each_block(ncomp, idx, my, mx, [&](int i, int16_t* blk) {
+            if (arith.ct == -1) return kOk;
+            const Component& c = comps[idx[i]];
+            if (!progressive) {
+              if (arith_dc(i, c.dc_tbl, &pred[i])) {
+                blk[0] = static_cast<int16_t>(pred[i]);
+                arith_ac(blk, c.ac_tbl, 1, 63);
+              }
+            } else if (ss == 0) {
+              if (ah != 0) {
+                if (arith.decode(&fixed_bin)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+              } else if (arith_dc(i, c.dc_tbl, &pred[i])) {
+                blk[0] = static_cast<int16_t>(static_cast<uint32_t>(pred[i]) << al);
+              }
+            } else if (ah == 0) {
+              arith_ac(blk, c.ac_tbl, ss, se);
+            } else {
+              arith_ac_refine(blk, c.ac_tbl);
+            }
+            return kOk;
+          });
+          continue;
+        }
         if (restart_interval) {
           if (restarts_to_go == 0) {
             bits.reset();
@@ -1589,6 +1762,123 @@ struct Decoder {
       }
     }
     return kOk;
+  }
+
+  // jdarith.c's start_pass and process_restart: the statistics of the
+  // tables the scan reads zeroed, with the DC predictors and contexts, and
+  // the coder reset.
+  void start_arith(int ncomp, const int idx[4], int* pred, bool need_dc, bool need_ac) {
+    for (int i = 0; i < ncomp; ++i) {
+      const Component& c = comps[idx[i]];
+      if (need_dc) {
+        std::fill(dc_stats[c.dc_tbl], dc_stats[c.dc_tbl] + 64, uint8_t{0});
+        pred[i] = 0;
+        dc_context[i] = 0;
+      }
+      if (need_ac) std::fill(ac_stats[c.ac_tbl], ac_stats[c.ac_tbl] + 256, uint8_t{0});
+    }
+    arith.reset();
+  }
+
+  // Figures F.23-F.24 once the magnitude category's first decisions set
+  // *m: the rest of the category in bins x, x + 1, ... (*m doubling at
+  // each 1), then the bits below *m in the bins 14 further on. Returns
+  // |v| - 1, or -1 on a magnitude overflow (JWRN_ARITH_BAD_CODE: ct -1).
+  int arith_magnitude(int* m, uint8_t* x) {
+    while (arith.decode(x)) {
+      if ((*m <<= 1) == 0x8000) {
+        arith.ct = -1;
+        return -1;
+      }
+      ++x;
+    }
+    int v = *m;
+    x += 14;
+    for (int b = *m >> 1; b; b >>= 1) {
+      if (arith.decode(x)) v |= b;
+    }
+    return v;
+  }
+
+  // decode_mcu's (and decode_mcu_DC_first's) DC: the difference in the
+  // context that the last one left (its conditioning from DAC's L and U),
+  // the predictor kept in 16 bits. False after a bad code.
+  bool arith_dc(int i, int tbl, int* pred) {
+    uint8_t* st = dc_stats[tbl] + dc_context[i];
+    if (arith.decode(st) == 0) {
+      dc_context[i] = 0;
+      return true;
+    }
+    const int sign = arith.decode(st + 1);
+    st += 2 + sign;
+    int m = arith.decode(st), mag = 0;
+    if (m != 0 && (mag = arith_magnitude(&m, dc_stats[tbl] + 20)) < 0) return false;
+    if (m < ((1 << dac_l[tbl]) >> 1)) {
+      dc_context[i] = 0;  // zero diff category
+    } else if (m > ((1 << dac_u[tbl]) >> 1)) {
+      dc_context[i] = 12 + sign * 4;  // large diff category
+    } else {
+      dc_context[i] = 4 + sign * 4;  // small diff category
+    }
+    *pred = (*pred + (sign ? -(mag + 1) : mag + 1)) & 0xFFFF;
+    return true;
+  }
+
+  // AC coefficients first..last of one block (Figure F.20; decode_mcu's and
+  // decode_mcu_AC_first's), scaled by Al: an EOB decision, zero runs, the
+  // sign at the fixed bin, the magnitude in the bins of Kx's band.
+  void arith_ac(int16_t* blk, int tbl, int first, int last) {
+    uint8_t* stats = ac_stats[tbl];
+    for (int k = first; k <= last; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (arith.decode(st)) return;  // EOB
+      while (arith.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > last) {
+          arith.ct = -1;  // spectral overflow
+          return;
+        }
+      }
+      const int sign = arith.decode(&fixed_bin);
+      st += 2;
+      int m = arith.decode(st), mag = m;
+      if (m != 0 && arith.decode(st)) {
+        m = 2;
+        mag = arith_magnitude(&m, stats + (k <= dac_k[tbl] ? 189 : 217));
+        if (mag < 0) return;
+      }
+      const int v = sign ? -(mag + 1) : mag + 1;
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(v) << (progressive ? al : 0));
+    }
+  }
+
+  // decode_mcu_AC_refine: past the last coefficient nonzero before this
+  // scan an EOB decision; a correction bit for each nonzero coefficient,
+  // +-1 << Al for a newly nonzero one (its sign at the fixed bin).
+  void arith_ac_refine(int16_t* blk, int tbl) {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    int kex = se;
+    while (kex > 0 && blk[kNatural[kex]] == 0) --kex;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && arith.decode(st)) return;  // EOB
+      for (;;) {
+        int16_t* c = blk + kNatural[k];
+        if (*c != 0) {
+          if (arith.decode(st + 2)) *c = static_cast<int16_t>(*c + (*c < 0 ? m1 : p1));
+          break;
+        }
+        if (arith.decode(st + 1)) {
+          *c = static_cast<int16_t>(arith.decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) {
+          arith.ct = -1;  // spectral overflow
+          return;
+        }
+      }
+    }
   }
 
   // The next DC difference.
@@ -1794,6 +2084,7 @@ struct Decoder {
       }
       int rc = decode_scan(ncomp, idx);
       if (rc != kOk) return rc;
+      scan_past_end = src.past_end;
       rc = read_markers(&ncomp, idx);
       if (rc == -2) break;
       if (rc != -1) return rc;
@@ -1823,8 +2114,8 @@ struct Decoder {
   // of some component short of full precision: a file cut between scans,
   // or a scan script that never refines them. smoothing_ok latches each
   // component's coef_bits[0..9], and those from before its last scan.
-  // setup() admits one or three components.
-  int latch_now[3][10], latch_prev[3][10];
+  // setup() admits one, three or four components.
+  int latch_now[4][10], latch_prev[4][10];
 
   bool smoothing_ok() {
     bool useful = false;
@@ -2036,8 +2327,9 @@ struct Decoder {
   }
 
   // Image row y at the mapped columns as RGB (3 bytes a column); tmp holds
-  // three rows of samples. Gray is replicated, RGB-coded samples copied
-  // (rgb_rgb_convert), YCbCr converted with jdcolor.c's tables.
+  // four rows of samples. Gray is replicated, RGB-coded samples copied
+  // (rgb_rgb_convert), YCbCr converted with jdcolor.c's tables, CMYK and
+  // YCCK as cmyk_row says.
   void rgb_row(int y, const Columns* m, uint8_t* out, uint8_t* tmp) const {
     const int n = static_cast<int>(m[0].i.size());
     if (comps.size() == 1) {
@@ -2051,6 +2343,11 @@ struct Decoder {
     component_row(comps[0], m[0], y, c0);
     component_row(comps[1], m[1], y, c1);
     component_row(comps[2], m[2], y, c2);
+    if (comps.size() == 4) {
+      component_row(comps[3], m[3], y, tmp + 3 * n);
+      cmyk_row(c0, c1, c2, tmp + 3 * n, n, out);
+      return;
+    }
     if (rgb) {
       for (int j = 0; j < n; ++j) {
         out[3 * j] = c0[j];
@@ -2067,6 +2364,31 @@ struct Decoder {
       out[3 * j + 2] = clamp255(Y + t.cb_b[B]);
     }
   }
+
+  // Four components as PIL reads them: libjpeg's JCS_CMYK output
+  // (ycck_cmyk_convert: YCC -> RGB with jdcolor.c's tables, each subtracted
+  // from 255 through the range limit, K passed through), Pillow's raw mode
+  // CMYK;I, which inverts every byte (its JPEG plugin takes Adobe's
+  // polarity for every CMYK file), then Pillow's cmyk2rgb:
+  // nk - nk * x / 255 rounded as MULDIV255, nk = 255 - K.
+  void cmyk_row(const uint8_t* c0, const uint8_t* c1, const uint8_t* c2,
+                const uint8_t* c3, int n, uint8_t* out) const {
+    const Tables& t = kTables;
+    for (int j = 0; j < n; ++j) {
+      int cmy[3] = {c0[j], c1[j], c2[j]};
+      if (ycck) {
+        const int Y = c0[j], B = c1[j], R = c2[j];
+        cmy[0] = clamp255(255 - (Y + t.cr_r[R]));
+        cmy[1] = clamp255(255 - (Y + static_cast<int>((t.cb_g[B] + t.cr_g[R]) >> 16)));
+        cmy[2] = clamp255(255 - (Y + t.cb_b[B]));
+      }
+      const int nk = c3[j];  // 255 - (255 - K)
+      for (int k = 0; k < 3; ++k) {
+        const int tmp = (255 - cmy[k]) * nk + 128;
+        out[3 * j + k] = clamp255(nk - (((tmp >> 8) + tmp) >> 8));
+      }
+    }
+  }
 };
 
 // Nearest-neighbor index with the PIL center convention (as tpucap).
@@ -2074,6 +2396,20 @@ inline int nearest_index(int dst, int dst_size, int src_size) {
   double scale = static_cast<double>(src_size) / dst_size;
   int idx = static_cast<int>((dst + 0.5) * scale);
   return std::min(idx, src_size - 1);
+}
+
+// The indices of Pillow's NEAREST resize (ImagingScaleAffine): the same
+// centers, summed step by step in double, so that near a sample edge the
+// sum can land on the other side of it than (i + 0.5) * scale (40 -> 60
+// takes row 2 for row 4, where nearest_index takes row 3).
+std::vector<int> pil_nearest(int dst_size, int src_size) {
+  const double a = static_cast<double>(src_size) / dst_size;
+  std::vector<int> idx(dst_size);
+  double xo = a * 0.5;
+  for (int i = 0; i < dst_size; ++i, xo += a) {
+    idx[i] = std::min(static_cast<int>(xo), src_size - 1);
+  }
+  return idx;
 }
 
 // tpucap's scale search: the smallest num / 8 whose output covers the
@@ -2090,17 +2426,22 @@ int scale_num(int h, int w, int target_h, int target_w) {
 }
 
 int decode_one(const uint8_t* data, size_t size, int target_h, int target_w,
-               uint8_t* out, int fast_scale) {
+               uint8_t* out, int flags) {
   Decoder d(data, size);
+  d.pil = flags & kLoadImage;
   int ncomp = 0, idx[4] = {0, 0, 0, 0};
   int rc = d.read_header(&ncomp, idx);
   if (rc != kOk) return rc;
-  if (fast_scale && target_h > 0 && target_w > 0) {
+  if ((flags & kFastScale) && target_h > 0 && target_w > 0) {
     const int n = scale_num(d.height, d.width, target_h, target_w);
     if (n != 8 && (rc = d.choose_scale(n)) != kOk) return rc;
   }
   rc = d.decode_scans(ncomp, idx);
   if (rc != kOk) return rc;
+  // PIL's source suspends where jpeg_mem_src would feed a fake EOI, and
+  // load_image raises "image file is truncated" unless every row was out
+  // by then: only a single-pass image's search for EOI may run out.
+  if (d.pil && (d.single_pass ? d.scan_past_end : d.src.past_end) > 0) return kTruncated;
 
   // Without a resize every row and column; with one (the nearest, PIL
   // convention), only the rows and columns it samples.
@@ -2108,15 +2449,21 @@ int decode_one(const uint8_t* data, size_t size, int target_h, int target_w,
   const bool same = target_h <= 0 || target_w <= 0 ||
                     (sh == target_h && sw == target_w);
   const int th = same ? sh : target_h, tw = same ? sw : target_w;
-  std::vector<int> xs(tw);
-  for (int j = 0; j < tw; ++j) xs[j] = same ? j : nearest_index(j, tw, sw);
+  std::vector<int> xs(tw), ys(th);
+  if (!same && d.pil) {
+    xs = pil_nearest(tw, sw);
+    ys = pil_nearest(th, sh);
+  } else {
+    for (int j = 0; j < tw; ++j) xs[j] = same ? j : nearest_index(j, tw, sw);
+    for (int i = 0; i < th; ++i) ys[i] = same ? i : nearest_index(i, th, sh);
+  }
   std::vector<Decoder::Columns> maps;
   for (const auto& c : d.comps) maps.push_back(d.columns(c, xs));
-  std::vector<uint8_t> tmp(3 * static_cast<size_t>(tw));
+  std::vector<uint8_t> tmp(4 * static_cast<size_t>(tw));
   const size_t row_bytes = static_cast<size_t>(tw) * 3;
   int have = -1;
   for (int i = 0; i < th; ++i) {
-    const int sy = same ? i : nearest_index(i, th, sh);
+    const int sy = ys[i];
     uint8_t* drow = out + static_cast<size_t>(i) * row_bytes;
     if (sy == have) {
       std::memcpy(drow, drow - row_bytes, row_bytes);
@@ -2186,28 +2533,31 @@ extern "C" {
 // `sizes[i]`) into `out` (n * target_h * target_w * 3 uint8, NHWC RGB; a
 // target of 0 x 0 keeps one image at its own size). `status[i]` receives 0
 // on success, else a Status code. Uses up to `n_threads` workers (0 =
-// hardware concurrency). Returns the number of failed images.
+// hardware concurrency). `flags`: kFastScale (1) picks tpucap's scale
+// N / 8; kLoadImage (2) gives tpucap's load_image bytes (PIL): CMYK and
+// YCCK admitted and converted as Pillow converts them, Pillow's NEAREST
+// resize. Returns the number of failed images.
 int tpucap_decode_jpeg_batch(const uint8_t* data, const int64_t* offsets,
                              const int64_t* sizes, int n, int target_h,
                              int target_w, uint8_t* out, int* status,
-                             int n_threads, int fast_scale) {
+                             int n_threads, int flags) {
   const size_t img_bytes = static_cast<size_t>(target_h) * target_w * 3;
   return run_pool(n, n_threads, status, [&](int i) {
     return decode_one(data + offsets[i], static_cast<size_t>(sizes[i]),
-                      target_h, target_w, out + img_bytes * i, fast_scale);
+                      target_h, target_w, out + img_bytes * i, flags);
   });
 }
 
 // The same from n files, each read by the worker that decodes it.
 int tpucap_decode_jpeg_files(const char* const* paths, int n, int target_h,
                              int target_w, uint8_t* out, int* status,
-                             int n_threads, int fast_scale) {
+                             int n_threads, int flags) {
   const size_t img_bytes = static_cast<size_t>(target_h) * target_w * 3;
   return run_pool(n, n_threads, status, [&](int i) {
     std::vector<uint8_t> buf;
     if (!read_file(paths[i], &buf)) return static_cast<int>(kUnreadable);
     return decode_one(buf.data(), buf.size(), target_h, target_w,
-                      out + img_bytes * i, fast_scale);
+                      out + img_bytes * i, flags);
   });
 }
 
@@ -2215,6 +2565,7 @@ int tpucap_decode_jpeg_files(const char* const* paths, int n, int target_h,
 // success, else a Status code.
 int tpucap_jpeg_dims(const uint8_t* data, int64_t size, int* h, int* w) {
   Decoder d(data, static_cast<size_t>(size));
+  d.pil = true;  // a CMYK header reads, as jpeg_read_header reads it
   int ncomp = 0, idx[4] = {0, 0, 0, 0};
   int rc = d.read_header(&ncomp, idx);
   if (rc != kOk) return rc;

@@ -5,11 +5,19 @@
 - tf (InceptionV3): x/127.5 - 1;
 - torch: x/255, then ImageNet mean/std.
 
-``preprocess_batch`` reads image files through the port's own JPEG decoder
-at scale 8/8 with the nearest resize (``fast_scale=False``), which gives
-PIL's bytes for a baseline or progressive JPEG in gray, YCbCr or RGB, where
-tpucap's ``load_image`` calls PIL. Other formats (PNG, ...) and CMYK JPEGs,
-which PIL converts, raise ``ValueError``: the port has no PIL.
+``load_images`` is tpucap's ``load_image`` (PIL's decode, ``convert("RGB")``,
+then the nearest resize) over a batch of files:
+
+- a file that starts with a JPEG SOI goes through the port's own decoder at
+  scale 8/8 (``fast_scale=False``) with Pillow's NEAREST resize, which gives
+  PIL's bytes for every JPEG it decodes: Huffman or arithmetic, sequential
+  or progressive, gray, YCbCr, RGB, and CMYK or YCCK converted as Pillow
+  converts them. A JPEG it refuses raises ``ValueError`` naming the file,
+  and never reaches PIL; so does one whose data ends before its image
+  does, which ``load_image`` refuses as truncated (tpucap's own decoder
+  and ``caption_dataset`` decode it, as libjpeg does);
+- any other file (PNG, BMP, GIF, ...) goes through ``load_image``'s own
+  steps in PIL, which is imported there and nowhere else in the port.
 """
 
 from __future__ import annotations
@@ -34,11 +42,37 @@ def preprocess_input(x, mode: str = "caffe"):
     raise ValueError(f"unknown preprocess mode {mode!r}")
 
 
+def pil_load(path, size: int) -> np.ndarray:
+    """One non-JPEG file as ``load_image`` reads it -> (size, size, 3) uint8:
+    ``Image.open``, ``convert("RGB")``, the NEAREST resize where the size
+    differs. Raises ImportError naming PIL where it is not installed."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        img = img.convert("RGB")
+        if img.size != (size, size):
+            img = img.resize((size, size), Image.Resampling.NEAREST)
+        return np.asarray(img, np.uint8)
+
+
+def load_images(paths, *, size: int) -> np.ndarray:
+    """Image files -> (N, size, size, 3) uint8 RGB, as tpucap's
+    ``load_image`` gives them: JPEGs through the port's decoder in one
+    threaded call, the other files through ``pil_load``, in order."""
+    # Imported here: tpucap_torch.ops imports this module's constants.
+    from tpucap_torch.ops import jpeg
+
+    paths = [str(p) for p in paths]
+    out, status = jpeg.decode_files(paths, size, fast_scale=False, load_image=True)
+    not_jpeg = status == 2  # no SOI: jpeg_decode.cpp's kNotJpeg
+    if (status[~not_jpeg] != 0).any():
+        jpeg._raise_for(np.where(not_jpeg, 0, status), paths)
+    for i in np.flatnonzero(not_jpeg):
+        out[i] = pil_load(paths[i], size)
+    return out
+
+
 def preprocess_batch(paths, *, size: int, mode: str) -> np.ndarray:
     """Decode + nearest resize + normalize image files -> (N, size, size, 3)
     f32."""
-    # Imported here: tpucap_torch.ops imports this module's constants.
-    from tpucap_torch.ops.jpeg import decode_jpeg_files
-
-    images = decode_jpeg_files(paths, size, fast_scale=False)
-    return preprocess_input(images.astype(np.float32), mode)
+    return preprocess_input(load_images(paths, size=size).astype(np.float32), mode)

@@ -4,13 +4,20 @@ built by ``g++`` at first use): the counterpart of
 
 ``decode_jpeg_batch(blobs, size)`` -> (N, size, size, 3) uint8 RGB,
 nearest-resized (PIL convention), the same bytes as tpucap's libjpeg-turbo
-decode. The decoder covers Huffman-coded JPEG, baseline and progressive:
-8-bit gray, YCbCr or RGB-coded, any sampling with integral ratios (4:4:4,
-4:2:2, 4:2:0, 4:4:0, 4:1:1, ...), restart intervals, optimized tables, and
-files cut short as libjpeg reads them. There is no libjpeg, no PIL and no
-other route: an image outside that scope raises ``ValueError`` naming it
-and why (arithmetic coding is ROADMAP queue 1, slice 2c; CMYK, 12-bit,
+decode. The decoder covers Huffman- and arithmetic-coded JPEG, sequential
+and progressive: 8-bit gray, YCbCr or RGB-coded, any sampling with integral
+ratios (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, ...), restart intervals,
+optimized tables, DAC conditioning, and files cut short as libjpeg reads
+them. There is no libjpeg, no PIL and no other route: an image outside that
+scope raises ``ValueError`` naming it and why (CMYK out as RGB, 12-bit,
 lossless and hierarchical JPEGs libjpeg-turbo refuses too).
+``decode_files(..., load_image=True)`` gives the bytes of tpucap's
+``load_image`` (PIL), the route of ``extract_features``
+(``data/preprocess.py``): it also takes CMYK and YCCK files, converted to
+RGB as Pillow converts them; it resizes as Pillow's NEAREST does (which
+sums its step in double, so that on some sizes it takes another row or
+column than tpucap's C resize); and it refuses a file cut short, as PIL
+does.
 
 ``fast_scale=True`` is tpucap's default: it decodes at the smallest libjpeg
 scale N/8 that still covers ``size`` (libjpeg's scaled IDCTs, chroma IDCT'd
@@ -40,18 +47,24 @@ from tpucap_torch import _build
 STATUS = {
     1: "corrupt or truncated JPEG data",
     2: "not a JPEG (no SOI marker)",
-    3: "arithmetic-coded (ROADMAP queue 1, slice 2c), or a lossless or "
-    "hierarchical JPEG, which libjpeg-turbo refuses too",
+    3: "a lossless or hierarchical JPEG, which libjpeg-turbo refuses too",
     4: "sample precision other than 8 bits, which libjpeg-turbo's 8-bit "
     "build refuses too",
     5: "color space other than gray, YCbCr or RGB (CMYK, YCCK, two "
-    "components), which libjpeg-turbo does not convert to RGB either",
+    "components), which libjpeg-turbo does not convert to RGB either (CMYK "
+    "and YCCK decode on the load_image route of extract_features)",
     6: "chroma sampling with no integral ratio to the largest sampling "
     "factors, which libjpeg refuses too",
     8: "cannot be read",
     9: "wider or taller than 65500 pixels, libjpeg's limit",
     10: "the host could not allocate its decoded planes",
+    11: "truncated: the data ends before the image does, which tpucap's "
+    "load_image (PIL) refuses",
 }
+
+#: csrc/jpeg_decode.cpp's flags.
+FAST_SCALE = 1
+LOAD_IMAGE = 2
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i64p = ctypes.POINTER(ctypes.c_int64)
@@ -104,7 +117,7 @@ def _raise_for(status, names):
     raise ValueError(f"JPEG decode failed for images {bad}: {why}")
 
 
-def _decode_blobs(blobs, out, target, n_threads, fast_scale) -> np.ndarray:
+def _decode_blobs(blobs, out, target, n_threads, flags) -> np.ndarray:
     """The C batch call; returns the per-image status."""
     n = len(blobs)
     data = np.frombuffer(b"".join(blobs), np.uint8)
@@ -122,7 +135,7 @@ def _decode_blobs(blobs, out, target, n_threads, fast_scale) -> np.ndarray:
         out.ctypes.data_as(_u8p),
         status.ctypes.data_as(_intp),
         int(n_threads),
-        int(fast_scale),
+        flags,
     )
     return status
 
@@ -140,20 +153,47 @@ def decode_jpeg_batch(
     out = np.empty((n, size, size, 3), np.uint8)
     if n == 0:
         return out
-    status = _decode_blobs(blobs, out, size, n_threads, fast_scale)
+    status = _decode_blobs(blobs, out, size, n_threads, FAST_SCALE * bool(fast_scale))
     if status.any():
         _raise_for(status, [f"image {i}" for i in range(n)])
     return out
 
 
-def decode_jpeg(blob: bytes) -> np.ndarray:
-    """One JPEG at its own size -> (H, W, 3) uint8 RGB."""
+def decode_jpeg(blob: bytes, *, load_image: bool = False) -> np.ndarray:
+    """One JPEG at its own size -> (H, W, 3) uint8 RGB; ``load_image`` as
+    in ``decode_files``."""
     h, w = jpeg_dims(blob)
     out = np.empty((h, w, 3), np.uint8)
-    status = _decode_blobs([blob], out, 0, 1, False)
+    status = _decode_blobs([blob], out, 0, 1, LOAD_IMAGE * bool(load_image))
     if status.any():
         _raise_for(status, ["image 0"])
     return out
+
+
+def decode_files(
+    paths, size: int, *, n_threads: int = 0, fast_scale: bool = True, load_image: bool = False
+) -> tuple[np.ndarray, np.ndarray]:
+    """Image files -> ((N, size, size, 3) uint8 RGB, per-file status): the
+    C call, whose workers read the files; rows whose status is not 0 are
+    undefined. ``load_image`` gives tpucap's ``load_image`` bytes: CMYK and
+    YCCK files admitted (a status 5 without it), Pillow's NEAREST resize, a
+    file cut short refused (status 11)."""
+    paths = [os.fsencode(str(p)) for p in paths]
+    n = len(paths)
+    out = np.empty((n, size, size, 3), np.uint8)
+    status = np.zeros(n, np.int32)
+    if n:
+        _lib().tpucap_decode_jpeg_files(
+            (ctypes.c_char_p * n)(*paths),
+            n,
+            size,
+            size,
+            out.ctypes.data_as(_u8p),
+            status.ctypes.data_as(_intp),
+            int(n_threads),
+            FAST_SCALE * bool(fast_scale) | LOAD_IMAGE * bool(load_image),
+        )
+    return out, status
 
 
 def decode_jpeg_files(
@@ -162,21 +202,7 @@ def decode_jpeg_files(
     """Image files -> (N, size, size, 3) uint8 RGB, as ``decode_jpeg_batch``;
     the C call's workers read the files. Errors name the file."""
     paths = [str(p) for p in paths]
-    n = len(paths)
-    out = np.empty((n, size, size, 3), np.uint8)
-    if n == 0:
-        return out
-    status = np.zeros(n, np.int32)
-    _lib().tpucap_decode_jpeg_files(
-        (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths]),
-        n,
-        size,
-        size,
-        out.ctypes.data_as(_u8p),
-        status.ctypes.data_as(_intp),
-        int(n_threads),
-        int(fast_scale),
-    )
+    out, status = decode_files(paths, size, n_threads=n_threads, fast_scale=fast_scale)
     if status.any():
         _raise_for(status, paths)
     return out

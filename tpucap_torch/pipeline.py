@@ -357,10 +357,11 @@ class CaptioningPipeline:
         *,
         parallelism: str | None = None,
     ) -> np.ndarray:
-        """JPEG files -> encoder features, f32 numpy: decode, nearest resize
-        and normalize on the host (``data.preprocess.preprocess_batch``),
-        encode on the device; the tail chunk is zero-padded to
-        ``batch_size`` and trimmed."""
+        """Image files -> encoder features, f32 numpy: decode, nearest resize
+        and normalize on the host (``data.preprocess.preprocess_batch``: JPEGs
+        through the port's decoder, other formats through PIL, as tpucap's
+        ``load_image``), encode on the device; the tail chunk is zero-padded
+        to ``batch_size`` and trimmed."""
         refuse_unported(
             parallelism=(parallelism if parallelism != "none" else None, None)
         )
@@ -376,7 +377,7 @@ class CaptioningPipeline:
         return np.concatenate(outs, axis=0)
 
     def caption_images(self, image_paths, **kw) -> list[str]:
-        """JPEG files -> captions through ``extract_features`` and
+        """Image files -> captions through ``extract_features`` and
         ``generate`` (tpucap's one-call demo path)."""
         return self.generate(self.extract_features(list(image_paths)), **kw)
 
