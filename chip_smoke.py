@@ -78,7 +78,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    both settings, on the baseline batch and on a progressive one,
    captions/s of ``caption_dataset`` against ``caption_batch`` on decoded
    batches, and the share of the decode time the loader's overlap hides;
-7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
+7. bundle and evaluation, on a fresh path-3 pipeline (lstm1, beam 3,
+   vocab 7579, bf16, 2048-d random features from seeds, references drawn
+   from the vocabulary): (a) ``evaluate`` on 1000 images with 5 references
+   each at batch 256 (four decode batches, the last padded), every metric
+   family, the captions equal to ``generate``'s on the same batches, K2 and
+   K3 34 + 34 launches a batch, every score finite, BLEU, ROUGE-L and
+   METEOR in [0, 1]; the decode's seconds, the metrics' host seconds and
+   captions/s; (b) ``save``, ``load`` on the card, every param leaf bit for
+   bit with its dtype and the captions of a batch the same,
+   ``reload_params`` from the bundle, a bundle with another vocabulary
+   refused and the live captions unchanged; (c) ``fit(val_data=...)`` at
+   batch 256, bf16 compute, 2048 training and 512 validation rows, 3
+   epochs, ``val_metric="bleu4"``, patience 1: each epoch's val_loss,
+   val_bleu4, training and validation seconds, and the launches of the
+   monitor's greedy decode (K2 and K3; the training is plain);
+8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
    as the last line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
@@ -158,6 +173,10 @@ PROGRESSIVE_FIXTURE = "g_progressive.jpg"
 # Arithmetic-coded: SOF9 4:2:0 with restarts, SOF10.
 ARITH_FIXTURES = ("j_arith.jpg", "k_arith_progressive.jpg")
 DATASET_IMAGES = 4 * BATCH
+# Bundle and evaluation: evaluate's images, references an image and batch;
+# fit(val_data)'s training and validation rows and epochs.
+EVAL_IMAGES, EVAL_REFS, EVAL_BATCH = 1000, 5, 256
+FIT_TRAIN, FIT_VAL, FIT_EPOCHS = 2048, 512, 3
 
 
 def log(msg: str) -> None:
@@ -838,12 +857,17 @@ def agreement_encoders(dev, tokenizer) -> None:
 # -- phase 5: training at full width -----------------------------------------
 
 
-def training_corpus(tokenizer, n: int, seed: int) -> dict[str, list[str]]:
-    """n captions of 8 to 30 of the vocabulary's words, one an image."""
+def training_corpus(tokenizer, n: int, seed: int, refs: int = 1,
+                    prefix: str = "img") -> dict[str, list[str]]:
+    """n images with ``refs`` captions each of 8 to 30 of the vocabulary's
+    words."""
     rng = np.random.default_rng(seed)
     words = [w for w in tokenizer.word_index if w not in ("startseq", "endseq")]
     return {
-        f"img{i}": ["startseq " + " ".join(rng.choice(words, rng.integers(8, 31))) + " endseq"]
+        f"{prefix}{i}": [
+            "startseq " + " ".join(rng.choice(words, rng.integers(8, 31))) + " endseq"
+            for _ in range(refs)
+        ]
         for i in range(n)
     }
 
@@ -1167,6 +1191,204 @@ def dataset_against_batches(pipe, paths, label: str, fast_scale: bool) -> None:
         log(f"dataset {label}: caption: {c!r}")
 
 
+# -- phase 7: bundle and evaluation -----------------------------------------
+
+
+def random_features(ids, seed: int) -> dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    return {k: rng.normal(size=DEC_FEATURES).astype(np.float32) for k in ids}
+
+
+def run_evaluate(pipe) -> list[np.ndarray]:
+    """7(a): ``evaluate`` on EVAL_IMAGES feature rows with EVAL_REFS
+    references each, batch EVAL_BATCH (the last batch padded), every metric
+    family, against ``generate`` on the same padded batches: the same
+    captions and launches, K2 and K3 once a decode step. The metrics' host
+    time is read through the pipeline's ``evaluate_captions``. -> the padded
+    feature batches."""
+    from tpucap_torch import ops
+    from tpucap_torch import pipeline as pipeline_mod
+    from tpucap_torch.train.evaluate import METRICS
+
+    desc = training_corpus(pipe.tokenizer, EVAL_IMAGES, 13, refs=EVAL_REFS)
+    feats = random_features(desc, 14)
+    ids = list(desc)
+    chunks = [ids[s : s + EVAL_BATCH] for s in range(0, len(ids), EVAL_BATCH)]
+    batches = [pipeline_mod.pad_rows(np.stack([feats[k] for k in c]), EVAL_BATCH) for c in chunks]
+    pipe.generate(batches[0])  # warm-up: allocator, cuBLAS
+    ops.reset_launch_counts()
+    want, generate_s = timed(
+        lambda: [cap for c, b in zip(chunks, batches) for cap in pipe.generate(b)[: len(c)]]
+    )
+    want_counts = ops.launch_counts()
+
+    score = pipeline_mod.evaluate_captions
+    metric_s = []
+
+    def timed_score(*args, **kw):
+        t0 = time.perf_counter()
+        out = score(*args, **kw)
+        metric_s.append(time.perf_counter() - t0)
+        return out
+
+    pipeline_mod.evaluate_captions = timed_score
+    try:
+        ops.reset_launch_counts()
+        (scores, caps), eval_s = timed(lambda: pipe.evaluate(
+            desc, feats, batch_size=EVAL_BATCH, metrics=METRICS, return_captions=True))
+        counts = ops.launch_counts()
+    finally:
+        pipeline_mod.evaluate_captions = score
+
+    if list(caps) != ids or list(caps.values()) != want:
+        same = sum(a == b for a, b in zip(caps.values(), want))
+        raise AssertionError(f"evaluate: {same} of {len(want)} captions equal generate's")
+    steps = MAX_LEN * len(batches)
+    expect = {name: 0 for name in counts}
+    expect.update(lstm_cell=steps, merge_head=steps, vocab_proj=steps)
+    if counts != expect or want_counts != expect:
+        raise AssertionError(f"evaluate: launch counts {counts} (generate's {want_counts}), "
+                             f"expected {expect}")
+    bad = {k: v for k, v in scores.items() if v is None or not np.isfinite(v)}
+    bad.update({k: scores[k] for k in ("bleu1", "bleu2", "bleu3", "bleu4", "rouge_l", "meteor")
+                if not 0.0 <= scores[k] <= 1.0})
+    if bad or len(metric_s) != 1:
+        raise AssertionError(f"evaluate: scores out of range {bad}")
+    decode_s = eval_s - metric_s[0]
+    log(f"evaluate: {EVAL_IMAGES} images x {EVAL_REFS} references, batch {EVAL_BATCH} "
+        f"({len(batches)} decode batches, the last {len(chunks[-1])} rows + "
+        f"{EVAL_BATCH - len(chunks[-1])} of zeros), resnet50+lstm1 beam {BEAM} vocab {VOCAB} bf16: "
+        f"launches {counts}: K2 {counts['lstm_cell'] // len(batches)}, K3 "
+        f"{counts['merge_head'] // len(batches)} + {counts['vocab_proj'] // len(batches)} a batch; "
+        f"captions identical to generate's")
+    log(f"evaluate: {eval_s:.5f} s, {EVAL_IMAGES / eval_s:.2f} captions/s; the decode "
+        f"{decode_s:.5f} s (generate alone {generate_s:.5f} s, {EVAL_IMAGES / generate_s:.2f} "
+        f"captions/s); the metrics' host time {metric_s[0]:.5f} s for {', '.join(METRICS)} "
+        f"({os.cpu_count()} cpus)")
+    log(f"evaluate: scores { {k: round(v, 6) for k, v in scores.items()} }")
+    return batches
+
+
+def run_bundle(pipe, batch) -> None:
+    """7(b): ``save`` then ``load`` on the card: every param leaf bit for bit
+    with its dtype, the same captions; ``reload_params`` from the bundle;
+    a bundle with another vocabulary refused, the live captions unchanged."""
+    import shutil
+    import tempfile
+
+    from tpucap_torch.core import tree_leaves
+    from tpucap_torch.pipeline import CaptioningPipeline
+    from tpucap_torch.text import Tokenizer
+
+    want = pipe.generate(batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "bundle"
+        _, save_s = timed(lambda: pipe.save(path))
+        back, load_s = timed(lambda: CaptioningPipeline.load(path))
+        ours, theirs = tree_leaves(pipe.params), tree_leaves(back.params)
+        bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t  # noqa: E731
+        if len(ours) != len(theirs) or not all(
+            a.dtype == b.dtype and b.is_cuda and torch.equal(bits(a), bits(b))
+            for a, b in zip(ours, theirs)
+        ):
+            raise AssertionError("bundle: loaded params differ from the saved ones")
+        if back.generate(batch) != want:
+            raise AssertionError("bundle: the loaded pipeline's captions differ")
+        del back
+        pipe.reload_params(path)
+        if pipe.generate(batch) != want:
+            raise AssertionError("bundle: captions changed after reload_params from the same bundle")
+        other = Path(tmp) / "other_vocab"
+        shutil.copytree(path, other)
+        tok = Tokenizer()
+        tok.fit_on_texts(corpus(VOCAB - 4)["corpus"])
+        tok.save(other / "tokenizer.json")
+        try:
+            pipe.reload_params(other)
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError("bundle: reload_params took a bundle with another vocabulary")
+        if pipe.generate(batch) != want:
+            raise AssertionError("bundle: captions changed after a refused reload_params")
+        mib = (path / "params.npz").stat().st_size / 2**20
+    log(f"bundle: save {save_s:.5f} s, load on the card {load_s:.5f} s, params.npz {mib:.1f} MiB "
+        f"({len(ours)} leaves, {sorted({str(t.dtype) for t in ours})}); params bit-identical, "
+        f"captions of batch {BATCH} identical; reload_params from the bundle took it; another "
+        f"vocabulary refused ({refusal!r}), live captions unchanged")
+
+
+def run_fit_validation(pipe) -> None:
+    """7(c): ``fit(val_data=...)`` at bench.py --mode train's decoder shapes
+    (batch 256, bf16 compute, f32 masters), FIT_TRAIN training rows and
+    FIT_VAL validation rows, val_metric bleu4 with early stopping (patience
+    1): each epoch's val_loss, val_bleu4, training and validation seconds;
+    the counters reset just before and read just after, so K2 and K3 count
+    the monitor's greedy decode (training and val_loss run the plain
+    loop)."""
+    from tpucap_torch import ops
+    from tpucap_torch.config import TrainConfig
+
+    pipe.config = dataclasses.replace(pipe.config, train=TrainConfig(
+        batch_size=DEC_TRAIN_BATCH, precision="bf16", val_metric="bleu4", early_stopping_patience=1))
+    train = training_corpus(pipe.tokenizer, FIT_TRAIN, 15)
+    val = training_corpus(pipe.tokenizer, FIT_VAL, 16, prefix="val")
+    feats = random_features([*train, *val], 17)
+
+    val_s, stamps, lines = [], [], []
+    validation = pipe._validation
+
+    def timed_validation(*args):
+        score = validation(*args)
+
+        def timed_score(params):
+            out, s = timed(lambda: score(params))
+            val_s.append(s)
+            return out
+
+        return timed_score
+
+    def log_line(msg):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        lines.append(msg)
+
+    pipe._validation = timed_validation
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = pipe.fit(train, feats, epochs=FIT_EPOCHS, val_data=(val, feats), log=log_line)
+        counts = ops.launch_counts()
+    finally:
+        del pipe._validation
+    epoch_stamps = [t for t, m in zip(stamps, lines) if m.startswith("epoch ")]
+    n = len(hist)
+    keys = ("loss", "val_loss", "val_accuracy", "val_bleu4")
+    if not 1 <= n <= FIT_EPOCHS or len(val_s) != n or len(epoch_stamps) != n or not all(
+        np.isfinite(e[k]) for e in hist for k in keys
+    ) or not all(0.0 <= e["val_bleu4"] <= 1.0 for e in hist):
+        raise AssertionError(f"fit(val_data): history {hist}")
+    if n < FIT_EPOCHS and not lines[-1].startswith(f"early stopping at epoch {n - 1}"):
+        raise AssertionError(f"fit(val_data): stopped after {n} epochs, log {lines}")
+    decode_batches = -(-FIT_VAL // DEC_TRAIN_BATCH) * n
+    k2 = counts["lstm_cell"]
+    expect = {name: 0 for name in counts}
+    expect.update(lstm_cell=k2, merge_head=k2, vocab_proj=k2)
+    if counts != expect or not decode_batches <= k2 <= MAX_LEN * decode_batches:
+        raise AssertionError(f"fit(val_data): launch counts {counts}, {decode_batches} decode batches")
+    log(f"fit(val_data): lstm1 batch {DEC_TRAIN_BATCH} bf16 compute, {FIT_TRAIN} training rows, "
+        f"{FIT_VAL} validation rows, val_metric bleu4, patience 1: {n} of {FIT_EPOCHS} epochs; "
+        f"the monitor's greedy decode launched K2 {k2}, K3 {counts['merge_head']} + "
+        f"{counts['vocab_proj']} ({decode_batches} decode batches, {k2 / decode_batches:g} steps a batch)")
+    for e, end, v in zip(hist, epoch_stamps, val_s):
+        log(f"fit(val_data): epoch {e['epoch']}: loss {e['loss']:.6f} val_loss {e['val_loss']:.6f} "
+            f"val_accuracy {e['val_accuracy']:.6f} val_bleu4 {e['val_bleu4']:.6g}; training "
+            f"{end - t0 - v:.5f} s, validation {v:.5f} s")
+        t0 = end
+    if n < FIT_EPOCHS:
+        log(f"fit(val_data): {lines[-1]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1204,6 +1426,10 @@ def main() -> int:
     counts["flash_attention_bwd_dq"] = trained["flash_attention_bwd_dq"]
     train_agreement(dev, tokenizer)
     run_dataset(dev, tokenizer, check_jpeg_fixtures())
+    pipe = make_pipeline("bf16", tokenizer)
+    batches = run_evaluate(pipe)
+    run_bundle(pipe, batches[0])
+    run_fit_validation(pipe)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -372,3 +372,36 @@ def test_cut_and_corrupt_jpegs_follow_load_image(other_paths, jpeg_paths, tmp_pa
         np.testing.assert_array_equal(load_images([path], size=size)[0], want, err_msg=f"m{k}")
         decoded += 1
     assert decoded > 25 and refused > 25
+
+
+def test_soi_not_followed_by_ff_follows_each_route(pipelines, jpeg_paths, tmp_path):  # noqa: F811
+    """A JPEG with a 00 after its SOI: PIL's JPEG plugin takes only files that
+    start FF D8 FF, so tpucap's load_image (extract_features, caption_images)
+    raises UnidentifiedImageError, and the port's load_image route sends the
+    file to PIL, which raises the same; libjpeg skips the byte to the next
+    marker, so caption_dataset decodes it in both, to the same captions."""
+    from PIL import UnidentifiedImageError
+
+    from tpucap.data.preprocess import load_image
+    from tpucap_torch.data.preprocess import load_images
+
+    jpipe, pipe = pipelines
+    blob = open(jpeg_paths[0], "rb").read()
+    odd = tmp_path / "soi_00.jpg"
+    odd.write_bytes(blob[:2] + b"\x00" + blob[2:])
+    paths = [str(odd), jpeg_paths[1]]
+    with pytest.raises(UnidentifiedImageError):
+        load_image(str(odd), (64, 64))
+    with pytest.raises(UnidentifiedImageError):
+        load_images([str(odd)], size=64)
+    for p in (jpipe, pipe):
+        with pytest.raises(UnidentifiedImageError):
+            p.extract_features(paths, batch_size=2)
+        with pytest.raises(UnidentifiedImageError):
+            p.caption_images(paths, method="beam")
+    want = jpipe.caption_dataset(paths, batch_size=2, method="beam", fast_scale=False)
+    assert pipe.caption_dataset(paths, batch_size=2, method="beam", fast_scale=False) == want
+    np.testing.assert_array_equal(
+        decode_jpeg_files([str(odd)], 64, fast_scale=False),
+        decode_jpeg_files([jpeg_paths[0]], 64, fast_scale=False),
+    )

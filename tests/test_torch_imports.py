@@ -1,7 +1,9 @@
 """tpucap_torch stands alone: no module of it, nor chip_smoke.py, imports
-jax, anything of tpucap or PIL (its JPEG files go through its own decoder
-only, whatever the host has installed), and its JPEG decoder links no
-libjpeg; its entry points refuse to run on the CPU
+jax, anything of tpucap, nltk or PIL (its JPEG files go through its own
+decoder only, whatever the host has installed; its BLEU, METEOR and Porter
+stemmer are its own), and its JPEG decoder links no libjpeg; scoring
+captions with every metric loads none of them either; its entry points
+refuse to run on the CPU
 unless asked; chip_smoke.py fails, printing no result, without a card or
 outside the repo."""
 
@@ -23,28 +25,42 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# Runs in a fresh interpreter: a finder that refuses jax, tpucap and PIL, then
-# every module of the package and chip_smoke, then a look at sys.modules.
-_PROBE = """
+# Runs in a fresh interpreter: a finder that refuses jax, tpucap, nltk and PIL,
+# then every module of the package and chip_smoke, then a look at sys.modules.
+_REFUSE = """
 import importlib, importlib.abc, json, pkgutil, sys
+
+REFUSED = ("jax", "jaxlib", "tpucap", "nltk", "PIL")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "tpucap", "PIL"):
+        if name.split(".")[0] in REFUSED:
             raise ImportError("refused: " + name)
         return None
 
 sys.meta_path.insert(0, Refuse())
+"""
+_PROBE = _REFUSE + """
 import tpucap_torch
 names = ["chip_smoke"] + [
     m.name for m in pkgutil.walk_packages(tpucap_torch.__path__, "tpucap_torch.")
 ]
 for n in names:
     importlib.import_module(n)
-loaded = sorted(
-    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpucap", "PIL")
-)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 print(json.dumps({"imported": names, "loaded": loaded}))
+"""
+# evaluate_captions with every metric, METEOR's synonym stage included.
+_SCORE = _REFUSE + """
+from tpucap_torch.train.evaluate import METRICS, evaluate_captions
+
+scores = evaluate_captions(
+    {"a": ["startseq a dog runs on grass endseq"], "b": ["startseq two dogs played endseq"]},
+    {"a": "a hound running on grass", "b": "two dogs playing"},
+    metrics=METRICS, meteor_synonyms={"dog": ["hound"]},
+)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+print(json.dumps({"scores": sorted(scores), "loaded": loaded}))
 """
 
 
@@ -66,7 +82,19 @@ def test_port_and_chip_smoke_import_no_jax_and_no_tpucap():
         "tpucap_torch.train.loss", "tpucap_torch.train.loop",
         "tpucap_torch.train.finetune", "tpucap_torch.ops.jpeg",
         "tpucap_torch.data.preprocess", "tpucap_torch.data.pipeline",
+        "tpucap_torch.train.evaluate", "tpucap_torch.train.metrics",
+        "tpucap_torch.text.porter",
     } <= want
+
+
+def test_scoring_with_every_metric_loads_no_nltk():
+    out = subprocess.run(
+        [sys.executable, "-c", _SCORE], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    assert {"bleu4", "cider", "rouge_l", "meteor", "distinct_1"} <= set(res["scores"])
 
 
 def test_jpeg_decoder_links_no_libjpeg():

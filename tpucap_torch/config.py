@@ -1,6 +1,12 @@
 """Frozen config tree of the port: the subset of ``tpucap.config`` that the
 serving and training slices read (same field names, defaults and
-meaning).
+meaning), and its ``config.json`` form.
+
+``config_to_dict`` writes tpucap's section layout (its ``dataclasses.asdict``
+of a Config): the port's fields, plus each field tpucap has and the port
+does not at tpucap's default (``UNPORTED``). ``config_from_dict`` reads
+that layout, from either package's bundle; an unported field away from its
+default raises ``NotImplementedError`` naming it.
 
 The encoder default is ResNet-50, the first encoder the port had; the JAX
 package defaults to VGG16.
@@ -71,6 +77,12 @@ class TrainConfig:
     # backward in bf16, f32 master params, optimizer state and loss
     # reductions). Distinct from Config.precision, the inference policy.
     precision: str = "f32"
+    # With fit(val_data=...): stop after this many epochs without a strict
+    # improvement of the monitor (Keras EarlyStopping's patience); 0 = off.
+    early_stopping_patience: int = 0
+    # The monitor: 'loss' (val_loss, min) | 'bleu4' | 'cider' | 'rouge_l' |
+    # 'meteor' (a greedy decode of the dev split each epoch, max).
+    val_metric: str = "loss"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,3 +114,88 @@ def encoder_config(name: str, features="pooled") -> EncoderConfig:
     return EncoderConfig(
         name=name, features=features, feature_dim=FEATURE_DIMS[name, features]
     )
+
+
+#: tpucap's fields that the port does not have, at tpucap's defaults
+#: (tpucap/config.py), by config.json section. The whole ``mesh`` section
+#: is tpucap's alone.
+UNPORTED = {
+    "encoder": {},
+    "decoder": {
+        "attention_dim": 256,
+        "num_heads": 4,
+        "mlp_dim": 1024,
+        "max_positions": 40,
+        "num_experts": 0,
+        "moe_top_k": 2,
+    },
+    "decode": {},
+    "train": {
+        "checkpoint_dir": "checkpoints",
+        "max_to_keep": 3,
+        "attention_reg": 0.0,
+        "moe_aux_weight": 0.01,
+        "momentum": 0.0,
+        "lr_schedule": "constant",
+        "lr_decay_rate": 0.96,
+        "lr_decay_steps": 1000,
+        "warmup_steps": 0,
+        "ema_decay": 0.0,
+        "grad_accum_steps": 1,
+        "checkpoint_every_steps": 0,
+        "scheduled_sampling": 0.0,
+        "ss_schedule": "linear",
+        "steps_per_dispatch": 1,
+    },
+    "mesh": {"n_devices": None, "axis_name": "data", "model_devices": 1},
+}
+_SECTIONS = {
+    "encoder": EncoderConfig,
+    "decoder": DecoderConfig,
+    "decode": DecodeConfig,
+    "train": TrainConfig,
+}
+
+
+def config_to_dict(config: Config) -> dict:
+    """-> the config.json dict, in tpucap's layout."""
+    d = dataclasses.asdict(config)
+    out = {name: {**d[name], **UNPORTED[name]} for name in _SECTIONS}
+    out["mesh"] = dict(UNPORTED["mesh"])
+    out["vocab_size"] = config.vocab_size
+    out["precision"] = config.precision
+    return out
+
+
+def _section(name: str, values: dict, cls=None) -> dict:
+    """A section's fields the port has; the unported ones must hold
+    tpucap's default."""
+    values = dict(values)
+    for key, default in UNPORTED[name].items():
+        if key in values and (value := values.pop(key)) != default:
+            raise NotImplementedError(
+                f"{name}.{key}={value!r} is not ported (only {default!r})"
+            )
+    own = {f.name: f for f in dataclasses.fields(cls)} if cls else {}
+    unknown = sorted(set(values) - set(own))
+    if unknown:
+        raise ValueError(f"unknown {name} config fields {unknown}")
+    # JSON has no tuples (DecodeConfig.bad_words).
+    return {
+        k: tuple(v) if isinstance(v, list) and isinstance(own[k].default, tuple) else v
+        for k, v in values.items()
+    }
+
+
+def config_from_dict(d: dict) -> Config:
+    """A Config from its config.json dict (``config_to_dict``'s layout,
+    which is also what tpucap's ``save`` writes)."""
+    unknown = sorted(set(d) - {*_SECTIONS, "mesh", "vocab_size", "precision"})
+    if unknown:
+        raise ValueError(f"unknown config sections {unknown}")
+    _section("mesh", d.get("mesh", {}))
+    kw = {name: cls(**_section(name, d.get(name, {}), cls)) for name, cls in _SECTIONS.items()}
+    for key in ("vocab_size", "precision"):
+        if key in d:
+            kw[key] = d[key]
+    return Config(**kw)

@@ -1,5 +1,6 @@
 """Weight bridge from the JAX package's param pytrees and training state,
-and ``.npz`` persistence that needs neither jax nor orbax.
+and ``.npz`` persistence that needs neither jax nor orbax (each leaf keeps
+its dtype, bf16 included).
 
 The layouts are the same except for convolution kernels: ``tpucap`` keeps
 them HWIO, the port OIHW. Dense kernels stay ``(in, out)``; key names are
@@ -8,6 +9,8 @@ have their params' layout and convert the same way.
 """
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import torch
@@ -98,28 +101,50 @@ def _flatten(tree, prefix, out):
         for i, v in enumerate(tree):
             _flatten(v, f"{prefix}{i}/", out)
     else:
-        out[prefix[:-1]] = tree.detach().float().cpu().numpy()
+        out[prefix[:-1]] = tree.detach().cpu()
+
+
+# The .npz entry that records each leaf's torch dtype (numpy has no bf16:
+# a bf16 leaf is stored as its raw 16-bit patterns).
+DTYPES_KEY = "__dtypes__"
 
 
 def save_npz(path, params) -> None:
     """Write a param tree as one ``.npz``: keys are '/'-joined paths, list
-    positions are their indices, values are f32 (numpy has no bf16)."""
-    flat: dict[str, np.ndarray] = {}
+    positions are their indices; each leaf keeps its dtype, recorded in
+    the ``__dtypes__`` entry (bf16 leaves as their bits, int16)."""
+    flat: dict = {}
     _flatten(params, "", flat)
-    np.savez(path, **flat)
+    arrays, dtypes = {}, {}
+    for name, t in flat.items():
+        dtypes[name] = str(t.dtype).removeprefix("torch.")
+        t = t.contiguous()
+        arrays[name] = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+    arrays[DTYPES_KEY] = np.array(json.dumps(dtypes))
+    np.savez(path, **arrays)
 
 
 def load_npz(path, device="cpu"):
-    """Inverse of ``save_npz``: a nested tree of f32 tensors on ``device``;
-    a level whose keys are all 0..n-1 becomes a list."""
+    """Inverse of ``save_npz``: a nested tree of tensors on ``device``, each
+    with the dtype it was saved with (a file without ``__dtypes__`` gives
+    its arrays' own dtypes); a level whose keys are all 0..n-1 becomes a
+    list."""
     root: dict = {}
     with np.load(path) as z:
+        dtypes = json.loads(str(z[DTYPES_KEY])) if DTYPES_KEY in z.files else {}
         for name in z.files:
+            if name == DTYPES_KEY:
+                continue
+            t = torch.from_numpy(z[name])
+            if dtypes.get(name) == "bfloat16":
+                t = t.view(torch.bfloat16)
+            elif name in dtypes and str(t.dtype).removeprefix("torch.") != dtypes[name]:
+                raise ValueError(f"{path}: {name} holds {t.dtype}, recorded as {dtypes[name]}")
             node = root
             *parents, leaf = name.split("/")
             for p in parents:
                 node = node.setdefault(p, {})
-            node[leaf] = torch.from_numpy(z[name]).to(device)
+            node[leaf] = t.to(device)
 
     def listify(node):
         if not isinstance(node, dict):

@@ -94,7 +94,7 @@ namespace {
 enum Status {
   kOk = 0,
   kCorrupt = 1,           // malformed data that libjpeg rejects too
-  kNotJpeg = 2,           // no SOI marker at the start
+  kNotJpeg = 2,           // no SOI marker at the start (kLoadImage: no FF D8 FF)
   kProcess = 3,           // lossless, hierarchical
   kPrecision = 4,         // sample precision other than 8 bits
   kColorSpace = 5,        // two components; CMYK, YCCK without kLoadImage
@@ -2060,6 +2060,10 @@ struct Decoder {
     if (src.end - src.p < 2 || src.p[0] != 0xFF || src.p[1] != 0xD8) {
       return kNotJpeg;
     }
+    // kLoadImage: PIL's JPEG plugin takes only files that start FF D8 FF;
+    // any other goes to PIL (which refuses it), where libjpeg would skip
+    // to the next marker.
+    if (pil && (src.end - src.p < 3 || src.p[2] != 0xFF)) return kNotJpeg;
     src.p += 2;
     int rc = read_markers(ncomp, idx);
     if (rc == -2) return kCorrupt;  // EOI before any image (JERR_NO_IMAGE)

@@ -8,7 +8,8 @@
 ``load_images`` is tpucap's ``load_image`` (PIL's decode, ``convert("RGB")``,
 then the nearest resize) over a batch of files:
 
-- a file that starts with a JPEG SOI goes through the port's own decoder at
+- a file that starts with FF D8 FF (a JPEG SOI and a marker, the test of
+  PIL's JPEG plugin) goes through the port's own decoder at
   scale 8/8 (``fast_scale=False``) with Pillow's NEAREST resize, which gives
   PIL's bytes for every JPEG it decodes: Huffman or arithmetic, sequential
   or progressive, gray, YCbCr, RGB, and CMYK or YCCK converted as Pillow
@@ -16,8 +17,10 @@ then the nearest resize) over a batch of files:
   and never reaches PIL; so does one whose data ends before its image
   does, which ``load_image`` refuses as truncated (tpucap's own decoder
   and ``caption_dataset`` decode it, as libjpeg does);
-- any other file (PNG, BMP, GIF, ...) goes through ``load_image``'s own
-  steps in PIL, which is imported there and nowhere else in the port.
+- any other file (PNG, BMP, GIF, ..., and one whose SOI is not followed by
+  FF, which PIL refuses and libjpeg would decode) goes through
+  ``load_image``'s own steps in PIL, which is imported there and nowhere
+  else in the port.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ def load_images(paths, *, size: int) -> np.ndarray:
 
     paths = [str(p) for p in paths]
     out, status = jpeg.decode_files(paths, size, fast_scale=False, load_image=True)
-    not_jpeg = status == 2  # no SOI: jpeg_decode.cpp's kNotJpeg
+    not_jpeg = status == 2  # no FF D8 FF: jpeg_decode.cpp's kNotJpeg
     if (status[~not_jpeg] != 0).any():
         jpeg._raise_for(np.where(not_jpeg, 0, status), paths)
     for i in np.flatnonzero(not_jpeg):

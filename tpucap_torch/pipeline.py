@@ -14,7 +14,18 @@
     extract_features(paths)       JPEG files -> encoder features (numpy)
     caption_images(paths)         extract_features, then generate
 
-    fit(descriptions, features)   train the decoder on extracted features
+    evaluate(descriptions,        decode features in padded batches, then
+             features)            BLEU-1..4, CIDEr-D, ROUGE-L, METEOR and
+                                  diversity (``tpucap_torch.train.evaluate``)
+    save(directory)               the inference bundle: config.json,
+    load(directory)               tokenizer.json and params.npz
+    reload_params(source)         swap the weights from a bundle or a tree,
+                                  checked against the live ones first
+
+    fit(descriptions, features,   train the decoder on extracted features;
+        val_data=...)             with a dev split, val_loss / val_accuracy
+                                  each epoch, TrainConfig.val_metric's
+                                  monitor and early stopping
     fit_finetune(descriptions,    train encoder and decoder jointly on
                  images)          preprocessed images
 
@@ -45,16 +56,20 @@ Runs on ``cuda`` unless ``device="cpu"`` is passed; see
 
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
 import torch
 
-from tpucap_torch.config import Config
+from tpucap_torch.config import Config, config_from_dict, config_to_dict
 from tpucap_torch.core import (
     apply_precision,
     infer_dtype,
     resolve_device,
     tree_map,
 )
+from tpucap_torch.convert import load_npz, save_npz
 from tpucap_torch.data.pipeline import image_batch_loader
 from tpucap_torch.data.preprocess import preprocess_batch
 from tpucap_torch.decode import beam_decode, greedy_decode, ids_to_captions
@@ -70,11 +85,20 @@ from tpucap_torch.train import (
     build_optimizer,
     build_training_batch,
     encoder_learning_rate_optimizer,
+    loss_from_sums,
+    make_eval_sums_step,
     make_joint_train_step,
     make_train_step,
     own_state,
 )
+from tpucap_torch.train.evaluate import check_metrics, evaluate_captions
 from tpucap_torch.train.loop import refuse_unported
+
+#: The bundle's param file (tpucap's bundles hold an orbax ``params/``
+#: directory instead, which the port cannot read).
+PARAMS_FILE = "params.npz"
+#: TrainConfig.val_metric values that greedy-decode the dev split.
+DECODE_MONITORS = ("bleu4", "cider", "rouge_l", "meteor")
 
 
 class CaptioningPipeline:
@@ -381,6 +405,107 @@ class CaptioningPipeline:
         ``generate`` (tpucap's one-call demo path)."""
         return self.generate(self.extract_features(list(image_paths)), **kw)
 
+    # -- evaluation ----------------------------------------------------------
+
+    def evaluate(
+        self,
+        descriptions: dict[str, list[str]],
+        features: dict[str, np.ndarray],
+        *,
+        batch_size: int = 64,
+        method: str | None = None,
+        beam_width: int | None = None,
+        parallelism: str | None = None,
+        metrics: tuple = ("bleu",),
+        return_captions: bool = False,
+        meteor_synonyms=None,
+    ):
+        """Decode every image of ``descriptions`` from its features, in
+        chunks of ``batch_size`` (the tail zero-padded, so every decode batch
+        has one shape; the padding rows' captions are dropped), then score
+        the captions against the references (``evaluate_captions``:
+        'bleu', 'cider', 'rouge_l', 'meteor', 'diversity'). ->
+        scores, or (scores, {image_id: caption}) with ``return_captions``."""
+        refuse_unported(parallelism=(parallelism if parallelism != "none" else None, None))
+        check_metrics(metrics)
+        ids = list(descriptions)
+        generated = {}
+        for s in range(0, len(ids), batch_size):
+            chunk = ids[s : s + batch_size]
+            feats = np.stack([np.asarray(features[i]) for i in chunk])
+            caps = self.generate(
+                pad_rows(feats, batch_size), method=method, beam_width=beam_width
+            )
+            generated.update(zip(chunk, caps[: len(chunk)]))
+        scores = evaluate_captions(
+            descriptions, generated, metrics=metrics, meteor_synonyms=meteor_synonyms
+        )
+        return (scores, generated) if return_captions else scores
+
+    # -- persistence ---------------------------------------------------------
+
+    def save(self, directory) -> None:
+        """Write the inference bundle: ``config.json`` (tpucap's section
+        layout), ``tokenizer.json`` (the format both packages share) and
+        ``params.npz`` (``convert.save_npz``: the port's param tree, each
+        leaf with its dtype)."""
+        directory = os.path.abspath(directory)
+        os.makedirs(directory, exist_ok=True)
+        with open(os.path.join(directory, "config.json"), "w") as f:
+            json.dump(config_to_dict(self.config), f, indent=2)
+        if self.tokenizer is not None:
+            self.tokenizer.save(os.path.join(directory, "tokenizer.json"))
+        save_npz(os.path.join(directory, PARAMS_FILE), self.params)
+
+    @classmethod
+    def load(cls, directory, *, device=None) -> "CaptioningPipeline":
+        """A pipeline from a ``save`` bundle, on ``device`` (the card unless
+        ``"cpu"``). A tpucap bundle loads once its params are also written
+        as ``params.npz`` (``convert.save_npz(convert.params_from_jax(
+        params))``)."""
+        directory = os.path.abspath(directory)
+        with open(os.path.join(directory, "config.json")) as f:
+            config = config_from_dict(json.load(f))
+        tokenizer = _load_tokenizer(os.path.join(directory, "tokenizer.json"))
+        params = _bundle_params(directory)
+        pipe = cls(config, tokenizer=tokenizer, device=device)
+        pipe.build(init_params=False)
+        pipe.set_params(params)
+        return pipe
+
+    def reload_params(self, source) -> None:
+        """Swap the weights in place: ``source`` is a ``save`` bundle
+        directory or a param tree of the live tree's layout. Checked before
+        anything is touched: a bundle's encoder and decoder config sections
+        and its tokenizer must equal the live ones; the tree's structure and
+        every leaf's shape and dtype must too. On a mismatch this raises
+        and the live weights keep serving. Drops the cached bf16 params."""
+        if isinstance(source, (str, os.PathLike)):
+            directory = os.path.abspath(os.fspath(source))
+            with open(os.path.join(directory, "config.json")) as f:
+                theirs = json.load(f)
+            ours = config_to_dict(self.config)
+            for section in ("encoder", "decoder"):
+                if theirs.get(section) != ours[section]:
+                    raise ValueError(
+                        f"bundle {section} config differs from the live pipeline's: "
+                        "reload_params swaps weights only; load() a new pipeline "
+                        "for another topology"
+                    )
+            tok_path = os.path.join(directory, "tokenizer.json")
+            if self.tokenizer is not None and os.path.exists(tok_path):
+                with open(tok_path) as f:
+                    if json.load(f) != json.loads(self.tokenizer.to_json()):
+                        raise ValueError(
+                            "bundle tokenizer differs from the live pipeline's: "
+                            "its captions would be read with the wrong vocabulary"
+                        )
+            new = _bundle_params(directory)
+        else:
+            new = tree_map(torch.as_tensor, source)
+        _check_same_layout(self.params, new, "params")
+        self.set_params(new)
+
     # -- training ------------------------------------------------------------
 
     def _train_setup(self, n_rows: int, batch_size: int | None, log):
@@ -403,10 +528,19 @@ class CaptioningPipeline:
         compute_dtype = torch.bfloat16 if cfg.precision == "bf16" else None
         return batch_size, compute_dtype
 
-    def _run_epochs(self, step, state, arrays, batch, epochs, batch_size, log):
+    def _run_epochs(
+        self, step, state, arrays, batch, epochs, batch_size, log, validate=None
+    ):
         """Shared epoch loop: shuffled batches (numpy, seeded with
         TrainConfig.seed as tpucap draws them), metrics summed on the card
-        and read once per epoch. -> (state, history)."""
+        and read once per epoch. ``validate``: fit's dev-split metrics of
+        the current params (``_validation``), taken after each epoch, with
+        early stopping on the monitor. -> (state, history)."""
+        cfg = self.config.train
+        monitor = "val_loss" if cfg.val_metric == "loss" else f"val_{cfg.val_metric}"
+        minimize = monitor == "val_loss"
+        best = float("inf") if minimize else -float("inf")
+        since_best = 0
         rng = np.random.default_rng(self.config.train.seed)
         history = []
         for epoch in range(epochs):
@@ -419,13 +553,107 @@ class CaptioningPipeline:
                     sums[k] = sums.get(k, 0.0) + v
             entry = {k: float(v) / max(n, 1) for k, v in sums.items()}
             entry["epoch"] = epoch
+            if validate:
+                entry.update(validate(state.params))
             history.append(entry)
             if log:
-                log(
-                    f"epoch {epoch}: loss={entry.get('loss', 0):.4f} "
-                    f"acc={entry.get('accuracy', 0):.4f}"
-                )
+                msg = f"epoch {epoch}: loss={entry.get('loss', 0):.4f} acc={entry.get('accuracy', 0):.4f}"
+                if "val_loss" in entry:
+                    msg += f" val_loss={entry['val_loss']:.4f}"
+                if monitor != "val_loss" and monitor in entry:
+                    msg += f" {monitor}={entry[monitor]:.4f}"
+                log(msg)
+            # Keras EarlyStopping(monitor, mode, patience); no checkpoint
+            # manager here, so the params stay the last epoch's.
+            if cfg.early_stopping_patience > 0 and monitor in entry:
+                value = entry[monitor]
+                if value < best if minimize else value > best:
+                    best, since_best = value, 0
+                else:
+                    since_best += 1
+                    if since_best >= cfg.early_stopping_patience:
+                        if log:
+                            log(
+                                f"early stopping at epoch {epoch} (no {monitor} "
+                                f"improvement for {since_best} epochs)"
+                            )
+                        break
         return state, history
+
+    def _validation(self, val_data, batch_size: int, compute_dtype):
+        """fit's dev split ``(descriptions, features)`` -> ``score(params)``,
+        which gives val_loss and val_accuracy (the training objective,
+        dropout off, over chunks of ``batch_size`` rows, the tail
+        zero-padded, normalized once) and, for a decode monitor,
+        ``val_<metric>`` of a greedy decode."""
+        cfg = self.config.train
+        if cfg.val_metric not in ("loss", *DECODE_MONITORS):
+            raise ValueError(
+                f"unknown val_metric {cfg.val_metric!r}; have loss|{'|'.join(DECODE_MONITORS)}"
+            )
+        val_desc, val_features = val_data
+        VF, VT = build_training_batch(
+            self.tokenizer, val_desc, val_features, self.config.decode.max_len
+        )
+        chunks = [
+            self._to_device(
+                pad_rows(VF[s : s + batch_size], batch_size),
+                pad_rows(VT[s : s + batch_size], batch_size),
+            )
+            for s in range(0, VF.shape[0], batch_size)
+        ]
+        eval_step = make_eval_sums_step(
+            self.decoder,
+            pad_id=0,
+            label_smoothing=cfg.label_smoothing,
+            compute_dtype=compute_dtype,
+        )
+        metric = None if cfg.val_metric == "loss" else cfg.val_metric
+        val_ids = list(val_desc)
+        decode_feats = np.stack([np.asarray(val_features[i]) for i in val_ids]).astype(
+            np.float32
+        )
+
+        def score(params) -> dict:
+            sums: dict = {}
+            for vf, vt in chunks:
+                for k, v in eval_step(params, vf, vt).items():
+                    sums[k] = sums.get(k, 0.0) + v
+            _, vm = loss_from_sums(sums)
+            out = {"val_loss": float(vm["loss"]), "val_accuracy": float(vm["accuracy"])}
+            if metric:
+                out[f"val_{metric}"] = self._val_decode_metric(
+                    params, val_ids, decode_feats, val_desc, metric, batch_size
+                )
+            return out
+
+        return score
+
+    @torch.no_grad()
+    def _val_decode_metric(self, params, ids, feats, val_desc, metric: str, batch_size: int):
+        """Greedy-decode the dev split on the current training params (f32
+        masters, the training window's precision policy; on the card through
+        the fused step, K2 and K3), chunks zero-padded to ``batch_size``, and
+        return the corpus metric."""
+        _, end_id = self._token_ids()
+        generated = {}
+        for s in range(0, len(ids), batch_size):
+            chunk = ids[s : s + batch_size]
+            x = torch.as_tensor(pad_rows(feats[s : s + batch_size], batch_size)).to(self.device)
+            res = self._decode(params, x, "greedy", 1)
+            generated.update(
+                zip(
+                    chunk,
+                    ids_to_captions(
+                        self.tokenizer,
+                        res.tokens[: len(chunk)],
+                        res.lengths[: len(chunk)],
+                        end_id=end_id,
+                    ),
+                )
+            )
+        key = "bleu" if metric == "bleu4" else metric
+        return float(evaluate_captions(val_desc, generated, metrics=(key,))[metric])
 
     def fit(
         self,
@@ -451,12 +679,19 @@ class CaptioningPipeline:
         tokens, perplexity, epoch); updates ``self.params["decoder"]``.
         Dropout is on (``DecoderConfig.dropout_rate``); the rows are
         shuffled by ``np.random.default_rng(TrainConfig.seed)`` as tpucap
-        shuffles them."""
+        shuffles them.
+
+        ``val_data=(descriptions, features)``: after each epoch, val_loss
+        and val_accuracy on that split, and with ``TrainConfig.val_metric``
+        'bleu4' | 'cider' | 'rouge_l' | 'meteor' that metric of a greedy
+        decode as ``val_<metric>``; ``early_stopping_patience`` > 0 stops
+        after that many epochs without a strict improvement of the monitor
+        (val_loss down, a decode metric up). The evaluation draws nothing
+        from the dropout generator."""
         refuse_unported(
             data_parallel=(data_parallel, False),
             parallelism=(parallelism if parallelism != "none" else None, None),
             checkpoint_manager=(checkpoint_manager, None),
-            val_data=(val_data, None),
             stream=(stream, False),
             prefetch=(prefetch, 2),
             resume=(resume, False),
@@ -487,8 +722,13 @@ class CaptioningPipeline:
                 compute_dtype=compute_dtype,
                 donate=True,
             )
+            validate = (
+                None
+                if val_data is None
+                else self._validation(val_data, batch_size, compute_dtype)
+            )
             state, history = self._run_epochs(
-                step, state, (F, T), self._to_device, epochs, batch_size, log
+                step, state, (F, T), self._to_device, epochs, batch_size, log, validate
             )
         finally:
             apply_precision(self.config.precision)
@@ -604,3 +844,47 @@ def pad_rows(arr: np.ndarray, target: int) -> np.ndarray:
     if n == target:
         return arr
     return np.pad(arr, [(0, target - n)] + [(0, 0)] * (arr.ndim - 1))
+
+
+def _load_tokenizer(path) -> Tokenizer:
+    """A bundle's word tokenizer; tpucap's BPE artifacts (``"kind": "bpe"``)
+    are not ported."""
+    with open(path) as f:
+        d = json.load(f)
+    if d.get("kind") == "bpe":
+        raise NotImplementedError(f"{path}: the BPE tokenizer is not ported")
+    return Tokenizer.from_json(d)
+
+
+def _bundle_params(directory: str):
+    """A bundle's ``params.npz`` as a tree of CPU tensors."""
+    path = os.path.join(directory, PARAMS_FILE)
+    if not os.path.exists(path) and os.path.isdir(os.path.join(directory, "params")):
+        raise ValueError(
+            f"{directory}: params/ is an orbax checkpoint, which tpucap_torch does not "
+            f"read; write the params as {PARAMS_FILE} with "
+            "convert.save_npz(path, convert.params_from_jax(params))"
+        )
+    return load_npz(path)
+
+
+def _check_same_layout(old, new, where: str) -> None:
+    """Raise ValueError where ``new`` differs from ``old`` in structure
+    (dict keys, list lengths) or in a leaf's shape or dtype."""
+    if isinstance(old, dict) and isinstance(new, dict) and set(old) == set(new):
+        for k in old:
+            _check_same_layout(old[k], new[k], f"{where}/{k}")
+    elif (
+        isinstance(old, (list, tuple))
+        and isinstance(new, (list, tuple))
+        and len(old) == len(new)
+    ):
+        for i, (o, n) in enumerate(zip(old, new)):
+            _check_same_layout(o, n, f"{where}/{i}")
+    elif isinstance(old, (dict, list, tuple)) or isinstance(new, (dict, list, tuple)):
+        raise ValueError(f"param tree structure differs at {where}")
+    elif old.shape != new.shape or old.dtype != new.dtype:
+        raise ValueError(
+            f"param leaf {where} changed: {tuple(new.shape)}/{new.dtype} != "
+            f"{tuple(old.shape)}/{old.dtype}; reload_params needs the same topology"
+        )

@@ -12,6 +12,7 @@ from tpucap_torch.train.loop import (
     TrainState,
     build_optimizer,
     make_eval_step,
+    make_eval_sums_step,
     make_train_step,
     own_state,
 )
@@ -39,6 +40,7 @@ __all__ = [
     "encoder_learning_rate_optimizer",
     "loss_from_sums",
     "make_eval_step",
+    "make_eval_sums_step",
     "make_joint_train_step",
     "make_train_step",
     "masked_cross_entropy_sums",

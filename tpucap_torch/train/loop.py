@@ -293,3 +293,35 @@ def make_eval_step(
         return loss_from_sums(sums)[1]
 
     return step
+
+
+def make_eval_sums_step(
+    decoder,
+    *,
+    pad_id: int = 0,
+    attention_reg: float = 0.0,
+    label_smoothing: float = 0.0,
+    compute_dtype=None,
+) -> Callable:
+    """(params, features, tokens) -> the sum-form pieces of the training
+    objective for one fixed-shape chunk (``caption_loss_sums``), dropout
+    off, no gradient, no generator drawn. Add the chunks' dicts and
+    normalize once with ``loss_from_sums``: the loss over the whole set,
+    zero-padded tail rows adding nothing to any sum."""
+    refuse_unported(attention_reg=(attention_reg, 0.0))
+    check_compute_dtype(compute_dtype)
+
+    @torch.no_grad()
+    def step(params, features, tokens):
+        return caption_loss_sums(
+            decoder,
+            params,
+            features,
+            tokens,
+            deterministic=True,
+            pad_id=pad_id,
+            label_smoothing=label_smoothing,
+            compute_dtype=compute_dtype,
+        )
+
+    return step
