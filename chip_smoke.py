@@ -11,7 +11,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    uses neither); then the kernel build from ``tpucap_torch/csrc`` (nvcc)
    beside the JPEG decoder's (g++), and its time;
 2. each kernel against its plain PyTorch version on the card at the main
-   paths' shapes, in f32 (TF32 off) and bf16, with the stated tolerances;
+   paths' shapes, in f32 (TF32 off) and bf16, with the stated tolerances
+   (K2 and K3 in f32 also at fit's monitor's 256 rows);
    CUDA-event times of the kernel, the plain version and, where one PyTorch
    call computes the same function, that call; the least time the card
    could take (bound) from the bytes and operations of these inputs. K4
@@ -91,8 +92,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    refused and the live captions unchanged; (c) ``fit(val_data=...)`` at
    batch 256, bf16 compute, 2048 training and 512 validation rows, 3
    epochs, ``val_metric="bleu4"``, patience 1: each epoch's val_loss,
-   val_bleu4, training and validation seconds, and the launches of the
-   monitor's greedy decode (K2 and K3; the training is plain);
+   val_bleu4 and seconds, the validation's seconds, and the launches of
+   the monitor's greedy decode (K2 and K3; the training is plain); that
+   decode's route (f32, 256 rows, beam 1) step by step against the plain
+   step's logits;
 8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
    as the last line.
 
@@ -338,7 +341,14 @@ def check_kernels(dev) -> dict[str, dict]:
         l_got = decoder_step.vocab_proj(m_want, p["wo"], p["bo"])
         l_want = decoder_step.vocab_proj_plain(m_want, p["wo"], p["bo"])
         check_close(f"vocab_proj {dt}", l_got, l_want, 1e-5, 1e-4)
-        if dt != torch.bfloat16:
+        if dt == torch.float32:
+            # fit's monitor: a greedy decode of the f32 masters, beam 1, so
+            # DEC_TRAIN_BATCH rows through the f32 routes.
+            r = DEC_TRAIN_BATCH
+            got, want = check_cell(f"B={r} E={U} U={U}", tuple(t[:r] for t in cell[:3]) + cell[3:], dt)
+            m_got, m_want = check_head(f"M={r}", p["fe"][:r], want[2], p["wp"], p["bp"], dt)
+            check_close(f"vocab_proj M={r} {dt}", decoder_step.vocab_proj(m_want, p["wo"], p["bo"]),
+                        decoder_step.vocab_proj_plain(m_want, p["wo"], p["bo"]), 1e-5, 1e-4)
             continue
         # Timing and bounds in bf16, the main path's dtype.
         w_ih, w_hh = p["wk"].T.contiguous(), p["wr"].T.contiguous()
@@ -1204,41 +1214,30 @@ def run_evaluate(pipe) -> list[np.ndarray]:
     references each, batch EVAL_BATCH (the last batch padded), every metric
     family, against ``generate`` on the same padded batches: the same
     captions and launches, K2 and K3 once a decode step. The metrics' host
-    time is read through the pipeline's ``evaluate_captions``. -> the padded
-    feature batches."""
+    time is ``evaluate_captions`` timed on the captions evaluate returned
+    (the same scores); evaluate's wall less that holds the decode and the
+    host's spread between the two scorings, so ``generate`` on the same
+    batches times the decode. -> the padded feature batches."""
     from tpucap_torch import ops
-    from tpucap_torch import pipeline as pipeline_mod
-    from tpucap_torch.train.evaluate import METRICS
+    from tpucap_torch.pipeline import pad_rows
+    from tpucap_torch.train.evaluate import METRICS, evaluate_captions
 
     desc = training_corpus(pipe.tokenizer, EVAL_IMAGES, 13, refs=EVAL_REFS)
     feats = random_features(desc, 14)
     ids = list(desc)
     chunks = [ids[s : s + EVAL_BATCH] for s in range(0, len(ids), EVAL_BATCH)]
-    batches = [pipeline_mod.pad_rows(np.stack([feats[k] for k in c]), EVAL_BATCH) for c in chunks]
+    batches = [pad_rows(np.stack([feats[k] for k in c]), EVAL_BATCH) for c in chunks]
     pipe.generate(batches[0])  # warm-up: allocator, cuBLAS
     ops.reset_launch_counts()
     want, generate_s = timed(
         lambda: [cap for c, b in zip(chunks, batches) for cap in pipe.generate(b)[: len(c)]]
     )
     want_counts = ops.launch_counts()
-
-    score = pipeline_mod.evaluate_captions
-    metric_s = []
-
-    def timed_score(*args, **kw):
-        t0 = time.perf_counter()
-        out = score(*args, **kw)
-        metric_s.append(time.perf_counter() - t0)
-        return out
-
-    pipeline_mod.evaluate_captions = timed_score
-    try:
-        ops.reset_launch_counts()
-        (scores, caps), eval_s = timed(lambda: pipe.evaluate(
-            desc, feats, batch_size=EVAL_BATCH, metrics=METRICS, return_captions=True))
-        counts = ops.launch_counts()
-    finally:
-        pipeline_mod.evaluate_captions = score
+    ops.reset_launch_counts()
+    (scores, caps), eval_s = timed(lambda: pipe.evaluate(
+        desc, feats, batch_size=EVAL_BATCH, metrics=METRICS, return_captions=True))
+    counts = ops.launch_counts()
+    rescored, metric_s = timed(lambda: evaluate_captions(desc, caps, metrics=METRICS))
 
     if list(caps) != ids or list(caps.values()) != want:
         same = sum(a == b for a, b in zip(caps.values(), want))
@@ -1252,19 +1251,21 @@ def run_evaluate(pipe) -> list[np.ndarray]:
     bad = {k: v for k, v in scores.items() if v is None or not np.isfinite(v)}
     bad.update({k: scores[k] for k in ("bleu1", "bleu2", "bleu3", "bleu4", "rouge_l", "meteor")
                 if not 0.0 <= scores[k] <= 1.0})
-    if bad or len(metric_s) != 1:
-        raise AssertionError(f"evaluate: scores out of range {bad}")
-    decode_s = eval_s - metric_s[0]
+    if bad or rescored != scores:
+        raise AssertionError(f"evaluate: scores out of range {bad}, or not evaluate_captions' "
+                             f"on its captions {rescored}")
+    decode_s = eval_s - metric_s
     log(f"evaluate: {EVAL_IMAGES} images x {EVAL_REFS} references, batch {EVAL_BATCH} "
         f"({len(batches)} decode batches, the last {len(chunks[-1])} rows + "
         f"{EVAL_BATCH - len(chunks[-1])} of zeros), resnet50+lstm1 beam {BEAM} vocab {VOCAB} bf16: "
         f"launches {counts}: K2 {counts['lstm_cell'] // len(batches)}, K3 "
         f"{counts['merge_head'] // len(batches)} + {counts['vocab_proj'] // len(batches)} a batch; "
         f"captions identical to generate's")
-    log(f"evaluate: {eval_s:.5f} s, {EVAL_IMAGES / eval_s:.2f} captions/s; the decode "
-        f"{decode_s:.5f} s (generate alone {generate_s:.5f} s, {EVAL_IMAGES / generate_s:.2f} "
-        f"captions/s); the metrics' host time {metric_s[0]:.5f} s for {', '.join(METRICS)} "
-        f"({os.cpu_count()} cpus)")
+    log(f"evaluate: {eval_s:.5f} s, {EVAL_IMAGES / eval_s:.2f} captions/s; the metrics' host "
+        f"time {metric_s:.5f} s for {', '.join(METRICS)} ({os.cpu_count()} cpus), scored again "
+        f"on its captions; evaluate's wall less that {decode_s:.5f} s (the decode, and the host's "
+        f"spread between the two scorings); generate alone on the same batches {generate_s:.5f} s "
+        f"({EVAL_IMAGES / generate_s:.2f} captions/s)")
     log(f"evaluate: scores { {k: round(v, 6) for k, v in scores.items()} }")
     return batches
 
@@ -1322,10 +1323,12 @@ def run_fit_validation(pipe) -> None:
     """7(c): ``fit(val_data=...)`` at bench.py --mode train's decoder shapes
     (batch 256, bf16 compute, f32 masters), FIT_TRAIN training rows and
     FIT_VAL validation rows, val_metric bleu4 with early stopping (patience
-    1): each epoch's val_loss, val_bleu4, training and validation seconds;
-    the counters reset just before and read just after, so K2 and K3 count
-    the monitor's greedy decode (training and val_loss run the plain
-    loop)."""
+    1): each epoch's val_loss, val_bleu4 and wall (training and validation,
+    from the log's stamps); the validation alone, called once more on the
+    last epoch's params, gives that epoch's scores again and its seconds.
+    The counters reset just before and read just after fit, so K2 and K3
+    count the monitor's greedy decode (training and val_loss run the plain
+    loop). Then the monitor's route against its plain version."""
     from tpucap_torch import ops
     from tpucap_torch.config import TrainConfig
 
@@ -1335,36 +1338,21 @@ def run_fit_validation(pipe) -> None:
     val = training_corpus(pipe.tokenizer, FIT_VAL, 16, prefix="val")
     feats = random_features([*train, *val], 17)
 
-    val_s, stamps, lines = [], [], []
-    validation = pipe._validation
-
-    def timed_validation(*args):
-        score = validation(*args)
-
-        def timed_score(params):
-            out, s = timed(lambda: score(params))
-            val_s.append(s)
-            return out
-
-        return timed_score
+    stamps, lines = [], []
 
     def log_line(msg):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         lines.append(msg)
 
-    pipe._validation = timed_validation
-    try:
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        hist = pipe.fit(train, feats, epochs=FIT_EPOCHS, val_data=(val, feats), log=log_line)
-        counts = ops.launch_counts()
-    finally:
-        del pipe._validation
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = pipe.fit(train, feats, epochs=FIT_EPOCHS, val_data=(val, feats), log=log_line)
+    counts = ops.launch_counts()
     epoch_stamps = [t for t, m in zip(stamps, lines) if m.startswith("epoch ")]
     n = len(hist)
     keys = ("loss", "val_loss", "val_accuracy", "val_bleu4")
-    if not 1 <= n <= FIT_EPOCHS or len(val_s) != n or len(epoch_stamps) != n or not all(
+    if not 1 <= n <= FIT_EPOCHS or len(epoch_stamps) != n or not all(
         np.isfinite(e[k]) for e in hist for k in keys
     ) or not all(0.0 <= e["val_bleu4"] <= 1.0 for e in hist):
         raise AssertionError(f"fit(val_data): history {hist}")
@@ -1376,17 +1364,61 @@ def run_fit_validation(pipe) -> None:
     expect.update(lstm_cell=k2, merge_head=k2, vocab_proj=k2)
     if counts != expect or not decode_batches <= k2 <= MAX_LEN * decode_batches:
         raise AssertionError(f"fit(val_data): launch counts {counts}, {decode_batches} decode batches")
+
+    score = pipe._validation((val, feats), DEC_TRAIN_BATCH, torch.bfloat16)
+    again, val_s = timed(lambda: score(pipe.params["decoder"]))
+    if any(not np.isclose(again[k], hist[-1][k], rtol=1e-5, atol=0) for k in again):
+        raise AssertionError(f"fit(val_data): the last epoch's validation {hist[-1]}, again {again}")
     log(f"fit(val_data): lstm1 batch {DEC_TRAIN_BATCH} bf16 compute, {FIT_TRAIN} training rows, "
         f"{FIT_VAL} validation rows, val_metric bleu4, patience 1: {n} of {FIT_EPOCHS} epochs; "
         f"the monitor's greedy decode launched K2 {k2}, K3 {counts['merge_head']} + "
         f"{counts['vocab_proj']} ({decode_batches} decode batches, {k2 / decode_batches:g} steps a batch)")
-    for e, end, v in zip(hist, epoch_stamps, val_s):
+    for e, end in zip(hist, epoch_stamps):
         log(f"fit(val_data): epoch {e['epoch']}: loss {e['loss']:.6f} val_loss {e['val_loss']:.6f} "
-            f"val_accuracy {e['val_accuracy']:.6f} val_bleu4 {e['val_bleu4']:.6g}; training "
-            f"{end - t0 - v:.5f} s, validation {v:.5f} s")
+            f"val_accuracy {e['val_accuracy']:.6f} val_bleu4 {e['val_bleu4']:.6g}; "
+            f"{end - t0:.5f} s (training and validation)")
         t0 = end
+    log(f"fit(val_data): the validation on the last epoch's params, called again: {val_s:.5f} s, "
+        f"the same scores")
     if n < FIT_EPOCHS:
         log(f"fit(val_data): {lines[-1]}")
+    check_monitor_route(pipe, np.stack([feats[k] for k in list(val)[:DEC_TRAIN_BATCH]]))
+
+
+def check_monitor_route(pipe, feats) -> None:
+    """The monitor's decode route against its plain version at its shape:
+    DEC_TRAIN_BATCH rows of beam 1 on the f32 masters, so K2's f32 kernel
+    and K3's f32 (SIMT) routes. Along the plain step's greedy tokens, each
+    step's logits through ``step_fn`` (the fused step) against the plain
+    step's on the same state, TF32 off."""
+    from tpucap_torch import ops
+    from tpucap_torch.core import apply_precision, tree_leaves
+
+    params = pipe.params["decoder"]
+    if any(t.dtype != torch.float32 for t in tree_leaves(params)):
+        raise AssertionError("monitor route: the decoder's params after fit are not f32")
+    fused = pipe.step_fn()
+    apply_precision("f32")
+    ops.reset_launch_counts()
+    try:
+        with torch.inference_mode():
+            state = pipe.decoder.init_state(params, torch.as_tensor(feats, device=pipe.device))
+            token = torch.full((len(feats),), pipe._token_ids()[0], device=pipe.device)
+            err = 0.0
+            for t in range(MAX_LEN):
+                lk, _ = fused(params, state, token)
+                lp, state = pipe.decoder.step(params, state, token)
+                # f32 both ways; sums of 256 products in another order.
+                check_close(f"monitor route step {t}", lk, lp, 1e-5, 1e-4)
+                err = max(err, max_err(lk, lp))
+                token = lp.argmax(-1)
+    finally:
+        apply_precision(pipe.config.precision)
+    counts = ops.launch_counts()
+    if not counts["lstm_cell"] == counts["merge_head"] == counts["vocab_proj"] == MAX_LEN:
+        raise AssertionError(f"monitor route: launch counts {counts}")
+    log(f"monitor route: f32 batch {len(feats)} beam 1, {MAX_LEN} steps: the fused step's logits "
+        f"(K2, K3 f32) within tol 1e-4 + 1e-5 rel of the plain step's, max_abs_err {err:.3g}")
 
 
 def main() -> int:

@@ -3,8 +3,8 @@ at ``chip_smoke.py`` phase 7's size: 1000 images with 5 references each.
 
     python3 scripts/metric_rates.py    # from the repo root; CPU only
 
-The references are drawn as phase 7 draws them (8 to 30 words of the
-synthetic 7579-word vocabulary, seeded); each hypothesis is 33 words drawn
+The references are phase 7's (``chip_smoke.training_corpus``: 8 to 30
+words of the synthetic 7579-word vocabulary, seeded); each hypothesis is 33 words drawn
 from the vocabulary's first 300, so that words repeat across images as a
 trained model's do. Each family ('bleu', 'cider', 'rouge_l', 'meteor',
 'diversity') is scored alone through ``evaluate_captions``, in turn, three
@@ -26,7 +26,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import EVAL_IMAGES, EVAL_REFS, VOCAB, corpus  # noqa: E402
+from chip_smoke import EVAL_IMAGES, EVAL_REFS, VOCAB, corpus, training_corpus  # noqa: E402
 from tpucap_torch.text import Tokenizer  # noqa: E402
 from tpucap_torch.train.evaluate import METRICS, evaluate_captions  # noqa: E402
 
@@ -36,15 +36,9 @@ ROUNDS, HYP_WORDS, HYP_VOCAB = 3, 33, 300
 def main() -> int:
     tok = Tokenizer()
     tok.fit_on_texts(corpus(VOCAB - 3)["corpus"])
+    desc = training_corpus(tok, EVAL_IMAGES, 13, refs=EVAL_REFS)
     words = [w for w in tok.word_index if w not in ("startseq", "endseq")]
     rng = np.random.default_rng(0)
-    desc = {
-        f"img{i}": [
-            "startseq " + " ".join(rng.choice(words, rng.integers(8, 31))) + " endseq"
-            for _ in range(EVAL_REFS)
-        ]
-        for i in range(EVAL_IMAGES)
-    }
     generated = {k: " ".join(rng.choice(words[:HYP_VOCAB], HYP_WORDS)) for k in desc}
     print(f"host: {platform.processor() or platform.machine()}, {os.cpu_count()} cpus, "
           f"python {platform.python_version()}; {EVAL_IMAGES} images x {EVAL_REFS} references, "

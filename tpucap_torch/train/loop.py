@@ -275,22 +275,17 @@ def make_eval_step(
     compute_dtype=None,
 ) -> Callable:
     """(params, features, tokens) -> metrics of the training objective,
-    dropout off, no gradient."""
-    refuse_unported(attention_reg=(attention_reg, 0.0))
+    dropout off, no gradient: ``make_eval_sums_step`` normalized."""
+    sums_step = make_eval_sums_step(
+        decoder,
+        pad_id=pad_id,
+        attention_reg=attention_reg,
+        label_smoothing=label_smoothing,
+        compute_dtype=compute_dtype,
+    )
 
-    @torch.no_grad()
     def step(params, features, tokens):
-        sums = caption_loss_sums(
-            decoder,
-            params,
-            features,
-            tokens,
-            deterministic=True,
-            pad_id=pad_id,
-            label_smoothing=label_smoothing,
-            compute_dtype=compute_dtype,
-        )
-        return loss_from_sums(sums)[1]
+        return loss_from_sums(sums_step(params, features, tokens))[1]
 
     return step
 
