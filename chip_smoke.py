@@ -96,7 +96,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the monitor's greedy decode (K2 and K3; the training is plain); that
    decode's route (f32, 256 rows, beam 1) step by step against the plain
    step's logits;
-8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
+8. the CLI workflow on CONFIG_1 (``--preset config1``: VGG16 fc2 4096-d
+   features at 224, lstm1 embed/hidden 256, max_len 34), in-process through
+   ``tpucap_torch.cli.main.main`` in a temporary directory that holds a
+   Flickr8k-format dataset written here: the six baseline fixtures linked
+   under 512 ids, a token file of 5 captions an image from ``corpus``
+   (vocabulary 7579), train / dev / test splits of 384 / 64 / 64 ids.
+   (a) ``extract`` at batch 32: 512 rows, bit for bit
+   ``extract_features`` of the same weights, no kernel launched (the host
+   preprocesses), images/s; (b) ``train`` with the dev split, the bleu4
+   monitor, patience 1, 3 epochs at batch 64 and ``--metrics-log``: the
+   steps saved (30 an epoch), the steps kept and the best step those
+   orbax's rules give for the logged val_bleu4 values, every kept step
+   restored bit for bit as saved, seconds an epoch, the monitor's K2 and K3
+   launches; (c) ``caption`` of 8 images with tpucap's default beam 3: the
+   lines of ``caption_images`` on a pipeline restored from the same best
+   step, K2 and K3 once + once a decode step; (d) ``evaluate`` of the test
+   split with every metric and ``--coco-results``: ``pipe.evaluate``'s
+   scores on the same params, finite, BLEU, ROUGE-L and METEOR in [0, 1],
+   the decode's and the metrics' seconds; (e) ``caption --keras-h5`` exits
+   non-zero before any restore;
+9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
    as the last line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
@@ -104,9 +124,11 @@ It imports torch and tpucap_torch only (no jax, nothing of tpucap).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -180,6 +202,11 @@ DATASET_IMAGES = 4 * BATCH
 # fit(val_data)'s training and validation rows and epochs.
 EVAL_IMAGES, EVAL_REFS, EVAL_BATCH = 1000, 5, 256
 FIT_TRAIN, FIT_VAL, FIT_EPOCHS = 2048, 512, 3
+# The CLI workflow: images, captions an image, train / dev / test ids,
+# extract's and train's batches, epochs, images captioned.
+CLI_MODEL = ("--preset", "config1")
+CLI_IMAGES, CLI_REFS, CLI_SPLITS = 512, 5, (384, 64, 64)
+CLI_EXTRACT_BATCH, CLI_TRAIN_BATCH, CLI_EPOCHS, CLI_CAPTIONED = 32, 64, 3, 8
 
 
 def log(msg: str) -> None:
@@ -1421,6 +1448,257 @@ def check_monitor_route(pipe, feats) -> None:
         f"(K2, K3 f32) within tol 1e-4 + 1e-5 rel of the plain step's, max_abs_err {err:.3g}")
 
 
+# -- phase 8: the CLI workflow on CONFIG_1 -----------------------------------
+
+
+class StampedLines(io.TextIOBase):
+    """A text stream that keeps each line written with the time it ended."""
+
+    def __init__(self):
+        self.lines: list[tuple[float, str]] = []
+        self._part = ""
+
+    def write(self, s: str) -> int:
+        *done, self._part = (self._part + s).split("\n")
+        self.lines += [(time.perf_counter(), line) for line in done]
+        return len(s)
+
+
+def run_cli(argv) -> tuple[list[tuple[float, str]], list[str], float, float]:
+    """``tpucap_torch.cli.main.main(argv)`` as a user calls it (on the
+    card), its output captured. -> (stdout lines with their times, stderr
+    lines, seconds, start time)."""
+    from tpucap_torch.cli.main import main as cli
+
+    out, err = StampedLines(), StampedLines()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli([str(a) for a in argv])
+    torch.cuda.synchronize()
+    return out.lines, [line for _, line in err.lines], time.perf_counter() - t0, t0
+
+
+def write_cli_dataset(root: Path) -> list[str]:
+    """A Flickr8k-format dataset: images/<id>.jpg linking the baseline
+    fixtures in turn, tokens.txt (``<id>.jpg#<n>\t<caption>``, CLI_REFS
+    captions an image drawn in turn from ``corpus``'s sentences, so the
+    training split holds the whole vocabulary) and train.txt, dev.txt,
+    test.txt. -> the ids."""
+    sentences = [c.removeprefix("startseq ").removesuffix(" endseq")
+                 for c in corpus(VOCAB - 3)["corpus"]]
+    ids = [f"{i:06d}_{i % 1000:03d}" for i in range(CLI_IMAGES)]
+    (root / "images").mkdir()
+    for i, k in enumerate(ids):
+        os.symlink(FIXTURES / BASELINE_FIXTURES[i % len(BASELINE_FIXTURES)], root / "images" / f"{k}.jpg")
+    with open(root / "tokens.txt", "w") as f:
+        for i, k in enumerate(ids):
+            for n in range(CLI_REFS):
+                f.write(f"{k}.jpg#{n}\t{sentences[(i * CLI_REFS + n) % len(sentences)]}\n")
+    start = 0
+    for name, n in zip(("train", "dev", "test"), CLI_SPLITS):
+        (root / f"{name}.txt").write_text("".join(f"{k}.jpg\n" for k in ids[start : start + n]))
+        start += n
+    return ids
+
+
+def orbax_keeps(saved, n: int, key: str, maximize: bool) -> tuple[list[int], int]:
+    """(steps kept, best step) of orbax 0.11.32's BestN(n) and best_step
+    for (step, metrics) saved in step order: after each save beyond n, the
+    n best by ``key`` stay; a tie goes to the later step."""
+    rank = lambda c: (c[1][key] if maximize else -c[1][key], c[0])  # noqa: E731
+    kept: list = []
+    for entry in saved:
+        kept.append(entry)
+        if len(kept) > n:
+            best = {c[0] for c in sorted(kept, key=rank)[-n:]}
+            kept = [c for c in kept if c[0] in best]
+    return [c[0] for c in kept], max(kept, key=rank)[0]
+
+
+def check_cli_counts(label: str, counts: dict[str, int], decode_batches: int) -> int:
+    """K2 and K3's two kernels the same count, one a decode step, at most
+    MAX_LEN steps a batch; no other kernel. -> the count."""
+    k2 = counts["lstm_cell"]
+    expect = {name: 0 for name in counts}
+    expect.update(lstm_cell=k2, merge_head=k2, vocab_proj=k2)
+    if counts != expect or not decode_batches <= k2 <= MAX_LEN * decode_batches:
+        raise AssertionError(f"{label}: launch counts {counts}, {decode_batches} decode batches")
+    return k2
+
+
+def run_cli_workflow(dev) -> None:
+    """8: extract -> train -> caption -> evaluate on ``--preset config1``,
+    each command held to the library calls it stands for."""
+    import tempfile
+
+    from tpucap_torch import ops
+    from tpucap_torch.checkpoint import CheckpointManager
+    from tpucap_torch.cli.main import _build_config, build_parser
+    from tpucap_torch.core import tree_leaves, tree_map
+    from tpucap_torch.data import load_descriptions, load_split, prepare_descriptions
+    from tpucap_torch.models.encoders import build_encoder
+    from tpucap_torch.pipeline import CaptioningPipeline
+    from tpucap_torch.text import load_tokenizer
+    from tpucap_torch.train import TrainState, build_optimizer
+    from tpucap_torch.train.evaluate import METRICS, evaluate_captions
+
+    preset = list(CLI_MODEL)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ids = write_cli_dataset(root)
+        feats_path, ckpt = root / "features.npz", root / "ckpt"
+        paths = [root / "images" / f"{k}.jpg" for k in ids]
+        cfg = _build_config(build_parser()[0].parse_args(["extract", *preset, "--images", "-", "--out", "-"]))
+        log(f"cli: {' '.join(preset)}: {cfg.encoder.name} {cfg.encoder.features} {cfg.encoder.feature_dim}-d "
+            f"at {build_encoder(cfg.encoder.name).input_size}, {cfg.decoder.name} embed {cfg.decoder.embed_dim} hidden {cfg.decoder.hidden_dim}, "
+            f"max_len {cfg.decode.max_len}, precision {cfg.precision}; {CLI_IMAGES} images (the six "
+            f"baseline fixtures in turn), {CLI_REFS} captions each, splits {CLI_SPLITS}")
+
+        # (a) extract
+        ops.reset_launch_counts()
+        out, err, extract_s, _ = run_cli(["extract", *preset, "--images", root / "images", "--out",
+                                          feats_path, "--batch-size", CLI_EXTRACT_BATCH])
+        counts = ops.launch_counts()
+        if [line for _, line in out] != [f"wrote {CLI_IMAGES} features to {feats_path}"] or any(counts.values()):
+            raise AssertionError(f"cli extract: printed {out}, launches {counts}")
+        with np.load(feats_path) as z:
+            feats = {k: z[k] for k in z.files}
+        pipe = CaptioningPipeline(cfg, device=dev)
+        pipe.build()
+        want, lib_s = timed(lambda: pipe.extract_features(paths, batch_size=CLI_EXTRACT_BATCH))
+        if sorted(feats) != sorted(ids) or not all(
+            feats[k].dtype == np.float32 and np.array_equal(feats[k], w) for k, w in zip(ids, want)
+        ) or not np.isfinite(want).all():
+            raise AssertionError("cli extract: the rows differ from extract_features' on the same weights")
+        log(f"cli extract: {CLI_IMAGES} rows of {want.shape[1]}, bit for bit extract_features' on the same "
+            f"weights; the command {extract_s:.5f} s ({CLI_IMAGES / extract_s:.2f} images/s, VGG16's "
+            f"random build included), extract_features alone {lib_s:.5f} s "
+            f"({CLI_IMAGES / lib_s:.2f} images/s, host decode and resize included); no kernel launched")
+
+        # (b) train; each save's params kept aside to hold the restores to.
+        saved: dict[int, list] = {}
+        real_save = CheckpointManager.save
+
+        def keep(self, state, metrics=None):
+            saved[int(state.step)] = [t.detach().cpu().clone() for t in tree_leaves(state.params)]
+            return real_save(self, state, metrics)
+
+        mlog = root / "metrics.jsonl"
+        ops.reset_launch_counts()
+        CheckpointManager.save = keep
+        try:
+            out, err, train_s, t0 = run_cli([
+                "train", *preset, "--tokens", root / "tokens.txt", "--split", root / "train.txt",
+                "--val-split", root / "dev.txt", "--val-metric", "bleu4", "--early-stopping-patience", 1,
+                "--epochs", CLI_EPOCHS, "--batch-size", CLI_TRAIN_BATCH, "--features", feats_path,
+                "--checkpoint-dir", ckpt, "--metrics-log", mlog])
+        finally:
+            CheckpointManager.save = real_save
+        counts = ops.launch_counts()
+        hist = [json.loads(line) for line in mlog.read_text().splitlines()]
+        n = len(hist)
+        steps_per_epoch = CLI_SPLITS[0] * CLI_REFS // CLI_TRAIN_BATCH
+        steps = [steps_per_epoch * (e + 1) for e in range(n)]
+        epoch_lines = [(t, line) for t, line in out if line.startswith("epoch ")]
+        if not 1 <= n <= CLI_EPOCHS or sorted(saved) != steps or len(epoch_lines) != n or not out[-1][1].startswith(
+            f"trained {n} epochs; final loss {hist[-1]['loss']:.4f}; checkpoints in {ckpt}"
+        ) or not all(np.isfinite(e[k]) for e in hist for k in ("loss", "val_loss", "val_bleu4")):
+            raise AssertionError(f"cli train: printed {out}, saved steps {sorted(saved)}, history {hist}")
+        k2 = check_cli_counts("cli train", counts, n * -(-CLI_SPLITS[1] // CLI_TRAIN_BATCH))
+        mgr = CheckpointManager(ckpt, best_metric="val_bleu4", best_mode="max")
+        kept, best = orbax_keeps([(s, e) for s, e in zip(steps, hist)], 3, "val_bleu4", maximize=True)
+        if mgr.all_steps() != kept or mgr.best_step() != best or any(
+            mgr.metrics(s) != {"val_loss": hist[i]["val_loss"], "val_bleu4": hist[i]["val_bleu4"]}
+            for i, s in enumerate(steps) if s in kept
+        ):
+            raise AssertionError(f"cli train: kept {mgr.all_steps()} best {mgr.best_step()}, orbax's rules "
+                                 f"give {kept} best {best}")
+        tok = load_tokenizer(ckpt / "tokenizer.json")
+        ref = CaptioningPipeline(cfg, tokenizer=tok, device=dev)
+        ref.build(init_params=False)
+        template = TrainState.create(tree_to(ref.decoder.init(torch.Generator()), dev),
+                                     build_optimizer(cfg.train), torch.Generator(device=dev))
+        for s in kept:
+            back = tree_leaves(mgr.restore(template, s).params)
+            if not all(b.dtype == a.dtype and torch.equal(b.cpu(), a) for a, b in zip(saved[s], back)):
+                raise AssertionError(f"cli train: step {s} restored differs from the saved params")
+        if ref.vocab_size != VOCAB:
+            raise AssertionError(f"cli train: vocabulary {ref.vocab_size} != {VOCAB}")
+        log(f"cli train: {CLI_SPLITS[0]} x {CLI_REFS} captions, batch {CLI_TRAIN_BATCH} ({steps_per_epoch} steps "
+            f"an epoch), f32, vocab {ref.vocab_size}, dev split {CLI_SPLITS[1]} ids, val_metric bleu4, "
+            f"patience 1: {n} of {CLI_EPOCHS} epochs, {train_s:.5f} s in all; saved steps {steps}, kept "
+            f"{kept}, best {best} (orbax's rules on the logged val_bleu4); each kept step restored bit for "
+            f"bit; the monitor's greedy decode launched K2 {k2}, K3 {counts['merge_head']} + "
+            f"{counts['vocab_proj']}")
+        last = t0
+        for e, (t, line) in zip(hist, epoch_lines):
+            log(f"cli train: epoch {e['epoch']}: loss {e['loss']:.6f} val_loss {e['val_loss']:.6f} val_bleu4 "
+                f"{e['val_bleu4']:.6g}; {t - last:.5f} s since the "
+                f"{'command started (setup included)' if last == t0 else 'last epoch line'}")
+            last = t
+
+        # (c) caption, against caption_images on the best step's params
+        ref.set_params({"encoder": pipe.params["encoder"], "decoder": mgr.restore(template, best).params})
+        del pipe
+        picked = paths[:CLI_CAPTIONED]
+        ops.reset_launch_counts()
+        out, err, caption_s, _ = run_cli(["caption", *preset, "--image", *picked, "--checkpoint-dir", ckpt,
+                                          "--val-metric", "bleu4"])
+        counts = ops.launch_counts()
+        steps_c = check_cli_counts("cli caption", counts, 1)
+        want = [f"{p}\t{c}" for p, c in zip(picked, ref.caption_images(picked, method="beam", beam_width=BEAM))]
+        if [line for _, line in out] != want or not err[0].startswith("note: no --keras-h5 given"):
+            raise AssertionError(f"cli caption: printed {out} {err}, caption_images gives {want}")
+        log(f"cli caption: {CLI_CAPTIONED} images, beam {BEAM}: the lines of caption_images on the best step; "
+            f"{caption_s:.5f} s (VGG16's random build and the restore included); launches {counts}: "
+            f"K2 {steps_c}, K3 {counts['merge_head']} + {counts['vocab_proj']} ({steps_c} decode steps)")
+        for _, line in out[:2]:
+            log(f"cli caption: {line!r}")
+
+        # (d) evaluate, against pipe.evaluate on the same params
+        coco = root / "coco.json"
+        ops.reset_launch_counts()
+        out, err, eval_s, _ = run_cli([
+            "evaluate", *preset, "--tokens", root / "tokens.txt", "--split", root / "test.txt",
+            "--features", feats_path, "--checkpoint-dir", ckpt, "--val-metric", "bleu4", "--batch-size",
+            CLI_TRAIN_BATCH, "--metrics", ",".join(METRICS), "--coco-results", coco])
+        counts = ops.launch_counts()
+        steps_e = check_cli_counts("cli evaluate", counts, 1)
+        scores = json.loads(out[-1][1])
+        test = prepare_descriptions(load_descriptions(root / "tokens.txt"), load_split(root / "test.txt"))
+        (want_scores, caps), lib_s = timed(lambda: ref.evaluate(
+            test, feats, batch_size=CLI_TRAIN_BATCH, metrics=METRICS, return_captions=True))
+        _, decode_s = timed(lambda: ref.generate(np.stack([feats[k] for k in test])))
+        _, metric_s = timed(lambda: evaluate_captions(test, caps, metrics=METRICS))
+        rows = json.loads(coco.read_text())
+        bad = {k: v for k, v in scores.items() if v is not None and not np.isfinite(v)}
+        bad.update({k: scores[k] for k in ("bleu1", "bleu2", "bleu3", "bleu4", "rouge_l", "meteor")
+                    if not 0.0 <= scores[k] <= 1.0})
+        if scores != want_scores or bad or rows != [{"image_id": k, "caption": c} for k, c in caps.items()] \
+                or err != [f"wrote {len(test)} coco-format results to {coco}"]:
+            raise AssertionError(f"cli evaluate: scores {scores} ({bad} out of range), evaluate gives "
+                                 f"{want_scores}; printed {err}")
+        log(f"cli evaluate: {len(test)} test images x {CLI_REFS} references, greedy, batch {CLI_TRAIN_BATCH}, "
+            f"every metric: pipe.evaluate's scores on the best step; the command {eval_s:.5f} s (VGG16's "
+            f"random build and the restore included), pipe.evaluate {lib_s:.5f} s, its decode alone "
+            f"{decode_s:.5f} s, the metrics' host time {metric_s:.5f} s; launches {counts}: K2 {steps_e}, "
+            f"K3 {counts['merge_head']} + {counts['vocab_proj']}")
+        log(f"cli evaluate: scores { {k: (round(v, 6) if v is not None else None) for k, v in scores.items()} }")
+
+        # (e) a refused flag exits before any restore
+        absent = root / "absent"
+        try:
+            run_cli(["caption", *preset, "--image", paths[0], "--checkpoint-dir", absent, "--keras-h5", "x.h5"])
+        except SystemExit as e:
+            refusal = e.code
+        else:
+            raise AssertionError("cli: caption --keras-h5 ran")
+        if refusal in (0, None) or "--keras-h5" not in str(refusal) or absent.exists():
+            raise AssertionError(f"cli: caption --keras-h5 exited with {refusal!r}")
+        log(f"cli: caption --keras-h5 exits before any restore: {refusal!r}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1462,6 +1740,8 @@ def main() -> int:
     batches = run_evaluate(pipe)
     run_bundle(pipe, batches[0])
     run_fit_validation(pipe)
+    del pipe, batches
+    run_cli_workflow(dev)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

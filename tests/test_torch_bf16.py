@@ -147,6 +147,7 @@ def pipelines():
     jpipe._bf16_params = None
     pipe = CaptioningPipeline(
         tcfg.Config(
+            encoder=tcfg.encoder_config("resnet50"),
             decoder=tcfg.DecoderConfig(**DEC),
             decode=tcfg.DecodeConfig(**DECODE),
             precision="bf16",

@@ -11,7 +11,16 @@ atol 1e-4 + rtol 1e-5 (tpucap's own test of the kernel); bf16 within two
 bf16 ulps (2**-6 relative, and 2**-6 of the output's scale absolute),
 since each of the three convs rounds its f32 sum to bf16 and a sum taken
 in another order can round to the neighbouring value.
+
+VGG16 and tiny_cnn against tpucap's on bridged params, f32, atol 1e-4 on
+the outputs (measured 5.5e-6 on VGG16's fc2 at scale 1.3): VGG16's fc2
+form at 224, batch 1 (its fc1 alone holds 25088 x 4096 weights, so once),
+its spatial and block5-pooled forms at 32, tiny_cnn pooled and spatial at
+32. The Flatten before fc1 is NHWC's row-major order, which the 224 case
+holds: flattening NCHW would permute fc1's inputs.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -19,12 +28,16 @@ import numpy as np
 import pytest
 import torch
 
+from tpucap.models.encoders import PREPROCESS_MODES as JAX_PREPROCESS_MODES
 from tpucap.models.encoders.fold_bn import fold_resnet50 as jax_fold
+from tpucap.models.encoders.registry import build_encoder as jax_build_encoder
 from tpucap.models.encoders.resnet50 import ResNet50 as JaxResNet50
+from tpucap.models.encoders.tiny import TinyCNN as JaxTinyCNN
+from tpucap.models.encoders.vgg16 import VGG16 as JaxVGG16
 from tpucap.ops.pallas.bottleneck import fused_identity_block as jax_block
 from tpucap_torch import ops
 from tpucap_torch.convert import params_from_jax
-from tpucap_torch.models.encoders import ResNet50, build_encoder, resnet50
+from tpucap_torch.models.encoders import VGG16, ResNet50, TinyCNN, build_encoder, resnet50
 from tpucap_torch.models.encoders.fold_bn import fold_resnet50
 from tpucap_torch.ops.bottleneck import fused_identity_block_plain
 
@@ -101,7 +114,7 @@ def test_resnet50_layout_and_options():
         JaxResNet50().fused_blocks, JaxResNet50().fused_stages
     )
     with pytest.raises(NotImplementedError):
-        build_encoder("vgg16")
+        build_encoder("inception_v3")
 
 
 # -- K4: the fused identity block --------------------------------------------
@@ -178,3 +191,64 @@ def test_fused_stages_route_only_their_identity_blocks(monkeypatch, stages, fold
     assert len(seen) == calls
     if stages == ("conv3",):
         assert all(s[-1] == 512 for s in seen)
+
+
+# -- VGG16 and tiny_cnn ------------------------------------------------------
+
+
+def _encoder_against_tpucap(jenc, tenc, size, batch, seed):
+    jp = jax.tree.map(np.asarray, jenc.init(jax.random.key(seed)))
+    x = np.random.default_rng(seed).uniform(-120, 150, (batch, size, size, 3)).astype(np.float32)
+    ref = np.asarray(jax.jit(jenc.apply)(jp, x))
+    tp = params_from_jax(jp)
+    assert {k: {n: tuple(t.shape) for n, t in v.items()} for k, v in tp.items()} == {
+        k: {n: (a.shape if a.ndim != 4 else (a.shape[3], a.shape[2], a.shape[0], a.shape[1]))
+            for n, a in v.items()}
+        for k, v in jp.items()
+    }
+    del jp
+    with torch.inference_mode():
+        got = tenc.apply(tp, torch.from_numpy(x)).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    return got
+
+
+def test_vgg16_fc2_at_224_matches_jax():
+    got = _encoder_against_tpucap(JaxVGG16(), VGG16(), 224, 1, 5)
+    assert got.shape == (1, 4096) and (got >= 0).all()
+
+
+@pytest.mark.parametrize(
+    "jenc,tenc,shape",
+    [
+        (JaxVGG16(features="spatial", input_size=32), VGG16(features="spatial", input_size=32),
+         (2, 2, 2, 512)),
+        (JaxVGG16(features="pooled", input_size=32), VGG16(features="pooled", input_size=32),
+         (2, 512)),
+        (JaxTinyCNN(), TinyCNN(), (2, 128)),
+        (JaxTinyCNN(features="spatial"), TinyCNN(features="spatial"), (2, 4, 4, 128)),
+    ],
+    ids=["vgg16-spatial", "vgg16-pooled", "tiny-pooled", "tiny-spatial"],
+)
+def test_small_encoders_match_jax(jenc, tenc, shape):
+    got = _encoder_against_tpucap(jenc, tenc, jenc.input_size, 2, 6)
+    assert got.shape == shape
+
+
+@pytest.mark.parametrize("name", ["vgg16", "tiny_cnn"])
+@pytest.mark.parametrize("kind", ["pooled", "spatial"])
+def test_vgg16_and_tiny_cnn_registry_match_tpucaps(name, kind):
+    """build_encoder's form, input size, preprocess mode, feature width and
+    grid, and the config's FEATURE_DIMS row, as tpucap's ('pooled' VGG16 is
+    its fc2 vector)."""
+    from tpucap import config as jcfg
+    from tpucap_torch import config as tcfg
+
+    got, want = build_encoder(name, kind), jax_build_encoder(name, kind)
+    assert type(got).__name__ == type(want).__name__
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.input_size, got.preprocess_mode) == JAX_PREPROCESS_MODES[name]
+    assert (got.feature_dim, got.spatial_positions) == (want.feature_dim, want.spatial_positions)
+    assert tcfg.encoder_config(name, kind) == tcfg.EncoderConfig(**dataclasses.asdict(
+        jcfg.encoder_config(name, kind)))

@@ -66,6 +66,7 @@ def pipelines(tmp_path_factory):
 
     pipe = CaptioningPipeline(
         tcfg.Config(
+            encoder=tcfg.encoder_config("resnet50"),
             decoder=tcfg.DecoderConfig(**DEC),
             decode=tcfg.DecodeConfig(**DECODE),
             precision="f32",

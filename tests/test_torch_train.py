@@ -430,7 +430,7 @@ def test_fit_with_dropout_descends_and_refuses_unported_dials():
     assert not np.array_equal(params_to_numpy(pipe.params["decoder"])["out"]["kernel"], before["out"]["kernel"])
     for kw in (
         dict(parallelism="dp"), dict(data_parallel=True), dict(stream=True),
-        dict(resume=True), dict(handle_preemption=True), dict(checkpoint_manager=object()),
+        dict(resume=True), dict(handle_preemption=True), dict(sharded_checkpoints=True),
     ):
         with pytest.raises(NotImplementedError):
             pipe.fit(CAPTIONS, feats, epochs=1, log=None, **kw)

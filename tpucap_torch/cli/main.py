@@ -1,0 +1,665 @@
+"""CLI of the port: tpucap's workflow commands (``tpucap.cli.main``) on
+tpucap_torch.
+
+    python -m tpucap_torch extract  --images DIR --out features.npz [--preset config1]
+    python -m tpucap_torch train    --tokens tokens.txt --split train.txt \\
+                                    --features features.npz --checkpoint-dir DIR
+    python -m tpucap_torch caption  --image photo.jpg --checkpoint-dir DIR
+    python -m tpucap_torch evaluate --tokens tokens.txt --split test.txt \\
+                                    --features features.npz --checkpoint-dir DIR
+
+(or ``tpucap-torch ...``). The parsers are tpucap's, flag for flag, and the
+commands print tpucap's lines. Artifacts: features as ``.npz`` (image id ->
+row), ``tokenizer.json`` (the format both packages share) and the port's
+checkpoints (``tpucap_torch.checkpoint``; it reads no orbax).
+
+The commands run on ``cuda``; ``main(argv, device="cpu")`` runs them on the
+CPU, which is how the tests drive them. A flag whose feature the port does
+not have raises SystemExit naming it, before any file is read; a config
+field the port does not have raises NotImplementedError from
+``config_from_dict``; an encoder or decoder it does not have raises
+NotImplementedError when the pipeline is built. tpucap's other subcommands
+(distill, score, compare, export, serve, doctor, profile, bench) are not
+registered.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from tpucap_torch.checkpoint import CheckpointManager
+from tpucap_torch.config import (
+    PRESETS,
+    Config,
+    DecodeConfig,
+    DecoderConfig,
+    TrainConfig,
+    config_from_dict,
+    config_to_dict,
+    encoder_config,
+)
+from tpucap_torch.core import resolve_device
+from tpucap_torch.data import (
+    load_descriptions,
+    load_karpathy_json,
+    load_split,
+    prepare_descriptions,
+)
+from tpucap_torch.pipeline import CaptioningPipeline
+from tpucap_torch.text import load_tokenizer
+from tpucap_torch.train import TrainState, build_optimizer
+from tpucap_torch.train.evaluate import evaluate_captions
+from tpucap_torch.utils import MetricsLogger
+
+#: Flags of tpucap's parsers whose feature the port does not have, by
+#: command: dest -> the values, besides the flag's default, that the port
+#: takes.
+UNPORTED_FLAGS = {
+    "extract": {"keras_h5": (), "parallelism": ("none",)},
+    "train": {
+        "finetune_encoder": (),
+        "images": (),
+        "augment": (),
+        "augment_shift": (),
+        "encoder_lr_scale": (),
+        "remat_encoder": (),
+        "keras_h5": (),
+        "lora_rank": (),
+        "lora_alpha": (),
+        "lora_out": (),
+        "resume": (),
+        "handle_preemption": (),
+        "sharded_checkpoints": (),
+        "scst_epochs": (),
+        "scst_lr": (),
+        "scst_temperature": (),
+        "tokenizer": (),
+        "bpe_vocab_size": (),
+        "embeddings": (),
+        "freeze_embeddings": (),
+        "data_parallel": (),
+        "stream_features": (),
+        "parallelism": ("none",),
+        "model_devices": (),
+        "tensorboard_dir": (),
+    },
+    "caption": {
+        "server": (),
+        "server_model": (),
+        "method": ("greedy",),
+        "dump_attention": (),
+        "mbr_candidates": (),
+        "mbr_from": (),
+        "mbr_metric": (),
+        "diverse_groups": (),
+        "diversity": (),
+        "prefix": (),
+        "include_words": (),
+        "draft_bundle": (),
+        "gamma": (),
+        "ensemble_with": (),
+        "ensemble_weights": (),
+        "keras_h5": (),
+    },
+    "evaluate": {"parallelism": ("none",), "model_devices": ()},
+}
+#: TrainConfig fields that the optimizer flags set, under their own names.
+_OPTIMIZER_FIELDS = (
+    "optimizer",
+    "momentum",
+    "weight_decay",
+    "lr_schedule",
+    "lr_decay_rate",
+    "lr_decay_steps",
+    "warmup_steps",
+    "grad_clip_norm",
+    "scheduled_sampling",
+    "ss_schedule",
+    "steps_per_dispatch",
+)
+
+
+def _monitor_keying(args):
+    """(best_metric, best_mode) for the CheckpointManager from
+    --val-metric: decode metrics are maximized, loss minimized."""
+    vm = getattr(args, "val_metric", None) or "loss"
+    if vm == "loss":
+        return "val_loss", "min"
+    return f"val_{vm}", "max"
+
+
+def _add_optimizer_flags(p):
+    """tpucap's optimizer flags, shared by ``train`` and the commands that
+    restore a checkpoint (the restore template's optimizer state is built
+    from them). Defaults are None, so an explicit 0 still overrides a
+    preset."""
+    p.add_argument("--optimizer", default=None,
+                   choices=["adam", "adamw", "sgd", "rmsprop", "adagrad"],
+                   help="optimizer (default adam; the port has adam and adamw)")
+    p.add_argument("--momentum", type=float, default=None, help="sgd momentum (not ported)")
+    p.add_argument("--weight-decay", type=float, default=None,
+                   help="adamw decoupled weight decay")
+    p.add_argument("--lr-schedule", default=None,
+                   choices=["constant", "cosine", "exponential"],
+                   help="the port has constant only")
+    p.add_argument("--lr-decay-rate", type=float, default=None, help="not ported")
+    p.add_argument("--lr-decay-steps", type=int, default=None, help="not ported")
+    p.add_argument("--warmup-steps", type=int, default=None, help="not ported")
+    p.add_argument("--ema-decay", type=float, default=None, help="not ported")
+    p.add_argument("--grad-accum-steps", type=int, default=None, help="not ported")
+    p.add_argument("--steps-per-dispatch", type=int, default=None, help="not ported")
+    p.add_argument("--checkpoint-every-steps", type=int, default=None, help="not ported")
+    p.add_argument("--train-precision", default=None, choices=["f32", "bf16"],
+                   help="training compute dtype: f32 (default) or bf16 with f32 "
+                   "master weights and optimizer state")
+    p.add_argument("--grad-clip-norm", type=float, default=None,
+                   help="global-norm gradient clipping (0 = off)")
+    p.add_argument("--scheduled-sampling", type=float, default=None, help="not ported")
+    p.add_argument("--ss-schedule", default=None,
+                   choices=["linear", "inv_sigmoid", "constant"], help="not ported")
+    p.add_argument("--val-metric", default=None,
+                   choices=["loss", "bleu4", "cider", "rouge_l", "meteor"],
+                   help="what best-checkpointing and early stopping monitor with "
+                   "--val-split: loss (min, default) or a greedy-decode corpus "
+                   "metric (max); restore commands need the same flag")
+
+
+def _add_restore_flags(p):
+    p.add_argument("--average-last", type=int, default=None,
+                   help="restore the uniform average of the newest N retained "
+                   "checkpoints instead of the best step")
+
+
+def _add_common_model_flags(p):
+    p.add_argument("--encoder", default="vgg16",
+                   choices=["vgg16", "inception_v3", "resnet50", "tiny_cnn",
+                            "vit_b16", "vit_tiny"])
+    p.add_argument("--decoder", default="lstm1",
+                   choices=["lstm1", "lstm2", "gru1", "gru2", "inject",
+                            "attention", "adaptive", "transformer"])
+    p.add_argument("--features-kind", default="pooled",
+                   choices=["pooled", "spatial"])
+    p.add_argument("--embed-dim", type=int, default=256)
+    p.add_argument("--hidden-dim", type=int, default=256)
+    p.add_argument("--num-layers", type=int, default=None,
+                   help="decoder depth (default: 1; lstm2 forces 2)")
+    p.add_argument("--num-heads", type=int, default=4,
+                   help="attention heads (transformer decoder only)")
+    p.add_argument("--mlp-dim", type=int, default=1024,
+                   help="MLP width (transformer decoder only)")
+    p.add_argument("--num-experts", type=int, default=0,
+                   help="MoE experts per layer (transformer decoder only)")
+    p.add_argument("--max-len", type=int, default=34)
+    p.add_argument("--length-penalty", default=None,
+                   choices=["simple", "gnmt"],
+                   help="beam ranking denominator: simple = len^alpha "
+                   "(default) | gnmt = ((5+len)/6)^alpha")
+    p.add_argument("--min-len", type=int, default=0,
+                   help="endseq blocked until this many tokens (0 = off)")
+    p.add_argument("--bad-words", default=None,
+                   help="comma-separated words never generated (or @FILE, one "
+                   "word a line)")
+    p.add_argument("--no-repeat-ngram", type=int, default=0,
+                   help="block repeated n-grams (not ported: 0 only)")
+    p.add_argument("--preset", default=None,
+                   help="config preset name (config1..config5), overrides "
+                   "encoder/decoder flags")
+
+
+def _parse_bad_words(spec) -> tuple:
+    """--bad-words 'w1,w2' or '@FILE' (one word per line, # comments)
+    -> tuple for DecodeConfig.bad_words."""
+    if not spec:
+        return ()
+    if spec.startswith("@"):
+        with open(spec[1:]) as f:
+            words = [
+                ln.strip()
+                for ln in f
+                if ln.strip() and not ln.lstrip().startswith("#")
+            ]
+    else:
+        words = [w.strip() for w in spec.split(",") if w.strip()]
+    return tuple(words)
+
+
+def _build_config(args) -> Config:
+    """tpucap's config resolution from the flags, made in tpucap's
+    config.json layout and read by ``config_from_dict``, so a field the
+    port does not have (a schedule, EMA, gradient accumulation, a mesh)
+    raises NotImplementedError away from tpucap's default. The
+    transformer decoder's fields, which no ported decoder reads, keep
+    tpucap's defaults."""
+    if getattr(args, "preset", None):
+        d = config_to_dict(PRESETS[args.preset])
+        # Explicit flags override the preset.
+        overrides = {
+            "attention_reg": getattr(args, "attention_reg", 0.0) or None,
+            "learning_rate": getattr(args, "lr", None),
+            "grad_accum_steps": getattr(args, "grad_accum_steps", None) or None,
+            "checkpoint_every_steps": getattr(args, "checkpoint_every_steps", None) or None,
+            "ema_decay": getattr(args, "ema_decay", None) or None,
+            "precision": getattr(args, "train_precision", None),
+            "val_metric": getattr(args, "val_metric", None),
+            "early_stopping_patience": getattr(args, "early_stopping_patience", None),
+            **{k: getattr(args, k, None) for k in _OPTIMIZER_FIELDS},
+        }
+        d["train"].update({k: v for k, v in overrides.items() if v is not None})
+        if getattr(args, "approx_topk", False):
+            d["decode"]["approx_topk"] = True
+        if getattr(args, "model_devices", 0):
+            d["mesh"]["model_devices"] = args.model_devices
+        return config_from_dict(d)
+    feats = args.features_kind
+    if args.decoder in ("attention", "adaptive"):
+        feats = "spatial"
+    num_layers = getattr(args, "num_layers", None)
+    if num_layers is None:
+        num_layers = {"lstm2": 2, "transformer": 2}.get(args.decoder, 1)
+    elif args.decoder == "lstm2":
+        num_layers = 2
+    cfg = Config(
+        encoder=encoder_config(args.encoder, feats),
+        decoder=DecoderConfig(
+            name=args.decoder,
+            embed_dim=args.embed_dim,
+            hidden_dim=args.hidden_dim,
+            num_layers=num_layers,
+        ),
+        decode=DecodeConfig(
+            method=getattr(args, "method", None) or "greedy",
+            beam_width=getattr(args, "beam_width", 3),
+            max_len=args.max_len,
+            min_len=getattr(args, "min_len", 0) or 0,
+            bad_words=_parse_bad_words(getattr(args, "bad_words", None)),
+            no_repeat_ngram_size=getattr(args, "no_repeat_ngram", 0) or 0,
+            length_penalty=getattr(args, "length_penalty", None) or "simple",
+            approx_topk=getattr(args, "approx_topk", False),
+        ),
+        train=TrainConfig(
+            batch_size=getattr(args, "batch_size", 64),
+            learning_rate=getattr(args, "lr", None) or 1e-3,
+            epochs=getattr(args, "epochs", 20),
+            early_stopping_patience=getattr(args, "early_stopping_patience", None) or 0,
+            precision=getattr(args, "train_precision", None) or "f32",
+            val_metric=getattr(args, "val_metric", None) or "loss",
+            optimizer=getattr(args, "optimizer", None) or "adam",
+            weight_decay=getattr(args, "weight_decay", None) or 0.0,
+            grad_clip_norm=getattr(args, "grad_clip_norm", None) or 0.0,
+        ),
+    )
+    d = config_to_dict(cfg)
+    d["train"].update(
+        attention_reg=getattr(args, "attention_reg", 0.0),
+        grad_accum_steps=getattr(args, "grad_accum_steps", None) or 1,
+        ema_decay=getattr(args, "ema_decay", None) or 0.0,
+        momentum=getattr(args, "momentum", None) or 0.0,
+        lr_schedule=getattr(args, "lr_schedule", None) or "constant",
+        lr_decay_rate=getattr(args, "lr_decay_rate", None) or 0.96,
+        lr_decay_steps=getattr(args, "lr_decay_steps", None) or 1000,
+        warmup_steps=getattr(args, "warmup_steps", None) or 0,
+        checkpoint_every_steps=getattr(args, "checkpoint_every_steps", None) or 0,
+        scheduled_sampling=getattr(args, "scheduled_sampling", None) or 0.0,
+        ss_schedule=getattr(args, "ss_schedule", None) or "linear",
+        steps_per_dispatch=getattr(args, "steps_per_dispatch", None) or 1,
+    )
+    d["mesh"]["model_devices"] = getattr(args, "model_devices", 0) or 1
+    return config_from_dict(d)
+
+
+def cmd_extract(args, device):
+    """Feature extraction over an image directory -> .npz artifact."""
+    cfg = _build_config(args)
+    pipe = CaptioningPipeline(cfg, device=device)
+    # The config seed's weights: the same ones _restore_pipeline builds, so
+    # extract -> train -> caption sees one encoder.
+    pipe.build()
+    paths = sorted(glob.glob(os.path.join(args.images, "*.jpg")))
+    feats = pipe.extract_features(paths, batch_size=args.batch_size)
+    ids = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+    np.savez(args.out, **dict(zip(ids, feats)))
+    print(f"wrote {len(ids)} features to {args.out}")
+
+
+def _karpathy_split(path, karpathy, flag: str, name: str):
+    desc, splits = karpathy
+    if not splits.get(name):
+        # An empty split fails as an unknown name does.
+        have = sorted(k for k, v in splits.items() if v)
+        raise SystemExit(
+            f"{flag} {name!r} is empty or absent in {path} (non-empty splits: {have})"
+        )
+    return prepare_descriptions(desc, splits[name])
+
+
+def _load_dataset(args, default_split: str = "train", karpathy=None):
+    """The split's cleaned descriptions, from --karpathy-json (``karpathy``:
+    its parse, when the caller already has it) or --tokens and --split."""
+    kj = getattr(args, "karpathy_json", None)
+    if kj:
+        return _karpathy_split(
+            kj, karpathy or load_karpathy_json(kj), "--split", args.split or default_split
+        )
+    if not args.tokens:
+        raise SystemExit("need --tokens FILE (or --karpathy-json JSON)")
+    desc = load_descriptions(args.tokens)
+    split_ids = load_split(args.split) if args.split else None
+    return prepare_descriptions(desc, split_ids)
+
+
+def cmd_train(args, device):
+    if not args.features:
+        raise SystemExit(
+            "--features is required (or use --finetune-encoder --images "
+            "to train end-to-end from JPEGs)"
+        )
+    cfg = _build_config(args)
+    pipe = CaptioningPipeline(cfg, device=device)
+    kj = args.karpathy_json
+    karpathy = load_karpathy_json(kj) if kj else None
+    prepared = _load_dataset(args, karpathy=karpathy)
+    features = dict(np.load(args.features))
+    pipe.fit_tokenizer(prepared)
+    pipe.build()
+    os.makedirs(args.checkpoint_dir, exist_ok=True)
+    pipe.tokenizer.save(os.path.join(args.checkpoint_dir, "tokenizer.json"))
+
+    val_data = None
+    if args.val_split:
+        if kj:
+            # --val-split names a split of the JSON (normally "val").
+            val_prepared = _karpathy_split(kj, karpathy, "--val-split", args.val_split)
+        else:
+            val_prepared = prepare_descriptions(
+                load_descriptions(args.tokens), load_split(args.val_split)
+            )
+        val_data = (val_prepared, features)
+
+    best_metric, best_mode = _monitor_keying(args)
+    mgr = CheckpointManager(args.checkpoint_dir, best_metric=best_metric, best_mode=best_mode)
+    # Made before training, as tpucap makes it: wall_time counts from here.
+    logger = MetricsLogger(args.metrics_log) if args.metrics_log else None
+    history = pipe.fit(
+        prepared,
+        features,
+        epochs=args.epochs,
+        batch_size=args.batch_size,
+        checkpoint_manager=mgr,
+        val_data=val_data,
+    )
+    if logger:
+        for h in history:
+            logger.log(h)
+        logger.close()
+    mgr.close()
+    print(f"trained {len(history)} epochs; final loss "
+          f"{history[-1]['loss']:.4f}; checkpoints in "
+          f"{args.checkpoint_dir}")
+    if args.bundle_out:
+        pipe.save(args.bundle_out)
+        print(f"wrote pipeline bundle to {args.bundle_out}")
+
+
+def _restore_pipeline(args, device) -> CaptioningPipeline:
+    """The config seed's pipeline (its encoder the one ``extract`` used)
+    with the decoder restored from --checkpoint-dir: the best step (the
+    latest when no step has metrics), or the average of the newest
+    --average-last steps."""
+    cfg = _build_config(args)
+    tok = load_tokenizer(os.path.join(args.checkpoint_dir, "tokenizer.json"))
+    pipe = CaptioningPipeline(cfg, tokenizer=tok, device=device)
+    pipe.build()
+    best_metric, best_mode = _monitor_keying(args)
+    mgr = CheckpointManager(args.checkpoint_dir, best_metric=best_metric, best_mode=best_mode)
+    # The template's optimizer state comes from the same config resolution
+    # the train command used.
+    fresh = TrainState.create(
+        pipe.params["decoder"],
+        build_optimizer(cfg.train),
+        torch.Generator(device=pipe.device),
+    )
+    if args.average_last:
+        dec_params = mgr.average_params(fresh, last_k=args.average_last)
+    else:
+        dec_params = mgr.restore(fresh, step=mgr.best_step()).params
+    pipe.set_params({**pipe.params, "decoder": dec_params})
+    mgr.close()
+    return pipe
+
+
+def cmd_caption(args, device):
+    print(
+        "note: no --keras-h5 given — the encoder runs with its "
+        "config-seed random init (matches a weightless `extract`; "
+        "real photographs need pretrained encoder weights)",
+        file=sys.stderr,
+    )
+    pipe = _restore_pipeline(args, device)
+    caps = pipe.caption_images(args.image, method=args.method, beam_width=args.beam_width)
+    for path, cap in zip(args.image, caps):
+        print(f"{path}\t{cap}")
+
+
+def cmd_evaluate(args, device):
+    # Validated before any IO or decoding.
+    metrics = tuple(m.strip() for m in args.metrics.split(",") if m.strip())
+    bad = set(metrics) - {"bleu", "cider", "rouge_l", "meteor", "diversity"}
+    if bad or not metrics:
+        raise SystemExit(
+            f"--metrics: unknown {sorted(bad) or '(empty)'}; "
+            "choose from bleu,cider,rouge_l,meteor,diversity"
+        )
+    syn = args.meteor_synonyms
+    if syn:
+        if "meteor" not in metrics:
+            raise SystemExit("--meteor-synonyms needs meteor in --metrics")
+        if not os.path.isfile(syn):
+            raise SystemExit(f"--meteor-synonyms: no such file {syn!r}")
+    pipe = _restore_pipeline(args, device)
+    prepared = _load_dataset(args, default_split="test")
+    features = dict(np.load(args.features))
+    dump = args.dump_captions
+    coco_out = args.coco_results
+    out = pipe.evaluate(
+        prepared,
+        features,
+        method=args.method,
+        beam_width=args.beam_width,
+        batch_size=args.batch_size,
+        metrics=metrics,
+        return_captions=bool(dump or coco_out),
+        meteor_synonyms=syn or None,
+    )
+    scores, generated = out if (dump or coco_out) else (out, None)
+    if dump:
+        # Per-image JSONL with a sentence BLEU-4, for error analysis.
+        with open(dump, "w") as f:
+            for image_id, cap in generated.items():
+                per = evaluate_captions({image_id: prepared[image_id]}, {image_id: cap})
+                f.write(
+                    json.dumps(
+                        {
+                            "image_id": image_id,
+                            "caption": cap,
+                            "references": prepared[image_id],
+                            "bleu4": round(per["bleu4"], 4),
+                        }
+                    )
+                    + "\n"
+                )
+        print(f"wrote per-image captions to {dump}", file=sys.stderr)
+    if coco_out:
+        # coco-caption results: numeric ids as ints (COCO's convention).
+        rows = [
+            {"image_id": int(i) if str(i).isdigit() else str(i), "caption": cap}
+            for i, cap in generated.items()
+        ]
+        with open(coco_out, "w") as f:
+            json.dump(rows, f)
+        print(f"wrote {len(rows)} coco-format results to {coco_out}", file=sys.stderr)
+    print(json.dumps(scores))
+
+
+def refuse_unported_flags(parser, args) -> None:
+    """SystemExit naming the first flag of ``args.cmd`` whose feature the
+    port does not have and which was given a value the port does not take."""
+    for dest, takes in UNPORTED_FLAGS[args.cmd].items():
+        value = getattr(args, dest)
+        if value == parser.get_default(dest) or value in takes:
+            continue
+        flag = "--" + dest.replace("_", "-")
+        given = flag if value is True else f"{flag} {value}"
+        raise SystemExit(f"{given}: not ported to tpucap_torch ({args.cmd})")
+
+
+def build_parser() -> tuple[argparse.ArgumentParser, dict]:
+    """tpucap's parser for the four ported commands. -> (parser, the
+    subcommands' parsers by name)."""
+    ap = argparse.ArgumentParser(prog="tpucap-torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = extract = sub.add_parser("extract", help="extract CNN features to .npz")
+    _add_common_model_flags(p)
+    p.add_argument("--images", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--keras-h5", default=None, help="not ported")
+    p.add_argument("--parallelism", default=None, choices=["none", "dp"],
+                   help="none only")
+    p.set_defaults(fn=cmd_extract)
+
+    p = train = sub.add_parser("train", help="train a caption decoder")
+    _add_common_model_flags(p)
+    p.add_argument("--tokens", required=False, default=None,
+                   help="Flickr8k token file (or use --karpathy-json)")
+    p.add_argument("--karpathy-json", default=None,
+                   help="Karpathy dataset_*.json with embedded splits; "
+                   "--split/--val-split then name splits (train|val|test)")
+    p.add_argument("--split", default=None)
+    p.add_argument("--val-split", default=None,
+                   help="dev-split id file; enables val_loss best-checkpoint "
+                   "keying and --early-stopping-patience")
+    p.add_argument("--early-stopping-patience", type=int, default=None,
+                   help="stop when the monitor hasn't improved for N epochs "
+                   "(needs --val-split); 0 = disabled")
+    p.add_argument("--features", default=None, help="precomputed-features .npz")
+    p.add_argument("--finetune-encoder", action="store_true", help="not ported")
+    p.add_argument("--images", default=None, help="not ported (--finetune-encoder)")
+    p.add_argument("--augment", action="store_true", help="not ported")
+    p.add_argument("--augment-shift", type=int, default=0, help="not ported")
+    p.add_argument("--encoder-lr-scale", type=float, default=0.1, help="not ported")
+    p.add_argument("--remat-encoder", action="store_true", help="not ported")
+    p.add_argument("--bundle-out", default=None,
+                   help="also write a pipeline.save() bundle")
+    p.add_argument("--keras-h5", default=None, help="not ported")
+    p.add_argument("--lora-rank", type=int, default=0, help="not ported")
+    p.add_argument("--lora-alpha", type=float, default=None, help="not ported")
+    p.add_argument("--lora-out", default=None, help="not ported")
+    p.add_argument("--resume", action="store_true", help="not ported")
+    p.add_argument("--handle-preemption", action="store_true", help="not ported")
+    p.add_argument("--sharded-checkpoints", action="store_true", help="not ported")
+    p.add_argument("--scst-epochs", type=int, default=0, help="not ported")
+    p.add_argument("--scst-lr", type=float, default=5e-5, help="not ported")
+    p.add_argument("--scst-temperature", type=float, default=1.0, help="not ported")
+    p.add_argument("--tokenizer", default="word", choices=["word", "bpe"],
+                   help="word only")
+    p.add_argument("--bpe-vocab-size", type=int, default=1024, help="not ported")
+    p.add_argument("--embeddings", default=None, help="not ported")
+    p.add_argument("--freeze-embeddings", action="store_true", help="not ported")
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--epochs", type=int, default=20)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--lr", type=float, default=None,
+                   help="learning rate (default 1e-3; also overrides --preset)")
+    p.add_argument("--data-parallel", action="store_true", help="not ported")
+    p.add_argument("--stream-features", action="store_true", help="not ported")
+    p.add_argument("--parallelism", default=None,
+                   choices=["none", "dp", "fsdp", "tp", "dp_tp", "pp",
+                            "dp_pp", "ep", "dp_ep", "sp", "dp_sp"],
+                   help="none only")
+    p.add_argument("--model-devices", type=int, default=0, help="not ported")
+    p.add_argument("--attention-reg", type=float, default=0.0, help="not ported")
+    _add_optimizer_flags(p)
+    p.add_argument("--metrics-log", default=None, help="per-epoch JSONL records")
+    p.add_argument("--tensorboard-dir", default=None, help="not ported")
+    p.set_defaults(fn=cmd_train)
+
+    p = caption = sub.add_parser("caption", help="caption image files")
+    _add_common_model_flags(p)
+    _add_optimizer_flags(p)
+    p.add_argument("--image", nargs="+", required=True)
+    p.add_argument("--server", default=None, metavar="HOST:PORT", help="not ported")
+    p.add_argument("--server-model", default=None, metavar="NAME", help="not ported")
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--method", default="beam",
+                   choices=["greedy", "beam", "speculative", "diverse", "mbr"],
+                   help="greedy or beam")
+    p.add_argument("--beam-width", type=int, default=3)
+    p.add_argument("--dump-attention", default=None, metavar="OUT.npz",
+                   help="not ported")
+    p.add_argument("--mbr-candidates", type=int, default=5, help="not ported")
+    p.add_argument("--mbr-from", default="sample",
+                   choices=["sample", "beam", "diverse"], help="not ported")
+    p.add_argument("--mbr-metric", default="cider", choices=["cider", "bleu4"],
+                   help="not ported")
+    p.add_argument("--diverse-groups", type=int, default=2, help="not ported")
+    p.add_argument("--diversity", type=float, default=0.5, help="not ported")
+    p.add_argument("--prefix", default=None, help="not ported")
+    p.add_argument("--include-words", default=None, metavar="W1,W2", help="not ported")
+    p.add_argument("--draft-bundle", default=None, help="not ported")
+    p.add_argument("--gamma", type=int, default=4, help="not ported")
+    p.add_argument("--ensemble-with", action="append", default=None,
+                   metavar="BUNDLE", help="not ported")
+    p.add_argument("--ensemble-weights", default=None, help="not ported")
+    p.add_argument("--approx-topk", action="store_true",
+                   help="tpucap's TPU approx_max_k; the port's top-k stays exact")
+    p.add_argument("--keras-h5", default=None, help="not ported")
+    _add_restore_flags(p)
+    p.set_defaults(fn=cmd_caption)
+
+    p = evaluate = sub.add_parser(
+        "evaluate", help="BLEU-1..4 (+ CIDEr-D/ROUGE-L) over a split"
+    )
+    _add_common_model_flags(p)
+    _add_optimizer_flags(p)
+    p.add_argument("--tokens", required=False, default=None,
+                   help="Flickr8k token file (or use --karpathy-json)")
+    p.add_argument("--karpathy-json", default=None,
+                   help="Karpathy dataset_*.json; --split then names a split")
+    p.add_argument("--split", default=None)
+    p.add_argument("--features", required=True)
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--method", default="greedy", choices=["greedy", "beam"])
+    p.add_argument("--beam-width", type=int, default=3)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--parallelism", default=None,
+                   choices=["none", "dp", "tp", "dp_tp"], help="none only")
+    p.add_argument("--model-devices", type=int, default=0, help="not ported")
+    p.add_argument("--dump-captions", default=None,
+                   help="also write per-image JSONL (image_id, caption, "
+                   "references, sentence BLEU-4)")
+    p.add_argument("--metrics", default="bleu",
+                   help="comma list from bleu,cider,rouge_l,meteor,diversity")
+    p.add_argument("--coco-results", default=None,
+                   help="also write coco-caption results JSON")
+    p.add_argument("--meteor-synonyms", default=None, metavar="FILE",
+                   help="synonym-groups file for METEOR's synonym stage")
+    _add_restore_flags(p)
+    p.set_defaults(fn=cmd_evaluate)
+    return ap, {"extract": extract, "train": train, "caption": caption, "evaluate": evaluate}
+
+
+def main(argv=None, *, device=None):
+    """Run one command. ``device``: None for the card (raises without
+    one), ``"cpu"`` for the CPU."""
+    ap, commands = build_parser()
+    args = ap.parse_args(argv)
+    refuse_unported_flags(commands[args.cmd], args)
+    args.fn(args, resolve_device(device))

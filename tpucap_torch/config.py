@@ -8,8 +8,11 @@ does not at tpucap's default (``UNPORTED``). ``config_from_dict`` reads
 that layout, from either package's bundle; an unported field away from its
 default raises ``NotImplementedError`` naming it.
 
-The encoder default is ResNet-50, the first encoder the port had; the JAX
-package defaults to VGG16.
+``PRESETS`` are tpucap's five judged configurations. The port builds
+``config1`` (VGG16 + lstm1, greedy) and ``config3`` (ResNet-50 + lstm2,
+beam 5); a pipeline built from ``config2`` or ``config5`` (InceptionV3) or
+``config4`` (the attention decoder) raises ``NotImplementedError`` naming
+the encoder or decoder.
 """
 
 from __future__ import annotations
@@ -22,10 +25,10 @@ DecodeMethod = Literal["greedy", "beam"]
 
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
-    name: str = "resnet50"
-    # 'pooled' (global vector) | 'spatial' (the conv4 grid).
+    name: str = "vgg16"
+    # 'pooled' (global vector; VGG16's fc2) | 'spatial' (a conv grid).
     features: Literal["pooled", "spatial"] = "pooled"
-    feature_dim: int = 2048
+    feature_dim: int = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,24 +99,70 @@ class Config:
     # onto PyTorch's dtypes and TF32 flags.
     precision: Literal["bf16", "mixed", "f32"] = "mixed"
 
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
 
-#: Feature width of each ported encoder per feature kind: ResNet-50's
+
+#: Feature width of each ported encoder per feature kind: VGG16's fc2
+#: 4096-d vector and its block5_conv3 512-channel grid; ResNet-50's
 #: global-average 2048-d vector and its conv4 1024-channel grid; the ViT
-#: family's width either way (pooled = token mean, spatial = token grid).
+#: family's and tiny_cnn's width either way (pooled = mean, spatial = grid).
 FEATURE_DIMS = {
+    ("vgg16", "pooled"): 4096,
+    ("vgg16", "spatial"): 512,
     ("resnet50", "pooled"): 2048,
     ("resnet50", "spatial"): 1024,
     ("vit_b16", "pooled"): 768,
     ("vit_b16", "spatial"): 768,
     ("vit_tiny", "pooled"): 64,
     ("vit_tiny", "spatial"): 64,
+    ("tiny_cnn", "pooled"): 128,
+    ("tiny_cnn", "spatial"): 128,
 }
 
 
 def encoder_config(name: str, features="pooled") -> EncoderConfig:
+    if (name, features) not in FEATURE_DIMS:
+        raise NotImplementedError(
+            f"encoder {name!r} ({features}) is not ported; tpucap_torch has "
+            f"{sorted({n for n, _ in FEATURE_DIMS})}"
+        )
     return EncoderConfig(
         name=name, features=features, feature_dim=FEATURE_DIMS[name, features]
     )
+
+
+#: tpucap's presets (``tpucap/config.py``'s CONFIG_1..CONFIG_5). InceptionV3's
+#: widths are tpucap's; the port has no InceptionV3 to build them with.
+PRESETS = {
+    "config1": Config(
+        encoder=encoder_config("vgg16"),
+        decoder=DecoderConfig(name="lstm1"),
+        decode=DecodeConfig(method="greedy"),
+    ),
+    "config2": Config(
+        encoder=EncoderConfig(name="inception_v3", feature_dim=2048),
+        decoder=DecoderConfig(name="lstm1"),
+        decode=DecodeConfig(method="beam", beam_width=3),
+        train=TrainConfig(batch_size=32),
+    ),
+    "config3": Config(
+        encoder=encoder_config("resnet50"),
+        decoder=DecoderConfig(name="lstm2", num_layers=2),
+        decode=DecodeConfig(method="beam", beam_width=5),
+    ),
+    "config4": Config(
+        encoder=encoder_config("vgg16", features="spatial"),
+        decoder=DecoderConfig(name="attention"),
+        decode=DecodeConfig(method="beam", beam_width=3),
+    ),
+    "config5": Config(
+        encoder=EncoderConfig(name="inception_v3", feature_dim=2048),
+        decoder=DecoderConfig(name="lstm1"),
+        decode=DecodeConfig(method="beam", beam_width=3),
+        train=TrainConfig(batch_size=256),
+    ),
+}
 
 
 #: tpucap's fields that the port does not have, at tpucap's defaults

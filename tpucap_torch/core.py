@@ -1,4 +1,5 @@
-"""Device and precision policy of the port, and a small tree map.
+"""Device and precision policy of the port, a small tree map and a tree
+layout check.
 
 Device: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"`` (as the tests do). Without a card and without an explicit
@@ -80,3 +81,25 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def check_same_layout(old, new, where: str) -> None:
+    """Raise ValueError where ``new`` differs from ``old`` in structure
+    (dict keys, list lengths) or in a leaf's shape or dtype."""
+    if isinstance(old, dict) and isinstance(new, dict) and set(old) == set(new):
+        for k in old:
+            check_same_layout(old[k], new[k], f"{where}/{k}")
+    elif (
+        isinstance(old, (list, tuple))
+        and isinstance(new, (list, tuple))
+        and len(old) == len(new)
+    ):
+        for i, (o, n) in enumerate(zip(old, new)):
+            check_same_layout(o, n, f"{where}/{i}")
+    elif isinstance(old, (dict, list, tuple)) or isinstance(new, (dict, list, tuple)):
+        raise ValueError(f"param tree structure differs at {where}")
+    elif old.shape != new.shape or old.dtype != new.dtype:
+        raise ValueError(
+            f"param leaf {where} changed: {tuple(new.shape)}/{new.dtype} != "
+            f"{tuple(old.shape)}/{old.dtype}"
+        )

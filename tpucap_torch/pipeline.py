@@ -23,9 +23,10 @@
                                   checked against the live ones first
 
     fit(descriptions, features,   train the decoder on extracted features;
-        val_data=...)             with a dev split, val_loss / val_accuracy
-                                  each epoch, TrainConfig.val_metric's
-                                  monitor and early stopping
+        val_data=...,             with a dev split, val_loss / val_accuracy
+        checkpoint_manager=...)   each epoch, TrainConfig.val_metric's
+                                  monitor and early stopping; each epoch
+                                  checkpointed
     fit_finetune(descriptions,    train encoder and decoder jointly on
                  images)          preprocessed images
 
@@ -33,8 +34,9 @@
 MergeDecoder.init_state -> beam search whose step, on the card with a
 1-layer MergeDecoder, is ``make_fused_merge_step`` (kernels K2 and K3: the
 JAX package's own drop-in step_fn hook). On the CPU the step is the plain
-``MergeDecoder.step``. The encoder is ResNet-50 (caffe mode), or with
-``encoder_config("vit_b16")`` ViT-B/16 (tf mode). As in the JAX package the
+``MergeDecoder.step``. The encoder is ``EncoderConfig.name``'s: VGG16 (the
+default, fc2 features, caffe mode), ResNet-50 (caffe mode), ViT-B/16 or
+vit_tiny (tf mode) or tiny_cnn (tf mode, 32). As in the JAX package the
 encoder's kernel paths are opt-in on the built encoder:
 ``pipe.encoder = dataclasses.replace(pipe.encoder, fused_blocks=True)``
 (ResNet-50's identity blocks as kernel K4, after ``fold_bn()``) or
@@ -65,6 +67,7 @@ import torch
 from tpucap_torch.config import Config, config_from_dict, config_to_dict
 from tpucap_torch.core import (
     apply_precision,
+    check_same_layout,
     infer_dtype,
     resolve_device,
     tree_map,
@@ -77,7 +80,7 @@ from tpucap_torch.models.decoders import MergeDecoder, build_decoder
 from tpucap_torch.models.encoders import build_encoder, fold_batch_norms
 from tpucap_torch.ops.decoder_step import make_fused_merge_step
 from tpucap_torch.ops.preprocess import fused_preprocess
-from tpucap_torch.text import END_TOKEN, START_TOKEN, Tokenizer
+from tpucap_torch.text import END_TOKEN, START_TOKEN, Tokenizer, load_tokenizer
 from tpucap_torch.text.tokenizer import text_to_word_sequence
 from tpucap_torch.train import (
     TrainState,
@@ -466,7 +469,7 @@ class CaptioningPipeline:
         directory = os.path.abspath(directory)
         with open(os.path.join(directory, "config.json")) as f:
             config = config_from_dict(json.load(f))
-        tokenizer = _load_tokenizer(os.path.join(directory, "tokenizer.json"))
+        tokenizer = load_tokenizer(os.path.join(directory, "tokenizer.json"))
         params = _bundle_params(directory)
         pipe = cls(config, tokenizer=tokenizer, device=device)
         pipe.build(init_params=False)
@@ -503,7 +506,7 @@ class CaptioningPipeline:
             new = _bundle_params(directory)
         else:
             new = tree_map(torch.as_tensor, source)
-        _check_same_layout(self.params, new, "params")
+        check_same_layout(self.params, new, "params")
         self.set_params(new)
 
     # -- training ------------------------------------------------------------
@@ -529,13 +532,24 @@ class CaptioningPipeline:
         return batch_size, compute_dtype
 
     def _run_epochs(
-        self, step, state, arrays, batch, epochs, batch_size, log, validate=None
+        self,
+        step,
+        state,
+        arrays,
+        batch,
+        epochs,
+        batch_size,
+        log,
+        validate=None,
+        checkpoint_manager=None,
     ):
         """Shared epoch loop: shuffled batches (numpy, seeded with
         TrainConfig.seed as tpucap draws them), metrics summed on the card
         and read once per epoch. ``validate``: fit's dev-split metrics of
         the current params (``_validation``), taken after each epoch, with
-        early stopping on the monitor. -> (state, history)."""
+        early stopping on the monitor. ``checkpoint_manager``: the state is
+        saved after each epoch, before the early-stopping check, with
+        tpucap's checkpoint metrics. -> (state, history)."""
         cfg = self.config.train
         monitor = "val_loss" if cfg.val_metric == "loss" else f"val_{cfg.val_metric}"
         minimize = monitor == "val_loss"
@@ -551,7 +565,8 @@ class CaptioningPipeline:
                 n += 1
                 for k, v in metrics.items():
                     sums[k] = sums.get(k, 0.0) + v
-            entry = {k: float(v) / max(n, 1) for k, v in sums.items()}
+            # By sorted key, the order in which tpucap's jax.device_get returns them.
+            entry = {k: float(sums[k]) / max(n, 1) for k in sorted(sums)}
             entry["epoch"] = epoch
             if validate:
                 entry.update(validate(state.params))
@@ -563,8 +578,16 @@ class CaptioningPipeline:
                 if monitor != "val_loss" and monitor in entry:
                     msg += f" {monitor}={entry[monitor]:.4f}"
                 log(msg)
-            # Keras EarlyStopping(monitor, mode, patience); no checkpoint
-            # manager here, so the params stay the last epoch's.
+            if checkpoint_manager is not None:
+                # val_loss (the training loss without a dev split), and the
+                # decode monitor when there is one: the manager's
+                # best_metric keys on whichever it names.
+                ckpt = {"val_loss": entry.get("val_loss", entry["loss"])}
+                if monitor != "val_loss" and monitor in entry:
+                    ckpt[monitor] = entry[monitor]
+                checkpoint_manager.save(state, metrics=ckpt)
+            # Keras EarlyStopping(monitor, mode, patience); the params stay
+            # the last epoch's (the best is the checkpoint manager's).
             if cfg.early_stopping_patience > 0 and monitor in entry:
                 value = entry[monitor]
                 if value < best if minimize else value > best:
@@ -687,11 +710,15 @@ class CaptioningPipeline:
         decode as ``val_<metric>``; ``early_stopping_patience`` > 0 stops
         after that many epochs without a strict improvement of the monitor
         (val_loss down, a decode metric up). The evaluation draws nothing
-        from the dropout generator."""
+        from the dropout generator.
+
+        ``checkpoint_manager`` (``tpucap_torch.checkpoint.CheckpointManager``):
+        the state (its step the optimizer-step count) is saved after each
+        epoch with ``val_loss`` (the training loss without val_data) and
+        the decode monitor's ``val_<metric>``, as tpucap saves it."""
         refuse_unported(
             data_parallel=(data_parallel, False),
             parallelism=(parallelism if parallelism != "none" else None, None),
-            checkpoint_manager=(checkpoint_manager, None),
             stream=(stream, False),
             prefetch=(prefetch, 2),
             resume=(resume, False),
@@ -728,7 +755,15 @@ class CaptioningPipeline:
                 else self._validation(val_data, batch_size, compute_dtype)
             )
             state, history = self._run_epochs(
-                step, state, (F, T), self._to_device, epochs, batch_size, log, validate
+                step,
+                state,
+                (F, T),
+                self._to_device,
+                epochs,
+                batch_size,
+                log,
+                validate,
+                checkpoint_manager,
             )
         finally:
             apply_precision(self.config.precision)
@@ -846,16 +881,6 @@ def pad_rows(arr: np.ndarray, target: int) -> np.ndarray:
     return np.pad(arr, [(0, target - n)] + [(0, 0)] * (arr.ndim - 1))
 
 
-def _load_tokenizer(path) -> Tokenizer:
-    """A bundle's word tokenizer; tpucap's BPE artifacts (``"kind": "bpe"``)
-    are not ported."""
-    with open(path) as f:
-        d = json.load(f)
-    if d.get("kind") == "bpe":
-        raise NotImplementedError(f"{path}: the BPE tokenizer is not ported")
-    return Tokenizer.from_json(d)
-
-
 def _bundle_params(directory: str):
     """A bundle's ``params.npz`` as a tree of CPU tensors."""
     path = os.path.join(directory, PARAMS_FILE)
@@ -867,24 +892,3 @@ def _bundle_params(directory: str):
         )
     return load_npz(path)
 
-
-def _check_same_layout(old, new, where: str) -> None:
-    """Raise ValueError where ``new`` differs from ``old`` in structure
-    (dict keys, list lengths) or in a leaf's shape or dtype."""
-    if isinstance(old, dict) and isinstance(new, dict) and set(old) == set(new):
-        for k in old:
-            _check_same_layout(old[k], new[k], f"{where}/{k}")
-    elif (
-        isinstance(old, (list, tuple))
-        and isinstance(new, (list, tuple))
-        and len(old) == len(new)
-    ):
-        for i, (o, n) in enumerate(zip(old, new)):
-            _check_same_layout(o, n, f"{where}/{i}")
-    elif isinstance(old, (dict, list, tuple)) or isinstance(new, (dict, list, tuple)):
-        raise ValueError(f"param tree structure differs at {where}")
-    elif old.shape != new.shape or old.dtype != new.dtype:
-        raise ValueError(
-            f"param leaf {where} changed: {tuple(new.shape)}/{new.dtype} != "
-            f"{tuple(old.shape)}/{old.dtype}; reload_params needs the same topology"
-        )

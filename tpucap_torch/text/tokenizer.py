@@ -174,3 +174,13 @@ class Tokenizer:
     def load(cls, path) -> "Tokenizer":
         with open(path) as f:
             return cls.from_json(f.read())
+
+
+def load_tokenizer(path) -> Tokenizer:
+    """A saved word tokenizer (``tokenizer.json``); tpucap's BPE artifacts
+    (``"kind": "bpe"``) are not ported."""
+    with open(path) as f:
+        d = json.load(f)
+    if d.get("kind") == "bpe":
+        raise NotImplementedError(f"{path}: the BPE tokenizer is not ported")
+    return Tokenizer.from_json(d)
