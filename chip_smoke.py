@@ -12,7 +12,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    beside the JPEG decoder's (g++), and its time;
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, in f32 (TF32 off) and bf16, with the stated tolerances
-   (K2 and K3 in f32 also at fit's monitor's 256 rows);
+   (K2 and K3 in f32 also at the f32 decodes' rows: fit's monitor's 256,
+   phase 8's caption's 24 and its evaluate's and monitor's 64);
    CUDA-event times of the kernel, the plain version and, where one PyTorch
    call computes the same function, that call; the least time the card
    could take (bound) from the bytes and operations of these inputs. K4
@@ -109,7 +110,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    steps saved (30 an epoch), the steps kept and the best step those
    orbax's rules give for the logged val_bleu4 values, every kept step
    restored bit for bit as saved, seconds an epoch, the monitor's K2 and K3
-   launches; (c) ``caption`` of 8 images with tpucap's default beam 3: the
+   launches; on the best step's params, the f32 decode route (K2, K3)
+   step by step against the plain step's logits at caption's 24 rows and
+   evaluate's 64; (c) ``caption`` of 8 images with tpucap's default beam 3: the
    lines of ``caption_images`` on a pipeline restored from the same best
    step, K2 and K3 once + once a decode step; (d) ``evaluate`` of the test
    split with every metric and ``--coco-results``: ``pipe.evaluate``'s
@@ -369,13 +372,15 @@ def check_kernels(dev) -> dict[str, dict]:
         l_want = decoder_step.vocab_proj_plain(m_want, p["wo"], p["bo"])
         check_close(f"vocab_proj {dt}", l_got, l_want, 1e-5, 1e-4)
         if dt == torch.float32:
-            # fit's monitor: a greedy decode of the f32 masters, beam 1, so
-            # DEC_TRAIN_BATCH rows through the f32 routes.
-            r = DEC_TRAIN_BATCH
-            got, want = check_cell(f"B={r} E={U} U={U}", tuple(t[:r] for t in cell[:3]) + cell[3:], dt)
-            m_got, m_want = check_head(f"M={r}", p["fe"][:r], want[2], p["wp"], p["bp"], dt)
-            check_close(f"vocab_proj M={r} {dt}", decoder_step.vocab_proj(m_want, p["wo"], p["bo"]),
-                        decoder_step.vocab_proj_plain(m_want, p["wo"], p["bo"]), 1e-5, 1e-4)
+            # The decodes of f32 params ("mixed" keeps them f32) run the f32
+            # routes: fit's monitor (greedy, DEC_TRAIN_BATCH rows), and
+            # phase 8's caption (CLI_CAPTIONED images x beam BEAM), train
+            # monitor and evaluate (greedy batches of CLI_TRAIN_BATCH).
+            for r in (DEC_TRAIN_BATCH, CLI_CAPTIONED * BEAM, CLI_TRAIN_BATCH):
+                got, want = check_cell(f"B={r} E={U} U={U}", tuple(t[:r] for t in cell[:3]) + cell[3:], dt)
+                m_got, m_want = check_head(f"M={r}", p["fe"][:r], want[2], p["wp"], p["bp"], dt)
+                check_close(f"vocab_proj M={r} {dt}", decoder_step.vocab_proj(m_want, p["wo"], p["bo"]),
+                            decoder_step.vocab_proj_plain(m_want, p["wo"], p["bo"]), 1e-5, 1e-4)
             continue
         # Timing and bounds in bf16, the main path's dtype.
         w_ih, w_hh = p["wk"].T.contiguous(), p["wr"].T.contiguous()
@@ -1412,18 +1417,18 @@ def run_fit_validation(pipe) -> None:
     check_monitor_route(pipe, np.stack([feats[k] for k in list(val)[:DEC_TRAIN_BATCH]]))
 
 
-def check_monitor_route(pipe, feats) -> None:
-    """The monitor's decode route against its plain version at its shape:
-    DEC_TRAIN_BATCH rows of beam 1 on the f32 masters, so K2's f32 kernel
-    and K3's f32 (SIMT) routes. Along the plain step's greedy tokens, each
-    step's logits through ``step_fn`` (the fused step) against the plain
-    step's on the same state, TF32 off."""
+def check_monitor_route(pipe, feats, label: str = "monitor route") -> None:
+    """A decode route of f32 params against its plain version at one
+    batch's rows (``feats``): fit's monitor's DEC_TRAIN_BATCH, or phase 8's
+    batches, so K2's f32 kernel and K3's f32 (SIMT) routes. Along the plain
+    step's greedy tokens, each step's logits through ``step_fn`` (the fused
+    step) against the plain step's on the same state, TF32 off."""
     from tpucap_torch import ops
     from tpucap_torch.core import apply_precision, tree_leaves
 
     params = pipe.params["decoder"]
     if any(t.dtype != torch.float32 for t in tree_leaves(params)):
-        raise AssertionError("monitor route: the decoder's params after fit are not f32")
+        raise AssertionError(f"{label}: the decoder's params are not f32")
     fused = pipe.step_fn()
     apply_precision("f32")
     ops.reset_launch_counts()
@@ -1436,15 +1441,15 @@ def check_monitor_route(pipe, feats) -> None:
                 lk, _ = fused(params, state, token)
                 lp, state = pipe.decoder.step(params, state, token)
                 # f32 both ways; sums of 256 products in another order.
-                check_close(f"monitor route step {t}", lk, lp, 1e-5, 1e-4)
+                check_close(f"{label} step {t}", lk, lp, 1e-5, 1e-4)
                 err = max(err, max_err(lk, lp))
                 token = lp.argmax(-1)
     finally:
         apply_precision(pipe.config.precision)
     counts = ops.launch_counts()
     if not counts["lstm_cell"] == counts["merge_head"] == counts["vocab_proj"] == MAX_LEN:
-        raise AssertionError(f"monitor route: launch counts {counts}")
-    log(f"monitor route: f32 batch {len(feats)} beam 1, {MAX_LEN} steps: the fused step's logits "
+        raise AssertionError(f"{label}: launch counts {counts}")
+    log(f"{label}: f32, {len(feats)} rows, {MAX_LEN} greedy steps: the fused step's logits "
         f"(K2, K3 f32) within tol 1e-4 + 1e-5 rel of the plain step's, max_abs_err {err:.3g}")
 
 
@@ -1641,6 +1646,12 @@ def run_cli_workflow(dev) -> None:
         # (c) caption, against caption_images on the best step's params
         ref.set_params({"encoder": pipe.params["encoder"], "decoder": mgr.restore(template, best).params})
         del pipe
+        # The f32 routes on these params at the rows the commands below
+        # decode: caption's CLI_CAPTIONED images x beam BEAM, and evaluate's
+        # (and the train monitor's) greedy batch of CLI_TRAIN_BATCH.
+        check_monitor_route(ref, np.repeat(np.stack([feats[k] for k in ids[:CLI_CAPTIONED]]), BEAM, axis=0),
+                            "cli caption route")
+        check_monitor_route(ref, np.stack([feats[k] for k in ids[-CLI_SPLITS[2]:]]), "cli evaluate route")
         picked = paths[:CLI_CAPTIONED]
         ops.reset_launch_counts()
         out, err, caption_s, _ = run_cli(["caption", *preset, "--image", *picked, "--checkpoint-dir", ckpt,

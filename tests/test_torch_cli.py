@@ -76,7 +76,7 @@ MONITOR = ["--val-metric", "bleu4"]
 def _no_dropout(build_config):
     def build(args):
         cfg = build_config(args)
-        return cfg.replace(decoder=dataclasses.replace(cfg.decoder, dropout_rate=0.0))
+        return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, dropout_rate=0.0))
 
     return build
 

@@ -99,9 +99,6 @@ class Config:
     # onto PyTorch's dtypes and TF32 flags.
     precision: Literal["bf16", "mixed", "f32"] = "mixed"
 
-    def replace(self, **kw) -> "Config":
-        return dataclasses.replace(self, **kw)
-
 
 #: Feature width of each ported encoder per feature kind: VGG16's fc2
 #: 4096-d vector and its block5_conv3 512-channel grid; ResNet-50's
