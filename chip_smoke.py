@@ -119,8 +119,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    scores on the same params, finite, BLEU, ROUGE-L and METEOR in [0, 1],
    the decode's and the metrics' seconds; (e) ``caption --keras-h5`` exits
    non-zero before any restore;
-9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
-   as the last line.
+9. the other presets at their published widths (embed and hidden 256,
+   vocab 7579, max_len 34, attention_dim 256), random weights from the
+   config seed, BN folded: (a) CONFIG_2's ``caption_batch`` of 256 uint8
+   images at 299 (K1 in tf mode, InceptionV3 pooled, lstm1, beam 3; the
+   preset's "mixed" keeps the params f32, so K2's f32 kernel and K3's f32
+   routes at 768 rows), K1 once and K2 and K3 once a step, the decode's
+   wall; then with ``no_repeat_ngram_size=3``, greedy and beam: no caption
+   holds a repeated trigram, K2 and K3 still launch every step; for each of
+   the three, the fused step against the plain one with TF32 off (logits
+   within 1e-4 + 1e-5 rel at every step along the fused decode; tokens
+   equal on every image whose plain decode met no near-tie within that
+   tolerance); the ban's device time a step; (b) ``--decoder inject`` on
+   those features, one beam-3 ``generate`` (plain step, no kernel); (c)
+   CONFIG_4's ``caption_batch`` of 64 images at 224 (K1 in caffe mode,
+   VGG16's 14 x 14 x 512 grid, the attention decoder, beam 3, plain step),
+   ``features`` and ``att_feat`` (64, 196, .) inside every step of the beam,
+   then ``fit`` on spatial features at ``attention_reg=1.0`` (4 steps of
+   64), the reg metric logged; (d) CONFIG_5's ``fit`` on 2048-d features,
+   2 epochs of 8 steps at its batch 256, each epoch's loss and seconds.
+   K1 is also checked in phase 2 at (256, 299, 299, 3) in tf mode;
+10. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
+   phase 9's counted serving runs for K1, K2 and K3), then
+   ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
 """
@@ -307,6 +328,17 @@ def check_kernels(dev) -> dict[str, dict]:
                 want = preprocess.preprocess_u8_plain(src, rows, cols, scale, bias, flip, dt)
                 rt = 0.0 if dt == torch.float32 else 2**-7
                 check_close(f"preprocess_u8 {mode} {tuple(src.shape)} -> {size} {dt}", got, want, rt, tol)
+    # CONFIG_2's serving batch (phase 9): InceptionV3's 299, same size, tf.
+    big = torch.randint(0, 256, (P9_IMAGES, 299, 299, 3), generator=g, device=dev, dtype=torch.uint8)
+    scale, bias, flip = _affine("tf", dev)
+    rows = preprocess._index_table(299, 299, dev)
+    for dt in (torch.float32, torch.bfloat16):
+        got = preprocess.preprocess_u8(big, (299, 299), "tf", dt)
+        want = preprocess.preprocess_u8_plain(big, rows, rows, scale, bias, flip, dt)
+        check_close(f"preprocess_u8 tf {tuple(big.shape)} -> 299 {dt}", got, want,
+                    0.0 if dt == torch.float32 else 2**-7, 2e-6)
+        log(f"kernel preprocess_u8 tf {tuple(big.shape)} -> 299 {dt}: ok  max_abs_err={max_err(got, want):.3g}")
+    del big, got, want
     scale, bias, flip = _affine("caffe", dev)
     rows = preprocess._index_table(IMAGE, IMAGE, dev)
     kern = lambda: preprocess.preprocess_u8(imgs, (IMAGE, IMAGE), "caffe", torch.bfloat16)  # noqa: E731
@@ -1710,6 +1742,351 @@ def run_cli_workflow(dev) -> None:
         log(f"cli: caption --keras-h5 exits before any restore: {refusal!r}")
 
 
+
+# -- phase 9: CONFIG_2, CONFIG_4 and CONFIG_5 --------------------------------
+
+# CONFIG_2's serving batch at InceptionV3's 299 and CONFIG_4's at 224; the
+# n-gram size of the ban; CONFIG_5's fit rows and epochs (8 steps an epoch
+# at its batch 256) and CONFIG_4's (4 steps at its batch 64).
+P9_IMAGES, P9_ATT_IMAGES, P9_NGRAM = 256, 64, 3
+P9_FIT5_ROWS, P9_FIT5_EPOCHS, P9_FIT4_ROWS = 2048, 2, 256
+# The decode routes' tolerance on a logit: atol + rtol * |logit|.
+ROUTE_ATOL, ROUTE_RTOL = 1e-4, 1e-5
+
+
+def preset_pipeline(preset: str, tokenizer, **decoder):
+    """``PRESETS[preset]`` as a user builds it (random weights from the
+    config seed, BN folded) on ``tokenizer``'s vocabulary; ``decoder``
+    overrides DecoderConfig fields."""
+    from tpucap_torch.config import PRESETS
+    from tpucap_torch.pipeline import CaptioningPipeline
+
+    cfg = PRESETS[preset]
+    if decoder:
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, **decoder))
+    pipe = CaptioningPipeline(cfg, tokenizer=tokenizer)
+    pipe.build()
+    pipe.fold_bn()
+    return pipe
+
+
+def check_counts(label: str, counts: dict[str, int], preprocess: int, decode: bool) -> int:
+    """K1 ``preprocess`` times; with ``decode``, K2 and K3's two kernels the
+    same count, one a step, 1 to MAX_LEN steps; no other kernel. -> steps."""
+    steps = counts["lstm_cell"]
+    expect = {name: 0 for name in counts}
+    expect["preprocess_u8"] = preprocess
+    if decode:
+        expect.update(lstm_cell=steps, merge_head=steps, vocab_proj=steps)
+    if counts != expect or (decode and not 1 <= steps <= MAX_LEN):
+        raise AssertionError(f"{label}: launch counts {counts}, expected {expect}")
+    return steps
+
+
+def _repeats(caption: str, n: int) -> bool:
+    words = caption.split()
+    grams = [tuple(words[i : i + n]) for i in range(len(words) - n + 1)]
+    return len(grams) != len(set(grams))
+
+
+def decode_agreement(pipe, feats, method: str, label: str) -> None:
+    """The fused step (K2's f32 kernel, K3's f32 routes) against the plain
+    step from the same features, TF32 off. (1) Along the fused decode each
+    step's logits within ROUTE_ATOL + ROUTE_RTOL * |x| of the plain step's
+    on the same state. (2) The plain decode alone, recording for each image
+    whether any of its decisions was a near-tie: a selection boundary
+    within the routes' error, between a beam's k-th and (k + 1)-th logits
+    (2 tol), an image's k-th and (k + 1)-th of its k * k candidate scores at
+    step t (4 tol (t + 1): each score sums t + 1 log-probs), its two best
+    length-normalized finals (4 tol MAX_LEN), or greedy's two best logits
+    (2 tol); tol at the largest |logit| seen. (3) Every image without a
+    near-tie gets the same tokens from both decodes. Beside it the log
+    counts the images with a gap within the error the run measured
+    (max_abs_err), where a difference could really arise."""
+    from tpucap_torch.core import apply_precision
+    from tpucap_torch.decode import beam as beam_mod
+    from tpucap_torch.decode import greedy as greedy_mod
+    from tpucap_torch.decode.beam import normalized_scores
+    from tpucap_torch.ops.decoder_step import make_fused_merge_step
+
+    params = pipe.params["decoder"]
+    fused, plain = make_fused_merge_step(pipe.decoder), pipe.decoder.step
+    B, k = len(feats), (BEAM if method == "beam" else 1)
+    seen = {"err": 0.0, "scale": 0.0, "step": 0, "stage2": 0}
+
+    def lockstep(p, state, token):
+        lk, new = fused(p, state, token)
+        lp, _ = plain(p, state, token)
+        check_close(f"{label}: step {seen['step']}", lk, lp, ROUTE_RTOL, ROUTE_ATOL)
+        seen["err"] = max(seen["err"], max_err(lk, lp))
+        seen["scale"] = max(seen["scale"], float(lp.abs().max()))
+        seen["step"] += 1
+        return lk, new
+
+    # Per image, the smallest decision gap over its error factor: a near-tie
+    # where that is within tol (and, reported beside it, within the error
+    # the run measured).
+    ratio = torch.full((B,), float("inf"))
+    real_topk, real_floor = beam_mod.topk_stable, greedy_mod.min_len_mask
+
+    def gaps(x, n):
+        """The gap at the selection's boundary: n-th best against (n+1)-th."""
+        top = torch.topk(x.float(), n + 1, dim=-1).values
+        return (top[..., n - 1] - top[..., n]).cpu()
+
+    def note(per_image):
+        torch.minimum(ratio, per_image, out=ratio)
+
+    def topk(x, n):
+        if x.shape[0] == B * k:  # stage 1: each beam's logits
+            note((gaps(x, n) / 2).reshape(B, k).amin(dim=1))
+        else:  # stage 2: an image's candidate scores, sums of t + 1 log-probs
+            seen["stage2"] += 1
+            note(gaps(x, n) / (4 * seen["stage2"]))
+        return real_topk(x, n)
+
+    def floor(masked, t, min_len, end_id):
+        masked = real_floor(masked, t, min_len, end_id)
+        note(gaps(masked, 1) / 2)
+        return masked
+
+    apply_precision("f32")
+    pipe.step_fn = lambda: lockstep
+    try:
+        with torch.inference_mode():
+            x = torch.as_tensor(feats, device=pipe.device)
+            got = pipe._decode(params, x, method, BEAM)
+            pipe.step_fn = lambda: plain
+            beam_mod.topk_stable, greedy_mod.min_len_mask = topk, floor
+            try:
+                want = pipe._decode(params, x, method, BEAM)
+            finally:
+                beam_mod.topk_stable, greedy_mod.min_len_mask = real_topk, real_floor
+    finally:
+        del pipe.step_fn
+        apply_precision(pipe.config.precision)
+    tol = ROUTE_ATOL + ROUTE_RTOL * seen["scale"]
+    if method == "beam":
+        d = pipe.config.decode
+        norm = normalized_scores(want.beam_scores, want.beam_lengths, length_normalize=d.length_normalize,
+                                 alpha=d.alpha, length_penalty=d.length_penalty)
+        note(gaps(norm, 1) / (4 * MAX_LEN))
+    near, close = ratio <= tol, ratio <= seen["err"]
+    same = (got.tokens == want.tokens).all(dim=1).cpu()
+    if not bool((same | near).all()):
+        bad = torch.nonzero(~(same | near))[:, 0].tolist()
+        raise AssertionError(f"{label}: images {bad} decode to other tokens with no near-tie")
+    log(f"{label}: f32 (TF32 off), {B} images x {k}: the fused step's logits within tol {ROUTE_ATOL:g} + "
+        f"{ROUTE_RTOL:g} rel of the plain step's at every step, max_abs_err {seen['err']:.3g}; tokens "
+        f"identical on {int(same.sum())}/{B} images; {int(near.sum())} with a near-tie within tol "
+        f"({tol:.3g} at |logit| {seen['scale']:.3g}), {int(close.sum())} within the measured error; "
+        f"{int((~same).sum())} different, each with a near-tie")
+
+
+def run_config2(dev, tokenizer) -> tuple[dict[str, int], torch.Tensor]:
+    """9(a, b): CONFIG_2's ``caption_batch`` at 299 (tf mode, K1; InceptionV3
+    pooled; lstm1 beam 3 through K2 and K3's f32 routes, "mixed" keeping
+    the params f32), held to the plain step; then with
+    ``no_repeat_ngram_size`` P9_NGRAM, greedy and beam. -> (the launches
+    of the counted runs, the batch's features)."""
+    from tpucap_torch import ops
+    from tpucap_torch.ops.preprocess import fused_preprocess
+
+    from tpucap_torch.decode.ngram import apply_ngram_ban
+
+    pipe = preset_pipeline("config2", tokenizer)
+    enc = pipe.encoder
+    g = torch.Generator(device=dev).manual_seed(9)
+    images = torch.randint(0, 256, (P9_IMAGES, enc.input_size, enc.input_size, 3), generator=g,
+                           device=dev, dtype=torch.uint8)
+
+    def encode():
+        with torch.inference_mode():
+            x = fused_preprocess(images, enc.input_size, enc.preprocess_mode, out_dtype=torch.float32)
+            return pipe._apply_encoder(pipe._inference_params()["encoder"], x)
+
+    feats = encode()
+    if feats.shape != (P9_IMAGES, 2048) or not torch.isfinite(feats).all():
+        raise AssertionError(f"config2: features {tuple(feats.shape)} not finite/expected")
+    # Random InceptionV3 features of noise images differ by about 1e-3 of
+    # their mean, so every image would get one caption: the image branch is
+    # centred on the batch's mean feature and scaled 300 times, and the
+    # decodes differ by image. Random logits lie within about 0.01 of each
+    # other over 7579 words, every decision a near-tie: the head sharpened
+    # 1000 times spreads them over about ten units, so the agreement checks
+    # decisions that are not ties.
+    dec = pipe.params["decoder"]
+    dec["feat_proj"]["kernel"].mul_(300.0)
+    dec["feat_proj"]["bias"].copy_(-(feats.mean(dim=0) @ dec["feat_proj"]["kernel"]))
+    dec["out"]["kernel"].mul_(1000.0)
+    pipe.caption_batch(images)  # warm-up: cuDNN plans, allocator
+    enc_s = min(timed(encode)[1] for _ in range(2))
+    total = {name: 0 for name in ops.launch_counts()}
+    for method, n in (("beam", 0), ("greedy", P9_NGRAM), ("beam", P9_NGRAM)):
+        pipe.config = dataclasses.replace(pipe.config, decode=dataclasses.replace(
+            pipe.config.decode, no_repeat_ngram_size=n))
+        ops.reset_launch_counts()
+        caps, s = timed(lambda: pipe.caption_batch(images, method=method))
+        counts = ops.launch_counts()
+        label = f"config2 {method}" + (f" no_repeat_ngram_size={n}" if n else "")
+        steps = check_counts(label, counts, 1, decode=True)
+        total = {name: total[name] + c for name, c in counts.items()}
+        if len(caps) != P9_IMAGES or (n and any(_repeats(c, n) for c in caps)):
+            raise AssertionError(f"{label}: {len(caps)} captions, a repeated {n}-gram in "
+                                 f"{[c for c in caps if n and _repeats(c, n)][:2]}")
+        log(f"{label}: {P9_IMAGES} images at {enc.input_size} (tf), inception_v3 pooled + lstm1 "
+            f"{pipe.config.decoder.hidden_dim}, vocab {pipe.vocab_size}, precision {pipe.config.precision}: "
+            f"caption_batch {s:.5f} s ({P9_IMAGES / s:.2f} captions/s), preprocess+encoder {enc_s:.5f} s, "
+            f"the decode {s - enc_s:.5f} s over {steps} steps ({(s - enc_s) * 1e3 / steps:.3f} ms a step); "
+            f"launches K1 {counts['preprocess_u8']}, K2 {steps}, K3 {counts['merge_head']} + "
+            f"{counts['vocab_proj']}; {len(set(caps))} distinct captions; {caps[0]!r}")
+        decode_agreement(pipe, feats, method, label)
+    pipe.config = dataclasses.replace(pipe.config, decode=dataclasses.replace(
+        pipe.config.decode, no_repeat_ngram_size=0))
+    # The ban's device time a step: a full history of MAX_LEN tokens, on the
+    # beam's and greedy's rows.
+    for rows in (P9_IMAGES * BEAM, P9_IMAGES):
+        hist = torch.randint(1, pipe.vocab_size, (rows, MAX_LEN), generator=g, device=dev)
+        logits = torch.randn((rows, pipe.vocab_size), generator=g, device=dev)
+        log(f"config2: the ban (n = {P9_NGRAM}) on {rows} rows x {pipe.vocab_size}, history {MAX_LEN}: "
+            f"{cuda_ms(lambda: apply_ngram_ban(logits, hist, MAX_LEN - 1, P9_NGRAM)):.4f} ms (device)")
+    return total, feats
+
+
+def run_inject(dev, tokenizer, feats) -> None:
+    """9(c): ``--decoder inject`` on CONFIG_2's InceptionV3 features: one
+    beam-3 ``generate`` of the batch, through the plain step (no kernel)."""
+    from tpucap_torch import ops
+
+    pipe = preset_pipeline("config2", tokenizer, name="inject")
+    f = feats.float().cpu().numpy()
+    pipe.generate(f[:8])  # warm-up
+    ops.reset_launch_counts()
+    caps, s = timed(lambda: pipe.generate(f))
+    check_counts("inject", ops.launch_counts(), 0, decode=False)
+    if len(caps) != len(f) or not all(isinstance(c, str) for c in caps):
+        raise AssertionError("inject: generate returned a malformed batch")
+    log(f"inject: {len(f)} images, inception_v3 features, InjectDecoder {pipe.config.decoder.hidden_dim}, "
+        f"beam {BEAM}: generate {s:.5f} s ({len(f) / s:.2f} captions/s), plain step, no kernel launched; "
+        f"{len(set(caps))} distinct captions; {caps[0]!r}")
+
+
+def run_config4(dev, tokenizer) -> dict[str, int]:
+    """9(d): CONFIG_4's ``caption_batch`` at 224 (caffe mode, K1; VGG16's
+    14 x 14 x 512 grid; the attention decoder, beam 3, plain step), the
+    grids kept (B, 196, .) inside the beam's steps; then ``fit`` on spatial
+    features at ``attention_reg=1.0``. -> the counted run's launches."""
+    from tpucap_torch import ops
+    from tpucap_torch.config import TrainConfig
+
+    from tpucap_torch.ops.preprocess import fused_preprocess
+
+    pipe = preset_pipeline("config4", tokenizer)
+    enc, dec = pipe.encoder, pipe.decoder
+    g = torch.Generator(device=dev).manual_seed(10)
+    images = torch.randint(0, 256, (P9_ATT_IMAGES, enc.input_size, enc.input_size, 3), generator=g,
+                           device=dev, dtype=torch.uint8)
+
+    def encode():
+        with torch.inference_mode():
+            x = fused_preprocess(images, enc.input_size, enc.preprocess_mode, out_dtype=torch.float32)
+            return pipe._apply_encoder(pipe._inference_params()["encoder"], x)
+
+    pipe.caption_batch(images[:8])  # warm-up
+    encode()
+    enc_s = min(timed(encode)[1] for _ in range(2))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    caps, s = timed(lambda: pipe.caption_batch(images))
+    counts = ops.launch_counts()
+    check_counts("config4", counts, 1, decode=False)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    L = enc.spatial_positions
+    shapes, steps = set(), []
+
+    def observe(p, state, token):
+        shapes.add((tuple(state["features"].shape), tuple(state["att_feat"].shape), tuple(state["h"].shape)))
+        steps.append(1)
+        return dec.step(p, state, token)
+
+    pipe.step_fn = lambda: observe
+    try:
+        again = pipe.caption_batch(images)
+    finally:
+        del pipe.step_fn
+    grid, att, h = ((P9_ATT_IMAGES, L, 512), (P9_ATT_IMAGES, L, pipe.config.decoder.attention_dim),
+                    (P9_ATT_IMAGES * BEAM, pipe.config.decoder.hidden_dim))
+    if shapes != {(grid, att, h)} or again != caps or len(caps) != P9_ATT_IMAGES:
+        raise AssertionError(f"config4: state shapes in the beam {shapes}, expected {(grid, att, h)}")
+    log(f"config4: {P9_ATT_IMAGES} images at {enc.input_size} (caffe), vgg16 spatial {L} x 512 + attention "
+        f"(attention_dim {pipe.config.decoder.attention_dim}), beam {BEAM}: caption_batch {s:.5f} s "
+        f"({P9_ATT_IMAGES / s:.2f} captions/s), preprocess+encoder {enc_s:.5f} s, the decode "
+        f"{s - enc_s:.5f} s over {len(steps)} steps ({(s - enc_s) * 1e3 / len(steps):.3f} ms a step), "
+        f"peak memory {peak:.1f} MiB; launches K1 1, no other kernel "
+        f"(plain step); inside every step features {grid} and att_feat {att} beside h {h} (beam-shared, "
+        f"untiled); {len(set(caps))} distinct captions; {caps[0]!r}")
+
+    pipe.config = dataclasses.replace(pipe.config, train=TrainConfig(attention_reg=1.0))
+    train = training_corpus(tokenizer, P9_FIT4_ROWS, 18)
+    rng = np.random.default_rng(19)
+    feats = {k: np.maximum(rng.normal(size=(L, 512)), 0).astype(np.float32) for k in train}
+    ops.reset_launch_counts()
+    hist, fit_s = timed(lambda: pipe.fit(train, feats, epochs=1, log=None))
+    check_counts("config4 fit", ops.launch_counts(), 0, decode=False)
+    e = hist[0]
+    if not all(np.isfinite(e[k]) for k in ("loss", "attention_reg")) or not e["attention_reg"] > 0:
+        raise AssertionError(f"config4 fit: history {hist}")
+    steps = P9_FIT4_ROWS // pipe.config.train.batch_size
+    log(f"config4 fit: {P9_FIT4_ROWS} rows of {L} x 512 spatial features, batch "
+        f"{pipe.config.train.batch_size} ({steps} steps), f32, attention_reg 1.0: loss {e['loss']:.6f}, "
+        f"attention_reg {e['attention_reg']:.6f}, perplexity {e['perplexity']:.4f}; {fit_s:.5f} s "
+        f"({fit_s * 1e3 / steps:.1f} ms a step, setup included); no kernel launched")
+    return counts
+
+
+def run_config5_fit(dev, tokenizer) -> None:
+    """9(e): CONFIG_5's ``fit`` on 2048-d features at its batch 256: each
+    epoch's loss and seconds (from the log's stamps); no kernel."""
+    from tpucap_torch import ops
+
+    pipe = preset_pipeline("config5", tokenizer)
+    train = training_corpus(tokenizer, P9_FIT5_ROWS, 20)
+    feats = random_features(train, 21)
+    stamps = []
+
+    def log_line(msg):
+        torch.cuda.synchronize()
+        stamps.append((time.perf_counter(), msg))
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = pipe.fit(train, feats, epochs=P9_FIT5_EPOCHS, log=log_line)
+    check_counts("config5 fit", ops.launch_counts(), 0, decode=False)
+    ends = [t for t, m in stamps if m.startswith("epoch ")]
+    if len(hist) != P9_FIT5_EPOCHS or len(ends) != len(hist) or not all(np.isfinite(e["loss"]) for e in hist):
+        raise AssertionError(f"config5 fit: history {hist}")
+    b = pipe.config.train.batch_size
+    for e, end in zip(hist, ends):
+        log(f"config5 fit: epoch {e['epoch']}: {P9_FIT5_ROWS // b} steps of batch {b}, f32: loss "
+            f"{e['loss']:.6f} accuracy {e['accuracy']:.6f}; {end - t0:.5f} s"
+            f"{' (setup included)' if e['epoch'] == 0 else ''}")
+        t0 = end
+
+
+def run_presets(dev, tokenizer) -> dict[str, int]:
+    """9: the other presets at their published widths. -> the launches of
+    the counted serving runs (K1, K2, K3)."""
+    t0 = time.perf_counter()
+    counts, feats = run_config2(dev, tokenizer)
+    run_inject(dev, tokenizer, feats)
+    del feats
+    c4 = run_config4(dev, tokenizer)
+    counts = {name: counts[name] + c4[name] for name in counts}
+    run_config5_fit(dev, tokenizer)
+    log(f"phase 9: {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1753,6 +2130,8 @@ def main() -> int:
     run_fit_validation(pipe)
     del pipe, batches
     run_cli_workflow(dev)
+    for name, c in run_presets(dev, tokenizer).items():
+        counts[name] += c
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -117,6 +117,11 @@ def _workflow(data, out):
         "evaluate-average": ["evaluate", *COMMON, "--tokens", tokens, "--features", feats,
                              "--checkpoint-dir", ckpt, *MONITOR, "--method", "beam",
                              "--average-last", "2", "--batch-size", "4"],
+        "caption-ngram": ["caption", *COMMON, "--no-repeat-ngram", "2", "--image", *images,
+                          "--checkpoint-dir", ckpt, *MONITOR],
+        "evaluate-ngram": ["evaluate", *COMMON, "--no-repeat-ngram", "2", "--tokens", tokens,
+                           "--features", feats, "--checkpoint-dir", ckpt, *MONITOR,
+                           "--batch-size", "4", "--metrics", "bleu,cider,diversity"],
     }
 
 
@@ -217,7 +222,16 @@ def test_cli_caption_matches_tpucap(runs):
     assert ours["caption"][1][0].startswith("note: no --keras-h5 given")
 
 
-@pytest.mark.parametrize("name", ["evaluate", "evaluate-average"])
+def test_cli_caption_with_no_repeat_ngram_matches_tpucap(runs):
+    ours, theirs = runs["port"], runs["tpucap"]
+    assert ours["caption-ngram"] == theirs["caption-ngram"]
+    for line in ours["caption-ngram"][0]:
+        words = line.split("\t")[1].split()
+        bigrams = list(zip(words, words[1:]))
+        assert len(bigrams) == len(set(bigrams)), line
+
+
+@pytest.mark.parametrize("name", ["evaluate", "evaluate-average", "evaluate-ngram"])
 def test_cli_evaluate_matches_tpucap(runs, name):
     ours, theirs = runs["port"], runs["tpucap"]
     (got_out, got_err), (want_out, want_err) = ours[name], theirs[name]
@@ -233,6 +247,103 @@ def test_cli_evaluate_matches_tpucap(runs, name):
         for f in ("dump.jsonl", "coco.json"):
             assert (ours["out"] / f).read_text() == (theirs["out"] / f).read_text(), f
         assert len(json.loads((ours["out"] / "coco.json").read_text())) == 2
+
+
+# -- the presets: CONFIG_2, CONFIG_4 and CONFIG_5 ----------------------------------------
+
+PRESET_EXTRACT = {"config2": "config2", "config4": "config4", "config5": "config2"}
+
+
+def _preset_workflow(data, out):
+    """extract once per encoder (config5's InceptionV3 is config2's, same
+    seed), then train, caption and evaluate on each preset, at the presets'
+    lr 1e-3: each package trains on its own features, and at 1e-2 Adam's
+    first steps carried their last-bit differences (1e-6 of VGG16's grid)
+    to 2.5e-4 of config4's loss in two epochs (3e-6 from the same
+    features)."""
+    img_dir, tokens, train, test = data
+    images = sorted(str(p) for p in Path(img_dir).glob("*.jpg"))[:2]
+    cmds = {
+        f"extract-{p}": ["extract", "--preset", p, "--images", str(img_dir), "--out",
+                         f"{out}/{p}.npz", "--batch-size", "4"]
+        for p in ("config2", "config4")
+    }
+    for p, feats in PRESET_EXTRACT.items():
+        feats, ckpt = f"{out}/{feats}.npz", f"{out}/ckpt-{p}"
+        cmds[f"train-{p}"] = ["train", "--preset", p, "--tokens", tokens, "--split", train,
+                              "--features", feats, "--checkpoint-dir", ckpt, "--epochs", "2",
+                              "--batch-size", "4",
+                              *(["--attention-reg", "0.01"] if p == "config4" else [])]
+        cmds[f"caption-{p}"] = ["caption", "--preset", p, "--image", *images, "--checkpoint-dir", ckpt]
+        cmds[f"evaluate-{p}"] = ["evaluate", "--preset", p, "--tokens", tokens, "--split", test,
+                                 "--features", feats, "--checkpoint-dir", ckpt, "--batch-size", "4",
+                                 "--metrics", "bleu,cider"]
+    return cmds
+
+
+@pytest.fixture(scope="module")
+def preset_runs(tmp_path_factory):
+    """-> {package: {"out": dir, command: (stdout lines, stderr lines)}} for
+    the preset workflows, as ``runs`` makes them (5 images at 32 x 32, which
+    the host resizes to 299 or 224)."""
+    root = tmp_path_factory.mktemp("cli-presets")
+    data = generate_fixture_dataset(root / "data", n_images=5, image_size=32, seed=4)
+    mains = {"tpucap": jcli.main, "port": lambda argv: tcli.main(argv, device="cpu")}
+    result = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jcli, "_build_config", _no_dropout(jcli._build_config))
+        mp.setattr(tcli, "_build_config", _no_dropout(tcli._build_config))
+        mp.setattr(CaptioningPipeline, "build", _build_with_tpucaps_weights(CaptioningPipeline.build))
+        for pkg, main in mains.items():
+            out = root / pkg
+            out.mkdir()
+            result[pkg] = {"out": out}
+            for name, argv in _preset_workflow(data, out).items():
+                stdout, stderr = io.StringIO(), io.StringIO()
+                with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr), \
+                        warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    main(argv)
+                result[pkg][name] = tuple(
+                    [ln.replace(str(out), "<out>") for ln in s.getvalue().splitlines()
+                     if "absl" not in ln]
+                    for s in (stdout, stderr)
+                )
+    return result
+
+
+@pytest.mark.parametrize("preset,dim", [("config2", 2048), ("config4", 196 * 512)])
+def test_cli_preset_extract_matches_tpucap(preset_runs, preset, dim):
+    """InceptionV3 pooled at 299 (config2 and config5) and VGG16's block5
+    grid at 224 (config4): f32, within 1e-5 of the features' scale."""
+    ours, theirs = preset_runs["port"], preset_runs["tpucap"]
+    assert ours[f"extract-{preset}"] == theirs[f"extract-{preset}"]
+    got, want = np.load(ours["out"] / f"{preset}.npz"), np.load(theirs["out"] / f"{preset}.npz")
+    assert got.files == want.files and len(want.files) == 5
+    for k in want.files:
+        assert got[k].size == dim
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5 * np.abs(want[k]).max())
+
+
+@pytest.mark.parametrize("preset", ["config2", "config4", "config5"])
+def test_cli_preset_train_caption_evaluate_match_tpucap(preset_runs, preset):
+    """train's lines (4-decimal numbers to their last digit), caption's
+    lines, and evaluate's scores within 1e-12; config4 trains with
+    --attention-reg 0.01 (the coverage term over 196 cells is about 190
+    here: at 1.0 the loss's last printed digit would be its 7th)."""
+    ours, theirs = preset_runs["port"], preset_runs["tpucap"]
+    _same_rounded_lines(ours[f"train-{preset}"][0], theirs[f"train-{preset}"][0])
+    assert ours[f"train-{preset}"][0][-1].startswith("trained 2 epochs")
+    assert ours[f"caption-{preset}"] == theirs[f"caption-{preset}"]
+    assert len(ours[f"caption-{preset}"][0]) == 2
+    (got_out, got_err), (want_out, want_err) = ours[f"evaluate-{preset}"], theirs[f"evaluate-{preset}"]
+    assert got_err == want_err and got_out[:-1] == want_out[:-1]
+    got, want = json.loads(got_out[-1]), json.loads(want_out[-1])
+    assert list(got) == list(want)
+    for k, w in want.items():
+        assert (got[k] is None) == (w is None), k
+        if w is not None:
+            assert abs(got[k] - w) <= 1e-12, k
 
 
 # -- parsers and config resolution -----------------------------------------------------
@@ -289,6 +400,8 @@ def test_config_defaults_and_presets_match_tpucap():
     for name, cfg in tcfg.PRESETS.items():
         assert norm(tcfg.config_to_dict(cfg)) == norm(dataclasses.asdict(jcfg.PRESETS[name])), name
         assert tcfg.config_from_dict(tcfg.config_to_dict(cfg)) == cfg
+        # tpucap's own config.json of the preset reads as the port's preset.
+        assert tcfg.config_from_dict(norm(dataclasses.asdict(jcfg.PRESETS[name]))) == cfg, name
 
 
 _REFUSED = [
@@ -342,7 +455,7 @@ def test_unported_flags_exit_before_any_file_is_read(argv, monkeypatch):
     (["--ema-decay", "0.9"], "ema_decay"),
     (["--momentum", "0.9"], "momentum"),
     (["--preset", "config1", "--warmup-steps", "10"], "warmup_steps"),
-    (["--attention-reg", "0.5"], "attention_reg"),
+    (["--scheduled-sampling", "0.5"], "scheduled_sampling"),
 ])
 def test_unported_config_fields_raise_from_build_config(argv, match):
     args = tcli.build_parser()[0].parse_args(["train", *argv])
@@ -351,9 +464,9 @@ def test_unported_config_fields_raise_from_build_config(argv, match):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--encoder", "inception_v3"], "inception_v3"),
-    (["--preset", "config2"], "inception_v3"),
-    (["--preset", "config4"], "attention"),
+    (["--decoder", "gru1"], "gru1"),
+    (["--decoder", "gru2"], "gru2"),
+    (["--decoder", "adaptive"], "adaptive"),
     (["--decoder", "transformer"], "transformer"),
 ])
 def test_unported_encoders_and_decoders_raise(argv, match):

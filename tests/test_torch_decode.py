@@ -191,12 +191,16 @@ def test_primed_rows_match_jax_engine(method):
 
 
 def test_unported_dials_raise():
+    """``unroll`` (a while-loop dial) takes 1 only; a negative n-gram size
+    raises as tpucap's does (the ban itself is ``test_torch_ngram.py``'s)."""
     dec, params, state = _model("lstm1")
-    kw = dict(start_id=START, end_id=END, max_len=4, no_repeat_ngram_size=2)
-    with pytest.raises(NotImplementedError):
-        beam_decode(dec.step, params, state, beam_width=2, **kw)
-    with pytest.raises(NotImplementedError):
-        greedy_decode(dec.step, params, state, **kw)
+    kw = dict(start_id=START, end_id=END, max_len=4)
+    with pytest.raises(ValueError, match="unroll"):
+        greedy_decode(dec.step, params, state, unroll=2, **kw)
+    with pytest.raises(ValueError, match="no_repeat_ngram_size"):
+        beam_decode(dec.step, params, state, beam_width=2, no_repeat_ngram_size=-1, **kw)
+    with pytest.raises(ValueError, match="no_repeat_ngram_size"):
+        greedy_decode(dec.step, params, state, no_repeat_ngram_size=-1, **kw)
 
 
 def test_golden_captions_reproduce(tmp_path):

@@ -1,5 +1,7 @@
 """tpucap_torch's MergeDecoder (1 and 2 layers) against tpucap's on params
-bridged through tpucap_torch.convert.params_from_jax, dropout off.
+bridged through tpucap_torch.convert.params_from_jax, dropout off; the
+param layout of every ported family (the inject and attention decoders'
+steps are held in ``test_torch_attention.py``).
 
 Tolerance: f32 on both sides, differing only by summation order: 1e-5
 absolute on O(1) states and logits.
@@ -48,7 +50,7 @@ def test_merge_decoder_steps_match_jax(name):
     np.testing.assert_allclose(hid_t.numpy(), np.asarray(hid_j), atol=ATOL)
 
 
-@pytest.mark.parametrize("name", ["lstm1", "lstm2"])
+@pytest.mark.parametrize("name", ["lstm1", "lstm2", "inject", "attention"])
 def test_port_init_has_the_jax_param_layout(name):
     jp = jax_build_decoder(name, **DIMS).init(jax.random.key(0))
     tp = build_decoder(name, **DIMS).init(torch.Generator().manual_seed(0))
@@ -62,5 +64,8 @@ def test_port_init_has_the_jax_param_layout(name):
 
 
 def test_build_decoder_refuses_unported_families():
-    with pytest.raises(NotImplementedError, match="attention"):
-        build_decoder("attention", **DIMS)
+    for name in ("gru1", "gru2", "adaptive", "transformer"):
+        with pytest.raises(NotImplementedError, match=name):
+            build_decoder(name, **DIMS)
+    with pytest.raises(ValueError, match="unknown decoder"):
+        build_decoder("lstm3", **DIMS)

@@ -113,8 +113,8 @@ def test_resnet50_layout_and_options():
     assert (enc.fused_blocks, enc.fused_stages) == (
         JaxResNet50().fused_blocks, JaxResNet50().fused_stages
     )
-    with pytest.raises(NotImplementedError):
-        build_encoder("inception_v3")
+    with pytest.raises(ValueError, match="unknown encoder"):
+        build_encoder("inception_v4")
 
 
 # -- K4: the fused identity block --------------------------------------------

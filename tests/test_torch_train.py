@@ -30,6 +30,13 @@ but round at other places (torch's bf16 matmul backward against XLA's).
 ``fit`` against tpucap's ``fit`` on a seeded corpus, dropout off: the
 per-epoch loss, accuracy and perplexity within 1e-5 relative; with
 dropout on, the port's loss still descends.
+
+The inject and soft-attention decoders (CONFIG_4, 3x3 grids of 24-d
+features): the loss with ``attention_reg`` 0 and 1.0, its
+``attention_reg`` metric and the gradients, and ``fit``'s per-epoch
+losses and reg metric, under the same bounds (the reg within 1e-6
+relative); a merge decoder with ``attention_reg`` > 0 warns, as tpucap's
+does, and trains without it.
 """
 
 import dataclasses
@@ -42,6 +49,7 @@ import pytest
 import torch
 
 from tpucap import config as jcfg
+from tpucap.models.decoders import build_decoder as jax_build_decoder
 from tpucap.models.decoders.lstm import MergeDecoder as JaxDecoder
 from tpucap.pipeline import CaptioningPipeline as JaxPipeline
 from tpucap.text import Tokenizer as JaxTokenizer
@@ -52,6 +60,7 @@ from tpucap.train import sequences as jseq
 from tpucap_torch import config as tcfg
 from tpucap_torch.convert import params_from_jax, params_to_numpy, train_state_from_jax
 from tpucap_torch.core import tree_leaves, tree_map
+from tpucap_torch.models.decoders import build_decoder
 from tpucap_torch.models.decoders.lstm import MergeDecoder
 from tpucap_torch.models.layers import dropout
 from tpucap_torch.pipeline import CaptioningPipeline
@@ -361,7 +370,7 @@ def test_unported_knobs_raise():
     tdec = _decoders(1)[1]
     opt = build_optimizer(tcfg.TrainConfig())
     for kw in (
-        dict(grad_accum_steps=2), dict(attention_reg=0.1), dict(scheduled_sampling=True), dict(multi_steps=2),
+        dict(grad_accum_steps=2), dict(scheduled_sampling=True), dict(multi_steps=2),
         dict(compute_dtype=torch.float16),
     ):
         with pytest.raises(NotImplementedError):
@@ -435,3 +444,107 @@ def test_fit_with_dropout_descends_and_refuses_unported_dials():
         with pytest.raises(NotImplementedError):
             pipe.fit(CAPTIONS, feats, epochs=1, log=None, **kw)
     assert pipe.fit(CAPTIONS, feats, epochs=1, parallelism="none", log=None)[0]["epoch"] == 0
+
+
+# -- inject and attention decoders, attention_reg --------------------------------
+
+GRID = 9  # a 3 x 3 spatial grid of FD-d features
+
+
+def _grid_batch(name, seed):
+    feats, toks = _batch(seed)
+    if name == "attention":
+        feats = np.random.default_rng(seed).normal(size=(B, GRID, FD)).astype(np.float32)
+    return feats, toks
+
+
+@pytest.mark.parametrize("name,reg", [("inject", 0.0), ("attention", 0.0), ("attention", 1.0)])
+def test_loss_and_grads_of_inject_and_attention_match_tpucap(name, reg):
+    jdec, tdec = jax_build_decoder(name, **DIMS, dropout_rate=0.0), build_decoder(name, **DIMS, dropout_rate=0.0)
+    jp = _init(jdec, 60)
+    feats, toks = _grid_batch(name, 61)
+    jf, jt = jnp.asarray(feats), jnp.asarray(toks)
+    sums = jloss.caption_loss_sums(jdec, jp, jf, jt, attention_reg=reg)
+    got = caption_loss_sums(tdec, params_from_jax(jp), *_t(feats, toks), attention_reg=reg)
+    for k in sums:
+        np.testing.assert_allclose(got[k].item(), float(sums[k]), rtol=1e-6, err_msg=k)
+    jl, jm = jloss.loss_from_sums(sums, attention_reg=reg)
+    tl, tm = loss_from_sums(got, attention_reg=reg)
+    assert sorted(tm) == sorted(jm) and ("attention_reg" in tm) == (reg > 0)
+    for k in jm:
+        np.testing.assert_allclose(tm[k].item(), float(jm[k]), rtol=1e-6, err_msg=k)
+    if reg:
+        assert got["reg_sum"].item() > 0 and tl.item() > tm["perplexity"].log().item()
+    (_, _), jg = jax.value_and_grad(
+        lambda p: jloss.caption_loss(jdec, p, jf, jt, attention_reg=reg), has_aux=True
+    )(jax.tree.map(jnp.asarray, jp))
+    tp = trainable(params_from_jax(jp))
+    loss, _ = loss_from_sums(caption_loss_sums(tdec, tp, *_t(feats, toks), attention_reg=reg), attention_reg=reg)
+    tg = params_to_numpy(grads_of(loss, tp))
+    if name == "attention":
+        # The score bias shifts every logit of the softmax alike: its
+        # gradient is zero in theory, rounding noise on both sides.
+        scale = max(np.abs(np.asarray(g)).max() for g in jax.tree.leaves(jg))
+        for g in (tg["att_score"].pop("bias"), jg["att_score"].pop("bias")):
+            assert np.abs(np.asarray(g)).max() < 1e-6 * scale
+    _close_to_scale(tg, jg, 1e-5, "grads")
+
+
+def test_attention_reg_on_a_merge_decoder_warns_and_does_nothing():
+    jdec, tdec = _decoders(1)
+    topt = build_optimizer(tcfg.TrainConfig())
+    with pytest.warns(UserWarning, match="no attention maps"):
+        jloop.make_train_step(jdec, jloop.build_optimizer(jcfg.TrainConfig()), attention_reg=0.5)
+    with pytest.warns(UserWarning, match="no attention maps"):
+        step = make_train_step(tdec, topt, deterministic=True, attention_reg=0.5)
+    jp = _init(jdec, 62)
+    feats, toks = _batch(63)
+    _, m = step(TrainState.create(params_from_jax(jp), topt, None), *_t(feats, toks))
+    want = jloss.caption_loss(jdec, jp, jnp.asarray(feats), jnp.asarray(toks))[0]
+    np.testing.assert_allclose(m["loss"].item(), float(want), rtol=1e-6)
+    np.testing.assert_allclose(m["attention_reg"].item(), 0.0)
+
+
+def _grid_pipelines(name, reg, epochs=3):
+    train = dict(batch_size=4, learning_rate=1e-2, seed=3, attention_reg=reg)
+    dec = dict(name=name, embed_dim=16, hidden_dim=32, dropout_rate=0.0)
+    features = "spatial" if name == "attention" else "pooled"
+    jpipe = JaxPipeline(
+        jcfg.Config(
+            encoder=jcfg.encoder_config("vit_tiny", features), decoder=jcfg.DecoderConfig(**dec),
+            decode=jcfg.DecodeConfig(max_len=8), train=jcfg.TrainConfig(**train), precision="f32",
+        )
+    )
+    jpipe.fit_tokenizer(CAPTIONS)
+    jpipe.build(rng=jax.random.key(5))
+    pipe = CaptioningPipeline(
+        tcfg.Config(
+            encoder=tcfg.encoder_config("vit_tiny", features), decoder=tcfg.DecoderConfig(**dec),
+            decode=tcfg.DecodeConfig(max_len=8), train=tcfg.TrainConfig(**train), precision="f32",
+        ),
+        tokenizer=Tokenizer.from_json(jpipe.tokenizer.to_json()),
+        device="cpu",
+    )
+    pipe.build(init_params=False)
+    pipe.set_params(params_from_jax(jax.tree.map(np.asarray, jpipe.params)))
+    rng = np.random.default_rng(81)
+    shape = (GRID, 64) if name == "attention" else (64,)
+    feats = {k: rng.normal(size=shape).astype(np.float32) for k in CAPTIONS}
+    return jpipe, pipe, feats
+
+
+@pytest.mark.parametrize("name,reg", [("inject", 0.0), ("attention", 0.0), ("attention", 1.0)])
+def test_fit_of_inject_and_attention_matches_tpucap_per_epoch(name, reg):
+    jpipe, pipe, feats = _grid_pipelines(name, reg)
+    val = (dict(list(CAPTIONS.items())[:3]), feats)
+    want = jpipe.fit(CAPTIONS, feats, epochs=3, val_data=val, log=None)
+    got = pipe.fit(CAPTIONS, feats, epochs=3, val_data=val, log=None)
+    assert [sorted(e) for e in got] == [sorted(e) for e in want]
+    assert ("attention_reg" in got[0]) == (reg > 0)
+    for g, w in zip(got, want):
+        for k in ("loss", "accuracy", "perplexity", "val_loss", "val_accuracy", "attention_reg"):
+            if k in w:
+                np.testing.assert_allclose(g[k], w[k], rtol=1e-5, err_msg=k)
+    # The cross-entropy descends; with fewer live steps than grid cells the
+    # coverage term cannot reach 0 and grows as the maps sharpen.
+    assert got[-1]["perplexity"] < got[0]["perplexity"]

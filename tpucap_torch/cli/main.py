@@ -17,8 +17,9 @@ The commands run on ``cuda``; ``main(argv, device="cpu")`` runs them on the
 CPU, which is how the tests drive them. A flag whose feature the port does
 not have raises SystemExit naming it, before any file is read; a config
 field the port does not have raises NotImplementedError from
-``config_from_dict``; an encoder or decoder it does not have raises
-NotImplementedError when the pipeline is built. tpucap's other subcommands
+``config_from_dict``; a decoder it does not have (gru1, gru2, adaptive,
+transformer) raises NotImplementedError when the pipeline is built. All
+five presets run (``--preset config1`` ... ``config5``). tpucap's other subcommands
 (distill, score, compare, export, serve, doctor, profile, bench) are not
 registered.
 """
@@ -207,7 +208,8 @@ def _add_common_model_flags(p):
                    help="comma-separated words never generated (or @FILE, one "
                    "word a line)")
     p.add_argument("--no-repeat-ngram", type=int, default=0,
-                   help="block repeated n-grams (not ported: 0 only)")
+                   help="block n-grams from repeating within a caption "
+                   "(greedy/beam; 1 = never repeat a token, 0 = off)")
     p.add_argument("--preset", default=None,
                    help="config preset name (config1..config5), overrides "
                    "encoder/decoder flags")
@@ -585,7 +587,9 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
                             "dp_pp", "ep", "dp_ep", "sp", "dp_sp"],
                    help="none only")
     p.add_argument("--model-devices", type=int, default=0, help="not ported")
-    p.add_argument("--attention-reg", type=float, default=0.0, help="not ported")
+    p.add_argument("--attention-reg", type=float, default=0.0,
+                   help="doubly-stochastic attention regularizer weight "
+                   "(Show-Attend-Tell; attention decoder only)")
     _add_optimizer_flags(p)
     p.add_argument("--metrics-log", default=None, help="per-epoch JSONL records")
     p.add_argument("--tensorboard-dir", default=None, help="not ported")

@@ -8,11 +8,11 @@ does not at tpucap's default (``UNPORTED``). ``config_from_dict`` reads
 that layout, from either package's bundle; an unported field away from its
 default raises ``NotImplementedError`` naming it.
 
-``PRESETS`` are tpucap's five judged configurations. The port builds
-``config1`` (VGG16 + lstm1, greedy) and ``config3`` (ResNet-50 + lstm2,
-beam 5); a pipeline built from ``config2`` or ``config5`` (InceptionV3) or
-``config4`` (the attention decoder) raises ``NotImplementedError`` naming
-the encoder or decoder.
+``PRESETS`` are tpucap's five judged configurations, and the port builds
+each: ``config1`` (VGG16 + lstm1, greedy), ``config2`` and ``config5``
+(InceptionV3 + lstm1, beam 3, batch 32 and 256), ``config3`` (ResNet-50 +
+lstm2, beam 5) and ``config4`` (VGG16's 14x14 grid + the soft-attention
+decoder, beam 3).
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ class DecoderConfig:
     hidden_dim: int = 256
     num_layers: int = 1
     dropout_rate: float = 0.5
+    attention_dim: int = 256  # attention MLP width (attention decoder only)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +58,9 @@ class DecodeConfig:
     # Words never generated; lowercased against the vocabulary, unknown
     # words ignored.
     bad_words: tuple = ()
-    # Not ported yet: a non-zero value raises NotImplementedError.
+    # Tokens that would complete an n-gram the hypothesis already generated
+    # leave the candidate set (selection only; decode/ngram.py). 1 = never
+    # repeat a token; 0 = off.
     no_repeat_ngram_size: int = 0
 
 
@@ -73,6 +76,9 @@ class TrainConfig:
     # training rows and the dropout generator.
     seed: int = 0
     label_smoothing: float = 0.0
+    # Show-Attend-Tell's doubly-stochastic attention regularizer weight;
+    # the attention decoder only (a warning for the others).
+    attention_reg: float = 0.0
     optimizer: str = "adam"  # adam | adamw
     weight_decay: float = 0.0  # adamw's decoupled weight decay
     grad_clip_norm: float = 0.0  # global-norm clip; 0 = off
@@ -100,13 +106,16 @@ class Config:
     precision: Literal["bf16", "mixed", "f32"] = "mixed"
 
 
-#: Feature width of each ported encoder per feature kind: VGG16's fc2
-#: 4096-d vector and its block5_conv3 512-channel grid; ResNet-50's
-#: global-average 2048-d vector and its conv4 1024-channel grid; the ViT
+#: Feature width of each encoder per feature kind: VGG16's fc2 4096-d
+#: vector and its block5_conv3 512-channel grid; InceptionV3's and
+#: ResNet-50's global-average 2048-d vectors and their mixed7 768-channel
+#: and conv4 1024-channel grids; the ViT
 #: family's and tiny_cnn's width either way (pooled = mean, spatial = grid).
 FEATURE_DIMS = {
     ("vgg16", "pooled"): 4096,
     ("vgg16", "spatial"): 512,
+    ("inception_v3", "pooled"): 2048,
+    ("inception_v3", "spatial"): 768,
     ("resnet50", "pooled"): 2048,
     ("resnet50", "spatial"): 1024,
     ("vit_b16", "pooled"): 768,
@@ -120,8 +129,8 @@ FEATURE_DIMS = {
 
 def encoder_config(name: str, features="pooled") -> EncoderConfig:
     if (name, features) not in FEATURE_DIMS:
-        raise NotImplementedError(
-            f"encoder {name!r} ({features}) is not ported; tpucap_torch has "
+        raise ValueError(
+            f"unknown encoder {name!r} ({features}); have "
             f"{sorted({n for n, _ in FEATURE_DIMS})}"
         )
     return EncoderConfig(
@@ -129,8 +138,7 @@ def encoder_config(name: str, features="pooled") -> EncoderConfig:
     )
 
 
-#: tpucap's presets (``tpucap/config.py``'s CONFIG_1..CONFIG_5). InceptionV3's
-#: widths are tpucap's; the port has no InceptionV3 to build them with.
+#: tpucap's presets (``tpucap/config.py``'s CONFIG_1..CONFIG_5).
 PRESETS = {
     "config1": Config(
         encoder=encoder_config("vgg16"),
@@ -138,7 +146,7 @@ PRESETS = {
         decode=DecodeConfig(method="greedy"),
     ),
     "config2": Config(
-        encoder=EncoderConfig(name="inception_v3", feature_dim=2048),
+        encoder=encoder_config("inception_v3"),
         decoder=DecoderConfig(name="lstm1"),
         decode=DecodeConfig(method="beam", beam_width=3),
         train=TrainConfig(batch_size=32),
@@ -154,7 +162,7 @@ PRESETS = {
         decode=DecodeConfig(method="beam", beam_width=3),
     ),
     "config5": Config(
-        encoder=EncoderConfig(name="inception_v3", feature_dim=2048),
+        encoder=encoder_config("inception_v3"),
         decoder=DecoderConfig(name="lstm1"),
         decode=DecodeConfig(method="beam", beam_width=3),
         train=TrainConfig(batch_size=256),
@@ -168,7 +176,6 @@ PRESETS = {
 UNPORTED = {
     "encoder": {},
     "decoder": {
-        "attention_dim": 256,
         "num_heads": 4,
         "mlp_dim": 1024,
         "max_positions": 40,
@@ -179,7 +186,6 @@ UNPORTED = {
     "train": {
         "checkpoint_dir": "checkpoints",
         "max_to_keep": 3,
-        "attention_reg": 0.0,
         "moe_aux_weight": 0.01,
         "momentum": 0.0,
         "lr_schedule": "constant",

@@ -15,17 +15,29 @@ import json
 import numpy as np
 import torch
 
+from tpucap_torch.core import refuse_int8
+
 
 def params_from_jax(tree):
     """A tpucap param tree (nested dicts/lists whose leaves are arrays) ->
-    the port's params: float32 CPU tensors, conv kernels HWIO -> OIHW."""
+    the port's params: float32 CPU tensors, conv kernels HWIO -> OIHW; a
+    None entry (an InceptionV3 conv's folded BatchNorm) is left out. A
+    quantized tree (an int8 leaf or a ``kernel_scale`` key) raises
+    NotImplementedError: cast to f32, its kernels would lose their scale."""
 
-    def convert(node, key=None):
+    def convert(node, key=None, path="params"):
         if isinstance(node, dict):
-            return {k: convert(v, k) for k, v in node.items()}
+            if "kernel_scale" in node:
+                refuse_int8(path)
+            return {
+                k: convert(v, k, f"{path}/{k}") for k, v in node.items() if v is not None
+            }
         if isinstance(node, (list, tuple)):
-            return [convert(v) for v in node]
-        arr = np.asarray(node, dtype=np.float32)
+            return [convert(v, None, f"{path}/{i}") for i, v in enumerate(node)]
+        arr = np.asarray(node)
+        if arr.dtype.kind in "iub":  # numpy's bf16 is kind "V"
+            refuse_int8(f"{path} ({arr.dtype})")
+        arr = arr.astype(np.float32)
         t = torch.from_numpy(arr.copy())
         if key == "kernel" and t.ndim == 4:
             t = t.permute(3, 2, 0, 1).contiguous()

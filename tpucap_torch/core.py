@@ -83,6 +83,31 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def refuse_int8(where: str):
+    """int8 serving weights have no branch in the port yet."""
+    raise NotImplementedError(
+        f"{where}: int8 serving weights (tpucap's quantize_encoder / "
+        "quantize_vocab_projection: an int8 kernel with its kernel_scale) are "
+        "not ported to tpucap_torch (ROADMAP queue 1, item 6.10)"
+    )
+
+
+def check_float_params(tree, where: str = "params") -> None:
+    """Refuse a param tree with a non-float leaf or a ``kernel_scale`` key:
+    the port computes in float only, and an int8 kernel taken as float
+    would lose its scale."""
+    if isinstance(tree, dict):
+        if "kernel_scale" in tree:
+            refuse_int8(where)
+        for k, v in tree.items():
+            check_float_params(v, f"{where}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            check_float_params(v, f"{where}/{i}")
+    elif not torch.as_tensor(tree).is_floating_point():
+        refuse_int8(f"{where} ({torch.as_tensor(tree).dtype})")
+
+
 def check_same_layout(old, new, where: str) -> None:
     """Raise ValueError where ``new`` differs from ``old`` in structure
     (dict keys, list lengths) or in a leaf's shape or dtype."""

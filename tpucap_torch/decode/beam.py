@@ -19,8 +19,14 @@ semantics, checked token for token against ``tpucap.decode.oracle``:
 - final ranking is score / length**alpha (or the GNMT penalty); ties go to
   the lowest slot.
 
-``approx_topk`` (a TPU custom call in the JAX package) maps to the exact
-top-k. ``no_repeat_ngram_size`` is not ported yet and raises.
+``no_repeat_ngram_size`` bans, per hypothesis, the tokens that would
+complete an n-gram that hypothesis already generated (``decode/ngram.py``),
+from a (B, k, max_len) token history re-gathered by parent every step.
+``decoder=`` honors the decoder's ``beam_shared_keys``: per-image state
+entries (the attention decoder's feature grids) stay (B, ...), neither
+tiled to (B*k, ...) nor gathered by parent; the step infers k from the
+shape ratio. ``approx_topk`` (a TPU custom call in the JAX package) maps to
+the exact top-k.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Any, Callable
 import torch
 
 from tpucap_torch.core import tree_leaves, tree_map
+from tpucap_torch.decode.ngram import apply_ngram_ban
 
 NEG_INF = -1e30  # avoid inf-inf NaNs inside score arithmetic
 
@@ -107,10 +114,27 @@ def _start_scores(B: int, k: int, device, offsets=None):
     return scores
 
 
-def _gather_beams(tree, parent, B: int, k: int):
-    """Reindex (B*k, ...) state by parent (B, k) beam indices."""
+def _shared_keys(decoder, state) -> frozenset:
+    """Top-level state keys that are per-image constants, identical across
+    a beam's hypotheses (the decoder's ``beam_shared_keys``)."""
+    keys = getattr(decoder, "beam_shared_keys", frozenset())
+    if isinstance(state, dict):
+        return frozenset(k for k in keys if k in state)
+    return frozenset()
+
+
+def _per_entry(fn, state, shared: frozenset):
+    """``fn`` on every leaf of ``state`` except its shared entries."""
+    if isinstance(state, dict) and shared:
+        return {key: v if key in shared else tree_map(fn, v) for key, v in state.items()}
+    return tree_map(fn, state)
+
+
+def _gather_beams(tree, parent, B: int, k: int, shared: frozenset = frozenset()):
+    """Reindex (B*k, ...) state by parent (B, k) beam indices; shared
+    entries are the same for every beam, so they stay as they are."""
     flat = (parent + torch.arange(B, device=parent.device)[:, None] * k).reshape(-1)
-    return tree_map(lambda x: x.index_select(0, flat), tree)
+    return _per_entry(lambda x: x.index_select(0, flat), tree, shared)
 
 
 def beam_decode(
@@ -129,23 +153,25 @@ def beam_decode(
     length_normalize: bool = True,
     alpha: float = 1.0,
     length_penalty: str = "simple",
+    decoder=None,
     approx_topk: bool = False,
     init_scores=None,
 ) -> BeamResult:
     """Beam-search a batch. ``step_fn(params, state, token) -> (logits,
-    state)`` where state leaves carry a leading hypothesis axis.
+    state)`` where state leaves carry a leading hypothesis axis. Pass
+    ``decoder`` to keep its ``beam_shared_keys`` untiled.
 
     ``start_id`` may be a scalar or a (B,) tensor; ``init_scores`` (B,)
     shifts every slot's score (rank-invariant within a row)."""
-    if no_repeat_ngram_size:
-        raise NotImplementedError(
-            "no_repeat_ngram_size is not ported to tpucap_torch yet"
-        )
     del approx_topk  # see the module docstring
     k = beam_width
     leaf = tree_leaves(state)[0]
     B, device = leaf.shape[0], leaf.device
-    state = tree_map(lambda x: x.repeat_interleave(k, dim=0), state)
+    shared = _shared_keys(decoder, state)
+    state = _per_entry(lambda x: x.repeat_interleave(k, dim=0), state, shared)
+    ngram = no_repeat_ngram_size
+    # Each hypothesis's generated tokens, for the n-gram ban only.
+    seqs = torch.full((B, k, max_len), pad_id, dtype=torch.long, device=device) if ngram else None
 
     words_acc = torch.full((max_len, B, k), pad_id, dtype=torch.long, device=device)
     parents_acc = torch.arange(k, device=device).expand(max_len, B, k).clone()
@@ -166,6 +192,8 @@ def beam_decode(
         masked = logits.clone()
         masked[:, pad_id] = NEG_INF
         masked = apply_banned(masked, banned_ids)
+        if ngram:
+            masked = apply_ngram_ban(masked, seqs.reshape(B * k, max_len), t, ngram)
         masked = min_len_mask(masked, t, min_len, end_id)
         pb_vals, pb_words = topk_stable(masked, k)  # stage 1: (B*k, k)
         pb_logp = (pb_vals.float() - lse[:, None]).reshape(B, k, k)
@@ -194,8 +222,13 @@ def beam_decode(
         parents_acc[t] = parent
         finished = parent_finished | (word == end_id)
         scores = top_scores
-        state = _gather_beams(new_state, parent, B, k)
+        state = _gather_beams(new_state, parent, B, k, shared)
         last = word.reshape(B * k)
+        if ngram:
+            # Re-gathered by parent, this step's word appended (pad for a
+            # frozen slot, which never expands again).
+            seqs = seqs.gather(1, parent[:, :, None].expand(B, k, max_len)).clone()
+            seqs[:, :, t] = word
         t += 1
         if t % EXIT_CHECK_EVERY == 0 and bool(finished.all()):
             break

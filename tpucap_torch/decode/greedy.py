@@ -3,8 +3,10 @@
 The decoder state (h, c, image branch) stays on the device and each step
 is one incremental step for the whole batch. The JAX package runs the loop
 as a ``lax.while_loop``; here it is a Python loop over eager steps with the
-same semantics, token for token. ``unroll`` exists in the JAX package only
-to cut while-loop boundaries; eager mode has none, so only 1 is accepted.
+same semantics, token for token. ``no_repeat_ngram_size`` bans the tokens
+that would complete an already generated n-gram (``decode/ngram.py``),
+selection only. ``unroll`` exists in the JAX package only to cut
+while-loop boundaries; eager mode has none, so only 1 is accepted.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from tpucap_torch.core import tree_leaves
 from tpucap_torch.decode.beam import EXIT_CHECK_EVERY, apply_banned, min_len_mask
+from tpucap_torch.decode.ngram import apply_ngram_ban
 
 
 @dataclasses.dataclass
@@ -47,10 +50,6 @@ def greedy_decode(
     """Greedy-decode a batch. ``step_fn(params, state, token) -> (logits,
     state)``. ``pad_id`` is masked out of the argmax (selection only: the
     score's normalizer is the full softmax, pad mass included)."""
-    if no_repeat_ngram_size:
-        raise NotImplementedError(
-            "no_repeat_ngram_size is not ported to tpucap_torch yet"
-        )
     if unroll != 1:
         raise ValueError("unroll is a while-loop dial; eager decode takes 1")
     leaf = tree_leaves(state)[0]
@@ -71,6 +70,8 @@ def greedy_decode(
         masked = logits.clone()
         masked[:, pad_id] = -torch.inf
         masked = apply_banned(masked, banned_ids)
+        if no_repeat_ngram_size:
+            masked = apply_ngram_ban(masked, tokens, t, no_repeat_ngram_size)
         masked = min_len_mask(masked, t, min_len, end_id)
         lse = torch.logsumexp(logits, dim=-1)
         nxt = torch.argmax(masked, dim=-1)

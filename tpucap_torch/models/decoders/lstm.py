@@ -1,8 +1,15 @@
-"""Merge LSTM caption decoder (port of ``tpucap.models.decoders.lstm``).
+"""Merge and inject LSTM caption decoders (port of
+``tpucap.models.decoders.lstm``).
+
+MergeDecoder:
 
     image feat -> Dense(hidden, relu)                  (fe branch)
     tokens     -> Embedding -> LSTM stack              (se branch)
     add(fe, se) -> Dense(hidden, relu) -> Dense(vocab) (logits)
+
+InjectDecoder maps the image feature to the stack's initial h and c (a
+tanh dense each, the same for every layer) and decodes from the tokens
+alone: top -> Dense(hidden, relu) -> Dense(vocab).
 
 as an incremental step function for the decode engines, and as a
 teacher-forced pass over whole token rows for training (``forward_train``),
@@ -104,6 +111,70 @@ class MergeDecoder:
 
     def forward_train(self, params, features, tokens, rng=None, deterministic=True):
         """tokens (B, T) post-padded input ids -> logits (B, T, V)."""
+        hidden = self.forward_hidden(
+            params, features, tokens, rng=rng, deterministic=deterministic
+        )
+        return dense(params["out"], hidden)
+
+
+@dataclasses.dataclass(frozen=True)
+class InjectDecoder:
+    vocab_size: int
+    feature_dim: int
+    embed_dim: int = 256
+    hidden_dim: int = 256
+    num_layers: int = 1
+    dropout_rate: float = 0.5
+
+    def init(self, gen: torch.Generator):
+        cells = []
+        in_dim = self.embed_dim
+        for _ in range(self.num_layers):
+            cells.append(init_lstm_cell(gen, in_dim, self.hidden_dim))
+            in_dim = self.hidden_dim
+        return {
+            "init_h": init_dense(gen, self.feature_dim, self.hidden_dim),
+            "init_c": init_dense(gen, self.feature_dim, self.hidden_dim),
+            "embedding": init_embedding(gen, self.vocab_size, self.embed_dim),
+            "cells": cells,
+            "pre_out": init_dense(gen, self.hidden_dim, self.hidden_dim),
+            "out": init_dense(gen, self.hidden_dim, self.vocab_size),
+        }
+
+    def init_state(self, params, features, rng=None, deterministic=True):
+        if rng is not None and not deterministic:
+            features = dropout(rng, features, self.dropout_rate, False)
+        h0 = dense(params["init_h"], features, torch.tanh)
+        c0 = dense(params["init_c"], features, torch.tanh)
+        # The same injected state for every layer of the stack.
+        h = h0[:, None, :].repeat(1, self.num_layers, 1)
+        c = c0[:, None, :].repeat(1, self.num_layers, 1)
+        return {"h": h, "c": c}
+
+    def step_hidden(self, params, state, token):
+        x = embed(params["embedding"], token)
+        top, h, c = _stacked_step(params["cells"], x, state["h"], state["c"])
+        return dense(params["pre_out"], top, torch.relu), {"h": h, "c": c}
+
+    def step(self, params, state, token):
+        hidden, new_state = self.step_hidden(params, state, token)
+        return dense(params["out"], hidden), new_state
+
+    def forward_hidden(self, params, features, tokens, rng=None, deterministic=True):
+        """Teacher-forced (B, T) -> (B, T, H); ``rng`` draws the feature
+        dropout, then the embedding dropout."""
+        state = self.init_state(params, features, rng=rng, deterministic=deterministic)
+        xs = embed(params["embedding"], tokens)
+        if rng is not None and not deterministic:
+            xs = dropout(rng, xs, self.dropout_rate, False)
+        h, c = state["h"], state["c"]
+        tops = []
+        for t in range(xs.shape[1]):
+            top, h, c = _stacked_step(params["cells"], xs[:, t], h, c)
+            tops.append(top)
+        return dense(params["pre_out"], torch.stack(tops, dim=1), torch.relu)
+
+    def forward_train(self, params, features, tokens, rng=None, deterministic=True):
         hidden = self.forward_hidden(
             params, features, tokens, rng=rng, deterministic=deterministic
         )

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from tpucap_torch.core import refuse_int8
 from tpucap_torch.models.layers import glorot_uniform
 
 
@@ -38,7 +39,10 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
 def conv(p, x, stride=(1, 1), padding="SAME"):
     """x (B, H, W, Cin) -> (B, H', W', Cout); kernel OIHW. The convolution
     comes out in x's dtype and the bias is added after it, in that dtype,
-    as in the JAX package and kernel K4."""
+    as in the JAX package and kernel K4. The JAX package's int8 branch is
+    not ported: an int8 kernel raises."""
+    if p["kernel"].dtype == torch.int8:
+        refuse_int8("conv")
     w = p["kernel"].to(x.dtype)
     xn = x.permute(0, 3, 1, 2)
     if padding == "VALID":
@@ -79,10 +83,37 @@ def batch_norm(p, x, eps=1e-3):
 
 
 def max_pool(x, window, stride, padding="VALID"):
+    """VALID only: no encoder of the JAX package pools with SAME."""
     if padding != "VALID":
-        raise NotImplementedError("max_pool: only VALID is ported")
+        raise ValueError(f"max_pool: padding {padding!r}; the encoders pool VALID")
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
     return y.permute(0, 2, 3, 1)
+
+
+def avg_pool_same(x, window):
+    """Stride-1 SAME average pool dividing by the count of *valid* elements
+    per window (TF/Keras: the padding is left out of the mean). In f32 one
+    library pool, which sums in its own order (within an ulp of the JAX
+    package's). In any other dtype the window is summed in that dtype in
+    row-major order, then divided by the counts, also in that dtype, so a
+    bf16 flow rounds where the JAX package's ``reduce_window`` rounds."""
+    lo = (window - 1) // 2
+    hi = window - 1 - lo
+    if x.dtype == torch.float32 and lo == hi:
+        y = F.avg_pool2d(
+            x.permute(0, 3, 1, 2), window, 1, padding=lo, count_include_pad=False
+        )
+        return y.permute(0, 2, 3, 1)
+    H, W = x.shape[1], x.shape[2]
+    xp = F.pad(x, (0, 0, lo, hi, lo, hi))
+    ones = F.pad(torch.ones_like(x[..., :1]), (0, 0, lo, hi, lo, hi))
+    sums = torch.zeros_like(x)
+    counts = torch.zeros_like(x[..., :1])
+    for dy in range(window):
+        for dx in range(window):
+            sums = sums + xp[:, dy : dy + H, dx : dx + W]
+            counts = counts + ones[:, dy : dy + H, dx : dx + W]
+    return sums / counts
 
 
 def zero_pad(x, pad):

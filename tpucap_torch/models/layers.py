@@ -15,6 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from tpucap_torch.core import refuse_int8
+
 # ---------------------------------------------------------------------------
 # Keras-default initializers
 
@@ -46,8 +48,10 @@ def init_dense(gen, in_dim: int, out_dim: int):
 
 def dense(p, x, activation=None):
     """y = x @ kernel in the activation dtype with f32 accumulation, cast
-    to that dtype, then the bias added in that dtype (the int8 branch of
-    the JAX package is not ported)."""
+    to that dtype, then the bias added in that dtype. The JAX package's
+    int8 branch is not ported: an int8 kernel raises."""
+    if p["kernel"].dtype == torch.int8:
+        refuse_int8("dense")
     y = torch.matmul(x, p["kernel"].to(x.dtype)) + p["bias"].to(x.dtype)
     return activation(y) if activation is not None else y
 

@@ -31,12 +31,15 @@
                  images)          preprocessed images
 
 ``caption_batch`` is the main path: preprocess kernel K1 -> encoder ->
-MergeDecoder.init_state -> beam search whose step, on the card with a
+the decoder's init_state -> beam search whose step, on the card with a
 1-layer MergeDecoder, is ``make_fused_merge_step`` (kernels K2 and K3: the
-JAX package's own drop-in step_fn hook). On the CPU the step is the plain
-``MergeDecoder.step``. The encoder is ``EncoderConfig.name``'s: VGG16 (the
-default, fc2 features, caffe mode), ResNet-50 (caffe mode), ViT-B/16 or
-vit_tiny (tf mode) or tiny_cnn (tf mode, 32). As in the JAX package the
+JAX package's own drop-in step_fn hook). Otherwise (on the CPU, lstm2,
+``InjectDecoder``, the soft-attention ``AttentionDecoder``, whose
+per-image grids the beam keeps untiled) the step is the decoder's plain
+``step``. The encoder is ``EncoderConfig.name``'s: VGG16 (the default, fc2
+features or the block5 grid, caffe mode), InceptionV3 (tf mode, 299),
+ResNet-50 (caffe mode), ViT-B/16 or vit_tiny (tf mode) or tiny_cnn (tf
+mode, 32). As in the JAX package the
 encoder's kernel paths are opt-in on the built encoder:
 ``pipe.encoder = dataclasses.replace(pipe.encoder, fused_blocks=True)``
 (ResNet-50's identity blocks as kernel K4, after ``fold_bn()``) or
@@ -67,6 +70,7 @@ import torch
 from tpucap_torch.config import Config, config_from_dict, config_to_dict
 from tpucap_torch.core import (
     apply_precision,
+    check_float_params,
     check_same_layout,
     infer_dtype,
     resolve_device,
@@ -166,6 +170,7 @@ class CaptioningPipeline:
             hidden_dim=d.hidden_dim,
             num_layers=d.num_layers,
             dropout_rate=d.dropout_rate,
+            attention_dim=d.attention_dim,
         )
         if init_params:
             gen = torch.Generator().manual_seed(
@@ -180,7 +185,9 @@ class CaptioningPipeline:
 
     def set_params(self, params) -> None:
         """Install a param tree (e.g. from ``convert.params_from_jax`` or
-        ``convert.load_npz``) on the pipeline's device."""
+        ``convert.load_npz``) on the pipeline's device. Every leaf must be
+        float: an int8 (quantized) tree raises NotImplementedError."""
+        check_float_params(params)
         self.params = tree_map(lambda t: t.to(self.device), params)
         self._bf16_params = None
 
@@ -234,7 +241,8 @@ class CaptioningPipeline:
 
     def step_fn(self):
         """The decode step: kernels K2 + K3 on the card for a 1-layer merge
-        decoder, the plain decoder step otherwise."""
+        decoder, the plain decoder step otherwise (lstm2, inject and the
+        attention decoder, as in the JAX package)."""
         if (
             self.device.type == "cuda"
             and isinstance(self.decoder, MergeDecoder)
@@ -275,6 +283,7 @@ class CaptioningPipeline:
             length_normalize=dcfg.length_normalize,
             alpha=dcfg.alpha,
             length_penalty=dcfg.length_penalty,
+            decoder=self.decoder,
             approx_topk=dcfg.approx_topk,
         )
 
@@ -506,6 +515,7 @@ class CaptioningPipeline:
             new = _bundle_params(directory)
         else:
             new = tree_map(torch.as_tensor, source)
+        check_float_params(new)
         check_same_layout(self.params, new, "params")
         self.set_params(new)
 
@@ -628,6 +638,7 @@ class CaptioningPipeline:
         eval_step = make_eval_sums_step(
             self.decoder,
             pad_id=0,
+            attention_reg=cfg.attention_reg,
             label_smoothing=cfg.label_smoothing,
             compute_dtype=compute_dtype,
         )
@@ -642,7 +653,7 @@ class CaptioningPipeline:
             for vf, vt in chunks:
                 for k, v in eval_step(params, vf, vt).items():
                     sums[k] = sums.get(k, 0.0) + v
-            _, vm = loss_from_sums(sums)
+            _, vm = loss_from_sums(sums, attention_reg=cfg.attention_reg)
             out = {"val_loss": float(vm["loss"]), "val_accuracy": float(vm["accuracy"])}
             if metric:
                 out[f"val_{metric}"] = self._val_decode_metric(
@@ -746,6 +757,7 @@ class CaptioningPipeline:
                 optimizer,
                 pad_id=0,
                 label_smoothing=cfg.label_smoothing,
+                attention_reg=cfg.attention_reg,
                 compute_dtype=compute_dtype,
                 donate=True,
             )
@@ -838,6 +850,7 @@ class CaptioningPipeline:
                 optimizer,
                 pad_id=0,
                 label_smoothing=cfg.label_smoothing,
+                attention_reg=cfg.attention_reg,
                 freeze_encoder=freeze_encoder,
                 compute_dtype=compute_dtype,
                 donate=True,

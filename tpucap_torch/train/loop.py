@@ -17,7 +17,11 @@ from typing import Any, Callable
 import torch
 
 from tpucap_torch.core import tree_leaves, tree_map
-from tpucap_torch.train.loss import caption_loss_sums, loss_from_sums
+from tpucap_torch.train.loss import (
+    caption_loss_sums,
+    loss_from_sums,
+    warn_if_attention_reg_unused,
+)
 
 
 @dataclasses.dataclass
@@ -222,14 +226,16 @@ def make_train_step(
     f32 master params, optimizer state and loss reductions.
     ``donate=True`` updates the state's tensors in place (the caller owns
     the state and rebinds it every call, ``state, m = step(state, ...)``).
+    ``attention_reg`` > 0 adds the doubly-stochastic regularizer for a
+    decoder with attention maps (a warning for the others).
     """
     refuse_unported(
-        attention_reg=(attention_reg, 0.0),
         grad_accum_steps=(grad_accum_steps, 1),
         scheduled_sampling=(scheduled_sampling, False),
         multi_steps=(multi_steps, 1),
     )
     check_compute_dtype(compute_dtype)
+    warn_if_attention_reg_unused(decoder, attention_reg)
 
     def step(state: TrainState, features, tokens):
         params = trainable(state.params)
@@ -242,9 +248,10 @@ def make_train_step(
             deterministic=deterministic,
             pad_id=pad_id,
             label_smoothing=label_smoothing,
+            attention_reg=attention_reg,
             compute_dtype=compute_dtype,
         )
-        loss, metrics = loss_from_sums(sums)
+        loss, metrics = loss_from_sums(sums, attention_reg=attention_reg)
         grads = grads_of(loss, params)
         return optimizer_step(state, optimizer, grads, metrics, donate)
 
@@ -285,7 +292,7 @@ def make_eval_step(
     )
 
     def step(params, features, tokens):
-        return loss_from_sums(sums_step(params, features, tokens))[1]
+        return loss_from_sums(sums_step(params, features, tokens), attention_reg=attention_reg)[1]
 
     return step
 
@@ -303,7 +310,6 @@ def make_eval_sums_step(
     off, no gradient, no generator drawn. Add the chunks' dicts and
     normalize once with ``loss_from_sums``: the loss over the whole set,
     zero-padded tail rows adding nothing to any sum."""
-    refuse_unported(attention_reg=(attention_reg, 0.0))
     check_compute_dtype(compute_dtype)
 
     @torch.no_grad()
@@ -316,6 +322,7 @@ def make_eval_sums_step(
             deterministic=True,
             pad_id=pad_id,
             label_smoothing=label_smoothing,
+            attention_reg=attention_reg,
             compute_dtype=compute_dtype,
         )
 

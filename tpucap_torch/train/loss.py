@@ -3,7 +3,9 @@
 
 Logits (B, T, V) against next-token targets (B, T), pad positions
 (target == 0) masked out, in sum form: the caller divides by the number of
-real tokens (``loss_from_sums``).
+real tokens (``loss_from_sums``). For a decoder with attention maps,
+``attention_reg`` > 0 adds Show-Attend-Tell's doubly-stochastic
+regularizer, lambda * mean over live rows of sum_i (1 - sum_t alpha_ti)^2.
 """
 
 from __future__ import annotations
@@ -42,6 +44,21 @@ def masked_cross_entropy_sums(logits, targets, *, pad_id: int = 0, label_smoothi
     return nll_sum, n_tokens, n_correct
 
 
+def warn_if_attention_reg_unused(decoder, attention_reg: float) -> None:
+    """Warn, when a train step is built, that a nonzero ``attention_reg``
+    does nothing for a decoder without attention maps."""
+    if attention_reg > 0.0 and not hasattr(decoder, "forward_train_with_alphas"):
+        import warnings
+
+        warnings.warn(
+            f"attention_reg={attention_reg} has no effect: decoder "
+            f"{type(decoder).__name__} has no attention maps "
+            "(doubly-stochastic regularization applies to the attention "
+            "decoder only)",
+            stacklevel=3,
+        )
+
+
 def caption_loss_sums(
     decoder,
     params,
@@ -64,19 +81,28 @@ def caption_loss_sums(
     ``compute_dtype=torch.bfloat16`` casts params and features at this
     boundary (``cast_floats``), so the forward and backward run in bf16
     while the caller's master params stay f32; every loss reduction stays
-    f32. All-pad rows add nothing to any sum. ``rng``: a
-    ``torch.Generator`` for dropout when not ``deterministic``."""
-    if attention_reg > 0.0:
-        raise NotImplementedError(
-            "attention_reg applies to the attention decoder, which is not ported"
-        )
+    f32 (the coverage sum of the regularizer too). All-pad rows add
+    nothing to any sum. ``rng``: a ``torch.Generator`` for dropout when not
+    ``deterministic``."""
     if ss_eps is not None or ss_rng is not None:
         raise NotImplementedError("scheduled sampling (ss_eps) is not ported")
     params = cast_floats(params, compute_dtype)
     features = cast_floats(features, compute_dtype)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     row_live = (targets != pad_id).any(dim=-1).float()
-    logits = decoder.forward_train(params, features, inputs, rng=rng, deterministic=deterministic)
+    if attention_reg > 0.0 and hasattr(decoder, "forward_train_with_alphas"):
+        logits, alphas = decoder.forward_train_with_alphas(
+            params, features, inputs, rng=rng, deterministic=deterministic
+        )
+        # Coverage over live input steps, summed in f32.
+        live = (inputs != pad_id).float()[:, :, None]
+        coverage = (alphas.float() * live).sum(dim=1)  # (B, L)
+        reg_sum = (((1.0 - coverage) ** 2).sum(dim=-1) * row_live).sum()
+    else:
+        logits = decoder.forward_train(
+            params, features, inputs, rng=rng, deterministic=deterministic
+        )
+        reg_sum = torch.zeros((), device=row_live.device)
     nll_sum, n_tokens, n_correct = masked_cross_entropy_sums(
         logits, targets, pad_id=pad_id, label_smoothing=label_smoothing
     )
@@ -84,23 +110,26 @@ def caption_loss_sums(
         "nll_sum": nll_sum,
         "tokens": n_tokens,
         "correct": n_correct,
-        "reg_sum": torch.zeros((), device=nll_sum.device),
+        "reg_sum": reg_sum,
         "batch": row_live.sum(),
     }
 
 
 def loss_from_sums(sums, *, attention_reg: float = 0.0):
-    """Normalize sum-form pieces into (loss, metrics)."""
-    if attention_reg > 0.0:
-        raise NotImplementedError(
-            "attention_reg applies to the attention decoder, which is not ported"
-        )
+    """Normalize sum-form pieces into (loss, metrics); with
+    ``attention_reg`` > 0 the loss adds attention_reg * reg_sum / rows and
+    the metrics hold ``attention_reg``, that mean."""
     denom = sums["tokens"].clamp(min=1.0)
     loss = sums["nll_sum"] / denom
+    reg = sums["reg_sum"] / sums["batch"].clamp(min=1.0)
+    if attention_reg > 0.0:
+        loss = loss + attention_reg * reg
     metrics = {
         "loss": loss,
         "accuracy": sums["correct"] / denom,
         "tokens": sums["tokens"],
         "perplexity": torch.exp((sums["nll_sum"] / denom).clamp(max=20.0)),
     }
+    if attention_reg > 0.0:
+        metrics["attention_reg"] = reg
     return loss, metrics
