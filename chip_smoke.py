@@ -139,8 +139,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    64), the reg metric logged; (d) CONFIG_5's ``fit`` on 2048-d features,
    2 epochs of 8 steps at its batch 256, each epoch's loss and seconds.
    K1 is also checked in phase 2 at (256, 299, 299, 3) in tf mode;
-10. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
-   phase 9's counted serving runs for K1, K2 and K3), then
+10. fine-tuning's dials, with torch's deterministic settings on in this
+   process for the phase only (logged): (a) one joint step (ViT-B/16
+   flash + lstm1, batch 64, bf16, dropout off) from one state in four
+   settings: plain, ``remat_encoder``, ``grad_accum_steps=2``, augmented
+   (flip and a 16-pixel shift); launches a step (K5, dK/dV, dQ: 12/12/12,
+   24/12/12, 24/24/24, 12/12/12), remat's params equal plain's bit for
+   bit, peak memory and step ms (median of 5) of each, the augmentation's
+   own ms, and accumulation's gradients against plain's in f32 (each step
+   under plain SGD at lr 1e6, the gradient read back from the update;
+   within 1e-4 of each tensor's scale); (b) ``train --finetune-encoder
+   --preset config1`` (VGG16 at 224 + lstm1, f32) with ``--augment
+   --augment-shift 8 --remat-encoder --grad-accum-steps 2
+   --checkpoint-every-steps 4 --handle-preemption``, 2 epochs on phase
+   8's dataset with its training split cut to 128 ids, three times in
+   this process: uninterrupted; cut by a SIGTERM that a watcher thread
+   sends once the first interval checkpoint appears (the preempted
+   lines, the rescue the manager's latest step, without metrics);
+   ``--resume`` from it (the resumed position printed); the resumed
+   bundle's params equal the uninterrupted one's bit for bit; each run's
+   wall, step ms, epoch spans, peak memory, save and restore s; then
+   ``CaptioningPipeline.load`` of that bundle captions the 64 test images
+   (K2 and K3 once a step) and its f32 decode route is held step by step
+   to the plain step at those rows;
+11. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
+   phase 9's counted serving runs for K1, K2 and K3, and phase 10's
+   counted steps and caption), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
@@ -2087,6 +2111,320 @@ def run_presets(dev, tokenizer) -> dict[str, int]:
     return counts
 
 
+# -- phase 10: fine-tuning's dials and the CLI's fine-tune path --------------
+
+# (a) the joint step's encoder (phase 5's), the shift of the augmented
+# setting and the lr of the plain-SGD steps whose updates give back the
+# gradients; (b) the CLI's training split (cut from phase 8's 384 ids),
+# epochs, checkpoint interval and shift.
+P10_VIT, P10_SHIFT, P10_SGD_LR = "vit_b16", 16, 1e6
+FT_CLI_TRAIN_IDS, FT_CLI_EPOCHS, FT_CLI_EVERY, FT_CLI_SHIFT = 128, 2, 4, 8
+
+
+@contextlib.contextmanager
+def deterministic_torch(label: str):
+    """torch's deterministic settings in this process while phase 10 runs:
+    cuDNN's deterministic algorithms without autotuning, and every op that
+    has a deterministic implementation takes it (the others warn, and the
+    distinct warnings are logged). The package sets none of this."""
+    import warnings
+
+    import torch.utils.deterministic as det
+
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+            det.fill_uninitialized_memory)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    # No NaN fill of every torch.empty: nothing here reads memory it did
+    # not write (phase 2d checks the kernels' outputs element by element).
+    det.fill_uninitialized_memory = False
+    log(f"{label}: torch's deterministic settings on in this process (cudnn.deterministic, no cudnn "
+        f"benchmark, use_deterministic_algorithms warn_only, no fill of uninitialized memory)")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev[2], warn_only=prev[3])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[0], prev[1]
+        det.fill_uninitialized_memory = prev[4]
+        seen = sorted({str(w.message).split("\n")[0][:160] for w in caught})
+        log(f"{label}: deterministic settings off; {len(caught)} warnings, distinct: {seen}")
+
+
+def finetune_dials(dev, tokenizer) -> dict[str, int]:
+    """10(a): one joint step (ViT-B/16 flash + lstm1, batch TRAIN_BATCH,
+    bf16, dropout off) from one state in four settings: plain, remat,
+    accumulation over 2 microbatches, augmented. Launches a step, remat's
+    params against plain's bit for bit, accumulation's gradients against
+    plain's (each setting's step under plain SGD), peak memory and step ms.
+    -> the counted steps' launches."""
+    from tpucap_torch import ops
+    from tpucap_torch.config import Config, DecodeConfig, DecoderConfig, TrainConfig, encoder_config
+    from tpucap_torch.core import apply_precision, tree_leaves
+    from tpucap_torch.data.augment import make_augment_fn
+    from tpucap_torch.pipeline import CaptioningPipeline
+    from tpucap_torch.train import (
+        TrainState,
+        build_optimizer,
+        build_training_tokens,
+        encoder_learning_rate_optimizer,
+        make_joint_train_step,
+    )
+    from tpucap_torch.train.loop import chain, scale_by_learning_rate
+
+    cfg = Config(encoder=encoder_config(P10_VIT), decoder=DecoderConfig(name="lstm1", embed_dim=WIDTH, hidden_dim=WIDTH),
+                 decode=DecodeConfig(max_len=MAX_LEN), train=TrainConfig(batch_size=TRAIN_BATCH, precision="bf16"),
+                 precision="bf16")
+    pipe = CaptioningPipeline(cfg, tokenizer=tokenizer, device=dev)
+    pipe.encoder = dataclasses.replace(pipe.encoder, attention_impl="flash")
+    pipe.build(seed=0)
+    apply_precision("bf16")  # fit_finetune's training policy at bf16
+    size, layers = pipe.encoder.input_size, pipe.encoder.num_layers
+    desc = training_corpus(tokenizer, TRAIN_BATCH, 13)
+    _, tokens = build_training_tokens(tokenizer, desc, MAX_LEN)
+    tokens = torch.from_numpy(tokens).to(dev).long()
+    g = torch.Generator(device=dev).manual_seed(14)
+    images = torch.rand((TRAIN_BATCH, size, size, 3), generator=g, device=dev) * 2 - 1
+    params = {"encoder": pipe.params["encoder"], "decoder": pipe.params["decoder"]}
+    adam = encoder_learning_rate_optimizer(build_optimizer(cfg.train), encoder_lr_scale=0.1)
+    start = TrainState.create(params, adam, None)
+    aug = f"augment (flip, shift {P10_SHIFT})"
+    settings = {
+        "plain": ({}, (1, 1, 1)),
+        "remat": (dict(remat_encoder=True), (2, 1, 1)),
+        "accum 2": (dict(grad_accum_steps=2), (2, 2, 2)),
+        aug: (dict(augment_fn=make_augment_fn(flip=True, max_shift=P10_SHIFT)), (1, 1, 1)),
+    }
+    kernels = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    plain_params = None
+    for name, (kw, per_layer) in settings.items():
+        step = make_joint_train_step(pipe.encoder, pipe.decoder, adam, deterministic=True,
+                                     compute_dtype=torch.bfloat16, **kw)
+
+        def run():
+            # The augmented setting draws from the state's generator: the
+            # same draws each call.
+            return step(dataclasses.replace(start, rng=torch.Generator(device=dev).manual_seed(15)), images, tokens)
+
+        run()  # warm-up: allocator, cuBLAS, cuDNN
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resting = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        (new, m), _ = timed(run)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        expect = dict.fromkeys(counts, 0)
+        expect.update({k: n * layers for k, n in zip(kernels, per_layer)})
+        if counts != expect or not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"finetune dials {name}: launches {counts} != {expect}, loss {float(m['loss'])}")
+        total = {k: total[k] + counts[k] for k in total}
+        leaves = [t.detach().cpu() for t in tree_leaves(new.params)]
+        del new
+        if name == "plain":
+            plain_params, plain_loss = leaves, float(m["loss"])
+        elif name == "remat":
+            same = all(torch.equal(a, b) for a, b in zip(plain_params, leaves))
+            worst = max(max_err(a, b) for a, b in zip(plain_params, leaves))
+            if not same or float(m["loss"]) != plain_loss:
+                raise AssertionError(f"finetune dials remat: params differ from plain's by up to {worst}, "
+                                     f"loss {float(m['loss'])} against {plain_loss}")
+        times = [timed(run)[1] for _ in range(5)]
+        log(f"finetune dials: {P10_VIT} flash + lstm1, batch {TRAIN_BATCH}, bf16, {name}: step ms "
+            f"{[round(t * 1e3, 3) for t in times]} median {np.median(times) * 1e3:.3f}; peak memory "
+            f"{peak / 2**30:.3f} GiB ({(peak - resting) / 2**30:.3f} over the resting "
+            f"{resting / 2**30:.3f}); launches a step { {k: v for k, v in counts.items() if v} }; loss "
+            f"{float(m['loss']):.6f}" + ("; params equal plain's bit for bit" if name == "remat" else ""))
+    del plain_params
+    aug_fn = settings[aug][0]["augment_fn"]
+    gen = torch.Generator(device=dev).manual_seed(15)
+    aug_times = [timed(lambda: aug_fn(images, gen))[1] for _ in range(6)][1:]
+    log(f"finetune dials: the augmentation alone ({TRAIN_BATCH} x {size} x {size} x 3 f32, flip and "
+        f"shift {P10_SHIFT}): ms {[round(t * 1e3, 3) for t in aug_times]} median "
+        f"{np.median(aug_times) * 1e3:.3f}")
+    # Accumulation against plain, in f32 with TF32 off (in bf16 the LSTM's
+    # weight gradients are summed over the 34 steps in bf16, a few 1e-2 of
+    # their scale apart whatever the split): each step under plain SGD at a
+    # large lr, so that (params - updated) / lr gives back the gradient it
+    # applied; sums in another order, within 1e-4 of each tensor's scale.
+    apply_precision("f32")
+    sgd = chain(scale_by_learning_rate(P10_SGD_LR))
+    grads, losses = {}, {}
+    for a in (1, 2):
+        step = make_joint_train_step(pipe.encoder, pipe.decoder, sgd, deterministic=True, grad_accum_steps=a)
+        new, m = step(TrainState.create(params, sgd, None), images, tokens)
+        grads[a] = [((p - q) / P10_SGD_LR).cpu() for p, q in zip(tree_leaves(params), tree_leaves(new.params))]
+        losses[a] = float(m["loss"])
+        del new
+    worst, where = 0.0, None
+    for i, (a, b) in enumerate(zip(grads[2], grads[1])):
+        scale = float(b.abs().max())
+        share = max_err(a, b) / scale if scale else 0.0
+        if share > worst:
+            worst, where = share, i
+    rel = abs(losses[2] - losses[1]) / abs(losses[1])
+    if worst > 1e-4 or rel > 1e-5:
+        raise AssertionError(f"finetune dials accum 2, f32: a gradient (leaf {where}) differs from plain's by "
+                             f"{worst:.3g} of its scale, the loss by {rel:.3g}")
+    log(f"finetune dials: accum 2 against plain in f32 (TF32 off): loss relative {rel:.3g} (tol 1e-5); "
+        f"gradients' worst share of a tensor's scale {worst:.3g} over {len(grads[1])} tensors (tol 1e-4)")
+    apply_precision(pipe.config.precision)
+    return total
+
+
+def run_finetune_cli(dev) -> dict[str, int]:
+    """10(b): ``train --finetune-encoder`` on phase 8's dataset (its training
+    split cut to FT_CLI_TRAIN_IDS ids) with remat, accumulation over 2,
+    augmentation, a checkpoint every FT_CLI_EVERY steps and the SIGTERM
+    guard, three times in this process: uninterrupted; cut by SIGTERM once
+    the first step-interval checkpoint appears; resumed. The resumed
+    bundle against the uninterrupted one, then that bundle's greedy
+    captions of the test split (K2, K3). -> the caption's launches."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from tpucap_torch import ops
+    from tpucap_torch.checkpoint import CheckpointManager
+    from tpucap_torch.convert import load_npz
+    from tpucap_torch.core import tree_leaves
+    from tpucap_torch.pipeline import PARAMS_FILE, CaptioningPipeline
+
+    io_s: dict[str, list] = {"save": [], "restore": []}
+    real = {k: getattr(CheckpointManager, k) for k in io_s}
+
+    def timed_io(kind):
+        def call(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = real[kind](self, *a, **kw)
+            io_s[kind].append((t0, time.perf_counter()))
+            return r
+
+        return call
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ids = write_cli_dataset(root)
+        (root / "ft_train.txt").write_text("".join(f"{k}.jpg\n" for k in ids[:FT_CLI_TRAIN_IDS]))
+        steps_per_epoch = FT_CLI_TRAIN_IDS * CLI_REFS // CLI_TRAIN_BATCH
+
+        def argv(ckpt, *extra):
+            return ["train", "--finetune-encoder", *CLI_MODEL, "--tokens", root / "tokens.txt", "--split",
+                    root / "ft_train.txt", "--images", root / "images", "--augment", "--augment-shift",
+                    FT_CLI_SHIFT, "--remat-encoder", "--grad-accum-steps", 2, "--checkpoint-every-steps",
+                    FT_CLI_EVERY, "--handle-preemption", "--epochs", FT_CLI_EPOCHS, "--batch-size",
+                    CLI_TRAIN_BATCH, "--checkpoint-dir", ckpt, *extra]
+
+        def report(label, out, wall, t0, peak):
+            epochs = [(t, line) for t, line in out if line.startswith("epoch ")]
+            spans, last = [], t0
+            for t, _ in epochs:
+                saves = sum(b - a for a, b in io_s["save"] if last <= a and b <= t)
+                spans.append((t - last, saves))
+                last = t
+            step_ms = [(span - saves) / steps_per_epoch * 1e3 for span, saves in spans[1:]]
+            log(f"cli finetune {label}: wall {wall:.5f} s; epoch lines' spans (s, saves within) "
+                f"{[(round(a, 5), round(b, 5)) for a, b in spans]} (the first from the command's start: "
+                f"VGG16's random build and the image reads included); step ms from the later epochs "
+                f"{[round(x, 3) for x in step_ms]}; peak memory {peak / 2**30:.3f} GiB; saves s "
+                f"{[round(b - a, 5) for a, b in io_s['save']]}; restores s "
+                f"{[round(b - a, 5) for a, b in io_s['restore']]}")
+            for _, line in out:
+                log(f"cli finetune {label}: {line!r}")
+
+        def run(label, args):
+            for v in io_s.values():
+                v.clear()
+            torch.cuda.reset_peak_memory_stats()
+            out, err, wall, t0 = run_cli(args)
+            report(label, out, wall, t0, torch.cuda.max_memory_allocated())
+            return [line for _, line in out]
+
+        for k in io_s:
+            setattr(CheckpointManager, k, timed_io(k))
+        late: list = []
+        previous = signal.signal(signal.SIGTERM, lambda *_: late.append(time.perf_counter()))
+        try:
+            with deterministic_torch("cli finetune"):
+                a, b = root / "uncut", root / "cut"
+                uncut = run("uncut", argv(a))
+                # Only the bundle is compared: the steps' 1.7 GB each go.
+                for d in a.iterdir():
+                    if d.name.isdigit():
+                        shutil.rmtree(d)
+
+                def watch():
+                    while not (b / str(FT_CLI_EVERY)).is_dir():
+                        if done.is_set():
+                            return
+                        time.sleep(0.002)
+                    sent.append(time.perf_counter())
+                    os.kill(os.getpid(), signal.SIGTERM)
+
+                done, sent = threading.Event(), []
+                watcher = threading.Thread(target=watch, daemon=True)
+                watcher.start()
+                try:
+                    cut = run("cut", argv(b))
+                finally:
+                    done.set()
+                    watcher.join()
+                held = CheckpointManager(b, best_metric="val_loss")
+                held = [(s, held.metrics(s)) for s in held.all_steps()]
+                resumed = run("resume", argv(b, "--resume"))
+        finally:
+            signal.signal(signal.SIGTERM, previous)
+            for k, fn in real.items():
+                setattr(CheckpointManager, k, fn)
+        want_last = f"finetuned {FT_CLI_EPOCHS} epochs; final loss "
+        if not uncut[-1].startswith(want_last) or not uncut[-1].endswith(f"bundle in {a / 'bundle'}"):
+            raise AssertionError(f"cli finetune uncut: printed {uncut}")
+        rescue = next((line for line in cut if line.startswith("preempted at epoch ")), "")
+        if not sent or late or not rescue or not cut[-1].startswith("preempted after "):
+            raise AssertionError(f"cli finetune cut: SIGTERM sent {sent}, after the guard {late}; printed {cut}")
+        step = int(rescue.split(" step ")[1].split(";")[0])
+        if held[-1] != (step, None) or step < FT_CLI_EVERY:
+            raise AssertionError(f"cli finetune cut: rescue at {step}, the manager held {held}")
+        epoch, batch = divmod(step, steps_per_epoch)
+        if resumed[0] != f"resumed from step {step} (epoch {epoch}, batch {batch})" or not resumed[-1].startswith(
+            f"finetuned {FT_CLI_EPOCHS - epoch} epochs; final loss "
+        ) or (epoch == 0 and resumed[-1].split(";")[1] != uncut[-1].split(";")[1]):
+            raise AssertionError(f"cli finetune resume: printed {resumed}; uncut {uncut[-1]}")
+        got, want = (load_npz(d / "bundle" / PARAMS_FILE) for d in (b, a))
+        gl, wl = tree_leaves(got), tree_leaves(want)
+        worst = max(max_err(x, y) for x, y in zip(gl, wl))
+        if len(gl) != len(wl) or not all(torch.equal(x, y) for x, y in zip(gl, wl)):
+            raise AssertionError(f"cli finetune: the resumed bundle differs from the uninterrupted one by "
+                                 f"up to {worst}")
+        log(f"cli finetune: SIGTERM after step {FT_CLI_EVERY}'s checkpoint, the rescue at step {step} "
+            f"(epoch {epoch}, batch {batch}), resumed: the bundle's {len(gl)} params equal the "
+            f"uninterrupted run's bit for bit")
+
+        # The fine-tuned bundle serves: its encoder's features, K2 and K3's
+        # f32 routes at the test split's rows.
+        pipe = CaptioningPipeline.load(b / "bundle")
+        paths = [root / "images" / f"{k}.jpg" for k in ids[-CLI_SPLITS[2]:]]
+        feats = pipe.extract_features(paths, batch_size=CLI_TRAIN_BATCH)
+        ops.reset_launch_counts()
+        caps, caption_s = timed(lambda: pipe.caption_images(paths))
+        counts = ops.launch_counts()
+        steps_c = check_cli_counts("cli finetune caption", counts, 1)
+        if len(caps) != len(paths) or not all(isinstance(c, str) for c in caps):
+            raise AssertionError(f"cli finetune caption: {caps[:4]}")
+        words = sorted({len(c.split()) for c in caps})
+        check_monitor_route(pipe, feats, "cli finetune bundle route")
+        log(f"cli finetune: CaptioningPipeline.load(bundle).caption_images of {len(paths)} test images, "
+            f"{pipe.config.decode.method}: {caption_s:.5f} s; launches K2 {steps_c}, K3 "
+            f"{counts['merge_head']} + {counts['vocab_proj']}; caption lengths {words} words "
+            f"(a random VGG16 after {FT_CLI_EPOCHS} short epochs), e.g. {max(caps, key=len)!r}")
+        return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2132,6 +2470,13 @@ def main() -> int:
     run_cli_workflow(dev)
     for name, c in run_presets(dev, tokenizer).items():
         counts[name] += c
+    t10 = time.perf_counter()
+    with deterministic_torch("finetune dials"):
+        dials = finetune_dials(dev, tokenizer)
+    cli = run_finetune_cli(dev)
+    for name in counts:
+        counts[name] += dials[name] + cli[name]
+    log(f"phase 10: {time.perf_counter() - t10:.2f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

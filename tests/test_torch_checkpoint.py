@@ -184,7 +184,7 @@ def test_orbax_directory_and_unported_options_refused(tmp_path):
     with pytest.raises(ValueError, match="best_mode"):
         CheckpointManager(tmp_path / "b", best_mode="lowest")
     mgr = CheckpointManager(tmp_path / "c")
-    for method in (mgr.save_rescue, mgr.save_sharded, mgr.restore_sharded):
+    for method in (mgr.save_sharded, mgr.restore_sharded):
         with pytest.raises(NotImplementedError, match=method.__name__):
             method(_port_state(1))
 

@@ -410,11 +410,8 @@ _REFUSED = [
     *[
         ["train", "--tokens", "/nonexistent", "--features", "/nonexistent", *flags]
         for flags in (
-            ["--finetune-encoder"], ["--images", "/nonexistent"], ["--augment"],
-            ["--augment-shift", "4"], ["--encoder-lr-scale", "0.5"], ["--remat-encoder"],
             ["--keras-h5", "w.h5"], ["--lora-rank", "4"], ["--lora-alpha", "8"],
-            ["--lora-out", "l.npz"], ["--resume"], ["--handle-preemption"],
-            ["--sharded-checkpoints"], ["--scst-epochs", "2"], ["--scst-lr", "1e-4"],
+            ["--lora-out", "l.npz"], ["--sharded-checkpoints"], ["--scst-epochs", "2"], ["--scst-lr", "1e-4"],
             ["--scst-temperature", "0.5"], ["--tokenizer", "bpe"], ["--bpe-vocab-size", "512"],
             ["--embeddings", "g.txt"], ["--freeze-embeddings"], ["--data-parallel"],
             ["--stream-features"], ["--parallelism", "fsdp"], ["--model-devices", "2"],
@@ -451,7 +448,7 @@ def test_unported_flags_exit_before_any_file_is_read(argv, monkeypatch):
 
 @pytest.mark.parametrize("argv,match", [
     (["--lr-schedule", "cosine"], "lr_schedule"),
-    (["--grad-accum-steps", "2"], "grad_accum_steps"),
+    (["--steps-per-dispatch", "2"], "steps_per_dispatch"),
     (["--ema-decay", "0.9"], "ema_decay"),
     (["--momentum", "0.9"], "momentum"),
     (["--preset", "config1", "--warmup-steps", "10"], "warmup_steps"),

@@ -370,7 +370,7 @@ def test_unported_knobs_raise():
     tdec = _decoders(1)[1]
     opt = build_optimizer(tcfg.TrainConfig())
     for kw in (
-        dict(grad_accum_steps=2), dict(scheduled_sampling=True), dict(multi_steps=2),
+        dict(scheduled_sampling=True), dict(multi_steps=2),
         dict(compute_dtype=torch.float16),
     ):
         with pytest.raises(NotImplementedError):
@@ -439,7 +439,7 @@ def test_fit_with_dropout_descends_and_refuses_unported_dials():
     assert not np.array_equal(params_to_numpy(pipe.params["decoder"])["out"]["kernel"], before["out"]["kernel"])
     for kw in (
         dict(parallelism="dp"), dict(data_parallel=True), dict(stream=True),
-        dict(resume=True), dict(handle_preemption=True), dict(sharded_checkpoints=True),
+        dict(sharded_checkpoints=True),
     ):
         with pytest.raises(NotImplementedError):
             pipe.fit(CAPTIONS, feats, epochs=1, log=None, **kw)

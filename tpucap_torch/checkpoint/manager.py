@@ -114,11 +114,30 @@ class CheckpointManager:
         os.replace(tmp, self._path(step))
         self._checkpoints.append((step, clean))
         for old in self._steps_to_remove():
-            gone = self._path(old) + _TMP
-            os.replace(self._path(old), gone)
-            shutil.rmtree(gone)
-            self._checkpoints = [c for c in self._checkpoints if c[0] != old]
+            self._delete(old)
         return True
+
+    def _delete(self, step: int) -> None:
+        gone = self._path(step) + _TMP
+        os.replace(self._path(step), gone)
+        shutil.rmtree(gone)
+        self._checkpoints = [c for c in self._checkpoints if c[0] != step]
+
+    def save_rescue(self, state: TrainState) -> None:
+        """A mid-epoch rescue or step-interval checkpoint, saved without
+        metrics: the best-metric retention can then neither pick it as best
+        nor evict it (metric-less steps are kept). Once it lands, older
+        metric-less steps are deleted, so at most one is kept (epoch saves
+        carry metrics and are not touched). Nothing happens when the latest
+        step is this one (an interval save meeting an epoch save)."""
+        step = int(state.step)
+        if self.latest_step() == step:
+            return
+        self.save(state, metrics=None)
+        if self.best_metric:
+            for s, metrics in list(self._checkpoints):
+                if s < step and metrics is None:
+                    self._delete(s)
 
     def _ranked(self) -> list:
         """(index, (step, metrics)) of the steps with metrics, worst first,
@@ -208,9 +227,6 @@ class CheckpointManager:
         return tree_map(
             lambda a, t: (a / n).to(t.dtype) if t.is_floating_point() else t, acc, last
         )
-
-    def save_rescue(self, *args, **kwargs):
-        raise NotImplementedError("CheckpointManager.save_rescue is not ported")
 
     def save_sharded(self, *args, **kwargs):
         raise NotImplementedError("CheckpointManager.save_sharded is not ported")

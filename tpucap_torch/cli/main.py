@@ -4,6 +4,9 @@ tpucap_torch.
     python -m tpucap_torch extract  --images DIR --out features.npz [--preset config1]
     python -m tpucap_torch train    --tokens tokens.txt --split train.txt \\
                                     --features features.npz --checkpoint-dir DIR
+    python -m tpucap_torch train    --tokens tokens.txt --split train.txt \\
+                                    --finetune-encoder --images DIR --checkpoint-dir DIR \\
+                                    [--augment] [--augment-shift N] [--remat-encoder]
     python -m tpucap_torch caption  --image photo.jpg --checkpoint-dir DIR
     python -m tpucap_torch evaluate --tokens tokens.txt --split test.txt \\
                                     --features features.npz --checkpoint-dir DIR
@@ -12,6 +15,12 @@ tpucap_torch.
 commands print tpucap's lines. Artifacts: features as ``.npz`` (image id ->
 row), ``tokenizer.json`` (the format both packages share) and the port's
 checkpoints (``tpucap_torch.checkpoint``; it reads no orbax).
+
+``train --finetune-encoder`` trains the encoder and the decoder together
+from the images and writes a bundle (``--bundle-out``, default
+``<checkpoint-dir>/bundle``). Both training paths take ``--resume``,
+``--handle-preemption`` (SIGTERM: finish the step, write a rescue
+checkpoint, exit), ``--checkpoint-every-steps`` and ``--grad-accum-steps``.
 
 The commands run on ``cuda``; ``main(argv, device="cpu")`` runs them on the
 CPU, which is how the tests drive them. A flag whose feature the port does
@@ -53,6 +62,7 @@ from tpucap_torch.data import (
     load_split,
     prepare_descriptions,
 )
+from tpucap_torch.data.preprocess import preprocess_batch
 from tpucap_torch.pipeline import CaptioningPipeline
 from tpucap_torch.text import load_tokenizer
 from tpucap_torch.train import TrainState, build_optimizer
@@ -65,18 +75,10 @@ from tpucap_torch.utils import MetricsLogger
 UNPORTED_FLAGS = {
     "extract": {"keras_h5": (), "parallelism": ("none",)},
     "train": {
-        "finetune_encoder": (),
-        "images": (),
-        "augment": (),
-        "augment_shift": (),
-        "encoder_lr_scale": (),
-        "remat_encoder": (),
         "keras_h5": (),
         "lora_rank": (),
         "lora_alpha": (),
         "lora_out": (),
-        "resume": (),
-        "handle_preemption": (),
         "sharded_checkpoints": (),
         "scst_epochs": (),
         "scst_lr": (),
@@ -154,9 +156,13 @@ def _add_optimizer_flags(p):
     p.add_argument("--lr-decay-steps", type=int, default=None, help="not ported")
     p.add_argument("--warmup-steps", type=int, default=None, help="not ported")
     p.add_argument("--ema-decay", type=float, default=None, help="not ported")
-    p.add_argument("--grad-accum-steps", type=int, default=None, help="not ported")
+    p.add_argument("--grad-accum-steps", type=int, default=None,
+                   help="split each batch into N microbatches accumulated in sum "
+                   "form: the full-batch update at 1/N of the activation memory")
     p.add_argument("--steps-per-dispatch", type=int, default=None, help="not ported")
-    p.add_argument("--checkpoint-every-steps", type=int, default=None, help="not ported")
+    p.add_argument("--checkpoint-every-steps", type=int, default=None,
+                   help="also write a mid-epoch checkpoint every N optimizer "
+                   "steps (what --resume continues from)")
     p.add_argument("--train-precision", default=None, choices=["f32", "bf16"],
                    help="training compute dtype: f32 (default) or bf16 with f32 "
                    "master weights and optimizer state")
@@ -356,17 +362,67 @@ def _load_dataset(args, default_split: str = "train", karpathy=None):
     return prepare_descriptions(desc, split_ids)
 
 
-def cmd_train(args, device):
-    if not args.features:
+def _validate_train_flags(args) -> None:
+    """tpucap's checks of train's flag combinations, with its messages,
+    before any file is read."""
+    if not args.finetune_encoder and (args.augment or args.augment_shift):
+        raise SystemExit(
+            "--augment/--augment-shift run inside the joint "
+            "encoder+decoder step — add --finetune-encoder (feature-"
+            "based training has no images to augment)"
+        )
+    if not args.finetune_encoder and args.remat_encoder:
+        raise SystemExit(
+            "--remat-encoder applies to the joint encoder+decoder step "
+            "— add --finetune-encoder (feature-based training has no "
+            "encoder activations to rematerialize)"
+        )
+    if (args.resume or args.handle_preemption) and args.ema_decay:
+        raise SystemExit(
+            "--resume/--handle-preemption need the step-checkpointed "
+            "TrainState path; drop --ema-decay"
+        )
+    if args.finetune_encoder:
+        _validate_finetune_flags(args)
+    elif not args.features:
         raise SystemExit(
             "--features is required (or use --finetune-encoder --images "
             "to train end-to-end from JPEGs)"
         )
+
+
+def _validate_finetune_flags(args) -> None:
+    """The joint trainer's refusals, tpucap's: no dev split, no early
+    stopping (parallelism is the port's none only, refused by name)."""
+    if not args.images:
+        raise SystemExit("--finetune-encoder needs --images DIR")
+    unsupported = [
+        name
+        for name, val in (
+            ("--val-split", args.val_split),
+            ("--early-stopping-patience", args.early_stopping_patience),
+        )
+        if val
+    ]
+    if unsupported:
+        raise SystemExit(
+            f"{', '.join(unsupported)} not supported with "
+            "--finetune-encoder (joint training runs single-device or "
+            "--parallelism dp; train the decoder with `train` + "
+            "extracted features for the rest)"
+        )
+
+
+def cmd_train(args, device):
+    _validate_train_flags(args)
     cfg = _build_config(args)
     pipe = CaptioningPipeline(cfg, device=device)
     kj = args.karpathy_json
     karpathy = load_karpathy_json(kj) if kj else None
     prepared = _load_dataset(args, karpathy=karpathy)
+    if args.finetune_encoder:
+        _train_finetune(args, pipe, prepared)
+        return
     features = dict(np.load(args.features))
     pipe.fit_tokenizer(prepared)
     pipe.build()
@@ -395,18 +451,99 @@ def cmd_train(args, device):
         batch_size=args.batch_size,
         checkpoint_manager=mgr,
         val_data=val_data,
+        resume=args.resume,
+        handle_preemption=args.handle_preemption,
     )
     if logger:
         for h in history:
             logger.log(h)
         logger.close()
     mgr.close()
-    print(f"trained {len(history)} epochs; final loss "
-          f"{history[-1]['loss']:.4f}; checkpoints in "
-          f"{args.checkpoint_dir}")
+    if history and history[-1].get("preempted"):
+        print(
+            f"preempted after {len(history)} epoch entries; rerun the "
+            "same command with --resume to continue "
+            f"(checkpoints in {args.checkpoint_dir})"
+        )
+        return
+    if not history:
+        _nothing_to_train(args)
+    else:
+        print(f"trained {len(history)} epochs; final loss "
+              f"{history[-1]['loss']:.4f}; checkpoints in "
+              f"{args.checkpoint_dir}")
     if args.bundle_out:
         pipe.save(args.bundle_out)
         print(f"wrote pipeline bundle to {args.bundle_out}")
+
+
+def _nothing_to_train(args) -> None:
+    """--resume on a run that already finished: no epoch was left."""
+    print(
+        "nothing to train: the restored checkpoint already covers "
+        f"the requested epochs; checkpoints in {args.checkpoint_dir}"
+    )
+
+
+def _train_finetune(args, pipe, prepared) -> None:
+    """train --finetune-encoder: the encoder and the decoder trained
+    together from the images (--images DIR, one <id>.jpg per caption id),
+    read in chunks of 64 as tpucap reads them. Writes a pipeline bundle
+    (--bundle-out, default <checkpoint-dir>/bundle) that
+    ``CaptioningPipeline.load`` serves. A checkpoint manager is made only
+    for --resume, --handle-preemption or --checkpoint-every-steps."""
+    pipe.fit_tokenizer(prepared)
+    pipe.build()
+    os.makedirs(args.checkpoint_dir, exist_ok=True)
+    pipe.tokenizer.save(os.path.join(args.checkpoint_dir, "tokenizer.json"))
+    size, mode = pipe.encoder.input_size, pipe.encoder.preprocess_mode
+    ids = list(prepared)
+    images = {}
+    for s in range(0, len(ids), 64):
+        chunk = ids[s : s + 64]
+        paths = [os.path.join(args.images, f"{i}.jpg") for i in chunk]
+        images.update(zip(chunk, preprocess_batch(paths, size=size, mode=mode)))
+    mgr = None
+    if args.resume or args.handle_preemption or args.checkpoint_every_steps:
+        mgr = CheckpointManager(args.checkpoint_dir, best_metric="val_loss")
+    history = pipe.fit_finetune(
+        prepared,
+        images,
+        epochs=args.epochs,
+        batch_size=args.batch_size,
+        encoder_lr_scale=args.encoder_lr_scale,
+        remat_encoder=args.remat_encoder,
+        augment=args.augment,
+        augment_shift=args.augment_shift,
+        checkpoint_manager=mgr,
+        resume=args.resume,
+        handle_preemption=args.handle_preemption,
+    )
+    if mgr is not None:
+        mgr.close()
+    if not history:
+        _nothing_to_train(args)
+        return
+    if args.metrics_log:
+        logger = MetricsLogger(args.metrics_log)
+        for h in history:
+            logger.log(h)
+        logger.close()
+    bundle = args.bundle_out or os.path.join(args.checkpoint_dir, "bundle")
+    pipe.save(bundle)
+    if history[-1].get("preempted"):
+        print(
+            f"preempted after {len(history)} epoch entries; rescue "
+            "checkpoint written — rerun the same command with "
+            f"--resume to continue (checkpoints in "
+            f"{args.checkpoint_dir}; bundle in {bundle} carries the "
+            "mid-run weights)"
+        )
+        return
+    print(
+        f"finetuned {len(history)} epochs; final loss "
+        f"{history[-1]['loss']:.4f}; bundle in {bundle}"
+    )
 
 
 def _restore_pipeline(args, device) -> CaptioningPipeline:
@@ -552,20 +689,37 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
                    help="stop when the monitor hasn't improved for N epochs "
                    "(needs --val-split); 0 = disabled")
     p.add_argument("--features", default=None, help="precomputed-features .npz")
-    p.add_argument("--finetune-encoder", action="store_true", help="not ported")
-    p.add_argument("--images", default=None, help="not ported (--finetune-encoder)")
-    p.add_argument("--augment", action="store_true", help="not ported")
-    p.add_argument("--augment-shift", type=int, default=0, help="not ported")
-    p.add_argument("--encoder-lr-scale", type=float, default=0.1, help="not ported")
-    p.add_argument("--remat-encoder", action="store_true", help="not ported")
+    p.add_argument("--finetune-encoder", action="store_true",
+                   help="end-to-end: train the encoder through the captioning "
+                   "loss from --images (frozen BN; writes a pipeline bundle)")
+    p.add_argument("--images", default=None,
+                   help="image dir (<id>.jpg) for --finetune-encoder")
+    p.add_argument("--augment", action="store_true",
+                   help="--finetune-encoder only: a random horizontal flip of "
+                   "each image inside the step")
+    p.add_argument("--augment-shift", type=int, default=0,
+                   help="--finetune-encoder only: also translate each image by "
+                   "up to N px (reflect padding)")
+    p.add_argument("--encoder-lr-scale", type=float, default=0.1,
+                   help="scale on the encoder's updates during "
+                   "--finetune-encoder (0.1 = standard backbone lr)")
+    p.add_argument("--remat-encoder", action="store_true",
+                   help="--finetune-encoder only: recompute the encoder's "
+                   "activations in the backward (same update, lower peak memory)")
     p.add_argument("--bundle-out", default=None,
-                   help="also write a pipeline.save() bundle")
+                   help="also write a pipeline.save() bundle (--finetune-encoder "
+                   "defaults it to <checkpoint-dir>/bundle)")
     p.add_argument("--keras-h5", default=None, help="not ported")
     p.add_argument("--lora-rank", type=int, default=0, help="not ported")
     p.add_argument("--lora-alpha", type=float, default=None, help="not ported")
     p.add_argument("--lora-out", default=None, help="not ported")
-    p.add_argument("--resume", action="store_true", help="not ported")
-    p.add_argument("--handle-preemption", action="store_true", help="not ported")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint in --checkpoint-dir "
+                   "at its exact epoch and batch (bit-identical to an "
+                   "uninterrupted run)")
+    p.add_argument("--handle-preemption", action="store_true",
+                   help="on SIGTERM: finish the step in flight, write a rescue "
+                   "checkpoint, exit cleanly; rerun with --resume to continue")
     p.add_argument("--sharded-checkpoints", action="store_true", help="not ported")
     p.add_argument("--scst-epochs", type=int, default=0, help="not ported")
     p.add_argument("--scst-lr", type=float, default=5e-5, help="not ported")

@@ -92,6 +92,12 @@ class TrainConfig:
     # The monitor: 'loss' (val_loss, min) | 'bleu4' | 'cider' | 'rouge_l' |
     # 'meteor' (a greedy decode of the dev split each epoch, max).
     val_metric: str = "loss"
+    # Microbatches a step's batch is split into, accumulated in sum form
+    # (the full-batch update at 1/A of the activation memory); 1 = off.
+    grad_accum_steps: int = 1
+    # With a checkpoint manager: also a metric-less mid-epoch checkpoint
+    # every N optimizer steps (what resume=True continues from); 0 = off.
+    checkpoint_every_steps: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,8 +199,6 @@ UNPORTED = {
         "lr_decay_steps": 1000,
         "warmup_steps": 0,
         "ema_decay": 0.0,
-        "grad_accum_steps": 1,
-        "checkpoint_every_steps": 0,
         "scheduled_sampling": 0.0,
         "ss_schedule": "linear",
         "steps_per_dispatch": 1,

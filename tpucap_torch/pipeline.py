@@ -24,11 +24,13 @@
 
     fit(descriptions, features,   train the decoder on extracted features;
         val_data=...,             with a dev split, val_loss / val_accuracy
-        checkpoint_manager=...)   each epoch, TrainConfig.val_metric's
-                                  monitor and early stopping; each epoch
-                                  checkpointed
+        checkpoint_manager=...,   each epoch, TrainConfig.val_metric's
+        resume=...,               monitor and early stopping; each epoch
+        handle_preemption=...)    checkpointed, resumed exactly, a SIGTERM
+                                  answered with a rescue checkpoint
     fit_finetune(descriptions,    train encoder and decoder jointly on
-                 images)          preprocessed images
+                 images, ...)     preprocessed images, with augmentation,
+                                  remat and fit's checkpoint dials
 
 ``caption_batch`` is the main path: preprocess kernel K1 -> encoder ->
 the decoder's init_state -> beam search whose step, on the card with a
@@ -61,6 +63,7 @@ Runs on ``cuda`` unless ``device="cpu"`` is passed; see
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 
@@ -77,6 +80,7 @@ from tpucap_torch.core import (
     tree_map,
 )
 from tpucap_torch.convert import load_npz, save_npz
+from tpucap_torch.data.augment import make_augment_fn
 from tpucap_torch.data.pipeline import image_batch_loader
 from tpucap_torch.data.preprocess import preprocess_batch
 from tpucap_torch.decode import beam_decode, greedy_decode, ids_to_captions
@@ -100,6 +104,7 @@ from tpucap_torch.train import (
 )
 from tpucap_torch.train.evaluate import check_metrics, evaluate_captions
 from tpucap_torch.train.loop import refuse_unported
+from tpucap_torch.train.preemption import PreemptionGuard
 
 #: The bundle's param file (tpucap's bundles hold an orbax ``params/``
 #: directory instead, which the port cannot read).
@@ -552,6 +557,8 @@ class CaptioningPipeline:
         log,
         validate=None,
         checkpoint_manager=None,
+        resume=False,
+        guard=None,
     ):
         """Shared epoch loop: shuffled batches (numpy, seeded with
         TrainConfig.seed as tpucap draws them), metrics summed on the card
@@ -559,59 +566,119 @@ class CaptioningPipeline:
         the current params (``_validation``), taken after each epoch, with
         early stopping on the monitor. ``checkpoint_manager``: the state is
         saved after each epoch, before the early-stopping check, with
-        tpucap's checkpoint metrics. -> (state, history)."""
+        tpucap's checkpoint metrics, and every
+        TrainConfig.checkpoint_every_steps steps mid-epoch without metrics.
+        ``resume``: the latest step is restored and training continues at
+        the epoch and batch its step count gives, the consumed shuffles
+        replayed. ``guard`` (a ``PreemptionGuard``, or anything with
+        ``fired``): once it fires, the step in flight finishes, a rescue
+        checkpoint is written and the loop returns with a ``preempted``
+        entry. -> (state, history)."""
         cfg = self.config.train
         monitor = "val_loss" if cfg.val_metric == "loss" else f"val_{cfg.val_metric}"
         minimize = monitor == "val_loss"
         best = float("inf") if minimize else -float("inf")
         since_best = 0
         rng = np.random.default_rng(self.config.train.seed)
+        n_rows = arrays[0].shape[0]
+        steps_per_epoch = max(1, n_rows // batch_size)
+        every = cfg.checkpoint_every_steps if checkpoint_manager is not None else 0
+        start_epoch = resume_batch = 0
         history = []
-        for epoch in range(epochs):
-            sums: dict = {}
-            n = 0
-            for rows in batch_iterator(arrays, batch_size, rng=rng):
-                state, metrics = step(state, *batch(*rows))
-                n += 1
-                for k, v in metrics.items():
-                    sums[k] = sums.get(k, 0.0) + v
-            # By sorted key, the order in which tpucap's jax.device_get returns them.
-            entry = {k: float(sums[k]) / max(n, 1) for k in sorted(sums)}
-            entry["epoch"] = epoch
-            if validate:
-                entry.update(validate(state.params))
-            history.append(entry)
-            if log:
-                msg = f"epoch {epoch}: loss={entry.get('loss', 0):.4f} acc={entry.get('accuracy', 0):.4f}"
-                if "val_loss" in entry:
-                    msg += f" val_loss={entry['val_loss']:.4f}"
-                if monitor != "val_loss" and monitor in entry:
-                    msg += f" {monitor}={entry[monitor]:.4f}"
-                log(msg)
-            if checkpoint_manager is not None:
-                # val_loss (the training loss without a dev split), and the
-                # decode monitor when there is one: the manager's
-                # best_metric keys on whichever it names.
-                ckpt = {"val_loss": entry.get("val_loss", entry["loss"])}
-                if monitor != "val_loss" and monitor in entry:
-                    ckpt[monitor] = entry[monitor]
-                checkpoint_manager.save(state, metrics=ckpt)
-            # Keras EarlyStopping(monitor, mode, patience); the params stay
-            # the last epoch's (the best is the checkpoint manager's).
-            if cfg.early_stopping_patience > 0 and monitor in entry:
-                value = entry[monitor]
-                if value < best if minimize else value > best:
-                    best, since_best = value, 0
-                else:
-                    since_best += 1
-                    if since_best >= cfg.early_stopping_patience:
-                        if log:
-                            log(
-                                f"early stopping at epoch {epoch} (no {monitor} "
-                                f"improvement for {since_best} epochs)"
-                            )
+        with guard if hasattr(guard, "__enter__") else contextlib.nullcontext():
+            # The restore runs inside the guard: a signal during the read is
+            # latched and acted on after the next step.
+            if resume and checkpoint_manager.latest_step() is not None:
+                state = checkpoint_manager.restore(state)
+                start_epoch, resume_batch = divmod(state.step, steps_per_epoch)
+                for _ in range(start_epoch):
+                    rng.shuffle(np.arange(n_rows))
+                if log:
+                    log(
+                        f"resumed from step {state.step} (epoch {start_epoch}, "
+                        f"batch {resume_batch})"
+                    )
+            for epoch in range(start_epoch, epochs):
+                sums: dict = {}
+                n = 0
+                skip = resume_batch if epoch == start_epoch else 0
+                preempted = False
+                for b_i, rows in enumerate(batch_iterator(arrays, batch_size, rng=rng)):
+                    if b_i < skip:  # trained before the run was cut
+                        continue
+                    state, metrics = step(state, *batch(*rows))
+                    n += 1
+                    for k, v in metrics.items():
+                        sums[k] = sums.get(k, 0.0) + v
+                    done = epoch * steps_per_epoch + b_i + 1
+                    # The epoch's last step is the epoch save's.
+                    if every > 0 and b_i + 1 < steps_per_epoch and done % every == 0:
+                        checkpoint_manager.save_rescue(state)
+                    if guard is not None and guard.fired:
+                        preempted = True
                         break
+                # By sorted key, the order in which tpucap's jax.device_get returns them.
+                entry = {k: float(sums[k]) / max(n, 1) for k in sorted(sums)}
+                entry["epoch"] = epoch
+                if preempted:
+                    entry["preempted"] = True
+                    history.append(entry)
+                    if checkpoint_manager is not None:
+                        checkpoint_manager.save_rescue(state)
+                    if log:
+                        log(
+                            f"preempted at epoch {epoch} step {state.step}; "
+                            + (
+                                "rescue checkpoint written — rerun with resume=True to continue"
+                                if checkpoint_manager is not None
+                                else "NO checkpoint_manager — mid-run state was NOT saved"
+                            )
+                        )
+                    break
+                if validate:
+                    entry.update(validate(state.params))
+                history.append(entry)
+                if log:
+                    msg = f"epoch {epoch}: loss={entry.get('loss', 0):.4f} acc={entry.get('accuracy', 0):.4f}"
+                    if "val_loss" in entry:
+                        msg += f" val_loss={entry['val_loss']:.4f}"
+                    if monitor != "val_loss" and monitor in entry:
+                        msg += f" {monitor}={entry[monitor]:.4f}"
+                    log(msg)
+                if checkpoint_manager is not None:
+                    # val_loss (the training loss without a dev split), and the
+                    # decode monitor when there is one: the manager's
+                    # best_metric keys on whichever it names.
+                    ckpt = {"val_loss": entry.get("val_loss", entry["loss"])}
+                    if monitor != "val_loss" and monitor in entry:
+                        ckpt[monitor] = entry[monitor]
+                    checkpoint_manager.save(state, metrics=ckpt)
+                # Keras EarlyStopping(monitor, mode, patience); the params stay
+                # the last epoch's (the best is the checkpoint manager's).
+                if cfg.early_stopping_patience > 0 and monitor in entry:
+                    value = entry[monitor]
+                    if value < best if minimize else value > best:
+                        best, since_best = value, 0
+                    else:
+                        since_best += 1
+                        if since_best >= cfg.early_stopping_patience:
+                            if log:
+                                log(
+                                    f"early stopping at epoch {epoch} (no {monitor} "
+                                    f"improvement for {since_best} epochs)"
+                                )
+                            break
         return state, history
+
+    @staticmethod
+    def _checkpoint_dials(checkpoint_manager, resume, handle_preemption, preemption_guard):
+        """tpucap's checks of the resume and preemption dials -> the guard
+        to train under (None without one)."""
+        if resume and checkpoint_manager is None:
+            raise ValueError("resume=True needs a checkpoint_manager")
+        if handle_preemption and preemption_guard is None:
+            return PreemptionGuard()
+        return preemption_guard
 
     def _validation(self, val_data, batch_size: int, compute_dtype):
         """fit's dev split ``(descriptions, features)`` -> ``score(params)``,
@@ -726,16 +793,29 @@ class CaptioningPipeline:
         ``checkpoint_manager`` (``tpucap_torch.checkpoint.CheckpointManager``):
         the state (its step the optimizer-step count) is saved after each
         epoch with ``val_loss`` (the training loss without val_data) and
-        the decode monitor's ``val_<metric>``, as tpucap saves it."""
+        the decode monitor's ``val_<metric>``, as tpucap saves it; with
+        ``TrainConfig.checkpoint_every_steps`` = N also every N steps
+        mid-epoch, without metrics (``save_rescue``).
+
+        ``resume=True`` (needs the manager) restores its latest step and
+        continues at that step's epoch and batch: the consumed shuffles are
+        replayed and the dropout generator is the checkpoint's, so the run
+        is bit-identical to an uninterrupted one. An empty directory starts
+        fresh. ``handle_preemption=True`` (or a ``preemption_guard``)
+        latches SIGTERM: the step in flight finishes, a rescue checkpoint is
+        written, and the history ends with a ``{"preempted": True}`` entry.
+
+        ``TrainConfig.grad_accum_steps`` = A splits each batch into A
+        microbatches accumulated in sum form (the batch must divide by A)."""
         refuse_unported(
             data_parallel=(data_parallel, False),
             parallelism=(parallelism if parallelism != "none" else None, None),
             stream=(stream, False),
             prefetch=(prefetch, 2),
-            resume=(resume, False),
-            handle_preemption=(handle_preemption, False),
-            preemption_guard=(preemption_guard, None),
             sharded_checkpoints=(sharded_checkpoints, False),
+        )
+        guard = self._checkpoint_dials(
+            checkpoint_manager, resume, handle_preemption, preemption_guard
         )
         cfg = self.config.train
         epochs = epochs or cfg.epochs
@@ -758,6 +838,7 @@ class CaptioningPipeline:
                 pad_id=0,
                 label_smoothing=cfg.label_smoothing,
                 attention_reg=cfg.attention_reg,
+                grad_accum_steps=cfg.grad_accum_steps,
                 compute_dtype=compute_dtype,
                 donate=True,
             )
@@ -776,6 +857,8 @@ class CaptioningPipeline:
                 log,
                 validate,
                 checkpoint_manager,
+                resume,
+                guard,
             )
         finally:
             apply_precision(self.config.precision)
@@ -811,19 +894,27 @@ class CaptioningPipeline:
         ``freeze_encoder=True`` stops gradients at the features and zeroes
         the encoder's updates. Each token row indexes an image store, which
         is gathered per batch on the host (as tpucap does). Updates
-        ``self.params``."""
+        ``self.params``.
+
+        ``augment=True`` flips each image left to right with probability
+        1/2 inside the step; ``augment_shift`` = N also translates it by up
+        to N pixels, reflect-padded (``data.augment``). ``remat_encoder=True``
+        recomputes the encoder's activations in the backward: the same
+        update at a lower peak memory. ``TrainConfig.grad_accum_steps`` and
+        ``attention_reg`` (the attention decoder) are ``fit``'s.
+
+        ``checkpoint_manager``, ``resume``, ``handle_preemption`` and
+        ``preemption_guard`` are ``fit``'s, on the joint
+        ``{"encoder", "decoder"}`` state, each epoch saved with its
+        training loss as ``val_loss``."""
         refuse_unported(
-            remat_encoder=(remat_encoder, False),
             parallelism=(parallelism if parallelism != "none" else None, None),
-            augment=(augment, False),
-            augment_shift=(augment_shift, 0),
             lora_rank=(lora_rank, 0),
             lora_alpha=(lora_alpha, None),
-            checkpoint_manager=(checkpoint_manager, None),
-            resume=(resume, False),
-            handle_preemption=(handle_preemption, False),
-            preemption_guard=(preemption_guard, None),
             sharded_checkpoints=(sharded_checkpoints, False),
+        )
+        guard = self._checkpoint_dials(
+            checkpoint_manager, resume, handle_preemption, preemption_guard
         )
         cfg = self.config.train
         epochs = epochs or cfg.epochs
@@ -851,8 +942,11 @@ class CaptioningPipeline:
                 pad_id=0,
                 label_smoothing=cfg.label_smoothing,
                 attention_reg=cfg.attention_reg,
+                grad_accum_steps=cfg.grad_accum_steps,
                 freeze_encoder=freeze_encoder,
+                remat_encoder=remat_encoder,
                 compute_dtype=compute_dtype,
+                augment_fn=make_augment_fn(flip=augment, max_shift=augment_shift),
                 donate=True,
             )
             state, history = self._run_epochs(
@@ -863,6 +957,9 @@ class CaptioningPipeline:
                 epochs,
                 batch_size,
                 log,
+                checkpoint_manager=checkpoint_manager,
+                resume=resume,
+                guard=guard,
             )
         finally:
             apply_precision(self.config.precision)

@@ -1,6 +1,8 @@
 """Training of the port: teacher-forced masked cross-entropy on the merge
 LSTM decoder (``loop.make_train_step``) and joint encoder + decoder
-fine-tuning (``finetune.make_joint_train_step``), single device, Adam.
+fine-tuning (``finetune.make_joint_train_step``), single device, Adam,
+with gradient accumulation and the SIGTERM guard of preemptible runs
+(``preemption.PreemptionGuard``).
 Port of the matching parts of ``tpucap.train``."""
 
 from tpucap_torch.train.finetune import (
@@ -22,6 +24,7 @@ from tpucap_torch.train.loss import (
     loss_from_sums,
     masked_cross_entropy_sums,
 )
+from tpucap_torch.train.preemption import PreemptionGuard
 from tpucap_torch.train.sequences import (
     batch_iterator,
     build_training_batch,
@@ -29,6 +32,7 @@ from tpucap_torch.train.sequences import (
 )
 
 __all__ = [
+    "PreemptionGuard",
     "TrainState",
     "batch_iterator",
     "build_optimizer",

@@ -9,7 +9,12 @@ row statistics) and K5's two backward kernels (``ops.attention``).
 
 ``freeze_encoder=True`` stops gradients at the feature boundary and zeroes
 the encoder's updates, so the decoder's update equals ``make_train_step``'s
-on the extracted features.
+on the extracted features. ``remat_encoder=True`` keeps only the encoder's
+output features for the backward and recomputes its activations there
+(``torch.utils.checkpoint``; with flash attention K5 runs again in the
+recompute). ``augment_fn`` (``data.augment``) transforms the batch before
+anything else, its draws from the step's generator. ``grad_accum_steps``
+and ``attention_reg`` are ``make_train_step``'s.
 """
 
 from __future__ import annotations
@@ -17,18 +22,19 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.utils.checkpoint
 
 from tpucap_torch.core import tree_map
 from tpucap_torch.train.loop import (
     GradientTransformation,
     TrainState,
     check_compute_dtype,
-    grads_of,
+    loss_and_grads,
     optimizer_step,
     refuse_unported,
     trainable,
 )
-from tpucap_torch.train.loss import caption_loss_sums, cast_floats, loss_from_sums
+from tpucap_torch.train.loss import caption_loss_sums, cast_floats, warn_if_attention_reg_unused
 
 
 def encode_for_decoder(encoder, enc_params, images):
@@ -66,20 +72,30 @@ def make_joint_train_step(
     metrics), ``state.params = {"encoder": ..., "decoder": ...}`` and the
     optimizer initialized over that tree. ``compute_dtype`` casts the
     encoder's params and the images as well as the decoder's, inside the
-    differentiated function. ``grad_clip_norm`` belongs to tpucap's fsdp
-    branch (elsewhere it lives in the optimizer) and is not ported."""
+    differentiated function. ``augment_fn(images, generator)`` draws from
+    ``state.rng`` before the dropout does. ``grad_clip_norm`` belongs to
+    tpucap's fsdp branch (elsewhere it lives in the optimizer) and is not
+    ported."""
     refuse_unported(
-        attention_reg=(attention_reg, 0.0),
-        grad_accum_steps=(grad_accum_steps, 1),
-        remat_encoder=(remat_encoder, False),
         mesh=(mesh, None),
         axis=(axis, "data"),
-        augment_fn=(augment_fn, None),
         fsdp_state_template=(fsdp_state_template, None),
         grad_clip_norm=(grad_clip_norm, 0.0),
         fsdp_min_size=(fsdp_min_size, None),
     )
     check_compute_dtype(compute_dtype)
+    warn_if_attention_reg_unused(decoder, attention_reg)
+    use_reg = attention_reg > 0.0 and hasattr(decoder, "forward_train_with_alphas")
+
+    def encode(enc_params, images):
+        if remat_encoder:
+            # The encoder draws nothing at random, so no generator state
+            # needs keeping for the recompute.
+            return torch.utils.checkpoint.checkpoint(
+                encode_for_decoder, encoder, enc_params, images,
+                use_reentrant=False, preserve_rng_state=False,
+            )
+        return encode_for_decoder(encoder, enc_params, images)
 
     def step(state: TrainState, images, tokens):
         enc = state.params["encoder"]
@@ -87,22 +103,27 @@ def make_joint_train_step(
             "encoder": tree_map(lambda t: t.detach(), enc) if freeze_encoder else trainable(enc),
             "decoder": trainable(state.params["decoder"]),
         }
-        feats = encode_for_decoder(
-            encoder, cast_floats(params["encoder"], compute_dtype), cast_floats(images, compute_dtype)
+        if augment_fn is not None:
+            images = augment_fn(images, state.rng)
+
+        def sums_fn(p, x, t):
+            feats = encode(cast_floats(p["encoder"], compute_dtype), cast_floats(x, compute_dtype))
+            return caption_loss_sums(
+                decoder,
+                p["decoder"],
+                feats,
+                t,
+                rng=state.rng,
+                deterministic=deterministic,
+                pad_id=pad_id,
+                label_smoothing=label_smoothing,
+                attention_reg=attention_reg,
+                compute_dtype=compute_dtype,
+            )
+
+        grads, metrics = loss_and_grads(
+            sums_fn, params, images, tokens, grad_accum_steps, use_reg, attention_reg
         )
-        sums = caption_loss_sums(
-            decoder,
-            params["decoder"],
-            feats,
-            tokens,
-            rng=state.rng,
-            deterministic=deterministic,
-            pad_id=pad_id,
-            label_smoothing=label_smoothing,
-            compute_dtype=compute_dtype,
-        )
-        loss, metrics = loss_from_sums(sums)
-        grads = grads_of(loss, params)
         mask = None
         if freeze_encoder:
             # Zero gradients leave Adam's update at zero but not adamw's

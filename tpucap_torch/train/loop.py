@@ -172,12 +172,13 @@ def trainable(tree):
     return tree_map(lambda t: t.detach().requires_grad_(True), tree)
 
 
-def grads_of(loss, tree):
+def grads_of(loss, tree, *, retain_graph: bool = False):
     """d loss / d leaf for every leaf of ``tree``; a leaf that does not
-    require grad, or that the loss does not reach, gets zeros."""
+    require grad, or that the loss does not reach, gets zeros.
+    ``retain_graph`` keeps the graph for another backward."""
     leaves = tree_leaves(tree)
     live = [t for t in leaves if t.requires_grad]
-    got = iter(torch.autograd.grad(loss, live, allow_unused=True))
+    got = iter(torch.autograd.grad(loss, live, allow_unused=True, retain_graph=retain_graph))
     out = iter(
         [
             (g if (g := next(got)) is not None else torch.zeros_like(t))
@@ -204,6 +205,49 @@ def refuse_unported(**knobs):
             raise NotImplementedError(f"{name}={value!r} is not ported (only {default!r})")
 
 
+def _tree_add(acc, tree):
+    return tree if acc is None else tree_map(torch.add, acc, tree)
+
+
+def accumulated_sum_grads(sums_fn, params, features, tokens, *, steps: int, use_reg: bool = False):
+    """Gradient accumulation in sum form: ``steps`` microbatches (rows
+    [i mb, (i + 1) mb) of the batch, in order), accumulating the sum-form
+    loss pieces (``sums_fn(params, features, tokens)`` ->
+    ``caption_loss_sums``' dict) and the gradients of the raw,
+    unnormalized sums. -> (g_nll, g_reg, sums), g_reg None unless
+    ``use_reg`` (the attention regularizer's head, a second backward
+    through the same forward).
+
+    Normalizing once by the accumulated counts (``normalized_accum_grads``)
+    gives the full-batch gradient up to f32 reassociation, since the loss
+    is linear in the sums; averaging the microbatches' mean-loss gradients
+    would not be exact when their pad counts differ. The logits and the
+    activations live one microbatch at a time."""
+    B = features.shape[0]
+    if B % steps:
+        raise ValueError(f"batch size {B} not divisible by grad_accum_steps {steps}")
+    mb = B // steps
+    g_nll = g_reg = sums = None
+    for i in range(steps):
+        s = sums_fn(params, features[i * mb : (i + 1) * mb], tokens[i * mb : (i + 1) * mb])
+        if use_reg:
+            g_reg = _tree_add(g_reg, grads_of(s["reg_sum"], params, retain_graph=True))
+        g_nll = _tree_add(g_nll, grads_of(s["nll_sum"], params))
+        sums = _tree_add(sums, {k: v.detach() for k, v in s.items()})
+    return g_nll, g_reg, sums
+
+
+def normalized_accum_grads(g_nll, g_reg, sums, *, attention_reg: float):
+    """Accumulated raw-sum gradients -> the full-batch gradient:
+    g_nll / tokens (+ attention_reg * g_reg / rows)."""
+    denom = sums["tokens"].clamp(min=1.0)
+    grads = tree_map(lambda g: g / denom, g_nll)
+    if g_reg is not None:
+        rows = sums["batch"].clamp(min=1.0)
+        grads = tree_map(lambda g, h: g + attention_reg * (h / rows), grads, g_reg)
+    return grads
+
+
 def make_train_step(
     decoder,
     optimizer,
@@ -228,34 +272,57 @@ def make_train_step(
     the state and rebinds it every call, ``state, m = step(state, ...)``).
     ``attention_reg`` > 0 adds the doubly-stochastic regularizer for a
     decoder with attention maps (a warning for the others).
+    ``grad_accum_steps`` = A > 1 splits the batch into A microbatches run
+    one after another (``accumulated_sum_grads``): the full-batch update up
+    to f32 reassociation, at 1/A of the activation memory; the batch must
+    divide by A.
     """
     refuse_unported(
-        grad_accum_steps=(grad_accum_steps, 1),
         scheduled_sampling=(scheduled_sampling, False),
         multi_steps=(multi_steps, 1),
     )
     check_compute_dtype(compute_dtype)
     warn_if_attention_reg_unused(decoder, attention_reg)
+    use_reg = attention_reg > 0.0 and hasattr(decoder, "forward_train_with_alphas")
 
     def step(state: TrainState, features, tokens):
         params = trainable(state.params)
-        sums = caption_loss_sums(
-            decoder,
-            params,
-            features,
-            tokens,
-            rng=state.rng,
-            deterministic=deterministic,
-            pad_id=pad_id,
-            label_smoothing=label_smoothing,
-            attention_reg=attention_reg,
-            compute_dtype=compute_dtype,
+
+        def sums_fn(p, f, t):
+            return caption_loss_sums(
+                decoder,
+                p,
+                f,
+                t,
+                rng=state.rng,
+                deterministic=deterministic,
+                pad_id=pad_id,
+                label_smoothing=label_smoothing,
+                attention_reg=attention_reg,
+                compute_dtype=compute_dtype,
+            )
+
+        grads, metrics = loss_and_grads(
+            sums_fn, params, features, tokens, grad_accum_steps, use_reg, attention_reg
         )
-        loss, metrics = loss_from_sums(sums, attention_reg=attention_reg)
-        grads = grads_of(loss, params)
         return optimizer_step(state, optimizer, grads, metrics, donate)
 
     return step
+
+
+def loss_and_grads(sums_fn, params, features, tokens, grad_accum_steps, use_reg, attention_reg):
+    """-> (grads, metrics) of the loss from ``sums_fn(params, features,
+    tokens)``: one backward of the normalized loss, or with
+    ``grad_accum_steps`` > 1 the accumulated sum-form gradients normalized
+    once."""
+    if grad_accum_steps > 1:
+        g_nll, g_reg, sums = accumulated_sum_grads(
+            sums_fn, params, features, tokens, steps=grad_accum_steps, use_reg=use_reg
+        )
+        grads = normalized_accum_grads(g_nll, g_reg, sums, attention_reg=attention_reg)
+        return grads, loss_from_sums(sums, attention_reg=attention_reg)[1]
+    loss, metrics = loss_from_sums(sums_fn(params, features, tokens), attention_reg=attention_reg)
+    return grads_of(loss, params), metrics
 
 
 def optimizer_step(state, optimizer, grads, metrics, donate, mask_updates=None):
