@@ -364,7 +364,7 @@ def test_joint_step_with_attention_reg_matches_tpucap():
     features, ``attention_reg`` 1.0: one step of each package under plain
     SGD at lr 1e6 from the same params, the gradient read back as (params -
     updated params) / lr. The metrics (the regularizer's among them) within
-    1e-6 relative, each gradient within 1e-5 of its tensor's scale, but
+    1e-6 relative (the perplexity, their exponential, within 1e-5), each gradient within 1e-5 of its tensor's scale, but
     those the regularizer reaches directly (the attention MLP's
     ``att_feat``, ``att_hidden``, ``att_score`` and the initial state's
     ``init_h``, ``init_c``): within 1e-5 of the largest gradient (measured
@@ -394,7 +394,8 @@ def test_joint_step_with_attention_reg_matches_tpucap():
     )
     assert sorted(tm) == sorted(jm) and "attention_reg" in tm
     for k in jm:
-        np.testing.assert_allclose(tm[k].item(), float(jm[k]), rtol=1e-6, err_msg=k)
+        rtol = 1e-5 if k == "perplexity" else 1e-6  # exp(loss): |loss| x the loss's 1e-6
+        np.testing.assert_allclose(tm[k].item(), float(jm[k]), rtol=rtol, err_msg=k)
     jg = jax.tree.map(lambda a, b: (np.asarray(a) - np.asarray(b)) / lr, jp, jstate.params)
     tg = jax.tree.map(lambda a, b: (a - b) / lr, params_to_numpy(start), params_to_numpy(tstate.params))
     scale = max(np.abs(g).max() for g in jax.tree.leaves(jg))

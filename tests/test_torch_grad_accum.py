@@ -11,7 +11,8 @@ Each package's step runs once under plain SGD at lr 1e6 from the same
 params, so the gradient it applied is read back as (params - updated
 params) / lr, to about 1e-7 of its scale.
 Tolerances: the step's metrics (the accumulated sums, normalized) within
-1e-6 relative; each accumulated gradient within 1e-5 of its tensor's scale
+1e-6 relative, the perplexity, their exponential, within 1e-5 (measured
+4.7e-7 at A = 4); each accumulated gradient within 1e-5 of its tensor's scale
 (max |ref|), as the unaccumulated gradients of
 ``tests/test_torch_train.py`` (sums in another order; the attention score
 bias, whose gradient is zero in theory, is rounding noise on both sides
@@ -121,7 +122,9 @@ def _sgd_steps(jstep_fn, tstep_fn, jp, *batch):
 def _same_metrics(tm, jm):
     assert sorted(tm) == sorted(jm)
     for k in jm:
-        np.testing.assert_allclose(tm[k].item(), float(jm[k]), rtol=1e-6, err_msg=k)
+        # exp(loss) turns the loss's 1e-6 into |loss| x 1e-6 (losses near 4).
+        rtol = 1e-5 if k == "perplexity" else 1e-6
+        np.testing.assert_allclose(tm[k].item(), float(jm[k]), rtol=rtol, err_msg=k)
 
 
 @pytest.mark.parametrize("name,reg,steps", [("lstm1", 0.0, 2), ("lstm1", 0.0, 4), ("attention", 1.0, 2)])
