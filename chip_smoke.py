@@ -162,10 +162,38 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``CaptioningPipeline.load`` of that bundle captions the 64 test images
    (K2 and K3 once a step) and its f32 decode route is held step by step
    to the plain step at those rows;
-11. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
-   phase 9's counted serving runs for K1, K2 and K3, and phase 10's
-   counted steps and caption), then
-   ``{"ok": true, "device": {...}}`` as the last line.
+11. EMA, checkpoint averaging and the optimizer surface: (a) ``fit`` at
+   batch 256, bf16 compute, 2048 rows of 2048-d features, 2 epochs,
+   ``grad_accum_steps=2``, val_metric cider on 512 rows, a checkpoint
+   manager, without EMA, with ``ema_decay=0.999`` and with it again while
+   each step's params are copied to the host (torch's deterministic
+   settings on): the params equal without and with EMA bit for bit, the
+   shadow equals the host's f32 recurrence d e + (1 - d) p bit for bit,
+   the EMA update's device ms, the peak memory with and without; then
+   ``use_ema_weights`` and a greedy ``generate`` of 256 rows (K2, K3 once a
+   step) and ``use_averaged_weights(last_k=2)`` within 1e-6 of each
+   tensor's scale of the numpy mean of the two restored checkpoints; (b)
+   ``make_train_step`` at phase 5(a)'s shapes, 12 steps each: plain sgd
+   under constant, cosine (10 warmup steps) and exponential decay, each
+   update -lr(step) g bit for bit with lr(step) on the card within one
+   ulp of the base lr of the host's f32 schedule; sgd with momentum 0.9
+   under cosine with warmup, rmsprop with exponential decay, adagrad and
+   adamw with cosine: finite losses, step ms, the optimizer state saved and
+   restored bit for bit; (c) ``fit_finetune`` (ViT-B/16 flash + lstm1,
+   batch 64, bf16, adamw under cosine with warmup, 4 steps) without and
+   with ``ema_decay=0.999``: 12 launches each of K5, dK/dV and dQ a step,
+   the shadow of both trees, the peak memory of each; ``use_ema_weights``
+   and ``caption_batch`` of 64 uint8 images (K1 once, K5 12 times, K2 and
+   K3 once a step); (d) the CLI on phase 8's dataset: ``extract``, ``train
+   --ema-decay 0.999 --optimizer sgd --momentum 0.9 --lr-schedule cosine
+   --warmup-steps 10`` writes ``bundle_ema``, whose
+   ``CaptioningPipeline.load`` captions 8 images (K2, K3 once a step);
+   ``evaluate --average-last 2`` with the same optimizer flags gives the
+   scores of ``use_averaged_weights`` and ``evaluate``;
+12. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
+   phase 9's counted serving runs for K1, K2 and K3, phase 10's counted
+   steps and caption, and phase 11's counted fits, decodes and commands),
+   then ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
 """
@@ -2425,6 +2453,410 @@ def run_finetune_cli(dev) -> dict[str, int]:
         return counts
 
 
+# -- phase 11: EMA, checkpoint averaging and the optimizer surface -----------
+
+# (a) fit with EMA: the production recipe's decay, epochs and microbatches;
+# (b) each optimizer's steps, the warmup before the cosine and the
+# exponential decay's interval and rate; (c) the joint fit's steps and
+# warmup; (d) the CLI's epochs and warmup.
+P11_DECAY, P11_EPOCHS, P11_ACCUM = 0.999, 2, 2
+P11_STEPS, P11_WARMUP, P11_DECAY_STEPS, P11_DECAY_RATE, P11_LR = 12, 10, 4, 0.5, 0.01
+P11_FT_STEPS, P11_FT_WARMUP = 4, 1
+P11_CLI_EPOCHS, P11_CLI_WARMUP = 2, 10
+
+
+def check_launches(label: str, counts: dict[str, int], fixed: dict[str, int], decode: bool) -> int:
+    """The kernels in ``fixed`` launched that many times; with ``decode``,
+    K2 and K3's two kernels the same count, one a step, 1 to MAX_LEN steps;
+    no other kernel. -> the decode steps."""
+    steps = counts["lstm_cell"] if decode else 0
+    expect = {name: 0 for name in counts}
+    expect.update(fixed)
+    if decode:
+        expect.update(lstm_cell=steps, merge_head=steps, vocab_proj=steps)
+    if counts != expect or (decode and not 1 <= steps <= MAX_LEN):
+        raise AssertionError(f"{label}: launch counts {counts}, expected {expect}")
+    return steps
+
+
+def same_tree(a, b) -> bool:
+    """The same containers (a tuple is not a list) and every leaf equal
+    with its dtype."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    return a is None or (a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()))
+
+
+def ema_fit(dev, tokenizer) -> dict[str, int]:
+    """11(a): ``fit`` at batch DEC_TRAIN_BATCH, bf16 compute, FIT_TRAIN
+    rows of 2048-d features, P11_EPOCHS epochs, grad_accum_steps
+    P11_ACCUM, val_metric cider on FIT_VAL rows, a CheckpointManager:
+    without EMA, with ``ema_decay`` P11_DECAY, and with it again while each
+    step's params are copied to the host. The params equal without and with
+    EMA; the shadow equals the host's f32 recurrence from those copies bit
+    for bit (the CPU test's hand value); the EMA's device ms a step and the
+    peak memory with and without. Then ``use_ema_weights`` and a greedy
+    ``generate`` of one batch (K2, K3 once a step), and
+    ``use_averaged_weights(last_k=2)`` against the numpy mean of the two
+    restored checkpoints. -> the EMA run's and the decode's launches."""
+    import tempfile
+
+    from tpucap_torch import ops
+    from tpucap_torch import pipeline as tpipe
+    from tpucap_torch.checkpoint import CheckpointManager
+    from tpucap_torch.config import TrainConfig
+    from tpucap_torch.core import tree_leaves, tree_map
+    from tpucap_torch.train import TrainState, build_optimizer
+
+    train = training_corpus(tokenizer, FIT_TRAIN, 30)
+    val = training_corpus(tokenizer, FIT_VAL, 31, prefix="val")
+    feats = random_features([*train, *val], 32)
+    steps = P11_EPOCHS * (FIT_TRAIN // DEC_TRAIN_BATCH)
+    real_update = tpipe.ema_update
+    copies: list = []
+
+    def recording(shadow, params, decay):
+        copies.append([t.detach().cpu().clone() for t in tree_leaves(params)])
+        real_update(shadow, params, decay)
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp, deterministic_torch("ema fit"):
+        for label, decay in (("plain", 0.0), ("ema", P11_DECAY), ("recorded", P11_DECAY)):
+            pipe = make_pipeline("bf16", tokenizer)
+            pipe.config = dataclasses.replace(pipe.config, train=TrainConfig(
+                batch_size=DEC_TRAIN_BATCH, precision="bf16", grad_accum_steps=P11_ACCUM, ema_decay=decay,
+                val_metric="cider"))
+            p0 = [t.detach().cpu().clone() for t in tree_leaves(pipe.params["decoder"])]
+            ckpt = Path(tmp) / label
+            tpipe.ema_update = recording if label == "recorded" else real_update
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            try:
+                hist, wall = timed(lambda: pipe.fit(train, feats, epochs=P11_EPOCHS, val_data=(val, feats),
+                                                    checkpoint_manager=CheckpointManager(ckpt), log=None))
+            finally:
+                tpipe.ema_update = real_update
+            # The peak above what was held before the fit (the earlier runs' pipelines stay).
+            runs[label] = dict(pipe=pipe, hist=hist, wall=wall, peak=torch.cuda.max_memory_allocated() - held,
+                               counts=ops.launch_counts(), p0=p0, ckpt=ckpt)
+        plain, ema, rec = runs["plain"], runs["ema"], runs["recorded"]
+        for r in runs.values():
+            if len(r["hist"]) != P11_EPOCHS or not all(
+                np.isfinite(e[k]) for e in r["hist"] for k in ("loss", "val_loss", "val_cider")
+            ):
+                raise AssertionError(f"ema fit: history {r['hist']}")
+        trained = [r["pipe"].params["decoder"] for r in (plain, ema)]
+        if plain["hist"] != ema["hist"] or not same_tree(*trained):
+            raise AssertionError("ema fit: the params or the history differ with EMA on")
+        if plain["pipe"].ema_params is not None or sorted(ema["pipe"].ema_params) != ["decoder"]:
+            raise AssertionError("ema fit: ema_params is not {'decoder'} after fit with EMA only")
+        if not same_tree(ema["pipe"].ema_params, rec["pipe"].ema_params):
+            raise AssertionError("ema fit: the shadow differs when the steps' params are copied out")
+        if len(copies) != steps:
+            raise AssertionError(f"ema fit: {len(copies)} EMA updates for {steps} steps")
+        host = [t.clone() for t in rec["p0"]]
+        for p in copies:
+            for e, x in zip(host, p):
+                e.mul_(P11_DECAY).add_(x * (1 - P11_DECAY))
+        shadow = tree_leaves(rec["pipe"].ema_params["decoder"])
+        if not all(torch.equal(e, s.cpu()) for e, s in zip(host, shadow)):
+            worst = max(max_err(e, s.cpu()) for e, s in zip(host, shadow))
+            raise AssertionError(f"ema fit: the shadow differs from the host's f32 recurrence by {worst}")
+        del copies[:]
+        pipe = ema["pipe"]
+        params = pipe.params["decoder"]
+        work = tree_map(torch.clone, pipe.ema_params["decoder"])
+        ema_ms = cuda_ms(lambda: real_update(work, params, P11_DECAY))
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        k2 = check_cli_counts("ema fit monitor", ema["counts"], P11_EPOCHS * -(-FIT_VAL // DEC_TRAIN_BATCH))
+        log(f"ema fit: lstm1 batch {DEC_TRAIN_BATCH} bf16 compute, accumulation {P11_ACCUM}, {FIT_TRAIN} rows, "
+            f"{P11_EPOCHS} epochs ({steps} steps), val_metric cider on {FIT_VAL} rows, checkpoints: the params "
+            f"and history equal without EMA bit for bit; the shadow of {n_params} params equals the host's f32 "
+            f"recurrence over the {steps} steps' params bit for bit; the EMA update {ema_ms:.5f} ms a step "
+            f"(CUDA graph, three multi-tensor ops); fit wall {plain['wall']:.5f} s without, {ema['wall']:.5f} s "
+            f"with ({(ema['wall'] - plain['wall']) / steps * 1e3:.3f} ms a step more, monitor decode and saves "
+            f"included); the fit's peak memory above what was held before it {plain['peak'] / 2**30:.4f} GiB "
+            f"without, {ema['peak'] / 2**30:.4f} GiB with (+{(ema['peak'] - plain['peak']) / 2**20:.2f} MiB; the "
+            f"shadow is {n_params * 4 / 2**20:.2f} MiB); "
+            f"the monitor's greedy decode launched K2 {k2}, K3 {ema['counts']['merge_head']} + "
+            f"{ema['counts']['vocab_proj']}")
+
+        replaced = pipe.use_ema_weights()
+        if replaced["decoder"] is not params or pipe.params["decoder"] is not pipe.ema_params["decoder"]:
+            raise AssertionError("ema fit: use_ema_weights did not swap the shadow in")
+        x = np.stack([feats[k] for k in list(val)[:DEC_TRAIN_BATCH]])
+        ops.reset_launch_counts()
+        caps, decode_s = timed(lambda: pipe.generate(x, method="greedy"))
+        decode_counts = ops.launch_counts()
+        steps_d = check_cli_counts("ema generate", decode_counts, 1)
+        if len(caps) != DEC_TRAIN_BATCH or not all(isinstance(c, str) for c in caps):
+            raise AssertionError(f"ema generate: {caps[:4]}")
+        log(f"ema generate: use_ema_weights, then greedy generate of {DEC_TRAIN_BATCH} rows, bf16: "
+            f"{decode_s:.5f} s; K2 {steps_d}, K3 {decode_counts['merge_head']} + {decode_counts['vocab_proj']} "
+            f"({steps_d} steps)")
+
+        mgr = CheckpointManager(ema["ckpt"], best_metric=None)
+        kept = mgr.all_steps()
+        template = TrainState.create(pipe.params["decoder"], build_optimizer(pipe.config.train), None)
+        pair = [tree_leaves(mgr.restore(template, s).params) for s in kept[-2:]]
+        pipe.use_averaged_weights(ema["ckpt"], last_k=2)
+        got = tree_leaves(pipe.params["decoder"])
+        worst = 0.0
+        for g, a, b in zip(got, *pair):
+            want = (a.double().cpu().numpy() + b.double().cpu().numpy()) / 2
+            err = float(np.abs(g.double().cpu().numpy() - want).max())
+            worst = max(worst, err / max(float(np.abs(want).max()), 1e-30))
+        if len(kept) < 2 or worst > 1e-6:
+            raise AssertionError(f"ema fit: use_averaged_weights of steps {kept[-2:]} is {worst} of scale "
+                                 "from their numpy mean")
+        log(f"ema fit: use_averaged_weights(last_k=2) of steps {kept[-2:]}: within {worst:.3g} of each "
+            f"tensor's scale of the numpy mean of the two restored checkpoints (bound 1e-6)")
+    return {k: ema["counts"][k] + decode_counts[k] for k in decode_counts}
+
+
+def optimizer_steps(dev) -> None:
+    """11(b): ``make_train_step`` at phase 5(a)'s shapes (lstm1, batch
+    DEC_TRAIN_BATCH, vocab VOCAB, bf16 compute, f32 masters) under each
+    optimizer of ``build_optimizer``, P11_STEPS steps from one init. Plain
+    sgd under constant, cosine with P11_WARMUP warmup steps and exponential
+    decay: each step's update is -lr(step) * g, where lr(step) is the
+    schedule on the card, within one ulp of the base lr of the same
+    schedule evaluated on the host in f32. Then sgd with momentum 0.9
+    under cosine with warmup, rmsprop with exponential decay, adagrad and
+    adamw with cosine: finite losses, step ms, and the state saved and
+    restored through the CheckpointManager bit for bit, containers
+    included."""
+    import tempfile
+
+    from tpucap_torch.checkpoint import CheckpointManager
+    from tpucap_torch.config import TrainConfig
+    from tpucap_torch.core import tree_leaves, tree_map
+    from tpucap_torch.models.decoders import build_decoder
+    from tpucap_torch.train import TrainState, build_optimizer, make_train_step
+    from tpucap_torch.train.loop import GradientTransformation, lr_schedule
+
+    dec = build_decoder("lstm1", VOCAB, DEC_FEATURES, embed_dim=WIDTH, hidden_dim=WIDTH)
+    params0 = tree_to(dec.init(torch.Generator().manual_seed(0)), dev)
+    g = torch.Generator(device=dev).manual_seed(33)
+    feats = torch.randn((DEC_TRAIN_BATCH, DEC_FEATURES), generator=g, device=dev)
+    tokens = torch.randint(1, VOCAB, (DEC_TRAIN_BATCH, MAX_LEN + 1), generator=g, device=dev)
+    decay = dict(lr_decay_steps=P11_DECAY_STEPS, lr_decay_rate=P11_DECAY_RATE)
+
+    def run(fields, seen=None):
+        cfg = TrainConfig(learning_rate=P11_LR, **fields)
+        opt = build_optimizer(cfg, total_steps=P11_STEPS)
+        if seen is not None:
+            inner = opt
+
+            def update(grads, state, params=None):
+                u, s = inner.update(grads, state, params)
+                seen.append((len(seen), grads, u))
+                return u, s
+
+            opt = GradientTransformation(inner.init, update, inner.stateless)
+        state = TrainState.create(tree_map(torch.clone, params0), opt, torch.Generator(device=dev).manual_seed(0))
+        step = make_train_step(dec, opt, compute_dtype=torch.bfloat16, donate=True)
+        losses, times = [], []
+        for _ in range(P11_STEPS):
+            (state, m), s = timed(lambda: step(state, feats, tokens))
+            losses.append(float(m["loss"]))
+            times.append(s)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"optimizer {fields}: losses {losses}")
+        return cfg, opt, state, losses, times
+
+    for name, fields in (("constant", {}), ("cosine", dict(lr_schedule="cosine", warmup_steps=P11_WARMUP)),
+                         ("exponential", dict(lr_schedule="exponential", **decay))):
+        seen: list = []
+        cfg, _, _, _, times = run(dict(optimizer="sgd", **fields), seen)
+        sched = lr_schedule(cfg, total_steps=P11_STEPS)
+        ulp = float(np.spacing(np.float32(P11_LR)))
+        worst, lrs = 0.0, []
+        for k, grads, u in seen:
+            count = torch.tensor(k, dtype=torch.int32)
+            host = np.float32(P11_LR if sched is None else sched(count).item())
+            if sched is None:
+                want = tree_map(lambda x: -P11_LR * x, grads)
+                card = host
+            else:
+                lr = sched(torch.tensor(k, dtype=torch.int32, device=dev))
+                want = tree_map(lambda x: (-lr).to(x.dtype) * x, grads)
+                card = np.float32(lr.item())
+            worst = max(worst, abs(float(card) - float(host)) / ulp)
+            lrs.append(float(card))
+            if not all(torch.equal(a, b) for a, b in zip(tree_leaves(u), tree_leaves(want))) or worst > 1:
+                raise AssertionError(f"sgd {name} step {k}: the update is not -lr(step) g, or lr {card} is "
+                                     f"{worst} ulp of the base lr from the host's {host}")
+        log(f"sgd {name}: {P11_STEPS} steps, every update -lr(step) g bit for bit, lr(step) on the card within "
+            f"{worst:g} ulp of the base lr {P11_LR} of the host's f32 schedule; lr {[f'{x:.6g}' for x in lrs]}; "
+            f"step ms median {float(np.median(times)) * 1e3:.3f}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fields in (
+            ("sgd", dict(optimizer="sgd")),
+            ("sgd momentum cosine warmup", dict(optimizer="sgd", momentum=0.9, lr_schedule="cosine",
+                                                warmup_steps=P11_WARMUP)),
+            ("rmsprop exponential", dict(optimizer="rmsprop", lr_schedule="exponential", **decay)),
+            ("adagrad", dict(optimizer="adagrad")),
+            ("adamw cosine", dict(optimizer="adamw", weight_decay=0.01, lr_schedule="cosine")),
+        ):
+            _, opt, state, losses, times = run(fields)
+            mgr = CheckpointManager(Path(tmp) / name.replace(" ", "_"), best_metric=None)
+            save_s = timed(lambda: mgr.save(state))[1]
+            template = TrainState.create(tree_map(torch.zeros_like, params0), opt, torch.Generator(device=dev))
+            back, restore_s = timed(lambda: mgr.restore(template))
+            if not same_tree(back.opt_state, state.opt_state) or not same_tree(back.params, state.params):
+                raise AssertionError(f"{name}: the checkpoint's optimizer state or params differ restored")
+            layout = type(state.opt_state).__name__
+            log(f"{name}: {P11_STEPS} steps, losses {losses[0]:.6f} -> {losses[-1]:.6f}, step ms median "
+                f"{float(np.median(times)) * 1e3:.3f}; opt_state a {layout} of "
+                f"{len(tree_leaves(state.opt_state))} tensors, saved {save_s:.4f} s and restored {restore_s:.4f} s "
+                f"bit for bit")
+
+
+def ema_finetune(dev, tokenizer) -> dict[str, int]:
+    """11(c): ``fit_finetune`` (ViT-B/16 flash + lstm1, batch TRAIN_BATCH,
+    bf16) with adamw under cosine with P11_FT_WARMUP warmup steps,
+    P11_FT_STEPS steps, without and with ``ema_decay`` P11_DECAY: 12
+    launches each of K5, dK/dV and dQ a step, the shadow of both trees,
+    the peak memory of each. Then ``use_ema_weights`` and ``caption_batch``
+    of TRAIN_BATCH uint8 images (K1 once, K5 12 times, K2 and K3 once a
+    step). -> the EMA run's and the caption's launches."""
+    from tpucap_torch import ops
+    from tpucap_torch.config import TrainConfig
+    from tpucap_torch.core import tree_leaves
+
+    desc = training_corpus(tokenizer, TRAIN_BATCH, 40)
+    rng = np.random.default_rng(41)
+    images = {k: rng.uniform(-1, 1, size=(IMAGE, IMAGE, 3)).astype(np.float32) for k in desc}
+    runs = {}
+    for decay in (0.0, P11_DECAY):
+        pipe = finetune_pipeline(tokenizer, "bf16")
+        pipe.config = dataclasses.replace(pipe.config, train=TrainConfig(
+            batch_size=TRAIN_BATCH, precision="bf16", optimizer="adamw", weight_decay=1e-4,
+            lr_schedule="cosine", warmup_steps=P11_FT_WARMUP, ema_decay=decay))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        hist, s = timed(lambda: pipe.fit_finetune(desc, images, epochs=P11_FT_STEPS, log=None))
+        counts = ops.launch_counts()
+        layers = pipe.encoder.num_layers
+        check_launches(f"ema finetune {decay}", counts, {k: layers * P11_FT_STEPS for k in (
+            "flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")}, decode=False)
+        losses = [h["loss"] for h in hist]
+        if len(hist) != P11_FT_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"ema finetune {decay}: losses {losses}")
+        peak = torch.cuda.max_memory_allocated()
+        runs[decay] = dict(pipe=pipe, s=s, peak=peak, above=peak - held, counts=counts, losses=losses)
+    plain, ema = runs[0.0], runs[P11_DECAY]
+    pipe = ema["pipe"]
+    if plain["losses"] != ema["losses"] or sorted(pipe.ema_params) != ["decoder", "encoder"]:
+        raise AssertionError(f"ema finetune: losses {plain['losses']} / {ema['losses']}, "
+                             f"ema_params {sorted(pipe.ema_params)}")
+    n_params = sum(t.numel() for t in tree_leaves(pipe.ema_params))
+    log(f"ema finetune: vit_b16 flash + lstm1, batch {TRAIN_BATCH}, bf16, adamw cosine warmup {P11_FT_WARMUP}, "
+        f"{P11_FT_STEPS} steps: launches a step {layers} each of K5, dK/dV, dQ; losses equal without and with EMA "
+        f"{[round(x, 4) for x in ema['losses']]}; ema_params holds encoder and decoder ({n_params} params, "
+        f"{n_params * 4 / 2**30:.4f} GiB f32); peak memory {plain['peak'] / 2**30:.4f} GiB without, "
+        f"{ema['peak'] / 2**30:.4f} GiB with, above what was held before the run {plain['above'] / 2**30:.4f} "
+        f"and {ema['above'] / 2**30:.4f} GiB (the first run's pipeline stays for the second); wall "
+        f"{plain['s']:.4f} s without, {ema['s']:.4f} s with")
+    pipe.use_ema_weights()
+    u8 = np.random.default_rng(42).integers(0, 256, size=(TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.uint8)
+    ops.reset_launch_counts()
+    caps, caption_s = timed(lambda: pipe.caption_batch(u8))
+    counts = ops.launch_counts()
+    check_launches("ema finetune caption_batch", counts,
+                   {"preprocess_u8": 1, "flash_attention": pipe.encoder.num_layers}, decode=True)
+    if len(caps) != TRAIN_BATCH:
+        raise AssertionError(f"ema finetune caption_batch: {len(caps)} captions")
+    log(f"ema finetune: use_ema_weights, then caption_batch of {TRAIN_BATCH} uint8 images: {caption_s:.5f} s; "
+        f"launches {counts}")
+    return {k: ema["counts"][k] + counts[k] for k in counts}
+
+
+def ema_cli(dev) -> dict[str, int]:
+    """11(d): the CLI on phase 8's dataset: ``extract``, then ``train
+    --ema-decay P11_DECAY --optimizer sgd --momentum 0.9 --lr-schedule
+    cosine --warmup-steps P11_CLI_WARMUP`` (P11_CLI_EPOCHS epochs), which
+    writes ``bundle_ema``; ``CaptioningPipeline.load`` of it captions
+    CLI_CAPTIONED images (K2 and K3 once a step); ``evaluate --average-last
+    2`` with the same optimizer flags gives the scores of
+    ``use_averaged_weights`` and ``evaluate`` on the same checkpoints. ->
+    the caption's and evaluate's launches."""
+    import tempfile
+
+    from tpucap_torch import ops
+    from tpucap_torch.cli.main import _build_config, build_parser
+    from tpucap_torch.data import load_descriptions, load_split, prepare_descriptions
+    from tpucap_torch.pipeline import CaptioningPipeline
+    from tpucap_torch.text import load_tokenizer
+
+    flags = ["--optimizer", "sgd", "--momentum", "0.9", "--lr-schedule", "cosine", "--warmup-steps",
+             P11_CLI_WARMUP]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ids = write_cli_dataset(root)
+        feats_path, ckpt = root / "features.npz", root / "ckpt"
+        run_cli(["extract", *CLI_MODEL, "--images", root / "images", "--out", feats_path, "--batch-size",
+                 CLI_EXTRACT_BATCH])
+        out, _, train_s, _ = run_cli([
+            "train", *CLI_MODEL, "--tokens", root / "tokens.txt", "--split", root / "train.txt", "--features",
+            feats_path, "--checkpoint-dir", ckpt, "--epochs", P11_CLI_EPOCHS, "--batch-size", CLI_TRAIN_BATCH,
+            "--ema-decay", P11_DECAY, *flags])
+        lines = [line for _, line in out]
+        if lines[-2:-1] != [f"EMA weights (decay {P11_DECAY}) bundled in {ckpt / 'bundle_ema'}"] or not \
+                lines[-1].startswith(f"trained {P11_CLI_EPOCHS} epochs; final loss "):
+            raise AssertionError(f"cli ema train: printed {lines}")
+        bundle, load_s = timed(lambda: CaptioningPipeline.load(ckpt / "bundle_ema"))
+        t = bundle.config.train
+        if (t.ema_decay, t.optimizer, t.momentum, t.lr_schedule, t.warmup_steps) != (
+                P11_DECAY, "sgd", 0.9, "cosine", P11_CLI_WARMUP):
+            raise AssertionError(f"cli ema train: the bundle's train config {t}")
+        picked = [root / "images" / f"{k}.jpg" for k in ids[:CLI_CAPTIONED]]
+        ops.reset_launch_counts()
+        caps, caption_s = timed(lambda: bundle.caption_images(picked))
+        cap_counts = ops.launch_counts()
+        steps_c = check_cli_counts("cli ema caption", cap_counts, 1)
+        if len(caps) != CLI_CAPTIONED:
+            raise AssertionError(f"cli ema caption: {caps}")
+        del bundle
+        evaluate = ["evaluate", *CLI_MODEL, "--tokens", root / "tokens.txt", "--split", root / "test.txt",
+                    "--features", feats_path, "--checkpoint-dir", ckpt, "--average-last", 2, "--batch-size",
+                    CLI_TRAIN_BATCH, "--metrics", "bleu,cider", *flags]
+        ops.reset_launch_counts()
+        out, _, eval_s, _ = run_cli(evaluate)
+        ev_counts = ops.launch_counts()
+        steps_e = check_cli_counts("cli ema evaluate", ev_counts, 1)
+        scores = json.loads(out[-1][1])
+        cfg = _build_config(build_parser()[0].parse_args([str(a) for a in evaluate]))
+        ref = CaptioningPipeline(cfg, tokenizer=load_tokenizer(ckpt / "tokenizer.json"), device=dev)
+        ref.build()
+        ref.use_averaged_weights(ckpt, last_k=2)
+        with np.load(feats_path) as z:
+            feats = {k: z[k] for k in z.files}
+        test = prepare_descriptions(load_descriptions(root / "tokens.txt"), load_split(root / "test.txt"))
+        want = ref.evaluate(test, feats, batch_size=CLI_TRAIN_BATCH, metrics=("bleu", "cider"))
+        if scores != want or not all(np.isfinite(v) for v in scores.values() if v is not None):
+            raise AssertionError(f"cli ema evaluate: scores {scores}, use_averaged_weights + evaluate {want}")
+        log(f"cli ema: {' '.join(CLI_MODEL)} train {' '.join(map(str, flags))} --ema-decay {P11_DECAY}, "
+            f"{P11_CLI_EPOCHS} epochs: {train_s:.5f} s (extract's features; bundle_ema written); "
+            f"CaptioningPipeline.load(bundle_ema) {load_s:.5f} s, its caption_images of {CLI_CAPTIONED} images "
+            f"{caption_s:.5f} s, "
+            f"K2 {steps_c}, K3 {cap_counts['merge_head']} + {cap_counts['vocab_proj']}; evaluate --average-last 2 "
+            f"with the same flags {eval_s:.5f} s, the scores of use_averaged_weights + evaluate, K2 {steps_e}; "
+            f"e.g. {caps[0]!r}")
+        log(f"cli ema evaluate: scores { {k: (round(v, 6) if v is not None else None) for k, v in scores.items()} }")
+    return {k: cap_counts[k] + ev_counts[k] for k in cap_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2477,6 +2909,14 @@ def main() -> int:
     for name in counts:
         counts[name] += dials[name] + cli[name]
     log(f"phase 10: {time.perf_counter() - t10:.2f} s")
+    t11 = time.perf_counter()
+    fitted = ema_fit(dev, tokenizer)
+    optimizer_steps(dev)
+    tuned = ema_finetune(dev, tokenizer)
+    served = ema_cli(dev)
+    for name in counts:
+        counts[name] += fitted[name] + tuned[name] + served[name]
+    log(f"phase 11: {time.perf_counter() - t11:.2f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -30,10 +30,9 @@ What holds, and the bound each test states:
 The encoder-level differences are accumulation order, not a fault: the
 port's bf16 convolution rounds as tpucap's does (the first test).
 
-CONFIG_2 / CONFIG_4's parts in bf16 (params cast to bf16 on both sides):
-- InceptionV3 at input 75, BN folded, within the same 1.5 % of the
-  features' scale (measured 0.6 % pooled, spatial bit-identical at this
-  size);
+CONFIG_2 / CONFIG_4's parts in bf16 (params cast to bf16 on both sides;
+InceptionV3's own bf16 check is in ``tests/test_torch_inception.py``,
+which compiles tpucap's InceptionV3 once for both):
 - the inject and attention decoders' init state and steps (the attention
   step also at k = 3 hypotheses sharing one grid) are bit-identical to
   tpucap's eager steps: the port writes the attention softmax and the
@@ -246,34 +245,11 @@ def test_bf16_beam_captions_share_is_recorded(pipelines, inputs, record_property
         assert len(got) == len(want) and 0.0 <= share <= 1.0
 
 
-# -- InceptionV3, the inject and attention decoders ------------------------------
+# -- the inject and attention decoders ------------------------------
 
 
 def _bf16(tree):
     return jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), tree)
-
-
-@pytest.mark.parametrize("features", ["pooled", "spatial"])
-def test_bf16_inception_v3_within_share_of_scale(features):
-    from tpucap.models.encoders.fold_bn import fold_batch_norms as jax_fold
-    from tpucap.models.encoders.inception_v3 import InceptionV3 as JaxInceptionV3
-    from tpucap_torch.models.encoders import InceptionV3
-
-    jenc = JaxInceptionV3(features=features, input_size=75)
-    jp = jax.tree.map(np.asarray, jenc.init(jax.random.key(26)))
-    rng = np.random.default_rng(26)
-    for p in jp.values():
-        c = p["bn"]["beta"].shape[0]
-        p["bn"] = {"beta": rng.normal(size=c).astype(np.float32) * 0.2,
-                   "mean": rng.normal(size=c).astype(np.float32) * 0.2,
-                   "var": rng.uniform(0.3, 1.5, size=c).astype(np.float32)}
-    jp = jax_fold("inception_v3", jp)
-    x = rng.uniform(-1, 1, size=(2, 75, 75, 3)).astype(np.float32)
-    want = np.asarray(jax.jit(jenc.apply)(_bf16(jp), jnp.asarray(x, jnp.bfloat16)), np.float32)
-    tp = tree_map(lambda t: t.to(torch.bfloat16), params_from_jax(jp))
-    got = InceptionV3(features=features, input_size=75).apply(tp, torch.from_numpy(x).to(torch.bfloat16))
-    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
-    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=0.015 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("name", ["inject", "attention"])

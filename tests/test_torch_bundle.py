@@ -184,9 +184,9 @@ def test_config_json_layouts(tpucap_bundle):
 @pytest.mark.parametrize(
     "section, field, value",
     [
-        ("train", "lr_schedule", "cosine"),
+        ("train", "ss_schedule", "cosine"),
         ("train", "checkpoint_dir", "elsewhere"),
-        ("train", "ema_decay", 0.999),
+        ("train", "steps_per_dispatch", 2),
         ("decoder", "num_heads", 8),
         ("mesh", "n_devices", 4),
     ],

@@ -81,15 +81,45 @@ def _no_dropout(build_config):
     return build
 
 
+#: tpucap's built params (numpy), by config, seed and vocabulary: what its
+#: ``build()`` gave in this module's fixtures (``_recording_build``).
+_TPUCAP_PARAMS: dict = {}
+
+
+def _build_key(jconfig, jtok):
+    """The config (its train.seed included) and the vocabulary: all that
+    tpucap's ``build()`` reads."""
+    return json.dumps(dataclasses.asdict(jconfig), sort_keys=True), jtok and jtok.to_json()
+
+
+def _recording_build(orig):
+    """tpucap's ``build``, its params recorded as numpy copies."""
+
+    def build(self, rng=None, init_params=True):
+        out = orig(self, rng, init_params)
+        if rng is None and init_params:
+            _TPUCAP_PARAMS[_build_key(self.config, self.tokenizer)] = jax.tree.map(np.array, self.params)
+        return out
+
+    return build
+
+
 def _build_with_tpucaps_weights(orig):
+    """The port's build with tpucap's weights for the same config and
+    vocabulary: those its own command recorded, else a tpucap build made
+    here."""
+
     def build(self, seed=None, init_params=True):
         orig(self, seed, init_params=False)
         if init_params:
             jconfig = jcfg.config_from_dict(json.loads(json.dumps(tcfg.config_to_dict(self.config))))
             jtok = None if self.tokenizer is None else JaxTokenizer.from_json(self.tokenizer.to_json())
-            jpipe = JaxPipeline(jconfig, tokenizer=jtok)
-            jpipe.build()
-            self.set_params(params_from_jax(jax.tree.map(np.asarray, jpipe.params)))
+            key = _build_key(jconfig, jtok)
+            if key not in _TPUCAP_PARAMS:
+                jpipe = JaxPipeline(jconfig, tokenizer=jtok)
+                jpipe.build()
+                _TPUCAP_PARAMS[key] = jax.tree.map(np.asarray, jpipe.params)
+            self.set_params(params_from_jax(_TPUCAP_PARAMS[key]))
         return self.params
 
     return build
@@ -137,6 +167,7 @@ def runs(tmp_path_factory):
         mp.setattr(jcli, "_build_config", _no_dropout(jcli._build_config))
         mp.setattr(tcli, "_build_config", _no_dropout(tcli._build_config))
         mp.setattr(CaptioningPipeline, "build", _build_with_tpucaps_weights(CaptioningPipeline.build))
+        mp.setattr(JaxPipeline, "build", _recording_build(JaxPipeline.build))
         for pkg, main in mains.items():
             out = root / pkg
             out.mkdir()
@@ -152,6 +183,7 @@ def runs(tmp_path_factory):
                      if "absl" not in ln]
                     for s in (stdout, stderr)
                 )
+    _TPUCAP_PARAMS.clear()
     return result
 
 
@@ -294,6 +326,7 @@ def preset_runs(tmp_path_factory):
         mp.setattr(jcli, "_build_config", _no_dropout(jcli._build_config))
         mp.setattr(tcli, "_build_config", _no_dropout(tcli._build_config))
         mp.setattr(CaptioningPipeline, "build", _build_with_tpucaps_weights(CaptioningPipeline.build))
+        mp.setattr(JaxPipeline, "build", _recording_build(JaxPipeline.build))
         for pkg, main in mains.items():
             out = root / pkg
             out.mkdir()
@@ -309,6 +342,7 @@ def preset_runs(tmp_path_factory):
                      if "absl" not in ln]
                     for s in (stdout, stderr)
                 )
+    _TPUCAP_PARAMS.clear()
     return result
 
 
@@ -447,11 +481,11 @@ def test_unported_flags_exit_before_any_file_is_read(argv, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--lr-schedule", "cosine"], "lr_schedule"),
+    (["--ss-schedule", "inv_sigmoid"], "ss_schedule"),
     (["--steps-per-dispatch", "2"], "steps_per_dispatch"),
-    (["--ema-decay", "0.9"], "ema_decay"),
-    (["--momentum", "0.9"], "momentum"),
-    (["--preset", "config1", "--warmup-steps", "10"], "warmup_steps"),
+    (["--preset", "config1", "--steps-per-dispatch", "4"], "steps_per_dispatch"),
+    (["--model-devices", "2"], "model_devices"),
+    (["--preset", "config1", "--ss-schedule", "constant"], "ss_schedule"),
     (["--scheduled-sampling", "0.5"], "scheduled_sampling"),
 ])
 def test_unported_config_fields_raise_from_build_config(argv, match):

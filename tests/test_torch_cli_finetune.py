@@ -69,14 +69,45 @@ def _no_dropout(build_config):
     return build
 
 
+#: tpucap's built params (numpy), by config, seed and vocabulary: what its
+#: ``build()`` gave in this module's fixture (``_recording_build``).
+_TPUCAP_PARAMS: dict = {}
+
+
+def _build_key(jconfig, jtok):
+    """The config (its train.seed included) and the vocabulary: all that
+    tpucap's ``build()`` reads."""
+    return json.dumps(dataclasses.asdict(jconfig), sort_keys=True), jtok and jtok.to_json()
+
+
+def _recording_build(orig):
+    """tpucap's ``build``, its params recorded as numpy copies."""
+
+    def build(self, rng=None, init_params=True):
+        out = orig(self, rng, init_params)
+        if rng is None and init_params:
+            _TPUCAP_PARAMS[_build_key(self.config, self.tokenizer)] = jax.tree.map(np.array, self.params)
+        return out
+
+    return build
+
+
 def _build_with_tpucaps_weights(orig):
+    """The port's build with tpucap's weights for the same config and
+    vocabulary: those a tpucap command recorded, else a tpucap build made
+    here."""
+
     def build(self, seed=None, init_params=True):
         orig(self, seed, init_params=False)
         if init_params:
             jconfig = jcfg.config_from_dict(json.loads(json.dumps(tcfg.config_to_dict(self.config))))
-            jpipe = JaxPipeline(jconfig, tokenizer=JaxTokenizer.from_json(self.tokenizer.to_json()))
-            jpipe.build()
-            self.set_params(params_from_jax(jax.tree.map(np.asarray, jpipe.params)))
+            jtok = JaxTokenizer.from_json(self.tokenizer.to_json())
+            key = _build_key(jconfig, jtok)
+            if key not in _TPUCAP_PARAMS:
+                jpipe = JaxPipeline(jconfig, tokenizer=jtok)
+                jpipe.build()
+                _TPUCAP_PARAMS[key] = jax.tree.map(np.asarray, jpipe.params)
+            self.set_params(params_from_jax(_TPUCAP_PARAMS[key]))
         return self.params
 
     return build
@@ -134,6 +165,7 @@ def runs(tmp_path_factory):
         mp.setattr(jcli, "_build_config", _no_dropout(jcli._build_config))
         mp.setattr(tcli, "_build_config", _no_dropout(tcli._build_config))
         mp.setattr(CaptioningPipeline, "build", _build_with_tpucaps_weights(CaptioningPipeline.build))
+        mp.setattr(JaxPipeline, "build", _recording_build(JaxPipeline.build))
         for pkg, main in mains.items():
             out = root / pkg
             out.mkdir()
@@ -163,6 +195,7 @@ def runs(tmp_path_factory):
                     main(argv)
                 lines = [ln.replace(str(out), "<out>") for ln in stdout.getvalue().splitlines() if "absl" not in ln]
                 result[pkg][name] = (lines, _steps(pkg, out / ckpt))
+    _TPUCAP_PARAMS.clear()
     return result
 
 

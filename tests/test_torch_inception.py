@@ -13,7 +13,12 @@ Tolerances:
   in tpucap's row-major order);
 - the slice (uint8 batch -> K1's plain version in tf mode -> InceptionV3 ->
   lstm1 -> beam 3): captions identical to tpucap's ``caption_dataset``
-  body. The slice runs at input 75, the encoder check also once at 299.
+  body. The slice runs at input 75, the encoder check also once at 299;
+- bf16 (params cast to bf16 on both sides), input 75, BN folded: within
+  1.5 % of the features' scale, about two bf16 ulps (measured 0.6 %
+  pooled, spatial bit-identical at this size); the bf16 bound of
+  ``tests/test_torch_bf16.py``, kept in this file so that tpucap's
+  InceptionV3 init compiles once for both.
 """
 
 import dataclasses
@@ -34,6 +39,7 @@ from tpucap.ops.preprocess import fused_preprocess
 from tpucap.pipeline import CaptioningPipeline as JaxPipeline
 from tpucap_torch import config as tcfg
 from tpucap_torch.convert import params_from_jax
+from tpucap_torch.core import tree_map
 from tpucap_torch.models.encoders import InceptionV3, build_encoder, fold_batch_norms
 from tpucap_torch.models.encoders.common import avg_pool_same
 from tpucap_torch.pipeline import CaptioningPipeline
@@ -106,6 +112,26 @@ def test_features_match_tpucap(size, features, seed, batch):
     _close(enc.apply(folded, torch.from_numpy(x)).numpy(), want_folded, "folded")
     _close(enc.apply(folded, torch.from_numpy(x)).numpy(), want, "folded against unfolded")
     assert fold_batch_norms("inception_v3", folded) == folded  # idempotent
+
+
+@pytest.mark.parametrize("features", ["pooled", "spatial"])
+def test_bf16_inception_v3_within_share_of_scale(features):
+    jenc = JaxInceptionV3(features=features, input_size=75)
+    jp = jax.tree.map(np.asarray, jenc.init(jax.random.key(26)))
+    rng = np.random.default_rng(26)
+    for p in jp.values():
+        c = p["bn"]["beta"].shape[0]
+        p["bn"] = {"beta": rng.normal(size=c).astype(np.float32) * 0.2,
+                   "mean": rng.normal(size=c).astype(np.float32) * 0.2,
+                   "var": rng.uniform(0.3, 1.5, size=c).astype(np.float32)}
+    jp = jax_fold("inception_v3", jp)
+    x = rng.uniform(-1, 1, size=(2, 75, 75, 3)).astype(np.float32)
+    jpb = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), jp)
+    want = np.asarray(jax.jit(jenc.apply)(jpb, jnp.asarray(x, jnp.bfloat16)), np.float32)
+    tp = tree_map(lambda t: t.to(torch.bfloat16), params_from_jax(jp))
+    got = InceptionV3(features=features, input_size=75).apply(tp, torch.from_numpy(x).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=0.015 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("features", ["pooled", "spatial"])

@@ -19,6 +19,7 @@ survives best-metric retention and at most one is kept, and a resume on an
 empty directory starts fresh.
 """
 
+import dataclasses
 import os
 import signal
 import threading
@@ -241,13 +242,17 @@ def test_validations_with_tpucaps_messages(tmp_path):
     jpipe.fit_tokenizer(DESC)
     with pytest.raises(ValueError, match="^resume=True needs a checkpoint_manager$"):
         jpipe.fit(DESC, feats, epochs=1, resume=True, log=None)
-    # EMA, whose shadow a resume would not restore, is not in the port's
-    # config at all; LoRA and sharded checkpoints are refused by name.
-    d = tcfg.config_to_dict(pipe.config)
-    d["train"]["ema_decay"] = 0.999
-    with pytest.raises(NotImplementedError, match="ema_decay"):
-        tcfg.config_from_dict(d)
+    # EMA, whose shadow a resume would not restore, is refused with
+    # tpucap's message; LoRA and sharded checkpoints are refused by name.
     mgr = CheckpointManager(tmp_path / "e", best_metric=None)
+    ema = CaptioningPipeline(
+        dataclasses.replace(pipe.config, train=dataclasses.replace(pipe.config.train, ema_decay=0.999)),
+        tokenizer=pipe.tokenizer, device="cpu",
+    )
+    with pytest.raises(
+        NotImplementedError, match="^resume does not restore the EMA shadow; drop ema_decay or restart$"
+    ):
+        ema.fit(DESC, feats, epochs=1, checkpoint_manager=mgr, resume=True, log=None)
     for kw in (dict(lora_rank=4), dict(sharded_checkpoints=True)):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             fpipe.fit_finetune(DESC, images, epochs=1, checkpoint_manager=mgr, resume=True, log=None, **kw)

@@ -3,13 +3,13 @@ CheckpointManager`` that ``fit`` and the CLI reach, on a format of its own.
 
 tpucap's manager is orbax's, and the port reads no orbax. Here a step is
 one directory ``<step>/`` holding ``state.npz`` (the step, the params and
-the optimizer state, each leaf with its dtype as ``convert.save_npz`` keeps
-it, and the dropout generator's state as ``rng``) and ``metrics.json``
-(the step's metrics, or null). A save writes ``<step>.tmp/`` and renames it
-into place once both files are written, and a deletion renames the step
-away before removing it, so a process killed at any point leaves no
-directory that reads as a complete step. A directory that holds orbax
-checkpoints is refused.
+the optimizer state if it has one, each leaf with its dtype as
+``convert.save_npz`` keeps it, and the dropout generator's state as
+``rng``) and ``metrics.json`` (the step's metrics, or null). A save
+writes ``<step>.tmp/`` and renames it into place once both files are
+written, and a deletion renames the step away before removing it, so a
+process killed at any point leaves no directory that reads as a complete
+step. A directory that holds orbax checkpoints is refused.
 
 Which steps are kept and which is best follow orbax 0.11.32 as tpucap
 configures it (``checkpoint_manager.py``'s ``should_save``, ``latest_step``,
@@ -186,8 +186,8 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         payload = load_npz(os.path.join(self._path(step), STATE_FILE))
         check_same_layout(template_state.params, payload["params"], "params")
-        if template_state.opt_state is not None:
-            check_same_layout(template_state.opt_state, payload["opt_state"], "opt_state")
+        # Another optimizer's state (other flags) is refused here.
+        check_same_layout(template_state.opt_state, payload.get("opt_state"), "opt_state")
         device = tree_leaves(template_state.params)[0].device
         rng = template_state.rng
         if rng is not None:
@@ -197,7 +197,8 @@ class CheckpointManager:
         return TrainState(
             step=int(payload["step"]),
             params=tree_map(move, payload["params"]),
-            opt_state=None if template_state.opt_state is None else tree_map(move, payload["opt_state"]),
+            # In the template's containers: a chain's tuple is read back as a list.
+            opt_state=tree_map(lambda _, t: move(t), template_state.opt_state, payload.get("opt_state")),
             rng=rng,
         )
 

@@ -20,7 +20,12 @@ checkpoints (``tpucap_torch.checkpoint``; it reads no orbax).
 from the images and writes a bundle (``--bundle-out``, default
 ``<checkpoint-dir>/bundle``). Both training paths take ``--resume``,
 ``--handle-preemption`` (SIGTERM: finish the step, write a rescue
-checkpoint, exit), ``--checkpoint-every-steps`` and ``--grad-accum-steps``.
+checkpoint, exit), ``--checkpoint-every-steps``, ``--grad-accum-steps``,
+tpucap's optimizer flags (``--optimizer``, ``--momentum``,
+``--lr-schedule``, ``--lr-decay-rate``, ``--lr-decay-steps``,
+``--warmup-steps``) and ``--ema-decay``, which also writes
+``<checkpoint-dir>/bundle_ema`` from the averaged weights. ``caption`` and
+``evaluate`` build their restore template from the same optimizer flags.
 
 The commands run on ``cuda``; ``main(argv, device="cpu")`` runs them on the
 CPU, which is how the tests drive them. A flag whose feature the port does
@@ -145,17 +150,22 @@ def _add_optimizer_flags(p):
     preset."""
     p.add_argument("--optimizer", default=None,
                    choices=["adam", "adamw", "sgd", "rmsprop", "adagrad"],
-                   help="optimizer (default adam; the port has adam and adamw)")
-    p.add_argument("--momentum", type=float, default=None, help="sgd momentum (not ported)")
+                   help="optimizer (default adam, the reference's choice)")
+    p.add_argument("--momentum", type=float, default=None, help="sgd momentum")
     p.add_argument("--weight-decay", type=float, default=None,
                    help="adamw decoupled weight decay")
     p.add_argument("--lr-schedule", default=None,
-                   choices=["constant", "cosine", "exponential"],
-                   help="the port has constant only")
-    p.add_argument("--lr-decay-rate", type=float, default=None, help="not ported")
-    p.add_argument("--lr-decay-steps", type=int, default=None, help="not ported")
-    p.add_argument("--warmup-steps", type=int, default=None, help="not ported")
-    p.add_argument("--ema-decay", type=float, default=None, help="not ported")
+                   choices=["constant", "cosine", "exponential"])
+    p.add_argument("--lr-decay-rate", type=float, default=None,
+                   help="exponential schedule decay rate (default 0.96)")
+    p.add_argument("--lr-decay-steps", type=int, default=None,
+                   help="exponential schedule step interval (default 1000)")
+    p.add_argument("--warmup-steps", type=int, default=None,
+                   help="linear lr warmup steps prepended to the schedule")
+    p.add_argument("--ema-decay", type=float, default=None,
+                   help="track an exponential moving average of the weights (e.g. "
+                   "0.999); train then also writes a bundle_ema pipeline bundle "
+                   "with the averaged weights")
     p.add_argument("--grad-accum-steps", type=int, default=None,
                    help="split each batch into N microbatches accumulated in sum "
                    "form: the full-batch update at 1/N of the activation memory")
@@ -241,7 +251,7 @@ def _parse_bad_words(spec) -> tuple:
 def _build_config(args) -> Config:
     """tpucap's config resolution from the flags, made in tpucap's
     config.json layout and read by ``config_from_dict``, so a field the
-    port does not have (a schedule, EMA, gradient accumulation, a mesh)
+    port does not have (scheduled sampling, steps per dispatch, a mesh)
     raises NotImplementedError away from tpucap's default. The
     transformer decoder's fields, which no ported decoder reads, keep
     tpucap's defaults."""
@@ -459,6 +469,7 @@ def cmd_train(args, device):
             logger.log(h)
         logger.close()
     mgr.close()
+    _maybe_save_ema_bundle(args, pipe)
     if history and history[-1].get("preempted"):
         print(
             f"preempted after {len(history)} epoch entries; rerun the "
@@ -475,6 +486,20 @@ def cmd_train(args, device):
     if args.bundle_out:
         pipe.save(args.bundle_out)
         print(f"wrote pipeline bundle to {args.bundle_out}")
+
+
+def _maybe_save_ema_bundle(args, pipe) -> None:
+    """--ema-decay: also write a pipeline bundle of the averaged weights,
+    <checkpoint-dir>/bundle_ema; the raw weights go back afterwards (the
+    checkpoints hold the training iterate)."""
+    if not args.ema_decay:
+        return
+    replaced = pipe.use_ema_weights()
+    bundle = os.path.join(args.checkpoint_dir, "bundle_ema")
+    pipe.save(bundle)
+    pipe.params.update(replaced)
+    pipe._bf16_params = None
+    print(f"EMA weights (decay {args.ema_decay}) bundled in {bundle}")
 
 
 def _nothing_to_train(args) -> None:
@@ -531,6 +556,7 @@ def _train_finetune(args, pipe, prepared) -> None:
         logger.close()
     bundle = args.bundle_out or os.path.join(args.checkpoint_dir, "bundle")
     pipe.save(bundle)
+    _maybe_save_ema_bundle(args, pipe)
     if history[-1].get("preempted"):
         print(
             f"preempted after {len(history)} epoch entries; rescue "

@@ -79,9 +79,21 @@ class TrainConfig:
     # Show-Attend-Tell's doubly-stochastic attention regularizer weight;
     # the attention decoder only (a warning for the others).
     attention_reg: float = 0.0
-    optimizer: str = "adam"  # adam | adamw
+    optimizer: str = "adam"  # adam | adamw | sgd | rmsprop | adagrad
+    momentum: float = 0.0  # sgd's momentum; 0 = none
     weight_decay: float = 0.0  # adamw's decoupled weight decay
+    # The lr schedule: constant | cosine (to 0 at the end of the run) |
+    # exponential (x lr_decay_rate every lr_decay_steps).
+    lr_schedule: str = "constant"
+    lr_decay_rate: float = 0.96
+    lr_decay_steps: int = 1000
+    warmup_steps: int = 0  # a linear ramp from 0 before the schedule
     grad_clip_norm: float = 0.0  # global-norm clip; 0 = off
+    # Exponential moving average of the weights, d * ema + (1 - d) * params
+    # after every step from a copy of the starting params; fit and
+    # fit_finetune leave it on pipeline.ema_params, use_ema_weights() swaps
+    # it in. Training itself is unchanged. 0 = off.
+    ema_decay: float = 0.0
     # Training compute dtype: 'f32' (TF32 off) | 'bf16' (forward and
     # backward in bf16, f32 master params, optimizer state and loss
     # reductions). Distinct from Config.precision, the inference policy.
@@ -193,12 +205,6 @@ UNPORTED = {
         "checkpoint_dir": "checkpoints",
         "max_to_keep": 3,
         "moe_aux_weight": 0.01,
-        "momentum": 0.0,
-        "lr_schedule": "constant",
-        "lr_decay_rate": 0.96,
-        "lr_decay_steps": 1000,
-        "warmup_steps": 0,
-        "ema_decay": 0.0,
         "scheduled_sampling": 0.0,
         "ss_schedule": "linear",
         "steps_per_dispatch": 1,

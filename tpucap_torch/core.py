@@ -65,7 +65,9 @@ def infer_dtype(precision: str) -> torch.dtype:
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` to every tensor leaf of nested dicts/lists/tuples; with
     more trees of the same structure, ``fn`` takes their leaves side by
-    side."""
+    side. None (an optimizer without state) maps to None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -76,6 +78,8 @@ def tree_map(fn, tree, *rest):
 
 
 def tree_leaves(tree) -> list:
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     if isinstance(tree, (list, tuple)):
@@ -110,8 +114,12 @@ def check_float_params(tree, where: str = "params") -> None:
 
 def check_same_layout(old, new, where: str) -> None:
     """Raise ValueError where ``new`` differs from ``old`` in structure
-    (dict keys, list lengths) or in a leaf's shape or dtype."""
-    if isinstance(old, dict) and isinstance(new, dict) and set(old) == set(new):
+    (dict keys, list lengths, a None where the other has a tree) or in a
+    leaf's shape or dtype."""
+    if old is None or new is None:
+        if old is not new:
+            raise ValueError(f"param tree structure differs at {where}")
+    elif isinstance(old, dict) and isinstance(new, dict) and set(old) == set(new):
         for k in old:
             check_same_layout(old[k], new[k], f"{where}/{k}")
     elif (

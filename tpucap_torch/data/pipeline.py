@@ -63,7 +63,7 @@ def image_batch_loader(
     if shuffle:
         raise NotImplementedError(
             "shuffle=True is not ported: grain's sampler order cannot be "
-            "reproduced without grain (ROADMAP queue 4)"
+            "reproduced without grain (ROADMAP queue 5, \"Also open\")"
         )
     del seed
     paths = tuple(str(p) for p in paths)

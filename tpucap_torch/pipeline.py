@@ -31,6 +31,10 @@
     fit_finetune(descriptions,    train encoder and decoder jointly on
                  images, ...)     preprocessed images, with augmentation,
                                   remat and fit's checkpoint dials
+    use_ema_weights()             swap in the EMA of the last fit's weights
+                                  (TrainConfig.ema_decay)
+    use_averaged_weights(dir)     swap in the mean of retained checkpoints'
+                                  decoder params
 
 ``caption_batch`` is the main path: preprocess kernel K1 -> encoder ->
 the decoder's init_state -> beam search whose step, on the card with a
@@ -47,7 +51,8 @@ encoder's kernel paths are opt-in on the built encoder:
 (ResNet-50's identity blocks as kernel K4, after ``fold_bn()``) or
 ``dataclasses.replace(pipe.encoder, attention_impl="flash")`` (ViT
 attention as kernel K5; under ``fit_finetune`` K5's two backward kernels
-too). Training is single-device, Adam (``tpucap_torch.train``).
+too). Training is single-device, with tpucap's optimizers and lr schedules
+(``tpucap_torch.train``).
 
 JPEG files are read by the port's own decoder (``tpucap_torch.ops.jpeg``,
 host C++, no libjpeg and no PIL): baseline and progressive Huffman JPEG,
@@ -70,6 +75,7 @@ import os
 import numpy as np
 import torch
 
+from tpucap_torch.checkpoint import CheckpointManager
 from tpucap_torch.config import Config, config_from_dict, config_to_dict
 from tpucap_torch.core import (
     apply_precision,
@@ -77,6 +83,7 @@ from tpucap_torch.core import (
     check_same_layout,
     infer_dtype,
     resolve_device,
+    tree_leaves,
     tree_map,
 )
 from tpucap_torch.convert import load_npz, save_npz
@@ -125,6 +132,9 @@ class CaptioningPipeline:
         self.decoder = None
         self.params: dict = {}
         self._bf16_params = None
+        # The EMA shadow of the last fit or fit_finetune with
+        # TrainConfig.ema_decay > 0 (``use_ema_weights``).
+        self.ema_params = None
 
     # -- tokenizer ---------------------------------------------------------
 
@@ -401,8 +411,10 @@ class CaptioningPipeline:
         """Image files -> encoder features, f32 numpy: decode, nearest resize
         and normalize on the host (``data.preprocess.preprocess_batch``: JPEGs
         through the port's decoder, other formats through PIL, as tpucap's
-        ``load_image``), encode on the device; the tail chunk is zero-padded
-        to ``batch_size`` and trimmed."""
+        ``load_image``), encode on the device in chunks of ``batch_size``.
+        The tail chunk goes as it is: tpucap zero-pads it to keep one
+        compiled shape, which eager PyTorch does not need (its padding rows
+        would be encoded and thrown away)."""
         refuse_unported(
             parallelism=(parallelism if parallelism != "none" else None, None)
         )
@@ -412,9 +424,7 @@ class CaptioningPipeline:
         outs = []
         for s in range(0, len(paths), batch_size):
             x = preprocess_batch(paths[s : s + batch_size], size=size, mode=mode)
-            n = x.shape[0]
-            feats = self.encode_images(pad_rows(x, batch_size))
-            outs.append(feats.float().cpu().numpy()[:n])
+            outs.append(self.encode_images(x).float().cpu().numpy())
         return np.concatenate(outs, axis=0)
 
     def caption_images(self, image_paths, **kw) -> list[str]:
@@ -559,6 +569,7 @@ class CaptioningPipeline:
         checkpoint_manager=None,
         resume=False,
         guard=None,
+        ema=None,
     ):
         """Shared epoch loop: shuffled batches (numpy, seeded with
         TrainConfig.seed as tpucap draws them), metrics summed on the card
@@ -573,7 +584,8 @@ class CaptioningPipeline:
         replayed. ``guard`` (a ``PreemptionGuard``, or anything with
         ``fired``): once it fires, the step in flight finishes, a rescue
         checkpoint is written and the loop returns with a ``preempted``
-        entry. -> (state, history)."""
+        entry. ``ema`` (``_make_ema``'s shadow) is updated in place after
+        every optimizer step. -> (state, history)."""
         cfg = self.config.train
         monitor = "val_loss" if cfg.val_metric == "loss" else f"val_{cfg.val_metric}"
         minimize = monitor == "val_loss"
@@ -607,6 +619,8 @@ class CaptioningPipeline:
                     if b_i < skip:  # trained before the run was cut
                         continue
                     state, metrics = step(state, *batch(*rows))
+                    if ema is not None:
+                        ema_update(ema, state.params, cfg.ema_decay)
                     n += 1
                     for k, v in metrics.items():
                         sums[k] = sums.get(k, 0.0) + v
@@ -670,12 +684,15 @@ class CaptioningPipeline:
                             break
         return state, history
 
-    @staticmethod
-    def _checkpoint_dials(checkpoint_manager, resume, handle_preemption, preemption_guard):
+    def _checkpoint_dials(self, checkpoint_manager, resume, handle_preemption, preemption_guard):
         """tpucap's checks of the resume and preemption dials -> the guard
         to train under (None without one)."""
         if resume and checkpoint_manager is None:
             raise ValueError("resume=True needs a checkpoint_manager")
+        if resume and self.config.train.ema_decay:
+            raise NotImplementedError(
+                "resume does not restore the EMA shadow; drop ema_decay or restart"
+            )
         if handle_preemption and preemption_guard is None:
             return PreemptionGuard()
         return preemption_guard
@@ -776,8 +793,9 @@ class CaptioningPipeline:
         log=print,
     ) -> list[dict]:
         """Train the decoder on extracted features (teacher-forced masked
-        CE, Adam), one device. -> per-epoch metric dicts (loss, accuracy,
-        tokens, perplexity, epoch); updates ``self.params["decoder"]``.
+        CE, ``build_optimizer(TrainConfig)``), one device. -> per-epoch
+        metric dicts (loss, accuracy, tokens, perplexity, epoch); updates
+        ``self.params["decoder"]``.
         Dropout is on (``DecoderConfig.dropout_rate``); the rows are
         shuffled by ``np.random.default_rng(TrainConfig.seed)`` as tpucap
         shuffles them.
@@ -806,7 +824,11 @@ class CaptioningPipeline:
         written, and the history ends with a ``{"preempted": True}`` entry.
 
         ``TrainConfig.grad_accum_steps`` = A splits each batch into A
-        microbatches accumulated in sum form (the batch must divide by A)."""
+        microbatches accumulated in sum form (the batch must divide by A).
+        The lr schedule's horizon is the run: epochs x (rows // batch size).
+        ``TrainConfig.ema_decay`` = d > 0 keeps an EMA of the params, left
+        on ``self.ema_params`` (``use_ema_weights``); resume=True refuses
+        it, since the checkpoints do not hold the shadow."""
         refuse_unported(
             data_parallel=(data_parallel, False),
             parallelism=(parallelism if parallelism != "none" else None, None),
@@ -826,12 +848,15 @@ class CaptioningPipeline:
         )
         batch_size, compute_dtype = self._train_setup(T.shape[0], batch_size, log)
         try:
-            optimizer = build_optimizer(cfg)
+            optimizer = build_optimizer(
+                cfg, total_steps=epochs * max(1, T.shape[0] // batch_size)
+            )
             state = own_state(
                 TrainState.create(
                     self.params["decoder"], optimizer, self._train_generator()
                 )
             )
+            ema = self._make_ema(cfg, state.params)
             step = make_train_step(
                 self.decoder,
                 optimizer,
@@ -859,10 +884,13 @@ class CaptioningPipeline:
                 checkpoint_manager,
                 resume,
                 guard,
+                ema,
             )
         finally:
             apply_precision(self.config.precision)
         self.params["decoder"] = state.params
+        if ema is not None:
+            self.ema_params = {"decoder": ema}
         self._bf16_params = None
         return history
 
@@ -890,7 +918,8 @@ class CaptioningPipeline:
     ) -> list[dict]:
         """Train the encoder and the decoder jointly through the captioning
         loss, one device. ``images``: id -> preprocessed (H, W, 3) float
-        array. ``encoder_lr_scale`` scales the encoder's updates after Adam;
+        array. ``encoder_lr_scale`` scales the encoder's updates after the
+        optimizer;
         ``freeze_encoder=True`` stops gradients at the features and zeroes
         the encoder's updates. Each token row indexes an image store, which
         is gathered per batch on the host (as tpucap does). Updates
@@ -928,13 +957,16 @@ class CaptioningPipeline:
         )
         batch_size, compute_dtype = self._train_setup(T.shape[0], batch_size, log)
         try:
-            optimizer = build_optimizer(cfg)
+            optimizer = build_optimizer(
+                cfg, total_steps=epochs * max(1, T.shape[0] // batch_size)
+            )
             if encoder_lr_scale != 1.0 and not freeze_encoder:
                 optimizer = encoder_learning_rate_optimizer(
                     optimizer, encoder_lr_scale=encoder_lr_scale
                 )
             params = {"encoder": self.params["encoder"], "decoder": self.params["decoder"]}
             state = own_state(TrainState.create(params, optimizer, self._train_generator()))
+            ema = self._make_ema(cfg, state.params)
             step = make_joint_train_step(
                 self.encoder,
                 self.decoder,
@@ -960,13 +992,59 @@ class CaptioningPipeline:
                 checkpoint_manager=checkpoint_manager,
                 resume=resume,
                 guard=guard,
+                ema=ema,
             )
         finally:
             apply_precision(self.config.precision)
         self.params["encoder"] = state.params["encoder"]
         self.params["decoder"] = state.params["decoder"]
+        if ema is not None:
+            self.ema_params = dict(ema)  # {"encoder", "decoder"}
         self._bf16_params = None
         return history
+
+    @staticmethod
+    def _make_ema(cfg, params):
+        """The EMA shadow for TrainConfig.ema_decay (None when 0): a copy
+        of the starting params, which the steps then update in place."""
+        if not cfg.ema_decay:
+            return None
+        d = float(cfg.ema_decay)
+        if not 0.0 < d < 1.0:
+            raise ValueError(f"ema_decay must be in (0, 1), got {d}")
+        return tree_map(torch.clone, params)
+
+    def use_ema_weights(self):
+        """Swap the EMA weights of the last fit / fit_finetune (with
+        TrainConfig.ema_decay > 0) into ``self.params`` for decoding, save
+        or evaluate. -> the replaced subtrees, to swap the raw weights
+        back."""
+        if not self.ema_params:
+            raise ValueError(
+                "no EMA weights tracked — set TrainConfig.ema_decay > 0 "
+                "and run fit()/fit_finetune() first"
+            )
+        replaced = {k: self.params[k] for k in self.ema_params}
+        self.params.update(self.ema_params)
+        self._bf16_params = None
+        return replaced
+
+    def use_averaged_weights(self, checkpoint_dir, *, last_k: int | None = None, steps=None):
+        """Swap in the uniform average of retained checkpoints' decoder
+        params (``CheckpointManager.average_params``: the newest ``last_k``,
+        the ``steps`` named, or all). The checkpoints' optimizer state must
+        have the layout ``build_optimizer(config.train)`` gives. -> the
+        replaced decoder params."""
+        mgr = CheckpointManager(checkpoint_dir, best_metric=None)
+        fresh = TrainState.create(
+            self.params["decoder"], build_optimizer(self.config.train), None
+        )
+        averaged = mgr.average_params(fresh, steps=steps, last_k=last_k)
+        mgr.close()
+        replaced = self.params["decoder"]
+        self.params["decoder"] = averaged
+        self._bf16_params = None
+        return replaced
 
     def _train_generator(self) -> torch.Generator:
         """The dropout generator, on the pipeline's device, seeded with
@@ -978,6 +1056,16 @@ class CaptioningPipeline:
             torch.as_tensor(features).to(self.device, torch.float32),
             torch.as_tensor(tokens).to(self.device, torch.long),
         )
+
+
+def ema_update(shadow, params, decay: float) -> None:
+    """shadow <- decay * shadow + (1 - decay) * params, in place, in the
+    order tpucap writes it: each product rounded, then the sum (a
+    ``torch.lerp`` rounds otherwise). Three multi-tensor ops a step, not
+    two per leaf."""
+    e = tree_leaves(shadow)
+    torch._foreach_mul_(e, decay)
+    torch._foreach_add_(e, torch._foreach_mul(tree_leaves(params), 1.0 - decay))
 
 
 def pad_rows(arr: np.ndarray, target: int) -> np.ndarray:

@@ -1,7 +1,8 @@
 """Training of the port: teacher-forced masked cross-entropy on the merge
 LSTM decoder (``loop.make_train_step``) and joint encoder + decoder
-fine-tuning (``finetune.make_joint_train_step``), single device, Adam,
-with gradient accumulation and the SIGTERM guard of preemptible runs
+fine-tuning (``finetune.make_joint_train_step``), single device, with
+tpucap's optimizers and lr schedules (``loop.build_optimizer``), gradient
+accumulation and the SIGTERM guard of preemptible runs
 (``preemption.PreemptionGuard``).
 Port of the matching parts of ``tpucap.train``."""
 

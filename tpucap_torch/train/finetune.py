@@ -150,4 +150,4 @@ def encoder_learning_rate_optimizer(base_optimizer, *, encoder_lr_scale: float):
         }
         return updates, state
 
-    return GradientTransformation(base_optimizer.init, update)
+    return GradientTransformation(base_optimizer.init, update, base_optimizer.stateless)

@@ -1,17 +1,21 @@
-"""Train step, Adam and its state (port of ``tpucap.train.loop``).
+"""Train step, the optimizers and their lr schedules (port of
+``tpucap.train.loop``).
 
-Single device, one optimizer step per batch. The optimizer is a pair of
+Single device, one optimizer step per batch. An optimizer is a pair of
 plain functions over param trees, ``init(params) -> state`` and
-``update(grads, state, params) -> (updates, state)``, in optax's order:
-Adam's moments, bias correction, ``m / (sqrt(v) + eps)``, adamw's decayed
-weights, then ``-lr``; ``apply_updates`` adds the updates to the params.
-The arithmetic is optax's, written out in torch; where the two round
-differently the tests say by how much.
+``update(grads, state, params) -> (updates, state)``, chained in optax's
+order (``build_optimizer``): a global-norm clip, then Adam's moments with
+bias correction, sgd's momentum trace, rmsprop's or adagrad's root scaling,
+adamw's decayed weights, then ``-lr`` or ``-schedule(count)``;
+``apply_updates`` adds the updates to the params. The arithmetic is
+optax's, written out in torch, the schedules in f32 on a count tensor;
+where the two round differently the tests say by how much.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -52,8 +56,13 @@ def own_state(state: TrainState) -> TrainState:
 
 @dataclasses.dataclass(frozen=True)
 class GradientTransformation:
+    """``stateless`` members keep no state: ``init`` gives None and
+    ``update`` passes the state through (``chain`` stores nothing for
+    them)."""
+
     init: Callable
     update: Callable
+    stateless: bool = False
 
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
@@ -82,10 +91,73 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
     return GradientTransformation(init, update)
 
 
+def trace(decay: float):
+    """optax.trace (no Nesterov): state {trace}; t' = g + decay * t is both
+    the update and the new trace (sgd's momentum)."""
+
+    def update(grads, state, params=None):
+        new = tree_map(lambda g, t: g + decay * t, grads, state["trace"])
+        return new, {"trace": new}
+
+    return GradientTransformation(lambda params: {"trace": tree_map(torch.zeros_like, params)}, update)
+
+
+def scale_by_rms(decay: float = 0.9, eps: float = 1e-8, initial_scale: float = 0.0):
+    """optax.scale_by_rms (eps inside the root, no bias correction): state
+    {nu}, nu' = (1 - decay) g^2 + decay nu, update rsqrt(nu' + eps) * g."""
+
+    def update(grads, state, params=None):
+        nu = tree_map(lambda g, v: (1 - decay) * (g * g) + decay * v, grads, state["nu"])
+        return tree_map(lambda v, g: torch.rsqrt(v + eps) * g, nu, grads), {"nu": nu}
+
+    def init(params):
+        return {"nu": tree_map(lambda p: torch.full_like(p, initial_scale), params)}
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_rss(initial_accumulator_value: float = 0.1, eps: float = 1e-7):
+    """optax.scale_by_rss (adagrad): state {sum_of_squares}, s' = g^2 + s,
+    update (rsqrt(s' + eps) where s' > 0, else 0) * g."""
+
+    def update(grads, state, params=None):
+        ss = tree_map(lambda g, s: g * g + s, grads, state["sum_of_squares"])
+        scale = tree_map(lambda s: torch.where(s > 0, torch.rsqrt(s + eps), 0.0), ss)
+        return tree_map(lambda a, g: a * g, scale, grads), {"sum_of_squares": ss}
+
+    def init(params):
+        return {
+            "sum_of_squares": tree_map(
+                lambda p: torch.full_like(p, initial_accumulator_value), params
+            )
+        }
+
+    return GradientTransformation(init, update)
+
+
+_INT32_MAX = 2**31 - 1
+
+
+def scale_by_schedule(step_size_fn):
+    """optax.scale_by_schedule: state {count} (int32); the updates are
+    multiplied by ``step_size_fn(count)`` at the count before the step,
+    then the count goes up by one (saturating, optax's safe_increment)."""
+
+    def init(params):
+        leaf = tree_leaves(params)[0]
+        return {"count": torch.zeros((), dtype=torch.int32, device=leaf.device)}
+
+    def update(updates, state, params=None):
+        count = state["count"]
+        step_size = step_size_fn(count)
+        updates = tree_map(lambda g: step_size.to(g.dtype) * g, updates)
+        return updates, {"count": torch.where(count < _INT32_MAX, count + 1, count)}
+
+    return GradientTransformation(init, update)
+
+
 def _stateless(fn):
-    """A transformation whose state is passed through untouched: the port
-    keeps Adam's dict as the whole optimizer state."""
-    return GradientTransformation(lambda params: None, fn)
+    return GradientTransformation(lambda params: None, fn, stateless=True)
 
 
 def add_decayed_weights(weight_decay: float):
@@ -111,32 +183,158 @@ def clip_by_global_norm(max_norm: float):
 
 
 def chain(*transforms):
-    """optax.chain with at most one stateful member, whose state is the
-    chain's."""
+    """optax.chain. Its state holds the stateful members' states only: a
+    tuple of them in chain order, the one member's own state when there is
+    one (plain Adam's ``{"count", "mu", "nu"}``), None when there is none
+    (sgd at a constant lr)."""
+    live = [t for t in transforms if not t.stateless]
+
+    def pack(states):
+        return states[0] if len(states) == 1 else (tuple(states) or None)
 
     def init(params):
-        states = [t.init(params) for t in transforms]
-        live = [s for s in states if s is not None]
-        if len(live) > 1:
-            raise ValueError("the port's chain holds one stateful transformation")
-        return live[0] if live else None
+        return pack([t.init(params) for t in live])
 
     def update(updates, state, params=None):
+        states = iter([state] if len(live) == 1 else (state or ()))
+        new = []
         for t in transforms:
-            updates, s = t.update(updates, state, params)
-            if s is not None:
-                state = s
-        return updates, state
+            if t.stateless:
+                updates, _ = t.update(updates, None, params)
+            else:
+                updates, s = t.update(updates, next(states), params)
+                new.append(s)
+        return updates, pack(new)
 
-    return GradientTransformation(init, update)
-
-
-def adam(lr: float):
-    return chain(scale_by_adam(), scale_by_learning_rate(lr))
+    return GradientTransformation(init, update, stateless=not live)
 
 
-def adamw(lr: float, weight_decay: float):
-    return chain(scale_by_adam(), add_decayed_weights(weight_decay), scale_by_learning_rate(lr))
+# -- lr schedules: count (an int32 tensor) -> lr (an f32 tensor on its device),
+# in f32 as optax computes them under jit. Divisors are tensors on the count's
+# device: CUDA divides by a host scalar as a multiplication by its reciprocal.
+
+
+def _f32(value, like):
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def constant_schedule(value: float):
+    return lambda count: _f32(value, count)
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int):
+    """optax.cosine_decay_schedule (alpha 0, exponent 1): init_value *
+    0.5 (1 + cos(pi min(count, decay_steps) / decay_steps))."""
+    if not decay_steps > 0:
+        raise ValueError(
+            "The cosine_decay_schedule requires positive decay_steps, got "
+            f"decay_steps={decay_steps}."
+        )
+
+    def schedule(count):
+        steps = _f32(float(decay_steps), count)
+        c = torch.minimum(count.float(), steps)
+        return init_value * (0.5 * (1 + torch.cos(math.pi * c / steps)))
+
+    return schedule
+
+
+def exponential_decay(init_value: float, transition_steps: int, decay_rate: float):
+    """optax.exponential_decay (no staircase, no transition_begin, no
+    end_value): init_value * decay_rate ** (count / transition_steps)."""
+    if transition_steps <= 0 or decay_rate == 0:
+        return constant_schedule(init_value)
+
+    def schedule(count):
+        p = count / _f32(float(transition_steps), count)
+        decayed = init_value * torch.pow(_f32(decay_rate, count), p)
+        return torch.where(count <= 0, _f32(init_value, count), decayed)
+
+    return schedule
+
+
+def linear_schedule(init_value: float, end_value: float, transition_steps: int):
+    """optax.linear_schedule (polynomial, power 1)."""
+    if transition_steps <= 0:
+        return constant_schedule(init_value)
+
+    def schedule(count):
+        frac = 1 - torch.clamp(count, 0, transition_steps) / _f32(float(transition_steps), count)
+        return (init_value - end_value) * frac + end_value
+
+    return schedule
+
+
+def join_schedules(schedules, boundaries):
+    """optax.join_schedules: past each boundary the next schedule, which
+    sees the count less the boundary."""
+
+    def schedule(count):
+        out = schedules[0](count)
+        for boundary, sched in zip(boundaries, schedules[1:]):
+            out = torch.where(count < boundary, out, sched(count - boundary))
+        return out
+
+    return schedule
+
+
+def lr_schedule(cfg, total_steps: int = 0):
+    """TrainConfig's schedule as tpucap builds it, or None for a constant lr
+    without warmup (a plain scale, no count in the state). cosine decays to
+    0 over the post-warmup horizon max(1, (total_steps or lr_decay_steps) -
+    warmup_steps); exponential multiplies by lr_decay_rate every
+    lr_decay_steps; warmup_steps > 0 prepends a linear ramp from 0."""
+    lr = cfg.learning_rate
+    if cfg.lr_schedule == "constant":
+        sched = None if not cfg.warmup_steps else constant_schedule(lr)
+    elif cfg.lr_schedule == "cosine":
+        horizon = max(1, (total_steps or cfg.lr_decay_steps) - cfg.warmup_steps)
+        sched = cosine_decay_schedule(lr, horizon)
+    elif cfg.lr_schedule == "exponential":
+        sched = exponential_decay(lr, max(1, cfg.lr_decay_steps), cfg.lr_decay_rate)
+    else:
+        raise ValueError(
+            f"unknown lr_schedule {cfg.lr_schedule!r}; have constant|cosine|exponential"
+        )
+    if cfg.warmup_steps:
+        sched = join_schedules(
+            [linear_schedule(0.0, lr, cfg.warmup_steps), sched], [cfg.warmup_steps]
+        )
+    return sched
+
+
+OPTIMIZERS = ("adagrad", "adam", "adamw", "rmsprop", "sgd")
+
+
+def build_optimizer(cfg, total_steps: int = 0):
+    """TrainConfig -> optimizer, as tpucap's ``build_optimizer`` chains
+    optax: adam, adamw, sgd (with ``momentum`` > 0 a trace), rmsprop
+    (decay 0.9, Keras's rho) or adagrad, at ``lr_schedule``'s lr, which
+    ``total_steps`` (epochs x steps a epoch; 0 falls back to
+    lr_decay_steps) anchors for cosine; ``grad_clip_norm`` > 0 clips by the
+    global norm first. With every knob at its default this is plain Adam,
+    whose state is the ``{"count", "mu", "nu"}`` dict that the port's
+    earlier checkpoints hold."""
+    sched = lr_schedule(cfg, total_steps)
+    if sched is None:
+        scale = scale_by_learning_rate(cfg.learning_rate)
+    else:
+        scale = scale_by_schedule(lambda count: -sched(count))
+    if cfg.optimizer == "adam":
+        base = chain(scale_by_adam(), scale)
+    elif cfg.optimizer == "adamw":
+        base = chain(scale_by_adam(), add_decayed_weights(cfg.weight_decay), scale)
+    elif cfg.optimizer == "sgd":
+        base = chain(trace(cfg.momentum), scale) if cfg.momentum else chain(scale)
+    elif cfg.optimizer == "rmsprop":
+        base = chain(scale_by_rms(decay=0.9), scale)
+    elif cfg.optimizer == "adagrad":
+        base = chain(scale_by_rss(), scale)
+    else:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}; have {list(OPTIMIZERS)}")
+    if cfg.grad_clip_norm:
+        return chain(clip_by_global_norm(cfg.grad_clip_norm), base)
+    return base
 
 
 def apply_updates(params, updates, *, in_place: bool = False):
@@ -145,26 +343,6 @@ def apply_updates(params, updates, *, in_place: bool = False):
     if in_place:
         return tree_map(lambda p, u: p.copy_(p + u), params, updates)
     return tree_map(lambda p, u: p + u, params, updates)
-
-
-def build_optimizer(cfg):
-    """TrainConfig -> optimizer. Plain Adam at a constant lr (the default),
-    or adamw; ``grad_clip_norm`` > 0 clips by the global norm first. The
-    port has no lr schedule, so tpucap's ``total_steps`` (a schedule's
-    horizon) has no counterpart."""
-    if cfg.optimizer == "adam":
-        base = adam(cfg.learning_rate)
-    elif cfg.optimizer == "adamw":
-        base = adamw(cfg.learning_rate, cfg.weight_decay)
-    elif cfg.optimizer in ("sgd", "rmsprop", "adagrad"):
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported; have adam, adamw"
-        )
-    else:
-        raise ValueError(f"unknown optimizer {cfg.optimizer!r}; have adam, adamw")
-    if cfg.grad_clip_norm:
-        return chain(clip_by_global_norm(cfg.grad_clip_norm), base)
-    return base
 
 
 def trainable(tree):
