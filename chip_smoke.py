@@ -190,10 +190,42 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``CaptioningPipeline.load`` captions 8 images (K2, K3 once a step);
    ``evaluate --average-last 2`` with the same optimizer flags gives the
    scores of ``use_averaged_weights`` and ``evaluate``;
-12. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
+12. scheduled sampling, steps_per_dispatch, frozen pretrained embeddings,
+   ``score`` and ``compare``: (a) ``make_train_step`` at phase 5(a)'s
+   shapes (bf16, dropout off, torch's deterministic settings on): eps 0 the
+   plain step's update bit for bit, at eps 1 the mixed inputs those of a
+   host recomputation from pass 1's argmax and the mixing rules, pass 1's
+   tokens that bf16 compute changes against f32, step ms with scheduled
+   sampling off and on; then ``fit`` at bf16 with ``scheduled_sampling=0.5``
+   (linear, 3 epochs, the cider monitor): ss_eps 0, 0.25, 0.5, K2 and K3
+   once a monitor step; (b) ``fit`` over 2 epochs of 10 steps at
+   ``steps_per_dispatch`` 1, 4 and 8 with a checkpoint every 5 steps
+   (deterministic settings on): params bit for bit spd 1's, epoch losses
+   within 1e-6 relative, the steps saved those of tpucap's rule (spd 4: 8,
+   14, 18; spd 8: 8, 18; epochs at 10, 20), each run's ms a step; (c) a
+   GloVe-format file of random 256-d vectors (every other word, and 5
+   outside the vocabulary), ``set_pretrained_embeddings(freeze=True)``,
+   ``fit`` with adamw at weight decay 0.01: the table bit for bit, every
+   other subtree moved, the checkpoint restored into a template without the
+   freeze; ``fit_finetune`` (ViT-B/16 flash + lstm1, batch 64, bf16, 2
+   steps) with the frozen table: the table bit for bit, K5, dK/dV and dQ 12
+   times a step; (d) on (a)'s trained decoder, 256 rows:
+   ``score_captions`` of the greedy captions against the greedy engine's
+   score (K2, K3) within 1e-4 at f32 (TF32 off), at bf16 reported, the rows
+   that did not end left out and counted; ``score_captions``' ms; (e) the
+   CLI on phase 8's dataset: ``train --scheduled-sampling 0.5 --ss-schedule
+   inv_sigmoid --steps-per-dispatch 4 --embeddings FILE --freeze-embeddings``
+   (every checkpoint's table the file's matrix), ``score --image`` of 8
+   images with ``--captions-file`` (tpucap's line for each, those of
+   ``score_captions`` on the restored pipeline; no kernel: the images are
+   preprocessed on the host as tpucap's ``extract_features`` does them),
+   ``evaluate --dump-captions --average-last`` 1 and 2 (K2, K3), ``compare``
+   of the two dumps (its JSON ``compare_caption_files``');
+13. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
    phase 9's counted serving runs for K1, K2 and K3, phase 10's counted
-   steps and caption, and phase 11's counted fits, decodes and commands),
-   then ``{"ok": true, "device": {...}}`` as the last line.
+   steps and caption, phase 11's counted fits, decodes and commands, and
+   phase 12's counted monitor, joint fit, decodes and evaluates), then
+   ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
 """
@@ -2857,6 +2889,455 @@ def ema_cli(dev) -> dict[str, int]:
     return {k: cap_counts[k] + ev_counts[k] for k in cap_counts}
 
 
+# -- phase 12: scheduled sampling, steps_per_dispatch, frozen embeddings, score, compare --
+
+# (a) the scheduled-sampling fit's rows, dev rows, epochs and largest eps;
+# (b) the dispatch runs' steps an epoch, epochs, checkpoint interval and
+# group sizes; (c) the frozen fits' rows and epochs, the joint fit's steps,
+# the words of the GloVe file outside the vocabulary; (d) the rows scored;
+# (e) the CLI's epochs, group size and images scored.
+P12_FIT_ROWS, P12_VAL_ROWS, P12_EPOCHS, P12_SS = 1024, 256, 3, 0.5
+P12_SPD_STEPS, P12_SPD_EPOCHS, P12_EVERY, P12_SPDS = 10, 2, 5, (1, 4, 8)
+P12_FROZEN_EPOCHS, P12_FT_STEPS, P12_OOV = 2, 2, 5
+P12_SCORE_ROWS = 256
+P12_CLI_EPOCHS, P12_CLI_SPD, P12_SCORED = 2, 4, 8
+
+
+def decoder_pipeline(tokenizer, train, precision: str = "f32"):
+    """A pipeline of phase 5(a)'s decoder (lstm1 at WIDTH, 2048-d features,
+    max_len MAX_LEN) with ``train`` (a TrainConfig) and no encoder params:
+    the phase trains and decodes on feature rows."""
+    from tpucap_torch.config import Config, DecodeConfig, DecoderConfig, EncoderConfig
+    from tpucap_torch.pipeline import CaptioningPipeline
+
+    cfg = Config(encoder=EncoderConfig("resnet50", "pooled", DEC_FEATURES),
+                 decoder=DecoderConfig(name="lstm1", embed_dim=WIDTH, hidden_dim=WIDTH),
+                 decode=DecodeConfig(max_len=MAX_LEN), train=train, precision=precision)
+    pipe = CaptioningPipeline(cfg, tokenizer=tokenizer)
+    pipe.build(init_params=False)
+    pipe.set_params({"encoder": {}, "decoder": pipe.decoder.init(torch.Generator().manual_seed(0))})
+    return pipe
+
+
+def scheduled_step(dev, tokenizer) -> None:
+    """12(a), the step: ``make_train_step`` at phase 5(a)'s shapes, bf16
+    compute, dropout off, torch's deterministic settings on: eps 0 gives the
+    plain step's update bit for bit; at eps 1 the mixed inputs equal a host
+    recomputation from pass 1's argmax and the mixing rules; how many pass-1
+    tokens bf16 compute changes against f32 (TF32 off); step ms with
+    scheduled sampling off and on (eps 0.5), median of 5."""
+    from tpucap_torch.config import TrainConfig
+    from tpucap_torch.core import precision_flags, tree_map
+    from tpucap_torch.train import TrainState, build_optimizer, build_training_tokens, make_train_step
+    from tpucap_torch.train import loss as tloss
+    from tpucap_torch.train.loss import cast_floats
+
+    pipe = decoder_pipeline(tokenizer, TrainConfig())
+    dec, params0 = pipe.decoder, tree_to(pipe.params["decoder"], dev)
+    g = torch.Generator(device=dev).manual_seed(50)
+    feats = torch.randn((DEC_TRAIN_BATCH, DEC_FEATURES), generator=g, device=dev)
+    _, tokens = build_training_tokens(tokenizer, training_corpus(tokenizer, DEC_TRAIN_BATCH, 51), MAX_LEN)
+    tokens = torch.from_numpy(tokens).to(dev).long()
+    opt = build_optimizer(TrainConfig())
+
+    def fresh():
+        return TrainState.create(tree_map(torch.clone, params0), opt, torch.Generator(device=dev).manual_seed(52))
+
+    kw = dict(deterministic=True, compute_dtype=torch.bfloat16)
+    plain = make_train_step(dec, opt, **kw)
+    ss = make_train_step(dec, opt, scheduled_sampling=True, **kw)
+    with deterministic_torch("ss step"):
+        a, ma = plain(fresh(), feats, tokens)
+        b, mb = ss(fresh(), feats, tokens, 0.0)
+        if not (same_tree(a.params, b.params) and same_tree(a.opt_state, b.opt_state)) or float(ma["loss"]) != float(
+                mb["loss"]):
+            raise AssertionError("ss step: eps 0 is not the plain step's update bit for bit")
+        recorded = []
+        real = tloss.scheduled_inputs
+
+        def recording(*args, **kwargs):
+            out = real(*args, **kwargs)
+            recorded.append((out, kwargs["coin"]))
+            return out
+
+        tloss.scheduled_inputs = recording
+        try:
+            _, m1 = ss(fresh(), feats, tokens, 1.0)
+        finally:
+            tloss.scheduled_inputs = real
+        mixed, coin = (t.cpu().numpy() for t in recorded[0])
+        inputs = tokens[:, :-1]
+        with torch.no_grad():
+            preds = {
+                "bf16": dec.forward_train(cast_floats(params0, torch.bfloat16), feats.to(torch.bfloat16), inputs,
+                                          deterministic=True).argmax(-1),
+            }
+            with precision_flags("f32"):
+                preds["f32"] = dec.forward_train(params0, feats, inputs, deterministic=True).argmax(-1)
+        prev = preds["bf16"][:, :-1].cpu().numpy()
+        gold = inputs.cpu().numpy()
+        replace = coin & (gold[:, 1:] != 0) & (prev != 0)
+        want = gold.copy()
+        want[:, 1:] = np.where(replace, prev, gold[:, 1:])
+        if len(recorded) != 1 or not coin.all() or not np.array_equal(mixed, want):
+            raise AssertionError(f"ss step: eps 1's mixed inputs differ from the host's at "
+                                 f"{int((mixed != want).sum())} positions")
+        live = (tokens[:, 1:] != 0).cpu().numpy()
+        differ = int(((preds["bf16"] != preds["f32"]).cpu().numpy() & live).sum())
+    times = {}
+    for name, run in (("off", lambda: plain(fresh(), feats, tokens)), ("on", lambda: ss(fresh(), feats, tokens, 0.5))):
+        run()
+        times[name] = [timed(run)[1] for _ in range(5)]
+    log(f"ss step: lstm1 batch {DEC_TRAIN_BATCH} T {MAX_LEN + 1} vocab {VOCAB} bf16 compute, dropout off: eps 0 "
+        f"the plain step's update bit for bit; eps 1 replaced {int(replace.sum())} of {int(live[:, :-1].sum())} "
+        f"live input positions, the mixed inputs equal the host's from pass 1's argmax (position 0, pads and pad "
+        f"predictions kept); pass 1's argmax differs between bf16 and f32 compute at {differ} of {int(live.sum())} "
+        f"live positions; loss at eps 1 {float(m1['loss']):.6f} against {float(ma['loss']):.6f}; step ms "
+        f"off {[round(t * 1e3, 3) for t in times['off']]} median {np.median(times['off']) * 1e3:.3f}, on (eps 0.5) "
+        f"{[round(t * 1e3, 3) for t in times['on']]} median {np.median(times['on']) * 1e3:.3f}")
+
+
+def scheduled_fit(dev, tokenizer):
+    """12(a), the fit: ``fit`` at bf16 with scheduled_sampling P12_SS
+    (linear) over P12_EPOCHS epochs and the cider monitor on P12_VAL_ROWS
+    rows: the history's ss_eps 0, 0.25, 0.5, finite losses, the monitor's
+    K2 and K3 once a decode step. -> (the pipeline, its launches)."""
+    from tpucap_torch import ops
+    from tpucap_torch.config import TrainConfig
+
+    pipe = decoder_pipeline(tokenizer, TrainConfig(batch_size=DEC_TRAIN_BATCH, precision="bf16",
+                                                   scheduled_sampling=P12_SS, val_metric="cider"))
+    train = training_corpus(tokenizer, P12_FIT_ROWS, 53)
+    val = training_corpus(tokenizer, P12_VAL_ROWS, 54, prefix="val")
+    feats = random_features([*train, *val], 55)
+    ops.reset_launch_counts()
+    hist, wall = timed(lambda: pipe.fit(train, feats, epochs=P12_EPOCHS, val_data=(val, feats), log=None))
+    counts = ops.launch_counts()
+    eps = [h["ss_eps"] for h in hist]
+    if eps != [0.0, 0.25, 0.5] or not all(np.isfinite(h[k]) for h in hist for k in ("loss", "val_loss", "val_cider")):
+        raise AssertionError(f"ss fit: history {hist}")
+    k2 = check_cli_counts("ss fit monitor", counts, P12_EPOCHS * -(-P12_VAL_ROWS // DEC_TRAIN_BATCH))
+    log(f"ss fit: lstm1 batch {DEC_TRAIN_BATCH} bf16, scheduled_sampling {P12_SS} linear, {P12_FIT_ROWS} rows, "
+        f"{P12_EPOCHS} epochs: ss_eps {eps}, losses {[round(h['loss'], 4) for h in hist]}, val_cider "
+        f"{[round(h['val_cider'], 4) for h in hist]}; {wall:.5f} s; the cider monitor's greedy decode launched K2 "
+        f"{k2}, K3 {counts['merge_head']} + {counts['vocab_proj']}")
+    return pipe, counts
+
+
+def interval_saves(spd: int, steps_per_epoch: int, epochs: int, every: int) -> list[tuple[int, bool]]:
+    """tpucap's checkpoint steps (fit, ``tpucap/pipeline_training.py:765-
+    768, 880-890, 902-906``) as (step, epoch save): at spd 1 every
+    multiple of ``every`` inside an epoch; at spd > 1 the first group
+    boundary at or past each multiple, the next multiple counted from the
+    step saved; the tails save nothing; every epoch's end."""
+    out, next_save = [], every
+    for e in range(epochs):
+        ends = range(1, steps_per_epoch + 1) if spd == 1 else range(spd, steps_per_epoch + 1, spd)
+        for b in ends:
+            done = e * steps_per_epoch + b
+            if b < steps_per_epoch and (done % every == 0 if spd == 1 else done >= next_save):
+                out.append((done, False))
+                next_save = (done // every + 1) * every
+        out.append(((e + 1) * steps_per_epoch, True))
+    return out
+
+
+def dispatch_runs(dev, tokenizer) -> None:
+    """12(b): ``fit`` over P12_SPD_EPOCHS epochs of P12_SPD_STEPS steps at
+    batch DEC_TRAIN_BATCH, bf16, dropout on, a checkpoint every P12_EVERY
+    steps, at each of P12_SPDS steps a dispatch, torch's deterministic
+    settings on: the params equal spd 1's bit for bit, each epoch's loss
+    within 1e-6 relative, the steps saved (recorded as they happen) the
+    ones tpucap's rule gives; each run's wall and ms a step, the saves'
+    seconds taken out."""
+    import tempfile
+
+    from tpucap_torch.checkpoint import CheckpointManager
+    from tpucap_torch.config import TrainConfig
+
+    rows = P12_SPD_STEPS * DEC_TRAIN_BATCH
+    train = training_corpus(tokenizer, rows, 56)
+    feats = random_features(train, 57)
+    steps = P12_SPD_STEPS * P12_SPD_EPOCHS
+    saves: list = []
+
+    class Recording(CheckpointManager):
+        def save(self, state, metrics=None):
+            t0 = time.perf_counter()
+            out = super().save(state, metrics=metrics)
+            saves.append((int(state.step), metrics is not None, time.perf_counter() - t0))
+            return out
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp, deterministic_torch("dispatch"):
+        for spd in P12_SPDS:
+            pipe = decoder_pipeline(tokenizer, TrainConfig(batch_size=DEC_TRAIN_BATCH, precision="bf16",
+                                                           steps_per_dispatch=spd, checkpoint_every_steps=P12_EVERY))
+            saves.clear()
+            mgr = Recording(Path(tmp) / f"spd{spd}", best_metric=None)
+            hist, wall = timed(lambda: pipe.fit(train, feats, epochs=P12_SPD_EPOCHS, checkpoint_manager=mgr, log=None))
+            got = [(s, e) for s, e, _ in saves]
+            want = interval_saves(spd, P12_SPD_STEPS, P12_SPD_EPOCHS, P12_EVERY)
+            if got != want:
+                raise AssertionError(f"dispatch spd {spd}: saves at {got}, tpucap's rule gives {want}")
+            save_s = sum(t for *_, t in saves)
+            runs[spd] = dict(params=pipe.params["decoder"], hist=hist, wall=wall, save_s=save_s,
+                             interval=[s for s, e in got if not e])
+    base = runs[1]
+    for spd, r in runs.items():
+        worst = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(r["hist"], base["hist"]))
+        if not same_tree(r["params"], base["params"]) or worst > 1e-6:
+            raise AssertionError(f"dispatch spd {spd}: params differ from spd 1's, or an epoch's loss by {worst:.3g}")
+        r["worst"] = worst
+    if runs[4]["interval"] != [8, 14, 18] or runs[8]["interval"] != [8, 18]:
+        raise AssertionError(f"dispatch: interval saves {runs[4]['interval']} / {runs[8]['interval']}")
+    for spd, r in runs.items():
+        log(f"dispatch spd {spd}: {P12_SPD_EPOCHS} epochs x {P12_SPD_STEPS} steps, batch {DEC_TRAIN_BATCH} bf16, "
+            f"dropout on: params {'equal spd 1' if spd > 1 else 'the reference'}"
+            f"{' bit for bit' if spd > 1 else ''}, epoch losses within {r['worst']:.3g} relative; interval saves "
+            f"at {r['interval']} and epoch saves at {P12_SPD_STEPS}, {steps} (tpucap's rule); wall {r['wall']:.5f} s, "
+            f"saves {r['save_s']:.5f} s, {(r['wall'] - r['save_s']) / steps * 1e3:.3f} ms a step without the saves")
+
+
+def write_glove(path: Path, tokenizer) -> int:
+    """A GloVe-format file of random WIDTH-d vectors for every other word
+    of the vocabulary and P12_OOV words outside it. -> the vocabulary's
+    words written."""
+    rng = np.random.default_rng(58)
+    words = list(tokenizer.word_index)[::2] + [f"oov{i}" for i in range(P12_OOV)]
+    with open(path, "w") as f:
+        for w in words:
+            f.write(w + " " + " ".join(f"{v:.6f}" for v in rng.normal(scale=0.1, size=WIDTH)) + "\n")
+    return len(words) - P12_OOV
+
+
+def frozen_embeddings(dev, tokenizer, glove: Path, covered: int) -> dict[str, int]:
+    """12(c): ``set_pretrained_embeddings(glove, freeze=True)``, then
+    ``fit`` with adamw at weight decay 0.01 (bf16, P12_FROZEN_EPOCHS
+    epochs, a checkpoint manager): the table bit for bit before and after,
+    every other leaf moved; the checkpoint restored into a template built
+    without the freeze. Then ``fit_finetune`` (ViT-B/16 flash + lstm1, batch
+    TRAIN_BATCH, bf16, P12_FT_STEPS steps) with the frozen table: the table
+    bit for bit, K5, dK/dV and dQ 12 times a step. -> the joint fit's
+    launches."""
+    import tempfile
+
+    from tpucap_torch import ops
+    from tpucap_torch.checkpoint import CheckpointManager
+    from tpucap_torch.config import TrainConfig
+    from tpucap_torch.core import tree_leaves
+    from tpucap_torch.train import TrainState, build_optimizer
+
+    pipe = decoder_pipeline(tokenizer, TrainConfig(batch_size=DEC_TRAIN_BATCH, precision="bf16", optimizer="adamw",
+                                                   weight_decay=0.01))
+    lines: list = []
+    hits, load_s = timed(lambda: pipe.set_pretrained_embeddings(glove, freeze=True, log=lines.append))
+    if hits != covered or lines != [f"pretrained embeddings: {hits}/{VOCAB - 1} vocab words covered "
+                                    f"({100.0 * hits / (VOCAB - 1):.1f}%), table frozen"]:
+        raise AssertionError(f"frozen: {hits} words covered of {covered} written; logged {lines}")
+    before = {k: [t.detach().cpu().clone() for t in tree_leaves(v)] for k, v in pipe.params["decoder"].items()}
+    train = training_corpus(tokenizer, P12_FIT_ROWS, 59)
+    feats = random_features(train, 60)
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(Path(tmp), best_metric=None)
+        _, fit_s = timed(lambda: pipe.fit(train, feats, epochs=P12_FROZEN_EPOCHS, checkpoint_manager=mgr, log=None))
+        after = {k: [t.detach().cpu() for t in tree_leaves(v)] for k, v in pipe.params["decoder"].items()}
+        table_same = torch.equal(before["embedding"][0], after["embedding"][0])
+        moved = [k for k in before if k != "embedding" and all(not torch.equal(a, b) for a, b in zip(before[k], after[k]))]
+        if not table_same or len(moved) != len(before) - 1:
+            raise AssertionError(f"frozen fit: table bit for bit {table_same}; moved {moved} of {sorted(before)}")
+        template = TrainState.create(pipe.params["decoder"], build_optimizer(pipe.config.train),
+                                     torch.Generator(device=dev))
+        restored = mgr.restore(template)
+        if not same_tree(restored.params, pipe.params["decoder"]):
+            raise AssertionError("frozen fit: the checkpoint does not restore into a template without the freeze")
+    fpipe = finetune_pipeline(tokenizer, "bf16")
+    fpipe.set_pretrained_embeddings(glove, freeze=True, log=None)
+    table = fpipe.params["decoder"]["embedding"]["table"].detach().clone()
+    desc = training_corpus(tokenizer, TRAIN_BATCH, 61)
+    rng = np.random.default_rng(62)
+    images = {k: rng.uniform(-1, 1, size=(IMAGE, IMAGE, 3)).astype(np.float32) for k in desc}
+    ops.reset_launch_counts()
+    hist, ft_s = timed(lambda: fpipe.fit_finetune(desc, images, epochs=P12_FT_STEPS, log=None))
+    counts = ops.launch_counts()
+    layers = fpipe.encoder.num_layers
+    check_launches("frozen finetune", counts, {k: layers * P12_FT_STEPS for k in (
+        "flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")}, decode=False)
+    if not torch.equal(table, fpipe.params["decoder"]["embedding"]["table"]) or not all(
+            np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"frozen finetune: the table moved, or losses {[h['loss'] for h in hist]}")
+    log(f"frozen: GloVe file of {covered + P12_OOV} {WIDTH}-d vectors ({P12_OOV} outside the vocabulary) parsed and "
+        f"installed in {load_s:.5f} s, {lines[0]!r}; fit adamw weight decay 0.01, bf16, {P12_FROZEN_EPOCHS} epochs "
+        f"of {P12_FIT_ROWS // DEC_TRAIN_BATCH} steps {fit_s:.5f} s: the table bit for bit, the other "
+        f"{len(moved)} subtrees moved, the checkpoint restored into a template without the freeze; fit_finetune "
+        f"{fpipe.config.encoder.name} flash + lstm1 batch {TRAIN_BATCH} bf16, {P12_FT_STEPS} steps {ft_s:.5f} s: the table bit for "
+        f"bit, launches {layers} each of K5, dK/dV, dQ a step")
+    return counts
+
+
+def score_against_engine(pipe) -> dict[str, int]:
+    """12(d): on 12(a)'s trained pipeline, P12_SCORE_ROWS rows: the score of
+    each greedy caption (``score_captions``: ``forward_train``, the plain
+    cell) against the greedy engine's score (the fused step, K2 and K3), at
+    f32 with TF32 off within 1e-4, then at bf16 (reported); rows whose
+    greedy decode did not end have no closing term in the engine's score
+    and are left out (counted). ``score_captions``' ms for the rows. -> the
+    decodes' launches."""
+    from tpucap_torch import ops
+
+    x = np.stack(list(random_features(range(P12_SCORE_ROWS), 63).values()))
+    total = None
+    report = {}
+    for precision in ("f32", "bf16"):
+        pipe.config = dataclasses.replace(pipe.config, precision=precision)
+        pipe._bf16_params = None
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            res = pipe._decode(pipe._inference_params()["decoder"], torch.from_numpy(x).to(pipe.device,
+                               pipe._infer_dtype()), "greedy", 1)
+        counts = ops.launch_counts()
+        steps = check_cli_counts(f"score {precision} generate", counts, 1)
+        total = counts if total is None else {k: total[k] + counts[k] for k in counts}
+        caps = pipe._captions(res)
+        ended = (res.lengths < MAX_LEN).cpu().numpy() | (res.tokens[:, -1] == pipe._token_ids()[1]).cpu().numpy()
+        rows = [i for i in range(P12_SCORE_ROWS) if ended[i]]
+        scores, _ = timed(lambda: pipe.score_captions(x[rows], [caps[i] for i in rows]))
+        times = [timed(lambda: pipe.score_captions(x[rows], [caps[i] for i in rows]))[1] for _ in range(3)]
+        if any(ops.launch_counts()[k] != counts[k] for k in counts):
+            raise AssertionError("score: score_captions launched a kernel")
+        err = float(np.abs(np.array([s["logp"] for s in scores]) - res.scores.float().cpu().numpy()[rows]).max())
+        if not rows or (precision == "f32" and err > 1e-4):
+            raise AssertionError(f"score {precision}: {len(rows)} rows ended, largest difference {err}")
+        report[precision] = (len(rows), err, steps, float(np.median(times)))
+    pipe.config = dataclasses.replace(pipe.config, precision="f32")
+    pipe._bf16_params = None
+    (n32, e32, s32, t32), (n16, e16, s16, t16) = report["f32"], report["bf16"]
+    log(f"score: score_captions(f, generate(f, greedy)) against the greedy engine's score, {P12_SCORE_ROWS} rows: "
+        f"f32 (TF32 off) {n32} rows ended, largest difference {e32:.3g} (bound 1e-4; the engine K2 and K3 "
+        f"{s32} steps); bf16 {n16} rows ended, largest difference {e16:.3g} (no bound; {s16} steps); "
+        f"score_captions ms for {n32} rows f32 {t32 * 1e3:.3f}, bf16 {t16 * 1e3:.3f} (median of 3)")
+    return total
+
+
+def slice_cli(dev, glove: Path) -> dict[str, int]:
+    """12(e): the CLI on phase 8's dataset: ``extract``, ``train
+    --scheduled-sampling 0.5 --ss-schedule inv_sigmoid --steps-per-dispatch
+    P12_CLI_SPD --embeddings FILE --freeze-embeddings`` (P12_CLI_EPOCHS
+    epochs): every checkpoint's table the file's matrix; ``score --image`` of
+    P12_SCORED images with ``--captions-file``: tpucap's line for each, those
+    of ``score_captions`` on the restored pipeline (host preprocessing, as
+    tpucap's extract_features: no kernel); ``evaluate --dump-captions`` with
+    ``--average-last`` 1 and 2, then ``compare`` of the two dumps: its JSON
+    that of ``compare_caption_files``. -> the evaluates' launches."""
+    import re
+    import tempfile
+
+    from tpucap_torch import ops
+    from tpucap_torch.checkpoint import CheckpointManager
+    from tpucap_torch.cli.main import _build_config, _restore_pipeline, build_parser
+    from tpucap_torch.data import load_descriptions, load_split, prepare_descriptions
+    from tpucap_torch.pipeline import CaptioningPipeline
+    from tpucap_torch.text import load_tokenizer
+    from tpucap_torch.train import TrainState, build_optimizer
+    from tpucap_torch.train.compare import compare_caption_files
+
+    flags = ["--scheduled-sampling", 0.5, "--ss-schedule", "inv_sigmoid", "--steps-per-dispatch", P12_CLI_SPD,
+             "--embeddings", glove, "--freeze-embeddings"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ids = write_cli_dataset(root)
+        feats_path, ckpt = root / "features.npz", root / "ckpt"
+        run_cli(["extract", *CLI_MODEL, "--images", root / "images", "--out", feats_path, "--batch-size",
+                 CLI_EXTRACT_BATCH])
+        train = ["train", *CLI_MODEL, "--tokens", root / "tokens.txt", "--split", root / "train.txt", "--features",
+                 feats_path, "--checkpoint-dir", ckpt, "--epochs", P12_CLI_EPOCHS, "--batch-size", CLI_TRAIN_BATCH,
+                 *flags]
+        out, _, train_s, _ = run_cli(train)
+        lines = [line for _, line in out]
+        coverage = lines[0]
+        if not coverage.startswith("pretrained embeddings: ") or not coverage.endswith(", table frozen") or not \
+                lines[-1].startswith(f"trained {P12_CLI_EPOCHS} epochs; final loss "):
+            raise AssertionError(f"cli slice train: printed {lines}")
+        cfg = _build_config(build_parser()[0].parse_args([str(a) for a in train]))
+        t = cfg.train
+        if (t.scheduled_sampling, t.ss_schedule, t.steps_per_dispatch) != (0.5, "inv_sigmoid", P12_CLI_SPD):
+            raise AssertionError(f"cli slice train: the flags did not reach the config: {t}")
+        ref = CaptioningPipeline(cfg, tokenizer=load_tokenizer(ckpt / "tokenizer.json"), device=dev)
+        ref.build(init_params=False)
+        ref.set_params({"encoder": {}, "decoder": ref.decoder.init(torch.Generator().manual_seed(0))})
+        ref.set_pretrained_embeddings(glove, log=None)
+        want = ref.params["decoder"]["embedding"]["table"]
+        mgr = CheckpointManager(ckpt, best_metric=None)
+        template = TrainState.create(ref.params["decoder"], build_optimizer(t), torch.Generator(device=dev))
+        kept = mgr.all_steps()
+        if len(kept) != P12_CLI_EPOCHS or not all(
+                torch.equal(mgr.restore(template, s).params["embedding"]["table"], want) for s in kept):
+            raise AssertionError(f"cli slice train: checkpoints {kept}; a table differs from the file's matrix")
+        del ref, template
+
+        test = prepare_descriptions(load_descriptions(root / "tokens.txt"), load_split(root / "test.txt"))
+        picked = list(test)[:P12_SCORED]
+        caps = [test[k][0].removeprefix("startseq ").removesuffix(" endseq") for k in picked]
+        (root / "captions.txt").write_text("\n".join(caps) + "\n")
+        images = [str(root / "images" / f"{k}.jpg") for k in picked]
+        score = ["score", *CLI_MODEL, "--image", *images, "--captions-file", root / "captions.txt",
+                 "--checkpoint-dir", ckpt]
+        ops.reset_launch_counts()
+        out, _, score_s, _ = run_cli(score)
+        counts = ops.launch_counts()
+        lines = [line for _, line in out]
+        pipe = _restore_pipeline(build_parser()[0].parse_args([str(a) for a in score]), dev)
+        scores = pipe.score_captions(pipe.extract_features(images), caps)
+        del pipe
+        expect = [f"{p}\tlogp={s['logp']:.4f}\tppl={s['perplexity']:.3f}\ttokens={s['tokens']}\t{c}"
+                  for p, c, s in zip(images, caps, scores)]
+        form = re.compile(r"[^\t]+\tlogp=-?\d+\.\d{4}\tppl=\d+\.\d{3}\ttokens=\d+\t.*")
+        if lines != expect or not all(form.fullmatch(line) for line in lines) or any(counts.values()):
+            raise AssertionError(f"cli slice score: printed {lines}, in-process {expect}, launches {counts}")
+
+        dumps, ev = [], dict.fromkeys(counts, 0)
+        for k in (1, 2):
+            dump = root / f"dump{k}.jsonl"
+            ops.reset_launch_counts()
+            run_cli(["evaluate", *CLI_MODEL, "--tokens", root / "tokens.txt", "--split", root / "test.txt",
+                     "--features", feats_path, "--checkpoint-dir", ckpt, "--average-last", k, "--batch-size",
+                     CLI_TRAIN_BATCH, "--dump-captions", dump])
+            c = ops.launch_counts()
+            check_cli_counts(f"cli slice evaluate --average-last {k}", c, 1)
+            ev = {name: ev[name] + c[name] for name in ev}
+            dumps.append(dump)
+        out, err, compare_s, _ = run_cli(["compare", *dumps])
+        got = json.loads(out[-1][1])
+        want_cmp = compare_caption_files(str(dumps[0]), str(dumps[1]))
+        if got != json.loads(json.dumps(want_cmp)) or not err[0].startswith("# bleu4: A="):
+            raise AssertionError(f"cli slice compare: {got} against compare_caption_files' {want_cmp}; stderr {err}")
+        log(f"cli slice: {' '.join(CLI_MODEL)} train {' '.join(str(a) for a in flags[:6])} --embeddings FILE "
+            f"--freeze-embeddings, {P12_CLI_EPOCHS} epochs: {train_s:.5f} s, {coverage!r}, "
+            f"every checkpoint's table the file's matrix; score --image of {P12_SCORED} images {score_s:.5f} s, "
+            f"the lines of score_captions on the restored pipeline, no kernel (host preprocessing, VGG16's plain "
+            f"convolutions, forward_train's plain cell), e.g. {expect[0].split(chr(9), 1)[1]!r}; evaluate "
+            f"--dump-captions --average-last 1 and 2 (K2 {ev['lstm_cell']}, K3 {ev['merge_head']} + "
+            f"{ev['vocab_proj']}); compare {compare_s:.5f} s: {err[0]!r}, its JSON compare_caption_files'")
+    return ev
+
+
+def run_slice8(dev, tokenizer) -> dict[str, int]:
+    """Phase 12. -> the counted runs' launches."""
+    import tempfile
+
+    scheduled_step(dev, tokenizer)
+    pipe, fit_counts = scheduled_fit(dev, tokenizer)
+    dispatch_runs(dev, tokenizer)
+    with tempfile.TemporaryDirectory() as tmp:
+        glove = Path(tmp) / "glove.txt"
+        covered = write_glove(glove, tokenizer)
+        frozen = frozen_embeddings(dev, tokenizer, glove, covered)
+        scored = score_against_engine(pipe)
+        del pipe
+        cli = slice_cli(dev, glove)
+    return {k: fit_counts[k] + frozen[k] + scored[k] + cli[k] for k in cli}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2917,6 +3398,11 @@ def main() -> int:
     for name in counts:
         counts[name] += fitted[name] + tuned[name] + served[name]
     log(f"phase 11: {time.perf_counter() - t11:.2f} s")
+    t12 = time.perf_counter()
+    sliced = run_slice8(dev, tokenizer)
+    for name in counts:
+        counts[name] += sliced[name]
+    log(f"phase 12: {time.perf_counter() - t12:.2f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

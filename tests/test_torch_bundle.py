@@ -184,9 +184,9 @@ def test_config_json_layouts(tpucap_bundle):
 @pytest.mark.parametrize(
     "section, field, value",
     [
-        ("train", "ss_schedule", "cosine"),
+        ("train", "max_to_keep", 5),
         ("train", "checkpoint_dir", "elsewhere"),
-        ("train", "steps_per_dispatch", 2),
+        ("train", "moe_aux_weight", 0.1),
         ("decoder", "num_heads", 8),
         ("mesh", "n_devices", 4),
     ],

@@ -447,11 +447,13 @@ _REFUSED = [
             ["--keras-h5", "w.h5"], ["--lora-rank", "4"], ["--lora-alpha", "8"],
             ["--lora-out", "l.npz"], ["--sharded-checkpoints"], ["--scst-epochs", "2"], ["--scst-lr", "1e-4"],
             ["--scst-temperature", "0.5"], ["--tokenizer", "bpe"], ["--bpe-vocab-size", "512"],
-            ["--embeddings", "g.txt"], ["--freeze-embeddings"], ["--data-parallel"],
+            ["--parallelism", "tp"], ["--data-parallel"],
             ["--stream-features"], ["--parallelism", "fsdp"], ["--model-devices", "2"],
             ["--tensorboard-dir", "tb"],
         )
     ],
+    ["score", "--image", "/nonexistent.jpg", "--caption", "a dog", "--checkpoint-dir", "/nonexistent",
+     "--keras-h5", "w.h5"],
     *[
         ["caption", "--image", "/nonexistent.jpg", "--checkpoint-dir", "/nonexistent", *flags]
         for flags in (
@@ -481,12 +483,12 @@ def test_unported_flags_exit_before_any_file_is_read(argv, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--ss-schedule", "inv_sigmoid"], "ss_schedule"),
-    (["--steps-per-dispatch", "2"], "steps_per_dispatch"),
-    (["--preset", "config1", "--steps-per-dispatch", "4"], "steps_per_dispatch"),
+    (["--model-devices", "4"], "model_devices"),
+    (["--decoder", "lstm2", "--model-devices", "8"], "model_devices"),
+    (["--preset", "config1", "--model-devices", "4"], "model_devices"),
     (["--model-devices", "2"], "model_devices"),
-    (["--preset", "config1", "--ss-schedule", "constant"], "ss_schedule"),
-    (["--scheduled-sampling", "0.5"], "scheduled_sampling"),
+    (["--preset", "config3", "--model-devices", "2"], "model_devices"),
+    (["--preset", "config5", "--model-devices", "8"], "model_devices"),
 ])
 def test_unported_config_fields_raise_from_build_config(argv, match):
     args = tcli.build_parser()[0].parse_args(["train", *argv])
@@ -516,4 +518,4 @@ def test_commands_without_a_card_raise(monkeypatch):
     assert out.returncode != 0 and "no CUDA device" in out.stderr
     helped = subprocess.run([sys.executable, "-m", "tpucap_torch", "--help"], cwd=ROOT,
                             capture_output=True, text=True, timeout=120)
-    assert helped.returncode == 0 and "{extract,train,caption,evaluate}" in helped.stdout
+    assert helped.returncode == 0 and "{extract,train,caption,score,evaluate,compare}" in helped.stdout

@@ -369,12 +369,13 @@ def test_eval_step_matches_tpucap():
 def test_unported_knobs_raise():
     tdec = _decoders(1)[1]
     opt = build_optimizer(tcfg.TrainConfig())
-    for kw in (
-        dict(scheduled_sampling=True), dict(multi_steps=2),
-        dict(compute_dtype=torch.float16),
-    ):
+    for kw in (dict(compute_dtype=torch.float16), dict(compute_dtype=torch.float64)):
         with pytest.raises(NotImplementedError):
             make_train_step(tdec, opt, **kw)
+    # Scheduled sampling and multi-step dispatch build steps
+    # (tests/test_torch_scheduled.py holds them to tpucap's).
+    for kw in (dict(scheduled_sampling=True), dict(multi_steps=2)):
+        assert callable(make_train_step(tdec, opt, **kw))
     # tpucap's other optimizers build and make a step (tests/test_torch_optim.py
     # holds their updates to tpucap's).
     for name in ("sgd", "rmsprop", "adagrad"):

@@ -8,8 +8,11 @@ tpucap_torch.
                                     --finetune-encoder --images DIR --checkpoint-dir DIR \\
                                     [--augment] [--augment-shift N] [--remat-encoder]
     python -m tpucap_torch caption  --image photo.jpg --checkpoint-dir DIR
+    python -m tpucap_torch score    --image photo.jpg --caption "a dog runs" \\
+                                    --checkpoint-dir DIR
     python -m tpucap_torch evaluate --tokens tokens.txt --split test.txt \\
                                     --features features.npz --checkpoint-dir DIR
+    python -m tpucap_torch compare  A.jsonl B.jsonl [--metric cider]
 
 (or ``tpucap-torch ...``). The parsers are tpucap's, flag for flag, and the
 commands print tpucap's lines. Artifacts: features as ``.npz`` (image id ->
@@ -24,8 +27,14 @@ checkpoint, exit), ``--checkpoint-every-steps``, ``--grad-accum-steps``,
 tpucap's optimizer flags (``--optimizer``, ``--momentum``,
 ``--lr-schedule``, ``--lr-decay-rate``, ``--lr-decay-steps``,
 ``--warmup-steps``) and ``--ema-decay``, which also writes
-``<checkpoint-dir>/bundle_ema`` from the averaged weights. ``caption`` and
-``evaluate`` build their restore template from the same optimizer flags.
+``<checkpoint-dir>/bundle_ema`` from the averaged weights. ``train`` also
+takes ``--scheduled-sampling`` with ``--ss-schedule`` and
+``--steps-per-dispatch`` (on features; the joint trainer ignores them, as
+tpucap's does), and ``--embeddings FILE`` with ``--freeze-embeddings``.
+``caption``, ``score`` and ``evaluate`` build their restore template from
+the same optimizer flags. ``score`` prints each image's teacher-forced
+log-probability of its caption; ``compare`` is a paired bootstrap between
+two ``evaluate --dump-captions`` files, host numpy, needing no card.
 
 The commands run on ``cuda``; ``main(argv, device="cpu")`` runs them on the
 CPU, which is how the tests drive them. A flag whose feature the port does
@@ -33,8 +42,8 @@ not have raises SystemExit naming it, before any file is read; a config
 field the port does not have raises NotImplementedError from
 ``config_from_dict``; a decoder it does not have (gru1, gru2, adaptive,
 transformer) raises NotImplementedError when the pipeline is built. All
-five presets run (``--preset config1`` ... ``config5``). tpucap's other subcommands
-(distill, score, compare, export, serve, doctor, profile, bench) are not
+five presets run (``--preset config1`` ... ``config5``). tpucap's other
+subcommands (distill, export, serve, doctor, profile, bench) are not
 registered.
 """
 
@@ -71,6 +80,7 @@ from tpucap_torch.data.preprocess import preprocess_batch
 from tpucap_torch.pipeline import CaptioningPipeline
 from tpucap_torch.text import load_tokenizer
 from tpucap_torch.train import TrainState, build_optimizer
+from tpucap_torch.train.compare import compare_caption_files
 from tpucap_torch.train.evaluate import evaluate_captions
 from tpucap_torch.utils import MetricsLogger
 
@@ -90,8 +100,6 @@ UNPORTED_FLAGS = {
         "scst_temperature": (),
         "tokenizer": (),
         "bpe_vocab_size": (),
-        "embeddings": (),
-        "freeze_embeddings": (),
         "data_parallel": (),
         "stream_features": (),
         "parallelism": ("none",),
@@ -116,7 +124,9 @@ UNPORTED_FLAGS = {
         "ensemble_weights": (),
         "keras_h5": (),
     },
+    "score": {"keras_h5": ()},
     "evaluate": {"parallelism": ("none",), "model_devices": ()},
+    "compare": {},
 }
 #: TrainConfig fields that the optimizer flags set, under their own names.
 _OPTIMIZER_FIELDS = (
@@ -169,7 +179,10 @@ def _add_optimizer_flags(p):
     p.add_argument("--grad-accum-steps", type=int, default=None,
                    help="split each batch into N microbatches accumulated in sum "
                    "form: the full-batch update at 1/N of the activation memory")
-    p.add_argument("--steps-per-dispatch", type=int, default=None, help="not ported")
+    p.add_argument("--steps-per-dispatch", type=int, default=None,
+                   help="run N optimizer steps per call of the step on N stacked "
+                   "batches: the per-step update sequence at one host visit per N "
+                   "steps (no --ema-decay)")
     p.add_argument("--checkpoint-every-steps", type=int, default=None,
                    help="also write a mid-epoch checkpoint every N optimizer "
                    "steps (what --resume continues from)")
@@ -178,9 +191,13 @@ def _add_optimizer_flags(p):
                    "master weights and optimizer state")
     p.add_argument("--grad-clip-norm", type=float, default=None,
                    help="global-norm gradient clipping (0 = off)")
-    p.add_argument("--scheduled-sampling", type=float, default=None, help="not ported")
+    p.add_argument("--scheduled-sampling", type=float, default=None,
+                   help="scheduled sampling (exposure-bias training): max probability "
+                   "of replacing each teacher-forcing input token with the model's own "
+                   "first-pass prediction, ramped per epoch by --ss-schedule")
     p.add_argument("--ss-schedule", default=None,
-                   choices=["linear", "inv_sigmoid", "constant"], help="not ported")
+                   choices=["linear", "inv_sigmoid", "constant"],
+                   help="scheduled-sampling ramp (default linear)")
     p.add_argument("--val-metric", default=None,
                    choices=["loss", "bleu4", "cider", "rouge_l", "meteor"],
                    help="what best-checkpointing and early stopping monitor with "
@@ -251,8 +268,8 @@ def _parse_bad_words(spec) -> tuple:
 def _build_config(args) -> Config:
     """tpucap's config resolution from the flags, made in tpucap's
     config.json layout and read by ``config_from_dict``, so a field the
-    port does not have (scheduled sampling, steps per dispatch, a mesh)
-    raises NotImplementedError away from tpucap's default. The
+    port does not have (a mesh) raises NotImplementedError away from
+    tpucap's default. The
     transformer decoder's fields, which no ported decoder reads, keep
     tpucap's defaults."""
     if getattr(args, "preset", None):
@@ -375,6 +392,8 @@ def _load_dataset(args, default_split: str = "train", karpathy=None):
 def _validate_train_flags(args) -> None:
     """tpucap's checks of train's flag combinations, with its messages,
     before any file is read."""
+    if args.freeze_embeddings and not args.embeddings:
+        raise SystemExit("--freeze-embeddings needs --embeddings FILE")
     if not args.finetune_encoder and (args.augment or args.augment_shift):
         raise SystemExit(
             "--augment/--augment-shift run inside the joint "
@@ -436,6 +455,7 @@ def cmd_train(args, device):
     features = dict(np.load(args.features))
     pipe.fit_tokenizer(prepared)
     pipe.build()
+    _maybe_pretrained_embeddings(args, pipe)
     os.makedirs(args.checkpoint_dir, exist_ok=True)
     pipe.tokenizer.save(os.path.join(args.checkpoint_dir, "tokenizer.json"))
 
@@ -488,6 +508,13 @@ def cmd_train(args, device):
         print(f"wrote pipeline bundle to {args.bundle_out}")
 
 
+def _maybe_pretrained_embeddings(args, pipe) -> None:
+    """--embeddings FILE: the decoder's table from its vectors, frozen with
+    --freeze-embeddings (the coverage line printed)."""
+    if args.embeddings:
+        pipe.set_pretrained_embeddings(args.embeddings, freeze=args.freeze_embeddings)
+
+
 def _maybe_save_ema_bundle(args, pipe) -> None:
     """--ema-decay: also write a pipeline bundle of the averaged weights,
     <checkpoint-dir>/bundle_ema; the raw weights go back afterwards (the
@@ -519,6 +546,7 @@ def _train_finetune(args, pipe, prepared) -> None:
     for --resume, --handle-preemption or --checkpoint-every-steps."""
     pipe.fit_tokenizer(prepared)
     pipe.build()
+    _maybe_pretrained_embeddings(args, pipe)
     os.makedirs(args.checkpoint_dir, exist_ok=True)
     pipe.tokenizer.save(os.path.join(args.checkpoint_dir, "tokenizer.json"))
     size, mode = pipe.encoder.input_size, pipe.encoder.preprocess_mode
@@ -612,6 +640,30 @@ def cmd_caption(args, device):
         print(f"{path}\t{cap}")
 
 
+def cmd_score(args, device):
+    """Teacher-forced caption scoring: how likely is this caption for this
+    image under the trained model (``score_captions``)."""
+    if bool(args.caption) == bool(args.captions_file):
+        raise SystemExit("give exactly one of --caption (repeatable) or --captions-file")
+    if args.captions_file:
+        with open(args.captions_file) as f:
+            captions = [ln.strip() for ln in f if ln.strip()]
+    else:
+        captions = list(args.caption)
+    if len(captions) != len(args.image):
+        raise SystemExit(
+            f"{len(captions)} captions for {len(args.image)} images — "
+            "they pair one-to-one, in order"
+        )
+    pipe = _restore_pipeline(args, device)
+    feats = pipe.extract_features(list(args.image))
+    for path, cap, s in zip(args.image, captions, pipe.score_captions(feats, captions)):
+        print(
+            f"{path}\tlogp={s['logp']:.4f}\tppl={s['perplexity']:.3f}"
+            f"\ttokens={s['tokens']}\t{cap}"
+        )
+
+
 def cmd_evaluate(args, device):
     # Validated before any IO or decoding.
     metrics = tuple(m.strip() for m in args.metrics.split(",") if m.strip())
@@ -672,6 +724,29 @@ def cmd_evaluate(args, device):
     print(json.dumps(scores))
 
 
+def cmd_compare(args):
+    """Paired bootstrap significance test between two ``evaluate
+    --dump-captions`` files (``train/compare.py``; Koehn 2004): host numpy,
+    no card. The summary goes to stderr, the JSON result to stdout."""
+    result = compare_caption_files(
+        args.file_a, args.file_b, metric=args.metric, n_resamples=args.bootstrap, seed=args.seed
+    )
+    verdict = (
+        "B != A (significant at 0.05)"
+        if result["significant_at_05"]
+        else "no significant difference at 0.05"
+    )
+    print(
+        f"# {args.metric}: A={result['score_a']:.4f} "
+        f"B={result['score_b']:.4f} delta={result['delta']:+.4f} "
+        f"ci95=[{result['delta_ci95'][0]:+.4f}, "
+        f"{result['delta_ci95'][1]:+.4f}] p={result['p_value']:.3f} "
+        f"-> {verdict}",
+        file=sys.stderr,
+    )
+    print(json.dumps(result))
+
+
 def refuse_unported_flags(parser, args) -> None:
     """SystemExit naming the first flag of ``args.cmd`` whose feature the
     port does not have and which was given a value the port does not take."""
@@ -685,7 +760,7 @@ def refuse_unported_flags(parser, args) -> None:
 
 
 def build_parser() -> tuple[argparse.ArgumentParser, dict]:
-    """tpucap's parser for the four ported commands. -> (parser, the
+    """tpucap's parser for the six ported commands. -> (parser, the
     subcommands' parsers by name)."""
     ap = argparse.ArgumentParser(prog="tpucap-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -753,8 +828,12 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     p.add_argument("--tokenizer", default="word", choices=["word", "bpe"],
                    help="word only")
     p.add_argument("--bpe-vocab-size", type=int, default=1024, help="not ported")
-    p.add_argument("--embeddings", default=None, help="not ported")
-    p.add_argument("--freeze-embeddings", action="store_true", help="not ported")
+    p.add_argument("--embeddings", default=None,
+                   help="GloVe-format word-vector file to initialize the decoder "
+                   "embedding table from (zero rows for uncovered words)")
+    p.add_argument("--freeze-embeddings", action="store_true",
+                   help="pin the pretrained embedding table during training "
+                   "(optimizer updates masked to zero)")
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--epochs", type=int, default=20)
     p.add_argument("--batch-size", type=int, default=64)
@@ -808,6 +887,24 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     _add_restore_flags(p)
     p.set_defaults(fn=cmd_caption)
 
+    p = score = sub.add_parser(
+        "score",
+        help="score given captions against images (teacher-forced log-prob / "
+        "perplexity — reranking & data filtering)",
+    )
+    _add_common_model_flags(p)
+    _add_optimizer_flags(p)
+    p.add_argument("--image", nargs="+", required=True)
+    p.add_argument("--caption", action="append", default=None,
+                   help="caption text to score (repeat once per --image, in order), "
+                   "or give --captions-file")
+    p.add_argument("--captions-file", default=None,
+                   help="file with one caption per line, paired with --image order")
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--keras-h5", default=None, help="not ported")
+    _add_restore_flags(p)
+    p.set_defaults(fn=cmd_score)
+
     p = evaluate = sub.add_parser(
         "evaluate", help="BLEU-1..4 (+ CIDEr-D/ROUGE-L) over a split"
     )
@@ -837,13 +934,32 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
                    help="synonym-groups file for METEOR's synonym stage")
     _add_restore_flags(p)
     p.set_defaults(fn=cmd_evaluate)
-    return ap, {"extract": extract, "train": train, "caption": caption, "evaluate": evaluate}
+
+    p = compare = sub.add_parser(
+        "compare",
+        help="paired bootstrap significance test between two "
+        "`evaluate --dump-captions` files (Koehn 2004)",
+    )
+    p.add_argument("file_a", help="baseline system's --dump-captions JSONL")
+    p.add_argument("file_b", help="candidate system's --dump-captions JSONL")
+    p.add_argument("--metric", default="bleu4",
+                   choices=["bleu1", "bleu2", "bleu3", "bleu4", "cider", "rouge_l", "meteor"],
+                   help="corpus metric to compare (same conventions as evaluate --metrics)")
+    p.add_argument("--bootstrap", type=int, default=1000, help="number of bootstrap resamples")
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_compare)
+    return ap, {"extract": extract, "train": train, "caption": caption, "score": score,
+                "evaluate": evaluate, "compare": compare}
 
 
 def main(argv=None, *, device=None):
     """Run one command. ``device``: None for the card (raises without
-    one), ``"cpu"`` for the CPU."""
+    one), ``"cpu"`` for the CPU. ``compare`` is host numpy and takes no
+    device."""
     ap, commands = build_parser()
     args = ap.parse_args(argv)
     refuse_unported_flags(commands[args.cmd], args)
+    if args.cmd == "compare":
+        args.fn(args)
+        return
     args.fn(args, resolve_device(device))

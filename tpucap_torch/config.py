@@ -110,6 +110,14 @@ class TrainConfig:
     # With a checkpoint manager: also a metric-less mid-epoch checkpoint
     # every N optimizer steps (what resume=True continues from); 0 = off.
     checkpoint_every_steps: int = 0
+    # Scheduled sampling (train/scheduled.py): the largest probability with
+    # which an input token is replaced by the model's own prediction, ramped
+    # per epoch by ss_schedule (linear | inv_sigmoid | constant); 0 = off.
+    scheduled_sampling: float = 0.0
+    ss_schedule: str = "linear"
+    # fit runs N optimizer steps per call of the step (one host visit); the
+    # update sequence is that of N single steps. 1 = one step a call.
+    steps_per_dispatch: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,9 +213,6 @@ UNPORTED = {
         "checkpoint_dir": "checkpoints",
         "max_to_keep": 3,
         "moe_aux_weight": 0.01,
-        "scheduled_sampling": 0.0,
-        "ss_schedule": "linear",
-        "steps_per_dispatch": 1,
     },
     "mesh": {"n_devices": None, "axis_name": "data", "model_devices": 1},
 }

@@ -27,6 +27,8 @@ three explicitly every time a pipeline is built.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 PRECISIONS = ("f32", "bf16", "mixed")
@@ -58,6 +60,19 @@ def apply_precision(precision: str) -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
+@contextlib.contextmanager
+def precision_flags(precision: str):
+    """``apply_precision(precision)`` inside the block, the flags as they
+    were after it (another pipeline or a training run may have set them)."""
+    m, c = torch.backends.cuda.matmul, torch.backends.cudnn
+    prev = (m.allow_tf32, c.allow_tf32, m.allow_bf16_reduced_precision_reduction)
+    apply_precision(precision)
+    try:
+        yield
+    finally:
+        m.allow_tf32, c.allow_tf32, m.allow_bf16_reduced_precision_reduction = prev
+
+
 def infer_dtype(precision: str) -> torch.dtype:
     return torch.bfloat16 if precision == "bf16" else torch.float32
 
@@ -75,6 +90,18 @@ def tree_map(fn, tree, *rest):
             tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)
         )
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """``tree_map`` of one tree where ``fn(path, leaf)`` also gets the
+    leaf's key path, a tuple of dict keys and list indices from the root."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, (*path, k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, (*path, i)) for i, v in enumerate(tree))
+    return fn(path, tree)
 
 
 def tree_leaves(tree) -> list:

@@ -13,6 +13,8 @@
                                   body of caption_batch
     extract_features(paths)       JPEG files -> encoder features (numpy)
     caption_images(paths)         extract_features, then generate
+    score_captions(features,      each given caption's teacher-forced
+                   captions)      log-probability (the engines' score)
 
     evaluate(descriptions,        decode features in padded batches, then
              features)            BLEU-1..4, CIDEr-D, ROUGE-L, METEOR and
@@ -31,6 +33,8 @@
     fit_finetune(descriptions,    train encoder and decoder jointly on
                  images, ...)     preprocessed images, with augmentation,
                                   remat and fit's checkpoint dials
+    set_pretrained_embeddings(    the decoder's embedding table from GloVe
+        source, freeze=...)       vectors, frozen in fit and fit_finetune
     use_ema_weights()             swap in the EMA of the last fit's weights
                                   (TrainConfig.ema_decay)
     use_averaged_weights(dir)     swap in the mean of retained checkpoints'
@@ -82,6 +86,7 @@ from tpucap_torch.core import (
     check_float_params,
     check_same_layout,
     infer_dtype,
+    precision_flags,
     resolve_device,
     tree_leaves,
     tree_map,
@@ -96,6 +101,7 @@ from tpucap_torch.models.encoders import build_encoder, fold_batch_norms
 from tpucap_torch.ops.decoder_step import make_fused_merge_step
 from tpucap_torch.ops.preprocess import fused_preprocess
 from tpucap_torch.text import END_TOKEN, START_TOKEN, Tokenizer, load_tokenizer
+from tpucap_torch.text.embeddings import build_embedding_matrix, load_word_vectors
 from tpucap_torch.text.tokenizer import text_to_word_sequence
 from tpucap_torch.train import (
     TrainState,
@@ -110,8 +116,9 @@ from tpucap_torch.train import (
     own_state,
 )
 from tpucap_torch.train.evaluate import check_metrics, evaluate_captions
-from tpucap_torch.train.loop import refuse_unported
+from tpucap_torch.train.loop import freeze_subtree_updates, refuse_unported
 from tpucap_torch.train.preemption import PreemptionGuard
+from tpucap_torch.train.scheduled import SCHEDULES, epsilon_for_epoch
 
 #: The bundle's param file (tpucap's bundles hold an orbax ``params/``
 #: directory instead, which the port cannot read).
@@ -135,6 +142,9 @@ class CaptioningPipeline:
         # The EMA shadow of the last fit or fit_finetune with
         # TrainConfig.ema_decay > 0 (``use_ema_weights``).
         self.ema_params = None
+        # set_pretrained_embeddings(freeze=True): fit and fit_finetune mask
+        # the embedding table's updates.
+        self._freeze_embeddings = False
 
     # -- tokenizer ---------------------------------------------------------
 
@@ -212,6 +222,49 @@ class CaptioningPipeline:
             self.config.encoder.name, self.params["encoder"]
         )
         self._bf16_params = None
+
+    def set_pretrained_embeddings(self, source, *, freeze: bool = False, log=print) -> int:
+        """Initialize the decoder's embedding table from pretrained word
+        vectors. ``source``: a GloVe-format text file's path, a ``{word:
+        vector}`` dict, or a ready ``(vocab_size, embed_dim)`` matrix; rows
+        of words without a vector (and padding row 0) are zero.
+        ``freeze=True`` pins the table in later ``fit`` / ``fit_finetune``
+        calls by masking its optimizer updates (so adamw's decay cannot move
+        it either). Drops the cached bf16 params. -> the words covered (the
+        rows of a matrix)."""
+        if self.decoder is None:
+            self.build()
+        table = self.params["decoder"]["embedding"]["table"]
+        if isinstance(source, (str, os.PathLike)):
+            source = load_word_vectors(source)
+        if isinstance(source, dict):
+            if self.tokenizer is None:
+                raise ValueError(
+                    "a fitted tokenizer is required to index word vectors "
+                    "— call fit_tokenizer() first or pass a matrix"
+                )
+            matrix, hits = build_embedding_matrix(
+                self.tokenizer, source, embed_dim=table.shape[1], vocab_size=table.shape[0]
+            )
+        else:
+            matrix, hits = source, None
+        if tuple(matrix.shape) != tuple(table.shape):
+            raise ValueError(
+                f"embedding matrix shape {tuple(matrix.shape)} != decoder "
+                f"table shape {tuple(table.shape)}"
+            )
+        self.params["decoder"]["embedding"]["table"] = torch.as_tensor(
+            np.asarray(matrix) if not isinstance(matrix, torch.Tensor) else matrix
+        ).to(table.device, table.dtype)
+        self._freeze_embeddings = freeze
+        self._bf16_params = None
+        if log and hits is not None:
+            log(
+                f"pretrained embeddings: {hits}/{table.shape[0] - 1} vocab "
+                f"words covered ({100.0 * hits / max(1, table.shape[0] - 1):.1f}%)"
+                + (", table frozen" if freeze else "")
+            )
+        return hits if hits is not None else int(matrix.shape[0])
 
     # -- precision ----------------------------------------------------------
 
@@ -320,6 +373,81 @@ class CaptioningPipeline:
             self._inference_params()["decoder"], feats, method, beam_width
         )
         return self._captions(res)
+
+    def encode_prefixes(self, texts: list) -> list:
+        """Tokenize caption strings, refusing words outside the vocabulary
+        (the tokenizer would drop them silently and score another caption).
+        Words are counted under the tokenizer's own normalization."""
+        seqs = self.tokenizer.texts_to_sequences(texts)
+        for text, seq in zip(texts, seqs):
+            if len(seq) != len(self.tokenizer._analyze(text)):
+                raise ValueError(f"prefix {text!r} contains words outside the tokenizer vocabulary")
+        return seqs
+
+    @torch.inference_mode()
+    def score_captions(self, features, captions) -> list[dict]:
+        """Score given captions against given features: each caption's
+        teacher-forced log-probability under the model. ``captions``: one
+        string a feature row (a single string is used for every row);
+        leading startseq and trailing endseq are stripped, then both are
+        added. -> per row ``{"logp", "tokens", "logp_per_token",
+        "perplexity"}``, logp the sum of the full-softmax log-probs of the
+        caption's tokens and its endseq: the decode engines' score, so
+        ``score_captions(f, generate(f))[i]["logp"]`` is the greedy
+        engine's score for a caption that ended.
+
+        One teacher-forced ``forward_train`` (the decoder's plain cell, no
+        kernel) on inputs padded to a power-of-two length, as tpucap buckets
+        them; the log-softmax in f32, the sums masked. ``precision="f32"``
+        runs with TF32 off, whatever the process's flags."""
+        feats = torch.as_tensor(features).to(self.device, self._infer_dtype())
+        B = feats.shape[0]
+        if isinstance(captions, str):
+            captions = [captions] * B
+        if len(captions) != B:
+            raise ValueError(f"{len(captions)} captions for {B} feature rows")
+        stripped = []
+        for c in captions:
+            words = c.split()
+            if words and words[0] == START_TOKEN:
+                words = words[1:]
+            if words and words[-1] == END_TOKEN:
+                words = words[:-1]
+            stripped.append(" ".join(words))
+        seqs = self.encode_prefixes(stripped)
+        start_id, end_id = self._token_ids()
+        # Rows as in training: full = [start, w1 .. wn, end], inputs
+        # full[:-1], targets full[1:], pad 0 masked.
+        max_full = max(len(s) for s in seqs) + 2
+        T = max(1 << (max_full - 2).bit_length(), 1)  # >= max_full - 1
+        inputs = np.zeros((B, T), np.int64)
+        targets = np.zeros((B, T), np.int64)
+        for i, s in enumerate(seqs):
+            full = [start_id, *s, end_id]
+            inputs[i, : len(full) - 1] = full[:-1]
+            targets[i, : len(full) - 1] = full[1:]
+        inputs = torch.from_numpy(inputs).to(self.device)
+        targets = torch.from_numpy(targets).to(self.device)
+        params = self._inference_params()["decoder"]
+        with precision_flags(self.config.precision):
+            logits = self.decoder.forward_train(params, feats, inputs, deterministic=True)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        tok_lp = logp.gather(-1, targets[..., None])[..., 0]
+        mask = (targets != 0).float()
+        sums = (tok_lp * mask).sum(dim=-1).double().cpu().numpy()
+        counts = mask.sum(dim=-1).double().cpu().numpy()
+        out = []
+        for lp, n in zip(sums, counts):
+            per = lp / n if n else 0.0
+            out.append(
+                {
+                    "logp": float(lp),
+                    "tokens": int(n),
+                    "logp_per_token": float(per),
+                    "perplexity": float(np.exp(-per)),
+                }
+            )
+        return out
 
     def _caption_device(self, images_u8, method, beam_width):
         """One batch's device work: K1 (resize to the encoder's input size
@@ -570,6 +698,9 @@ class CaptioningPipeline:
         resume=False,
         guard=None,
         ema=None,
+        multi_step=None,
+        spd: int = 1,
+        ss=None,
     ):
         """Shared epoch loop: shuffled batches (numpy, seeded with
         TrainConfig.seed as tpucap draws them), metrics summed on the card
@@ -585,7 +716,18 @@ class CaptioningPipeline:
         ``fired``): once it fires, the step in flight finishes, a rescue
         checkpoint is written and the loop returns with a ``preempted``
         entry. ``ema`` (``_make_ema``'s shadow) is updated in place after
-        every optimizer step. -> (state, history)."""
+        every optimizer step.
+
+        ``spd`` > 1 (fit's steps_per_dispatch): ``spd`` host batches are
+        stacked, copied to the device once and trained by one call of
+        ``multi_step``; the epoch's tail, shorter than ``spd``, goes through
+        ``step`` one batch at a time. The guard is read at those dispatch
+        boundaries only, and an interval checkpoint is saved at the first
+        boundary at or past each multiple of checkpoint_every_steps (the
+        tails save none). ``ss`` = (max_eps, ss_schedule) (fit's scheduled
+        sampling): each epoch's eps, ``epsilon_for_epoch``, goes to every
+        step call and into the history as ``ss_eps``. -> (state,
+        history)."""
         cfg = self.config.train
         monitor = "val_loss" if cfg.val_metric == "loss" else f"val_{cfg.val_metric}"
         minimize = monitor == "val_loss"
@@ -610,30 +752,64 @@ class CaptioningPipeline:
                         f"resumed from step {state.step} (epoch {start_epoch}, "
                         f"batch {resume_batch})"
                     )
+            # spd > 1: the next interval save, from the step the run starts at.
+            start_step = start_epoch * steps_per_epoch + resume_batch
+            next_save = (start_step // every + 1) * every if every else 0
             for epoch in range(start_epoch, epochs):
                 sums: dict = {}
                 n = 0
                 skip = resume_batch if epoch == start_epoch else 0
                 preempted = False
+                eps = None
+                if ss is not None:
+                    eps = epsilon_for_epoch(epoch, epochs, max_eps=ss[0], schedule=ss[1])
+                extra = () if eps is None else (eps,)
+                pending: list = []  # spd > 1: host batches awaiting their group
                 for b_i, rows in enumerate(batch_iterator(arrays, batch_size, rng=rng)):
                     if b_i < skip:  # trained before the run was cut
                         continue
-                    state, metrics = step(state, *batch(*rows))
-                    if ema is not None:
-                        ema_update(ema, state.params, cfg.ema_decay)
-                    n += 1
+                    if spd > 1:
+                        pending.append(rows)
+                        if len(pending) < spd:
+                            continue
+                        group = [np.stack(column) for column in zip(*pending)]
+                        pending.clear()
+                        state, metrics = multi_step(state, *batch(*group), *extra)
+                        n += spd  # the metrics come back summed over the group
+                    else:
+                        state, metrics = step(state, *batch(*rows), *extra)
+                        if ema is not None:
+                            ema_update(ema, state.params, cfg.ema_decay)
+                        n += 1
                     for k, v in metrics.items():
                         sums[k] = sums.get(k, 0.0) + v
                     done = epoch * steps_per_epoch + b_i + 1
-                    # The epoch's last step is the epoch save's.
-                    if every > 0 and b_i + 1 < steps_per_epoch and done % every == 0:
+                    # The epoch's last step is the epoch save's. Groups move in
+                    # strides of spd: save at the first boundary at or past
+                    # each multiple.
+                    if every > 0 and b_i + 1 < steps_per_epoch and (
+                        done % every == 0 if spd == 1 else done >= next_save
+                    ):
                         checkpoint_manager.save_rescue(state)
+                        next_save = (done // every + 1) * every
+                    if guard is not None and guard.fired:
+                        preempted = True
+                        break
+                # The tail shorter than spd, one step at a time (empty after
+                # a preemption: the guard is read at group boundaries only).
+                for rows in () if preempted else pending:
+                    state, metrics = step(state, *batch(*rows), *extra)
+                    n += 1
+                    for k, v in metrics.items():
+                        sums[k] = sums.get(k, 0.0) + v
                     if guard is not None and guard.fired:
                         preempted = True
                         break
                 # By sorted key, the order in which tpucap's jax.device_get returns them.
                 entry = {k: float(sums[k]) / max(n, 1) for k in sorted(sums)}
                 entry["epoch"] = epoch
+                if eps is not None:
+                    entry["ss_eps"] = float(eps)
                 if preempted:
                     entry["preempted"] = True
                     history.append(entry)
@@ -683,6 +859,32 @@ class CaptioningPipeline:
                                 )
                             break
         return state, history
+
+    @staticmethod
+    def _dispatch_dials(cfg) -> tuple[bool, int]:
+        """tpucap's checks of fit's scheduled sampling and
+        steps_per_dispatch, with its messages. -> (scheduled sampling on,
+        steps per dispatch)."""
+        use_ss = cfg.scheduled_sampling > 0
+        if use_ss:
+            if not 0.0 < cfg.scheduled_sampling <= 1.0:
+                raise ValueError(
+                    f"scheduled_sampling={cfg.scheduled_sampling} must be a probability in (0, 1]"
+                )
+            if cfg.ss_schedule not in SCHEDULES:
+                raise ValueError(
+                    f"unknown ss_schedule {cfg.ss_schedule!r}; have linear|inv_sigmoid|constant"
+                )
+        spd = cfg.steps_per_dispatch
+        if spd < 1:
+            raise ValueError(f"steps_per_dispatch={spd} must be >= 1")
+        if spd > 1 and cfg.ema_decay:
+            raise NotImplementedError(
+                "ema_decay updates a per-step host-visible shadow; "
+                f"steps_per_dispatch={spd} runs {spd} steps per "
+                "host visit — drop one of the two flags"
+            )
+        return use_ss, spd
 
     def _checkpoint_dials(self, checkpoint_manager, resume, handle_preemption, preemption_guard):
         """tpucap's checks of the resume and preemption dials -> the guard
@@ -828,7 +1030,16 @@ class CaptioningPipeline:
         The lr schedule's horizon is the run: epochs x (rows // batch size).
         ``TrainConfig.ema_decay`` = d > 0 keeps an EMA of the params, left
         on ``self.ema_params`` (``use_ema_weights``); resume=True refuses
-        it, since the checkpoints do not hold the shadow."""
+        it, since the checkpoints do not hold the shadow.
+
+        ``TrainConfig.scheduled_sampling`` = p in (0, 1] trains with
+        scheduled sampling at each epoch's ``epsilon_for_epoch`` (p, ramped by
+        ``ss_schedule``), recorded as the history's ``ss_eps``.
+        ``steps_per_dispatch`` = N > 1 runs N steps in one call of the step
+        on N stacked batches (``_run_epochs``), the update sequence of N
+        single steps (not with ema_decay). After
+        ``set_pretrained_embeddings(freeze=True)`` the embedding table's
+        updates are zeroed."""
         refuse_unported(
             data_parallel=(data_parallel, False),
             parallelism=(parallelism if parallelism != "none" else None, None),
@@ -851,29 +1062,39 @@ class CaptioningPipeline:
             optimizer = build_optimizer(
                 cfg, total_steps=epochs * max(1, T.shape[0] // batch_size)
             )
+            if self._freeze_embeddings:
+                # Updates, not gradients, are zeroed: adamw's decay cannot
+                # move the pretrained table either.
+                optimizer = freeze_subtree_updates(optimizer, lambda path: path[0] == "embedding")
+            use_ss, spd = self._dispatch_dials(cfg)
             state = own_state(
                 TrainState.create(
                     self.params["decoder"], optimizer, self._train_generator()
                 )
             )
             ema = self._make_ema(cfg, state.params)
-            step = make_train_step(
-                self.decoder,
-                optimizer,
-                pad_id=0,
-                label_smoothing=cfg.label_smoothing,
-                attention_reg=cfg.attention_reg,
-                grad_accum_steps=cfg.grad_accum_steps,
-                compute_dtype=compute_dtype,
-                donate=True,
-            )
+
+            def make_step(multi_steps):
+                return make_train_step(
+                    self.decoder,
+                    optimizer,
+                    pad_id=0,
+                    label_smoothing=cfg.label_smoothing,
+                    attention_reg=cfg.attention_reg,
+                    grad_accum_steps=cfg.grad_accum_steps,
+                    compute_dtype=compute_dtype,
+                    donate=True,
+                    scheduled_sampling=use_ss,
+                    multi_steps=multi_steps,
+                )
+
             validate = (
                 None
                 if val_data is None
                 else self._validation(val_data, batch_size, compute_dtype)
             )
             state, history = self._run_epochs(
-                step,
+                make_step(1),
                 state,
                 (F, T),
                 self._to_device,
@@ -885,6 +1106,9 @@ class CaptioningPipeline:
                 resume,
                 guard,
                 ema,
+                multi_step=make_step(spd) if spd > 1 else None,
+                spd=spd,
+                ss=(cfg.scheduled_sampling, cfg.ss_schedule) if use_ss else None,
             )
         finally:
             apply_precision(self.config.precision)
@@ -935,7 +1159,10 @@ class CaptioningPipeline:
         ``checkpoint_manager``, ``resume``, ``handle_preemption`` and
         ``preemption_guard`` are ``fit``'s, on the joint
         ``{"encoder", "decoder"}`` state, each epoch saved with its
-        training loss as ``val_loss``."""
+        training loss as ``val_loss``. A frozen pretrained table
+        (``set_pretrained_embeddings``) stays put, as in ``fit``;
+        ``TrainConfig.scheduled_sampling`` and ``steps_per_dispatch`` are
+        not read here, as tpucap's fit_finetune does not read them."""
         refuse_unported(
             parallelism=(parallelism if parallelism != "none" else None, None),
             lora_rank=(lora_rank, 0),
@@ -963,6 +1190,11 @@ class CaptioningPipeline:
             if encoder_lr_scale != 1.0 and not freeze_encoder:
                 optimizer = encoder_learning_rate_optimizer(
                     optimizer, encoder_lr_scale=encoder_lr_scale
+                )
+            if self._freeze_embeddings:
+                # fit's rule on the joint tree.
+                optimizer = freeze_subtree_updates(
+                    optimizer, lambda path: path[:2] == ("decoder", "embedding")
                 )
             params = {"encoder": self.params["encoder"], "decoder": self.params["decoder"]}
             state = own_state(TrainState.create(params, optimizer, self._train_generator()))

@@ -20,7 +20,7 @@ from typing import Any, Callable
 
 import torch
 
-from tpucap_torch.core import tree_leaves, tree_map
+from tpucap_torch.core import tree_leaves, tree_map, tree_map_with_path
 from tpucap_torch.train.loss import (
     caption_loss_sums,
     loss_from_sums,
@@ -306,6 +306,24 @@ def lr_schedule(cfg, total_steps: int = 0):
 OPTIMIZERS = ("adagrad", "adam", "adamw", "rmsprop", "sgd")
 
 
+def freeze_subtree_updates(optimizer, is_frozen):
+    """Zero the updates whose key path (a tuple of dict keys and list
+    indices) satisfies ``is_frozen(path)`` after the base optimizer has run,
+    so that no term of it (adamw's decayed weights included) moves a frozen
+    leaf. State-transparent: ``init`` and the state are the base
+    optimizer's, so a checkpoint made with the freeze restores into a
+    template made without it."""
+
+    def update(updates, state, params=None):
+        updates, state = optimizer.update(updates, state, params)
+        updates = tree_map_with_path(
+            lambda path, u: torch.zeros_like(u) if is_frozen(path) else u, updates
+        )
+        return updates, state
+
+    return GradientTransformation(optimizer.init, update, optimizer.stateless)
+
+
 def build_optimizer(cfg, total_steps: int = 0):
     """TrainConfig -> optimizer, as tpucap's ``build_optimizer`` chains
     optax: adam, adamw, sgd (with ``momentum`` > 0 a trace), rmsprop
@@ -443,6 +461,16 @@ def make_train_step(
     """Single-device step: (state, features, tokens) -> (state, metrics),
     metrics as device scalars.
 
+    ``scheduled_sampling=True`` makes the signature (state, features,
+    tokens, ss_eps): each input token at position >= 1 is replaced by the
+    model's own gradient-free first-pass prediction with probability
+    ``ss_eps`` (``train/scheduled.py``), the coin drawn from ``state.rng``
+    before the dropout, once a microbatch when accumulating.
+    ``multi_steps=N`` > 1 gives a step over stacked inputs, features (N, B,
+    F) and tokens (N, B, T): the single step N times in one call, the
+    update sequence that of N single calls, the metrics summed over the N
+    steps on the device (the caller divides by the step count).
+
     ``compute_dtype=torch.bfloat16`` is mixed precision: the forward and
     backward in bf16 from a cast made inside the differentiated function,
     f32 master params, optimizer state and loss reductions.
@@ -455,16 +483,14 @@ def make_train_step(
     to f32 reassociation, at 1/A of the activation memory; the batch must
     divide by A.
     """
-    refuse_unported(
-        scheduled_sampling=(scheduled_sampling, False),
-        multi_steps=(multi_steps, 1),
-    )
     check_compute_dtype(compute_dtype)
     warn_if_attention_reg_unused(decoder, attention_reg)
     use_reg = attention_reg > 0.0 and hasattr(decoder, "forward_train_with_alphas")
 
-    def step(state: TrainState, features, tokens):
+    def step(state: TrainState, features, tokens, ss_eps=None):
         params = trainable(state.params)
+        if not scheduled_sampling:
+            ss_eps = None
 
         def sums_fn(p, f, t):
             return caption_loss_sums(
@@ -478,6 +504,8 @@ def make_train_step(
                 label_smoothing=label_smoothing,
                 attention_reg=attention_reg,
                 compute_dtype=compute_dtype,
+                ss_eps=ss_eps,
+                ss_rng=None if ss_eps is None else state.rng,
             )
 
         grads, metrics = loss_and_grads(
@@ -485,6 +513,16 @@ def make_train_step(
         )
         return optimizer_step(state, optimizer, grads, metrics, donate)
 
+    if multi_steps > 1:
+
+        def multi(state: TrainState, features, tokens, ss_eps=None):
+            sums = None
+            for f, t in zip(features, tokens):
+                state, m = step(state, f, t, ss_eps)
+                sums = m if sums is None else {k: sums[k] + v for k, v in m.items()}
+            return state, sums
+
+        return multi
     return step
 
 

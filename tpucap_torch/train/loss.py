@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from tpucap_torch.core import tree_map
+from tpucap_torch.train.scheduled import scheduled_draws, scheduled_inputs
 
 
 def cast_floats(tree, dtype):
@@ -83,12 +84,20 @@ def caption_loss_sums(
     while the caller's master params stay f32; every loss reduction stays
     f32 (the coverage sum of the regularizer too). All-pad rows add
     nothing to any sum. ``rng``: a ``torch.Generator`` for dropout when not
-    ``deterministic``."""
-    if ss_eps is not None or ss_rng is not None:
-        raise NotImplementedError("scheduled sampling (ss_eps) is not ported")
+    ``deterministic``.
+
+    ``ss_eps`` (None = off) is scheduled sampling (``train/scheduled.py``):
+    the coin is drawn from ``ss_rng`` (a ``torch.Generator``, the step's
+    own) before the loss forward draws its dropout, and pass 1 runs on the
+    cast params, so in bf16 under bf16 compute. Targets stay gold."""
     params = cast_floats(params, compute_dtype)
     features = cast_floats(features, compute_dtype)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if ss_eps is not None:
+        if ss_rng is None:
+            raise ValueError("scheduled sampling (ss_eps) needs ss_rng")
+        coin = scheduled_draws(inputs[:, 1:].shape, ss_eps, ss_rng)
+        inputs = scheduled_inputs(decoder, params, features, inputs, coin=coin, pad_id=pad_id)
     row_live = (targets != pad_id).any(dim=-1).float()
     if attention_reg > 0.0 and hasattr(decoder, "forward_train_with_alphas"):
         logits, alphas = decoder.forward_train_with_alphas(
