@@ -219,8 +219,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    images with ``--captions-file`` (tpucap's line for each, those of
    ``score_captions`` on the restored pipeline; no kernel: the images are
    preprocessed on the host as tpucap's ``extract_features`` does them),
-   ``evaluate --dump-captions --average-last`` 1 and 2 (K2, K3), ``compare``
-   of the two dumps (its JSON ``compare_caption_files``');
+   ``evaluate --dump-captions --average-last`` 1 and 2 (K2, K3), ``compare
+   --metric cider`` of the two dumps (its JSON ``compare_caption_files``');
 13. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
    phase 9's counted serving runs for K1, K2 and K3, phase 10's counted
    steps and caption, phase 11's counted fits, decodes and commands, and
@@ -1934,6 +1934,10 @@ def decode_agreement(pipe, feats, method: str, label: str) -> None:
         note(gaps(masked, 1) / 2)
         return masked
 
+    # TF32 off: the pipeline's decode runs under its own config's flags
+    # (``CaptioningPipeline._decode``), so the config says f32 here.
+    config = pipe.config
+    pipe.config = dataclasses.replace(config, precision="f32")
     apply_precision("f32")
     pipe.step_fn = lambda: lockstep
     try:
@@ -1948,6 +1952,7 @@ def decode_agreement(pipe, feats, method: str, label: str) -> None:
                 beam_mod.topk_stable, greedy_mod.min_len_mask = real_topk, real_floor
     finally:
         del pipe.step_fn
+        pipe.config = config
         apply_precision(pipe.config.precision)
     tol = ROUTE_ATOL + ROUTE_RTOL * seen["scale"]
     if method == "beam":
@@ -3143,7 +3148,8 @@ def frozen_embeddings(dev, tokenizer, glove: Path, covered: int) -> dict[str, in
         _, fit_s = timed(lambda: pipe.fit(train, feats, epochs=P12_FROZEN_EPOCHS, checkpoint_manager=mgr, log=None))
         after = {k: [t.detach().cpu() for t in tree_leaves(v)] for k, v in pipe.params["decoder"].items()}
         table_same = torch.equal(before["embedding"][0], after["embedding"][0])
-        moved = [k for k in before if k != "embedding" and all(not torch.equal(a, b) for a, b in zip(before[k], after[k]))]
+        moved = [k for k in before if k != "embedding"
+                 and all(not torch.equal(a, b) for a, b in zip(before[k], after[k]))]
         if not table_same or len(moved) != len(before) - 1:
             raise AssertionError(f"frozen fit: table bit for bit {table_same}; moved {moved} of {sorted(before)}")
         template = TrainState.create(pipe.params["decoder"], build_optimizer(pipe.config.train),
@@ -3170,8 +3176,8 @@ def frozen_embeddings(dev, tokenizer, glove: Path, covered: int) -> dict[str, in
         f"installed in {load_s:.5f} s, {lines[0]!r}; fit adamw weight decay 0.01, bf16, {P12_FROZEN_EPOCHS} epochs "
         f"of {P12_FIT_ROWS // DEC_TRAIN_BATCH} steps {fit_s:.5f} s: the table bit for bit, the other "
         f"{len(moved)} subtrees moved, the checkpoint restored into a template without the freeze; fit_finetune "
-        f"{fpipe.config.encoder.name} flash + lstm1 batch {TRAIN_BATCH} bf16, {P12_FT_STEPS} steps {ft_s:.5f} s: the table bit for "
-        f"bit, launches {layers} each of K5, dK/dV, dQ a step")
+        f"{fpipe.config.encoder.name} flash + lstm1 batch {TRAIN_BATCH} bf16, {P12_FT_STEPS} steps {ft_s:.5f} s: "
+        f"the table bit for bit, launches {layers} each of K5, dK/dV, dQ a step")
     return counts
 
 
@@ -3227,8 +3233,9 @@ def slice_cli(dev, glove: Path) -> dict[str, int]:
     P12_SCORED images with ``--captions-file``: tpucap's line for each, those
     of ``score_captions`` on the restored pipeline (host preprocessing, as
     tpucap's extract_features: no kernel); ``evaluate --dump-captions`` with
-    ``--average-last`` 1 and 2, then ``compare`` of the two dumps: its JSON
-    that of ``compare_caption_files``. -> the evaluates' launches."""
+    ``--average-last`` 1 and 2, then ``compare --metric cider`` of the two
+    dumps: its JSON that of ``compare_caption_files``. -> the evaluates'
+    launches."""
     import re
     import tempfile
 
@@ -3295,29 +3302,31 @@ def slice_cli(dev, glove: Path) -> dict[str, int]:
         if lines != expect or not all(form.fullmatch(line) for line in lines) or any(counts.values()):
             raise AssertionError(f"cli slice score: printed {lines}, in-process {expect}, launches {counts}")
 
-        dumps, ev = [], dict.fromkeys(counts, 0)
+        dumps, ev, ev_s = [], dict.fromkeys(counts, 0), []
         for k in (1, 2):
             dump = root / f"dump{k}.jsonl"
             ops.reset_launch_counts()
-            run_cli(["evaluate", *CLI_MODEL, "--tokens", root / "tokens.txt", "--split", root / "test.txt",
-                     "--features", feats_path, "--checkpoint-dir", ckpt, "--average-last", k, "--batch-size",
-                     CLI_TRAIN_BATCH, "--dump-captions", dump])
+            *_, eval_s, _ = run_cli(["evaluate", *CLI_MODEL, "--tokens", root / "tokens.txt", "--split",
+                                     root / "test.txt", "--features", feats_path, "--checkpoint-dir", ckpt,
+                                     "--average-last", k, "--batch-size", CLI_TRAIN_BATCH, "--dump-captions", dump])
             c = ops.launch_counts()
+            ev_s.append(eval_s)
             check_cli_counts(f"cli slice evaluate --average-last {k}", c, 1)
             ev = {name: ev[name] + c[name] for name in ev}
             dumps.append(dump)
-        out, err, compare_s, _ = run_cli(["compare", *dumps])
+        out, err, compare_s, _ = run_cli(["compare", *dumps, "--metric", "cider"])
         got = json.loads(out[-1][1])
-        want_cmp = compare_caption_files(str(dumps[0]), str(dumps[1]))
-        if got != json.loads(json.dumps(want_cmp)) or not err[0].startswith("# bleu4: A="):
+        want_cmp = compare_caption_files(str(dumps[0]), str(dumps[1]), metric="cider")
+        if got != json.loads(json.dumps(want_cmp)) or not err[0].startswith("# cider: A="):
             raise AssertionError(f"cli slice compare: {got} against compare_caption_files' {want_cmp}; stderr {err}")
         log(f"cli slice: {' '.join(CLI_MODEL)} train {' '.join(str(a) for a in flags[:6])} --embeddings FILE "
             f"--freeze-embeddings, {P12_CLI_EPOCHS} epochs: {train_s:.5f} s, {coverage!r}, "
             f"every checkpoint's table the file's matrix; score --image of {P12_SCORED} images {score_s:.5f} s, "
             f"the lines of score_captions on the restored pipeline, no kernel (host preprocessing, VGG16's plain "
             f"convolutions, forward_train's plain cell), e.g. {expect[0].split(chr(9), 1)[1]!r}; evaluate "
-            f"--dump-captions --average-last 1 and 2 (K2 {ev['lstm_cell']}, K3 {ev['merge_head']} + "
-            f"{ev['vocab_proj']}); compare {compare_s:.5f} s: {err[0]!r}, its JSON compare_caption_files'")
+            f"--dump-captions --average-last 1 and 2 {ev_s[0]:.5f} and {ev_s[1]:.5f} s (K2 {ev['lstm_cell']}, K3 "
+            f"{ev['merge_head']} + {ev['vocab_proj']}); compare {compare_s:.5f} s: {err[0]!r}, its JSON "
+            f"compare_caption_files'")
     return ev
 
 

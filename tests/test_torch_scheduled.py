@@ -167,7 +167,9 @@ def test_eps0_step_is_the_plain_step(accum):
     assert _same(plain.params, ss.params) and _same(plain.opt_state, ss.opt_state)
     assert all(torch.equal(m0[k], m1[k]) for k in m0)
     with pytest.raises(ValueError, match=r"scheduled sampling \(ss_eps\) needs ss_rng"):
-        make_train_step(tdec, opt, scheduled_sampling=True, **kw)(TrainState.create(params, opt, None), feats, toks, 0.5)
+        make_train_step(tdec, opt, scheduled_sampling=True, **kw)(
+            TrainState.create(params, opt, None), feats, toks, 0.5
+        )
 
 
 @pytest.mark.parametrize("accum", [1, 2])
@@ -337,27 +339,21 @@ class _FiresAt:
 def test_interval_saves_and_preemption_rescue_at_tpucaps_steps(spd):
     """2 epochs of 10 steps, a checkpoint every 5 steps: tpucap saves at the
     first group boundary at or past each multiple (spd 4: 8, 14, 18; spd 8:
-    8, 18), besides the epoch saves at 10 and 20; the tails save nothing.
-    Then a guard that fires on its second query: the rescue at the second
-    dispatch boundary."""
+    8, 18) besides the epoch save at 10; the tails save nothing. The guard
+    is read at dispatch boundaries and after each tail step: it fires on its
+    query after step 19 (a tail step), so the run ends there with a
+    rescue."""
     captions = _corpus(10)
     jpipe, pipe, feats = _pipelines(captions, checkpoint_every_steps=5, steps_per_dispatch=spd)
     runs = {}
     for name, p in (("tpucap", jpipe), ("port", pipe)):
-        mgr = _Recorder()
-        p.fit(captions, feats, epochs=2, checkpoint_manager=mgr, log=None)
-        cut, guard = _Recorder(), _FiresAt(2)
-        hist = p.fit(captions, feats, epochs=2, checkpoint_manager=cut, preemption_guard=guard, log=None)
-        runs[name] = (mgr.saves, cut.saves, [sorted(h) for h in hist], hist[-1].get("preempted"))
+        mgr, guard = _Recorder(), _FiresAt({4: 7, 8: 5}[spd])
+        hist = p.fit(captions, feats, epochs=2, checkpoint_manager=mgr, preemption_guard=guard, log=None)
+        runs[name] = (mgr.saves, [sorted(h) for h in hist], [h.get("preempted") for h in hist])
     assert runs["port"] == runs["tpucap"]
     interval = {4: [8, 14, 18], 8: [8, 18]}[spd]
-    assert runs["port"][0] == sorted(
-        [("interval", s) for s in interval] + [("epoch", 10), ("epoch", 20)], key=lambda x: x[1]
-    )
-    # The guard's second query: spd 4, after the group ending at 8 (the
-    # interval save there is the rescue); spd 8, after the tail's step 9.
-    rescued = {4: [("interval", 8)], 8: [("interval", 8), ("interval", 9)]}[spd]
-    assert runs["port"][1] == rescued and runs["port"][3] is True
+    assert runs["port"][0] == sorted([("interval", s) for s in [*interval, 19]] + [("epoch", 10)], key=lambda x: x[1])
+    assert runs["port"][2] == [None, True]
 
 
 @pytest.mark.parametrize(

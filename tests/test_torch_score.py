@@ -129,6 +129,34 @@ def test_score_of_generated_captions_is_the_greedy_engines_score(pipes):
     np.testing.assert_allclose(got, res.scores.numpy()[ended], rtol=0, atol=1e-5)
 
 
+def test_encodes_decodes_and_scores_under_the_pipelines_own_flags(pipes):
+    """The TF32 flags are process-wide: a pipeline built later ("mixed",
+    TF32 on) must not turn an f32 pipeline's encoder, decode or score to
+    TF32 (tpucap's programs take the matmul precision per call). The flags
+    are read inside the calls and are as they were after them."""
+    _, pipe = pipes
+    seen = []
+
+    def reading(fn):
+        def wrapped(*args, **kwargs):
+            seen.append((fn.__name__, torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+            return fn(*args, **kwargs)
+
+        return wrapped
+
+    CaptioningPipeline(tcfg.Config(encoder=tcfg.encoder_config("tiny_cnn"), precision="mixed"), device="cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    with pytest.MonkeyPatch.context() as mp:
+        for obj, name in ((pipe.decoder, "init_state"), (pipe.decoder, "forward_train"), (pipe.encoder, "apply")):
+            mp.setattr(type(obj), name, reading(getattr(type(obj), name)))
+        pipe.encode_images(np.zeros((1, 32, 32, 3), np.float32))
+        pipe.generate(_feats(2), method="greedy")
+        pipe.score_captions(_feats(2), "a dog runs")
+    assert sorted({name for name, *_ in seen}) == ["apply", "forward_train", "init_state"]
+    assert all(flags == [False, False] for _, *flags in seen)
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+
+
 # -- the paired bootstrap -------------------------------------------------------------
 
 WORDS = "a b c d e f g h i j".split()

@@ -22,7 +22,10 @@ mixed  params and activations in f32     TF32 allowed: the counterpart of
 ====== ================================= ===================================
 
 The flags are process-wide PyTorch settings; ``apply_precision`` sets all
-three explicitly every time a pipeline is built.
+three explicitly every time a pipeline is built, and a pipeline's encoder,
+decode engines and ``score_captions`` run under its own flags
+(``precision_flags``), as tpucap's programs set their matmul precision per
+call: building another pipeline does not change an earlier one's numerics.
 """
 
 from __future__ import annotations

@@ -247,15 +247,15 @@ class CaptioningPipeline:
                 self.tokenizer, source, embed_dim=table.shape[1], vocab_size=table.shape[0]
             )
         else:
-            matrix, hits = source, None
+            matrix, hits = torch.as_tensor(source), None
         if tuple(matrix.shape) != tuple(table.shape):
             raise ValueError(
                 f"embedding matrix shape {tuple(matrix.shape)} != decoder "
                 f"table shape {tuple(table.shape)}"
             )
-        self.params["decoder"]["embedding"]["table"] = torch.as_tensor(
-            np.asarray(matrix) if not isinstance(matrix, torch.Tensor) else matrix
-        ).to(table.device, table.dtype)
+        self.params["decoder"]["embedding"]["table"] = torch.as_tensor(matrix).to(
+            table.device, table.dtype
+        )
         self._freeze_embeddings = freeze
         self._bf16_params = None
         if log and hits is not None:
@@ -292,8 +292,10 @@ class CaptioningPipeline:
     # -- encoder -----------------------------------------------------------
 
     def _apply_encoder(self, params, x):
-        """Encoder apply + spatial flattening to (B, L, D)."""
-        feats = self.encoder.apply(params, x)
+        """Encoder apply + spatial flattening to (B, L, D), under the
+        pipeline's own precision flags."""
+        with precision_flags(self.config.precision):
+            feats = self.encoder.apply(params, x)
         if self.config.encoder.features == "spatial":
             B, H, W, C = feats.shape
             feats = feats.reshape(B, H * W, C)
@@ -320,40 +322,45 @@ class CaptioningPipeline:
         return self.decoder.step
 
     def _decode(self, dec_params, feats, method, beam_width):
-        start_id, end_id = self._token_ids()
-        dcfg = self.config.decode
-        state = self.decoder.init_state(dec_params, feats)
-        if method == "greedy":
-            return greedy_decode(
+        """The decode engine on ``feats``, under the pipeline's own precision
+        flags (``Config.precision``), as tpucap's decode programs apply their
+        matmul precision per call: the flags are process-wide, and another
+        pipeline or a training run may have set others."""
+        with precision_flags(self.config.precision):
+            start_id, end_id = self._token_ids()
+            dcfg = self.config.decode
+            state = self.decoder.init_state(dec_params, feats)
+            if method == "greedy":
+                return greedy_decode(
+                    self.step_fn(),
+                    dec_params,
+                    state,
+                    start_id=start_id,
+                    end_id=end_id,
+                    max_len=dcfg.max_len,
+                    min_len=dcfg.min_len,
+                    banned_ids=self._banned_ids(),
+                    no_repeat_ngram_size=dcfg.no_repeat_ngram_size,
+                )
+            if method != "beam":
+                raise ValueError(f"unknown decode method {method!r}")
+            return beam_decode(
                 self.step_fn(),
                 dec_params,
                 state,
                 start_id=start_id,
                 end_id=end_id,
                 max_len=dcfg.max_len,
+                beam_width=beam_width,
                 min_len=dcfg.min_len,
                 banned_ids=self._banned_ids(),
                 no_repeat_ngram_size=dcfg.no_repeat_ngram_size,
+                length_normalize=dcfg.length_normalize,
+                alpha=dcfg.alpha,
+                length_penalty=dcfg.length_penalty,
+                decoder=self.decoder,
+                approx_topk=dcfg.approx_topk,
             )
-        if method != "beam":
-            raise ValueError(f"unknown decode method {method!r}")
-        return beam_decode(
-            self.step_fn(),
-            dec_params,
-            state,
-            start_id=start_id,
-            end_id=end_id,
-            max_len=dcfg.max_len,
-            beam_width=beam_width,
-            min_len=dcfg.min_len,
-            banned_ids=self._banned_ids(),
-            no_repeat_ngram_size=dcfg.no_repeat_ngram_size,
-            length_normalize=dcfg.length_normalize,
-            alpha=dcfg.alpha,
-            length_penalty=dcfg.length_penalty,
-            decoder=self.decoder,
-            approx_topk=dcfg.approx_topk,
-        )
 
     def _captions(self, res) -> list[str]:
         _, end_id = self._token_ids()
@@ -952,9 +959,9 @@ class CaptioningPipeline:
     @torch.no_grad()
     def _val_decode_metric(self, params, ids, feats, val_desc, metric: str, batch_size: int):
         """Greedy-decode the dev split on the current training params (f32
-        masters, the training window's precision policy; on the card through
-        the fused step, K2 and K3), chunks zero-padded to ``batch_size``, and
-        return the corpus metric."""
+        masters, under ``Config.precision``'s flags as tpucap's decode
+        program; on the card through the fused step, K2 and K3), chunks
+        zero-padded to ``batch_size``, and return the corpus metric."""
         _, end_id = self._token_ids()
         generated = {}
         for s in range(0, len(ids), batch_size):
