@@ -221,10 +221,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    preprocessed on the host as tpucap's ``extract_features`` does them),
    ``evaluate --dump-captions --average-last`` 1 and 2 (K2, K3), ``compare
    --metric cider`` of the two dumps (its JSON ``compare_caption_files``');
-13. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
+13. streamed training input and LoRA, under torch's deterministic
+   settings: (a) Flickr8k's train split (6000 ids x 5 captions, pooled
+   2048-d f32 rows written uncompressed by ``np.savez``, about 49 MB),
+   lstm1, vocab 7579, batch 256, bf16, dropout on, one epoch of 117 steps:
+   ``fit(stream=True)`` on the lazy ``np.load`` handle against
+   ``fit(stream=False)``, params and history bit for bit; each call's host
+   peak (tracemalloc, runs of their own) and ms a step; a streamed run cut
+   by a guard after step 50 and resumed: the uncut streamed params bit for
+   bit; the stream at steps_per_dispatch 4: spd 1's params bit for bit;
+   (b) ``fit_lora`` (rank 8) at the same widths on 2048 rows, 2 epochs:
+   the first step's loss the base model's, the base tree bit for bit after
+   the fit, every adapter moved, the logged trainable share
+   ``lora_param_counts``', greedy of 256 rows on the merged decoder equal
+   to greedy on ``apply_lora``'s view (K2 = K3 once a step), ms a step
+   beside ``fit``'s, ``save_lora`` then ``apply_lora_file`` into a fresh
+   pipeline bit for bit and the artifact's size; (c)
+   ``fit_finetune(lora_rank=8)`` on ViT-B/16 flash at 224 + lstm1, batch
+   64, f32 and bf16, 4 steps on one batch: 12 launches each of K5, dK/dV
+   and dQ a step, the loss descending, the base bit for bit, ms a step and
+   peak memory; with ``freeze_encoder=True`` no adapter under the encoder
+   (K5 forward only); (d) the CLI on phase 8's dataset: ``train
+   --lora-rank 8 --lora-out FILE`` (its bundle's decoder the config seed's
+   merged with the artifact, bit for bit), ``CaptioningPipeline.load`` of
+   that bundle captions 8 images (K2 = K3 once a step), ``train
+   --stream-features`` writes ``train``'s bundle bit for bit, and
+   ``--lora-rank`` with ``--stream-features`` exits with tpucap's message;
+14. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
    phase 9's counted serving runs for K1, K2 and K3, phase 10's counted
-   steps and caption, phase 11's counted fits, decodes and commands, and
-   phase 12's counted monitor, joint fit, decodes and evaluates), then
+   steps and caption, phase 11's counted fits, decodes and commands,
+   phase 12's counted monitor, joint fit, decodes and evaluates, and
+   phase 13's counted decodes, joint LoRA fits and caption), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
@@ -3347,6 +3374,344 @@ def run_slice8(dev, tokenizer) -> dict[str, int]:
     return {k: fit_counts[k] + frozen[k] + scored[k] + cli[k] for k in cli}
 
 
+# -- phase 13: streamed training input and LoRA --------------------------------
+
+# (a) Flickr8k's train split: images, captions an image, the step of the
+# cut, the group size; (b) fit_lora's rows, rank and epochs, the rows
+# decoded; (c) the joint LoRA fit's steps; (d) the CLI's epochs.
+P13_IMAGES, P13_REFS, P13_CUT, P13_SPD = 6000, 5, 50, 4
+P13_LORA_ROWS, P13_RANK, P13_LORA_EPOCHS, P13_DECODED = 2048, 8, 2, 256
+P13_FT_STEPS, P13_CLI_EPOCHS = 4, 2
+#: tpucap's refusal of --lora-rank with --stream-features (tpucap/cli/main.py:589-614).
+P13_REFUSAL = ("--lora-rank does not compose with --stream-features (the adapters ARE the "
+               "memory/monitoring fix; train full weights for those dials)")
+
+
+def host_peak(fn) -> tuple[object, float]:
+    """``fn()`` under tracemalloc: -> (its result, the peak MiB of the host
+    allocations traced during the call, numpy's arrays among them)."""
+    import tracemalloc
+
+    tracemalloc.start()
+    try:
+        out = fn()
+        return out, tracemalloc.get_traced_memory()[1] / 2**20
+    finally:
+        tracemalloc.stop()
+
+
+class GuardAfter:
+    """A preemption guard that fires on its ``n``-th query: the loop asks
+    once a step, so the run is cut after step ``n``."""
+
+    def __init__(self, n: int):
+        self.n, self.calls = n, 0
+
+    @property
+    def fired(self) -> bool:
+        self.calls += 1
+        return self.calls >= self.n
+
+
+def stream_runs(dev, tokenizer) -> None:
+    """13(a): Flickr8k's train split (P13_IMAGES ids x P13_REFS captions,
+    pooled 2048-d f32 rows written uncompressed by ``np.savez``), one
+    epoch of ``fit`` at batch DEC_TRAIN_BATCH, bf16, dropout on: the
+    streamed run on the lazy ``np.load`` handle against the in-memory one,
+    params and history bit for bit; each call's host peak (tracemalloc, in
+    runs of their own) and ms a step; a streamed run cut after step
+    P13_CUT and resumed: the uncut streamed params bit for bit; the stream
+    at steps_per_dispatch P13_SPD: spd 1's params bit for bit."""
+    import tempfile
+
+    from tpucap_torch.checkpoint import CheckpointManager
+    from tpucap_torch.config import TrainConfig
+
+    train = TrainConfig(batch_size=DEC_TRAIN_BATCH, precision="bf16")
+    desc = training_corpus(tokenizer, P13_IMAGES, 70, refs=P13_REFS)
+    feats = random_features(desc, 71)
+    rows = P13_IMAGES * P13_REFS
+    steps = rows // DEC_TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "features.npz"
+        np.savez(path, **feats)
+        mb = path.stat().st_size / 1e6
+
+        def run(stream: bool, **kw):
+            pipe = decoder_pipeline(tokenizer, dataclasses.replace(train, **kw.pop("train", {})))
+            if not stream:
+                return pipe, pipe.fit(desc, feats, epochs=1, log=None, **kw)
+            with np.load(path) as handle:
+                return pipe, pipe.fit(desc, handle, epochs=1, stream=True, log=None, **kw)
+
+        (memory, mem_hist), mem_peak = host_peak(lambda: run(False))
+        (streamed, str_hist), str_peak = host_peak(lambda: run(True))
+        if mem_hist != str_hist or not same_tree(memory.params, streamed.params):
+            raise AssertionError(f"stream: history {str_hist} or params differ from the in-memory run's {mem_hist}")
+        del memory
+        _, mem_s = timed(lambda: run(False))
+        _, str_s = timed(lambda: run(True))
+        mgr = CheckpointManager(Path(tmp) / "ckpt", best_metric=None)
+        _, cut_hist = run(True, checkpoint_manager=mgr, preemption_guard=GuardAfter(P13_CUT))
+        if not cut_hist[-1].get("preempted") or mgr.latest_step() != P13_CUT:
+            raise AssertionError(f"stream cut: history {cut_hist}, latest step {mgr.latest_step()}")
+        resumed, resume_s = timed(lambda: run(True, checkpoint_manager=mgr, resume=True)[0])
+        if not same_tree(resumed.params, streamed.params):
+            raise AssertionError("stream resume: the resumed params differ from the uncut streamed run's")
+        del resumed
+        (grouped, _), spd_s = timed(lambda: run(True, train=dict(steps_per_dispatch=P13_SPD)))
+        if not same_tree(grouped.params, streamed.params):
+            raise AssertionError(f"stream spd {P13_SPD}: the params differ from spd 1's")
+        del grouped, streamed
+    log(f"stream: {P13_IMAGES} images x {P13_REFS} captions ({rows} rows, {steps} steps of {DEC_TRAIN_BATCH}), "
+        f"lstm1 vocab {VOCAB} bf16, dropout on, features.npz {mb:.1f} MB (np.savez, uncompressed): fit(stream=True) "
+        f"on the lazy np.load handle gives fit(stream=False)'s params and history bit for bit; host peak "
+        f"(tracemalloc) in-memory {mem_peak:.1f} MiB, streamed {str_peak:.1f} MiB; ms a step in-memory "
+        f"{mem_s / steps * 1e3:.3f}, streamed {str_s / steps * 1e3:.3f} (wall of fit over its steps, the token "
+        f"build included); cut after step {P13_CUT} and resumed ({resume_s:.5f} s): the uncut streamed params "
+        f"bit for bit; steps_per_dispatch {P13_SPD} on the stream {spd_s / steps * 1e3:.3f} ms a step: spd 1's "
+        f"params bit for bit; epoch loss {str_hist[0]['loss']:.6f}")
+
+
+def lora_fit(dev, tokenizer) -> dict[str, int]:
+    """13(b): ``fit_lora`` at the main path's widths (lstm1, vocab VOCAB,
+    batch DEC_TRAIN_BATCH, bf16, rank P13_RANK) on P13_LORA_ROWS rows: the
+    first step's loss the base model's on that batch; after the fit the
+    base tree bit for bit, every adapter moved, the logged trainable share
+    ``lora_param_counts``'; greedy on the merged decoder equals greedy on
+    ``apply_lora``'s view, K2 = K3 once a step; ms a step beside ``fit``'s
+    on the same data; ``save_lora`` then ``apply_lora_file`` into a fresh
+    pipeline: the merged params bit for bit, the artifact's size. -> the
+    decodes' launches."""
+    import tempfile
+
+    from tpucap_torch import ops
+    from tpucap_torch.config import TrainConfig
+    from tpucap_torch.core import precision_flags, tree_map
+    from tpucap_torch.train import TrainState, build_optimizer, build_training_batch, make_eval_step
+    from tpucap_torch.train.lora import apply_lora, init_lora, lora_param_counts, make_lora_train_step
+
+    train = TrainConfig(batch_size=DEC_TRAIN_BATCH, precision="bf16")
+    desc = training_corpus(tokenizer, P13_LORA_ROWS, 72)
+    feats = random_features(desc, 73)
+    steps = P13_LORA_ROWS // DEC_TRAIN_BATCH * P13_LORA_EPOCHS
+    scale = 1.0
+    pipe = decoder_pipeline(tokenizer, train, precision="bf16")
+    base = pipe.params["decoder"]
+    before = tree_map(torch.clone, base)
+    # The first step against the base model's loss on the same batch.
+    F, T = build_training_batch(tokenizer, desc, feats, MAX_LEN)
+    f0, t0 = pipe._to_device(F[:DEC_TRAIN_BATCH], T[:DEC_TRAIN_BATCH])
+    init = init_lora(base, P13_RANK, generator=torch.Generator().manual_seed(train.seed + 7))
+    opt = build_optimizer(train)
+    step = make_lora_train_step(pipe.decoder, base, opt, scale=scale, deterministic=True,
+                                compute_dtype=torch.bfloat16)
+    with precision_flags("bf16"):
+        _, m = step(TrainState.create(tree_map(torch.clone, init), opt, torch.Generator(device=dev)), f0, t0)
+        want = make_eval_step(pipe.decoder, compute_dtype=torch.bfloat16)(base, f0, t0)
+    first, base_loss = float(m["loss"]), float(want["loss"])
+    if abs(first - base_loss) > 1e-6 * abs(base_loss):
+        raise AssertionError(f"lora: the first step's loss {first} is not the base model's {base_loss}")
+    lines: list = []
+    hist, lora_s = timed(lambda: pipe.fit_lora(desc, feats, rank=P13_RANK, epochs=P13_LORA_EPOCHS,
+                                               log=lines.append))
+    if not same_tree(base, before):
+        raise AssertionError("lora: the base tree moved")
+    adapters = pipe.lora_adapters
+    unmoved = [k for k in adapters if torch.equal(adapters[k]["a"], init[k]["a"]) or not adapters[k]["b"].any()]
+    n_ad, n_base = lora_param_counts(base, adapters)
+    share = f"LoRA rank {P13_RANK}: {n_ad:,} trainable / {n_base:,} frozen params ({100.0 * n_ad / n_base:.2f}%)"
+    if unmoved or lines[0] != share or not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"lora: unmoved adapters {unmoved}; logged {lines}; history {hist}")
+    plain = decoder_pipeline(tokenizer, train, precision="bf16")
+    _, fit_s = timed(lambda: plain.fit(desc, feats, epochs=P13_LORA_EPOCHS, log=None))
+    del plain
+    # Greedy on the merged decoder, then on apply_lora's view (the step's
+    # own computation, with autograd on).
+    x = np.stack([feats[k] for k in list(desc)[:P13_DECODED]])
+    merged = pipe.params["decoder"]
+    ops.reset_launch_counts()
+    on_merged = pipe.generate(x, method="greedy")
+    c_merged = ops.launch_counts()
+    with precision_flags(pipe.config.precision):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), adapters)
+        view = tree_map(lambda t: t.detach(), apply_lora(base, live, scale=scale))
+    pipe.params["decoder"], pipe._bf16_params = view, None
+    ops.reset_launch_counts()
+    on_view = pipe.generate(x, method="greedy")
+    c_view = ops.launch_counts()
+    pipe.params["decoder"], pipe._bf16_params = merged, None
+    k2 = check_cli_counts("lora merged decode", c_merged, 1)
+    check_cli_counts("lora view decode", c_view, 1)
+    if on_merged != on_view or c_merged != c_view:
+        same = sum(a == b for a, b in zip(on_merged, on_view))
+        raise AssertionError(f"lora: {same} of {len(on_view)} merged captions equal the view's")
+    with tempfile.TemporaryDirectory() as tmp:
+        art = Path(tmp) / "adapters.npz"
+        _, save_s = timed(lambda: pipe.save_lora(art))
+        fresh = decoder_pipeline(tokenizer, train, precision="bf16")
+        _, apply_s = timed(lambda: fresh.apply_lora_file(art))
+        if not same_tree(fresh.params["decoder"], merged):
+            raise AssertionError("lora: apply_lora_file's merged params differ from fit_lora's")
+        art_mb = art.stat().st_size / 1e6
+        del fresh
+    log(f"lora fit: lstm1 vocab {VOCAB} batch {DEC_TRAIN_BATCH} bf16, rank {P13_RANK}, {P13_LORA_ROWS} rows x "
+        f"{P13_LORA_EPOCHS} epochs: the first step's loss {first:.6f}, the base model's {base_loss:.6f}"
+        f"{' (bit for bit)' if first == base_loss else ''}; {lines[0]!r}; the base tree bit for bit, all "
+        f"{len(adapters)} adapters moved; losses {[round(h['loss'], 4) for h in hist]}; ms a step fit_lora "
+        f"{lora_s / steps * 1e3:.3f}, fit {fit_s / steps * 1e3:.3f} (wall over the steps); greedy of "
+        f"{P13_DECODED} rows on the merged decoder equals greedy on apply_lora's view, caption for caption, K2 "
+        f"{k2}, K3 {c_merged['merge_head']} + {c_merged['vocab_proj']} each; save_lora {save_s:.5f} s, "
+        f"apply_lora_file into a fresh pipeline {apply_s:.5f} s: the merged params bit for bit; artifact "
+        f"{art_mb:.3f} MB")
+    return {k: c_merged[k] + c_view[k] for k in c_merged}
+
+
+def lora_finetune(dev, tokenizer) -> dict[str, int]:
+    """13(c): ``fit_finetune(lora_rank=P13_RANK)`` on ViT-B/16 (flash) at
+    IMAGE + lstm1, batch TRAIN_BATCH, f32 and bf16, P13_FT_STEPS steps on
+    one batch after a warm-up: counters reset just before and read just
+    after, 12 launches each of K5, dK/dV and dQ a step, the loss
+    descending, the base encoder and decoder bit for bit; ms a step and
+    peak memory; then ``freeze_encoder=True``: no adapter under the
+    encoder, its launches. -> the counted runs' launches."""
+    from tpucap_torch import ops
+    from tpucap_torch.core import tree_map
+
+    desc = training_corpus(tokenizer, TRAIN_BATCH, 74)
+    rng = np.random.default_rng(75)
+    images = {k: rng.uniform(-1, 1, size=(IMAGE, IMAGE, 3)).astype(np.float32) for k in desc}
+    total = None
+    flash = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    for precision in ("f32", "bf16"):
+        pipe = finetune_pipeline(tokenizer, precision)
+        layers = pipe.encoder.num_layers
+        pipe.fit_finetune(desc, images, epochs=1, lora_rank=P13_RANK, log=None)  # warm-up
+        base = {k: pipe.params[k] for k in ("encoder", "decoder")}
+        before = tree_map(torch.clone, base)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        lines: list = []
+        hist, s = timed(lambda: pipe.fit_finetune(desc, images, epochs=P13_FT_STEPS, lora_rank=P13_RANK,
+                                                  log=lines.append))
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_launches(f"lora finetune {precision}", counts, {k: layers * P13_FT_STEPS for k in flash},
+                       decode=False)
+        losses = [h["loss"] for h in hist]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or not same_tree(base, before):
+            raise AssertionError(f"lora finetune {precision}: losses {losses}, or the base moved")
+        enc_ad = sum(k.startswith("['encoder']") for k in pipe.lora_adapters)
+        total = counts if total is None else {k: total[k] + counts[k] for k in counts}
+        log(f"lora finetune {precision}: {pipe.config.encoder.name} flash + lstm1 batch {TRAIN_BATCH} vocab {VOCAB}, rank {P13_RANK}, "
+            f"{P13_FT_STEPS} steps on one batch: step ms {s / P13_FT_STEPS * 1e3:.3f} (wall of fit_finetune over "
+            f"its steps); peak memory {peak:.3f} GiB; launches a step "
+            f"{ {k: v // P13_FT_STEPS for k, v in counts.items() if v} }; losses {[round(x, 4) for x in losses]}; "
+            f"the base bit for bit; {lines[0]!r}, {enc_ad} of {len(pipe.lora_adapters)} adapters under the encoder")
+        if precision == "bf16":
+            ops.reset_launch_counts()
+            hist, s = timed(lambda: pipe.fit_finetune(desc, images, epochs=1, lora_rank=P13_RANK,
+                                                      freeze_encoder=True, log=None))
+            frozen = ops.launch_counts()
+            if any(k.startswith("['encoder']") for k in pipe.lora_adapters) or not np.isfinite(hist[0]["loss"]):
+                raise AssertionError(f"lora finetune freeze_encoder: adapters {list(pipe.lora_adapters)}")
+            check_launches("lora finetune freeze_encoder", frozen, {"flash_attention": layers}, decode=False)
+            total = {k: total[k] + frozen[k] for k in total}
+            log(f"lora finetune bf16 freeze_encoder: {len(pipe.lora_adapters)} adapters, none under the encoder; "
+                f"one step {s * 1e3:.3f} ms; launches {({k: v for k, v in frozen.items() if v})} (no gradient "
+                f"reaches the encoder)")
+        del pipe
+    return total
+
+
+def lora_cli(dev) -> dict[str, int]:
+    """13(d): the CLI on phase 8's dataset (``--preset config1``):
+    ``extract``; ``train --lora-rank P13_RANK --lora-out FILE``: tpucap's
+    lines, the bundle's decoder the config seed's merged with the artifact
+    (``apply_lora_file``) bit for bit; ``CaptioningPipeline.load`` of the
+    bundle captions CLI_CAPTIONED images with beam 3 (K2 = K3 once a
+    step); ``train --stream-features`` against ``train``: the same bundle
+    bit for bit; ``--lora-rank`` with ``--stream-features`` exits with
+    tpucap's message. -> the caption's launches."""
+    import tempfile
+
+    from tpucap_torch import ops
+    from tpucap_torch.cli.main import _build_config, build_parser
+    from tpucap_torch.pipeline import CaptioningPipeline
+    from tpucap_torch.text import load_tokenizer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ids = write_cli_dataset(root)
+        feats_path = root / "features.npz"
+        run_cli(["extract", *CLI_MODEL, "--images", root / "images", "--out", feats_path, "--batch-size",
+                 CLI_EXTRACT_BATCH])
+        common = ["train", *CLI_MODEL, "--tokens", root / "tokens.txt", "--split", root / "train.txt",
+                  "--features", feats_path, "--epochs", P13_CLI_EPOCHS, "--batch-size", CLI_TRAIN_BATCH]
+        ckpt, art = root / "lora", root / "adapters.npz"
+        lora_argv = [*common, "--checkpoint-dir", ckpt, "--lora-rank", P13_RANK, "--lora-out", art]
+        out, _, lora_s, _ = run_cli(lora_argv)
+        lines = [line for _, line in out]
+        form = [line.split(":")[0] for line in lines[:-2]]
+        if form != [f"LoRA rank {P13_RANK}"] + [f"lora epoch {e}" for e in range(P13_CLI_EPOCHS)] or lines[-2] != \
+                f"LoRA adapters in {art}" or not lines[-1].startswith(f"lora-trained {P13_CLI_EPOCHS} epochs; ") or \
+                not lines[-1].endswith(f"bundle in {ckpt / 'bundle'}"):
+            raise AssertionError(f"cli lora train: printed {lines}")
+        bundle = CaptioningPipeline.load(ckpt / "bundle")
+        cfg = _build_config(build_parser()[0].parse_args([str(a) for a in lora_argv]))
+        ref = CaptioningPipeline(cfg, tokenizer=load_tokenizer(ckpt / "tokenizer.json"), device=dev)
+        ref.build()
+        ref.apply_lora_file(art)
+        if not same_tree(ref.params["decoder"], bundle.params["decoder"]):
+            raise AssertionError("cli lora: the bundle's decoder is not the config seed's merged with the artifact")
+        del ref
+        picked = [root / "images" / f"{k}.jpg" for k in ids[:CLI_CAPTIONED]]
+        ops.reset_launch_counts()
+        caps, caption_s = timed(lambda: bundle.caption_images(picked, method="beam", beam_width=BEAM))
+        counts = ops.launch_counts()
+        k2 = check_cli_counts("cli lora caption", counts, 1)
+        if len(caps) != CLI_CAPTIONED:
+            raise AssertionError(f"cli lora caption: {caps}")
+        del bundle
+        walls = {}
+        for name, extra in (("memory", []), ("stream", ["--stream-features"])):
+            _, _, walls[name], _ = run_cli([*common, "--checkpoint-dir", root / name, "--bundle-out",
+                                            root / name / "bundle", *extra])
+        a = CaptioningPipeline.load(root / "memory" / "bundle")
+        b = CaptioningPipeline.load(root / "stream" / "bundle")
+        if not same_tree(a.params, b.params):
+            raise AssertionError("cli stream: the --stream-features bundle differs from the in-memory one")
+        del a, b
+        try:
+            run_cli([*common, "--checkpoint-dir", root / "refused", "--lora-rank", P13_RANK, "--stream-features"])
+        except SystemExit as e:
+            refusal = e.code
+        else:
+            raise AssertionError("cli: --lora-rank with --stream-features ran")
+        if refusal != P13_REFUSAL:
+            raise AssertionError(f"cli: the refusal {refusal!r} is not tpucap's")
+    log(f"cli lora: {' '.join(CLI_MODEL)} train --lora-rank {P13_RANK} --lora-out FILE, {P13_CLI_EPOCHS} epochs: "
+        f"{lora_s:.5f} s, printed {lines[0]!r} ... {lines[-1]!r}; the bundle's decoder the config seed's merged "
+        f"with the artifact (apply_lora_file) bit for bit; CaptioningPipeline.load(bundle).caption_images of "
+        f"{CLI_CAPTIONED} images beam {BEAM} {caption_s:.5f} s, K2 {k2}, K3 {counts['merge_head']} + "
+        f"{counts['vocab_proj']}, e.g. {caps[0]!r}; train --stream-features {walls['stream']:.5f} s against train "
+        f"{walls['memory']:.5f} s: the same bundle bit for bit; --lora-rank with --stream-features exits: "
+        f"{refusal!r}")
+    return counts
+
+
+def run_slice9(dev, tokenizer) -> dict[str, int]:
+    """Phase 13, under torch's deterministic settings. -> the counted runs'
+    launches."""
+    with deterministic_torch("phase 13"):
+        stream_runs(dev, tokenizer)
+        fitted = lora_fit(dev, tokenizer)
+        tuned = lora_finetune(dev, tokenizer)
+        cli = lora_cli(dev)
+    return {k: fitted[k] + tuned[k] + cli[k] for k in cli}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3412,6 +3777,11 @@ def main() -> int:
     for name in counts:
         counts[name] += sliced[name]
     log(f"phase 12: {time.perf_counter() - t12:.2f} s")
+    t13 = time.perf_counter()
+    sliced = run_slice9(dev, tokenizer)
+    for name in counts:
+        counts[name] += sliced[name]
+    log(f"phase 13: {time.perf_counter() - t13:.2f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -444,11 +444,11 @@ _REFUSED = [
     *[
         ["train", "--tokens", "/nonexistent", "--features", "/nonexistent", *flags]
         for flags in (
-            ["--keras-h5", "w.h5"], ["--lora-rank", "4"], ["--lora-alpha", "8"],
-            ["--lora-out", "l.npz"], ["--sharded-checkpoints"], ["--scst-epochs", "2"], ["--scst-lr", "1e-4"],
+            ["--keras-h5", "w.h5"], ["--parallelism", "dp"], ["--parallelism", "pp"],
+            ["--parallelism", "sp"], ["--sharded-checkpoints"], ["--scst-epochs", "2"], ["--scst-lr", "1e-4"],
             ["--scst-temperature", "0.5"], ["--tokenizer", "bpe"], ["--bpe-vocab-size", "512"],
             ["--parallelism", "tp"], ["--data-parallel"],
-            ["--stream-features"], ["--parallelism", "fsdp"], ["--model-devices", "2"],
+            ["--parallelism", "ep"], ["--parallelism", "fsdp"], ["--model-devices", "2"],
             ["--tensorboard-dir", "tb"],
         )
     ],

@@ -328,8 +328,8 @@ def test_fit_finetune_with_dropout_descends_and_refuses_unported_dials():
     hist = pipe.fit_finetune(CAPTIONS, images, epochs=3, log=None)
     assert hist[-1]["loss"] < hist[0]["loss"]
     for kw in (
-        dict(parallelism="dp"), dict(parallelism="fsdp"), dict(lora_rank=4), dict(lora_alpha=8.0),
-        dict(sharded_checkpoints=True),
+        dict(parallelism="dp"), dict(parallelism="fsdp"), dict(lora_rank=4, parallelism="dp"),
+        dict(lora_rank=4, remat_encoder=True), dict(sharded_checkpoints=True),
     ):
         with pytest.raises(NotImplementedError):
             pipe.fit_finetune(CAPTIONS, images, epochs=1, log=None, **kw)

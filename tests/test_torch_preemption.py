@@ -243,7 +243,8 @@ def test_validations_with_tpucaps_messages(tmp_path):
     with pytest.raises(ValueError, match="^resume=True needs a checkpoint_manager$"):
         jpipe.fit(DESC, feats, epochs=1, resume=True, log=None)
     # EMA, whose shadow a resume would not restore, is refused with
-    # tpucap's message; LoRA and sharded checkpoints are refused by name.
+    # tpucap's message, as LoRA's checkpoint dials are; sharded checkpoints
+    # are refused by name.
     mgr = CheckpointManager(tmp_path / "e", best_metric=None)
     ema = CaptioningPipeline(
         dataclasses.replace(pipe.config, train=dataclasses.replace(pipe.config.train, ema_decay=0.999)),
@@ -253,8 +254,9 @@ def test_validations_with_tpucaps_messages(tmp_path):
         NotImplementedError, match="^resume does not restore the EMA shadow; drop ema_decay or restart$"
     ):
         ema.fit(DESC, feats, epochs=1, checkpoint_manager=mgr, resume=True, log=None)
-    for kw in (dict(lora_rank=4), dict(sharded_checkpoints=True)):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
+    for kw, match in ((dict(lora_rank=4), "^LoRA fine-tuning checkpoints its few-MB adapter artifact"),
+                      (dict(sharded_checkpoints=True), "sharded_checkpoints")):
+        with pytest.raises(NotImplementedError, match=match):
             fpipe.fit_finetune(DESC, images, epochs=1, checkpoint_manager=mgr, resume=True, log=None, **kw)
     # An empty directory starts fresh; a preemption without a manager saves nothing.
     lines = []

@@ -440,7 +440,7 @@ def test_fit_with_dropout_descends_and_refuses_unported_dials():
     assert hist[-1]["loss"] < hist[0]["loss"]
     assert not np.array_equal(params_to_numpy(pipe.params["decoder"])["out"]["kernel"], before["out"]["kernel"])
     for kw in (
-        dict(parallelism="dp"), dict(data_parallel=True), dict(stream=True),
+        dict(parallelism="dp"), dict(data_parallel=True), dict(parallelism="fsdp"),
         dict(sharded_checkpoints=True),
     ):
         with pytest.raises(NotImplementedError):

@@ -31,6 +31,11 @@ tpucap's optimizer flags (``--optimizer``, ``--momentum``,
 takes ``--scheduled-sampling`` with ``--ss-schedule`` and
 ``--steps-per-dispatch`` (on features; the joint trainer ignores them, as
 tpucap's does), and ``--embeddings FILE`` with ``--freeze-embeddings``.
+``train --stream-features`` reads the feature rows a batch at a time from
+the ``.npz`` (the same trajectory); ``--lora-rank N`` (``--lora-alpha``)
+trains a LoRA overlay instead, on features (``fit_lora``; the merged
+bundle goes to ``<checkpoint-dir>/bundle``) or with ``--finetune-encoder``,
+and ``--lora-out FILE`` also writes the adapters as tpucap's artifact.
 ``caption``, ``score`` and ``evaluate`` build their restore template from
 the same optimizer flags. ``score`` prints each image's teacher-forced
 log-probability of its caption; ``compare`` is a paired bootstrap between
@@ -91,9 +96,6 @@ UNPORTED_FLAGS = {
     "extract": {"keras_h5": (), "parallelism": ("none",)},
     "train": {
         "keras_h5": (),
-        "lora_rank": (),
-        "lora_alpha": (),
-        "lora_out": (),
         "sharded_checkpoints": (),
         "scst_epochs": (),
         "scst_lr": (),
@@ -101,7 +103,6 @@ UNPORTED_FLAGS = {
         "tokenizer": (),
         "bpe_vocab_size": (),
         "data_parallel": (),
-        "stream_features": (),
         "parallelism": ("none",),
         "model_devices": (),
         "tensorboard_dir": (),
@@ -406,11 +407,40 @@ def _validate_train_flags(args) -> None:
             "— add --finetune-encoder (feature-based training has no "
             "encoder activations to rematerialize)"
         )
-    if (args.resume or args.handle_preemption) and args.ema_decay:
-        raise SystemExit(
-            "--resume/--handle-preemption need the step-checkpointed "
-            "TrainState path; drop --ema-decay"
-        )
+    if args.lora_out and not args.lora_rank:
+        raise SystemExit("--lora-out needs --lora-rank")
+    if args.lora_rank:
+        bad = [
+            flag
+            for flag, val in (
+                ("--remat-encoder", args.remat_encoder),
+                ("--ema-decay", args.ema_decay),
+                ("--stream-features", args.stream_features),
+                ("--val-split", args.val_split),
+                ("--parallelism fsdp", args.parallelism == "fsdp"),
+                ("--grad-accum-steps", (args.grad_accum_steps or 1) > 1),
+            )
+            if val
+        ]
+        if bad:
+            raise SystemExit(
+                f"--lora-rank does not compose with {', '.join(bad)} "
+                "(the adapters ARE the memory/monitoring fix; train "
+                "full weights for those dials)"
+            )
+    if args.resume or args.handle_preemption:
+        # LoRA saves its adapters through --lora-out, and the EMA shadow is
+        # not restored.
+        bad = [
+            flag
+            for flag, val in (("--lora-rank", args.lora_rank), ("--ema-decay", args.ema_decay))
+            if val
+        ]
+        if bad:
+            raise SystemExit(
+                f"--resume/--handle-preemption need the step-"
+                f"checkpointed TrainState path; drop {', '.join(bad)}"
+            )
     if args.finetune_encoder:
         _validate_finetune_flags(args)
     elif not args.features:
@@ -443,6 +473,8 @@ def _validate_finetune_flags(args) -> None:
 
 
 def cmd_train(args, device):
+    """train on extracted features, or with --finetune-encoder from the
+    images."""
     _validate_train_flags(args)
     cfg = _build_config(args)
     pipe = CaptioningPipeline(cfg, device=device)
@@ -452,7 +484,18 @@ def cmd_train(args, device):
     if args.finetune_encoder:
         _train_finetune(args, pipe, prepared)
         return
-    features = dict(np.load(args.features))
+    with np.load(args.features) as npz:
+        # --stream-features keeps the handle lazy: fit(stream=True) reads the
+        # rows a batch at a time (extract writes the members uncompressed, so
+        # a row is one seek); the handle is closed once training is done.
+        _train_features(args, pipe, prepared, npz if args.stream_features else dict(npz), karpathy)
+
+
+def _train_features(args, pipe, prepared, features, karpathy) -> None:
+    """train on extracted features: ``fit`` (``fit_lora`` with
+    --lora-rank), ``features`` a dict or, with --stream-features, the lazy
+    ``np.load`` handle."""
+    kj = args.karpathy_json
     pipe.fit_tokenizer(prepared)
     pipe.build()
     _maybe_pretrained_embeddings(args, pipe)
@@ -474,6 +517,34 @@ def cmd_train(args, device):
     mgr = CheckpointManager(args.checkpoint_dir, best_metric=best_metric, best_mode=best_mode)
     # Made before training, as tpucap makes it: wall_time counts from here.
     logger = MetricsLogger(args.metrics_log) if args.metrics_log else None
+    if args.lora_rank:
+        # Adapters over the decoder; the merged result is written as a
+        # pipeline bundle, the adapters too with --lora-out. The artifact is
+        # the checkpoint: the manager saves nothing.
+        history = pipe.fit_lora(
+            prepared,
+            features,
+            rank=args.lora_rank,
+            alpha=args.lora_alpha,
+            epochs=args.epochs,
+            batch_size=args.batch_size,
+            parallelism=args.parallelism,
+        )
+        bundle = os.path.join(args.checkpoint_dir, "bundle")
+        pipe.save(bundle)
+        if args.lora_out:
+            pipe.save_lora(args.lora_out)
+            print(f"LoRA adapters in {args.lora_out}")
+        print(
+            f"lora-trained {len(history)} epochs; final loss "
+            f"{history[-1]['loss']:.4f}; bundle in {bundle}"
+        )
+        mgr.close()
+        if logger:
+            for h in history:
+                logger.log(h)
+            logger.close()
+        return
     history = pipe.fit(
         prepared,
         features,
@@ -481,6 +552,7 @@ def cmd_train(args, device):
         batch_size=args.batch_size,
         checkpoint_manager=mgr,
         val_data=val_data,
+        stream=args.stream_features,
         resume=args.resume,
         handle_preemption=args.handle_preemption,
     )
@@ -557,7 +629,17 @@ def _train_finetune(args, pipe, prepared) -> None:
         paths = [os.path.join(args.images, f"{i}.jpg") for i in chunk]
         images.update(zip(chunk, preprocess_batch(paths, size=size, mode=mode)))
     mgr = None
-    if args.resume or args.handle_preemption or args.checkpoint_every_steps:
+    wants_ckpt = args.resume or args.handle_preemption or args.checkpoint_every_steps
+    if wants_ckpt and args.lora_rank:
+        # Refused, not skipped: a run that asked for kill-insurance must not
+        # go without it.
+        raise SystemExit(
+            "--lora-rank checkpoints its adapter artifact via "
+            "--lora-out, not the joint TrainState; drop "
+            "--resume/--handle-preemption/--checkpoint-every-steps "
+            "or train full weights"
+        )
+    if wants_ckpt:
         mgr = CheckpointManager(args.checkpoint_dir, best_metric="val_loss")
     history = pipe.fit_finetune(
         prepared,
@@ -568,6 +650,8 @@ def _train_finetune(args, pipe, prepared) -> None:
         remat_encoder=args.remat_encoder,
         augment=args.augment,
         augment_shift=args.augment_shift,
+        lora_rank=args.lora_rank,
+        lora_alpha=args.lora_alpha,
         checkpoint_manager=mgr,
         resume=args.resume,
         handle_preemption=args.handle_preemption,
@@ -577,6 +661,9 @@ def _train_finetune(args, pipe, prepared) -> None:
     if not history:
         _nothing_to_train(args)
         return
+    if args.lora_out:
+        pipe.save_lora(args.lora_out)
+        print(f"LoRA adapters in {args.lora_out}")
     if args.metrics_log:
         logger = MetricsLogger(args.metrics_log)
         for h in history:
@@ -811,9 +898,17 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
                    help="also write a pipeline.save() bundle (--finetune-encoder "
                    "defaults it to <checkpoint-dir>/bundle)")
     p.add_argument("--keras-h5", default=None, help="not ported")
-    p.add_argument("--lora-rank", type=int, default=0, help="not ported")
-    p.add_argument("--lora-alpha", type=float, default=None, help="not ported")
-    p.add_argument("--lora-out", default=None, help="not ported")
+    p.add_argument("--lora-rank", type=int, default=0,
+                   help="LoRA fine-tuning: freeze every base weight and "
+                   "train a rank-N overlay on the 2-D matmul kernels "
+                   "(~1-2%% trainable params; with --finetune-encoder "
+                   "the overlay spans encoder+decoder)")
+    p.add_argument("--lora-alpha", type=float, default=None,
+                   help="LoRA scale numerator (effective scale "
+                   "alpha/rank); default alpha=rank (scale 1)")
+    p.add_argument("--lora-out", default=None,
+                   help="also write the trained LoRA adapters as a "
+                   "small .npz artifact (tpucap_torch.train.lora.load_lora)")
     p.add_argument("--resume", action="store_true",
                    help="continue from the latest checkpoint in --checkpoint-dir "
                    "at its exact epoch and batch (bit-identical to an "
@@ -840,7 +935,12 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     p.add_argument("--lr", type=float, default=None,
                    help="learning rate (default 1e-3; also overrides --preset)")
     p.add_argument("--data-parallel", action="store_true", help="not ported")
-    p.add_argument("--stream-features", action="store_true", help="not ported")
+    p.add_argument("--stream-features", action="store_true",
+                   help="stream feature rows from the .npz per batch "
+                   "(lazy reads + background prefetch) instead of "
+                   "materializing the full (N, F) stack — the at-scale "
+                   "path for spatial features; identical training "
+                   "trajectory to the in-memory path")
     p.add_argument("--parallelism", default=None,
                    choices=["none", "dp", "fsdp", "tp", "dp_tp", "pp",
                             "dp_pp", "ep", "dp_ep", "sp", "dp_sp"],
@@ -958,6 +1058,10 @@ def main(argv=None, *, device=None):
     device."""
     ap, commands = build_parser()
     args = ap.parse_args(argv)
+    if args.cmd == "train" and (args.lora_rank or args.lora_out):
+        # tpucap's checks first, in its order: one names a value that the
+        # port refuses anyway (--lora-rank with --parallelism fsdp).
+        _validate_train_flags(args)
     refuse_unported_flags(commands[args.cmd], args)
     if args.cmd == "compare":
         args.fn(args)

@@ -1,15 +1,23 @@
-"""The uint8 batch loader: counterpart of ``image_batch_loader`` in
-``tpucap/data/pipeline.py``, without grain.
+"""The uint8 batch loader and the streamed training input: counterparts
+of ``image_batch_loader``, ``caption_batch_stream`` and
+``prefetch_iterator`` in ``tpucap/data/pipeline.py``, without grain.
 
 tpucap's loader is a grain ``DataLoader``, and its device work overlaps the
 host decode through JAX's asynchronous dispatch. The port's decode loop
 drives the card from Python and waits on it, so the loader decodes ahead in
 a background thread instead: the C decoder releases the GIL, and the two
 run at once.
+
+``caption_batch_stream`` assembles training batches from a lazy feature
+mapping (an ``np.load`` handle of an uncompressed ``.npz``), one batch of
+rows at a time, in ``batch_iterator``'s order; ``prefetch_iterator`` runs
+it on a background thread a few batches ahead of the training step.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from collections import deque
 from collections.abc import Callable, Iterable, Iterator, Sequence
 from concurrent.futures import ThreadPoolExecutor
@@ -80,3 +88,87 @@ def image_batch_loader(
         lambda chunk: decode_jpeg_files(chunk, size, fast_scale=fast_scale),
         max(1, num_workers),
     )
+
+
+def caption_batch_stream(
+    row_ids,
+    tokens: np.ndarray,
+    features,
+    batch_size: int,
+    *,
+    rng=None,
+    drop_remainder: bool = True,
+    start_batch: int = 0,
+) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """(features, tokens) minibatches, the feature rows read per batch as
+    ``features[row_ids[i]]``: with a lazy mapping (an uncompressed
+    ``np.load`` handle, a memory map) the host holds one batch of rows, not
+    the whole (N, F) stack that ``build_training_batch`` makes. Features
+    come back f32.
+
+    ``rng`` (a numpy Generator) shuffles the rows with one
+    ``rng.shuffle(np.arange(n))`` a call, as ``batch_iterator`` does, so the
+    batches come in the in-memory path's order under the same seed.
+    ``start_batch`` consumes the whole permutation but assembles nothing
+    before that batch (a mid-epoch resume reads no row it skips)."""
+    n = len(row_ids)
+    if tokens.shape[0] != n:
+        raise ValueError(f"{n} row ids vs {tokens.shape[0]} token rows")
+    idx = np.arange(n)
+    if rng is not None:
+        rng.shuffle(idx)
+    end = (n // batch_size) * batch_size if drop_remainder else n
+    for s in range(start_batch * batch_size, end, batch_size):
+        sel = idx[s : s + batch_size]
+        feats = np.stack([np.asarray(features[row_ids[i]]) for i in sel]).astype(np.float32, copy=False)
+        yield feats, tokens[sel]
+
+
+def prefetch_iterator(it: Iterator, *, depth: int = 2, transform=None) -> Iterator:
+    """Run ``it`` (and ``transform`` on each item, when given) on one
+    daemon thread, at most ``depth`` finished items queued. An exception in
+    the thread is raised at the consumer's next pull. Closing or abandoning
+    the generator stops the thread: the queue is drained, so a worker
+    blocked on a full queue wakes, drops its items and exits."""
+    q: queue.Queue = queue.Queue(maxsize=max(1, depth))
+    sentinel = object()
+    stop = threading.Event()
+    failure: list[BaseException] = []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in it:
+                if stop.is_set() or not put(transform(item) if transform is not None else item):
+                    return
+        except BaseException as e:  # noqa: BLE001 - raised at the consumer
+            failure.append(e)
+        finally:
+            # The sentinel must not be dropped on a full queue: the consumer
+            # would wait for it forever once it drained the items.
+            put(sentinel)
+
+    threading.Thread(target=worker, daemon=True, name="tpucap-torch-prefetch").start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if failure:
+                    raise failure[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        try:  # wake a worker blocked on a full queue
+            while True:
+                q.get_nowait()
+        except queue.Empty:
+            pass

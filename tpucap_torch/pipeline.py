@@ -28,11 +28,18 @@
         val_data=...,             with a dev split, val_loss / val_accuracy
         checkpoint_manager=...,   each epoch, TrainConfig.val_metric's
         resume=...,               monitor and early stopping; each epoch
-        handle_preemption=...)    checkpointed, resumed exactly, a SIGTERM
-                                  answered with a rescue checkpoint
+        handle_preemption=...,    checkpointed, resumed exactly, a SIGTERM
+        stream=...)               answered with a rescue checkpoint; the
+                                  feature rows streamed a batch at a time
+                                  from a lazy mapping
+    fit_lora(descriptions,        LoRA on the decoder: the base frozen, a
+             features, rank=...)  low-rank overlay trained, then merged
+    save_lora(path)               the adapters as tpucap's .npz artifact;
+    apply_lora_file(path)         an artifact merged into the params
     fit_finetune(descriptions,    train encoder and decoder jointly on
                  images, ...)     preprocessed images, with augmentation,
-                                  remat and fit's checkpoint dials
+                                  remat and fit's checkpoint dials; with
+                                  lora_rank, a LoRA overlay on both
     set_pretrained_embeddings(    the decoder's embedding table from GloVe
         source, freeze=...)       vectors, frozen in fit and fit_finetune
     use_ema_weights()             swap in the EMA of the last fit's weights
@@ -73,6 +80,7 @@ Runs on ``cuda`` unless ``device="cpu"`` is passed; see
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 
@@ -93,7 +101,7 @@ from tpucap_torch.core import (
 )
 from tpucap_torch.convert import load_npz, save_npz
 from tpucap_torch.data.augment import make_augment_fn
-from tpucap_torch.data.pipeline import image_batch_loader
+from tpucap_torch.data.pipeline import caption_batch_stream, image_batch_loader, prefetch_iterator
 from tpucap_torch.data.preprocess import preprocess_batch
 from tpucap_torch.decode import beam_decode, greedy_decode, ids_to_captions
 from tpucap_torch.models.decoders import MergeDecoder, build_decoder
@@ -108,6 +116,7 @@ from tpucap_torch.train import (
     batch_iterator,
     build_optimizer,
     build_training_batch,
+    build_training_tokens,
     encoder_learning_rate_optimizer,
     loss_from_sums,
     make_eval_sums_step,
@@ -116,6 +125,15 @@ from tpucap_torch.train import (
     own_state,
 )
 from tpucap_torch.train.evaluate import check_metrics, evaluate_captions
+from tpucap_torch.train.lora import (
+    DEFAULT_TARGET_KEYS,
+    init_lora,
+    load_lora,
+    lora_param_counts,
+    make_lora_train_step,
+    merge_lora,
+)
+from tpucap_torch.train.lora import save_lora as _save_lora
 from tpucap_torch.train.loop import freeze_subtree_updates, refuse_unported
 from tpucap_torch.train.preemption import PreemptionGuard
 from tpucap_torch.train.scheduled import SCHEDULES, epsilon_for_epoch
@@ -145,6 +163,10 @@ class CaptioningPipeline:
         # set_pretrained_embeddings(freeze=True): fit and fit_finetune mask
         # the embedding table's updates.
         self._freeze_embeddings = False
+        # The last fit_lora / fit_finetune(lora_rank=)'s adapters and their
+        # {"rank", "alpha"} (``save_lora``).
+        self.lora_adapters = None
+        self.lora_meta = None
 
     # -- tokenizer ---------------------------------------------------------
 
@@ -695,10 +717,9 @@ class CaptioningPipeline:
         self,
         step,
         state,
-        arrays,
+        batches,
         batch,
         epochs,
-        batch_size,
         log,
         validate=None,
         checkpoint_manager=None,
@@ -708,10 +729,15 @@ class CaptioningPipeline:
         multi_step=None,
         spd: int = 1,
         ss=None,
+        label: str = "epoch",
     ):
         """Shared epoch loop: shuffled batches (numpy, seeded with
         TrainConfig.seed as tpucap draws them), metrics summed on the card
-        and read once per epoch. ``validate``: fit's dev-split metrics of
+        and read once per epoch. ``batches`` is the batch source,
+        ``MemoryBatches`` or ``StreamedBatches``: each epoch it gives
+        ``(index, host rows)`` from ``skip`` on, one shuffle drawn from the
+        loop's generator; ``batch(*rows)`` puts a batch on the card;
+        ``label`` starts each epoch's log line. ``validate``: fit's dev-split metrics of
         the current params (``_validation``), taken after each epoch, with
         early stopping on the monitor. ``checkpoint_manager``: the state is
         saved after each epoch, before the early-stopping check, with
@@ -741,8 +767,8 @@ class CaptioningPipeline:
         best = float("inf") if minimize else -float("inf")
         since_best = 0
         rng = np.random.default_rng(self.config.train.seed)
-        n_rows = arrays[0].shape[0]
-        steps_per_epoch = max(1, n_rows // batch_size)
+        n_rows = batches.n_rows
+        steps_per_epoch = max(1, n_rows // batches.batch_size)
         every = cfg.checkpoint_every_steps if checkpoint_manager is not None else 0
         start_epoch = resume_batch = 0
         history = []
@@ -772,36 +798,37 @@ class CaptioningPipeline:
                     eps = epsilon_for_epoch(epoch, epochs, max_eps=ss[0], schedule=ss[1])
                 extra = () if eps is None else (eps,)
                 pending: list = []  # spd > 1: host batches awaiting their group
-                for b_i, rows in enumerate(batch_iterator(arrays, batch_size, rng=rng)):
-                    if b_i < skip:  # trained before the run was cut
-                        continue
-                    if spd > 1:
-                        pending.append(rows)
-                        if len(pending) < spd:
-                            continue
-                        group = [np.stack(column) for column in zip(*pending)]
-                        pending.clear()
-                        state, metrics = multi_step(state, *batch(*group), *extra)
-                        n += spd  # the metrics come back summed over the group
-                    else:
-                        state, metrics = step(state, *batch(*rows), *extra)
-                        if ema is not None:
-                            ema_update(ema, state.params, cfg.ema_decay)
-                        n += 1
-                    for k, v in metrics.items():
-                        sums[k] = sums.get(k, 0.0) + v
-                    done = epoch * steps_per_epoch + b_i + 1
-                    # The epoch's last step is the epoch save's. Groups move in
-                    # strides of spd: save at the first boundary at or past
-                    # each multiple.
-                    if every > 0 and b_i + 1 < steps_per_epoch and (
-                        done % every == 0 if spd == 1 else done >= next_save
-                    ):
-                        checkpoint_manager.save_rescue(state)
-                        next_save = (done // every + 1) * every
-                    if guard is not None and guard.fired:
-                        preempted = True
-                        break
+                # Closed however the epoch ends: a streamed epoch cut short
+                # stops its reader thread.
+                with contextlib.closing(batches(rng, skip)) as source:
+                    for b_i, rows in source:
+                        if spd > 1:
+                            pending.append(rows)
+                            if len(pending) < spd:
+                                continue
+                            group = [np.stack(column) for column in zip(*pending)]
+                            pending.clear()
+                            state, metrics = multi_step(state, *batch(*group), *extra)
+                            n += spd  # the metrics come back summed over the group
+                        else:
+                            state, metrics = step(state, *batch(*rows), *extra)
+                            if ema is not None:
+                                ema_update(ema, state.params, cfg.ema_decay)
+                            n += 1
+                        for k, v in metrics.items():
+                            sums[k] = sums.get(k, 0.0) + v
+                        done = epoch * steps_per_epoch + b_i + 1
+                        # The epoch's last step is the epoch save's. Groups move in
+                        # strides of spd: save at the first boundary at or past
+                        # each multiple.
+                        if every > 0 and b_i + 1 < steps_per_epoch and (
+                            done % every == 0 if spd == 1 else done >= next_save
+                        ):
+                            checkpoint_manager.save_rescue(state)
+                            next_save = (done // every + 1) * every
+                        if guard is not None and guard.fired:
+                            preempted = True
+                            break
                 # The tail shorter than spd, one step at a time (empty after
                 # a preemption: the guard is read at group boundaries only).
                 for rows in () if preempted else pending:
@@ -836,7 +863,7 @@ class CaptioningPipeline:
                     entry.update(validate(state.params))
                 history.append(entry)
                 if log:
-                    msg = f"epoch {epoch}: loss={entry.get('loss', 0):.4f} acc={entry.get('accuracy', 0):.4f}"
+                    msg = f"{label} {epoch}: loss={entry.get('loss', 0):.4f} acc={entry.get('accuracy', 0):.4f}"
                     if "val_loss" in entry:
                         msg += f" val_loss={entry['val_loss']:.4f}"
                     if monitor != "val_loss" and monitor in entry:
@@ -1046,12 +1073,20 @@ class CaptioningPipeline:
         on N stacked batches (``_run_epochs``), the update sequence of N
         single steps (not with ema_decay). After
         ``set_pretrained_embeddings(freeze=True)`` the embedding table's
-        updates are zeroed."""
+        updates are zeroed.
+
+        ``stream=True`` reads the feature rows a batch at a time
+        (``data.pipeline.caption_batch_stream``) from ``features`` taken as
+        a lazy mapping, such as an ``np.load`` handle of an uncompressed
+        ``.npz``: only the tokens are built up front, and the host holds a
+        few batches of rows instead of the whole (N, F) stack. A background
+        thread assembles up to ``prefetch`` batches ahead; the copies to
+        the card stay on the training thread. The batch order, and so the
+        trajectory, is identical to ``stream=False`` under the same seed,
+        resume, steps_per_dispatch and checkpoints included."""
         refuse_unported(
             data_parallel=(data_parallel, False),
             parallelism=(parallelism if parallelism != "none" else None, None),
-            stream=(stream, False),
-            prefetch=(prefetch, 2),
             sharded_checkpoints=(sharded_checkpoints, False),
         )
         guard = self._checkpoint_dials(
@@ -1061,10 +1096,17 @@ class CaptioningPipeline:
         epochs = epochs or cfg.epochs
         if self.decoder is None:
             self.build()
-        F, T = build_training_batch(
-            self.tokenizer, descriptions, features, self.config.decode.max_len
-        )
+        max_len = self.config.decode.max_len
+        if stream:
+            # The tokens only: feature rows are read a batch at a time.
+            row_ids, T = build_training_tokens(self.tokenizer, descriptions, max_len)
+        else:
+            F, T = build_training_batch(self.tokenizer, descriptions, features, max_len)
         batch_size, compute_dtype = self._train_setup(T.shape[0], batch_size, log)
+        if stream:
+            batches = StreamedBatches(row_ids, T, features, batch_size, prefetch)
+        else:
+            batches = MemoryBatches((F, T), batch_size)
         try:
             optimizer = build_optimizer(
                 cfg, total_steps=epochs * max(1, T.shape[0] // batch_size)
@@ -1103,10 +1145,9 @@ class CaptioningPipeline:
             state, history = self._run_epochs(
                 make_step(1),
                 state,
-                (F, T),
+                batches,
                 self._to_device,
                 epochs,
-                batch_size,
                 log,
                 validate,
                 checkpoint_manager,
@@ -1169,13 +1210,32 @@ class CaptioningPipeline:
         training loss as ``val_loss``. A frozen pretrained table
         (``set_pretrained_embeddings``) stays put, as in ``fit``;
         ``TrainConfig.scheduled_sampling`` and ``steps_per_dispatch`` are
-        not read here, as tpucap's fit_finetune does not read them."""
-        refuse_unported(
-            parallelism=(parallelism if parallelism != "none" else None, None),
-            lora_rank=(lora_rank, 0),
-            lora_alpha=(lora_alpha, None),
-            sharded_checkpoints=(sharded_checkpoints, False),
-        )
+        not read here, as tpucap's fit_finetune does not read them.
+
+        ``lora_rank`` = r > 0 trains a rank-r LoRA overlay instead
+        (``_fit_finetune_lora``, ``train/lora.py``): the joint base stays
+        frozen and the adapters span the 2-D matmul kernels of both
+        subtrees (of the decoder alone with ``freeze_encoder=True``), at
+        scale ``lora_alpha / r`` (alpha defaults to r); encoder_lr_scale
+        is ignored, and the checkpoint dials, remat_encoder,
+        grad_accum_steps and ema_decay are refused with tpucap's words. The
+        merged encoder and decoder go to ``self.params``, the adapters to
+        ``self.lora_adapters`` (``save_lora``)."""
+        if not (lora_rank and parallelism in ("dp", "fsdp")):
+            # Under LoRA these two are refused by _fit_finetune_lora, in
+            # tpucap's order.
+            refuse_unported(parallelism=(parallelism if parallelism != "none" else None, None))
+        refuse_unported(sharded_checkpoints=(sharded_checkpoints, False))
+        if lora_rank and (
+            checkpoint_manager is not None or resume or handle_preemption or preemption_guard is not None
+        ):
+            raise NotImplementedError(
+                "LoRA fine-tuning checkpoints its few-MB adapter "
+                "artifact via save_lora (the base never moves, so "
+                "there is no joint TrainState worth snapshotting) — "
+                "drop the checkpoint/preemption dials or train full "
+                "weights"
+            )
         guard = self._checkpoint_dials(
             checkpoint_manager, resume, handle_preemption, preemption_guard
         )
@@ -1190,6 +1250,26 @@ class CaptioningPipeline:
             self.tokenizer, descriptions, index_of, self.config.decode.max_len
         )
         batch_size, compute_dtype = self._train_setup(T.shape[0], batch_size, log)
+        if lora_rank:
+            try:
+                return self._fit_finetune_lora(
+                    store,
+                    F_idx,
+                    T,
+                    rank=lora_rank,
+                    alpha=lora_alpha,
+                    epochs=epochs,
+                    batch_size=batch_size,
+                    freeze_encoder=freeze_encoder,
+                    remat_encoder=remat_encoder,
+                    parallelism=parallelism,
+                    augment=augment,
+                    augment_shift=augment_shift,
+                    compute_dtype=compute_dtype,
+                    log=log,
+                )
+            finally:
+                apply_precision(self.config.precision)
         try:
             optimizer = build_optimizer(
                 cfg, total_steps=epochs * max(1, T.shape[0] // batch_size)
@@ -1223,10 +1303,9 @@ class CaptioningPipeline:
             state, history = self._run_epochs(
                 step,
                 state,
-                (F_idx, T),
+                MemoryBatches((F_idx, T), batch_size),
                 lambda bi, bt: self._to_device(store[np.asarray(bi)], bt),
                 epochs,
-                batch_size,
                 log,
                 checkpoint_manager=checkpoint_manager,
                 resume=resume,
@@ -1241,6 +1320,212 @@ class CaptioningPipeline:
             self.ema_params = dict(ema)  # {"encoder", "decoder"}
         self._bf16_params = None
         return history
+
+    def _fit_finetune_lora(
+        self,
+        store,
+        F_idx,
+        T,
+        *,
+        rank: int,
+        alpha: float | None,
+        epochs: int,
+        batch_size: int,
+        freeze_encoder: bool,
+        remat_encoder: bool,
+        parallelism: str | None,
+        augment: bool,
+        augment_shift: int,
+        compute_dtype,
+        log,
+    ) -> list[dict]:
+        """fit_finetune(lora_rank=r): the joint {"encoder", "decoder"} base
+        frozen, a rank-r overlay trained on every 2-D matmul kernel of both
+        subtrees (of the decoder only with ``freeze_encoder``), the
+        optimizer's state over the adapters alone. tpucap's refusals in its
+        order; data parallelism is refused by name."""
+        cfg = self.config.train
+        if parallelism == "fsdp":
+            raise NotImplementedError(
+                "lora_rank with parallelism='fsdp': the trainable "
+                "state is already tiny — use 'dp' (or full fine-"
+                "tuning for ZeRO sharding)"
+            )
+        if remat_encoder:
+            raise NotImplementedError("remat_encoder with lora_rank is not wired; drop one")
+        if cfg.grad_accum_steps > 1:
+            raise NotImplementedError("grad_accum_steps with lora_rank is not wired")
+        if cfg.ema_decay:
+            raise NotImplementedError(
+                "ema_decay tracks full params; lora trains adapters — drop the flag"
+            )
+        refuse_unported(parallelism=(parallelism if parallelism != "none" else None, None))
+        alpha = float(rank if alpha is None else alpha)
+        scale = alpha / rank
+        base = {"encoder": self.params["encoder"], "decoder": self.params["decoder"]}
+        target_tree = {"decoder": base["decoder"]} if freeze_encoder else base
+        adapters = init_lora(target_tree, rank, generator=self._lora_generator())
+        if log:
+            n_ad, n_base = lora_param_counts(base, adapters)
+            log(
+                f"LoRA rank {rank} (joint): {n_ad:,} trainable / "
+                f"{n_base:,} frozen params ({100.0 * n_ad / n_base:.2f}%)"
+            )
+        optimizer = build_optimizer(cfg, total_steps=epochs * max(1, F_idx.shape[0] // batch_size))
+        step = make_lora_train_step(
+            self.decoder,
+            base,
+            optimizer,
+            scale=scale,
+            encoder=self.encoder,
+            pad_id=0,
+            label_smoothing=cfg.label_smoothing,
+            attention_reg=cfg.attention_reg,
+            compute_dtype=compute_dtype,
+            augment_fn=make_augment_fn(flip=augment, max_shift=augment_shift),
+            donate=True,
+        )
+        state = own_state(TrainState.create(adapters, optimizer, self._train_generator()))
+        state, history = self._run_epochs(
+            step,
+            state,
+            MemoryBatches((F_idx, T), batch_size),
+            lambda bi, bt: self._to_device(store[np.asarray(bi)], bt),
+            epochs,
+            log,
+            label="lora epoch",
+        )
+        self.lora_adapters, self.lora_meta = state.params, {"rank": rank, "alpha": alpha}
+        self.params.update(self._merge_lora(base, state.params, scale))
+        self._bf16_params = None
+        return history
+
+    def fit_lora(
+        self,
+        descriptions: dict[str, list[str]],
+        features: dict[str, np.ndarray],
+        *,
+        rank: int = 8,
+        alpha: float | None = None,
+        target_keys=None,
+        epochs: int | None = None,
+        batch_size: int | None = None,
+        parallelism: str | None = None,
+        merge: bool = True,
+        log=print,
+    ) -> list[dict]:
+        """LoRA fine-tuning of the decoder on extracted features
+        (``train/lora.py``): every base weight frozen, a rank-``rank``
+        overlay trained on the 2-D leaves named in ``target_keys`` (the
+        matmul kernels by default), one device. Step 0 is the base model
+        (B = 0 at init); ``a`` is drawn from a CPU generator seeded
+        TrainConfig.seed + 7, as tpucap seeds its key. ``alpha`` defaults
+        to ``rank`` (scale 1). The rows are shuffled as ``fit`` shuffles
+        them; each epoch logs ``lora epoch e: loss=... acc=...``.
+
+        ``merge=True`` puts the merged decoder in ``self.params`` (the
+        bf16 copy dropped). The adapters stay on ``self.lora_adapters``
+        with ``self.lora_meta`` = {"rank", "alpha"} for ``save_lora``.
+        grad_accum_steps > 1 is refused with tpucap's words; data
+        parallelism by name. -> per-epoch metric dicts, as ``fit``'s."""
+        cfg = self.config.train
+        epochs = epochs or cfg.epochs
+        if self.decoder is None:
+            self.build()
+        if cfg.grad_accum_steps > 1:
+            raise NotImplementedError(
+                "grad_accum_steps with LoRA: the adapters are the "
+                "memory fix — drop the accumulation"
+            )
+        if parallelism not in (None, "none", "dp"):
+            raise NotImplementedError(
+                f"fit_lora supports parallelism None|'none'|'dp', got {parallelism!r}"
+            )
+        refuse_unported(parallelism=(parallelism if parallelism != "none" else None, None))
+        F, T = build_training_batch(
+            self.tokenizer, descriptions, features, self.config.decode.max_len
+        )
+        # tpucap's fit_lora clamps the batch without a word.
+        batch_size, compute_dtype = self._train_setup(T.shape[0], batch_size, None)
+        try:
+            alpha = float(rank if alpha is None else alpha)
+            scale = alpha / rank
+            base = self.params["decoder"]
+            adapters = init_lora(
+                base,
+                rank,
+                generator=self._lora_generator(),
+                target_keys=target_keys or DEFAULT_TARGET_KEYS,
+            )
+            if log:
+                n_ad, n_base = lora_param_counts(base, adapters)
+                log(
+                    f"LoRA rank {rank}: {n_ad:,} trainable / {n_base:,} "
+                    f"frozen params ({100.0 * n_ad / n_base:.2f}%)"
+                )
+            optimizer = build_optimizer(cfg, total_steps=epochs * max(1, F.shape[0] // batch_size))
+            step = make_lora_train_step(
+                self.decoder,
+                base,
+                optimizer,
+                scale=scale,
+                pad_id=0,
+                label_smoothing=cfg.label_smoothing,
+                attention_reg=cfg.attention_reg,
+                compute_dtype=compute_dtype,
+                donate=True,
+            )
+            state = own_state(TrainState.create(adapters, optimizer, self._train_generator()))
+            state, history = self._run_epochs(
+                step,
+                state,
+                MemoryBatches((F, T), batch_size),
+                self._to_device,
+                epochs,
+                log,
+                label="lora epoch",
+            )
+        finally:
+            apply_precision(self.config.precision)
+        self.lora_adapters, self.lora_meta = state.params, {"rank": rank, "alpha": alpha}
+        if merge:
+            self.params["decoder"] = self._merge_lora(base, state.params, scale)
+            self._bf16_params = None
+        return history
+
+    def _lora_generator(self) -> torch.Generator:
+        """The CPU generator of init_lora's draw: TrainConfig.seed + 7, the
+        seed of tpucap's LoRA key."""
+        return torch.Generator().manual_seed(self.config.train.seed + 7)
+
+    def _merge_lora(self, base, adapters, scale: float):
+        """``base`` merged with ``adapters`` under the pipeline's precision
+        flags (TF32 off at f32), as a decode on this pipeline computes."""
+        with precision_flags(self.config.precision):
+            return merge_lora(base, adapters, scale=scale)
+
+    def save_lora(self, path) -> None:
+        """Write the last fit_lora / fit_finetune(lora_rank=) adapters as
+        tpucap's small ``.npz`` artifact (``train/lora.py::save_lora``),
+        which tpucap's ``load_lora`` reads too."""
+        if getattr(self, "lora_adapters", None) is None:
+            raise ValueError("no trained LoRA adapters on this pipeline")
+        _save_lora(path, self.lora_adapters, rank=self.lora_meta["rank"], alpha=self.lora_meta["alpha"])
+
+    def apply_lora_file(self, path, *, subtree: str = "decoder") -> None:
+        """Merge a saved adapter artifact (the port's or tpucap's) into this
+        pipeline's params, under the pipeline's precision flags.
+        ``subtree``: "decoder" for fit_lora's adapters, "joint" for
+        fit_finetune(lora_rank=)'s, which span {"encoder", "decoder"}.
+        Drops the cached bf16 params."""
+        adapters, rank, alpha = load_lora(path)
+        adapters = tree_map(lambda t: t.to(self.device), adapters)
+        if subtree == "joint":
+            base = {"encoder": self.params["encoder"], "decoder": self.params["decoder"]}
+            self.params.update(self._merge_lora(base, adapters, alpha / rank))
+        else:
+            self.params["decoder"] = self._merge_lora(self.params["decoder"], adapters, alpha / rank)
+        self._bf16_params = None
 
     @staticmethod
     def _make_ema(cfg, params):
@@ -1305,6 +1590,53 @@ def ema_update(shadow, params, decay: float) -> None:
     e = tree_leaves(shadow)
     torch._foreach_mul_(e, decay)
     torch._foreach_add_(e, torch._foreach_mul(tree_leaves(params), 1.0 - decay))
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryBatches:
+    """``_run_epochs``' in-memory batch source: ``batch_iterator`` over
+    stacked arrays; the batches before ``skip`` are drawn and passed over."""
+
+    arrays: tuple
+    batch_size: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.arrays[0].shape[0]
+
+    def __call__(self, rng, skip: int):
+        for b_i, rows in enumerate(batch_iterator(self.arrays, self.batch_size, rng=rng)):
+            if b_i >= skip:  # the ones before trained before the run was cut
+                yield b_i, rows
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamedBatches:
+    """``_run_epochs``' streamed batch source: ``caption_batch_stream`` on
+    a thread ``depth`` batches ahead (``prefetch_iterator``), the batches
+    before ``skip`` never read."""
+
+    row_ids: list
+    tokens: np.ndarray
+    features: object
+    batch_size: int
+    depth: int
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.row_ids)
+
+    def __call__(self, rng, skip: int):
+        stream = prefetch_iterator(
+            caption_batch_stream(
+                self.row_ids, self.tokens, self.features, self.batch_size, rng=rng, start_batch=skip
+            ),
+            depth=self.depth,
+        )
+        try:
+            yield from enumerate(stream, start=skip)
+        finally:
+            stream.close()
 
 
 def pad_rows(arr: np.ndarray, target: int) -> np.ndarray:

@@ -2,8 +2,8 @@
 LSTM decoder (``loop.make_train_step``) and joint encoder + decoder
 fine-tuning (``finetune.make_joint_train_step``), single device, with
 tpucap's optimizers and lr schedules (``loop.build_optimizer``), gradient
-accumulation and the SIGTERM guard of preemptible runs
-(``preemption.PreemptionGuard``).
+accumulation, the SIGTERM guard of preemptible runs
+(``preemption.PreemptionGuard``) and LoRA (``lora``).
 Port of the matching parts of ``tpucap.train``."""
 
 from tpucap_torch.train.finetune import (
