@@ -117,7 +117,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    step, K2 and K3 once + once a decode step; (d) ``evaluate`` of the test
    split with every metric and ``--coco-results``: ``pipe.evaluate``'s
    scores on the same params, finite, BLEU, ROUGE-L and METEOR in [0, 1],
-   the decode's and the metrics' seconds; (e) ``caption --keras-h5`` exits
+   the decode's and the metrics' seconds; (e) ``export --format aot`` exits
    non-zero before any restore;
 9. the other presets at their published widths (embed and hidden 256,
    vocab 7579, max_len 34, attention_dim 256), random weights from the
@@ -247,11 +247,33 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    that bundle captions 8 images (K2 = K3 once a step), ``train
    --stream-features`` writes ``train``'s bundle bit for bit, and
    ``--lora-rank`` with ``--stream-features`` exits with tpucap's message;
-14. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
+14. Keras ``.h5`` import and export through the port's own HDF5 reader
+   and writer (the card's host has no h5py, TensorFlow or Keras; the
+   encoder files are written here in Keras's layout, each layer's class
+   and the config keys the importers read in ``model_config``): VGG16 fc2
+   (with its 1000-way head, about 553 MB), ResNet-50 and InceptionV3
+   (Keras's auto-names, a seeded order that is not their creation order),
+   each at full width from a seed with seeded BatchNorm statistics,
+   written, read back (time and MiB/s of a warm read) and imported bit for
+   bit; (a) on phase 8's dataset, ``extract --preset config1 --keras-h5``
+   bit for bit ``extract_features`` of a pipeline given the tree directly,
+   ``train`` one epoch, ``caption --keras-h5`` and ``score --keras-h5`` the
+   lines of the direct route on the same step (K2 and K3 once a step);
+   (b) the ResNet-50 file in path A (BN folded, ``fused_blocks``, K4 12
+   times) and the InceptionV3 file in CONFIG_2's encoder at 299: features
+   and captions those of the tree installed directly, bit for bit; (c)
+   ``export`` of (a)'s trained merge decoder, ``export_h5`` of CONFIG_2's
+   inject decoder and CONFIG_4's attention decoder (196 positions), each
+   file re-imported: params bit for bit, greedy and beam token for token
+   with the same launches; (d) ``train --finetune-encoder --keras-h5`` on
+   13 training ids under torch's deterministic settings: its loss that of
+   ``fit_finetune`` with the tree installed directly, bit for bit;
+15. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
    phase 9's counted serving runs for K1, K2 and K3, phase 10's counted
    steps and caption, phase 11's counted fits, decodes and commands,
-   phase 12's counted monitor, joint fit, decodes and evaluates, and
-   phase 13's counted decodes, joint LoRA fits and caption), then
+   phase 12's counted monitor, joint fit, decodes and evaluates,
+   phase 13's counted decodes, joint LoRA fits and caption, and phase
+   14's counted caption, path-A batch and re-imported decodes), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
@@ -1843,14 +1865,14 @@ def run_cli_workflow(dev) -> None:
         # (e) a refused flag exits before any restore
         absent = root / "absent"
         try:
-            run_cli(["caption", *preset, "--image", paths[0], "--checkpoint-dir", absent, "--keras-h5", "x.h5"])
+            run_cli(["export", *preset, "--checkpoint-dir", absent, "--out", absent / "d", "--format", "aot"])
         except SystemExit as e:
             refusal = e.code
         else:
-            raise AssertionError("cli: caption --keras-h5 ran")
-        if refusal in (0, None) or "--keras-h5" not in str(refusal) or absent.exists():
-            raise AssertionError(f"cli: caption --keras-h5 exited with {refusal!r}")
-        log(f"cli: caption --keras-h5 exits before any restore: {refusal!r}")
+            raise AssertionError("cli: export --format aot ran")
+        if refusal in (0, None) or "--format aot" not in str(refusal) or absent.exists():
+            raise AssertionError(f"cli: export --format aot exited with {refusal!r}")
+        log(f"cli: export --format aot exits before any restore: {refusal!r}")
 
 
 
@@ -3712,6 +3734,416 @@ def run_slice9(dev, tokenizer) -> dict[str, int]:
     return {k: fitted[k] + tuned[k] + cli[k] for k in cli}
 
 
+# -- phase 14: Keras .h5 import and export -----------------------------------
+
+# The encoders' seed; train's epochs before caption / score / export; the
+# fine-tune's training ids (13 x 5 captions: one joint step at batch 64);
+# the decodes of the re-imported decoders.
+P14_SEED, P14_CLI_EPOCHS, P14_FT_IDS, P14_DECODED = 14, 1, 13, 256
+
+
+def seeded_encoder(arch: str):
+    """``arch``'s encoder (its full width) from P14_SEED in tpucap's layout
+    (numpy, conv kernels HWIO), every BatchNormalization given seeded
+    statistics so that an importer that swapped two of them would show."""
+    from tpucap_torch.convert import params_to_numpy
+    from tpucap_torch.models.encoders import build_encoder
+
+    tree = params_to_numpy(build_encoder(arch).init(torch.Generator().manual_seed(P14_SEED)))
+    rng = np.random.default_rng(P14_SEED)
+
+    def stats(node):
+        if isinstance(node, dict):
+            if {"beta", "mean", "var"} <= set(node):
+                for k, v in node.items():
+                    lo_hi = k in ("gamma", "var")
+                    node[k] = (rng.uniform(0.5, 1.5, v.shape) if lo_hi else rng.normal(0, 0.1, v.shape)
+                               ).astype(np.float32)
+            for v in node.values():
+                stats(v)
+
+    stats(tree)
+    return tree
+
+
+def keras_encoder_model(arch: str, tree):
+    """The records of a Keras full-model file holding ``tree`` as
+    ``tf_keras.applications`` names it: each Conv2D, BatchNormalization and
+    Dense layer with its weights under Keras's weight names and, in
+    ``model_config``, its class and the config keys the importers read
+    (``use_bias``, ``scale``, ``center``). VGG16 in the application's layer
+    order with its pools, flatten and 1000-way predictions head (a 553 MB
+    file at full width); ResNet-50 in its params' order; InceptionV3 under
+    Keras's auto-names (``conv2d_7``, ``batch_normalization_7``) in a
+    seeded order that is not their creation order."""
+    from tpucap_torch.checkpoint import KerasModel
+
+    entries, layers = [], []
+
+    def add(cls, name, weights=(), **config):
+        entries.append({"class_name": cls, "name": name, "inbound_nodes": [],
+                        "config": {"name": name, "trainable": True, "dtype": "float32", **config}})
+        layers.append((name, [(f"{name}/{w}:0", np.asarray(a, np.float32)) for w, a in weights]))
+
+    def conv(name, p):
+        ws = [("kernel", p["kernel"])] + ([("bias", p["bias"])] if "bias" in p else [])
+        add("Conv2D", name, ws, use_bias="bias" in p)
+
+    def bn(name, p):
+        ws = ([("gamma", p["gamma"])] if "gamma" in p else []) + [
+            ("beta", p["beta"]), ("moving_mean", p["mean"]), ("moving_variance", p["var"])]
+        add("BatchNormalization", name, ws, scale="gamma" in p, center=True)
+
+    add("InputLayer", "input_1")
+    if arch == "vgg16":
+        rng = np.random.default_rng(P14_SEED)
+        for blk in range(1, 6):
+            for name in sorted(k for k in tree if k.startswith(f"block{blk}_")):
+                conv(name, tree[name])
+            add("MaxPooling2D", f"block{blk}_pool")
+        add("Flatten", "flatten")
+        for name in ("fc1", "fc2"):
+            add("Dense", name, [("kernel", tree[name]["kernel"]), ("bias", tree[name]["bias"])])
+        head = (rng.normal(0, 0.01, (4096, 1000)), np.zeros(1000))
+        add("Dense", "predictions", [("kernel", head[0]), ("bias", head[1])])
+    elif arch == "resnet50":
+        for name, p in tree.items():
+            (bn if name.endswith("_bn") else conv)(name, p)
+    else:
+        order = np.random.default_rng(P14_SEED).permutation(len(tree))
+        for i in order:
+            suffix = f"_{i}" if i else ""
+            conv(f"conv2d{suffix}", tree[f"conv_{i}"]["conv"])
+            bn(f"batch_normalization{suffix}", tree[f"conv_{i}"]["bn"])
+    config = {"class_name": "Functional", "config": {
+        "name": arch, "trainable": True, "layers": entries, "input_layers": [["input_1", 0, 0]],
+        "output_layers": [[entries[-1]["name"], 0, 0]]}}
+    return KerasModel(config, layers)
+
+
+def same_numpy_tree(a, b) -> bool:
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a) == sorted(b) and all(same_numpy_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            same_numpy_tree(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
+def write_keras_encoders(root: Path) -> tuple[dict, dict]:
+    """14: the three encoders' files, each written, read back (the read
+    timed: a warm read, the file just written) and imported; the imported
+    tree the written one bit for bit. -> (trees, paths)."""
+    from tpucap_torch.checkpoint import KerasH5Model, params_from_keras
+
+    trees, paths = {}, {}
+    for arch in ("vgg16", "resnet50", "inception_v3"):
+        trees[arch] = tree = seeded_encoder(arch)
+        path = paths[arch] = root / f"{arch}.h5"
+        model = keras_encoder_model(arch, tree)
+        _, write_s = timed(lambda: model.save(path))
+        size = path.stat().st_size
+        view, read_s = timed(lambda: KerasH5Model(path))
+        got, import_s = timed(lambda: params_from_keras(path, arch))
+        if not same_numpy_tree(got, tree):
+            raise AssertionError(f"keras {arch}: the imported tree differs from the one written")
+        n = sum(len(layer.get_weights()) for layer in view.layers)
+        log(f"keras {arch}: {len(view.layers)} layers, {n} weights, {size / 2**20:.2f} MiB written in "
+            f"{write_s:.5f} s; KerasH5Model read {read_s:.5f} s ({size / 2**20 / read_s:.1f} MiB/s, warm: "
+            f"the file just written), params_from_keras {import_s:.5f} s; the tree bit for bit")
+        del model, view, got
+    return trees, paths
+
+
+def keras_cli(dev, root: Path, tree, h5: Path) -> tuple[dict[str, int], Path, object, np.ndarray]:
+    """14(a): the CLI on phase 8's dataset with the VGG16 file: ``extract
+    --keras-h5`` bit for bit ``extract_features`` of a pipeline given the
+    tree directly; ``train`` (P14_CLI_EPOCHS); ``caption --keras-h5`` the
+    lines of ``caption_images`` and ``score --keras-h5`` those of
+    ``score_captions`` on the direct route (the same checkpoint step, the
+    tree installed directly). -> (caption's launches, the checkpoint, the
+    direct route's pipeline, P14_DECODED of the extracted rows)."""
+    from tpucap_torch import ops
+    from tpucap_torch.checkpoint import CheckpointManager
+    from tpucap_torch.cli.main import _build_config, build_parser
+    from tpucap_torch.convert import params_from_jax
+    from tpucap_torch.data import load_descriptions, load_split, prepare_descriptions
+    from tpucap_torch.pipeline import CaptioningPipeline
+    from tpucap_torch.text import load_tokenizer
+    from tpucap_torch.train import TrainState, build_optimizer
+
+    ids = write_cli_dataset(root)
+    paths = [root / "images" / f"{k}.jpg" for k in ids]
+    feats_path, ckpt = root / "features.npz", root / "ckpt"
+    cfg = _build_config(build_parser()[0].parse_args(["extract", *CLI_MODEL, "--images", "-", "--out", "-"]))
+    ops.reset_launch_counts()
+    out, err, extract_s, _ = run_cli(["extract", *CLI_MODEL, "--images", root / "images", "--out", feats_path,
+                                      "--batch-size", CLI_EXTRACT_BATCH, "--keras-h5", h5])
+    counts = ops.launch_counts()
+    if [line for _, line in out] != [f"wrote {CLI_IMAGES} features to {feats_path}"] or any(counts.values()):
+        raise AssertionError(f"keras extract: printed {out}, launches {counts}")
+    with np.load(feats_path) as z:
+        feats = {k: z[k] for k in z.files}
+    direct = CaptioningPipeline(cfg, device=dev)
+    direct.build()
+    seed_encoder = direct.params["encoder"]
+    direct.set_params({**direct.params, "encoder": params_from_jax(tree)})
+    if torch.equal(seed_encoder["fc2"]["kernel"], direct.params["encoder"]["fc2"]["kernel"]):
+        raise AssertionError("keras extract: the file's encoder is the config seed's")
+    want, lib_s = timed(lambda: direct.extract_features(paths, batch_size=CLI_EXTRACT_BATCH))
+    if sorted(feats) != sorted(ids) or not all(
+        feats[k].dtype == np.float32 and np.array_equal(feats[k], w) for k, w in zip(ids, want)
+    ) or not np.isfinite(want).all():
+        raise AssertionError("keras extract: the rows differ from extract_features' on the tree given directly")
+    log(f"keras extract --keras-h5: {CLI_IMAGES} rows of {want.shape[1]}, bit for bit extract_features' with the "
+        f"tree installed directly; the command {extract_s:.5f} s (the 553 MB read and import included), "
+        f"extract_features alone {lib_s:.5f} s; no kernel launched (the host preprocesses)")
+    del seed_encoder
+
+    out, _, train_s, _ = run_cli(["train", *CLI_MODEL, "--tokens", root / "tokens.txt", "--split",
+                                  root / "train.txt", "--features", feats_path, "--checkpoint-dir", ckpt,
+                                  "--epochs", P14_CLI_EPOCHS, "--batch-size", CLI_TRAIN_BATCH])
+    if not out[-1][1].startswith(f"trained {P14_CLI_EPOCHS} epochs; "):
+        raise AssertionError(f"keras train: printed {out}")
+    tok = load_tokenizer(ckpt / "tokenizer.json")
+    ref = CaptioningPipeline(cfg, tokenizer=tok, device=dev)
+    ref.build(init_params=False)
+    template = TrainState.create(tree_to(ref.decoder.init(torch.Generator()), dev),
+                                 build_optimizer(cfg.train), torch.Generator(device=dev))
+    mgr = CheckpointManager(ckpt, best_metric="val_loss")
+    step = mgr.best_step()
+    ref.set_params({"encoder": direct.params["encoder"], "decoder": mgr.restore(template, step).params})
+    mgr.close()
+    del direct
+
+    picked = paths[:CLI_CAPTIONED]
+    ops.reset_launch_counts()
+    out, err, caption_s, _ = run_cli(["caption", *CLI_MODEL, "--image", *picked, "--checkpoint-dir", ckpt,
+                                      "--keras-h5", h5])
+    counts = ops.launch_counts()
+    k2 = check_cli_counts("keras caption", counts, 1)
+    caps = ref.caption_images(picked, method="beam", beam_width=BEAM)
+    want = [f"{p}\t{c}" for p, c in zip(picked, caps)]
+    if [line for _, line in out] != want or any("no --keras-h5" in line for line in err):
+        raise AssertionError(f"keras caption: printed {out} {err}, the direct route gives {want}")
+    log(f"keras caption --keras-h5: {CLI_CAPTIONED} images, beam {BEAM}, step {step} of {P14_CLI_EPOCHS} epoch "
+        f"({train_s:.5f} s to train): the lines of caption_images with the tree installed directly; "
+        f"{caption_s:.5f} s (the file's read included); launches {counts}: K1 {counts['preprocess_u8']}, "
+        f"K2 {k2}, K3 {counts['merge_head']} + {counts['vocab_proj']}; e.g. {out[0][1]!r}")
+
+    # A caption that is empty (an immediate endseq) is scored as a
+    # reference caption of the training split instead.
+    fallback = next(iter(prepare_descriptions(load_descriptions(root / "tokens.txt"),
+                                              load_split(root / "train.txt")).values()))[0]
+    caps = [c or fallback.removeprefix("startseq ").removesuffix(" endseq") for c in caps]
+    (root / "captions.txt").write_text("".join(f"{c}\n" for c in caps))
+    ops.reset_launch_counts()
+    out, _, score_s, _ = run_cli(["score", *CLI_MODEL, "--image", *picked, "--captions-file",
+                                  root / "captions.txt", "--checkpoint-dir", ckpt, "--keras-h5", h5])
+    score_counts = ops.launch_counts()
+    scores = ref.score_captions(ref.extract_features(picked), caps)
+    want = [f"{p}\tlogp={s['logp']:.4f}\tppl={s['perplexity']:.3f}\ttokens={s['tokens']}\t{c}"
+            for p, c, s in zip(picked, caps, scores)]
+    if [line for _, line in out] != want:
+        raise AssertionError(f"keras score: printed {out}, the direct route gives {want}")
+    log(f"keras score --keras-h5: {CLI_CAPTIONED} images with their captions: the lines of score_captions with "
+        f"the tree installed directly; {score_s:.5f} s; launches {score_counts}; e.g. {out[0][1]!r}")
+    return counts, ckpt, ref, np.stack([feats[k] for k in ids[:P14_DECODED]])
+
+
+def decode_tokens(pipe, feats, method: str):
+    """``pipe``'s decode of ``feats`` -> (tokens, lengths) on the host and
+    the launches."""
+    from tpucap_torch import ops
+
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        x = torch.as_tensor(feats).to(pipe.device, pipe._infer_dtype())
+        res = pipe._decode(pipe._inference_params()["decoder"], x, method, 1 if method == "greedy" else BEAM)
+    return (res.tokens.cpu(), res.lengths.cpu()), ops.launch_counts()
+
+
+def reimport_decodes(label: str, pipe, imported, feats) -> dict[str, int]:
+    """The decoder re-imported from its file against the one exported:
+    params bit for bit, then greedy and beam tokens on ``feats`` token for
+    token. -> the launches of the re-imported decodes."""
+    from tpucap_torch.convert import params_from_jax, params_to_numpy
+
+    if not same_numpy_tree(imported, params_to_numpy(pipe.params["decoder"])):
+        raise AssertionError(f"{label}: the re-imported params differ from the exported ones")
+    exported = pipe.params
+    total = None
+    report = []
+    for method in ("greedy", "beam"):
+        pipe.set_params(exported)
+        want, want_counts = decode_tokens(pipe, feats, method)
+        pipe.set_params({**exported, "decoder": params_from_jax(imported)})
+        got, counts = decode_tokens(pipe, feats, method)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])) or counts != want_counts:
+            raise AssertionError(f"{label} {method}: the re-imported decoder's tokens or launches differ")
+        total = counts if total is None else {k: total[k] + counts[k] for k in counts}
+        report.append(f"{method} K2 {counts['lstm_cell']} K3 {counts['merge_head']} + {counts['vocab_proj']}")
+    pipe.set_params(exported)
+    log(f"{label}: params bit for bit; greedy and beam {BEAM} of {len(feats)} rows token for token; launches "
+        f"{', '.join(report)}")
+    return total
+
+
+def keras_exports(dev, tokenizer, root: Path, ckpt: Path, ref, feats: np.ndarray) -> dict[str, int]:
+    """14(c): ``export`` of (a)'s trained CONFIG_1 merge decoder, then
+    ``export_h5`` of CONFIG_2's inject decoder and of CONFIG_4's attention
+    decoder (196 positions), each file re-imported; the merge decoder
+    decodes ``feats`` (rows (a) extracted), the others seeded random
+    features. -> the launches of the re-imported decodes."""
+    from tpucap_torch.checkpoint import (
+        KerasH5Model,
+        attention_decoder_params_from_keras,
+        export_h5,
+        inject_decoder_params_from_keras,
+        merge_decoder_params_from_keras,
+    )
+
+    path = root / "merge.h5"
+    out, _, export_s, _ = run_cli(["export", *CLI_MODEL, "--checkpoint-dir", ckpt, "--out", path])
+    if [line for _, line in out] != [f"wrote Keras h5 decoder to {path}"]:
+        raise AssertionError(f"keras export: printed {out}")
+    view, read_s = timed(lambda: KerasH5Model(path))
+    log(f"keras export: CONFIG_1's lstm1 (vocab {ref.vocab_size}, max_len {ref.config.decode.max_len}): "
+        f"{path.stat().st_size / 2**20:.2f} MiB, the command {export_s:.5f} s, read back {read_s:.5f} s")
+    total = reimport_decodes("keras export merge", ref, merge_decoder_params_from_keras(view), feats)
+
+    for preset, decoder, importer, kw in (
+        ("config2", {"name": "inject"}, inject_decoder_params_from_keras, {}),
+        ("config4", {}, attention_decoder_params_from_keras, None),
+    ):
+        pipe = preset_pipeline(preset, tokenizer, **decoder)
+        if kw is None:
+            kw = {"positions": pipe.encoder.spatial_positions}
+        path = root / f"{preset}_{pipe.config.decoder.name}.h5"
+        _, export_s = timed(lambda: export_h5(pipe.decoder, pipe.params["decoder"], path,
+                                              max_len=pipe.config.decode.max_len, **kw))
+        view, read_s = timed(lambda: KerasH5Model(path))
+        n_layers = len(view.layers)
+        g = np.random.default_rng(142)
+        shape = (P14_DECODED, pipe.encoder.spatial_positions, pipe.config.encoder.feature_dim) \
+            if kw else (P14_DECODED, pipe.config.encoder.feature_dim)
+        x = g.normal(0, 1, shape).astype(np.float32)
+        log(f"keras export_h5 {preset} {pipe.config.decoder.name} {kw}: {n_layers} layers, "
+            f"{path.stat().st_size / 2**20:.2f} MiB written in {export_s:.5f} s, read back {read_s:.5f} s")
+        counts = reimport_decodes(f"keras export {pipe.config.decoder.name}", pipe, importer(view), x)
+        total = {k: total[k] + counts[k] for k in total}
+        del pipe, view
+    return total
+
+
+def keras_encoders(dev, tokenizer, trees, paths) -> dict[str, int]:
+    """14(b): ResNet-50's file into path A (BN folded, ``fused_blocks``)
+    and InceptionV3's into CONFIG_2's encoder: the features and captions of
+    the imported tree those of the tree installed directly, bit for bit.
+    -> the counted path-A batch's launches."""
+    from tpucap_torch import ops
+    from tpucap_torch.checkpoint import params_from_keras
+    from tpucap_torch.convert import params_from_jax
+    from tpucap_torch.ops.preprocess import fused_preprocess
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    total = None
+    for arch in ("resnet50", "inception_v3"):
+        if arch == "resnet50":
+            pipe = make_pipeline("bf16", tokenizer)
+        else:
+            pipe = preset_pipeline("config2", tokenizer)
+        enc = pipe.encoder
+        images = torch.randint(0, 256, (BATCH, enc.input_size, enc.input_size, 3), generator=g, device=dev,
+                               dtype=torch.uint8)
+        results = {}
+        for route, tree in (("imported", params_from_keras(paths[arch], arch)), ("direct", trees[arch])):
+            pipe.set_params({**pipe.params, "encoder": params_from_jax(tree)})
+            pipe.fold_bn()
+            if arch == "resnet50":
+                pipe.encoder = dataclasses.replace(enc, fused_blocks=True)
+            with torch.inference_mode():
+                x = fused_preprocess(images, enc.input_size, enc.preprocess_mode,
+                                     out_dtype=pipe._infer_dtype())
+                feats = pipe._apply_encoder(pipe._inference_params()["encoder"], x)
+            caps = None
+            if arch == "resnet50":
+                ops.reset_launch_counts()
+                caps, s = timed(lambda: pipe.caption_batch(images))
+                counts = ops.launch_counts()
+                if route == "imported":
+                    steps = check_launches("keras path A", counts, {"preprocess_u8": 1, "identity_block": 12},
+                                           decode=True)
+                    total, imported_s = counts, s
+            results[route] = (feats.float().cpu(), caps)
+        (fa, ca), (fb, cb) = results["imported"], results["direct"]
+        if not torch.equal(fa, fb) or ca != cb or not torch.isfinite(fa).all():
+            raise AssertionError(f"keras {arch}: the imported encoder's features or captions differ")
+        if arch == "resnet50":
+            log(f"keras path A (resnet50 fused_blocks, bf16, beam {BEAM}): {BATCH} images, features and captions "
+                f"of the imported tree those of the tree installed directly, bit for bit; caption_batch "
+                f"{imported_s:.5f} s; launches {total} (K4 12, K2 {steps}); e.g. {ca[0]!r}")
+        else:
+            log(f"keras CONFIG_2 encode (inception_v3 at 299, K1 tf mode): {BATCH} images x {fa.shape[1]}, the "
+                f"imported tree's features those of the tree installed directly, bit for bit")
+        del pipe
+    return total
+
+
+def keras_finetune(dev, root: Path, tree, h5: Path) -> None:
+    """14(d): ``train --finetune-encoder --keras-h5`` for one joint step
+    (P14_FT_IDS training ids, batch CLI_TRAIN_BATCH), under torch's
+    deterministic settings: its loss that of ``fit_finetune`` with the tree
+    installed directly, bit for bit."""
+    from tpucap_torch.cli.main import _build_config, build_parser
+    from tpucap_torch.convert import params_from_jax
+    from tpucap_torch.data import load_descriptions, load_split, prepare_descriptions
+    from tpucap_torch.data.preprocess import preprocess_batch
+    from tpucap_torch.pipeline import CaptioningPipeline
+
+    train_ids = (root / "train.txt").read_text().split()[:P14_FT_IDS]
+    (root / "ft_train.txt").write_text("".join(f"{k}\n" for k in train_ids))
+    mlog = root / "ft.jsonl"
+    argv = ["train", *CLI_MODEL, "--tokens", root / "tokens.txt", "--split", root / "ft_train.txt",
+            "--finetune-encoder", "--images", root / "images", "--checkpoint-dir", root / "ft", "--epochs", 1,
+            "--batch-size", CLI_TRAIN_BATCH, "--metrics-log", mlog]
+    with deterministic_torch("keras fine-tune"):
+        out, _, cli_s, _ = run_cli([*argv, "--keras-h5", h5])
+        hist = [json.loads(line) for line in mlog.read_text().splitlines()]
+        args = build_parser()[0].parse_args([str(a) for a in argv])
+        pipe = CaptioningPipeline(_build_config(args), device=dev)
+        prepared = prepare_descriptions(load_descriptions(root / "tokens.txt"), load_split(root / "ft_train.txt"))
+        pipe.fit_tokenizer(prepared)
+        pipe.build()
+        pipe.set_params({**pipe.params, "encoder": params_from_jax(tree)})
+        size, mode = pipe.encoder.input_size, pipe.encoder.preprocess_mode
+        keys = list(prepared)
+        images = dict(zip(keys, preprocess_batch([root / "images" / f"{k}.jpg" for k in keys], size=size,
+                                                 mode=mode)))
+        want, lib_s = timed(lambda: pipe.fit_finetune(prepared, images, epochs=1, batch_size=CLI_TRAIN_BATCH,
+                                                      encoder_lr_scale=args.encoder_lr_scale))
+    if len(hist) != 1 or hist[0]["loss"] != want[0]["loss"] or not np.isfinite(hist[0]["loss"]):
+        raise AssertionError(f"keras fine-tune: the command's loss {hist} != fit_finetune's {want}")
+    log(f"keras train --finetune-encoder --keras-h5 ({' '.join(CLI_MODEL)}, {P14_FT_IDS} ids x {CLI_REFS} "
+        f"captions, batch {CLI_TRAIN_BATCH}): loss {hist[0]['loss']!r}, bit for bit fit_finetune's with the tree "
+        f"installed directly; the command {cli_s:.5f} s, fit_finetune {lib_s:.5f} s; {out[-1][1]!r}")
+
+
+def run_slice10(dev, tokenizer) -> dict[str, int]:
+    """Phase 14. -> the counted runs' launches."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        trees, paths = write_keras_encoders(root)
+        caption, ckpt, ref, feats = keras_cli(dev, root, trees["vgg16"], paths["vgg16"])
+        exported = keras_exports(dev, tokenizer, root, ckpt, ref, feats)
+        del ref
+        path_a = keras_encoders(dev, tokenizer, trees, paths)
+        keras_finetune(dev, root, trees["vgg16"], paths["vgg16"])
+    return {k: caption[k] + path_a[k] + exported[k] for k in caption}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3782,6 +4214,11 @@ def main() -> int:
     for name in counts:
         counts[name] += sliced[name]
     log(f"phase 13: {time.perf_counter() - t13:.2f} s")
+    t14 = time.perf_counter()
+    sliced = run_slice10(dev, tokenizer)
+    for name in counts:
+        counts[name] += sliced[name]
+    log(f"phase 14: {time.perf_counter() - t14:.2f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -439,12 +439,11 @@ def test_config_defaults_and_presets_match_tpucap():
 
 
 _REFUSED = [
-    ["extract", "--images", "/nonexistent", "--out", "o.npz", "--keras-h5", "w.h5"],
     ["extract", "--images", "/nonexistent", "--out", "o.npz", "--parallelism", "dp"],
     *[
         ["train", "--tokens", "/nonexistent", "--features", "/nonexistent", *flags]
         for flags in (
-            ["--keras-h5", "w.h5"], ["--parallelism", "dp"], ["--parallelism", "pp"],
+            ["--parallelism", "dp"], ["--parallelism", "pp"],
             ["--parallelism", "sp"], ["--sharded-checkpoints"], ["--scst-epochs", "2"], ["--scst-lr", "1e-4"],
             ["--scst-temperature", "0.5"], ["--tokenizer", "bpe"], ["--bpe-vocab-size", "512"],
             ["--parallelism", "tp"], ["--data-parallel"],
@@ -452,12 +451,16 @@ _REFUSED = [
             ["--tensorboard-dir", "tb"],
         )
     ],
-    ["score", "--image", "/nonexistent.jpg", "--caption", "a dog", "--checkpoint-dir", "/nonexistent",
-     "--keras-h5", "w.h5"],
+    *[
+        ["export", "--checkpoint-dir", "/nonexistent", "--out", "/nonexistent/d.h5", *flags]
+        for flags in (
+            ["--format", "aot"], ["--aot-batch-size", "8"], ["--aot-ladder"], ["--include-encoder"],
+        )
+    ],
     *[
         ["caption", "--image", "/nonexistent.jpg", "--checkpoint-dir", "/nonexistent", *flags]
         for flags in (
-            ["--keras-h5", "w.h5"], ["--server", "localhost:8000"], ["--server-model", "m"],
+            ["--server", "localhost:8000"], ["--server-model", "m"],
             ["--method", "speculative"], ["--method", "diverse"], ["--method", "mbr"],
             ["--dump-attention", "a.npz"], ["--mbr-candidates", "3"], ["--mbr-from", "beam"],
             ["--mbr-metric", "bleu4"], ["--diverse-groups", "3"], ["--diversity", "0.1"],
@@ -518,4 +521,4 @@ def test_commands_without_a_card_raise(monkeypatch):
     assert out.returncode != 0 and "no CUDA device" in out.stderr
     helped = subprocess.run([sys.executable, "-m", "tpucap_torch", "--help"], cwd=ROOT,
                             capture_output=True, text=True, timeout=120)
-    assert helped.returncode == 0 and "{extract,train,caption,score,evaluate,compare}" in helped.stdout
+    assert helped.returncode == 0 and "{extract,train,caption,score,evaluate,compare,export}" in helped.stdout

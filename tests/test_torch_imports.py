@@ -1,7 +1,8 @@
 """tpucap_torch stands alone: no module of it, nor chip_smoke.py, imports
-jax, anything of tpucap, nltk or PIL (its JPEG files go through its own
-decoder only, whatever the host has installed; its BLEU, METEOR and Porter
-stemmer are its own), and its JPEG decoder links no libjpeg; scoring
+jax, anything of tpucap, nltk, PIL, h5py, tensorflow, tf_keras or keras (its
+JPEG files go through its own decoder only, whatever the host has installed;
+its BLEU, METEOR and Porter stemmer are its own; it writes and reads Keras
+.h5 files with its own HDF5 code), and its JPEG decoder links no libjpeg; scoring
 captions with every metric loads none of them either; its entry points
 refuse to run on the CPU
 unless asked; chip_smoke.py fails, printing no result, without a card or
@@ -25,12 +26,15 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# Runs in a fresh interpreter: a finder that refuses jax, tpucap, nltk and PIL,
-# then every module of the package and chip_smoke, then a look at sys.modules.
+# Runs in a fresh interpreter: a finder that refuses jax, tpucap, nltk, PIL and
+# the HDF5 / Keras stack, then every module of the package and chip_smoke, a
+# Keras .h5 written and read back by the port, then a look at sys.modules.
 _REFUSE = """
 import importlib, importlib.abc, json, pkgutil, sys
 
-REFUSED = ("jax", "jaxlib", "tpucap", "nltk", "PIL")
+REFUSED = (
+    "jax", "jaxlib", "tpucap", "nltk", "PIL", "h5py", "tensorflow", "tf_keras", "keras",
+)
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -47,8 +51,21 @@ names = ["chip_smoke"] + [
 ]
 for n in names:
     importlib.import_module(n)
+
+import os, tempfile
+import torch
+from tpucap_torch.checkpoint import KerasH5Model, export_h5, merge_decoder_params_from_keras
+from tpucap_torch.models.decoders import build_decoder
+
+dec = build_decoder("lstm1", vocab_size=7, feature_dim=5, embed_dim=4, hidden_dim=4)
+params = dec.init(torch.Generator().manual_seed(0))
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "decoder.h5")
+    export_h5(dec, params, path, max_len=3)
+    back = merge_decoder_params_from_keras(KerasH5Model(path))
+h5_ok = bool((back["out"]["kernel"] == params["out"]["kernel"].numpy()).all())
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
-print(json.dumps({"imported": names, "loaded": loaded}))
+print(json.dumps({"imported": names, "loaded": loaded, "h5": h5_ok}))
 """
 # evaluate_captions with every metric, METEOR's synonym stage included.
 _SCORE = _REFUSE + """
@@ -72,6 +89,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_tpucap():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
+    assert res["h5"]
     want = {m.name for m in pkgutil.walk_packages(tpucap_torch.__path__, "tpucap_torch.")}
     assert want <= set(res["imported"])
     assert {
@@ -83,7 +101,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_tpucap():
         "tpucap_torch.train.finetune", "tpucap_torch.ops.jpeg",
         "tpucap_torch.data.preprocess", "tpucap_torch.data.pipeline",
         "tpucap_torch.train.evaluate", "tpucap_torch.train.metrics",
-        "tpucap_torch.text.porter",
+        "tpucap_torch.text.porter", "tpucap_torch.checkpoint.hdf5",
+        "tpucap_torch.checkpoint.keras_import", "tpucap_torch.checkpoint.keras_export",
     } <= want
 
 

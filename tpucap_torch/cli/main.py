@@ -13,6 +13,7 @@ tpucap_torch.
     python -m tpucap_torch evaluate --tokens tokens.txt --split test.txt \\
                                     --features features.npz --checkpoint-dir DIR
     python -m tpucap_torch compare  A.jsonl B.jsonl [--metric cider]
+    python -m tpucap_torch export   --checkpoint-dir DIR --out decoder.h5 [--bundle-out DIR]
 
 (or ``tpucap-torch ...``). The parsers are tpucap's, flag for flag, and the
 commands print tpucap's lines. Artifacts: features as ``.npz`` (image id ->
@@ -40,6 +41,12 @@ and ``--lora-out FILE`` also writes the adapters as tpucap's artifact.
 the same optimizer flags. ``score`` prints each image's teacher-forced
 log-probability of its caption; ``compare`` is a paired bootstrap between
 two ``evaluate --dump-captions`` files, host numpy, needing no card.
+``extract``, ``train --finetune-encoder``, ``caption``, ``score`` and
+``export`` take ``--keras-h5 FILE``, a Keras ``.h5`` whose encoder weights
+replace the config seed's (``checkpoint.params_from_keras``, read with the
+port's own HDF5 code); plain ``train`` ignores it, as tpucap does.
+``export`` writes the trained decoder as a Keras ``.h5`` file
+(``checkpoint.export_h5``; ``--format aot`` is not ported).
 
 The commands run on ``cuda``; ``main(argv, device="cpu")`` runs them on the
 CPU, which is how the tests drive them. A flag whose feature the port does
@@ -48,8 +55,7 @@ field the port does not have raises NotImplementedError from
 ``config_from_dict``; a decoder it does not have (gru1, gru2, adaptive,
 transformer) raises NotImplementedError when the pipeline is built. All
 five presets run (``--preset config1`` ... ``config5``). tpucap's other
-subcommands (distill, export, serve, doctor, profile, bench) are not
-registered.
+subcommands (distill, serve, doctor, profile, bench) are not registered.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ import sys
 import numpy as np
 import torch
 
-from tpucap_torch.checkpoint import CheckpointManager
+from tpucap_torch.checkpoint import CheckpointManager, export_h5, params_from_keras
 from tpucap_torch.config import (
     PRESETS,
     Config,
@@ -74,6 +80,7 @@ from tpucap_torch.config import (
     config_to_dict,
     encoder_config,
 )
+from tpucap_torch.convert import params_from_jax
 from tpucap_torch.core import resolve_device
 from tpucap_torch.data import (
     load_descriptions,
@@ -93,9 +100,8 @@ from tpucap_torch.utils import MetricsLogger
 #: command: dest -> the values, besides the flag's default, that the port
 #: takes.
 UNPORTED_FLAGS = {
-    "extract": {"keras_h5": (), "parallelism": ("none",)},
+    "extract": {"parallelism": ("none",)},
     "train": {
-        "keras_h5": (),
         "sharded_checkpoints": (),
         "scst_epochs": (),
         "scst_lr": (),
@@ -123,11 +129,16 @@ UNPORTED_FLAGS = {
         "gamma": (),
         "ensemble_with": (),
         "ensemble_weights": (),
-        "keras_h5": (),
     },
-    "score": {"keras_h5": ()},
+    "score": {},
     "evaluate": {"parallelism": ("none",), "model_devices": ()},
     "compare": {},
+    "export": {
+        "format": ("h5",),
+        "aot_batch_size": (),
+        "aot_ladder": (),
+        "include_encoder": (),
+    },
 }
 #: TrainConfig fields that the optimizer flags set, under their own names.
 _OPTIMIZER_FIELDS = (
@@ -355,13 +366,23 @@ def cmd_extract(args, device):
     cfg = _build_config(args)
     pipe = CaptioningPipeline(cfg, device=device)
     # The config seed's weights: the same ones _restore_pipeline builds, so
-    # extract -> train -> caption sees one encoder.
+    # extract -> train -> caption sees one encoder. Pretrained weights come
+    # through --keras-h5.
     pipe.build()
+    _maybe_keras_encoder(args, pipe)
     paths = sorted(glob.glob(os.path.join(args.images, "*.jpg")))
     feats = pipe.extract_features(paths, batch_size=args.batch_size)
     ids = [os.path.splitext(os.path.basename(p))[0] for p in paths]
     np.savez(args.out, **dict(zip(ids, feats)))
     print(f"wrote {len(ids)} features to {args.out}")
+
+
+def _maybe_keras_encoder(args, pipe) -> None:
+    """--keras-h5 FILE: install the encoder imported from a Keras .h5 file
+    (``params_from_keras``); ``set_params`` drops the cached bf16 params."""
+    if getattr(args, "keras_h5", None):
+        encoder = params_from_jax(params_from_keras(args.keras_h5, pipe.config.encoder.name))
+        pipe.set_params({**pipe.params, "encoder": encoder})
 
 
 def _karpathy_split(path, karpathy, flag: str, name: str):
@@ -619,6 +640,8 @@ def _train_finetune(args, pipe, prepared) -> None:
     pipe.fit_tokenizer(prepared)
     pipe.build()
     _maybe_pretrained_embeddings(args, pipe)
+    # Start from pretrained encoder weights: the normal fine-tune setup.
+    _maybe_keras_encoder(args, pipe)
     os.makedirs(args.checkpoint_dir, exist_ok=True)
     pipe.tokenizer.save(os.path.join(args.checkpoint_dir, "tokenizer.json"))
     size, mode = pipe.encoder.input_size, pipe.encoder.preprocess_mode
@@ -696,6 +719,7 @@ def _restore_pipeline(args, device) -> CaptioningPipeline:
     tok = load_tokenizer(os.path.join(args.checkpoint_dir, "tokenizer.json"))
     pipe = CaptioningPipeline(cfg, tokenizer=tok, device=device)
     pipe.build()
+    _maybe_keras_encoder(args, pipe)
     best_metric, best_mode = _monitor_keying(args)
     mgr = CheckpointManager(args.checkpoint_dir, best_metric=best_metric, best_mode=best_mode)
     # The template's optimizer state comes from the same config resolution
@@ -715,12 +739,13 @@ def _restore_pipeline(args, device) -> CaptioningPipeline:
 
 
 def cmd_caption(args, device):
-    print(
-        "note: no --keras-h5 given — the encoder runs with its "
-        "config-seed random init (matches a weightless `extract`; "
-        "real photographs need pretrained encoder weights)",
-        file=sys.stderr,
-    )
+    if not args.keras_h5:
+        print(
+            "note: no --keras-h5 given — the encoder runs with its "
+            "config-seed random init (matches a weightless `extract`; "
+            "real photographs need pretrained encoder weights)",
+            file=sys.stderr,
+        )
     pipe = _restore_pipeline(args, device)
     caps = pipe.caption_images(args.image, method=args.method, beam_width=args.beam_width)
     for path, cap in zip(args.image, caps):
@@ -834,6 +859,30 @@ def cmd_compare(args):
     print(json.dumps(result))
 
 
+def cmd_export(args, device):
+    """Export the trained decoder to a reference-loadable Keras .h5
+    (``export_h5``); also writes a pipeline bundle with --bundle-out.
+    --method and --beam-width belong to tpucap's AOT format and are ignored
+    here, as tpucap ignores them for h5."""
+    pipe = _restore_pipeline(args, device)
+    kw = {}
+    if type(pipe.decoder).__name__ == "AttentionDecoder":
+        # The stepwise export bakes the spatial grid size into the Input
+        # shape: the restored encoder's own grid.
+        kw["positions"] = pipe.encoder.spatial_positions
+    export_h5(
+        pipe.decoder,
+        pipe.params["decoder"],
+        args.out,
+        max_len=pipe.config.decode.max_len,
+        **kw,
+    )
+    print(f"wrote Keras h5 decoder to {args.out}")
+    if args.bundle_out:
+        pipe.save(args.bundle_out)
+        print(f"wrote pipeline bundle to {args.bundle_out}")
+
+
 def refuse_unported_flags(parser, args) -> None:
     """SystemExit naming the first flag of ``args.cmd`` whose feature the
     port does not have and which was given a value the port does not take."""
@@ -847,7 +896,7 @@ def refuse_unported_flags(parser, args) -> None:
 
 
 def build_parser() -> tuple[argparse.ArgumentParser, dict]:
-    """tpucap's parser for the six ported commands. -> (parser, the
+    """tpucap's parser for the seven ported commands. -> (parser, the
     subcommands' parsers by name)."""
     ap = argparse.ArgumentParser(prog="tpucap-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -857,7 +906,8 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     p.add_argument("--images", required=True)
     p.add_argument("--out", required=True)
     p.add_argument("--batch-size", type=int, default=32)
-    p.add_argument("--keras-h5", default=None, help="not ported")
+    p.add_argument("--keras-h5", default=None,
+                   help="pretrained Keras .h5 to import encoder weights from")
     p.add_argument("--parallelism", default=None, choices=["none", "dp"],
                    help="none only")
     p.set_defaults(fn=cmd_extract)
@@ -897,7 +947,9 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     p.add_argument("--bundle-out", default=None,
                    help="also write a pipeline.save() bundle (--finetune-encoder "
                    "defaults it to <checkpoint-dir>/bundle)")
-    p.add_argument("--keras-h5", default=None, help="not ported")
+    p.add_argument("--keras-h5", default=None,
+                   help="pretrained Keras encoder weights to start "
+                   "--finetune-encoder from")
     p.add_argument("--lora-rank", type=int, default=0,
                    help="LoRA fine-tuning: freeze every base weight and "
                    "train a rank-N overlay on the 2-D matmul kernels "
@@ -983,7 +1035,10 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     p.add_argument("--ensemble-weights", default=None, help="not ported")
     p.add_argument("--approx-topk", action="store_true",
                    help="tpucap's TPU approx_max_k; the port's top-k stays exact")
-    p.add_argument("--keras-h5", default=None, help="not ported")
+    p.add_argument("--keras-h5", default=None,
+                   help="pretrained Keras .h5 encoder weights — use the "
+                   "same file `extract` used, or captions come from a "
+                   "random encoder")
     _add_restore_flags(p)
     p.set_defaults(fn=cmd_caption)
 
@@ -1001,7 +1056,10 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     p.add_argument("--captions-file", default=None,
                    help="file with one caption per line, paired with --image order")
     p.add_argument("--checkpoint-dir", default="checkpoints")
-    p.add_argument("--keras-h5", default=None, help="not ported")
+    p.add_argument("--keras-h5", default=None,
+                   help="pretrained Keras .h5 encoder weights — use the "
+                   "same file `extract` used, or scores come from a "
+                   "random encoder")
     _add_restore_flags(p)
     p.set_defaults(fn=cmd_score)
 
@@ -1048,8 +1106,35 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     p.add_argument("--bootstrap", type=int, default=1000, help="number of bootstrap resamples")
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=cmd_compare)
+
+    p = export = sub.add_parser(
+        "export",
+        help="export the trained decoder to a Keras .h5 (migration exit "
+        "ramp); --format aot is not ported",
+    )
+    _add_common_model_flags(p)
+    _add_optimizer_flags(p)
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--out", required=True,
+                   help="output path: .h5 file (--format h5) or bundle "
+                   "directory (--format aot)")
+    p.add_argument("--method", default=None, choices=["greedy", "beam"],
+                   help="decode method baked into an AOT bundle "
+                   "(ignored for h5)")
+    p.add_argument("--beam-width", type=int, default=None,
+                   help="beam width baked into an AOT bundle (ignored for h5)")
+    p.add_argument("--format", default="h5", choices=["h5", "aot"],
+                   help="h5 = Keras exit ramp; aot: not ported")
+    p.add_argument("--aot-batch-size", type=int, default=64, help="not ported")
+    p.add_argument("--aot-ladder", action="store_true", help="not ported")
+    p.add_argument("--include-encoder", action="store_true", help="not ported")
+    p.add_argument("--bundle-out", default=None,
+                   help="also write a pipeline.save() bundle here")
+    p.add_argument("--keras-h5", default=None, help=argparse.SUPPRESS)
+    _add_restore_flags(p)
+    p.set_defaults(fn=cmd_export)
     return ap, {"extract": extract, "train": train, "caption": caption, "score": score,
-                "evaluate": evaluate, "compare": compare}
+                "evaluate": evaluate, "compare": compare, "export": export}
 
 
 def main(argv=None, *, device=None):
