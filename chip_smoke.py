@@ -268,13 +268,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    with the same launches; (d) ``train --finetune-encoder --keras-h5`` on
    13 training ids under torch's deterministic settings: its loss that of
    ``fit_finetune`` with the tree installed directly, bit for bit;
-15. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
+15. serving: path A (ResNet-50 BN folded with ``fused_blocks``, lstm1,
+   vocab 7579, beam 3, max_len 34) behind ``CaptionHTTPServer`` on
+   127.0.0.1, port 0, ``max_batch`` 64, ``max_delay_ms`` 5, in bf16 as the
+   default model and in f32 as an extra model, every request through the
+   port's ``CaptionClient``: (a) ``warmup()`` of buckets 1-64, each server
+   timed; (b) the f32 model's ``/caption_batch`` of 64 feature rows and of
+   64 JPEGs token for token ``generate``'s and the offline route's, each
+   baseline fixture's ``/caption`` (bf16) the offline route's at bucket 1
+   (the port's host decode, ``preprocess_input``, ``encode_images``,
+   ``generate``); (c) closed-loop load from a client process of its own:
+   ``/caption_features`` single rows from 1, 16 and 64 threads, 64 again at
+   ``pipeline_depth`` 2, ``/caption`` JPEGs from 16 threads, 5 s each:
+   captions/s, client p50 and p99, the server's mean batch, the buckets and
+   the host ms a dispatch, beside the offline ``generate`` rate at 64 rows;
+   every request answered 200; (e) the bf16 model under load from 16
+   threads while the f32 model's two batches run 20 times: every f32 reply
+   (b)'s, and every read of the TF32 flags inside the f32 model's encodes
+   and decode steps finds them off; (d) ``/reload`` of the f32 model to a
+   bundle of another seed (the first that changes every row's caption)
+   while one client sends its 64 rows in a loop: every reply the old
+   captions or the new, whole, and every request sent after the answer the
+   new; K2, K3 and K4 counted over (b)-(e), K1 and K5 not launched;
+16. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
    phase 9's counted serving runs for K1, K2 and K3, phase 10's counted
    steps and caption, phase 11's counted fits, decodes and commands,
    phase 12's counted monitor, joint fit, decodes and evaluates,
-   phase 13's counted decodes, joint LoRA fits and caption, and phase
-   14's counted caption, path-A batch and re-imported decodes), then
-   ``{"ok": true, "device": {...}}`` as the last line.
+   phase 13's counted decodes, joint LoRA fits and caption, phase
+   14's counted caption, path-A batch and re-imported decodes, and phase
+   15's counted serving), then ``{"ok": true, "device": {...}}`` as the
+   last line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
 """
@@ -290,6 +313,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -866,7 +890,7 @@ def corpus(n_words: int) -> dict[str, list[str]]:
     return {"corpus": caps}
 
 
-def make_pipeline(precision: str, tokenizer=None, encoder: str = "resnet50"):
+def make_pipeline(precision: str, tokenizer=None, encoder: str = "resnet50", seed: int = 0):
     from tpucap_torch.config import Config, DecodeConfig, DecoderConfig, encoder_config
     from tpucap_torch.pipeline import CaptioningPipeline
 
@@ -881,7 +905,7 @@ def make_pipeline(precision: str, tokenizer=None, encoder: str = "resnet50"):
         pipe.fit_tokenizer(corpus(VOCAB - 3))
     if pipe.vocab_size != VOCAB:
         raise AssertionError(f"vocab {pipe.vocab_size} != {VOCAB}")
-    pipe.build(seed=0)
+    pipe.build(seed=seed)
     # Random ResNet-50 features of noise images are large and nearly alike
     # (mean |f| about 5.6, spread across images about 0.16 on the CPU at
     # this width), so the image branch would pick the same word at every
@@ -4144,6 +4168,429 @@ def run_slice10(dev, tokenizer) -> dict[str, int]:
     return {k: caption[k] + path_a[k] + exported[k] for k in caption}
 
 
+# -- phase 15: serving ---------------------------------------------------------
+
+# The servers' batcher (tpucap serve's defaults), the closed-loop runs'
+# client threads and seconds, the rows of (b), (d) and (e)'s batches, (e)'s
+# repeats and (d)'s seconds of traffic on each side of the reload.
+P15_MAX_BATCH, P15_DELAY_MS = 64, 5.0
+P15_THREADS, P15_SECONDS, P15_JPEG_THREADS = (1, 16, 64), 5.0, 16
+P15_ROWS, P15_F32_REPEATS, P15_RELOAD_SECONDS = 64, 20, 1.0
+
+# The closed-loop client, in a process of its own (the server's Python
+# threads keep this process's interpreter lock): the port's CaptionClient
+# only, standard library only. argv[1]: a JSON object of host, port, route
+# ("features" or "jpeg"), model, threads, seconds and the path of a JSON
+# list of feature rows or of JPEG file paths. Prints one JSON line: the
+# answered count, the wall, each request's latency in ms, the first errors.
+P15_CLIENT = """
+import json, sys, threading, time
+sys.path.insert(0, sys.argv[2])
+from tpucap_torch.client import CaptionClient
+
+cfg = json.loads(sys.argv[1])
+items = json.load(open(cfg["items"]))
+if cfg["route"] == "jpeg":
+    items = [open(p, "rb").read() for p in items]
+client = CaptionClient(cfg["host"], cfg["port"], model=cfg["model"], timeout=120)
+call = client.caption if cfg["route"] == "jpeg" else client.caption_features
+lat, errors, lock = [], [], threading.Lock()
+start = time.perf_counter()
+stop = start + cfg["seconds"]
+
+def worker(k):
+    i = k
+    while time.perf_counter() < stop:
+        t0 = time.perf_counter()
+        try:
+            call(items[i % len(items)])
+        except Exception as e:
+            with lock:
+                errors.append(repr(e))
+        else:
+            with lock:
+                lat.append((time.perf_counter() - t0) * 1e3)
+        i += cfg["threads"]
+
+threads = [threading.Thread(target=worker, args=(k,)) for k in range(cfg["threads"])]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps({"ok": len(lat), "wall": time.perf_counter() - start, "latencies_ms": lat,
+                  "errors": errors[:5], "n_errors": len(errors)}))
+"""
+
+
+def percentile(sorted_ms: list, q: float) -> float:
+    """Nearest rank, as the server's /stats takes its p50 and p99."""
+    return sorted_ms[int(q * (len(sorted_ms) - 1))]
+
+
+class LoadClient:
+    """One closed-loop run of P15_CLIENT in its own process."""
+
+    def __init__(self, addr, route: str, items_path: Path, threads: int, seconds: float,
+                 model: str = ""):
+        cfg = dict(host=addr[0], port=addr[1], route=route, model=model, threads=threads,
+                   seconds=seconds, items=str(items_path))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", P15_CLIENT, json.dumps(cfg), str(ROOT)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+
+    def result(self, label: str) -> dict:
+        try:
+            out, err = self.proc.communicate(timeout=120)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+        if self.proc.returncode != 0:
+            raise AssertionError(f"{label}: client exited {self.proc.returncode}: {err[-2000:]}")
+        res = json.loads(out.strip().splitlines()[-1])
+        if res["n_errors"] or not res["ok"]:
+            raise AssertionError(f"{label}: {res['n_errors']} requests failed ({res['errors']}), "
+                                 f"{res['ok']} answered")
+        return res
+
+
+class BatchSizes:
+    """The batch sizes (buckets) a pipeline's serving entry points are
+    called with and the host seconds each dispatch took (the decode syncs
+    every few steps, so nearly the whole decode), wrapped on the instance
+    for phase 15's histograms. Beside them, since the last ``start()``, the
+    work those calls gave the kernels: images batches (one encoder pass
+    each, K4's 12 launches) and the steps of their decodes (one launch each
+    of K2 and K3's two kernels). A step counts only inside a wrapped call,
+    so a decode made anywhere else adds nothing."""
+
+    def __init__(self, *pipes):
+        self.calls: list[tuple[int, float]] = []
+        self.images = self.steps = 0
+        self._lock = threading.Lock()
+        self._inside = threading.local()
+        for pipe in pipes:
+            for name in ("generate_submit", "encode_submit"):
+                setattr(pipe, name, self._wrap(getattr(pipe, name), name == "encode_submit"))
+            pipe.step_fn = self._wrap_step_fn(pipe.step_fn)
+
+    def _wrap(self, fn, images: bool):
+        def counted(x, **kw):
+            t0 = time.perf_counter()
+            self._inside.on = True
+            try:
+                out = fn(x, **kw)
+            finally:
+                self._inside.on = False
+            self.calls.append((len(x), time.perf_counter() - t0))
+            with self._lock:
+                self.images += images
+            return out
+        return counted
+
+    def _wrap_step_fn(self, step_fn):
+        def counted_step_fn():
+            step = step_fn()
+
+            def counted_step(*a, **kw):
+                if getattr(self._inside, "on", False):
+                    with self._lock:
+                        self.steps += 1
+                return step(*a, **kw)
+            return counted_step
+        return counted_step_fn
+
+    def start(self) -> None:
+        with self._lock:
+            self.images = self.steps = 0
+
+    def take(self) -> tuple[dict[int, int], float]:
+        """-> (the buckets' histogram, mean ms a dispatch) since the last take."""
+        calls, self.calls = self.calls, []
+        sizes = [b for b, _ in calls]
+        mean_ms = 1e3 * sum(t for _, t in calls) / len(calls) if calls else 0.0
+        return {b: sizes.count(b) for b in sorted(set(sizes))}, mean_ms
+
+
+class FlagProbe:
+    """Reads the TF32 flags inside a pipeline's device work: at the start
+    and end of its encoder's apply (cuDNN's convolutions) and at every step
+    of its decodes (the step runs right after init_state, the decode's
+    cuBLAS call). -> how many reads found another setting than the
+    pipeline's precision asks for."""
+
+    def __init__(self, pipe):
+        self.tf32 = pipe.config.precision != "f32"
+        self.reads = self.wrong = 0
+        encoder, apply = pipe.encoder, pipe.encoder.apply
+
+        def probed_apply(*a, **kw):
+            self.read()
+            out = apply(*a, **kw)
+            self.read()
+            return out
+
+        object.__setattr__(encoder, "apply", probed_apply)  # the encoder is frozen
+        step_fn = pipe.step_fn
+
+        def probed_step_fn():
+            step = step_fn()
+
+            def probed_step(*a, **kw):
+                self.read()
+                return step(*a, **kw)
+            return probed_step
+
+        pipe.step_fn = probed_step_fn
+
+    def read(self) -> None:
+        flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        self.reads += 1
+        self.wrong += flags != (self.tf32, self.tf32)
+
+    def take(self) -> tuple[int, int]:
+        out = (self.reads, self.wrong)
+        self.reads = self.wrong = 0
+        return out
+
+
+def served_pipeline(precision: str, tokenizer, seed: int = 0):
+    """Path A (BN folded, fused identity blocks) at phase 3's widths."""
+    pipe = make_pipeline(precision, tokenizer, seed=seed)
+    pipe.encoder = dataclasses.replace(pipe.encoder, fused_blocks=True)
+    return pipe
+
+
+def offline_jpeg(pipe, blob: bytes, method=None) -> str:
+    """The offline route of one JPEG at bucket 1: the port's host decode,
+    preprocess_input, encode_images, generate."""
+    from tpucap_torch.serve_http import _preprocess_jpeg
+
+    x = _preprocess_jpeg(blob, pipe.encoder.input_size, pipe.encoder.preprocess_mode)
+    return pipe.generate(pipe.encode_images(x[None]), method=method)[0]
+
+
+def closed_loop(srv, client_addr, sizes: BatchSizes, label: str, route: str, items: Path,
+                threads: int, model: str = "", endpoint: str = "features") -> dict:
+    """One closed-loop run: captions/s, client p50 / p99, the server's mean
+    batch and the buckets of this run's batches."""
+    name = "default" if not model else model
+    server = srv._models[name][2 if endpoint == "features" else 1]
+    before = server.stats()
+    sizes.take()
+    res = LoadClient(client_addr, route, items, threads, P15_SECONDS, model).result(label)
+    after = server.stats()
+    lat = sorted(res["latencies_ms"])
+    batches = after["batches"] - before["batches"]
+    buckets, dispatch_ms = sizes.take()
+    row = {
+        "captions_per_s": res["ok"] / res["wall"],
+        "p50_ms": percentile(lat, 0.5), "p99_ms": percentile(lat, 0.99),
+        "mean_batch": (after["requests"] - before["requests"]) / max(1, batches),
+        "buckets": buckets, "dispatch_ms": dispatch_ms, "answered": res["ok"],
+    }
+    log(f"serve {label}: {threads} client threads, {res['ok']} answered in {res['wall']:.3f} s: "
+        f"captions/s {row['captions_per_s']:.2f}; client p50 {row['p50_ms']:.3f} ms, "
+        f"p99 {row['p99_ms']:.3f} ms; server mean batch {row['mean_batch']:.2f}; "
+        f"buckets {row['buckets']}; {dispatch_ms:.3f} ms a dispatch")
+    return row
+
+
+def reload_seed(tokenizer, rows, old: list[str]) -> tuple[object, list[str], int]:
+    """The first seed after 0 whose f32 pipeline changes every one of
+    ``old``, the seed-0 captions of ``rows``. -> (that pipeline, its
+    captions, seed)."""
+    for seed in range(1, 6):
+        other = served_pipeline("f32", tokenizer, seed=seed)
+        new = other.generate(rows)
+        if all(a != b for a, b in zip(old, new)):
+            return other, new, seed
+        del other
+    raise AssertionError("no seed in 1-5 changes every row's caption")
+
+
+def reload_under_load(srv, addr, rows, old: list[str], new: list[str], bundle: Path) -> dict:
+    """(d): one client sends /caption_batch of ``rows`` to model f32 in a
+    loop; /reload swaps in ``bundle`` meanwhile. Every reply must be the
+    old captions or the new, whole; every request sent after /reload
+    answered must get the new."""
+    from tpucap_torch.client import CaptionClient
+
+    client = CaptionClient(*addr, model="f32", timeout=120)
+    replies, stop = [], threading.Event()
+    body = rows.tolist()
+
+    def loop():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            caps = client.caption_features_many(body)
+            replies.append((t0, caps))
+
+    t = threading.Thread(target=loop)
+    t.start()
+    time.sleep(P15_RELOAD_SECONDS)
+    t_call = time.perf_counter()
+    answer = CaptionClient(*addr, timeout=600).reload(str(bundle), model="f32")
+    t_done = time.perf_counter()
+    time.sleep(P15_RELOAD_SECONDS)
+    stop.set()
+    t.join(timeout=120)
+    if t.is_alive() or answer != {"ok": True, "bundle": str(bundle)}:
+        raise AssertionError(f"reload under load: answer {answer}, client alive {t.is_alive()}")
+    kinds = []
+    for t0, caps in replies:
+        kind = "old" if caps == old else "new" if caps == new else "mixed"
+        if kind == "mixed" or (t0 >= t_done and kind != "new"):
+            rows_old = sum(c == o for c, o in zip(caps, old))
+            rows_new = sum(c == n for c, n in zip(caps, new))
+            raise AssertionError(f"reload under load: a reply sent {t0 - t_done:+.4f} s after the "
+                                 f"reload answered is {kind} ({rows_old} rows old, {rows_new} new "
+                                 f"of {len(caps)})")
+        kinds.append(kind)
+    if "old" not in kinds or "new" not in kinds:
+        raise AssertionError(f"reload under load: replies {kinds}")
+    row = {"replies": len(kinds), "old": kinds.count("old"), "new": kinds.count("new"),
+           "reload_s": t_done - t_call}
+    log(f"serve reload under load: /reload answered in {row['reload_s']:.4f} s; {row['replies']} "
+        f"replies of {len(rows)} rows, {row['old']} all old weights, {row['new']} all new, none "
+        "mixed; every request sent after the answer got the new weights")
+    return row
+
+
+def two_precisions(srv, addr, items: Path, f32_body: tuple, want: tuple, probe: FlagProbe) -> int:
+    """(e): the bf16 model under load from 16 threads (features and JPEGs)
+    while model f32's /caption_batch of feature rows and of JPEGs run
+    P15_F32_REPEATS times. Every f32 reply must be (b)'s, and every read of
+    the TF32 flags inside model f32's device work must find them off. (The
+    replies alone can hardly show a wrong flag: make_pipeline shrinks the
+    image branch, so a TF32 rounding of the features seldom moves a token.)
+    -> the bf16 model's answered count."""
+    from tpucap_torch.client import CaptionClient
+
+    client = CaptionClient(*addr, model="f32", timeout=120)
+    loads = [LoadClient(addr, "features", items[0], P15_JPEG_THREADS // 2, P15_SECONDS),
+             LoadClient(addr, "jpeg", items[1], P15_JPEG_THREADS // 2, P15_SECONDS)]
+    time.sleep(1.0)  # the load is running
+    probe.take()
+    bad = 0
+    for _ in range(P15_F32_REPEATS):
+        bad += client.caption_features_many(f32_body[0]) != want[0]
+        bad += client.caption_jpegs_many(f32_body[1]) != want[1]
+    reads, wrong = probe.take()
+    answered = sum(load.result("two precisions: bf16 load")["ok"] for load in loads)
+    log(f"serve two precisions: {2 * P15_F32_REPEATS} f32 replies (features and JPEG batches of "
+        f"{P15_ROWS}) under {answered} bf16 requests from {P15_JPEG_THREADS} threads: "
+        f"{2 * P15_F32_REPEATS - bad} equal to (b)'s, {bad} differ; {reads} reads of the TF32 "
+        f"flags inside model f32's encodes and decode steps, {wrong} found TF32 on")
+    if bad or wrong:
+        raise AssertionError(f"two precisions: {bad} f32 replies differ from (b)'s, {wrong} of "
+                             f"{reads} flag reads inside model f32's work found TF32 on")
+    return answered
+
+
+def run_serving(dev, tokenizer) -> dict[str, int]:
+    """Phase 15. -> the counted runs' launches ((b)-(e))."""
+    import tempfile
+
+    from tpucap_torch import ops
+    from tpucap_torch.client import CaptionClient
+    from tpucap_torch.serve_http import CaptionHTTPServer, _preprocess_jpeg_batch
+
+    del dev
+    bf16 = served_pipeline("bf16", tokenizer)
+    f32 = served_pipeline("f32", tokenizer)
+    sizes = BatchSizes(bf16, f32)
+    probe = FlagProbe(f32)
+    srv = CaptionHTTPServer(bf16, host="127.0.0.1", port=0, max_batch=P15_MAX_BATCH,
+                            max_delay_ms=P15_DELAY_MS, allow_reload=True, extra_models={"f32": f32})
+    addr = srv.serve_background()
+    log(f"serve: path A (resnet50 fused_blocks + lstm1, vocab {VOCAB}, beam {BEAM}, max_len "
+        f"{MAX_LEN}) bf16 as the default model and f32 as model f32 on http://{addr[0]}:{addr[1]}, "
+        f"max_batch {P15_MAX_BATCH}, max_delay_ms {P15_DELAY_MS}, buckets {srv._features._buckets}")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            # (a) warmup: every bucket of each server.
+            for name, (_, images, features) in sorted(srv._models.items()):
+                for endpoint, server in (("images", images), ("features", features)):
+                    t0 = time.perf_counter()
+                    server.warmup()
+                    log(f"serve warmup {name}/{endpoint}: buckets 1-{P15_MAX_BATCH} in "
+                        f"{time.perf_counter() - t0:.3f} s")
+            sizes.take()
+
+            g = np.random.default_rng(15)
+            rows = g.normal(size=(P15_ROWS, DEC_FEATURES)).astype(np.float32)
+            feature_items = tmp / "rows.json"
+            feature_items.write_text(json.dumps(g.normal(size=(256, DEC_FEATURES)).astype(np.float32).tolist()))
+            paths = [FIXTURES / f for f in BASELINE_FIXTURES]
+            jpeg_items = tmp / "jpegs.json"
+            jpeg_items.write_text(json.dumps([str(p) for p in paths]))
+            blobs = [p.read_bytes() for p in paths]
+            batch_blobs = [blobs[i % len(blobs)] for i in range(P15_ROWS)]
+
+            # Every offline reference, the ceiling and the reload's bundle
+            # first: the launch window below holds served requests only.
+            x = _preprocess_jpeg_batch(batch_blobs, f32.encoder.input_size, f32.encoder.preprocess_mode)
+            want = (f32.generate(rows), f32.generate(f32.encode_images(x)))
+            want_single = [offline_jpeg(bf16, blob) for blob in blobs]
+            offline = min(timed(lambda: bf16.generate(rows))[1] for _ in range(3))
+            ceiling = P15_ROWS / offline
+            other, new, seed = reload_seed(tokenizer, rows, want[0])
+            bundle = tmp / f"seed{seed}"
+            other.save(bundle)
+            del other
+            log(f"serve ceiling: offline generate of {P15_ROWS} rows (bf16) {offline * 1e3:.3f} ms, "
+                f"{ceiling:.2f} captions/s; reload seed {seed} changes every row's caption")
+
+            sizes.take()
+            sizes.start()
+            ops.reset_launch_counts()
+            # (b) exactness: the f32 model's /caption_batch of feature rows and
+            # of JPEGs against the offline route at 64; each fixture's
+            # /caption of the default model against the offline route at 1.
+            client = CaptionClient(*addr, timeout=120)
+            f32_rows = client.caption_features_many(rows, model="f32")
+            if f32_rows != want[0]:
+                raise AssertionError("exactness: f32 /caption_batch != generate of the same rows")
+            f32_jpegs = client.caption_jpegs_many(batch_blobs, model="f32")
+            if f32_jpegs != want[1]:
+                raise AssertionError("exactness: f32 /caption_batch of JPEGs != the offline route")
+            for path, blob, cap in zip(paths, blobs, want_single):
+                if client.caption(blob) != cap:
+                    raise AssertionError(f"exactness: /caption of {path.name} != the offline route")
+            log(f"serve exactness: f32 /caption_batch of {P15_ROWS} rows and of {P15_ROWS} JPEGs "
+                f"token for token generate's and the offline route's; /caption of the "
+                f"{len(paths)} baseline fixtures (bf16) each the offline route's at bucket 1")
+
+            # (c) closed-loop load.
+            sizes.take()
+            for n in P15_THREADS:
+                closed_loop(srv, addr, sizes, f"features x{n}", "features", feature_items, n)
+            most = P15_THREADS[-1]
+            srv._features._depth = 2  # the batcher reads it once a batch
+            closed_loop(srv, addr, sizes, f"features x{most} depth 2", "features", feature_items, most)
+            srv._features._depth = 1
+            closed_loop(srv, addr, sizes, f"jpeg x{P15_JPEG_THREADS}", "jpeg", jpeg_items,
+                        P15_JPEG_THREADS, endpoint="images")
+
+            # (e) two precisions in one process, then (d) reload (of model f32).
+            two_precisions(srv, addr, (feature_items, jpeg_items), (rows, batch_blobs), want, probe)
+            reload_under_load(srv, addr, rows, want[0], new, bundle)
+            counts = ops.launch_counts()
+            served = {"lstm_cell": sizes.steps, "merge_head": sizes.steps,
+                      "vocab_proj": sizes.steps, "identity_block": 12 * sizes.images}
+            log(f"serve: launches over (b)-(e) {counts}; the served batches made "
+                f"{sizes.images} encoder passes and {sizes.steps} decode steps")
+            expect = {name: served.get(name, 0) for name in counts}
+            if counts != expect or not sizes.images or not sizes.steps:
+                raise AssertionError(f"serve: launches {counts}, the served batches' work asks "
+                                     f"for {expect}")
+    finally:
+        srv.close()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4219,6 +4666,11 @@ def main() -> int:
     for name in counts:
         counts[name] += sliced[name]
     log(f"phase 14: {time.perf_counter() - t14:.2f} s")
+    t15 = time.perf_counter()
+    served = run_serving(dev, tokenizer)
+    for name in counts:
+        counts[name] += served[name]
+    log(f"phase 15: {time.perf_counter() - t15:.2f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -460,13 +460,16 @@ _REFUSED = [
     *[
         ["caption", "--image", "/nonexistent.jpg", "--checkpoint-dir", "/nonexistent", *flags]
         for flags in (
-            ["--server", "localhost:8000"], ["--server-model", "m"],
             ["--method", "speculative"], ["--method", "diverse"], ["--method", "mbr"],
             ["--dump-attention", "a.npz"], ["--mbr-candidates", "3"], ["--mbr-from", "beam"],
             ["--mbr-metric", "bleu4"], ["--diverse-groups", "3"], ["--diversity", "0.1"],
             ["--prefix", "a dog"], ["--include-words", "dog"], ["--draft-bundle", "b"],
             ["--gamma", "2"], ["--ensemble-with", "b"], ["--ensemble-weights", "1,1"],
         )
+    ],
+    *[
+        ["serve", "--model-dir", "/nonexistent", "--checkpoint-dir", "/nonexistent", *flags]
+        for flags in (["--aot-bundle", "/nonexistent"], ["--engine", "continuous"])
     ],
     ["evaluate", "--features", "/nonexistent", "--checkpoint-dir", "/nonexistent",
      "--parallelism", "tp"],
@@ -521,4 +524,4 @@ def test_commands_without_a_card_raise(monkeypatch):
     assert out.returncode != 0 and "no CUDA device" in out.stderr
     helped = subprocess.run([sys.executable, "-m", "tpucap_torch", "--help"], cwd=ROOT,
                             capture_output=True, text=True, timeout=120)
-    assert helped.returncode == 0 and "{extract,train,caption,score,evaluate,compare,export}" in helped.stdout
+    assert helped.returncode == 0 and "{extract,train,caption,score,evaluate,compare,export,serve}" in helped.stdout

@@ -2,7 +2,8 @@
 jax, anything of tpucap, nltk, PIL, h5py, tensorflow, tf_keras or keras (its
 JPEG files go through its own decoder only, whatever the host has installed;
 its BLEU, METEOR and Porter stemmer are its own; it writes and reads Keras
-.h5 files with its own HDF5 code), and its JPEG decoder links no libjpeg; scoring
+.h5 files with its own HDF5 code), and its JPEG decoder links no libjpeg; its
+HTTP client imports only the standard library; scoring
 captions with every metric loads none of them either; its entry points
 refuse to run on the CPU
 unless asked; chip_smoke.py fails, printing no result, without a card or
@@ -103,7 +104,23 @@ def test_port_and_chip_smoke_import_no_jax_and_no_tpucap():
         "tpucap_torch.train.evaluate", "tpucap_torch.train.metrics",
         "tpucap_torch.text.porter", "tpucap_torch.checkpoint.hdf5",
         "tpucap_torch.checkpoint.keras_import", "tpucap_torch.checkpoint.keras_export",
+        "tpucap_torch.serve", "tpucap_torch.serve_http", "tpucap_torch.client",
     } <= want
+
+
+def test_client_imports_only_the_standard_library():
+    """The client drops into any process: importing it loads neither torch
+    nor numpy (nor anything of tpucap or jax)."""
+    probe = _REFUSE + """
+import tpucap_torch.client
+heavy = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "numpy") + REFUSED)
+print(json.dumps(heavy))
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_scoring_with_every_metric_loads_no_nltk():

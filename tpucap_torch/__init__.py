@@ -12,6 +12,16 @@ Every Pallas kernel on the serving path is a hand-written CUDA kernel here
 same function. A kernel wrapper runs the plain version only for tensors on
 the CPU; for a CUDA tensor it launches the kernel or raises.
 
+Modules, as tpucap's are laid out:
+
+- ``tpucap_torch.text``, ``data``, ``models``, ``decode``, ``train``, ``ops``
+  (the kernels' wrappers; ``csrc/`` holds their sources), ``checkpoint``,
+  ``cli`` (extract / train / caption / score / evaluate / compare / export /
+  serve), ``pipeline``, ``convert``
+- ``tpucap_torch.serve`` / ``tpucap_torch.serve_http`` — the micro-batching
+  caption server and its HTTP front end
+- ``tpucap_torch.client`` — stdlib Python client of the HTTP serving layer
+
 The package imports torch and numpy, never jax and nothing of ``tpucap``.
 """
 

@@ -14,6 +14,8 @@ tpucap_torch.
                                     --features features.npz --checkpoint-dir DIR
     python -m tpucap_torch compare  A.jsonl B.jsonl [--metric cider]
     python -m tpucap_torch export   --checkpoint-dir DIR --out decoder.h5 [--bundle-out DIR]
+    python -m tpucap_torch serve    --model-dir BUNDLE [--port 8000] [--extra-model NAME=BUNDLE]
+    python -m tpucap_torch caption  --image photo.jpg --server HOST:PORT [--server-model NAME]
 
 (or ``tpucap-torch ...``). The parsers are tpucap's, flag for flag, and the
 commands print tpucap's lines. Artifacts: features as ``.npz`` (image id ->
@@ -47,6 +49,13 @@ replace the config seed's (``checkpoint.params_from_keras``, read with the
 port's own HDF5 code); plain ``train`` ignores it, as tpucap does.
 ``export`` writes the trained decoder as a Keras ``.h5`` file
 (``checkpoint.export_h5``; ``--format aot`` is not ported).
+``serve`` runs the HTTP caption server (``serve_http.CaptionHTTPServer``,
+tpucap's endpoints) on a bundle (``--model-dir``) or a restored checkpoint
+(``--keras-h5`` as in ``caption``), with ``--extra-model``,
+``--allow-reload``, the batcher's flags and a SIGTERM drain (exit 0);
+``--aot-bundle`` and ``--engine continuous`` are not ported. ``caption
+--server HOST:PORT`` captions through a running server with the port's
+client (``tpucap_torch.client``), needing no model and no device here.
 
 The commands run on ``cuda``; ``main(argv, device="cpu")`` runs them on the
 CPU, which is how the tests drive them. A flag whose feature the port does
@@ -55,7 +64,7 @@ field the port does not have raises NotImplementedError from
 ``config_from_dict``; a decoder it does not have (gru1, gru2, adaptive,
 transformer) raises NotImplementedError when the pipeline is built. All
 five presets run (``--preset config1`` ... ``config5``). tpucap's other
-subcommands (distill, serve, doctor, profile, bench) are not registered.
+subcommands (distill, doctor, profile, bench) are not registered.
 """
 
 from __future__ import annotations
@@ -114,8 +123,6 @@ UNPORTED_FLAGS = {
         "tensorboard_dir": (),
     },
     "caption": {
-        "server": (),
-        "server_model": (),
         "method": ("greedy",),
         "dump_attention": (),
         "mbr_candidates": (),
@@ -139,6 +146,7 @@ UNPORTED_FLAGS = {
         "aot_ladder": (),
         "include_encoder": (),
     },
+    "serve": {"aot_bundle": (), "engine": ()},
 }
 #: TrainConfig fields that the optimizer flags set, under their own names.
 _OPTIMIZER_FIELDS = (
@@ -618,7 +626,7 @@ def _maybe_save_ema_bundle(args, pipe) -> None:
     bundle = os.path.join(args.checkpoint_dir, "bundle_ema")
     pipe.save(bundle)
     pipe.params.update(replaced)
-    pipe._bf16_params = None
+    pipe._params_changed()
     print(f"EMA weights (decay {args.ema_decay}) bundled in {bundle}")
 
 
@@ -736,6 +744,58 @@ def _restore_pipeline(args, device) -> CaptioningPipeline:
     pipe.set_params({**pipe.params, "decoder": dec_params})
     mgr.close()
     return pipe
+
+
+def _validate_caption_server_flags(args) -> None:
+    """tpucap's checks of ``caption --server`` and ``--server-model``, with
+    its messages, before the unported-flag check."""
+    if args.server_model and not args.server:
+        # --server-model without --server would be silently ignored.
+        raise SystemExit("--server-model only applies with --server HOST:PORT")
+    if not args.server:
+        return
+    if args.method in ("speculative", "diverse", "mbr"):
+        raise SystemExit(
+            f"--method {args.method} is an offline decode mode; "
+            "--server supports the server's configured greedy/beam "
+            "(plus --prefix / --include-words per request)"
+        )
+    if args.ensemble_with or args.dump_attention:
+        raise SystemExit(
+            "--ensemble-with/--dump-attention need a local model; "
+            "drop --server to run offline"
+        )
+    if args.prefix and args.include_words:
+        raise SystemExit("a request takes --prefix OR --include-words")
+
+
+def _caption_remote(args) -> None:
+    """``caption --server HOST:PORT``: caption through a running ``serve``
+    (the port's or tpucap's) with the port's client instead of restoring a
+    model here: no checkpoint, no device. Everything model-shaped
+    (--method, --beam-width, --decoder, ...) is the server's and ignored
+    here."""
+    from tpucap_torch.client import CaptionClient, ServerError
+
+    host, _, port = args.server.rpartition(":")
+    if not port.isdigit():
+        raise SystemExit(f"--server wants HOST:PORT, got {args.server!r}")
+    # Bracketed IPv6 literals ([::1]:8000) parse to host '[::1]': strip the
+    # brackets, which http.client does not accept.
+    host = host.strip("[]")
+    client = CaptionClient(host or "127.0.0.1", int(port), model=args.server_model or "")
+    blobs = []
+    for path in args.image:
+        with open(path, "rb") as f:
+            blobs.append(f.read())
+    try:
+        caps = client.caption_many(blobs)
+    except ServerError as e:
+        raise SystemExit(f"server error ({e.status}): {e}")
+    except OSError as e:
+        raise SystemExit(f"cannot reach {args.server}: {e}")
+    for path, cap in zip(args.image, caps):
+        print(f"{path}\t{cap}")
 
 
 def cmd_caption(args, device):
@@ -883,6 +943,88 @@ def cmd_export(args, device):
         print(f"wrote pipeline bundle to {args.bundle_out}")
 
 
+def _validate_serve_flags(args) -> dict:
+    """tpucap's checks of serve's flags, with its messages, before any model
+    is loaded. -> the --extra-model specs, name -> bundle directory."""
+    extra_specs = {}
+    for spec in args.extra_model or []:
+        name, sep, path = spec.partition("=")
+        if not sep or not name or not path:
+            raise SystemExit(f"--extra-model wants NAME=BUNDLE_DIR, got {spec!r}")
+        if name in extra_specs or name == "default":
+            raise SystemExit(f"--extra-model: duplicate/reserved name {name!r}")
+        extra_specs[name] = path
+    if extra_specs and args.aot_bundle:
+        raise SystemExit("--extra-model is not supported with --aot-bundle")
+    if extra_specs and args.engine != "batch":
+        raise SystemExit("--extra-model needs --engine batch")
+    if args.allow_reload and args.aot_bundle:
+        raise SystemExit(
+            "--allow-reload is not supported with --aot-bundle "
+            "(AOT artifacts are immutable; restart on a new bundle)"
+        )
+    return extra_specs
+
+
+def cmd_serve(args, device):
+    """The HTTP caption server (``serve_http.CaptionHTTPServer``) on a
+    bundle (--model-dir) or a restored checkpoint; --extra-model bundles
+    behind the same port. SIGTERM drains the batchers and exits 0."""
+    import signal
+    import threading
+
+    from tpucap_torch.serve_http import CaptionHTTPServer
+
+    extra_specs = _validate_serve_flags(args)
+    if args.model_dir:
+        pipe = CaptioningPipeline.load(args.model_dir, device=device)
+    else:
+        pipe = _restore_pipeline(args, device)
+    extra_models = {
+        name: CaptioningPipeline.load(path, device=device) for name, path in extra_specs.items()
+    } or None
+    srv = CaptionHTTPServer(
+        pipe,
+        host=args.host,
+        port=args.port,
+        max_batch=args.max_batch,
+        max_delay_ms=args.max_delay_ms,
+        method=args.method,
+        beam_width=args.beam_width,
+        max_queue=args.max_queue,
+        engine=args.engine,
+        allow_reload=args.allow_reload,
+        extra_models=extra_models,
+        max_body_bytes=int(args.max_body_mb * (1 << 20)),
+    )
+    if args.warmup:
+        print("warming up (running every batch bucket)...", file=sys.stderr)
+        srv.warmup()
+    host, port = srv.address
+    print(f"serving on http://{host}:{port} "
+          f"(POST /caption, POST /caption_features, GET /stats)",
+          file=sys.stderr)
+
+    # Graceful drain on SIGTERM: stop accepting, finish in-flight batches
+    # via close(), exit 0. The handler only schedules the shutdown:
+    # BaseServer.shutdown() would deadlock if called from a signal frame
+    # interrupting serve_forever itself.
+    def _on_sigterm(signum, frame):
+        del signum, frame
+        print("SIGTERM: draining and shutting down...", file=sys.stderr)
+        threading.Thread(target=srv._httpd.shutdown, daemon=True).start()
+
+    old_term = signal.signal(signal.SIGTERM, _on_sigterm)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        signal.signal(signal.SIGTERM, old_term)
+        srv.close()
+        print("drained; bye", file=sys.stderr)
+
+
 def refuse_unported_flags(parser, args) -> None:
     """SystemExit naming the first flag of ``args.cmd`` whose feature the
     port does not have and which was given a value the port does not take."""
@@ -896,7 +1038,7 @@ def refuse_unported_flags(parser, args) -> None:
 
 
 def build_parser() -> tuple[argparse.ArgumentParser, dict]:
-    """tpucap's parser for the seven ported commands. -> (parser, the
+    """tpucap's parser for the eight ported commands. -> (parser, the
     subcommands' parsers by name)."""
     ap = argparse.ArgumentParser(prog="tpucap-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -1010,8 +1152,11 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     _add_common_model_flags(p)
     _add_optimizer_flags(p)
     p.add_argument("--image", nargs="+", required=True)
-    p.add_argument("--server", default=None, metavar="HOST:PORT", help="not ported")
-    p.add_argument("--server-model", default=None, metavar="NAME", help="not ported")
+    p.add_argument("--server", default=None, metavar="HOST:PORT",
+                   help="caption through a running `serve` (the port's client); "
+                   "no local model, checkpoint or device")
+    p.add_argument("--server-model", default=None, metavar="NAME",
+                   help="with --server: the --extra-model name to route to")
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--method", default="beam",
                    choices=["greedy", "beam", "speculative", "diverse", "mbr"],
@@ -1133,8 +1278,51 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     p.add_argument("--keras-h5", default=None, help=argparse.SUPPRESS)
     _add_restore_flags(p)
     p.set_defaults(fn=cmd_export)
+
+    p = serve = sub.add_parser(
+        "serve", help="HTTP caption server (micro-batched serving on the card)"
+    )
+    _add_common_model_flags(p)
+    _add_optimizer_flags(p)
+    p.add_argument("--model-dir", default=None,
+                   help="a pipeline.save() bundle; overrides "
+                   "--checkpoint-dir restore")
+    p.add_argument("--aot-bundle", default=None, help="not ported")
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--keras-h5", default=None,
+                   help="pretrained Keras .h5 encoder weights for the "
+                   "image path (as in `caption`)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--max-batch", type=int, default=64)
+    p.add_argument("--max-delay-ms", type=float, default=5.0)
+    p.add_argument("--max-queue", type=int, default=None,
+                   help="bounded admission: reject (HTTP 503) when this "
+                   "many requests are queued (default unbounded)")
+    p.add_argument("--max-body-mb", type=float, default=64.0,
+                   help="request-body ceiling in MiB (HTTP 413 over it, "
+                   "checked before the body is read; 0 disables)")
+    p.add_argument("--engine", default="batch",
+                   choices=["batch", "continuous"],
+                   help="batch only (the continuous engine is not ported)")
+    p.add_argument("--no-warmup", dest="warmup", action="store_false",
+                   help="skip running the batch buckets at startup")
+    p.add_argument("--method", default="beam", choices=["greedy", "beam"])
+    p.add_argument("--beam-width", type=int, default=3)
+    p.add_argument("--allow-reload", action="store_true",
+                   help="enable POST /reload {'bundle': path}: "
+                   "zero-downtime weight hot-swap from a pipeline "
+                   "bundle (admin surface — off by default)")
+    p.add_argument("--extra-model", action="append", default=None,
+                   metavar="NAME=BUNDLE_DIR",
+                   help="serve an additional pipeline bundle behind the "
+                   "same port (repeatable); requests route with "
+                   "?model=NAME or a 'model' JSON field — each model "
+                   "gets its own micro-batcher (engine batch only)")
+    _add_restore_flags(p)
+    p.set_defaults(fn=cmd_serve)
     return ap, {"extract": extract, "train": train, "caption": caption, "score": score,
-                "evaluate": evaluate, "compare": compare, "export": export}
+                "evaluate": evaluate, "compare": compare, "export": export, "serve": serve}
 
 
 def main(argv=None, *, device=None):
@@ -1143,12 +1331,20 @@ def main(argv=None, *, device=None):
     device."""
     ap, commands = build_parser()
     args = ap.parse_args(argv)
+    # tpucap's checks first, in its order, where one names a value that the
+    # port refuses anyway (--lora-rank with --parallelism fsdp, --extra-model
+    # with --engine continuous, --server with --method speculative).
     if args.cmd == "train" and (args.lora_rank or args.lora_out):
-        # tpucap's checks first, in its order: one names a value that the
-        # port refuses anyway (--lora-rank with --parallelism fsdp).
         _validate_train_flags(args)
+    elif args.cmd == "serve":
+        _validate_serve_flags(args)
+    elif args.cmd == "caption":
+        _validate_caption_server_flags(args)
     refuse_unported_flags(commands[args.cmd], args)
     if args.cmd == "compare":
         args.fn(args)
+        return
+    if args.cmd == "caption" and args.server:
+        _caption_remote(args)  # no device here: the server's
         return
     args.fn(args, resolve_device(device))

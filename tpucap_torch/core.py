@@ -26,11 +26,21 @@ three explicitly every time a pipeline is built, and a pipeline's encoder,
 decode engines and ``score_captions`` run under its own flags
 (``precision_flags``), as tpucap's programs set their matmul precision per
 call: building another pipeline does not change an earlier one's numerics.
+
+The flags are read when a kernel or library call is enqueued, so a thread's
+flagged block must not see another thread's setting. ``precision_flags``
+holds one process-wide re-entrant lock for its whole block, and
+``apply_precision`` takes it too: two serving threads (a server's images and
+features batchers, or an f32 and a bf16 model behind one port) enqueue their
+flagged work one block at a time, each under the flags its own pipeline
+asked for. Code that sets the flags outside a block (training's
+``apply_precision``) is not held to this while another thread serves.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -52,28 +62,37 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+#: Held for the whole of every ``precision_flags`` block and by
+#: ``apply_precision``: the process's one owner of the flags at a time.
+_FLAGS_LOCK = threading.RLock()
+
+
 def apply_precision(precision: str) -> None:
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; have {PRECISIONS}")
     tf32 = precision != "f32"
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
-    # bf16 GEMMs accumulate and reduce in f32, as the JAX package's
-    # preferred_element_type=f32 dots do.
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    with _FLAGS_LOCK:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        # bf16 GEMMs accumulate and reduce in f32, as the JAX package's
+        # preferred_element_type=f32 dots do.
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 @contextlib.contextmanager
 def precision_flags(precision: str):
     """``apply_precision(precision)`` inside the block, the flags as they
-    were after it (another pipeline or a training run may have set them)."""
+    were after it (another pipeline or a training run may have set them).
+    The block holds ``_FLAGS_LOCK``: another thread's block waits until this
+    one ends (the same thread may nest blocks)."""
     m, c = torch.backends.cuda.matmul, torch.backends.cudnn
-    prev = (m.allow_tf32, c.allow_tf32, m.allow_bf16_reduced_precision_reduction)
-    apply_precision(precision)
-    try:
-        yield
-    finally:
-        m.allow_tf32, c.allow_tf32, m.allow_bf16_reduced_precision_reduction = prev
+    with _FLAGS_LOCK:
+        prev = (m.allow_tf32, c.allow_tf32, m.allow_bf16_reduced_precision_reduction)
+        apply_precision(precision)
+        try:
+            yield
+        finally:
+            m.allow_tf32, c.allow_tf32, m.allow_bf16_reduced_precision_reduction = prev
 
 
 def infer_dtype(precision: str) -> torch.dtype:

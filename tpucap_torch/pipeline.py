@@ -6,6 +6,11 @@
     fold_bn()                     BatchNorm folded into the conv weights
     encode_images(images)         preprocessed batch -> features
     generate(features, ...)       features -> captions (greedy | beam)
+    generate_submit(features)     dispatch the decode -> a finalizer that
+    encode_submit(images)         returns the captions (``generate`` is
+                                  ``generate_submit(...)()``); the servers'
+                                  entry points, each on one snapshot of the
+                                  params
     caption_batch(images_u8, ...) uint8 (B, H, W, 3) -> captions: the body
                                   of the JAX package's caption_dataset
     caption_dataset(paths, ...)   JPEG files -> captions: host decode in a
@@ -83,6 +88,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import threading
 
 import numpy as np
 import torch
@@ -156,7 +162,13 @@ class CaptioningPipeline:
         self.tokenizer = tokenizer
         self.decoder = None
         self.params: dict = {}
+        # The bf16 cast of ``params`` (``_inference_params``), and what keeps
+        # it that tree's: every change of the params bumps the version under
+        # the lock, and a cast is stored only under the version it was
+        # made from.
         self._bf16_params = None
+        self._params_version = 0
+        self._params_lock = threading.Lock()
         # The EMA shadow of the last fit or fit_finetune with
         # TrainConfig.ema_decay > 0 (``use_ema_weights``).
         self.ema_params = None
@@ -235,15 +247,25 @@ class CaptioningPipeline:
         ``convert.load_npz``) on the pipeline's device. Every leaf must be
         float: an int8 (quantized) tree raises NotImplementedError."""
         check_float_params(params)
-        self.params = tree_map(lambda t: t.to(self.device), params)
-        self._bf16_params = None
+        params = tree_map(lambda t: t.to(self.device), params)
+        with self._params_lock:
+            self.params = params
+            self._params_version += 1
+            self._bf16_params = None
+
+    def _params_changed(self) -> None:
+        """Drop the cached bf16 params after ``self.params`` was changed in
+        place; a cast still in progress on another thread is not stored."""
+        with self._params_lock:
+            self._params_version += 1
+            self._bf16_params = None
 
     def fold_bn(self) -> None:
         """Fold inference BatchNorms into the conv weights."""
         self.params["encoder"] = fold_batch_norms(
             self.config.encoder.name, self.params["encoder"]
         )
-        self._bf16_params = None
+        self._params_changed()
 
     def set_pretrained_embeddings(self, source, *, freeze: bool = False, log=print) -> int:
         """Initialize the decoder's embedding table from pretrained word
@@ -279,7 +301,7 @@ class CaptioningPipeline:
             table.device, table.dtype
         )
         self._freeze_embeddings = freeze
-        self._bf16_params = None
+        self._params_changed()
         if log and hits is not None:
             log(
                 f"pretrained embeddings: {hits}/{table.shape[0] - 1} vocab "
@@ -300,16 +322,25 @@ class CaptioningPipeline:
         NHWC inputs have."""
         if self.config.precision != "bf16":
             return self.params
-        if self._bf16_params is None:
+        with self._params_lock:
+            params, version, cached = self.params, self._params_version, self._bf16_params
+        if cached is not None:
+            return cached
 
-            def cast(t):
-                t = t.to(torch.bfloat16)
-                if t.ndim == 4 and t.is_cuda:
-                    t = t.contiguous(memory_format=torch.channels_last)
-                return t
+        def cast(t):
+            t = t.to(torch.bfloat16)
+            if t.ndim == 4 and t.is_cuda:
+                t = t.contiguous(memory_format=torch.channels_last)
+            return t
 
-            self._bf16_params = tree_map(cast, self.params)
-        return self._bf16_params
+        cast_params = tree_map(cast, params)
+        # A reload (another thread's set_params) during the cast made it the
+        # old tree's: serve it to this caller, whose batch began before the
+        # reload, but never cache it.
+        with self._params_lock:
+            if self._params_version == version:
+                self._bf16_params = cast_params
+        return cast_params
 
     # -- encoder -----------------------------------------------------------
 
@@ -390,18 +421,47 @@ class CaptioningPipeline:
             self.tokenizer, res.tokens, res.lengths, end_id=end_id
         )
 
-    @torch.inference_mode()
     def generate(
         self, features, *, method: str | None = None, beam_width: int | None = None
     ) -> list[str]:
-        """Features (B, D) -> caption strings (sentinels stripped)."""
+        """Features (B, D) -> caption strings (sentinels stripped):
+        ``generate_submit(features, ...)()``."""
+        return self.generate_submit(features, method=method, beam_width=beam_width)()
+
+    @torch.inference_mode()
+    def generate_submit(
+        self, features, *, method: str | None = None, beam_width: int | None = None
+    ):
+        """Dispatch the decode of ``features`` under the pipeline's flags and
+        return a zero-argument finalizer that waits for the tokens and
+        detokenizes them (tpucap's ``generate_submit``; greedy and beam).
+        The decode checks on the host every few steps whether every row has
+        ended (``decode.beam.EXIT_CHECK_EVERY``), so the call returns near
+        the decode's end; what the finalizer leaves to the caller is the copy
+        back and the detokenizing."""
+        params = self._inference_params()
+        return self._submit_decode(params["decoder"], features, method, beam_width)
+
+    @torch.inference_mode()
+    def encode_submit(
+        self, images, *, method: str | None = None, beam_width: int | None = None
+    ):
+        """``generate_submit`` of ``encode_images(images)``, the encoder and
+        the decode on one snapshot of the params: a ``reload_params`` on
+        another thread lands before or after the batch, never inside it."""
+        params = self._inference_params()
+        x = torch.as_tensor(images).to(self.device, self._infer_dtype())
+        feats = self._apply_encoder(params["encoder"], x)
+        return self._submit_decode(params["decoder"], feats, method, beam_width)
+
+    def _submit_decode(self, dec_params, features, method, beam_width):
         method = method or self.config.decode.method
         beam_width = beam_width or self.config.decode.beam_width
+        if method not in ("greedy", "beam"):
+            raise ValueError(f"generate_submit supports greedy|beam, got {method!r}")
         feats = torch.as_tensor(features).to(self.device, self._infer_dtype())
-        res = self._decode(
-            self._inference_params()["decoder"], feats, method, beam_width
-        )
-        return self._captions(res)
+        res = self._decode(dec_params, feats, method, beam_width)
+        return lambda: self._captions(res)
 
     def encode_prefixes(self, texts: list) -> list:
         """Tokenize caption strings, refusing words outside the vocabulary
@@ -1163,7 +1223,7 @@ class CaptioningPipeline:
         self.params["decoder"] = state.params
         if ema is not None:
             self.ema_params = {"decoder": ema}
-        self._bf16_params = None
+        self._params_changed()
         return history
 
     def fit_finetune(
@@ -1318,7 +1378,7 @@ class CaptioningPipeline:
         self.params["decoder"] = state.params["decoder"]
         if ema is not None:
             self.ema_params = dict(ema)  # {"encoder", "decoder"}
-        self._bf16_params = None
+        self._params_changed()
         return history
 
     def _fit_finetune_lora(
@@ -1397,7 +1457,7 @@ class CaptioningPipeline:
         )
         self.lora_adapters, self.lora_meta = state.params, {"rank": rank, "alpha": alpha}
         self.params.update(self._merge_lora(base, state.params, scale))
-        self._bf16_params = None
+        self._params_changed()
         return history
 
     def fit_lora(
@@ -1490,7 +1550,7 @@ class CaptioningPipeline:
         self.lora_adapters, self.lora_meta = state.params, {"rank": rank, "alpha": alpha}
         if merge:
             self.params["decoder"] = self._merge_lora(base, state.params, scale)
-            self._bf16_params = None
+            self._params_changed()
         return history
 
     def _lora_generator(self) -> torch.Generator:
@@ -1525,7 +1585,7 @@ class CaptioningPipeline:
             self.params.update(self._merge_lora(base, adapters, alpha / rank))
         else:
             self.params["decoder"] = self._merge_lora(self.params["decoder"], adapters, alpha / rank)
-        self._bf16_params = None
+        self._params_changed()
 
     @staticmethod
     def _make_ema(cfg, params):
@@ -1550,7 +1610,7 @@ class CaptioningPipeline:
             )
         replaced = {k: self.params[k] for k in self.ema_params}
         self.params.update(self.ema_params)
-        self._bf16_params = None
+        self._params_changed()
         return replaced
 
     def use_averaged_weights(self, checkpoint_dir, *, last_k: int | None = None, steps=None):
@@ -1567,7 +1627,7 @@ class CaptioningPipeline:
         mgr.close()
         replaced = self.params["decoder"]
         self.params["decoder"] = averaged
-        self._bf16_params = None
+        self._params_changed()
         return replaced
 
     def _train_generator(self) -> torch.Generator:

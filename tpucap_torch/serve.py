@@ -1,0 +1,692 @@
+"""Online serving: the micro-batching caption server over a built pipeline
+(tpucap's ``tpucap/serve.py``, batch engine).
+
+- Requests enqueue from any thread; ONE batcher thread owns the pipeline's
+  device work for this server.
+- The batcher coalesces up to ``max_batch`` requests, waiting at most
+  ``max_delay_ms`` after the first arrival (size-or-deadline
+  micro-batching).
+- Batches are zero-padded UP to the power-of-two bucket ladder, as in
+  tpucap, where each bucket is one compiled program. Eager PyTorch compiles
+  nothing, but the ladder keeps the served shapes (and the kernels'
+  launch shapes) those of tpucap's server, and ``warmup()`` runs each one
+  once (cuDNN plans, cuBLAS handles, the allocator's pools).
+
+Several servers may share one pipeline (``serve_http``'s images and
+features pair) or one card (several models): each pipeline's device work
+runs under its own precision flags (``core.precision_flags``), and a
+``reload`` swaps the params between whole batches. ``reload_together``
+swaps once for every server of a pipeline, when each of them has reached
+the reload in its queue, so that no request of any of them (a multi-row
+request may span batches) is decoded partly on the old weights and partly
+on the new.
+
+Not ported: tpucap's ``ContinuousCaptionServer`` (slot-recycling engine)
+and the per-request dials ``prefix`` / ``include_words``, which are checked
+as tpucap checks them and then refused by name (they stand on
+``decode/prefix.py`` and ``decode/constrained.py``, ROADMAP item 6.3).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+import typing
+from collections import deque
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from tpucap_torch.train.loop import refuse_unported
+
+
+class Overloaded(RuntimeError):
+    """Raised by submit() when the request queue is at max_queue —
+    backpressure instead of unbounded latency growth."""
+
+
+def _fail_futures(futs, exc: BaseException) -> None:
+    """Best-effort set_exception on every future that is still pending
+    (cancelled/already-resolved ones raise InvalidStateError — skip)."""
+    for fut in futs:
+        try:
+            fut.set_exception(exc)
+        except Exception:
+            pass
+
+
+def _resolve(fut: Future, caption) -> None:
+    """set_result tolerant of cancelled AND already-failed futures (a
+    wedged-then-recovered batcher may retire a request close() already
+    timed out — the late result is dropped, not a thread crash)."""
+    try:
+        fut.set_result(caption)
+    except Exception:
+        pass
+
+
+# How long a server that reached a shared swap waits for the others.
+SWAP_TIMEOUT_S = 600.0
+
+
+class _Swap:
+    """One weight swap shared by several servers of one pipeline. Each
+    batcher reaches its reload item between its batches, retires its
+    in-flight batches and waits here; the last to arrive swaps, and then
+    every batcher goes on. Everything queued before the reload, in any of
+    the servers, is decoded on the old weights; everything after, on the
+    new."""
+
+    def __init__(self, pipe, source, n: int):
+        self._pipe, self._source = pipe, source
+        self._error: Exception | None = None
+        self._barrier = threading.Barrier(n, action=self._swap)
+
+    def _swap(self) -> None:
+        try:
+            self._pipe.reload_params(self._source)
+        except Exception as e:  # every server's reload future carries it
+            self._error = e
+
+    def abort(self) -> None:
+        self._barrier.abort()
+
+    def wait(self) -> None:
+        try:
+            self._barrier.wait(timeout=SWAP_TIMEOUT_S)
+        except threading.BrokenBarrierError:
+            raise RuntimeError(
+                "reload abandoned: another server of this pipeline did not "
+                "reach it (closed, wedged or refused)"
+            ) from None
+        if self._error is not None:
+            raise self._error
+
+
+class _Reload(typing.NamedTuple):
+    """Queue control item for weight hot-reload. A NamedTuple so the
+    wedge-path _drain_pending (which finds each item's Future
+    positionally by iterating) fails its future like any request's.
+    ``swap`` is set when the swap is shared with other servers."""
+
+    source: object
+    future: Future
+    swap: _Swap | None = None
+
+
+def _drain_pending(q: queue.Queue) -> list:
+    """Pop every queued request and return the futures. Re-puts ONE
+    close sentinel afterwards: a wedged worker that eventually recovers
+    must still see the shutdown signal, or it would park on the empty
+    queue forever. The Future is found positionally."""
+    futs = []
+    while True:
+        try:
+            item = q.get_nowait()
+        except queue.Empty:
+            break
+        if item is not None:
+            if isinstance(item, _Reload) and item.swap is not None:
+                item.swap.abort()  # the other servers stop waiting for it
+            futs.append(next(f for f in item if isinstance(f, Future)))
+    q.put(None)
+    return futs
+
+
+def _snapshot(fn, attempts: int = 5):
+    """Copy a container a slow-but-alive worker thread may still be
+    mutating (close()'s join timing out means slow, not stopped):
+    retry on the mutated-during-iteration RuntimeError."""
+    for _ in range(attempts):
+        try:
+            return fn()
+        except RuntimeError:
+            time.sleep(0.01)
+    return []
+
+
+def _buckets(max_batch: int) -> list[int]:
+    """Power-of-two ladder 1, 2, 4, ..., max_batch (max_batch included
+    even when not a power of two)."""
+    out, b = [], 1
+    while b < max_batch:
+        out.append(b)
+        b *= 2
+    out.append(max_batch)
+    return out
+
+
+def refuse_dial(dial: str):
+    """The per-request dials stand on decode modules the port lacks."""
+    module = {"prefix": "decode/prefix.py", "include_words": "decode/constrained.py"}[dial]
+    raise NotImplementedError(
+        f"{dial} is not ported to tpucap_torch: it needs tpucap's {module} "
+        "(ROADMAP queue 1, item 6.3)"
+    )
+
+
+@dataclass
+class ServerStats:
+    requests: int = 0
+    batches: int = 0
+    padded_rows: int = 0  # wasted decode rows from bucket padding
+    # Rolling window of per-request e2e latencies: a long-running server
+    # must not grow host memory per request, so percentiles reflect the
+    # last N requests (deque maxlen). The lock covers append vs the
+    # snapshot() sort — /stats runs on HTTP handler threads while the
+    # batcher appends, and iterating a mutating deque raises.
+    latencies_ms: deque = field(default_factory=lambda: deque(maxlen=10_000))
+    lock: threading.Lock = field(default_factory=threading.Lock)
+
+    def add_latency(self, ms: float) -> None:
+        with self.lock:
+            self.latencies_ms.append(ms)
+
+    def snapshot(self) -> dict:
+        with self.lock:
+            lat = sorted(self.latencies_ms)
+        p = lambda q: lat[int(q * (len(lat) - 1))] if lat else None
+        return {
+            "requests": self.requests,
+            "batches": self.batches,
+            "mean_batch": self.requests / self.batches if self.batches else 0,
+            "padded_rows": self.padded_rows,
+            "p50_ms": p(0.5),
+            "p99_ms": p(0.99),
+        }
+
+
+class CaptionServer:
+    """Micro-batching front-end for ``CaptioningPipeline``.
+
+    mode='features': ``submit`` takes a feature vector (encoder output,
+    the reference's pickled-features serving shape). mode='images':
+    ``submit`` takes a preprocessed image array (size, size, 3) and the
+    batch runs encoder + decode on the pipeline's device
+    (``pipeline.encode_submit``: both on one snapshot of the params).
+
+    decode kwargs (method/beam_width) are fixed at server construction.
+    ``parallelism`` other than none raises NotImplementedError.
+    """
+
+    def __init__(
+        self,
+        pipeline,
+        *,
+        mode: str = "features",
+        max_batch: int = 64,
+        max_delay_ms: float = 5.0,
+        method: str | None = None,
+        beam_width: int | None = None,
+        parallelism: str | None = None,
+        pipeline_depth: int = 1,
+        max_queue: int | None = None,
+        max_prefix_tokens: int | None = None,
+    ):
+        if mode not in ("features", "images"):
+            raise ValueError(f"mode must be 'features'|'images', got {mode!r}")
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        refuse_unported(parallelism=(parallelism if parallelism != "none" else None, None))
+        resolved = method or pipeline.config.decode.method
+        if resolved not in ("greedy", "beam"):
+            raise NotImplementedError(
+                f"method {resolved!r} is not ported to tpucap_torch's server "
+                "(greedy|beam; sampling is decode/sample.py, ROADMAP queue 1, "
+                "item 6.3)"
+            )
+        # Per-request forced-prefix token cap, tpucap's admission rule (the
+        # dial itself is refused once checked).
+        self._max_prefix_tokens = (
+            max_prefix_tokens
+            if max_prefix_tokens is not None
+            else pipeline.config.decode.max_len
+        )
+        self._pipe = pipeline
+        self._mode = mode
+        self._max_batch = max_batch
+        self._max_delay_s = max_delay_ms / 1e3
+        self._decode_kw = dict(method=method, beam_width=beam_width, parallelism=parallelism)
+        # pipeline_depth > 1 dispatches up to that many batches before
+        # retiring the oldest (its copy back and detokenizing), as tpucap's
+        # server does with generate_submit. tpucap measured depth 1 winning
+        # under closed-loop load (batches grow while the batcher drains);
+        # the port's decode checks on the host every few steps, so less of
+        # a batch is left to overlap.
+        self._depth = max(1, pipeline_depth)
+        self._inflight: deque = deque()
+        self._buckets = _buckets(max_batch)
+        self._current_futs: tuple = ()  # batch mid-dispatch (wedge path)
+        # Bounded admission: reject (Overloaded) rather than queue without
+        # limit — the HTTP layer maps this to 503 + Retry-After.
+        self._max_queue = max_queue
+        self._queue: queue.Queue = queue.Queue()
+        self._stats = ServerStats()
+        self._closed = False
+        # Serializes submit() against close(): without it a submitter can
+        # pass the closed check, lose the CPU, and enqueue after the
+        # batcher consumed the close sentinel — a Future nobody resolves.
+        self._submit_lock = threading.Lock()
+        self._thread = threading.Thread(
+            target=self._batcher, name="tpucap-torch-serve-batcher", daemon=True
+        )
+        self._thread.start()
+
+    # -- client surface ----------------------------------------------------
+
+    def submit(self, x, prefix: str | None = None, include_words=None) -> Future:
+        """Enqueue one request; resolves to the caption string.
+
+        ``prefix`` / ``include_words``: tpucap's per-request dials, checked
+        here as tpucap checks them (a bad dial fails its own request with
+        ValueError), then refused with NotImplementedError."""
+        x = np.asarray(x)
+        expect = self._expected_shape()
+        if x.shape != expect:
+            raise ValueError(
+                f"request shape {x.shape} != expected {expect} (mode={self._mode!r})"
+            )
+        self._validate_dials(prefix, include_words)
+        return self._enqueue_rows([x])[0]
+
+    def submit_many(
+        self,
+        xs,
+        prefix: str | None = None,
+        include_words=None,
+        *,
+        prefixes=None,
+        include_words_rows=None,
+    ) -> list[Future]:
+        """Enqueue MANY rows in one atomic admission — all rows are
+        accepted or none are. The shared dials (``prefix`` /
+        ``include_words``) and the per-row ones (``prefixes`` /
+        ``include_words_rows``, length-N lists, "" / [] = none for a row)
+        are checked as tpucap checks them, every row before anything
+        enqueues, and a set dial is refused with NotImplementedError. The
+        capacity check covers the whole set under the submit lock."""
+        xs = np.asarray(xs)
+        expect = self._expected_shape()
+        if xs.ndim != len(expect) + 1 or xs.shape[1:] != expect:
+            raise ValueError(
+                f"submit_many wants shape (N, *{expect}), got "
+                f"{xs.shape} (mode={self._mode!r})"
+            )
+        if xs.shape[0] == 0:
+            return []
+        if prefixes is None and include_words_rows is None:
+            self._validate_dials(prefix, include_words)
+            return self._enqueue_rows(list(xs))
+        if prefix or include_words:
+            raise ValueError(
+                "submit_many takes shared dials (prefix/include_words) "
+                "OR per-row dials (prefixes/include_words_rows), not "
+                "both"
+            )
+        n = xs.shape[0]
+        if prefixes is None:
+            prefixes = [""] * n
+        if include_words_rows is None:
+            include_words_rows = [()] * n
+        if isinstance(prefixes, (str, bytes)):
+            raise ValueError(
+                "prefixes must be a LIST of per-row strings (use "
+                "prefix= for one shared opening)"
+            )
+        if len(prefixes) != n or len(include_words_rows) != n:
+            raise ValueError(
+                f"per-row dials must match the {n} rows: got "
+                f"{len(prefixes)} prefixes, "
+                f"{len(include_words_rows)} include_words_rows"
+            )
+        # Validate EVERY row's dial up front (admission atomicity: a bad
+        # row-3 dial fails the whole request before row 0 enqueues).
+        for i, (p, w) in enumerate(zip(prefixes, include_words_rows)):
+            try:
+                self._check_dials(p or "", w)
+            except ValueError as e:
+                raise ValueError(f"row {i}: {e}") from None
+        for p, w in zip(prefixes, include_words_rows):
+            if p:
+                refuse_dial("prefix")
+            if w:
+                refuse_dial("include_words")
+        return self._enqueue_rows(list(xs))
+
+    def _validate_dials(self, prefix, include_words) -> None:
+        """Admission-time check of one request's dials, tpucap's rules and
+        texts; a dial that passes them is refused by name."""
+        self._check_dials(prefix, include_words)
+        if prefix:
+            refuse_dial("prefix")
+        if include_words:
+            refuse_dial("include_words")
+
+    def _check_dials(self, prefix, include_words) -> None:
+        """tpucap's ``_validate_dials`` up to what stands on the unported
+        decode modules (its include_words word check,
+        ``_constraint_ids``)."""
+        method = self._decode_kw["method"] or self._pipe.config.decode.method
+        if prefix:
+            if method not in ("greedy", "beam"):
+                raise ValueError(f"prefix needs method greedy|beam, server runs {method!r}")
+            if self._decode_kw["parallelism"] not in (None, "none"):
+                raise ValueError("prefix is not supported with mesh-parallel decode")
+            (toks,) = self._pipe.encode_prefixes([prefix])  # OOV -> raise
+            n_tok = len(toks)
+            if n_tok > self._max_prefix_tokens:
+                raise ValueError(
+                    f"prefix has {n_tok} tokens, server cap is "
+                    f"max_prefix_tokens={self._max_prefix_tokens}"
+                )
+            max_pos = getattr(self._pipe.decoder, "max_positions", None)
+            if max_pos is not None and n_tok:
+                padded = 1 << (n_tok - 1).bit_length()
+                max_len = self._pipe.config.decode.max_len
+                if max(padded, n_tok + max_len) > max_pos:
+                    raise ValueError(
+                        f"prefix length {n_tok} (padded to {padded}) + "
+                        f"max_len {max_len} exceeds decoder."
+                        f"max_positions {max_pos}"
+                    )
+        if include_words:
+            if isinstance(include_words, (str, bytes)):
+                raise ValueError(
+                    "include_words must be a list of words, got a "
+                    f"string {include_words!r}"
+                )
+            if prefix:
+                raise ValueError("a request takes prefix OR include_words, not both")
+            if method != "beam":
+                raise ValueError(f"include_words needs method beam, server runs {method!r}")
+            if self._decode_kw["parallelism"] not in (None, "none"):
+                raise ValueError("include_words is not supported with mesh-parallel decode")
+            if self._pipe.config.decode.no_repeat_ngram_size:
+                raise ValueError(
+                    "include_words does not compose with "
+                    "no_repeat_ngram_size (generate_constrained's "
+                    "refusal, surfaced at admission)"
+                )
+
+    def _enqueue_rows(self, rows: list) -> list[Future]:
+        """Capacity-check and enqueue a set of validated rows under ONE
+        lock acquisition: admission is atomic for the whole set (and
+        against concurrent submitters)."""
+        with self._submit_lock:
+            if self._closed:
+                raise RuntimeError("server is closed")
+            if self._max_queue is not None and (
+                self._queue.qsize() + len(rows) > self._max_queue
+            ):
+                raise Overloaded(f"request queue at max_queue={self._max_queue}")
+            now = time.perf_counter()
+            futs: list[Future] = []
+            for x in rows:
+                fut: Future = Future()
+                self._queue.put((x, fut, now))
+                futs.append(fut)
+        return futs
+
+    def caption(self, x, timeout: float | None = 60.0) -> str:
+        """Blocking single-request convenience wrapper."""
+        return self.submit(x).result(timeout=timeout)
+
+    def reload(self, source) -> Future:
+        """Hot-swap model weights with zero downtime: enqueue a reload
+        that the batcher applies BETWEEN micro-batches (in-flight
+        batches drain first), so requests submitted before this call
+        resolve under the old weights and later ones under the new.
+        ``source`` as in pipeline.reload_params (a pipeline.save()
+        bundle dir or a same-topology params tree). On validation
+        failure the returned Future carries the error and the server
+        keeps serving the old weights."""
+        return self._enqueue_reload(source, None)
+
+    def _enqueue_reload(self, source, swap: _Swap | None) -> Future:
+        fut: Future = Future()
+        with self._submit_lock:
+            if self._closed:
+                raise RuntimeError("server is closed")
+            self._queue.put(_Reload(source, fut, swap))
+        return fut
+
+    def _apply_reload(self, item: _Reload) -> None:
+        """Drain every in-flight batch, then swap. Every batch retired
+        before the reload future resolves used the old weights; a batch of
+        another server on the same pipeline holds the tree it began with
+        (the pipeline's params are read once a batch); ``reload_together``
+        makes the others wait for it."""
+        while self._inflight:
+            self._drain_one()
+        try:
+            if item.swap is None:
+                self._pipe.reload_params(item.source)
+            else:
+                item.swap.wait()
+        except Exception as e:
+            _fail_futures([item.future], e)
+            return
+        _resolve(item.future, True)
+
+    def warmup(self, timeout: float | None = None) -> None:
+        """Run every bucket shape once before serving traffic. ``timeout``
+        accepted for signature parity with tpucap's (this one runs inline,
+        not through the queue)."""
+        del timeout
+        expect = self._expected_shape()
+        for b in self._buckets:
+            batch = np.zeros((b,) + expect, np.float32)
+            self._run_batch(batch)
+
+    def stats(self) -> dict:
+        return self._stats.snapshot()
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Drain the queue, stop the batcher. Idempotent. If the batcher
+        is wedged past ``timeout``, every pending future is failed with a
+        TimeoutError instead of leaving callers blocked forever in
+        result()."""
+        with self._submit_lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._queue.put(None)  # sentinel
+        self._thread.join(timeout=timeout)
+        if self._thread.is_alive():
+            exc = TimeoutError(
+                f"serve batcher did not drain within {timeout}s at "
+                f"close (wedged in device dispatch?); request abandoned"
+            )
+            futs = _drain_pending(self._queue)
+            for _, bfuts, _ in _snapshot(lambda: list(self._inflight)):
+                futs.extend(bfuts)
+            futs.extend(self._current_futs)  # the batch mid-dispatch
+            _fail_futures(futs, exc)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- batcher -----------------------------------------------------------
+
+    def _expected_shape(self) -> tuple:
+        if self._mode == "images":
+            s = self._pipe.encoder.input_size
+            return (s, s, 3)
+        cfg = self._pipe.config.encoder
+        if cfg.features == "spatial":
+            # attention serving: flattened (positions, channels) grid, the
+            # encoder's own grid.
+            return (self._pipe.encoder.spatial_positions, cfg.feature_dim)
+        return (cfg.feature_dim,)
+
+    def _run_batch(self, batch: np.ndarray) -> list[str]:
+        return self._submit_batch(batch)()
+
+    def _submit_batch(self, batch: np.ndarray):
+        """Dispatch one padded batch; returns a zero-arg finalizer that
+        waits for the tokens and yields the captions."""
+        kw = dict(method=self._decode_kw["method"], beam_width=self._decode_kw["beam_width"])
+        if self._mode == "images":
+            return self._pipe.encode_submit(batch, **kw)
+        return self._pipe.generate_submit(batch, **kw)
+
+    def _batcher(self) -> None:
+        """Top-level worker guard: _flush/_drain_one contain the
+        per-batch dispatch errors, but an unexpected exception anywhere
+        else must not silently kill the only dispatch thread and leave
+        every pending future unresolved."""
+        try:
+            self._batcher_inner()
+        except Exception as e:
+            with self._submit_lock:
+                self._closed = True  # subsequent submits raise
+            futs = _drain_pending(self._queue)
+            for _, bfuts, _ in _snapshot(lambda: list(self._inflight)):
+                futs.extend(bfuts)
+            futs.extend(self._current_futs)
+            _fail_futures(futs, e)
+
+    def _batcher_inner(self) -> None:
+        while True:
+            try:
+                item = self._queue.get(timeout=0.001 if self._inflight else None)
+            except queue.Empty:
+                # No new traffic while results are in flight: retire the
+                # oldest batch instead of holding its latency hostage.
+                self._drain_one()
+                continue
+            if item is None:
+                self._drain_on_close()
+                return
+            if isinstance(item, _Reload):
+                self._apply_reload(item)
+                continue
+            batch = [item]
+            deadline = time.perf_counter() + self._max_delay_s
+            stop = False
+            pending_reload = None
+            while len(batch) < self._max_batch:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    stop = True
+                    break
+                if isinstance(nxt, _Reload):
+                    # Close the collection window here: everything
+                    # already collected rides the old weights, the swap
+                    # happens right after this batch dispatches.
+                    pending_reload = nxt
+                    break
+                batch.append(nxt)
+            self._flush(batch)
+            while len(self._inflight) >= self._depth:
+                self._drain_one()
+            if pending_reload is not None:
+                self._apply_reload(pending_reload)
+            if stop:
+                self._drain_on_close()
+                return
+
+    def _drain_on_close(self) -> None:
+        """Flush any backlog enqueued before the close sentinel, then
+        retire every in-flight batch, so no accepted request is left
+        with an unresolved future."""
+        batch = []
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if item is None:
+                continue
+            if isinstance(item, _Reload):
+                # Preserve submission order at shutdown too: flush what
+                # came before, swap, keep draining.
+                if batch:
+                    self._flush(batch)
+                    batch = []
+                self._apply_reload(item)
+                continue
+            batch.append(item)
+            if len(batch) == self._max_batch:
+                self._flush(batch)
+                batch = []
+        if batch:
+            self._flush(batch)
+        while self._inflight:
+            self._drain_one()
+
+    def _flush(self, batch: list) -> None:
+        """Pad to the bucket ladder and dispatch; the batch is retired
+        later by _drain_one (pipelined) unless dispatch itself fails."""
+        xs, futs, t0s = zip(*batch)
+        # Visible to close()'s wedge path: while dispatch is in flight
+        # these futures are in neither the queue nor _inflight.
+        self._current_futs = futs
+        n = len(xs)
+        bucket = next(b for b in self._buckets if b >= n)
+        stacked = np.stack(xs)
+        if bucket > n:
+            pad = np.zeros((bucket - n,) + stacked.shape[1:], stacked.dtype)
+            stacked = np.concatenate([stacked, pad])
+        try:
+            finalize = self._submit_batch(stacked)
+        except Exception as e:  # propagate to every waiter, keep serving
+            _fail_futures(futs, e)
+            self._current_futs = ()
+            return
+        self._stats.padded_rows += bucket - n
+        self._inflight.append((finalize, futs, t0s))
+        self._current_futs = ()
+
+    def _drain_one(self) -> None:
+        if not self._inflight:
+            return
+        finalize, futs, t0s = self._inflight.popleft()
+        n = len(futs)
+        self._current_futs = futs  # popped — close() can't see them else
+        try:
+            captions = finalize()[:n]
+        except Exception as e:
+            _fail_futures(futs, e)
+            self._current_futs = ()
+            return
+        self._current_futs = ()
+        now = time.perf_counter()
+        self._stats.requests += n
+        self._stats.batches += 1
+        for cap, fut, t0 in zip(captions, futs, t0s):
+            self._stats.add_latency((now - t0) * 1e3)
+            _resolve(fut, cap)
+
+
+def reload_together(servers, source) -> list[Future]:
+    """One hot swap for several servers of ONE pipeline (``serve_http``'s
+    images and features pair): the params are read and installed once,
+    when every server's batcher has reached the reload in its own queue.
+    A server's requests are queued whole (``submit_many`` holds the submit
+    lock), so each is decoded entirely on the old weights or entirely on
+    the new, even when its rows span several batches. -> each server's
+    reload future, as ``CaptionServer.reload``'s."""
+    pipes = {id(s._pipe) for s in servers}
+    if len(pipes) != 1:
+        raise ValueError("reload_together swaps the params of one pipeline")
+    swap = _Swap(servers[0]._pipe, source, len(servers))
+    futs = []
+    try:
+        for server in servers:
+            futs.append(server._enqueue_reload(source, swap))
+    except Exception:
+        swap.abort()  # the servers already queued give up their wait
+        raise
+    return futs
