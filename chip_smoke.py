@@ -13,7 +13,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, in f32 (TF32 off) and bf16, with the stated tolerances
    (K2 and K3 in f32 also at the f32 decodes' rows: fit's monitor's 256,
-   phase 8's caption's 24 and its evaluate's and monitor's 64);
+   phase 8's caption's 24 and its evaluate's and monitor's 64; in both
+   dtypes at the continuous engine's 64 and 192 rows, phase 15);
    CUDA-event times of the kernel, the plain version and, where one PyTorch
    call computes the same function, that call; the least time the card
    could take (bound) from the bytes and operations of these inputs. K4
@@ -289,7 +290,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    bundle of another seed (the first that changes every row's caption)
    while one client sends its 64 rows in a loop: every reply the old
    captions or the new, whole, and every request sent after the answer the
-   new; K2, K3 and K4 counted over (b)-(e), K1 and K5 not launched;
+   new; K2, K3 and K4 counted over (b)-(e), K1 and K5 not launched; then
+   the continuous engine (``engine="continuous"``, 64 slots, 8 ticks a
+   sync group; one HTTP server each for the f32 model greedy and at beam 3
+   and the bf16 model at beam 3, built before (b), so their engines keep
+   the params of then), warmed up with the others in (a): (f) the f32
+   model's 64 rows and 64 JPEGs (images mode: K4 on each admission wave),
+   greedy and beam 3, in one ``/caption_batch`` and as 64 single requests
+   2 ms apart, token for token ``generate``'s and the offline route's (a
+   difference is reported with its logit gap); (g) (c)'s closed loops on
+   the bf16 model, and ``/caption_stream_features`` from 16 threads
+   (every stream's spans join to its caption): captions/s, p50 / p99, the
+   first span's p50 / p99, ticks, mean occupancy, ms a sync group; (h)
+   (d)'s ``/reload`` under load on the f32 beam server; over (f)-(h) K2 and
+   K3's two kernels once a served tick and K4 12 times a served images
+   admission wave, nothing else;
 16. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
    phase 9's counted serving runs for K1, K2 and K3, phase 10's counted
    steps and caption, phase 11's counted fits, decodes and commands,
@@ -560,6 +575,14 @@ def check_kernels(dev) -> dict[str, dict]:
         l_got = decoder_step.vocab_proj(m_want, p["wo"], p["bo"])
         l_want = decoder_step.vocab_proj_plain(m_want, p["wo"], p["bo"])
         check_close(f"vocab_proj {dt}", l_got, l_want, 1e-5, 1e-4)
+        # The continuous engine's ticks (phase 15 (f)-(h)): its 64 lanes
+        # greedy, 64 groups of BEAM lanes at beam BEAM.
+        for r in (P15_MAX_BATCH, P15_MAX_BATCH * BEAM):
+            _, want_r = check_cell(f"B={r} E={U} U={U}", tuple(t[:r] for t in cell[:3]) + cell[3:], dt)
+            _, head_r = check_head(f"M={r}", p["fe"][:r], want_r[2], p["wp"], p["bp"], dt)
+            check_close(f"vocab_proj M={r} {dt}", decoder_step.vocab_proj(head_r, p["wo"], p["bo"]),
+                        decoder_step.vocab_proj_plain(head_r, p["wo"], p["bo"]), 1e-5, 1e-4)
+            log(f"kernel lstm_cell, merge_head, vocab_proj at {r} rows {dt}: ok")
         if dt == torch.float32:
             # The decodes of f32 params ("mixed" keeps them f32) run the f32
             # routes: fit's monitor (greedy, DEC_TRAIN_BATCH rows), and
@@ -4176,13 +4199,18 @@ def run_slice10(dev, tokenizer) -> dict[str, int]:
 P15_MAX_BATCH, P15_DELAY_MS = 64, 5.0
 P15_THREADS, P15_SECONDS, P15_JPEG_THREADS = (1, 16, 64), 5.0, 16
 P15_ROWS, P15_F32_REPEATS, P15_RELOAD_SECONDS = 64, 20, 1.0
+# The continuous engine (f)-(h): tpucap serve's ticks_per_sync, the threads
+# that stream, and the gap between the staggered submissions of (f).
+P15_TICKS, P15_STREAM_THREADS, P15_STAGGER_S = 8, 16, 0.002
 
 # The closed-loop client, in a process of its own (the server's Python
 # threads keep this process's interpreter lock): the port's CaptionClient
 # only, standard library only. argv[1]: a JSON object of host, port, route
-# ("features" or "jpeg"), model, threads, seconds and the path of a JSON
-# list of feature rows or of JPEG file paths. Prints one JSON line: the
-# answered count, the wall, each request's latency in ms, the first errors.
+# ("features", "jpeg" or "stream": /caption_stream_features), model,
+# threads, seconds and the path of a JSON list of feature rows or of JPEG
+# file paths. Prints one JSON line: the answered count, the wall, each
+# request's latency in ms (and, streaming, its first span's), the first
+# errors. A stream whose spans do not join to its caption is an error.
 P15_CLIENT = """
 import json, sys, threading, time
 sys.path.insert(0, sys.argv[2])
@@ -4193,17 +4221,33 @@ items = json.load(open(cfg["items"]))
 if cfg["route"] == "jpeg":
     items = [open(p, "rb").read() for p in items]
 client = CaptionClient(cfg["host"], cfg["port"], model=cfg["model"], timeout=120)
-call = client.caption if cfg["route"] == "jpeg" else client.caption_features
-lat, errors, lock = [], [], threading.Lock()
+lat, first, errors, lock = [], [], [], threading.Lock()
 start = time.perf_counter()
 stop = start + cfg["seconds"]
+
+def stream(item, t0):
+    spans = []
+    caption = client.caption_stream_features(
+        item, lambda words: spans.append((time.perf_counter(), words)))
+    if " ".join(w for _, ws in spans for w in ws) != caption:
+        raise AssertionError(f"spans {spans} do not join to {caption!r}")
+    with lock:
+        first.append(((spans[0][0] if spans else time.perf_counter()) - t0) * 1e3)
+
+def call(item, t0):
+    if cfg["route"] == "stream":
+        stream(item, t0)
+    elif cfg["route"] == "jpeg":
+        client.caption(item)
+    else:
+        client.caption_features(item)
 
 def worker(k):
     i = k
     while time.perf_counter() < stop:
         t0 = time.perf_counter()
         try:
-            call(items[i % len(items)])
+            call(items[i % len(items)], t0)
         except Exception as e:
             with lock:
                 errors.append(repr(e))
@@ -4218,7 +4262,7 @@ for t in threads:
 for t in threads:
     t.join()
 print(json.dumps({"ok": len(lat), "wall": time.perf_counter() - start, "latencies_ms": lat,
-                  "errors": errors[:5], "n_errors": len(errors)}))
+                  "first_span_ms": first, "errors": errors[:5], "n_errors": len(errors)}))
 """
 
 
@@ -4409,14 +4453,15 @@ def reload_seed(tokenizer, rows, old: list[str]) -> tuple[object, list[str], int
     raise AssertionError("no seed in 1-5 changes every row's caption")
 
 
-def reload_under_load(srv, addr, rows, old: list[str], new: list[str], bundle: Path) -> dict:
-    """(d): one client sends /caption_batch of ``rows`` to model f32 in a
-    loop; /reload swaps in ``bundle`` meanwhile. Every reply must be the
+def reload_under_load(srv, addr, rows, old: list[str], new: list[str], bundle: Path,
+                      model: str = "f32", label: str = "reload under load") -> dict:
+    """(d), (h): one client sends /caption_batch of ``rows`` to ``model`` in
+    a loop; /reload swaps in ``bundle`` meanwhile. Every reply must be the
     old captions or the new, whole; every request sent after /reload
     answered must get the new."""
     from tpucap_torch.client import CaptionClient
 
-    client = CaptionClient(*addr, model="f32", timeout=120)
+    client = CaptionClient(*addr, model=model, timeout=120)
     replies, stop = [], threading.Event()
     body = rows.tolist()
 
@@ -4430,28 +4475,28 @@ def reload_under_load(srv, addr, rows, old: list[str], new: list[str], bundle: P
     t.start()
     time.sleep(P15_RELOAD_SECONDS)
     t_call = time.perf_counter()
-    answer = CaptionClient(*addr, timeout=600).reload(str(bundle), model="f32")
+    answer = CaptionClient(*addr, timeout=600).reload(str(bundle), model=model or None)
     t_done = time.perf_counter()
     time.sleep(P15_RELOAD_SECONDS)
     stop.set()
     t.join(timeout=120)
     if t.is_alive() or answer != {"ok": True, "bundle": str(bundle)}:
-        raise AssertionError(f"reload under load: answer {answer}, client alive {t.is_alive()}")
+        raise AssertionError(f"{label}: answer {answer}, client alive {t.is_alive()}")
     kinds = []
     for t0, caps in replies:
         kind = "old" if caps == old else "new" if caps == new else "mixed"
         if kind == "mixed" or (t0 >= t_done and kind != "new"):
             rows_old = sum(c == o for c, o in zip(caps, old))
             rows_new = sum(c == n for c, n in zip(caps, new))
-            raise AssertionError(f"reload under load: a reply sent {t0 - t_done:+.4f} s after the "
+            raise AssertionError(f"{label}: a reply sent {t0 - t_done:+.4f} s after the "
                                  f"reload answered is {kind} ({rows_old} rows old, {rows_new} new "
                                  f"of {len(caps)})")
         kinds.append(kind)
     if "old" not in kinds or "new" not in kinds:
-        raise AssertionError(f"reload under load: replies {kinds}")
+        raise AssertionError(f"{label}: replies {kinds}")
     row = {"replies": len(kinds), "old": kinds.count("old"), "new": kinds.count("new"),
            "reload_s": t_done - t_call}
-    log(f"serve reload under load: /reload answered in {row['reload_s']:.4f} s; {row['replies']} "
+    log(f"serve {label}: /reload answered in {row['reload_s']:.4f} s; {row['replies']} "
         f"replies of {len(rows)} rows, {row['old']} all old weights, {row['new']} all new, none "
         "mixed; every request sent after the answer got the new weights")
     return row
@@ -4488,8 +4533,168 @@ def two_precisions(srv, addr, items: Path, f32_body: tuple, want: tuple, probe: 
     return answered
 
 
+class AdmissionWaves:
+    """Counts the admission waves of continuous images servers (one encoder
+    pass each, K4's 12 launches): ``_admission_arrays`` wrapped on the
+    instance."""
+
+    def __init__(self, servers):
+        self.waves = 0
+        for server in servers:
+            arrays = server._admission_arrays
+
+            def counted(ids, payloads, arrays=arrays):
+                self.waves += 1
+                return arrays(ids, payloads)
+
+            server._admission_arrays = counted
+
+
+def continuous_servers(conts) -> list:
+    """Every ContinuousCaptionServer behind the continuous HTTP servers."""
+    return [server for http in conts.values() for _, im, fe in http._models.values() for server in (im, fe)]
+
+
+def staggered(call, items, gap: float) -> list:
+    """``call`` on each item from a thread of its own, started ``gap`` s
+    apart. -> the results in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(i):
+        time.sleep(gap * i)
+        return call(items[i])
+
+    with ThreadPoolExecutor(len(items)) as pool:
+        return list(pool.map(one, range(len(items))))
+
+
+def logit_gaps(pipe, feats, got: list[str], want: list[str]) -> list[str]:
+    """For each caption that differs from its reference: the position of the
+    first differing word and the plain f32 logit gap there between the two
+    words (endseq where one caption ended), teacher-forced on the common
+    prefix, on the pipeline's params."""
+    from tpucap_torch.core import precision_flags
+
+    wi = pipe.tokenizer.word_index
+    start, end = pipe._token_ids()
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        wa, wb = a.split() + ["endseq"], b.split() + ["endseq"]
+        p = next(k for k in range(min(len(wa), len(wb))) if wa[k] != wb[k])
+        prefix = [start] + [wi[w] for w in wa[:p]]
+        with torch.inference_mode(), precision_flags("f32"):
+            logits = pipe.decoder.forward_train(
+                pipe.params["decoder"], torch.as_tensor(feats[i:i + 1]).to(pipe.device).float(),
+                torch.tensor([prefix], device=pipe.device), deterministic=True)[0, -1]
+        gap = float(logits[wi.get(wa[p], end)] - logits[wi.get(wb[p], end)])
+        out.append(f"row {i} word {p}: served {wa[p]!r}, reference {wb[p]!r}, logit gap {gap:+.3e}")
+    return out
+
+
+def continuous_exactness(conts, f32, rows, x, blobs, want: dict) -> None:
+    """(f): the f32 model's 64 feature rows and 64 JPEGs behind the
+    continuous engine, greedy and beam BEAM, in one /caption_batch each and
+    as staggered single requests: token for token generate's and the
+    offline route's."""
+    from tpucap_torch.client import CaptionClient
+
+    for method in ("greedy", "beam"):
+        client = CaptionClient(*conts[f"f32 {method}"].address, timeout=120)
+        runs = {
+            "features batch": (client.caption_features_many(rows), want[method][0], rows),
+            "jpeg batch": (client.caption_jpegs_many(blobs), want[method][1], None),
+            "features staggered": (staggered(client.caption_features, list(rows), P15_STAGGER_S),
+                                   want[method][0], rows),
+            "jpeg staggered": (staggered(client.caption, blobs, P15_STAGGER_S), want[method][1], None),
+        }
+        for label, (got, ref, feats) in runs.items():
+            if got != ref:
+                why = logit_gaps(f32, feats, got, ref) if feats is not None else [
+                    f"row {i}" for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+                raise AssertionError(f"continuous exactness, {method} {label}: {len(why)} of "
+                                     f"{len(ref)} captions differ from the offline route: {why[:8]}")
+        log(f"serve continuous exactness ({method}): f32 /caption_batch of {P15_ROWS} rows and of "
+            f"{P15_ROWS} JPEGs, and each as {P15_ROWS} single requests {P15_STAGGER_S * 1e3:.0f} ms "
+            "apart, token for token generate's and the offline route's")
+
+
+def continuous_loop(http, addr, label: str, route: str, items: Path, threads: int) -> dict:
+    """(g): one closed-loop run on the continuous engine: captions/s,
+    client p50 / p99 (and the first span's, streaming), the features
+    server's ticks, sync groups, mean occupancy and ms a sync group (the
+    run's wall over its sync groups)."""
+    server = http._features
+    before = dict(server.stats(), occ=server._tick_occupancy)
+    res = LoadClient(addr, route, items, threads, P15_SECONDS).result(label)
+    after = dict(server.stats(), occ=server._tick_occupancy)
+    lat = sorted(res["latencies_ms"])
+    ticks = after["ticks"] - before["ticks"]
+    groups = after["batches"] - before["batches"]
+    row = {
+        "captions_per_s": res["ok"] / res["wall"], "p50_ms": percentile(lat, 0.5),
+        "p99_ms": percentile(lat, 0.99), "ticks": ticks, "groups": groups,
+        "mean_occupancy": (after["occ"] - before["occ"]) / max(1, ticks),
+        "ms_a_group": 1e3 * res["wall"] / max(1, groups), "answered": res["ok"],
+    }
+    first = sorted(res["first_span_ms"])
+    extra = ""
+    if first:
+        row["first_p50_ms"], row["first_p99_ms"] = percentile(first, 0.5), percentile(first, 0.99)
+        extra = (f"; first span p50 {row['first_p50_ms']:.3f} ms, p99 {row['first_p99_ms']:.3f} ms, "
+                 "every stream's spans joined to its caption")
+    log(f"serve {label}: {threads} client threads, {res['ok']} answered in {res['wall']:.3f} s: "
+        f"captions/s {row['captions_per_s']:.2f}; client p50 {row['p50_ms']:.3f} ms, p99 "
+        f"{row['p99_ms']:.3f} ms{extra}; {ticks} ticks in {groups} sync groups, mean occupancy "
+        f"{row['mean_occupancy']:.2f} of {P15_MAX_BATCH}, {row['ms_a_group']:.3f} ms a sync group")
+    return row
+
+
+def caption_lengths(captions: list[str]) -> str:
+    """The served captions' word counts: min / median / max."""
+    n = sorted(len(c.split()) for c in captions)
+    return f"{n[0]} / {n[len(n) // 2]} / {n[-1]} words"
+
+
+def run_continuous(conts, f32, rows, x, blobs, want: dict, items: tuple, reload: tuple) -> dict[str, int]:
+    """Phase 15 (f)-(h) on the continuous engine, inside a launch window of
+    its own: every launch must be a served tick's (K2 and K3's two kernels
+    once each) or a served images admission wave's (K4 12 times). ->
+    the window's launches."""
+    from tpucap_torch import ops
+
+    servers = continuous_servers(conts)
+    waves = AdmissionWaves([s for s in servers if s._mode == "images"])
+    ticks0 = sum(s._tick_count for s in servers)
+    ops.reset_launch_counts()
+    continuous_exactness(conts, f32, rows, x, blobs, want)
+    log(f"serve continuous: the f32 captions' lengths, greedy {caption_lengths(want['greedy'][0])}, "
+        f"beam {caption_lengths(want['beam'][0])} (max_len {MAX_LEN})")
+    bf16 = conts["bf16 beam"]
+    addr = bf16.address
+    for n in P15_THREADS:
+        continuous_loop(bf16, addr, f"continuous features x{n}", "features", items[0], n)
+    continuous_loop(bf16, addr, f"continuous stream x{P15_STREAM_THREADS}", "stream", items[0],
+                    P15_STREAM_THREADS)
+    bundle, new = reload
+    reload_under_load(conts["f32 beam"], conts["f32 beam"].address, rows, want["beam"][0], new,
+                      bundle, model="", label="continuous reload under load")
+    counts = ops.launch_counts()
+    ticks = sum(s._tick_count for s in servers) - ticks0
+    served = {"lstm_cell": ticks, "merge_head": ticks, "vocab_proj": ticks,
+              "identity_block": 12 * waves.waves}
+    expect = {name: served.get(name, 0) for name in counts}
+    log(f"serve continuous: launches over (f)-(h) {counts}; the continuous servers ran {ticks} "
+        f"ticks and {waves.waves} images admission waves")
+    if counts != expect or not ticks or not waves.waves:
+        raise AssertionError(f"serve continuous: launches {counts}, the served ticks and waves "
+                             f"ask for {expect}")
+    return counts
+
+
 def run_serving(dev, tokenizer) -> dict[str, int]:
-    """Phase 15. -> the counted runs' launches ((b)-(e))."""
+    """Phase 15. -> the counted runs' launches ((b)-(e), (f)-(h))."""
     import tempfile
 
     from tpucap_torch import ops
@@ -4507,6 +4712,18 @@ def run_serving(dev, tokenizer) -> dict[str, int]:
     log(f"serve: path A (resnet50 fused_blocks + lstm1, vocab {VOCAB}, beam {BEAM}, max_len "
         f"{MAX_LEN}) bf16 as the default model and f32 as model f32 on http://{addr[0]}:{addr[1]}, "
         f"max_batch {P15_MAX_BATCH}, max_delay_ms {P15_DELAY_MS}, buckets {srv._features._buckets}")
+    # The continuous engine (f)-(h): one server a model and method (it
+    # serves no extra model). Built now, their engines keep the params of
+    # now: (d)'s reload of the f32 pipeline leaves their lanes as they are.
+    cont_kw = dict(host="127.0.0.1", port=0, max_batch=P15_MAX_BATCH, ticks_per_sync=P15_TICKS,
+                   engine="continuous", allow_reload=True)
+    conts = {
+        "f32 greedy": CaptionHTTPServer(f32, method="greedy", **cont_kw),
+        "f32 beam": CaptionHTTPServer(f32, method="beam", beam_width=BEAM, **cont_kw),
+        "bf16 beam": CaptionHTTPServer(bf16, method="beam", beam_width=BEAM, **cont_kw),
+    }
+    for http in conts.values():
+        http.serve_background()
     try:
         with tempfile.TemporaryDirectory() as tmp:
             tmp = Path(tmp)
@@ -4517,6 +4734,12 @@ def run_serving(dev, tokenizer) -> dict[str, int]:
                     server.warmup()
                     log(f"serve warmup {name}/{endpoint}: buckets 1-{P15_MAX_BATCH} in "
                         f"{time.perf_counter() - t0:.3f} s")
+            for name, http in conts.items():
+                for endpoint, server in (("images", http._images), ("features", http._features)):
+                    t0 = time.perf_counter()
+                    server.warmup()
+                    log(f"serve warmup continuous {name}/{endpoint}: buckets 1-{P15_MAX_BATCH}, "
+                        f"{P15_TICKS} ticks each, in {time.perf_counter() - t0:.3f} s")
             sizes.take()
 
             g = np.random.default_rng(15)
@@ -4533,6 +4756,9 @@ def run_serving(dev, tokenizer) -> dict[str, int]:
             # first: the launch window below holds served requests only.
             x = _preprocess_jpeg_batch(batch_blobs, f32.encoder.input_size, f32.encoder.preprocess_mode)
             want = (f32.generate(rows), f32.generate(f32.encode_images(x)))
+            cont_want = {"beam": want, "greedy": (
+                f32.generate(rows, method="greedy"),
+                f32.generate(f32.encode_images(x), method="greedy"))}
             want_single = [offline_jpeg(bf16, blob) for blob in blobs]
             offline = min(timed(lambda: bf16.generate(rows))[1] for _ in range(3))
             ceiling = P15_ROWS / offline
@@ -4586,8 +4812,14 @@ def run_serving(dev, tokenizer) -> dict[str, int]:
             if counts != expect or not sizes.images or not sizes.steps:
                 raise AssertionError(f"serve: launches {counts}, the served batches' work asks "
                                      f"for {expect}")
+            # (f)-(h), the continuous engine, in a launch window of its own.
+            cont = run_continuous(conts, f32, rows, x, batch_blobs, cont_want,
+                                  (feature_items, jpeg_items), (bundle, new))
+            counts = {name: counts[name] + cont[name] for name in counts}
     finally:
         srv.close()
+        for http in conts.values():
+            http.close()
     return counts
 
 

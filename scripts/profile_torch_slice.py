@@ -1,7 +1,9 @@
 """Where a batch of the port's serving slice, and a training step, spend
 their time on the card.
 
-    python3 scripts/profile_torch_slice.py   # from the repo root; one CUDA card
+    python3 scripts/profile_torch_slice.py [PART ...]   # from the repo root; one CUDA card
+
+PART is any of slice, fused, vit, train, continuous (default: all).
 
 Builds the same full-width pipelines as chip_smoke.py (1-layer merge LSTM,
 bf16, batch 256, beam 3, vocab 7579, random weights from a seed) with the
@@ -21,6 +23,11 @@ attention + lstm1, batch 64, bf16 compute with f32 masters, Adam;
 K5's dK/dV and dQ kernels), as ``joint step``, and the decoder's step on
 features (``make_train_step``, lstm1, batch 256, T 35, bf16) as ``decoder
 step``, the shapes of chip_smoke.py's phase 5.
+
+Then ``continuous``: one sync group (chip_smoke.P15_TICKS ticks) of the
+serving engines behind ``ContinuousCaptionServer`` on path A's bf16
+decoder with every slot live (chip_smoke.P15_MAX_BATCH: 64 lanes greedy,
+64 groups of 3 lanes at beam 3), the shapes of phase 15 (f)-(h).
 
 Each part is first run untraced three times (host clock around work that
 ends in a synchronize; the median is kept), then traced once, in the same
@@ -236,6 +243,31 @@ def profile_train(dev, tokenizer) -> dict:
     return out
 
 
+def profile_continuous(dev) -> dict:
+    """A sync group of each continuous engine at full occupancy."""
+    from tpucap_torch.serve import ContinuousCaptionServer
+
+    pipe = make_path("fused")
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for label, width in (("greedy", 1), ("beam", chip_smoke.BEAM)):
+        srv = ContinuousCaptionServer(pipe, slots=chip_smoke.P15_MAX_BATCH,
+                                      ticks_per_sync=chip_smoke.P15_TICKS, beam_width=width)
+        srv.close()
+        eng = srv._engine
+        ids = list(range(eng.slots))
+        feats = torch.randn((eng.slots, chip_smoke.DEC_FEATURES), generator=g, device=dev)
+        state = eng.admit(eng.init_state(), eng.pad_ids(ids), feats.to(eng.feature_dtype))
+        eng.tick(state, chip_smoke.P15_TICKS)  # warm-up
+
+        def group(state=state, eng=eng):
+            eng.tick(state, chip_smoke.P15_TICKS)
+            [t.cpu() for t in eng.flags(state)]  # the server's flags fetch
+
+        out[label] = trace(f"continuous {label} sync group", group)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device; nothing was run", file=sys.stderr)
@@ -246,12 +278,17 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda")
+    parts = sys.argv[1:] or ["slice", "fused", "vit", "train", "continuous"]
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     for path in ("slice", "fused", "vit"):
-        result[path] = profile_path(path, dev)
-    tokenizer = Tokenizer()
-    tokenizer.fit_on_texts(chip_smoke.corpus(chip_smoke.VOCAB - 3)["corpus"])
-    result["train"] = profile_train(dev, tokenizer)
+        if path in parts:
+            result[path] = profile_path(path, dev)
+    if "train" in parts:
+        tokenizer = Tokenizer()
+        tokenizer.fit_on_texts(chip_smoke.corpus(chip_smoke.VOCAB - 3)["corpus"])
+        result["train"] = profile_train(dev, tokenizer)
+    if "continuous" in parts:
+        result["continuous"] = profile_continuous(dev)
     print(json.dumps(result))
     return 0
 

@@ -469,7 +469,11 @@ _REFUSED = [
     ],
     *[
         ["serve", "--model-dir", "/nonexistent", "--checkpoint-dir", "/nonexistent", *flags]
-        for flags in (["--aot-bundle", "/nonexistent"], ["--engine", "continuous"])
+        for flags in (
+            ["--aot-bundle", "/nonexistent"],
+            # Ported: what exits first is tpucap's own check of the pair.
+            ["--extra-model", "b=/nonexistent", "--engine", "continuous"],
+        )
     ],
     ["evaluate", "--features", "/nonexistent", "--checkpoint-dir", "/nonexistent",
      "--parallelism", "tp"],
@@ -484,6 +488,15 @@ def test_unported_flags_exit_before_any_file_is_read(argv, monkeypatch):
     the card is reported absent, so the refusal also comes first."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     flag = next(a for a in reversed(argv) if a.startswith("--"))
+    if argv[-2:] == ["--engine", "continuous"]:
+        # The continuous engine is ported: tpucap's refusal of --extra-model
+        # with it, in tpucap's words, before any file is read.
+        with pytest.raises(SystemExit) as jerr:
+            jcli.main(argv)
+        with pytest.raises(SystemExit) as err:
+            tcli.main(argv)
+        assert str(err.value) == str(jerr.value) == "--extra-model needs --engine batch"
+        return
     with pytest.raises(SystemExit, match=f"^{flag}.*not ported"):
         tcli.main(argv)
 

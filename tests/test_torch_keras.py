@@ -25,8 +25,10 @@ port test file that imports tf_keras.
 - CLI on one fixture dataset (4 JPEGs) with the ResNet-50 file:
   ``extract --keras-h5`` features within atol 1e-5 (the CLI tests' bound)
   plus rtol 2e-6 (ResNet-50 rows reach 20), ``caption --keras-h5`` lines
-  equal, ``score --keras-h5`` lines equal but for a printed number that may
-  round to the neighbouring digit or differ by 1e-5 relative (ppl), ``train --finetune-encoder --keras-h5`` starts from
+  equal, ``score --keras-h5`` lines on tpucap's trained decoder and
+  features equal but for logp within the f32 bound of its sum
+  (``logp_bound``) and ppl within what that gives,
+  ``train --finetune-encoder --keras-h5`` starts from
   the imported encoder in both packages (the tree handed to
   ``fit_finetune``, bit for bit), ``export`` files import in either package
   bit for bit, and ``--format aot`` is refused by name.
@@ -69,6 +71,7 @@ from tpucap_torch.convert import params_from_jax  # noqa: E402
 from tpucap_torch.decode import beam_decode, greedy_decode  # noqa: E402
 from tpucap_torch.models.decoders import build_decoder  # noqa: E402
 from tpucap_torch.pipeline import CaptioningPipeline  # noqa: E402
+from tpucap_torch.text import load_tokenizer  # noqa: E402
 
 tf = pytest.importorskip("tensorflow")
 tf_keras = pytest.importorskip("tf_keras")
@@ -85,9 +88,27 @@ SCORE_ATOL = 1e-5
 # ResNet-50 rows reach |x| ~ 20, where XLA's and torch's summation orders
 # differ by ~1e-6 relative: the CLI tests' atol 1e-5 plus this.
 FEATURE_RTOL = 2e-6
-# A printed number may round to the neighbouring digit, and ppl = exp(-logp
-# / tokens) carries logp's agreement (~1e-6 relative) into its 3 decimals.
-PRINTED_RTOL = 1e-5
+U32 = 2.0**-24  # f32 unit roundoff
+
+
+def logp_bound(logp: float, n: int, vocab: int) -> float:
+    """How far two f32 evaluations of one teacher-forced logp may differ:
+    logp = sum over the caption's n tokens of a_t = z_t - L_t (the target's
+    logit minus its row's logsumexp over ``vocab`` logits), in f32 in both
+    packages. Per package, to first order in u = 2**-24:
+    - the sum of n terms of one sign, in any order: (n - 1) u sum |a_t|
+      = (n - 1) u |logp|;
+    - each term's log-softmax (z_t - m) - log(sum exp(z_i - m)): the first
+      subtraction rounds by u |z_t - m| <= u |a_t|; the normalizer, a sum
+      of ``vocab`` terms in (0, 1] that is >= 1, each exp within an ulp,
+      has a log off by (vocab + 1) u; the last subtraction rounds by
+      u |a_t|: 2 u |a_t| + (vocab + 1) u a term.
+    Together u ((n + 1) |logp| + n (vocab + 1)); two packages differ by at
+    most twice that. The logits feeding them also carry their forward
+    pass's rounding: on identical inputs the packages' logits differed by
+    at most 4.5 ulps of the largest, which stayed inside this bound on
+    every draw measured (logp from -22 to -481)."""
+    return 2 * U32 * ((n + 1) * abs(logp) + n * (vocab + 1))
 
 
 def _leaves(tree, path="params"):
@@ -483,7 +504,7 @@ def cli_runs(tmp_path_factory, encoder_files):
         load_descriptions(tokens), load_split(train)).values() for c in caps][: len(images)]
     h5 = str(encoder_files["resnet50"])
     feats = str(root / "tpucap" / "features.npz")
-    recorded, started, phase = {}, {}, {"record": False, "install": False}
+    recorded, started, phase = {}, {}, {"record": False, "install": False, "score": False}
 
     def no_dropout(build_config):
         def build(args):
@@ -506,6 +527,29 @@ def cli_runs(tmp_path_factory, encoder_files):
                 self.set_params({**self.params, "decoder": params_from_jax(recorded["decoder"])})
             return self.params
         return build
+
+    # score: the port's command scores tpucap's trained decoder on tpucap's
+    # features, so that its lines differ from tpucap's by the score path's
+    # rounding only. Each CLI trains its own decoder (6 Adam steps at lr
+    # 0.01 from one start): the trees differ by up to 2.2e-6, which moved
+    # logp by up to 2e-4 at |logp| ~ 130 on a measured draw. The port's own
+    # features are kept for the extract tolerance check.
+    def score_recorder(orig):
+        def score_captions(self, features, captions):
+            if phase["score"]:
+                recorded["score"] = (np.asarray(features), jax.tree.map(np.array, self.params["decoder"]))
+            return orig(self, features, captions)
+        return score_captions
+
+    def score_installer(orig):
+        def score_captions(self, features, captions):
+            if not phase["score"]:
+                return orig(self, features, captions)
+            feats, dec = recorded["score"]
+            recorded["port_score_features"] = np.asarray(features)
+            self.set_params({**self.params, "decoder": params_from_jax(dec)})
+            return orig(self, feats, captions)
+        return score_captions
 
     def fit_finetune_recorder(pkg):
         def fit_finetune(self, *a, **k):
@@ -541,6 +585,8 @@ def cli_runs(tmp_path_factory, encoder_files):
         mp.setattr(CaptioningPipeline, "build", tpucaps_decoder(CaptioningPipeline.build))
         mp.setattr(JaxPipeline, "fit_finetune", fit_finetune_recorder("tpucap"))
         mp.setattr(CaptioningPipeline, "fit_finetune", fit_finetune_recorder("port"))
+        mp.setattr(JaxPipeline, "score_captions", score_recorder(JaxPipeline.score_captions))
+        mp.setattr(CaptioningPipeline, "score_captions", score_installer(CaptioningPipeline.score_captions))
         for pkg, main in mains.items():
             out = root / pkg
             out.mkdir(exist_ok=True)
@@ -548,6 +594,7 @@ def cli_runs(tmp_path_factory, encoder_files):
             for name, argv in commands(out).items():
                 phase["record"] = pkg == "tpucap" and name == "train"
                 phase["install"] = pkg == "port" and name == "train"
+                phase["score"] = name == "score"
                 stdout, stderr = io.StringIO(), io.StringIO()
                 with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr), \
                         warnings.catch_warnings():
@@ -561,6 +608,7 @@ def cli_runs(tmp_path_factory, encoder_files):
                      if "absl" not in ln and "UserWarning" not in ln]
                     for s in (stdout, stderr))
     result["finetune"] = started
+    result["score_features"] = (recorded["score"][0], recorded["port_score_features"])
     tf_keras.backend.clear_session()
     return result
 
@@ -586,14 +634,28 @@ def test_cli_caption_with_keras_h5_matches_tpucap(cli_runs):
 _NUMBER = re.compile(r"-?\d+\.(\d+)")
 
 
+_SCORED = re.compile(r"\tlogp=(-?\d+\.\d{4})\tppl=(\d+\.\d{3})\ttokens=(\d+)\t")
+
+
 def test_cli_score_with_keras_h5_matches_tpucap(cli_runs):
+    """The lines on tpucap's trained decoder and features: logp within
+    ``logp_bound`` plus the print's rounding (4 decimals, half a unit
+    each side), ppl = exp(-logp / n) within what that logp tolerance
+    gives plus its own print's rounding. The port's own features within
+    the extract test's tolerance."""
     got, want = cli_runs["port"]["score"][0], cli_runs["tpucap"]["score"][0]
     assert len(got) == len(want) == 4
+    vocab = load_tokenizer(str(cli_runs["port"]["out"] / "ckpt" / "tokenizer.json")).vocab_size
     for g, w in zip(got, want):
         assert _NUMBER.sub("#", g) == _NUMBER.sub("#", w), (g, w)
-        for a, b in zip(_NUMBER.finditer(g), _NUMBER.finditer(w)):
-            x, y = float(a[0]), float(b[0])
-            assert abs(x - y) <= max(1.01 * 10.0 ** -len(b[1]), PRINTED_RTOL * abs(y)), (g, w)
+        (lp, ppl, n), (wlp, wppl, wn) = (_SCORED.search(x).groups() for x in (g, w))
+        assert n == wn
+        n, wlp, wppl = int(n), float(wlp), float(wppl)
+        tol = logp_bound(wlp, n, vocab) + 1e-4
+        assert abs(float(lp) - wlp) <= tol, (g, w, tol)
+        assert abs(float(ppl) - wppl) <= wppl * np.expm1(tol / n) + 1e-3, (g, w)
+    theirs, ours = cli_runs["score_features"]
+    np.testing.assert_allclose(ours, theirs, rtol=FEATURE_RTOL, atol=1e-5)
 
 
 def test_cli_finetune_starts_from_the_keras_encoder(cli_runs, encoder_files):

@@ -435,8 +435,14 @@ def test_clients_against_each_others_servers(servers):
 
 def test_construction_refusals(servers):
     _, pipe, _ = servers["port"]
-    with pytest.raises(ValueError, match=r"engine='continuous' is not ported .*item 6\.3"):
-        CaptionHTTPServer(pipe, engine="continuous")
+    jpipe = servers["tpucap"][1]
+    # The continuous engine is ported: its method check, tpucap's text.
+    with pytest.raises(ValueError) as jerr:
+        JaxHTTPServer(jpipe, engine="continuous", method="sample")
+    with pytest.raises(ValueError) as err:
+        CaptionHTTPServer(pipe, engine="continuous", method="sample")
+    assert str(err.value) == str(jerr.value)
+    assert "engine='continuous' supports method 'greedy'|'beam', got 'sample'" in str(err.value)
     with pytest.raises(ValueError, match="extra_models needs engine='batch'"):
         CaptionHTTPServer(pipe, engine="continuous", extra_models={"x": pipe})
     with pytest.raises(ValueError, match="'default' names the positional pipeline"):
@@ -463,12 +469,17 @@ def test_serve_flag_checks_match_tpucap():
         with pytest.raises(SystemExit) as err:
             main(argv, device="cpu")
         assert str(err.value) == str(jerr.value), argv
-    for argv, flag in (
-        (["serve", "--engine", "continuous"], "--engine continuous"),
-        (["serve", "--aot-bundle", "x"], "--aot-bundle x"),
-    ):
+    for argv, flag in ((["serve", "--aot-bundle", "x"], "--aot-bundle x"),):
         with pytest.raises(SystemExit, match=f"^{flag}: not ported to tpucap_torch \\(serve\\)$"):
             main(argv, device="cpu")
+    # --engine continuous is ported: the parser takes it and no flag check
+    # refuses it.
+    from tpucap_torch.cli.main import build_parser, refuse_unported_flags
+
+    parser, commands = build_parser()
+    args = parser.parse_args(["serve", "--engine", "continuous", "--method", "greedy"])
+    assert args.engine == "continuous"
+    refuse_unported_flags(commands["serve"], args)
     for argv in (
         ["caption", "--image", "x.jpg", "--server-model", "b"],
         ["caption", "--image", "x.jpg", "--server", "h:1", "--method", "mbr"],

@@ -52,8 +52,9 @@ port's own HDF5 code); plain ``train`` ignores it, as tpucap does.
 ``serve`` runs the HTTP caption server (``serve_http.CaptionHTTPServer``,
 tpucap's endpoints) on a bundle (``--model-dir``) or a restored checkpoint
 (``--keras-h5`` as in ``caption``), with ``--extra-model``,
-``--allow-reload``, the batcher's flags and a SIGTERM drain (exit 0);
-``--aot-bundle`` and ``--engine continuous`` are not ported. ``caption
+``--allow-reload``, the batcher's flags, ``--engine continuous`` (the
+slot-recycling engine, greedy or beam, with the streaming routes) and a
+SIGTERM drain (exit 0); ``--aot-bundle`` is not ported. ``caption
 --server HOST:PORT`` captions through a running server with the port's
 client (``tpucap_torch.client``), needing no model and no device here.
 
@@ -146,7 +147,7 @@ UNPORTED_FLAGS = {
         "aot_ladder": (),
         "include_encoder": (),
     },
-    "serve": {"aot_bundle": (), "engine": ()},
+    "serve": {"aot_bundle": ()},
 }
 #: TrainConfig fields that the optimizer flags set, under their own names.
 _OPTIMIZER_FIELDS = (
@@ -1304,7 +1305,9 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
                    "checked before the body is read; 0 disables)")
     p.add_argument("--engine", default="batch",
                    choices=["batch", "continuous"],
-                   help="batch only (the continuous engine is not ported)")
+                   help="feature-serving engine: micro-batched (default) "
+                   "or continuous slot-recycling (greedy, or beam with "
+                   "--method beam)")
     p.add_argument("--no-warmup", dest="warmup", action="store_false",
                    help="skip running the batch buckets at startup")
     p.add_argument("--method", default="beam", choices=["greedy", "beam"])
@@ -1333,7 +1336,7 @@ def main(argv=None, *, device=None):
     args = ap.parse_args(argv)
     # tpucap's checks first, in its order, where one names a value that the
     # port refuses anyway (--lora-rank with --parallelism fsdp, --extra-model
-    # with --engine continuous, --server with --method speculative).
+    # with --aot-bundle, --server with --method speculative).
     if args.cmd == "train" and (args.lora_rank or args.lora_out):
         _validate_train_flags(args)
     elif args.cmd == "serve":

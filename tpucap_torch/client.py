@@ -16,9 +16,10 @@ stats / health / metrics surfaces:
   trivially thread-safe. :meth:`caption_many` is the intended concurrency
   shape.
 - A non-200 status raises :class:`ServerError` carrying the status code and
-  the server's ``{"error": ...}`` message verbatim. The port's server answers
-  501 for the dials it has not ported (``prefix``, ``include_words``) and
-  400 on the streaming routes (they need tpucap's continuous engine).
+  the server's ``{"error": ...}`` message verbatim. The port's batch engine
+  answers 501 for the dials it has not ported (``prefix``,
+  ``include_words``), and 400 on the streaming routes, which need the
+  continuous engine (``serve --engine continuous``), as tpucap's do.
 """
 
 from __future__ import annotations

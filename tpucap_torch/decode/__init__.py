@@ -1,13 +1,20 @@
 """Decode engines of the port: batched greedy and beam search on the
-device, and the ids -> caption join."""
+device, the continuous (slot-recycling) greedy and beam engines of the
+online server, and the ids -> caption join."""
 
 from tpucap_torch.decode.beam import BeamResult, beam_decode, normalized_scores
+from tpucap_torch.decode.continuous import ContinuousDecodeEngine, SlotState
+from tpucap_torch.decode.continuous_beam import BeamSlotState, ContinuousBeamEngine
 from tpucap_torch.decode.greedy import DecodeResult, greedy_decode
 from tpucap_torch.decode.text import ids_to_captions
 
 __all__ = [
     "BeamResult",
+    "BeamSlotState",
+    "ContinuousBeamEngine",
+    "ContinuousDecodeEngine",
     "DecodeResult",
+    "SlotState",
     "beam_decode",
     "greedy_decode",
     "ids_to_captions",

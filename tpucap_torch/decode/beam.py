@@ -96,8 +96,14 @@ def topk_stable(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def min_len_mask(masked, t: int, min_len: int, end_id: int):
-    """Length floor: endseq leaves the candidate set while t < min_len."""
+def min_len_mask(masked, t, min_len: int, end_id: int):
+    """Length floor: endseq leaves the candidate set while t < min_len.
+    ``t`` is the step (an int), or a (rows,) tensor of each row's own step
+    (the continuous engines' lanes and groups)."""
+    if isinstance(t, torch.Tensor):
+        if min_len:
+            masked[:, end_id] = masked[:, end_id].masked_fill(t < min_len, NEG_INF)
+        return masked
     if t < min_len:
         masked[:, end_id] = NEG_INF
     return masked

@@ -1,5 +1,6 @@
-"""Online serving: the micro-batching caption server over a built pipeline
-(tpucap's ``tpucap/serve.py``, batch engine).
+"""Online serving over a built pipeline (tpucap's ``tpucap/serve.py``): the
+micro-batching ``CaptionServer`` (batch engine) and the slot-recycling
+``ContinuousCaptionServer`` (continuous engine, token streaming).
 
 - Requests enqueue from any thread; ONE batcher thread owns the pipeline's
   device work for this server.
@@ -21,10 +22,14 @@ the reload in its queue, so that no request of any of them (a multi-row
 request may span batches) is decoded partly on the old weights and partly
 on the new.
 
-Not ported: tpucap's ``ContinuousCaptionServer`` (slot-recycling engine)
-and the per-request dials ``prefix`` / ``include_words``, which are checked
-as tpucap checks them and then refused by name (they stand on
-``decode/prefix.py`` and ``decode/constrained.py``, ROADMAP item 6.3).
+``ContinuousCaptionServer`` retires a request's lanes the moment it ends
+and refills them (``decode/continuous.py``, ``decode/continuous_beam.py``),
+and streams each request's words as they decode.
+
+Not ported: the batch engine's per-request dials ``prefix`` /
+``include_words``, which are checked as tpucap checks them and then refused
+by name (they stand on ``decode/prefix.py`` and ``decode/constrained.py``,
+ROADMAP item 6.3b). tpucap's continuous engines have no such dials.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from concurrent.futures import Future
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from tpucap_torch.train.loop import refuse_unported
 
@@ -163,7 +169,7 @@ def refuse_dial(dial: str):
     module = {"prefix": "decode/prefix.py", "include_words": "decode/constrained.py"}[dial]
     raise NotImplementedError(
         f"{dial} is not ported to tpucap_torch: it needs tpucap's {module} "
-        "(ROADMAP queue 1, item 6.3)"
+        "(ROADMAP queue 1, item 6.3b)"
     )
 
 
@@ -235,7 +241,7 @@ class CaptionServer:
             raise NotImplementedError(
                 f"method {resolved!r} is not ported to tpucap_torch's server "
                 "(greedy|beam; sampling is decode/sample.py, ROADMAP queue 1, "
-                "item 6.3)"
+                "item 6.3c)"
             )
         # Per-request forced-prefix token cap, tpucap's admission rule (the
         # dial itself is refused once checked).
@@ -668,6 +674,452 @@ class CaptionServer:
         for cap, fut, t0 in zip(captions, futs, t0s):
             self._stats.add_latency((now - t0) * 1e3)
             _resolve(fut, cap)
+
+
+def _to_host(*tensors) -> list[np.ndarray]:
+    """Device tensors -> numpy arrays."""
+    return [t.cpu().numpy() for t in tensors]
+
+
+class ContinuousCaptionServer:
+    """Continuous-batching caption server (slot recycling;
+    ``decode/continuous.py`` has the device half and the design).
+
+    Unlike :class:`CaptionServer` (whole batches run to completion), a
+    finished request's lanes are retired and refilled the moment it
+    finishes, so mixed-length traffic keeps every lane busy. One device;
+    greedy by default, beam via ``beam_width > 1`` (each request then
+    occupies a beam_width-lane group); ``mode='images'`` adds the encoder to
+    the admission path (see __init__).
+
+    ``ticks_per_sync`` trades retirement latency for host round trips: each
+    sync group runs that many decode steps, then fetches the (tiny)
+    finished / active flags.
+    """
+
+    def __init__(
+        self,
+        pipeline,
+        *,
+        slots: int = 64,
+        ticks_per_sync: int = 8,
+        max_queue: int | None = None,
+        beam_width: int = 1,
+        mode: str = "features",
+    ):
+        """beam_width > 1 switches the engine to the continuous BEAM engine
+        (decode/continuous_beam.py): each request occupies a group of
+        beam_width lanes, retired when every beam finishes; results are
+        beam_decode's. beam_width=1 (default) is the greedy engine.
+
+        mode='images' puts the ENCODER in the admission path: submit takes
+        a preprocessed (size, size, 3) image; each admitted wave is padded
+        to the admission bucket, encoded on the device, and its feature rows
+        are written into lanes. The wave's encode and its decode use one
+        snapshot of the params, the engine's, as ``encode_submit`` does for
+        a batch."""
+        if mode not in ("features", "images"):
+            raise ValueError(f"mode must be 'features'|'images', got {mode!r}")
+        self._pipe = pipeline
+        self._mode = mode
+        self._beam_width = beam_width
+        self._slots = slots
+        _, end_id = pipeline._token_ids()
+        self._end_id = end_id
+        self._build_engine()
+        self._ticks_per_sync = ticks_per_sync
+        self._max_queue = max_queue
+        self._queue: queue.Queue = queue.Queue()
+        # slot -> [future, t0, on_words|None, words_emitted] (mutable:
+        # _stream_progress advances words_emitted in place)
+        self._futures: dict[int, list] = {}
+        self._free = list(range(slots))
+        self._stats = ServerStats()
+        self._tick_count = 0
+        self._tick_occupancy = 0
+        self._closed = False
+        self._current_futs: tuple = ()  # batch mid-admission (wedge path)
+        self._submit_lock = threading.Lock()  # submit vs close ordering
+        self._thread = threading.Thread(
+            target=self._loop, name="tpucap-torch-continuous", daemon=True
+        )
+        self._thread.start()
+
+    def _build_engine(self) -> None:
+        """Build the device engine over the pipeline's CURRENT inference
+        params and a fresh (all idle) slot state. Called at __init__ and
+        again by reload(): the engine keeps its own snapshot of the params,
+        as tpucap's jitted methods close over theirs, so a reload of the
+        pipeline by another server leaves this one's lanes as they were."""
+        from tpucap_torch.decode.continuous import ContinuousDecodeEngine
+        from tpucap_torch.decode.continuous_beam import ContinuousBeamEngine
+
+        pipeline = self._pipe
+        start_id, end_id = pipeline._token_ids()
+        cfg_e = pipeline.config.encoder
+        feature_shape = (
+            (pipeline.encoder.spatial_positions, cfg_e.feature_dim)
+            if cfg_e.features == "spatial"
+            else (cfg_e.feature_dim,)
+        )
+        dcfg = pipeline.config.decode
+        params = pipeline._inference_params()
+        self._encoder_params = params["encoder"] if self._mode == "images" else None
+        engine_kw = dict(
+            slots=self._slots,
+            start_id=start_id,
+            end_id=end_id,
+            max_len=dcfg.max_len,
+            min_len=dcfg.min_len,
+            banned_ids=pipeline._banned_ids(),
+            no_repeat_ngram_size=dcfg.no_repeat_ngram_size,
+            feature_shape=feature_shape,
+            feature_dtype=pipeline._infer_dtype(),
+            # The pipeline's step (K2 + K3 on the card for a 1-layer merge
+            # decoder) under its own precision flags, as _decode runs it.
+            step_fn=pipeline.step_fn(),
+            precision=pipeline.config.precision,
+        )
+        if self._beam_width > 1:
+            self._engine = ContinuousBeamEngine(
+                pipeline.decoder,
+                params["decoder"],
+                beam_width=self._beam_width,
+                length_normalize=dcfg.length_normalize,
+                alpha=dcfg.alpha,
+                length_penalty=dcfg.length_penalty,
+                approx_topk=dcfg.approx_topk,
+                **engine_kw,
+            )
+        else:
+            self._engine = ContinuousDecodeEngine(pipeline.decoder, params["decoder"], **engine_kw)
+        self._state = self._engine.init_state()
+
+    # -- client surface ----------------------------------------------------
+
+    @property
+    def _input_shape(self) -> tuple:
+        if self._mode == "images":
+            s = self._pipe.encoder.input_size
+            return (s, s, 3)
+        return self._engine.feature_shape
+
+    def submit(self, features) -> Future:
+        return self._submit(features, None)
+
+    def reload(self, source) -> Future:
+        """Hot-swap model weights: admission pauses, active lanes run to
+        retirement under the old weights, then the pipeline's params are
+        replaced (pipeline.reload_params, same validation) and the engine
+        is REBUILT over them; queued and later requests decode under the new
+        weights. On a validation failure the Future carries the error and
+        the old engine keeps serving."""
+        fut: Future = Future()
+        with self._submit_lock:
+            if self._closed:
+                raise RuntimeError("server is closed")
+            self._queue.put(_Reload(source, fut))
+        return fut
+
+    def submit_stream(self, features, on_words) -> Future:
+        """Streaming submit: ``on_words(words: list[str])`` is called with
+        each NEW span of decoded words as the request progresses (one span
+        a sync group at most); the returned Future still resolves with the
+        full caption, and the spans concatenate to exactly that caption.
+
+        Greedy streams every decoded token as it lands. Beam streams the
+        group's STABLE PREFIX, the longest common prefix of its k beams,
+        which every later leader extends (ContinuousBeamEngine.progress),
+        so no emitted word is ever retracted; what the winning beam adds
+        past the last stable span is flushed in one final ``on_words`` call
+        at retirement, just before the future resolves.
+
+        ``on_words`` runs on the engine thread: it must be fast and never
+        block (hand off to a queue, as the HTTP front end does); exceptions
+        it raises are swallowed, so a broken client callback cannot kill the
+        shared engine loop."""
+        if not callable(on_words):
+            raise TypeError("on_words must be callable")
+        return self._submit(features, on_words)
+
+    def _submit(self, features, on_words) -> Future:
+        x = np.asarray(features)
+        if x.shape != self._input_shape:
+            raise ValueError(
+                f"request shape {x.shape} != expected "
+                f"{self._input_shape} (mode={self._mode!r})"
+            )
+        return self._enqueue_rows([x], on_words)[0]
+
+    def submit_many(self, xs) -> list[Future]:
+        """Enqueue MANY rows in one atomic admission: all accepted or none
+        (the CaptionServer.submit_many contract; the continuous engines
+        have no prefix / include_words surface)."""
+        xs = np.asarray(xs)
+        if xs.ndim != len(self._input_shape) + 1 or xs.shape[1:] != self._input_shape:
+            raise ValueError(
+                f"submit_many wants shape (N, *{self._input_shape}), "
+                f"got {xs.shape} (mode={self._mode!r})"
+            )
+        if xs.shape[0] == 0:
+            return []
+        return self._enqueue_rows(list(xs), None)
+
+    def _enqueue_rows(self, rows: list, on_words) -> list[Future]:
+        """Capacity-check and enqueue under ONE lock acquisition, so a
+        multi-row request is never half admitted."""
+        with self._submit_lock:
+            if self._closed:
+                raise RuntimeError("server is closed")
+            if self._max_queue is not None and (
+                self._queue.qsize() + len(rows) > self._max_queue
+            ):
+                raise Overloaded(f"request queue at max_queue={self._max_queue}")
+            now = time.perf_counter()
+            futs: list[Future] = []
+            for x in rows:
+                fut: Future = Future()
+                self._queue.put((x, fut, now, on_words))
+                futs.append(fut)
+        return futs
+
+    def caption(self, features, timeout: float | None = 60.0) -> str:
+        return self.submit(features).result(timeout=timeout)
+
+    def warmup(self, timeout: float = 600.0) -> None:
+        """Run the engine's every shape before serving traffic: admit and
+        collect at EVERY bucket of the admission ladder, a tick group, the
+        flags and the progress fetch, on a scratch state (images mode runs
+        the encoder at each bucket too). It pays the first-use costs:
+        cuBLAS and cuDNN plans, the allocator's pools. Then the stats are
+        reset. Call it before announcing the server, not with traffic."""
+        del timeout  # inline: nothing to wait on
+        eng = self._engine
+        state = eng.init_state()
+        shape = self._input_shape
+        for b in eng._admit_buckets:
+            n = min(b, eng.slots)
+            ids = list(range(n))
+            idx, feats = self._admission_arrays(ids, [np.zeros(shape, np.float32)] * n)
+            state = eng.admit(state, idx, feats)
+            state = eng.tick(state, self._ticks_per_sync)
+            _to_host(*eng.flags(state))
+            _to_host(*eng.progress(state))
+            _, state = eng.collect(state, eng.pad_ids(ids))
+        with self._stats.lock:
+            self._stats.latencies_ms.clear()
+        self._stats.requests = 0
+        self._stats.batches = 0
+        self._tick_count = 0
+        self._tick_occupancy = 0
+
+    def stats(self) -> dict:
+        s = self._stats.snapshot()
+        s["ticks"] = self._tick_count
+        s["mean_occupancy"] = (
+            self._tick_occupancy / self._tick_count if self._tick_count else 0.0
+        )
+        return s
+
+    def close(self, timeout: float = 60.0) -> None:
+        """Idempotent. If the engine loop is wedged past ``timeout``,
+        pending futures are failed with a TimeoutError rather than leaving
+        callers blocked in result() forever."""
+        with self._submit_lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._queue.put(None)
+        self._thread.join(timeout=timeout)
+        if self._thread.is_alive():
+            exc = TimeoutError(
+                f"continuous engine loop did not drain within {timeout}s "
+                f"at close (wedged in device dispatch?); request abandoned"
+            )
+            futs = _drain_pending(self._queue)
+            futs.extend(f for f, *_ in _snapshot(lambda: list(self._futures.values())))
+            futs.extend(self._current_futs)  # batch mid-admission
+            pending = getattr(self, "_pending_reload", None)
+            if pending is not None:
+                futs.append(pending.future)
+            _fail_futures(futs, exc)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- engine loop --------------------------------------------------------
+
+    def _admission_arrays(self, ids: list, payloads: list):
+        """(slot_idx, feature rows) for engine.admit, padded to the
+        admission bucket ladder. mode='images' runs the encoder here on the
+        zero-padded image wave, with the engine's snapshot of the encoder
+        params (the pad rows' features are computed, then dropped by
+        admission)."""
+        if self._mode != "images":
+            return self._engine.pad_admission(ids, payloads)
+        idx = self._engine.pad_ids(ids)
+        imgs = np.zeros(idx.shape + self._input_shape, np.float32)
+        for i, x in enumerate(payloads):
+            imgs[i] = x
+        pipe = self._pipe
+        with torch.inference_mode():
+            x = torch.as_tensor(imgs).to(pipe.device, pipe._infer_dtype())
+            return idx, pipe._apply_encoder(self._encoder_params, x)
+
+    def _admit_waiting(self, block: bool) -> bool:
+        """Move queued requests into free lanes. Returns False once the
+        close sentinel has arrived. While a reload is pending, admission is
+        PAUSED (nothing is consumed) so active lanes drain and the swap can
+        apply; requests queued behind the reload stay queued and decode
+        under the new weights."""
+        if getattr(self, "_pending_reload", None) is not None:
+            if block:
+                time.sleep(0.005)  # don't spin while lanes drain
+            return not getattr(self, "_drain_sentinel", False)
+        batch = []
+        while len(batch) < len(self._free):
+            try:
+                item = self._queue.get(timeout=0.05 if (block and not batch) else 0)
+            except queue.Empty:
+                break
+            if item is None:
+                self._drain_sentinel = True
+                break
+            if isinstance(item, _Reload):
+                # Stop collecting here: everything admitted so far (and the
+                # lanes already active) finishes under the old weights.
+                self._pending_reload = item
+                break
+            batch.append(item)
+        if batch:
+            # Visible to close()'s wedge path: until registered in _futures
+            # these requests are in neither the queue nor the slots.
+            self._current_futs = tuple(b[1] for b in batch)
+            ids = [self._free.pop() for _ in batch]
+            idx, feats = self._admission_arrays(ids, [b[0] for b in batch])
+            self._state = self._engine.admit(self._state, idx, feats)
+            for slot, (_, fut, t0, cb) in zip(ids, batch):
+                # [future, t0, on_words callback, words emitted so far]
+                self._futures[slot] = [fut, t0, cb, 0]
+            self._current_futs = ()
+        return not getattr(self, "_drain_sentinel", False)
+
+    def _retire(self, fin: np.ndarray) -> None:
+        from tpucap_torch.decode import ids_to_captions
+
+        ids = [int(i) for i in np.where(fin)[0]]
+        if not ids:
+            return
+        # pad_ids pads with the engine's out-of-range index (dropped), not
+        # slot 0, which would clear lane 0's finished bit.
+        idx = self._engine.pad_ids(ids)
+        (tokens, lengths, _), self._state = self._engine.collect(self._state, idx)
+        tokens, lengths = _to_host(tokens, lengths)
+        tokens, lengths = tokens[: len(ids)], lengths[: len(ids)]
+        captions = ids_to_captions(self._pipe.tokenizer, tokens, lengths, end_id=self._end_id)
+        now = time.perf_counter()
+        self._stats.requests += len(ids)
+        for row, (slot, cap) in enumerate(zip(ids, captions)):
+            entry = self._futures.pop(slot)
+            if entry[2] is not None:
+                # Final streaming flush: what the winning sequence carries
+                # past the last emitted span (for beam, the part beyond the
+                # stable prefix; for greedy, usually nothing). It runs
+                # BEFORE the future resolves, so the spans concatenate to
+                # exactly the caption a .result() caller sees.
+                self._emit_span(entry, tokens[row], int(lengths[row]))
+            fut, t0, _, _ = entry
+            self._stats.add_latency((now - t0) * 1e3)
+            _resolve(fut, cap)
+            self._free.append(slot)
+
+    def _stream_progress(self) -> None:
+        """Emit newly decoded words to streaming requests' callbacks: one
+        (slots, max_len) fetch a sync group, paid ONLY while a streaming
+        request is live. ``progress`` gives the tokens and the streamable
+        length: the decoded length for greedy lanes, the stable prefix for
+        beam groups (``_retire`` flushes the rest)."""
+        live = [e for e in self._futures.values() if e[2] is not None]
+        if not live:
+            return
+        tokens, lengths = _to_host(*self._engine.progress(self._state))
+        for slot, entry in self._futures.items():
+            if entry[2] is None:
+                continue
+            self._emit_span(entry, tokens[slot], int(lengths[slot]))
+
+    def _emit_span(self, entry, token_row, n: int) -> None:
+        """Deliver tokens [emitted, n) of ``token_row`` to a streaming
+        entry's callback and advance its high-water mark."""
+        _, _, cb, emitted = entry
+        if n <= emitted:
+            return
+        tok = self._pipe.tokenizer
+        words = [
+            w
+            for t in token_row[emitted:n]
+            if int(t) != self._end_id and (w := tok.word_for_id(int(t))) is not None
+        ]
+        entry[3] = n
+        if words:
+            try:
+                cb(words)
+            except Exception:
+                # A broken client callback must not kill the shared engine
+                # loop; the future still resolves at retirement.
+                pass
+
+    def _loop(self) -> None:
+        """Top-level worker guard: the engine loop is this server's ONLY
+        device dispatcher. If admission (which in images mode runs the
+        encoder), a tick or a collect raises (out of memory at a fresh
+        bucket, say), every accepted request's future is failed with that
+        error and the server closes, instead of a dead thread leaving
+        clients blocked in result() forever."""
+        try:
+            self._loop_inner()
+        except Exception as e:
+            with self._submit_lock:
+                self._closed = True  # later submits raise
+            futs = _drain_pending(self._queue)
+            futs.extend(f for f, *_ in self._futures.values())
+            futs.extend(self._current_futs)
+            pending = getattr(self, "_pending_reload", None)
+            if pending is not None:
+                futs.append(pending.future)
+            _fail_futures(futs, e)
+
+    def _loop_inner(self) -> None:
+        self._drain_sentinel = False
+        self._pending_reload = None
+        while True:
+            keep = self._admit_waiting(block=not self._futures)
+            if self._futures:
+                self._state = self._engine.tick(self._state, self._ticks_per_sync)
+                fin, act, _ = _to_host(*self._engine.flags(self._state))
+                self._tick_count += self._ticks_per_sync
+                self._tick_occupancy += (
+                    int(act.sum()) + len(np.where(fin)[0])
+                ) * self._ticks_per_sync
+                self._stats.batches += 1  # one sync group
+                self._stream_progress()
+                self._retire(fin)
+            if self._pending_reload is not None and not self._futures:
+                item = self._pending_reload
+                try:
+                    self._pipe.reload_params(item.source)
+                    self._build_engine()  # new params -> new engine
+                except Exception as e:
+                    _fail_futures([item.future], e)
+                else:
+                    _resolve(item.future, True)
+                self._pending_reload = None
+                continue  # resume admission immediately
+            if not keep and not self._futures:
+                return
 
 
 def reload_together(servers, source) -> list[Future]:

@@ -1,11 +1,12 @@
 """HTTP serving front-end: JPEG in, caption out (tpucap's
-``tpucap/serve_http.py`` on the port's ``CaptionServer``).
+``tpucap/serve_http.py`` on the port's servers).
 
-A thin stdlib (http.server) layer over :class:`tpucap_torch.serve.CaptionServer`.
-Request handling threads only decode JPEG bytes (the port's threaded C++
-decoder, ``ops/jpeg``) and preprocess on the host in f32, as tpucap's do;
-all device work flows through the micro-batchers, so concurrent HTTP
-clients coalesce into batches on the card.
+A thin stdlib (http.server) layer over :class:`tpucap_torch.serve.CaptionServer`
+(``engine="batch"``) or :class:`tpucap_torch.serve.ContinuousCaptionServer`
+(``engine="continuous"``). Request handling threads only decode JPEG bytes
+(the port's threaded C++ decoder, ``ops/jpeg``) and preprocess on the host
+in f32, as tpucap's do; all device work flows through the servers, so
+concurrent HTTP clients coalesce into batches (or lanes) on the card.
 
 Endpoints, status codes, ``/stats`` keys and ``/metrics`` series are
 tpucap's, so a client or a scrape job written for tpucap reads the port:
@@ -13,6 +14,10 @@ tpucap's, so a client or a scrape job written for tpucap reads the port:
 - ``POST /caption_features``   body = JSON {"features": [...]} (one row)
 - ``POST /caption_batch``      body = JSON {"features": [[...], ...]} or
                                {"images_b64": [...]} -> {"captions": [...]}
+- ``POST /caption_stream``     body = JPEG bytes -> ndjson lines
+                               {"words": [...]}, then {"done": true,
+                               "caption": ...} (continuous engine only)
+- ``POST /caption_stream_features``  the same for one feature row
 - ``POST /reload``             JSON {"bundle": path} -> hot-swap the weights
                                (403 unless ``allow_reload=True``)
 - ``GET  /healthz``            liveness + the pipeline's device type
@@ -30,10 +35,13 @@ behind one port (``?model=name`` or a "model" field); each model keeps its
 own micro-batcher pair, and each pipeline's work runs under its own
 precision flags, so an f32 and a bf16 model can be served together.
 
-Not ported, refused by name: ``engine="continuous"`` (ValueError before any
-thread starts); ``/caption_stream`` and ``/caption_stream_features`` answer
-the batch engine's 400, as tpucap's do; a request with ``prefix`` or
-``include_words`` answers 501 (``serve.refuse_dial``; ROADMAP item 6.3).
+Streaming uses connection-close framing (no Content-Length; read lines
+until EOF); a span comes at most once a sync group (``ticks_per_sync``
+steps). On the batch engine the streaming routes answer tpucap's 400.
+
+Not ported, refused by name: on the batch engine a request with ``prefix``
+or ``include_words`` answers 501 (``serve.refuse_dial``; ROADMAP item 6.3b).
+The continuous engines have no such dials and answer tpucap's 400.
 """
 
 from __future__ import annotations
@@ -44,7 +52,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from tpucap_torch.serve import CaptionServer, Overloaded, reload_together
+from tpucap_torch.serve import (
+    CaptionServer,
+    ContinuousCaptionServer,
+    Overloaded,
+    reload_together,
+)
 
 
 class _ThreadingHTTPServer(ThreadingHTTPServer):
@@ -72,8 +85,12 @@ _PROM_FAMILIES = (
      "Device batches dispatched", "batches"),
     ("tpucap_padded_rows_total", "counter",
      "Pad rows dispatched (bucket ladder fill)", "padded_rows"),
+    ("tpucap_ticks_total", "counter",
+     "Continuous-engine decode ticks", "ticks"),
     ("tpucap_mean_batch_size", "gauge",
      "Mean dispatched batch size", "mean_batch"),
+    ("tpucap_mean_occupancy", "gauge",
+     "Continuous-engine mean live lanes per tick", "mean_occupancy"),
 )
 
 
@@ -171,12 +188,18 @@ class CaptionHTTPServer:
         parallelism: str | None = None,
         max_queue: int | None = None,
         engine: str = "batch",
+        ticks_per_sync: int = 8,
         allow_reload: bool = False,
         extra_models: dict | None = None,
         max_body_bytes: int = 64 << 20,
     ):
-        """engine='continuous' (tpucap's slot-recycling engine) is not
-        ported and raises ValueError before any thread starts.
+        """engine='continuous' serves BOTH endpoints through the
+        slot-recycling engine (ContinuousCaptionServer, ``max_batch`` slots,
+        ``ticks_per_sync`` steps a sync group): greedy by default, beam
+        when method='beam' (each request then occupies a beam_width-lane
+        group); other methods raise ValueError before any thread starts.
+        The JPEG routes run the encoder in the admission path
+        (mode='images'); the feature routes skip it.
 
         ``extra_models`` ({name: pipeline}) serves several models behind
         one port: requests route with ``?model=name`` (or a "model"
@@ -209,13 +232,20 @@ class CaptionHTTPServer:
             max_queue=max_queue,
         )
         if engine == "continuous":
-            # Refused before any server thread starts (no leaked batcher).
-            raise ValueError(
-                "engine='continuous' is not ported to tpucap_torch: it needs "
-                "tpucap's decode/continuous.py and decode/continuous_beam.py "
-                "(ROADMAP queue 1, item 6.3) — use engine='batch'"
-            )
-        if engine != "batch":
+            # Validate before any server thread starts (no leaked
+            # batcher on a bad flag combination).
+            dcfg = pipeline.config.decode
+            resolved = method or dcfg.method
+            if resolved == "beam":
+                bw = beam_width or dcfg.beam_width
+            elif resolved == "greedy":
+                bw = 1
+            else:
+                raise ValueError(
+                    f"engine='continuous' supports method 'greedy'|'beam'"
+                    f", got {resolved!r} — use engine='batch'"
+                )
+        elif engine != "batch":
             raise ValueError(
                 f"engine must be 'batch'|'continuous', got {engine!r}"
             )
@@ -234,8 +264,18 @@ class CaptionHTTPServer:
                         f"({type(pipe_).__name__}) has no reload_params "
                         "— AOT artifacts are immutable"
                     )
-        self._images = CaptionServer(pipeline, mode="images", **kw)
-        self._features = CaptionServer(pipeline, mode="features", **kw)
+        if engine == "continuous":
+            cont = dict(
+                slots=max_batch,
+                max_queue=max_queue,
+                beam_width=bw,
+                ticks_per_sync=ticks_per_sync,
+            )
+            self._images = ContinuousCaptionServer(pipeline, mode="images", **cont)
+            self._features = ContinuousCaptionServer(pipeline, **cont)
+        else:
+            self._images = CaptionServer(pipeline, mode="images", **kw)
+            self._features = CaptionServer(pipeline, mode="features", **kw)
         # name -> (pipeline, images server, features server); "default"
         # is the positional pipeline, extra models add their own pairs.
         self._models = {"default": (pipeline, self._images, self._features)}
@@ -390,18 +430,70 @@ class CaptionHTTPServer:
                 else:
                     self._reply(404, {"error": f"no route {self.path}"})
 
-            def _stream(self):
-                """tpucap's streaming routes need its continuous engine
-                (not ported): the batch engine's 400, tpucap's text. The
-                body is not decoded for it."""
-                self._reply(
-                    400,
-                    {
-                        "error": "streaming needs "
-                        "engine='continuous' (batch engine has no "
-                        "token-progress surface)"
-                    },
-                )
+            def _stream(self, server, x):
+                """Stream a request's decoded words as ndjson lines.
+                Bridges the engine thread's on_words callback to this
+                handler thread through a queue (the callback must never
+                block); the future's done-callback posts the sentinel,
+                covering results AND failures."""
+                import queue as _q
+
+                spans: _q.Queue = _q.Queue()
+                if not hasattr(server, "submit_stream"):
+                    # Precise capability check: a broad AttributeError
+                    # catch would misreport internal bugs as this 400.
+                    self._reply(
+                        400,
+                        {
+                            "error": "streaming needs "
+                            "engine='continuous' (batch engine has no "
+                            "token-progress surface)"
+                        },
+                    )
+                    return
+                try:
+                    fut = server.submit_stream(
+                        x, on_words=lambda ws: spans.put(ws)
+                    )
+                except (ValueError, Overloaded) as e:
+                    code = 503 if isinstance(e, Overloaded) else 400
+                    self._reply(code, {"error": str(e)})
+                    return
+                fut.add_done_callback(lambda f: spans.put(None))
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-ndjson")
+                # No Content-Length: connection-close framing.
+                self.end_headers()
+                while True:
+                    try:
+                        item = spans.get(timeout=120)
+                    except _q.Empty:
+                        # Headers are already out: an in-band error line
+                        # instead of a second status line.
+                        self.wfile.write(
+                            (
+                                json.dumps(
+                                    {
+                                        "done": True,
+                                        "error": "stream timed out",
+                                    }
+                                )
+                                + "\n"
+                            ).encode()
+                        )
+                        return
+                    if item is None:
+                        break
+                    self.wfile.write(
+                        (json.dumps({"words": item}) + "\n").encode()
+                    )
+                    self.wfile.flush()
+                final = {"done": True}
+                try:
+                    final["caption"] = fut.result(timeout=0)
+                except Exception as e:
+                    final["error"] = str(e)
+                self.wfile.write((json.dumps(final) + "\n").encode())
 
             def do_POST(self):  # noqa: N802
                 try:
@@ -445,8 +537,17 @@ class CaptionHTTPServer:
                 model = qs.get("model", [""])[0]
 
                 def _submit(server, x, prefix, include_words=()):
-                    """Submit with the request's dials (the server checks
-                    them, then refuses them by name)."""
+                    """Submit with the request's dials: the batch server
+                    checks them, then refuses them by name; the continuous
+                    engines have neither surface -> tpucap's 400."""
+                    if not prefix and not include_words:
+                        return server.submit(x)
+                    if not isinstance(server, CaptionServer):
+                        raise ValueError(
+                            "prefix/include_words need engine='batch' "
+                            "(the continuous engines have no "
+                            "forced-prefix/constrained path)"
+                        )
                     return server.submit(
                         x, prefix=prefix or None,
                         include_words=include_words or None,
@@ -455,11 +556,14 @@ class CaptionHTTPServer:
                 try:
                     if route == "/reload":
                         # Zero-downtime weight swap: {"bundle": path,
-                        # "model": name?}. A model's endpoint servers
-                        # share one pipeline, so ONE swap serves both
-                        # endpoints; it waits until both batchers reach
-                        # it, so no request of either (a /caption_batch
-                        # may span batches) mixes old and new weights.
+                        # "model": name?}. A model's batch servers share
+                        # one pipeline, so ONE swap serves both endpoints;
+                        # it waits until both batchers reach it, so no
+                        # request of either (a /caption_batch may span
+                        # batches) mixes old and new weights. The
+                        # continuous engines each keep their own params
+                        # snapshot, so both get the reload and the reply
+                        # waits for both.
                         if not outer._allow_reload:
                             self._reply(
                                 403,
@@ -476,7 +580,14 @@ class CaptionHTTPServer:
                         images, features, _, _ = _resolve(
                             payload.get("model", "") or model
                         )
-                        for f in reload_together([images, features], bundle):
+                        if isinstance(images, CaptionServer):
+                            futs = reload_together([images, features], bundle)
+                        else:
+                            futs = [
+                                images.reload(bundle),
+                                features.reload(bundle),
+                            ]
+                        for f in futs:
                             f.result(timeout=600)
                         self._reply(200, {"ok": True, "bundle": bundle})
                         return
@@ -582,6 +693,17 @@ class CaptionHTTPServer:
                                 "not both"
                             )
 
+                        def _check_engine(srv):
+                            if (
+                                bprefix or biw or per_row
+                            ) and not isinstance(srv, CaptionServer):
+                                raise ValueError(
+                                    "prefix/include_words need "
+                                    "engine='batch' (the continuous "
+                                    "engines have no forced-prefix/"
+                                    "constrained path)"
+                                )
+
                         if imgs_b64 is not None:
                             import base64
 
@@ -600,6 +722,7 @@ class CaptionHTTPServer:
                             # its 400, not a full batch decode.
                             _check_cap(len(imgs_b64), _row_cap(srv))
                             _check_row_dials(len(imgs_b64))
+                            _check_engine(srv)
                             blobs = [
                                 base64.b64decode(b) for b in imgs_b64
                             ]
@@ -625,6 +748,7 @@ class CaptionHTTPServer:
                                 )
                             _check_cap(rows.shape[0], _row_cap(srv))
                             _check_row_dials(rows.shape[0])
+                            _check_engine(srv)
                         # Atomic admission (submit_many): dials and
                         # shapes validate BEFORE anything enqueues and
                         # the capacity check covers the whole set, so
@@ -637,12 +761,14 @@ class CaptionHTTPServer:
                                 prefixes=row_prefixes,
                                 include_words_rows=row_iw,
                             )
-                        else:
+                        elif isinstance(srv, CaptionServer):
                             futs = srv.submit_many(
                                 rows,
                                 prefix=bprefix or None,
                                 include_words=biw or None,
                             )
+                        else:
+                            futs = srv.submit_many(rows)
                         # Resolution failures are server-side (500),
                         # unlike the admission errors mapped to 400
                         # by the enclosing handler — same split as
@@ -665,7 +791,10 @@ class CaptionHTTPServer:
                                 "prefix/include_words are not supported "
                                 "on the streaming routes; use /caption"
                             )
-                        self._stream()
+                        images, _, size, pmode = _resolve(model)
+                        self._stream(
+                            images, _preprocess_jpeg(body, size, pmode)
+                        )
                         return
                     elif route == "/caption_stream_features":
                         payload = json.loads(body)
@@ -680,7 +809,13 @@ class CaptionHTTPServer:
                                 "on the streaming routes; use "
                                 "/caption_features"
                             )
-                        self._stream()
+                        _, features, _, _ = _resolve(
+                            payload.get("model", "") or model
+                        )
+                        self._stream(
+                            features,
+                            np.asarray(payload["features"], np.float32),
+                        )
                         return
                     else:
                         self._reply(404, {"error": f"no route {self.path}"})
