@@ -14,7 +14,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    paths' shapes, in f32 (TF32 off) and bf16, with the stated tolerances
    (K2 and K3 in f32 also at the f32 decodes' rows: fit's monitor's 256,
    phase 8's caption's 24 and its evaluate's and monitor's 64; in both
-   dtypes at the continuous engine's 64 and 192 rows, phase 15);
+   dtypes at the continuous engine's 64 and 192 rows, phase 15, and at
+   phase 16's dialled rows: 64 priming, 192 continuing, 384, 768 and 3072
+   constrained at C = 1, 2, 4);
    CUDA-event times of the kernel, the plain version and, where one PyTorch
    call computes the same function, that call; the least time the card
    could take (bound) from the bytes and operations of these inputs. K4
@@ -305,14 +307,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (d)'s ``/reload`` under load on the f32 beam server; over (f)-(h) K2 and
    K3's two kernels once a served tick and K4 12 times a served images
    admission wave, nothing else;
-16. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
+16. the per-request dials: path A (ResNet-50 BN folded with
+   ``fused_blocks``, lstm1, vocab 7579, beam 3, max_len 34) in f32, 64 rows
+   of 2048-d features from a seed: (a) ``generate_continuation``, greedy
+   and beam 3, prefixes of 0, 1, 3 and 5 vocabulary words in turn (P
+   padded to 8): captions token for token the plain step path's (a
+   difference is a fault reported with its logit gap), each opening with
+   its prefix, 8 priming steps a call, the empty prefix ``generate``'s; ms
+   a call and the priming's ms; (b) ``generate_constrained(return_details=
+   True)`` at C = 1, 2 and 4, every row its own words: captions and
+   satisfied words the plain path's, scores within P16_SCORE_ATOL; the
+   satisfaction rate; ms a decode and a step beside unconstrained beam 3;
+   (c) the model behind ``CaptionHTTPServer`` (batch engine): one
+   ``/caption_batch`` of the 64 rows, a third plain, a third prefixed, a
+   third constrained at C = 2 (per-row dials), token for token the offline
+   calls on the same rows, and each baseline fixture's ``/caption?prefix=``
+   or ``?include_words=`` (images mode, K4) the offline route's at bucket
+   1; (d) 5 s closed loops from 16 client threads, plain and with a third
+   of the requests prefixed and a third constrained: captions/s, p50 and
+   p99; one launch window over (a)-(d): K2 and K3's two kernels once a
+   counted step (priming and decode, offline and served; the plain paths
+   launch nothing), K4 12 times a counted encoder pass, nothing else;
+17. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
    phase 9's counted serving runs for K1, K2 and K3, phase 10's counted
    steps and caption, phase 11's counted fits, decodes and commands,
    phase 12's counted monitor, joint fit, decodes and evaluates,
    phase 13's counted decodes, joint LoRA fits and caption, phase
-   14's counted caption, path-A batch and re-imported decodes, and phase
-   15's counted serving), then ``{"ok": true, "device": {...}}`` as the
-   last line.
+   14's counted caption, path-A batch and re-imported decodes, phase
+   15's counted serving and phase 16's window), then ``{"ok": true,
+   "device": {...}}`` as the last line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
 """
@@ -543,6 +566,10 @@ def check_kernels(dev) -> dict[str, dict]:
         merged=rnd(Br, U).relu(), wo=rnd(U, Vr, scale=U**-0.5), bo=rnd(Vr, scale=0.1),
         fe=rnd(Br, U).relu(), h32=rnd(Br, U, scale=0.5),
     )
+    # K2 + K3 inputs at every row count of the served and dialled decodes
+    # (up to phase 16's 3072).
+    R = max(P16_STEP_ROWS)
+    tall = dict(x=rnd(R, U, scale=0.05), h=rnd(R, U, scale=0.5), c=rnd(R, U), fe=rnd(R, U).relu())
 
     def check_head(label, fe, h32, wp, bp, dt):
         got = decoder_step.merge_head(fe, h32, wp, bp)
@@ -576,10 +603,13 @@ def check_kernels(dev) -> dict[str, dict]:
         l_want = decoder_step.vocab_proj_plain(m_want, p["wo"], p["bo"])
         check_close(f"vocab_proj {dt}", l_got, l_want, 1e-5, 1e-4)
         # The continuous engine's ticks (phase 15 (f)-(h)): its 64 lanes
-        # greedy, 64 groups of BEAM lanes at beam BEAM.
-        for r in (P15_MAX_BATCH, P15_MAX_BATCH * BEAM):
-            _, want_r = check_cell(f"B={r} E={U} U={U}", tuple(t[:r] for t in cell[:3]) + cell[3:], dt)
-            _, head_r = check_head(f"M={r}", p["fe"][:r], want_r[2], p["wp"], p["bp"], dt)
+        # greedy, 64 groups of BEAM lanes at beam BEAM; the dialled batch of
+        # phase 16: P16_ROWS rows while priming (64), B·k while continuing
+        # (192), B·2^C·k constrained (384, 768 and 3072 at C = 1, 2, 4).
+        for r in P16_STEP_ROWS:
+            rows_r = tuple(tall[k][:r].to(dt) for k in ("x", "h", "c"))
+            _, want_r = check_cell(f"B={r} E={U} U={U}", rows_r + cell[3:], dt)
+            _, head_r = check_head(f"M={r}", tall["fe"][:r].to(dt), want_r[2], p["wp"], p["bp"], dt)
             check_close(f"vocab_proj M={r} {dt}", decoder_step.vocab_proj(head_r, p["wo"], p["bo"]),
                         decoder_step.vocab_proj_plain(head_r, p["wo"], p["bo"]), 1e-5, 1e-4)
             log(f"kernel lstm_cell, merge_head, vocab_proj at {r} rows {dt}: ok")
@@ -4207,8 +4237,9 @@ P15_TICKS, P15_STREAM_THREADS, P15_STAGGER_S = 8, 16, 0.002
 # threads keep this process's interpreter lock): the port's CaptionClient
 # only, standard library only. argv[1]: a JSON object of host, port, route
 # ("features", "jpeg" or "stream": /caption_stream_features), model,
-# threads, seconds and the path of a JSON list of feature rows or of JPEG
-# file paths. Prints one JSON line: the answered count, the wall, each
+# threads, seconds, the path of a JSON list of feature rows or of JPEG
+# file paths, and optionally "dials": [prefix, include_words] pairs that
+# the feature requests take in turn (phase 16). Prints one JSON line: the answered count, the wall, each
 # request's latency in ms (and, streaming, its first span's), the first
 # errors. A stream whose spans do not join to its caption is an error.
 P15_CLIENT = """
@@ -4218,6 +4249,7 @@ from tpucap_torch.client import CaptionClient
 
 cfg = json.loads(sys.argv[1])
 items = json.load(open(cfg["items"]))
+dials = cfg.get("dials") or [["", []]]
 if cfg["route"] == "jpeg":
     items = [open(p, "rb").read() for p in items]
 client = CaptionClient(cfg["host"], cfg["port"], model=cfg["model"], timeout=120)
@@ -4234,20 +4266,21 @@ def stream(item, t0):
     with lock:
         first.append(((spans[0][0] if spans else time.perf_counter()) - t0) * 1e3)
 
-def call(item, t0):
+def call(item, t0, i):
     if cfg["route"] == "stream":
         stream(item, t0)
     elif cfg["route"] == "jpeg":
         client.caption(item)
     else:
-        client.caption_features(item)
+        prefix, words = dials[i % len(dials)]
+        client.caption_features(item, prefix=prefix or None, include_words=words or None)
 
 def worker(k):
     i = k
     while time.perf_counter() < stop:
         t0 = time.perf_counter()
         try:
-            call(items[i % len(items)], t0)
+            call(items[i % len(items)], t0, i)
         except Exception as e:
             with lock:
                 errors.append(repr(e))
@@ -4275,9 +4308,9 @@ class LoadClient:
     """One closed-loop run of P15_CLIENT in its own process."""
 
     def __init__(self, addr, route: str, items_path: Path, threads: int, seconds: float,
-                 model: str = ""):
+                 model: str = "", dials=None):
         cfg = dict(host=addr[0], port=addr[1], route=route, model=model, threads=threads,
-                   seconds=seconds, items=str(items_path))
+                   seconds=seconds, items=str(items_path), dials=dials)
         self.proc = subprocess.Popen(
             [sys.executable, "-c", P15_CLIENT, json.dumps(cfg), str(ROOT)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -4823,6 +4856,288 @@ def run_serving(dev, tokenizer) -> dict[str, int]:
     return counts
 
 
+# -- phase 16: the per-request dials -------------------------------------------
+
+# The dialled batch at the batch server's largest bucket (path A at bench.py's
+# defaults: lstm1, vocab 7579, max_len 34, beam 3, f32), the prefixes' word
+# counts a row in turn (P padded to 8), the constraint counts C, and the rows
+# of K2 and K3's steps that phase 2 checks for it and phase 15: 64 while
+# priming (and the continuous engine's greedy lanes), B·k = 192 while
+# continuing, B·2^C·k = 384, 768 and 3072 constrained.
+P16_ROWS, P16_PREFIX_WORDS, P16_CONSTRAINTS = 64, (0, 1, 3, 5), (1, 2, 4)
+P16_STEP_ROWS = (P16_ROWS, P16_ROWS * BEAM) + tuple(P16_ROWS * BEAM * (1 << c) for c in (1, 2, 4))
+# The normalized score of a kernel-path detail against the plain path's:
+# f32 sums of up to 34 log-probs, each logit within ROUTE_ATOL + ROUTE_RTOL
+# |x| of the plain step's (phase 9), divided by the length.
+P16_SCORE_ATOL = 1e-4
+
+
+class DialWork:
+    """The kernel work of phase 16, wrapped on the pipeline instance: every
+    call of the step its ``step_fn`` makes (on the card the fused step: one
+    launch each of K2 and K3's two kernels), the priming steps among them,
+    and every encoder pass (``_apply_encoder``: K4's 12 launches with
+    ``fused_blocks``). A plain path installs its own ``step_fn`` and is not
+    counted."""
+
+    def __init__(self, pipe):
+        import tpucap_torch.pipeline as pipeline_mod
+
+        self.steps = self.priming = self.encodes = 0
+        self.prime_s: list[float] = []
+        self._lock = threading.Lock()
+        self._mod, self._prime = pipeline_mod, pipeline_mod.prime_prefix
+        step_fn, apply = pipe.step_fn, pipe._apply_encoder
+
+        def counted_step_fn():
+            step = step_fn()
+
+            def counted(*a, **kw):
+                with self._lock:
+                    self.steps += 1
+                return step(*a, **kw)
+            return counted
+
+        def counted_apply(*a, **kw):
+            with self._lock:
+                self.encodes += 1
+            return apply(*a, **kw)
+
+        def primed(step, *a, **kw):
+            def counted(*sa, **skw):
+                with self._lock:
+                    self.priming += 1
+                return step(*sa, **skw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._prime(counted, *a, **kw)
+            torch.cuda.synchronize()
+            self.prime_s.append(time.perf_counter() - t0)
+            return out
+
+        pipe.step_fn, pipe._apply_encoder = counted_step_fn, counted_apply
+        pipeline_mod.prime_prefix = primed
+
+    def close(self) -> None:
+        self._mod.prime_prefix = self._prime
+
+    def snapshot(self) -> tuple[int, int, int]:
+        return self.steps, self.priming, self.encodes
+
+
+def plain_path(pipe, fn):
+    """``fn()`` with the pipeline's decodes on the plain step (the card's
+    cuBLAS, no kernel)."""
+    counted = pipe.step_fn
+    pipe.step_fn = lambda: pipe.decoder.step
+    try:
+        return fn()
+    finally:
+        pipe.step_fn = counted
+
+
+def vocab_words(tokenizer) -> list[str]:
+    return [w for w in tokenizer.word_index if w not in ("startseq", "endseq")]
+
+
+def p16_prefixes(tokenizer, n: int, seed: int) -> list[str]:
+    """n prefixes of P16_PREFIX_WORDS words in turn, vocabulary words drawn
+    from ``seed``."""
+    rng, words = np.random.default_rng(seed), vocab_words(tokenizer)
+    return [" ".join(str(w) for w in rng.choice(words, P16_PREFIX_WORDS[i % len(P16_PREFIX_WORDS)],
+                                                  replace=False)) for i in range(n)]
+
+
+def p16_words(tokenizer, n: int, c: int, seed: int) -> list[list[str]]:
+    """n rows of c distinct vocabulary words drawn from ``seed``."""
+    rng, words = np.random.default_rng(seed), vocab_words(tokenizer)
+    return [[str(w) for w in rng.choice(words, c, replace=False)] for _ in range(n)]
+
+
+def same_or_gaps(label: str, pipe, feats, got: list[str], want: list[str]) -> None:
+    """Token for token, or a fault naming each differing row's logit gap."""
+    if got != want:
+        why = logit_gaps(pipe, feats, got, want)
+        raise AssertionError(f"{label}: {len(why)} of {len(want)} captions differ from the plain "
+                             f"step path: {why[:8]}")
+
+
+def dial_continuation(pipe, work: DialWork, feats, tokenizer) -> None:
+    """16(a): ``generate_continuation`` greedy and beam BEAM on P16_ROWS rows
+    with prefixes of 0, 1, 3 and 5 words in turn: the kernel path against
+    the plain step path token for token, P priming steps a call, the empty
+    prefix ``generate``'s; ms a call and the priming's ms (medians of 3
+    calls after the checked one, which pays the allocator's first growth
+    for the new shapes)."""
+    prefixes = p16_prefixes(tokenizer, P16_ROWS, seed=16)
+    P = 1 << (max(P16_PREFIX_WORDS) - 1).bit_length()
+    for method in ("greedy", "beam"):
+        call = lambda: pipe.generate_continuation(feats, prefixes, method=method)  # noqa: E731
+        s0, p0, _ = work.snapshot()
+        got = call()
+        steps, priming = work.steps - s0, work.priming - p0
+        if priming != P or steps <= P:
+            raise AssertionError(f"continuation {method}: {priming} priming steps of {steps}, want {P}")
+        same_or_gaps(f"continuation {method}", pipe, feats, got, plain_path(pipe, call))
+        for pre, cap in zip(prefixes, got):
+            if not cap.startswith(pre):
+                raise AssertionError(f"continuation {method}: {cap!r} does not open with {pre!r}")
+        empty = pipe.generate_continuation(feats, "", method=method)
+        if empty != pipe.generate(feats, method=method):
+            raise AssertionError(f"continuation {method}: the empty prefix != generate")
+        work.prime_s.clear()
+        ms = float(np.median([timed(call)[1] for _ in range(3)])) * 1e3
+        prime_ms = float(np.median(work.prime_s)) * 1e3
+        log(f"dials continuation {method}: f32, {P16_ROWS} rows, prefixes of {P16_PREFIX_WORDS} words "
+            f"(P {P}): {P} priming and {steps - P} decode steps; token for token the plain step "
+            f"path's; the empty prefix generate's; {ms:.3f} ms a call, priming "
+            f"{prime_ms:.3f} ms; lengths {caption_lengths(got)}")
+
+
+def dial_constrained(pipe, work: DialWork, feats, tokenizer) -> None:
+    """16(b): ``generate_constrained`` at C = 1, 2 and 4 (every row its own
+    words): the kernel path against the plain path, captions and satisfied
+    words exact, scores within P16_SCORE_ATOL; the satisfaction rate; ms a
+    decode and a step beside unconstrained beam BEAM (medians of 3 calls
+    after the checked one)."""
+    s0 = work.steps
+    pipe.generate(feats, method="beam")
+    base_steps = work.steps - s0
+    base_s = float(np.median([timed(lambda: pipe.generate(feats, method="beam"))[1] for _ in range(3)]))
+    log(f"dials constrained: unconstrained beam {BEAM}, {P16_ROWS * BEAM} rows a step: "
+        f"{base_s * 1e3:.3f} ms a decode, {base_steps} steps, {base_s * 1e3 / base_steps:.3f} ms a step")
+    for c in P16_CONSTRAINTS:
+        words = p16_words(tokenizer, P16_ROWS, c, seed=160 + c)
+        call = lambda: pipe.generate_constrained(feats, words, return_details=True)  # noqa: E731
+        s0 = work.steps
+        got = call()
+        steps = work.steps - s0
+        want = plain_path(pipe, call)
+        same_or_gaps(f"constrained C={c}", pipe, feats, [d["caption"] for d in got],
+                     [d["caption"] for d in want])
+        err = 0.0
+        for g, w, row in zip(got, want, words):
+            if (g["satisfied"], g["num_satisfied"]) != (w["satisfied"], w["num_satisfied"]):
+                raise AssertionError(f"constrained C={c}: {g} != the plain path's {w}")
+            err = max(err, abs(g["score"] - w["score"]))
+            held = set(g["caption"].split())
+            if sorted(g["satisfied"]) != sorted(row) or any(ok != (wd in held) for wd, ok in g["satisfied"].items()):
+                raise AssertionError(f"constrained C={c}: satisfied {g['satisfied']} for {g['caption']!r}")
+        if err > P16_SCORE_ATOL:
+            raise AssertionError(f"constrained C={c}: scores {err:.3g} from the plain path's")
+        rate = sum(d["num_satisfied"] for d in got) / (c * P16_ROWS)
+        sec = float(np.median([timed(call)[1] for _ in range(3)]))
+        log(f"dials constrained C={c}: {P16_ROWS * BEAM << c} rows a step; captions and satisfied "
+            f"words the plain path's, scores within {err:.3g}; satisfaction rate {rate:.4f}; "
+            f"{sec * 1e3:.3f} ms a decode, {steps} steps, {sec * 1e3 / steps:.3f} ms a "
+            f"step ({sec * base_steps / (steps * base_s):.2f}x beam {BEAM}'s); lengths "
+            f"{caption_lengths([d['caption'] for d in got])}")
+
+
+def dial_serving(pipe, feats, tokenizer, tmp: Path) -> None:
+    """16(c), (d): the f32 model behind ``CaptionHTTPServer`` (batch engine,
+    beam BEAM): one /caption_batch of P16_ROWS rows, a third plain, a third
+    prefixed, a third constrained (C = 2), each reply the offline call's on
+    the same rows; each baseline fixture's ``/caption?prefix=`` and
+    ``?include_words=`` (images mode, K4) the offline route's at bucket 1;
+    then a closed loop of 16 clients with a third of the requests prefixed
+    and a third constrained beside the plain loop."""
+    from tpucap_torch.client import CaptionClient
+    from tpucap_torch.serve_http import CaptionHTTPServer, _preprocess_jpeg
+
+    prefixes = p16_prefixes(tokenizer, P16_ROWS, seed=17)
+    words = p16_words(tokenizer, P16_ROWS, 2, seed=17)
+    kind = [i % 3 for i in range(P16_ROWS)]  # 0 plain, 1 prefixed, 2 constrained
+    rows = np.asarray(feats.cpu(), np.float32)
+    row_prefix = [prefixes[i] if kind[i] == 1 else "" for i in range(P16_ROWS)]
+    row_words = [words[i] if kind[i] == 2 else [] for i in range(P16_ROWS)]
+    other = [i for i in range(P16_ROWS) if kind[i] != 2]
+    cons = [i for i in range(P16_ROWS) if kind[i] == 2]
+    want = [None] * P16_ROWS
+    for i, cap in zip(other, pipe.generate_continuation(rows[other], [row_prefix[i] for i in other])):
+        want[i] = cap
+    for i, cap in zip(cons, pipe.generate_constrained(rows[cons], [row_words[i] for i in cons])):
+        want[i] = cap
+    paths = [FIXTURES / f for f in BASELINE_FIXTURES]
+    blobs = [p.read_bytes() for p in paths]
+    jpeg_dials = [(prefixes[3], None) if i % 2 else (None, words[i]) for i in range(len(blobs))]
+    jpeg_want = []
+    for blob, (pre, w) in zip(blobs, jpeg_dials):
+        x = pipe.encode_images(_preprocess_jpeg(blob, pipe.encoder.input_size, pipe.encoder.preprocess_mode)[None])
+        jpeg_want.append(pipe.generate_continuation(x, pre)[0] if pre else pipe.generate_constrained(x, w)[0])
+    items = tmp / "p16_rows.json"
+    g = np.random.default_rng(16)
+    items.write_text(json.dumps(g.normal(size=(256, DEC_FEATURES)).astype(np.float32).tolist()))
+    mix = [["", []], [prefixes[3], []], ["", words[0]]]
+
+    http = CaptionHTTPServer(pipe, host="127.0.0.1", port=0, max_batch=P15_MAX_BATCH,
+                             max_delay_ms=P15_DELAY_MS)
+    addr = http.serve_background()
+    try:
+        client = CaptionClient(*addr, timeout=120)
+        got = client.caption_features_many(rows, prefixes=row_prefix, include_words_rows=row_words)
+        if got != want:
+            bad = [i for i in range(P16_ROWS) if got[i] != want[i]]
+            raise AssertionError(f"dials server: rows {bad} differ from the offline calls "
+                                 f"(kinds {[kind[i] for i in bad]})")
+        for path, blob, (pre, w), cap in zip(paths, blobs, jpeg_dials, jpeg_want):
+            if client.caption(blob, prefix=pre, include_words=w) != cap:
+                raise AssertionError(f"dials server: /caption of {path.name} with {pre or w} != the "
+                                     "offline route")
+        log(f"dials server: f32 /caption_batch of {P16_ROWS} rows ({kind.count(0)} plain, "
+            f"{kind.count(1)} prefixed, {kind.count(2)} constrained at C = 2) token for token the "
+            f"offline calls'; /caption of the {len(paths)} baseline fixtures, prefixed or "
+            "constrained, each the offline route's at bucket 1")
+        loops = {}
+        for label, dials in (("plain", None), ("dialled", mix)):
+            res = LoadClient(addr, "features", items, P15_JPEG_THREADS, P15_SECONDS,
+                             dials=dials).result(f"dials loop {label}")
+            lat = sorted(res["latencies_ms"])
+            loops[label] = res["ok"] / res["wall"]
+            log(f"dials loop {label}: {P15_JPEG_THREADS} client threads, {res['ok']} answered in "
+                f"{res['wall']:.3f} s: captions/s {loops[label]:.2f}; client p50 "
+                f"{percentile(lat, 0.5):.3f} ms, p99 {percentile(lat, 0.99):.3f} ms"
+                + ("" if dials is None else "; a third prefixed, a third constrained at C = 2"))
+        log(f"dials loop: the dialled mix at {loops['dialled'] / loops['plain']:.3f}x the plain "
+            "loop's captions/s")
+    finally:
+        http.close()
+
+
+def run_dials(dev, tokenizer) -> dict[str, int]:
+    """Phase 16, one launch window: every K2 and K3 launch a counted step
+    (priming and decode, offline and served), K4 12 a counted encoder pass,
+    nothing else. -> the window's launches."""
+    import tempfile
+
+    from tpucap_torch import ops
+
+    pipe = served_pipeline("f32", tokenizer)
+    work = DialWork(pipe)
+    g = torch.Generator(device=dev).manual_seed(16)
+    feats = torch.randn((P16_ROWS, DEC_FEATURES), generator=g, device=dev)
+    log(f"dials: path A (resnet50 fused_blocks + lstm1, vocab {VOCAB}, beam {BEAM}, max_len {MAX_LEN}) "
+        f"f32, {P16_ROWS} rows of {DEC_FEATURES}-d features")
+    ops.reset_launch_counts()
+    try:
+        with torch.inference_mode():
+            dial_continuation(pipe, work, feats, tokenizer)
+            dial_constrained(pipe, work, feats, tokenizer)
+        with tempfile.TemporaryDirectory() as tmp:
+            dial_serving(pipe, feats, tokenizer, Path(tmp))
+        counts = ops.launch_counts()
+    finally:
+        work.close()
+    served = {"lstm_cell": work.steps, "merge_head": work.steps, "vocab_proj": work.steps,
+              "identity_block": 12 * work.encodes}
+    expect = {name: served.get(name, 0) for name in counts}
+    log(f"dials: launches over phase 16 {counts}; {work.steps} counted steps "
+        f"({work.priming} of them priming, the plain paths' included), {work.encodes} encoder passes")
+    if counts != expect or not work.steps or not work.encodes:
+        raise AssertionError(f"dials: launches {counts}, the counted work asks for {expect}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4903,6 +5218,11 @@ def main() -> int:
     for name in counts:
         counts[name] += served[name]
     log(f"phase 15: {time.perf_counter() - t15:.2f} s")
+    t16 = time.perf_counter()
+    dialled = run_dials(dev, tokenizer)
+    for name in counts:
+        counts[name] += dialled[name]
+    log(f"phase 16: {time.perf_counter() - t16:.2f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

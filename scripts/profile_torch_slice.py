@@ -3,7 +3,7 @@ their time on the card.
 
     python3 scripts/profile_torch_slice.py [PART ...]   # from the repo root; one CUDA card
 
-PART is any of slice, fused, vit, train, continuous (default: all).
+PART is any of slice, fused, vit, train, continuous, dials (default: all).
 
 Builds the same full-width pipelines as chip_smoke.py (1-layer merge LSTM,
 bf16, batch 256, beam 3, vocab 7579, random weights from a seed) with the
@@ -28,6 +28,12 @@ Then ``continuous``: one sync group (chip_smoke.P15_TICKS ticks) of the
 serving engines behind ``ContinuousCaptionServer`` on path A's bf16
 decoder with every slot live (chip_smoke.P15_MAX_BATCH: 64 lanes greedy,
 64 groups of 3 lanes at beam 3), the shapes of phase 15 (f)-(h).
+
+Then ``dials``: path A's f32 decoder at phase 16's shapes
+(chip_smoke.P16_ROWS rows of features): one unconstrained beam-3
+``generate``, one beam-3 ``generate_continuation`` with phase 16's
+prefixes, and one ``generate_constrained`` at each C of
+chip_smoke.P16_CONSTRAINTS, with phase 16's words.
 
 Each part is first run untraced three times (host clock around work that
 ends in a synchronize; the median is kept), then traced once, in the same
@@ -268,6 +274,29 @@ def profile_continuous(dev) -> dict:
     return out
 
 
+def profile_dials(dev, tokenizer) -> dict:
+    """The per-request dials' decodes beside the plain beam decode."""
+    pipe = chip_smoke.served_pipeline("f32", tokenizer)
+    g = torch.Generator(device=dev).manual_seed(16)
+    n = chip_smoke.P16_ROWS
+    feats = torch.randn((n, chip_smoke.DEC_FEATURES), generator=g, device=dev)
+    prefixes = chip_smoke.p16_prefixes(tokenizer, n, seed=16)
+    runs = {
+        "beam": ("dials beam 3", lambda: pipe.generate(feats, method="beam")),
+        "continuation": ("dials continuation beam 3",
+                         lambda: pipe.generate_continuation(feats, prefixes, method="beam")),
+    }
+    for c in chip_smoke.P16_CONSTRAINTS:
+        words = chip_smoke.p16_words(tokenizer, n, c, seed=160 + c)
+        runs[f"C={c}"] = (f"dials constrained C={c}",
+                          lambda words=words: pipe.generate_constrained(feats, words))
+    out = {}
+    for key, (label, fn) in runs.items():
+        fn()  # warm-up: the allocator's first growth for the new shapes
+        out[key] = trace(label, fn)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device; nothing was run", file=sys.stderr)
@@ -278,17 +307,19 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda")
-    parts = sys.argv[1:] or ["slice", "fused", "vit", "train", "continuous"]
+    parts = sys.argv[1:] or ["slice", "fused", "vit", "train", "continuous", "dials"]
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     for path in ("slice", "fused", "vit"):
         if path in parts:
             result[path] = profile_path(path, dev)
+    tokenizer = Tokenizer()
+    tokenizer.fit_on_texts(chip_smoke.corpus(chip_smoke.VOCAB - 3)["corpus"])
     if "train" in parts:
-        tokenizer = Tokenizer()
-        tokenizer.fit_on_texts(chip_smoke.corpus(chip_smoke.VOCAB - 3)["corpus"])
         result["train"] = profile_train(dev, tokenizer)
     if "continuous" in parts:
         result["continuous"] = profile_continuous(dev)
+    if "dials" in parts:
+        result["dials"] = profile_dials(dev, tokenizer)
     print(json.dumps(result))
     return 0
 

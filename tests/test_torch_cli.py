@@ -463,7 +463,10 @@ _REFUSED = [
             ["--method", "speculative"], ["--method", "diverse"], ["--method", "mbr"],
             ["--dump-attention", "a.npz"], ["--mbr-candidates", "3"], ["--mbr-from", "beam"],
             ["--mbr-metric", "bleu4"], ["--diverse-groups", "3"], ["--diversity", "0.1"],
-            ["--prefix", "a dog"], ["--include-words", "dog"], ["--draft-bundle", "b"],
+            # Ported: what exits first is tpucap's own check of the dial
+            # against a method or an ensemble.
+            ["--ensemble-with", "b", "--prefix", "a dog"], ["--method", "greedy", "--include-words", "dog"],
+            ["--draft-bundle", "b"],
             ["--gamma", "2"], ["--ensemble-with", "b"], ["--ensemble-weights", "1,1"],
         )
     ],
@@ -488,14 +491,19 @@ def test_unported_flags_exit_before_any_file_is_read(argv, monkeypatch):
     the card is reported absent, so the refusal also comes first."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     flag = next(a for a in reversed(argv) if a.startswith("--"))
-    if argv[-2:] == ["--engine", "continuous"]:
-        # The continuous engine is ported: tpucap's refusal of --extra-model
-        # with it, in tpucap's words, before any file is read.
+    ported = {
+        # The continuous engine and the dials are ported: tpucap's refusal
+        # of the pair, in tpucap's words, before any file is read.
+        "--engine": "--extra-model needs --engine batch",
+        "--prefix": "--prefix supports --method greedy|beam (no ensemble)",
+        "--include-words": "--include-words supports --method beam only (no ensemble/prefix/dump-attention)",
+    }
+    if argv[-2] in ported:
         with pytest.raises(SystemExit) as jerr:
             jcli.main(argv)
         with pytest.raises(SystemExit) as err:
             tcli.main(argv)
-        assert str(err.value) == str(jerr.value) == "--extra-model needs --engine batch"
+        assert str(err.value) == str(jerr.value) == ported[argv[-2]]
         return
     with pytest.raises(SystemExit, match=f"^{flag}.*not ported"):
         tcli.main(argv)

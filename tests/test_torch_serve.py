@@ -11,7 +11,8 @@ mode). Also: the bucket ladder and its padding, ``generate_submit``,
 ``max_queue`` / ``Overloaded`` with ``submit_many`` atomic, close draining
 and failing a wedged batcher's futures, ``reload`` between batches and
 ``reload_together`` swapping once for a pair of servers, the
-dials and ``parallelism`` refused by name after tpucap's checks; and the
+dials (``prefix``, ``include_words``) after tpucap's checks, and
+``parallelism`` refused by name; and the
 two repairs that serving from several threads needed: ``precision_flags``
 held across threads, and the bf16 cache never keeping a cast of a tree
 that a reload replaced.
@@ -326,9 +327,10 @@ def test_reload_together_swaps_once_or_gives_up(pipes):
 
 
 def test_dials_and_parallelism_refused_by_name(pipes):
-    """tpucap's admission checks of the dials run first, with its texts;
-    a dial that passes them raises NotImplementedError naming the decode
-    module it needs; parallelism other than none raises at construction."""
+    """The dials are served (the name is kept from when the port refused
+    them): tpucap's admission checks with its texts, then prefixed and
+    constrained requests, shared and per row, resolve to tpucap's server's
+    captions; parallelism other than none raises at construction."""
     jpipe, pipe = pipes
     x = _rows(2, seed=10)
     word = next(w for w in pipe.tokenizer.word_index if w not in ("startseq", "endseq"))
@@ -358,16 +360,25 @@ def test_dials_and_parallelism_refused_by_name(pipes):
             with pytest.raises(ValueError) as err:
                 srv.submit_many(x, **kw)
             assert str(err.value) == str(jerr.value), kw
-        with pytest.raises(NotImplementedError, match=r"prefix is not ported .*decode/prefix\.py"):
-            srv.submit(x[0], prefix=word)
-        with pytest.raises(NotImplementedError, match="decode/prefix.py"):
-            srv.submit_many(x, prefixes=["", word])
         assert srv._queue.qsize() == 0
-    with CaptionServer(pipe, max_batch=2, method="beam") as srv:
-        with pytest.raises(NotImplementedError, match=r"include_words .*decode/constrained\.py"):
-            srv.submit(x[0], include_words=[word])
-        with pytest.raises(NotImplementedError, match="decode/constrained.py"):
-            srv.submit_many(x, include_words_rows=[[], [word]])
+        assert srv.submit(x[0], prefix=word).result(60) == jsrv.submit(x[0], prefix=word).result(60)
+        got = [f.result(60) for f in srv.submit_many(x, prefixes=["", word])]
+        assert got == [f.result(60) for f in jsrv.submit_many(x, prefixes=["", word])]
+        assert got[1].startswith(word)
+    with JaxServer(jpipe, max_batch=2, method="beam") as jsrv, CaptionServer(
+        pipe, max_batch=2, method="beam"
+    ) as srv:
+        for kw in (dict(include_words=["zzznotaword"]), dict(include_words=[word, word])):
+            with pytest.raises(ValueError) as jerr:
+                jsrv.submit(x[0], **kw)
+            with pytest.raises(ValueError) as err:
+                srv.submit(x[0], **kw)
+            assert str(err.value) == str(jerr.value), kw
+        got = srv.submit(x[0], include_words=[word]).result(60)
+        assert got == jsrv.submit(x[0], include_words=[word]).result(60)
+        assert word in got.split()
+        rows = [f.result(60) for f in srv.submit_many(x, include_words_rows=[[], [word]])]
+        assert rows == [f.result(60) for f in jsrv.submit_many(x, include_words_rows=[[], [word]])]
     with pytest.raises(NotImplementedError, match="parallelism='dp' is not ported"):
         CaptionServer(pipe, parallelism="dp")
     with pytest.raises(NotImplementedError, match="decode/sample.py"):

@@ -11,8 +11,8 @@ Tolerance: none. The same requests to tpucap's ``CaptionHTTPServer`` and the
 port's, each on port 0, give the same status codes and the same JSON bodies
 (captions token for token, ``/stats`` keys, ``/metrics`` series, the 400 /
 403 / 404 / 413 / 503 texts), except ``/healthz``'s backend (the port names
-its pipeline's device type) and the port's by-name refusals (501 for the
-dials). Each client against the other's server; ``serve``'s flag checks;
+its pipeline's device type); the per-request dials (prefix, include_words)
+give tpucap's captions or its 400 texts. Each client against the other's server; ``serve``'s flag checks;
 ``caption --server`` against a port server started by ``serve`` gives the
 lines offline ``caption`` gives; SIGTERM drains and exits 0; a ``/reload``
 never splits a ``/caption_batch`` whose rows span two batches.
@@ -310,22 +310,51 @@ def test_monitoring_surfaces_match_tpucap(servers):
 
 
 def test_dials_answer_501_by_name(servers):
-    """A dial tpucap's checks accept is the port's 501, naming the decode
-    module it needs; tpucap serves it (200)."""
+    """The dials are served (the name is kept from when the port answered
+    them 501): prefix as a JSON field, as a query parameter, per row on
+    /caption_batch and on the images route, and include_words on a beam
+    server of each package (shared, per row, on the images route), give
+    tpucap's status and body; bad dials tpucap's 400 texts."""
     word = "dog"
     row = _rows(2, seed=15)
     cases = [
-        ("/caption_features", _features(row[0], prefix=word), "decode/prefix.py"),
-        ("/caption_features?prefix=" + word, _features(row[0]), "decode/prefix.py"),
-        ("/caption_batch", _features(row, prefixes=["", word]), "decode/prefix.py"),
-        ("/caption?prefix=" + word, _jpeg(5), "decode/prefix.py"),
+        ("/caption_features", _features(row[0], prefix=word), 200),
+        ("/caption_features?prefix=" + word, _features(row[0]), 200),
+        ("/caption_batch", _features(row, prefixes=["", "a " + word]), 200),
+        ("/caption?prefix=" + word, _jpeg(5), 200),
+        ("/caption_features", _features(row[0], prefix="zzznotaword"), 400),
+        ("/caption_batch", _features(row, prefixes=["", "zzznotaword"]), 400),
+        # include_words on a greedy server.
+        ("/caption_features", _features(row[0], include_words=[word]), 400),
     ]
-    for path, body, module in cases:
+    for path, body, status in cases:
         want, got = _both(servers, "POST", path, body)
-        assert want[0] == 200 and got[0] == 501 and module in got[1]["error"], (path, got)
-    # include_words on a greedy server: tpucap's 400 text first.
-    want, got = _both(servers, "POST", "/caption_features", _features(row[0], include_words=[word]))
-    assert got == want and got[0] == 400
+        assert got == want and got[0] == status, (path, got)
+        if b"prefixes" in body and status == 400:
+            assert got[1]["error"].startswith("row 1: prefix 'zzznotaword'")
+    beam = {}
+    try:
+        for name, cls in (("tpucap", JaxHTTPServer), ("port", CaptionHTTPServer)):
+            srv = cls(servers[name][1], **{**SERVE, "method": "beam"})
+            srv.serve_background()
+            beam[name] = (srv,)
+        cases = [
+            ("/caption_features", _features(row[0], include_words=[word, "grass"]), 200),
+            ("/caption_features?include_words=" + word, _features(row[0]), 200),
+            ("/caption_batch", _features(row, include_words_rows=[[word], []]), 200),
+            ("/caption?include_words=" + word, _jpeg(6), 200),
+            ("/caption_features", _features(row[0], include_words=["zzznotaword"]), 400),
+            ("/caption_features", _features(row[0], include_words=["a dog"]), 400),
+            ("/caption_features", _features(row[0], include_words=word), 400),
+        ]
+        for path, body, status in cases:
+            want, got = _both(beam, "POST", path, body)
+            assert got == want and got[0] == status, (path, got)
+            if status == 200 and "caption" in got[1]:
+                assert word in got[1]["caption"].split()
+    finally:
+        for (srv,) in beam.values():
+            srv.close()
 
 
 def test_reload_swaps_both_endpoints(servers):
@@ -423,9 +452,15 @@ def test_clients_against_each_others_servers(servers):
     with pytest.raises(ServerError) as err:
         c.caption_features(rows[0], model="zz")
     assert err.value.status == 400 and "unknown model" in str(err.value)
+    # The dials, served: the port's client on the port's server gives
+    # tpucap's client on tpucap's, a bad dial tpucap's 400 text.
+    jc = JaxClient(*ports["tpucap"])
+    assert c.caption_features(rows[0], prefix="dog") == jc.caption_features(rows[0], prefix="dog")
     with pytest.raises(ServerError) as err:
-        c.caption_features(rows[0], prefix="dog")
-    assert err.value.status == 501 and "decode/prefix.py" in str(err.value)
+        c.caption_features(rows[0], prefix="zzznotaword")
+    with pytest.raises(Exception) as jerr:
+        jc.caption_features(rows[0], prefix="zzznotaword")
+    assert err.value.status == 400 and str(err.value) == str(jerr.value)
     with pytest.raises(ServerError) as err:
         c.caption_stream(jpegs[0])
     assert err.value.status == 400 and "engine='continuous'" in str(err.value)

@@ -40,7 +40,9 @@ trains a LoRA overlay instead, on features (``fit_lora``; the merged
 bundle goes to ``<checkpoint-dir>/bundle``) or with ``--finetune-encoder``,
 and ``--lora-out FILE`` also writes the adapters as tpucap's artifact.
 ``caption``, ``score`` and ``evaluate`` build their restore template from
-the same optimizer flags. ``score`` prints each image's teacher-forced
+the same optimizer flags; ``caption --prefix "a dog"`` continues a forced
+opening and ``caption --include-words W1,W2`` (beam only) captions that must
+hold the words, offline or through ``--server``. ``score`` prints each image's teacher-forced
 log-probability of its caption; ``compare`` is a paired bootstrap between
 two ``evaluate --dump-captions`` files, host numpy, needing no card.
 ``extract``, ``train --finetune-encoder``, ``caption``, ``score`` and
@@ -131,8 +133,6 @@ UNPORTED_FLAGS = {
         "mbr_metric": (),
         "diverse_groups": (),
         "diversity": (),
-        "prefix": (),
-        "include_words": (),
         "draft_bundle": (),
         "gamma": (),
         "ensemble_with": (),
@@ -747,13 +747,30 @@ def _restore_pipeline(args, device) -> CaptioningPipeline:
     return pipe
 
 
-def _validate_caption_server_flags(args) -> None:
-    """tpucap's checks of ``caption --server`` and ``--server-model``, with
-    its messages, before the unported-flag check."""
+def _include_words(args) -> list[str] | None:
+    """--include-words W1,W2 -> the words (tpucap's split)."""
+    if not args.include_words:
+        return None
+    return [w.strip() for w in args.include_words.split(",") if w.strip()]
+
+
+def _validate_caption_flags(args) -> None:
+    """tpucap's checks of ``caption --server`` and ``--server-model``, and
+    offline those of ``--prefix`` and ``--include-words``, with its
+    messages, before the unported-flag check."""
     if args.server_model and not args.server:
         # --server-model without --server would be silently ignored.
         raise SystemExit("--server-model only applies with --server HOST:PORT")
     if not args.server:
+        if args.prefix and (args.method not in ("greedy", "beam") or args.ensemble_with):
+            raise SystemExit("--prefix supports --method greedy|beam (no ensemble)")
+        if args.include_words and (
+            args.method != "beam" or args.ensemble_with or args.prefix or args.dump_attention
+        ):
+            raise SystemExit(
+                "--include-words supports --method beam only "
+                "(no ensemble/prefix/dump-attention)"
+            )
         return
     if args.method in ("speculative", "diverse", "mbr"):
         raise SystemExit(
@@ -785,12 +802,28 @@ def _caption_remote(args) -> None:
     # brackets, which http.client does not accept.
     host = host.strip("[]")
     client = CaptionClient(host or "127.0.0.1", int(port), model=args.server_model or "")
+    include_words = _include_words(args)
     blobs = []
     for path in args.image:
         with open(path, "rb") as f:
             blobs.append(f.read())
     try:
-        caps = client.caption_many(blobs)
+        if not include_words and not args.prefix:
+            caps = client.caption_many(blobs)
+        else:
+            # The dials are per-request query parameters: one request an
+            # image, sent together so that the server batches them.
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(min(32, len(blobs))) as pool:
+                caps = list(
+                    pool.map(
+                        lambda b: client.caption(
+                            b, prefix=args.prefix, include_words=include_words
+                        ),
+                        blobs,
+                    )
+                )
     except ServerError as e:
         raise SystemExit(f"server error ({e.status}): {e}")
     except OSError as e:
@@ -808,7 +841,28 @@ def cmd_caption(args, device):
             file=sys.stderr,
         )
     pipe = _restore_pipeline(args, device)
-    caps = pipe.caption_images(args.image, method=args.method, beam_width=args.beam_width)
+    include_words = _include_words(args)
+    if include_words:
+        feats = pipe.extract_features(list(args.image))
+        details = pipe.generate_constrained(
+            feats, include_words, beam_width=args.beam_width, return_details=True
+        )
+        caps = [d["caption"] for d in details]
+        for path, d in zip(args.image, details):
+            if d["num_satisfied"] < len(d["satisfied"]):
+                missing = [w for w, ok in d["satisfied"].items() if not ok]
+                print(
+                    f"{path}: could not include {missing} within "
+                    "--max-len (returning the most-satisfied caption)",
+                    file=sys.stderr,
+                )
+    elif args.prefix:
+        feats = pipe.extract_features(list(args.image))
+        caps = pipe.generate_continuation(
+            feats, args.prefix, method=args.method, beam_width=args.beam_width
+        )
+    else:
+        caps = pipe.caption_images(args.image, method=args.method, beam_width=args.beam_width)
     for path, cap in zip(args.image, caps):
         print(f"{path}\t{cap}")
 
@@ -1172,8 +1226,17 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
                    help="not ported")
     p.add_argument("--diverse-groups", type=int, default=2, help="not ported")
     p.add_argument("--diversity", type=float, default=0.5, help="not ported")
-    p.add_argument("--prefix", default=None, help="not ported")
-    p.add_argument("--include-words", default=None, metavar="W1,W2", help="not ported")
+    p.add_argument("--prefix", default=None,
+                   help="forced caption opening ('a dog'): the decoder "
+                   "is teacher-forced through it, then greedy/beam "
+                   "continues — guided captioning / completion")
+    p.add_argument("--include-words", default=None, metavar="W1,W2",
+                   help="words the caption MUST contain (constrained "
+                   "beam search, Anderson et al. 2017; up to 4 — each "
+                   "word doubles the decode batch). Applies to every "
+                   "image; --method beam only. Prints the achieved "
+                   "satisfaction per image on stderr when full "
+                   "satisfaction was unreachable within --max-len")
     p.add_argument("--draft-bundle", default=None, help="not ported")
     p.add_argument("--gamma", type=int, default=4, help="not ported")
     p.add_argument("--ensemble-with", action="append", default=None,
@@ -1342,7 +1405,7 @@ def main(argv=None, *, device=None):
     elif args.cmd == "serve":
         _validate_serve_flags(args)
     elif args.cmd == "caption":
-        _validate_caption_server_flags(args)
+        _validate_caption_flags(args)
     refuse_unported_flags(commands[args.cmd], args)
     if args.cmd == "compare":
         args.fn(args)

@@ -16,10 +16,10 @@ stats / health / metrics surfaces:
   trivially thread-safe. :meth:`caption_many` is the intended concurrency
   shape.
 - A non-200 status raises :class:`ServerError` carrying the status code and
-  the server's ``{"error": ...}`` message verbatim. The port's batch engine
-  answers 501 for the dials it has not ported (``prefix``,
-  ``include_words``), and 400 on the streaming routes, which need the
-  continuous engine (``serve --engine continuous``), as tpucap's do.
+  the server's ``{"error": ...}`` message verbatim. The dials (``prefix``,
+  ``include_words``) need the batch engine and the streaming routes the
+  continuous one (``serve --engine continuous``); the other engine answers
+  400, as tpucap's does.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ class ServerError(RuntimeError):
     """An HTTP endpoint returned a non-200 status.
 
     ``status`` is the HTTP code (400 bad request, 403 reload disabled,
-    404 unknown route, 413 body too large, 501 not ported, 503
+    404 unknown route, 413 body too large, 500 a failed batch, 503
     overloaded); ``str(e)`` is the server's own error message."""
 
     def __init__(self, status: int, message: str):

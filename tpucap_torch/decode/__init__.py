@@ -1,22 +1,33 @@
 """Decode engines of the port: batched greedy and beam search on the
-device, the continuous (slot-recycling) greedy and beam engines of the
-online server, and the ids -> caption join."""
+device, forced-prefix priming and constrained (must-include) beam search,
+the continuous (slot-recycling) greedy and beam engines of the online
+server, and the ids -> caption join."""
 
 from tpucap_torch.decode.beam import BeamResult, beam_decode, normalized_scores
+from tpucap_torch.decode.constrained import (
+    MAX_CONSTRAINTS,
+    ConstrainedBeamResult,
+    constrained_beam_decode,
+)
 from tpucap_torch.decode.continuous import ContinuousDecodeEngine, SlotState
 from tpucap_torch.decode.continuous_beam import BeamSlotState, ContinuousBeamEngine
 from tpucap_torch.decode.greedy import DecodeResult, greedy_decode
+from tpucap_torch.decode.prefix import prime_prefix
 from tpucap_torch.decode.text import ids_to_captions
 
 __all__ = [
     "BeamResult",
     "BeamSlotState",
+    "ConstrainedBeamResult",
     "ContinuousBeamEngine",
     "ContinuousDecodeEngine",
     "DecodeResult",
+    "MAX_CONSTRAINTS",
     "SlotState",
     "beam_decode",
+    "constrained_beam_decode",
     "greedy_decode",
     "ids_to_captions",
     "normalized_scores",
+    "prime_prefix",
 ]

@@ -136,6 +136,12 @@ def _per_entry(fn, state, shared: frozenset):
     return tree_map(fn, state)
 
 
+def _tile_state(state, k: int, shared: frozenset = frozenset()):
+    """(B, ...) -> (B*k, ...) with each row repeated k times (beam-major);
+    shared entries stay untiled."""
+    return _per_entry(lambda x: x.repeat_interleave(k, dim=0), state, shared)
+
+
 def _gather_beams(tree, parent, B: int, k: int, shared: frozenset = frozenset()):
     """Reindex (B*k, ...) state by parent (B, k) beam indices; shared
     entries are the same for every beam, so they stay as they are."""
@@ -174,7 +180,7 @@ def beam_decode(
     leaf = tree_leaves(state)[0]
     B, device = leaf.shape[0], leaf.device
     shared = _shared_keys(decoder, state)
-    state = _per_entry(lambda x: x.repeat_interleave(k, dim=0), state, shared)
+    state = _tile_state(state, k, shared)
     ngram = no_repeat_ngram_size
     # Each hypothesis's generated tokens, for the n-gram ban only.
     seqs = torch.full((B, k, max_len), pad_id, dtype=torch.long, device=device) if ngram else None

@@ -20,6 +20,17 @@
     caption_images(paths)         extract_features, then generate
     score_captions(features,      each given caption's teacher-forced
                    captions)      log-probability (the engines' score)
+    generate_continuation(        forced-prefix captioning: the decoder
+        features, prefix)         primed through each row's opening
+                                  (``decode/prefix.py``), then greedy or
+                                  beam continues it
+    generate_constrained(         constrained beam search: captions that
+        features, include_words)  must hold the given words
+                                  (``decode/constrained.py``); both with
+                                  ``_submit`` forms and, for the servers'
+                                  images mode, ``encode_continuation_submit``
+                                  / ``encode_constrained_submit`` (the
+                                  encoder and the decode on one snapshot)
 
     evaluate(descriptions,        decode features in padded batches, then
              features)            BLEU-1..4, CIDEr-D, ROUGE-L, METEOR and
@@ -109,7 +120,15 @@ from tpucap_torch.convert import load_npz, save_npz
 from tpucap_torch.data.augment import make_augment_fn
 from tpucap_torch.data.pipeline import caption_batch_stream, image_batch_loader, prefetch_iterator
 from tpucap_torch.data.preprocess import preprocess_batch
-from tpucap_torch.decode import beam_decode, greedy_decode, ids_to_captions
+from tpucap_torch.decode import (
+    MAX_CONSTRAINTS,
+    beam_decode,
+    constrained_beam_decode,
+    greedy_decode,
+    ids_to_captions,
+    normalized_scores,
+    prime_prefix,
+)
 from tpucap_torch.models.decoders import MergeDecoder, build_decoder
 from tpucap_torch.models.encoders import build_encoder, fold_batch_norms
 from tpucap_torch.ops.decoder_step import make_fused_merge_step
@@ -203,16 +222,30 @@ class CaptioningPipeline:
         """``DecodeConfig.bad_words`` -> sorted token ids, each entry run
         through the tokenizer's own normalization; words the head cannot
         emit (unknown, or at/above the num_words cap) drop out."""
+        return tuple(
+            sorted(
+                {
+                    i
+                    for entry in self.config.decode.bad_words
+                    for _, i in self._normalize_vocab_entry(entry)
+                    if i is not None
+                }
+            )
+        )
+
+    def _normalize_vocab_entry(self, entry: str):
+        """Run ``entry`` through the tokenizer's own normalization (filters,
+        lowercase, split) and look up each word's model-emittable id ->
+        [(word, id_or_None)]. None marks a word the head can never emit:
+        absent from word_index, or at/above the num_words cap. The one rule
+        of "is this a vocabulary word" for bad_words (drops None) and
+        include_words (raises on None)."""
         tok = self.tokenizer
         wi = tok.word_index
-        ids = set()
-        for entry in self.config.decode.bad_words:
-            for w in text_to_word_sequence(
-                entry, filters=tok.filters, lower=tok.lower
-            ):
-                if w in wi and wi[w] < self.vocab_size:
-                    ids.add(wi[w])
-        return tuple(sorted(ids))
+        return [
+            (w, wi[w] if w in wi and wi[w] < self.vocab_size else None)
+            for w in text_to_word_sequence(entry, filters=tok.filters, lower=tok.lower)
+        ]
 
     # -- model construction ------------------------------------------------
 
@@ -450,8 +483,7 @@ class CaptioningPipeline:
         the decode on one snapshot of the params: a ``reload_params`` on
         another thread lands before or after the batch, never inside it."""
         params = self._inference_params()
-        x = torch.as_tensor(images).to(self.device, self._infer_dtype())
-        feats = self._apply_encoder(params["encoder"], x)
+        feats = self._features(params, images, images=True)
         return self._submit_decode(params["decoder"], feats, method, beam_width)
 
     def _submit_decode(self, dec_params, features, method, beam_width):
@@ -472,6 +504,318 @@ class CaptioningPipeline:
             if len(seq) != len(self.tokenizer._analyze(text)):
                 raise ValueError(f"prefix {text!r} contains words outside the tokenizer vocabulary")
         return seqs
+
+    def _features(self, params, x, images: bool):
+        """Feature rows on the device: ``x`` itself, or the encoder's
+        output of the image batch ``x`` under ``params``."""
+        x = torch.as_tensor(x).to(self.device, self._infer_dtype())
+        return self._apply_encoder(params["encoder"], x) if images else x
+
+    def generate_continuation(
+        self, features, prefix, *, method: str | None = None, beam_width: int | None = None
+    ) -> list[str]:
+        """Blocking forced-prefix captioning:
+        ``generate_continuation_submit(...)()``."""
+        return self.generate_continuation_submit(
+            features, prefix, method=method, beam_width=beam_width
+        )()
+
+    @torch.inference_mode()
+    def generate_continuation_submit(
+        self, features, prefix, *, method: str | None = None, beam_width: int | None = None
+    ):
+        """Forced-prefix captioning: continue caption openings ("a dog ..."
+        -> the model's best completion).
+
+        prefix: one string for every row, or a list of per-row strings
+        ("" rows decode from scratch). Words are encoded under the
+        tokenizer's own normalization; a word outside the vocabulary
+        raises. The decoder is teacher-forced through the prefix tokens
+        (``decode/prefix.py``; rows past their own prefix keep their
+        state), then the greedy or beam engine continues from each row's
+        last prefix token, its score seeded by the prefix log-prob. The
+        captions are "prefix + continuation"; beam ranks by the
+        continuation's normalized score. DecodeConfig's dials apply to the
+        continuation (min_len counts generated tokens, the n-gram history
+        starts after the prefix, max_len bounds the continuation).
+
+        Dispatches now and returns a zero-argument finalizer that yields
+        the captions (``generate_submit``'s contract), on one snapshot of
+        the params."""
+        return self._continuation_submit(
+            self._inference_params(), features, prefix, method, beam_width, images=False
+        )
+
+    @torch.inference_mode()
+    def encode_continuation_submit(
+        self, images, prefix, *, method: str | None = None, beam_width: int | None = None
+    ):
+        """``generate_continuation_submit`` of ``encode_images(images)``,
+        the encoder and the decode on one snapshot of the params."""
+        return self._continuation_submit(
+            self._inference_params(), images, prefix, method, beam_width, images=True
+        )
+
+    def _continuation_submit(self, params, x, prefix, method, beam_width, *, images: bool):
+        method = method or self.config.decode.method
+        beam_width = beam_width or self.config.decode.beam_width
+        if method not in ("greedy", "beam"):
+            raise ValueError(f"generate_continuation supports greedy|beam, got {method!r}")
+        B = len(x)
+        if isinstance(prefix, str):
+            prefix = [prefix] * B
+        if len(prefix) != B:
+            raise ValueError(f"{len(prefix)} prefixes for {B} feature rows")
+        seqs = self.encode_prefixes(prefix)
+        P = max((len(s) for s in seqs), default=0)
+        if P:
+            # The forced length padded to a power of two, as the JAX
+            # package pads it (one program per bucket there).
+            P = 1 << (P - 1).bit_length()
+        pref = np.zeros((B, P), np.int64)
+        plens = np.zeros((B,), np.int64)
+        for i, s in enumerate(seqs):
+            pref[i, : len(s)] = s
+            plens[i] = len(s)
+        start_id, end_id = self._token_ids()
+        dcfg = self.config.decode
+        max_pos = getattr(self.decoder, "max_positions", None)
+        true_max = int(plens.max()) if P else 0
+        if max_pos is not None and max(P, true_max + dcfg.max_len) > max_pos:
+            raise ValueError(
+                f"prefix length {true_max} (padded to {P}) + max_len "
+                f"{dcfg.max_len} exceeds decoder.max_positions {max_pos}; "
+                "raise max_positions or shorten the prefix"
+            )
+        dec_params = params["decoder"]
+        feats = self._features(params, x, images)
+        with precision_flags(self.config.precision):
+            step = self.step_fn()
+            state = self.decoder.init_state(dec_params, feats)
+            state, last, lp = prime_prefix(
+                step, dec_params, state, pref, plens, start_id=start_id, decoder=self.decoder
+            )
+            kw = dict(
+                start_id=last,
+                end_id=end_id,
+                max_len=dcfg.max_len,
+                min_len=dcfg.min_len,
+                banned_ids=self._banned_ids(),
+                no_repeat_ngram_size=dcfg.no_repeat_ngram_size,
+                init_scores=lp,
+            )
+            if method == "greedy":
+                res = greedy_decode(step, dec_params, state, **kw)
+            else:
+                res = beam_decode(
+                    step,
+                    dec_params,
+                    state,
+                    beam_width=beam_width,
+                    length_normalize=dcfg.length_normalize,
+                    alpha=dcfg.alpha,
+                    length_penalty=dcfg.length_penalty,
+                    decoder=self.decoder,
+                    approx_topk=dcfg.approx_topk,
+                    **kw,
+                )
+        # The prefix text rebuilt from its ids: what the model was forced
+        # through, in the tokenizer's own casing.
+        heads = self.tokenizer.sequences_to_texts(seqs)
+
+        def finalize() -> list[str]:
+            tails = self._captions(res)
+            return [(h + " " + t).strip() if h else t for h, t in zip(heads, tails)]
+
+        return finalize
+
+    def _constraint_ids(self, include_words, batch: int, num_slots: int | None = None) -> np.ndarray:
+        """Validate and encode must-include words -> (B, C) int array (pad
+        id 0 = unused slot). ``include_words``: a list of words (the same
+        for every image) or a list of per-image word lists (ragged; rows are
+        padded). Every entry must normalize to exactly one in-vocabulary
+        word: OOV, multi-word and duplicate entries raise."""
+        if hasattr(self.tokenizer, "decode_ids"):
+            raise NotImplementedError(
+                "include_words requires the word-level tokenizer (a "
+                "subword word decomposes into pieces — a must-include "
+                "PIECE set is a phrase constraint, not supported)"
+            )
+        start_id, end_id = self._token_ids()
+        banned = set(self._banned_ids())
+        if not include_words:
+            raise ValueError("include_words is empty")
+        if batch == 0:
+            raise ValueError("features batch is empty")
+        per_image = isinstance(include_words[0], (list, tuple))
+        rows = [list(r) for r in include_words] if per_image else [list(include_words)] * batch
+        if per_image and len(rows) != batch:
+            raise ValueError(
+                f"per-image include_words has {len(rows)} rows for {batch} images"
+            )
+
+        def encode(entry: str) -> int:
+            pairs = self._normalize_vocab_entry(entry)
+            if len(pairs) != 1:
+                raise ValueError(
+                    f"include_words entry {entry!r} normalizes to "
+                    f"{len(pairs)} words — phrase constraints are not "
+                    "supported; pass single words"
+                )
+            w, i = pairs[0]
+            if i is None:
+                full = self.tokenizer.word_index.get(w)
+                if full is None:
+                    raise ValueError(
+                        f"include_words entry {entry!r} -> {w!r} is "
+                        "not in the vocabulary (the model can never "
+                        "emit it)"
+                    )
+                raise ValueError(
+                    f"include_words entry {w!r} has id {full} >= the "
+                    f"model vocabulary size {self.vocab_size} "
+                    "(num_words cap) — the model can never emit it"
+                )
+            if i in (start_id, end_id):
+                raise ValueError(f"include_words entry {w!r} is a sequence sentinel")
+            if i in banned:
+                raise ValueError(f"include_words entry {w!r} is also in bad_words")
+            return i
+
+        id_rows = []
+        for r, row in enumerate(rows):
+            ids = [encode(e) for e in row]
+            if len(set(ids)) != len(ids):
+                raise ValueError(f"duplicate include_words in row {r}: {row!r}")
+            id_rows.append(ids)
+        C = max(len(ids) for ids in id_rows)
+        if not 1 <= C <= MAX_CONSTRAINTS:
+            raise ValueError(
+                f"need 1..{MAX_CONSTRAINTS} include_words per image, "
+                f"got {C} (each word doubles the decode batch)"
+            )
+        if num_slots is not None:
+            # Extra slots are pre-satisfied: the server buckets C.
+            if not C <= num_slots <= MAX_CONSTRAINTS:
+                raise ValueError(f"num_slots={num_slots} must be in [{C}, {MAX_CONSTRAINTS}]")
+            C = num_slots
+        out = np.zeros((batch, C), np.int64)  # pad id 0 = pre-satisfied
+        for b, ids in enumerate(id_rows):
+            out[b, : len(ids)] = ids
+        return out
+
+    def generate_constrained(
+        self, features, include_words, *, beam_width: int | None = None,
+        return_details: bool = False,
+    ):
+        """``generate_constrained_submit(...)()``."""
+        return self.generate_constrained_submit(
+            features, include_words, beam_width=beam_width, return_details=return_details
+        )()
+
+    @torch.inference_mode()
+    def generate_constrained_submit(
+        self, features, include_words, *, beam_width: int | None = None,
+        return_details: bool = False, num_slots: int | None = None,
+    ):
+        """Constrained beam search (``decode/constrained.py``, Anderson et
+        al. 2017): captions that MUST include the given words, the
+        complement of ``DecodeConfig.bad_words``. ``include_words``: a list
+        of words for every image, or a list of per-image word lists (ragged
+        rows; unused slots are pre-satisfied). Up to 4 words an image: the
+        2^C satisfaction banks ride the decode batch.
+
+        Where full satisfaction is unreachable within max_len, the caption
+        is the best of the most-satisfied bank (check ``satisfied`` in the
+        details). Scores stay true log-probs.
+
+        Dispatches now and returns a zero-argument finalizer that yields
+        the captions, or under ``return_details=True`` per-image dicts
+        {caption, score (normalized), satisfied: {word: bool},
+        num_satisfied}. ``num_slots`` pads the constraint axis (extra slots
+        pre-satisfied), as the server buckets C."""
+        return self._constrained_submit(
+            self._inference_params(), features, include_words, beam_width,
+            return_details, num_slots, images=False,
+        )
+
+    @torch.inference_mode()
+    def encode_constrained_submit(
+        self, images, include_words, *, beam_width: int | None = None,
+        return_details: bool = False, num_slots: int | None = None,
+    ):
+        """``generate_constrained_submit`` of ``encode_images(images)``, the
+        encoder and the decode on one snapshot of the params."""
+        return self._constrained_submit(
+            self._inference_params(), images, include_words, beam_width,
+            return_details, num_slots, images=True,
+        )
+
+    def _constrained_submit(
+        self, params, x, include_words, beam_width, return_details, num_slots, *, images: bool
+    ):
+        dcfg = self.config.decode
+        if dcfg.no_repeat_ngram_size:
+            raise NotImplementedError(
+                "generate_constrained does not compose with "
+                "no_repeat_ngram_size (the bank-hopping beam does not "
+                "carry per-hypothesis histories)"
+            )
+        beam_width = beam_width or dcfg.beam_width
+        cids = self._constraint_ids(include_words, len(x), num_slots)
+        start_id, end_id = self._token_ids()
+        dec_params = params["decoder"]
+        feats = self._features(params, x, images)
+        with precision_flags(self.config.precision):
+            state = self.decoder.init_state(dec_params, feats)
+            res = constrained_beam_decode(
+                self.step_fn(),
+                dec_params,
+                state,
+                start_id=start_id,
+                end_id=end_id,
+                max_len=dcfg.max_len,
+                beam_width=beam_width,
+                constraint_ids=cids,
+                min_len=dcfg.min_len,
+                banned_ids=self._banned_ids(),
+                length_normalize=dcfg.length_normalize,
+                alpha=dcfg.alpha,
+                length_penalty=dcfg.length_penalty,
+                decoder=self.decoder,
+            )
+
+        def finalize():
+            caps = self._captions(res)
+            if not return_details:
+                return caps
+            norm = normalized_scores(
+                res.scores.float(),
+                res.lengths,
+                length_normalize=dcfg.length_normalize,
+                alpha=dcfg.alpha,
+                length_penalty=dcfg.length_penalty,
+            ).cpu().numpy()
+            satisfied = res.satisfied.cpu().numpy()
+            index_word = self.tokenizer.index_word
+            out = []
+            for b in range(len(caps)):
+                sat = {
+                    index_word[int(i)]: bool(satisfied[b, c])
+                    for c, i in enumerate(cids[b])
+                    if int(i) != 0
+                }
+                out.append(
+                    {
+                        "caption": caps[b],
+                        "score": float(norm[b]),
+                        "satisfied": sat,
+                        "num_satisfied": sum(sat.values()),
+                    }
+                )
+            return out
+
+        return finalize
 
     @torch.inference_mode()
     def score_captions(self, features, captions) -> list[dict]:

@@ -26,10 +26,14 @@ on the new.
 and refills them (``decode/continuous.py``, ``decode/continuous_beam.py``),
 and streams each request's words as they decode.
 
-Not ported: the batch engine's per-request dials ``prefix`` /
-``include_words``, which are checked as tpucap checks them and then refused
-by name (they stand on ``decode/prefix.py`` and ``decode/constrained.py``,
-ROADMAP item 6.3b). tpucap's continuous engines have no such dials.
+The batch engine takes tpucap's per-request dials: ``prefix`` (forced
+caption opening, ``pipeline.generate_continuation_submit``) and
+``include_words`` (must-include words, ``generate_constrained_submit``),
+checked at admission so a bad dial fails its own request. Each queued row
+carries its dials; a batch with any constrained row splits those rows into
+a dispatch of their own (the 2^C banks must not tax the others), with C
+bucketed to 1, 2 or 4. In images mode each route encodes and decodes on one
+snapshot of the params. tpucap's continuous engines have no such dials.
 """
 
 from __future__ import annotations
@@ -164,15 +168,6 @@ def _buckets(max_batch: int) -> list[int]:
     return out
 
 
-def refuse_dial(dial: str):
-    """The per-request dials stand on decode modules the port lacks."""
-    module = {"prefix": "decode/prefix.py", "include_words": "decode/constrained.py"}[dial]
-    raise NotImplementedError(
-        f"{dial} is not ported to tpucap_torch: it needs tpucap's {module} "
-        "(ROADMAP queue 1, item 6.3b)"
-    )
-
-
 @dataclass
 class ServerStats:
     requests: int = 0
@@ -243,8 +238,7 @@ class CaptionServer:
                 "(greedy|beam; sampling is decode/sample.py, ROADMAP queue 1, "
                 "item 6.3c)"
             )
-        # Per-request forced-prefix token cap, tpucap's admission rule (the
-        # dial itself is refused once checked).
+        # Per-request forced-prefix token cap, tpucap's admission rule.
         self._max_prefix_tokens = (
             max_prefix_tokens
             if max_prefix_tokens is not None
@@ -285,17 +279,21 @@ class CaptionServer:
     def submit(self, x, prefix: str | None = None, include_words=None) -> Future:
         """Enqueue one request; resolves to the caption string.
 
-        ``prefix`` / ``include_words``: tpucap's per-request dials, checked
-        here as tpucap checks them (a bad dial fails its own request with
-        ValueError), then refused with NotImplementedError."""
+        ``prefix``: a forced caption opening ("a dog"); the caption is the
+        prefix plus the model's continuation (greedy or beam).
+        ``include_words``: words the caption must contain (beam servers
+        only; up to 4). Both are validated here, so a bad dial fails this
+        request alone (ValueError), never the batch it would ride in. Where
+        full satisfaction is unreachable the caption of the most-satisfied
+        bank comes back, as offline."""
         x = np.asarray(x)
         expect = self._expected_shape()
         if x.shape != expect:
             raise ValueError(
                 f"request shape {x.shape} != expected {expect} (mode={self._mode!r})"
             )
-        self._validate_dials(prefix, include_words)
-        return self._enqueue_rows([x])[0]
+        iw = self._validate_dials(prefix, include_words)
+        return self._enqueue_rows([x], prefix or "", iw)[0]
 
     def submit_many(
         self,
@@ -311,8 +309,8 @@ class CaptionServer:
         ``include_words``) and the per-row ones (``prefixes`` /
         ``include_words_rows``, length-N lists, "" / [] = none for a row)
         are checked as tpucap checks them, every row before anything
-        enqueues, and a set dial is refused with NotImplementedError. The
-        capacity check covers the whole set under the submit lock."""
+        enqueues, and the capacity check covers the whole set under the
+        submit lock, so a multi-row request is never half-admitted."""
         xs = np.asarray(xs)
         expect = self._expected_shape()
         if xs.ndim != len(expect) + 1 or xs.shape[1:] != expect:
@@ -323,8 +321,8 @@ class CaptionServer:
         if xs.shape[0] == 0:
             return []
         if prefixes is None and include_words_rows is None:
-            self._validate_dials(prefix, include_words)
-            return self._enqueue_rows(list(xs))
+            iw = self._validate_dials(prefix, include_words)
+            return self._enqueue_rows(list(xs), prefix or "", iw)
         if prefix or include_words:
             raise ValueError(
                 "submit_many takes shared dials (prefix/include_words) "
@@ -349,31 +347,20 @@ class CaptionServer:
             )
         # Validate EVERY row's dial up front (admission atomicity: a bad
         # row-3 dial fails the whole request before row 0 enqueues).
+        row_dials = []
         for i, (p, w) in enumerate(zip(prefixes, include_words_rows)):
+            p = p or ""
             try:
-                self._check_dials(p or "", w)
+                iw = self._validate_dials(p, w)
             except ValueError as e:
                 raise ValueError(f"row {i}: {e}") from None
-        for p, w in zip(prefixes, include_words_rows):
-            if p:
-                refuse_dial("prefix")
-            if w:
-                refuse_dial("include_words")
-        return self._enqueue_rows(list(xs))
+            row_dials.append((p, iw))
+        return self._enqueue_rows_dials(list(xs), row_dials)
 
-    def _validate_dials(self, prefix, include_words) -> None:
+    def _validate_dials(self, prefix, include_words) -> tuple:
         """Admission-time check of one request's dials, tpucap's rules and
-        texts; a dial that passes them is refused by name."""
-        self._check_dials(prefix, include_words)
-        if prefix:
-            refuse_dial("prefix")
-        if include_words:
-            refuse_dial("include_words")
-
-    def _check_dials(self, prefix, include_words) -> None:
-        """tpucap's ``_validate_dials`` up to what stands on the unported
-        decode modules (its include_words word check,
-        ``_constraint_ids``)."""
+        texts -> the include_words tuple. Raises, so a bad dial fails its
+        own request, never the batch it lands in."""
         method = self._decode_kw["method"] or self._pipe.config.decode.method
         if prefix:
             if method not in ("greedy", "beam"):
@@ -415,11 +402,22 @@ class CaptionServer:
                     "no_repeat_ngram_size (generate_constrained's "
                     "refusal, surfaced at admission)"
                 )
+            iw = tuple(str(w) for w in include_words)
+            # The whole word check now (OOV, phrase, duplicate, sentinel,
+            # num_words cap), so a bad constraint fails its own request.
+            self._pipe._constraint_ids([list(iw)], 1)
+            return iw
+        return ()
 
-    def _enqueue_rows(self, rows: list) -> list[Future]:
+    def _enqueue_rows(self, rows: list, prefix: str = "", iw: tuple = ()) -> list[Future]:
         """Capacity-check and enqueue a set of validated rows under ONE
         lock acquisition: admission is atomic for the whole set (and
         against concurrent submitters)."""
+        return self._enqueue_rows_dials(rows, [(prefix, iw)] * len(rows))
+
+    def _enqueue_rows_dials(self, rows: list, dials: list) -> list[Future]:
+        """Atomic admission with a validated (prefix, include_words) dial
+        per row."""
         with self._submit_lock:
             if self._closed:
                 raise RuntimeError("server is closed")
@@ -429,9 +427,9 @@ class CaptionServer:
                 raise Overloaded(f"request queue at max_queue={self._max_queue}")
             now = time.perf_counter()
             futs: list[Future] = []
-            for x in rows:
+            for x, (prefix, iw) in zip(rows, dials):
                 fut: Future = Future()
-                self._queue.put((x, fut, now))
+                self._queue.put((x, prefix, iw, fut, now))
                 futs.append(fut)
         return futs
 
@@ -533,11 +531,33 @@ class CaptionServer:
     def _run_batch(self, batch: np.ndarray) -> list[str]:
         return self._submit_batch(batch)()
 
-    def _submit_batch(self, batch: np.ndarray):
+    def _submit_batch(self, batch: np.ndarray, prefixes=None, include_words=None):
         """Dispatch one padded batch; returns a zero-arg finalizer that
-        waits for the tokens and yields the captions."""
-        kw = dict(method=self._decode_kw["method"], beam_width=self._decode_kw["beam_width"])
-        if self._mode == "images":
+        waits for the tokens and yields the captions. ``prefixes`` (per-row
+        strings, "" = none) routes the batch through the continuation;
+        ``include_words`` (per-row word lists, [] = none) through the
+        constrained beam with C bucketed to 1, 2 or 4. In images mode every
+        route encodes and decodes on one snapshot of the params."""
+        images = self._mode == "images"
+        beam_width = self._decode_kw["beam_width"]
+        if include_words is not None:
+            max_c = max(len(r) for r in include_words)
+            c_bucket = 1 if max_c <= 1 else (2 if max_c <= 2 else 4)
+            submit = (
+                self._pipe.encode_constrained_submit
+                if images
+                else self._pipe.generate_constrained_submit
+            )
+            return submit(batch, include_words, beam_width=beam_width, num_slots=c_bucket)
+        kw = dict(method=self._decode_kw["method"], beam_width=beam_width)
+        if prefixes is not None:
+            submit = (
+                self._pipe.encode_continuation_submit
+                if images
+                else self._pipe.generate_continuation_submit
+            )
+            return submit(batch, prefixes, **kw)
+        if images:
             return self._pipe.encode_submit(batch, **kw)
         return self._pipe.generate_submit(batch, **kw)
 
@@ -633,9 +653,20 @@ class CaptionServer:
             self._drain_one()
 
     def _flush(self, batch: list) -> None:
+        """Split constrained requests into their own dispatch (the 2^C
+        bank multiplier must not tax plain and prefixed rows), then pad
+        each group to the bucket ladder and dispatch."""
+        constrained = [it for it in batch if it[2]]
+        if constrained and len(constrained) < len(batch):
+            self._flush_group([it for it in batch if not it[2]])
+            self._flush_group(constrained)
+            return
+        self._flush_group(batch)
+
+    def _flush_group(self, batch: list) -> None:
         """Pad to the bucket ladder and dispatch; the batch is retired
         later by _drain_one (pipelined) unless dispatch itself fails."""
-        xs, futs, t0s = zip(*batch)
+        xs, prefs, iws, futs, t0s = zip(*batch)
         # Visible to close()'s wedge path: while dispatch is in flight
         # these futures are in neither the queue nor _inflight.
         self._current_futs = futs
@@ -646,7 +677,13 @@ class CaptionServer:
             pad = np.zeros((bucket - n,) + stacked.shape[1:], stacked.dtype)
             stacked = np.concatenate([stacked, pad])
         try:
-            finalize = self._submit_batch(stacked)
+            finalize = self._submit_batch(
+                stacked,
+                list(prefs) + [""] * (bucket - n) if any(prefs) else None,
+                # Padding rows get [] (all slots pre-satisfied): such a
+                # row is exactly standard beam search.
+                [list(w) for w in iws] + [[]] * (bucket - n) if any(iws) else None,
+            )
         except Exception as e:  # propagate to every waiter, keep serving
             _fail_futures(futs, e)
             self._current_futs = ()

@@ -39,9 +39,12 @@ Streaming uses connection-close framing (no Content-Length; read lines
 until EOF); a span comes at most once a sync group (``ticks_per_sync``
 steps). On the batch engine the streaming routes answer tpucap's 400.
 
-Not ported, refused by name: on the batch engine a request with ``prefix``
-or ``include_words`` answers 501 (``serve.refuse_dial``; ROADMAP item 6.3b).
-The continuous engines have no such dials and answer tpucap's 400.
+The batch engine serves the per-request dials, as query parameters
+(``?prefix=a+dog``, ``?include_words=dog,grass``) or JSON fields
+(``prefix``, ``include_words``; on ``/caption_batch`` also the per-row
+``prefixes`` / ``include_words_rows``): a bad dial answers 400, a batch
+that fails on the card 500. The continuous engines have no such dials and
+answer tpucap's 400.
 """
 
 from __future__ import annotations
@@ -537,9 +540,9 @@ class CaptionHTTPServer:
                 model = qs.get("model", [""])[0]
 
                 def _submit(server, x, prefix, include_words=()):
-                    """Submit with the request's dials: the batch server
-                    checks them, then refuses them by name; the continuous
-                    engines have neither surface -> tpucap's 400."""
+                    """Submit with the request's dials, which the batch
+                    server serves; the continuous engines have neither
+                    surface -> tpucap's 400."""
                     if not prefix and not include_words:
                         return server.submit(x)
                     if not isinstance(server, CaptionServer):
@@ -826,10 +829,6 @@ class CaptionHTTPServer:
                     self._reply(
                         503, {"error": str(e)}, {"Retry-After": "1"}
                     )
-                    return
-                except NotImplementedError as e:
-                    # A dial the port has not ported (serve.refuse_dial).
-                    self._reply(501, {"error": str(e)})
                     return
                 except Exception as e:
                     self._reply(400, {"error": str(e)})

@@ -1,7 +1,7 @@
 """Pure-Python tokenizer with tf_keras-parity semantics.
 
 A copy of ``tpucap.text.tokenizer.Tokenizer`` restricted to what serving
-and training need (fit, words to ids, reverse lookup, vocab size, JSON
+and training need (fit, words to ids and back, reverse lookup, vocab size, JSON
 persistence), so a vocabulary fitted or saved by either package loads in
 the other:
 
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import json
 from collections import OrderedDict
-from typing import Iterable
+from typing import Iterable, Sequence
 
 DEFAULT_FILTERS = '!"#$%&()*+,-./:;<=>?@[\\]^_`{|}~\t\n'
 
@@ -104,6 +104,27 @@ class Tokenizer:
                 elif self.oov_token is not None:
                     vect.append(oov_index)
             out.append(vect)
+        return out
+
+    def sequences_to_texts(self, sequences: Iterable[Sequence[int]]) -> list[str]:
+        """Ids -> space-joined words; ids at or above ``num_words`` (and
+        unknown ids) become the OOV word, or drop without one."""
+        num_words = self.num_words
+        oov_index = self.word_index.get(self.oov_token)
+        out = []
+        for seq in sequences:
+            vect: list[str] = []
+            for num in seq:
+                word = self.index_word.get(num)
+                if word is not None:
+                    if num_words and num >= num_words:
+                        if oov_index is not None:
+                            vect.append(self.index_word[oov_index])
+                    else:
+                        vect.append(word)
+                elif self.oov_token is not None:
+                    vect.append(self.index_word[oov_index])
+            out.append(" ".join(vect))
         return out
 
     def word_for_id(self, index: int) -> str | None:
