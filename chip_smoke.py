@@ -16,7 +16,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    phase 8's caption's 24 and its evaluate's and monitor's 64; in both
    dtypes at the continuous engine's 64 and 192 rows, phase 15, and at
    phase 16's dialled rows: 64 priming, 192 continuing, 384, 768 and 3072
-   constrained at C = 1, 2, 4);
+   constrained at C = 1, 2, 4; in f32 at phase 17's 4096-row draw);
    CUDA-event times of the kernel, the plain version and, where one PyTorch
    call computes the same function, that call; the least time the card
    could take (bound) from the bytes and operations of these inputs. K4
@@ -328,13 +328,33 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    p99; one launch window over (a)-(d): K2 and K3's two kernels once a
    counted step (priming and decode, offline and served; the plain paths
    launch nothing), K4 12 times a counted encoder pass, nothing else;
-17. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
+17. the tools and the sampler: path A (as phase 16) at 64 rows in f32
+   and bf16: (a) f32 sampling at top_k = 1 is greedy's captions; (b) one
+   seed twice gives the same tokens, lengths and score bits, in both
+   dtypes; (c) f32, the kernel path on a set of Gumbel draws against the
+   plain step path on the same draws, a differing row reported with its
+   perturbed logit gap (a fault unless a near-tie); (d) 4096 draws of the
+   first token at temperature 1 (the head's bias drawn with std 2, so the
+   distribution is not flat) against the plain step's softmax, chi-square
+   over the 16 likeliest words and the pooled rest within P17_CHI2_BOUND;
+   (e) ``generate_n_best`` entry 0 is ``generate(beam)`` at beam 3; (f) a
+   sampling ``CaptionServer`` in images mode gives ``generate(method=
+   "sample")`` of the same batch (K4); (j) ms a step of sampling against
+   greedy's, with and without top-p (bf16); one launch window over them:
+   K2 and K3 once a counted step, K4 12 times an encoder pass, nothing
+   else; then (g) ``python -m tpucap_torch doctor`` and ``profile
+   --workload decode|train|encoder`` (and ``--encoder vit_b16``, its route
+   logged) as subprocesses side by side, each trace holding 3
+   ``profile_step`` ranges and kernel events, the decode trace K2's and K3's
+   kernels; (h) ``train --tensorboard-dir`` on phase 8's dataset read back
+   with ``read_scalars`` as the logged records;
+18. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
    phase 9's counted serving runs for K1, K2 and K3, phase 10's counted
    steps and caption, phase 11's counted fits, decodes and commands,
    phase 12's counted monitor, joint fit, decodes and evaluates,
    phase 13's counted decodes, joint LoRA fits and caption, phase
    14's counted caption, path-A batch and re-imported decodes, phase
-   15's counted serving and phase 16's window), then ``{"ok": true,
+   15's counted serving, phase 16's and phase 17's windows), then ``{"ok": true,
    "device": {...}}`` as the last line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
@@ -567,8 +587,8 @@ def check_kernels(dev) -> dict[str, dict]:
         fe=rnd(Br, U).relu(), h32=rnd(Br, U, scale=0.5),
     )
     # K2 + K3 inputs at every row count of the served and dialled decodes
-    # (up to phase 16's 3072).
-    R = max(P16_STEP_ROWS)
+    # (up to phase 16's 3072) and phase 17's first-token draw (4096, f32).
+    R = max(*P16_STEP_ROWS, P17_DRAW_ROWS)
     tall = dict(x=rnd(R, U, scale=0.05), h=rnd(R, U, scale=0.5), c=rnd(R, U), fe=rnd(R, U).relu())
 
     def check_head(label, fe, h32, wp, bp, dt):
@@ -605,8 +625,9 @@ def check_kernels(dev) -> dict[str, dict]:
         # The continuous engine's ticks (phase 15 (f)-(h)): its 64 lanes
         # greedy, 64 groups of BEAM lanes at beam BEAM; the dialled batch of
         # phase 16: P16_ROWS rows while priming (64), B·k while continuing
-        # (192), B·2^C·k constrained (384, 768 and 3072 at C = 1, 2, 4).
-        for r in P16_STEP_ROWS:
+        # (192), B·2^C·k constrained (384, 768 and 3072 at C = 1, 2, 4); in
+        # f32, phase 17's one-step draw of P17_DRAW_ROWS rows.
+        for r in P16_STEP_ROWS + ((P17_DRAW_ROWS,) if dt == torch.float32 else ()):
             rows_r = tuple(tall[k][:r].to(dt) for k in ("x", "h", "c"))
             _, want_r = check_cell(f"B={r} E={U} U={U}", rows_r + cell[3:], dt)
             _, head_r = check_head(f"M={r}", tall["fe"][:r].to(dt), want_r[2], p["wp"], p["bp"], dt)
@@ -5138,6 +5159,281 @@ def run_dials(dev, tokenizer) -> dict[str, int]:
     return counts
 
 
+# -- phase 17: the tools and the sampler ---------------------------------------
+
+# Path A's 64 rows (the batch server's largest bucket) in f32 and bf16; the
+# first-token test's rows and its head bias (a random decoder's first-step
+# distribution is flat, 7579 words at about 1/7579 each: the bias, drawn with
+# std P17_BIAS_STD, puts 19-67 expected draws in each of the 16 likeliest
+# words' bins); the chi-square bound: 16 degrees of freedom (16 bins and the
+# pooled rest), p = 1e-4 (scipy.stats.chi2.ppf(1 - 1e-4, 16)).
+P17_ROWS, P17_DRAW_ROWS, P17_BINS, P17_BIAS_STD = 64, 4096, 16, 2.0
+P17_CHI2_BOUND = 45.92
+P17_TOP_P = 0.9
+# The kernels of a bf16 decode step as the profiler names them.
+P17_DECODE_KERNELS = ("lstm_cell_kernel", "merge_head_kernel", "vocab_proj_kernel")
+
+
+def sample_result(pipe, feats, step, *, generator=None, draws=None, params=None, max_len=None, **dials):
+    """``sample_decode`` of ``feats`` on the pipeline's decoder with ``step``
+    under its flags -> DecodeResult."""
+    from tpucap_torch.core import precision_flags
+    from tpucap_torch.decode import sample_decode
+
+    params = pipe._inference_params()["decoder"] if params is None else params
+    start, end = pipe._token_ids()
+    feats = feats.to(pipe._infer_dtype())
+    with torch.inference_mode(), precision_flags(pipe.config.precision):
+        return sample_decode(step, params, pipe.decoder.init_state(params, feats), generator=generator,
+                             draws=draws, start_id=start, end_id=end,
+                             max_len=max_len or pipe.config.decode.max_len, **dials)
+
+
+def sample_route(pipe, work, feats, label: str) -> None:
+    """17 (b) and, in f32, (a) and (c): one seed twice gives the same bits;
+    top_k = 1 is greedy token for token (in bf16 the logits tie at the top,
+    and every tied word stays in the draw, as in tpucap); the kernel path on
+    a set of draws equals the plain step path on the same draws, a row that
+    differs reported with the gap between its two words' perturbed logits (a
+    fault unless within the f32 route's logit tolerance)."""
+    dev = feats.device
+    f32 = pipe.config.precision == "f32"
+    if f32 and pipe.generate(feats, method="sample", top_k=1, temperature=0.7, seed=3) != pipe.generate(
+            feats, method="greedy"):
+        raise AssertionError(f"tools {label}: sampling at top_k = 1 != greedy")
+    one = [sample_result(pipe, feats, pipe.step_fn(), top_p=P17_TOP_P,
+                         generator=torch.Generator(device=dev).manual_seed(11)) for _ in range(2)]
+    for a, b in ((one[0].tokens, one[1].tokens), (one[0].lengths, one[1].lengths),
+                 (one[0].scores, one[1].scores)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"tools {label}: one seed gave two results")
+    msg = (f"tools {label}: {P17_ROWS} rows, " + ("sampling at top_k = 1 greedy's captions; " if f32 else "")
+           + f"one seed twice the same tokens, lengths and score bits (top_p {P17_TOP_P})")
+    if f32:
+        g = torch.Generator(device=dev).manual_seed(12)
+        from tpucap_torch.decode.sample import gumbel_noise
+
+        draws = [gumbel_noise((P17_ROWS, VOCAB), generator=g, device=dev) for _ in range(MAX_LEN)]
+        fused = sample_result(pipe, feats, pipe.step_fn(), draws=draws)
+        seen = []
+
+        def recording(p, st, tok):
+            logits, st = pipe.decoder.step(p, st, tok)
+            seen.append(logits.float())
+            return logits, st
+
+        plain = sample_result(pipe, feats, recording, draws=draws)
+        differ = (fused.tokens != plain.tokens).any(dim=1).nonzero().flatten().tolist()
+        gaps = []
+        for r in differ:
+            t = int((fused.tokens[r] != plain.tokens[r]).nonzero()[0])
+            a, b = int(fused.tokens[r, t]), int(plain.tokens[r, t])
+            z = seen[t][r] + draws[t][r]
+            # Each logit within the f32 route's tolerance of the plain one.
+            tol = 2 * (ROUTE_ATOL + ROUTE_RTOL * float(seen[t][r][[a, b]].abs().max()))
+            gaps.append((r, t, float(z[b] - z[a]), tol))
+        log(f"tools f32: kernel path against the plain step path on the same draws: "
+            f"{P17_ROWS - len(differ)} of {P17_ROWS} rows token for token; differing rows "
+            f"(row, step, perturbed logit gap) {gaps}; scores within "
+            f"{float((fused.scores - plain.scores).abs().max()):.3g}")
+        if any(abs(gap) > tol for _, _, gap, tol in gaps):
+            raise AssertionError(f"tools f32: kernel path and plain path differ beyond a near-tie: {gaps}")
+    log(msg)
+
+
+def first_token_frequencies(pipe, work) -> None:
+    """17 (d): P17_DRAW_ROWS rows of one feature row, one sampling step at
+    temperature 1 with no truncation, the head's bias drawn with std
+    P17_BIAS_STD: the first token's counts in the P17_BINS likeliest words'
+    bins and the pooled rest against the plain f32 step's softmax (pad
+    excluded), chi-square within P17_CHI2_BOUND."""
+    from tpucap_torch.core import precision_flags, tree_map
+
+    dev = pipe.device
+    params = tree_map(lambda t: t, pipe._inference_params()["decoder"])
+    params["out"] = dict(params["out"])
+    g = torch.Generator(device=dev).manual_seed(17)
+    bias = torch.randn(params["out"]["bias"].shape, generator=g, device=dev) * P17_BIAS_STD
+    params["out"]["bias"] = bias.to(params["out"]["bias"].dtype)
+    feats = torch.randn((1, DEC_FEATURES), generator=g, device=dev).expand(P17_DRAW_ROWS, -1).contiguous()
+    s0 = work.steps
+    res = sample_result(pipe, feats, pipe.step_fn(), params=params, max_len=1,
+                        generator=torch.Generator(device=dev).manual_seed(18))
+    if work.steps - s0 != 1:
+        raise AssertionError(f"tools: the first-token draw took {work.steps - s0} steps")
+    start, _ = pipe._token_ids()
+    with torch.inference_mode(), precision_flags("f32"):
+        state = pipe.decoder.init_state(params, feats[:1])
+        logits = pipe.decoder.step(params, state, torch.tensor([start], device=dev))[0][0].float()
+        probs = torch.softmax(logits.index_fill(0, torch.tensor([0], device=dev), -torch.inf), -1).double()
+    order = torch.argsort(probs, descending=True)[:P17_BINS]
+    counts = torch.bincount(res.tokens[:, 0], minlength=VOCAB).double()
+    observed = torch.cat([counts[order], (P17_DRAW_ROWS - counts[order].sum()).reshape(1)])
+    expected = torch.cat([probs[order], (1 - probs[order].sum()).reshape(1)]) * P17_DRAW_ROWS
+    chi2 = float(((observed - expected) ** 2 / expected).sum())
+    log(f"tools: first token of {P17_DRAW_ROWS} draws at temperature 1: expected "
+        f"{[round(x, 1) for x in expected[:P17_BINS].tolist()]} (rest {expected[-1]:.1f}), observed "
+        f"{[int(x) for x in observed.tolist()]}; chi-square {chi2:.3f} on {P17_BINS} degrees of "
+        f"freedom, bound {P17_CHI2_BOUND} (p = 1e-4)")
+    if not chi2 <= P17_CHI2_BOUND:
+        raise AssertionError(f"tools: first-token chi-square {chi2:.3f} > {P17_CHI2_BOUND}")
+
+
+def n_best_and_server(pipe, feats) -> None:
+    """17 (e), (f): ``generate_n_best`` entry 0 is ``generate(beam)`` at
+    beam BEAM; a sampling server in images mode gives ``generate(method=
+    "sample")`` of the same batch's features."""
+    from tpucap_torch.serve import CaptionServer
+
+    best = pipe.generate_n_best(feats)
+    if [row[0][0] for row in best] != pipe.generate(feats, method="beam"):
+        raise AssertionError("tools: generate_n_best's entry 0 != generate(beam)")
+    if any(len(row) != BEAM or [s for _, s in row] != sorted((s for _, s in row), reverse=True)
+           for row in best):
+        raise AssertionError("tools: an n-best list is not beam-wide and best first")
+    g = torch.Generator(device=pipe.device).manual_seed(19)
+    images = torch.rand((P17_ROWS, IMAGE, IMAGE, 3), generator=g, device=pipe.device).cpu().numpy()
+    with CaptionServer(pipe, mode="images", max_batch=P17_ROWS, max_delay_ms=2000, method="sample") as srv:
+        got = [f.result(120) for f in srv.submit_many(images)]
+    want = pipe.generate(pipe.encode_images(images), method="sample")
+    if got != want:
+        raise AssertionError(f"tools: the sampling server's {sum(a != b for a, b in zip(got, want))} "
+                             "captions differ from generate(method='sample')")
+    log(f"tools: generate_n_best entry 0 generate(beam)'s at beam {BEAM}, {P17_ROWS} rows; a sampling "
+        f"server in images mode ({P17_ROWS} images, one batch) generate(method='sample')'s captions")
+
+
+def sampling_times(pipe, work, feats, smi: str) -> None:
+    """17 (j): ms a decode step of sampling against greedy's, with and
+    without top-p (median of 3 calls after a warm one)."""
+    rows = []
+    for label, kw in (("greedy", dict(method="greedy")), ("sample", dict(method="sample")),
+                      (f"sample top_p {P17_TOP_P}", dict(method="sample", top_p=P17_TOP_P))):
+        call = lambda: pipe.generate(feats, **kw)  # noqa: E731
+        s0 = work.steps
+        call()
+        steps = work.steps - s0
+        ms = float(np.median([timed(call)[1] for _ in range(3)])) * 1e3
+        rows.append(f"{label} {ms / steps:.4f} ms a step ({steps} steps, {ms:.3f} ms)")
+    log(f"tools: {pipe.config.precision}, {P17_ROWS} rows: " + "; ".join(rows) + f" [{smi}]")
+
+
+def cli_subprocesses(tmp: Path) -> None:
+    """17 (g): ``python -m tpucap_torch doctor`` and ``profile --workload
+    decode|train|encoder`` (and ``--encoder vit_b16``) as subprocesses side
+    by side, the decode trace holding K2's and K3's kernels, the ViT route
+    logged."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    profiles = {
+        "decode": ["--workload", "decode", "--encoder", "resnet50"],
+        "train": ["--workload", "train", "--encoder", "resnet50", "--train-precision", "bf16"],
+        "encoder": ["--workload", "encoder", "--encoder", "resnet50"],
+        "encoder vit_b16": ["--workload", "encoder", "--encoder", "vit_b16"],
+    }
+    procs = {"doctor": subprocess.Popen([sys.executable, "-m", "tpucap_torch", "doctor"], cwd=ROOT, env=env,
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+    for name, argv in profiles.items():
+        out = tmp / name.replace(" ", "_")
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "tpucap_torch", "profile", *argv, "--steps", "3", "--out", str(out)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    done = {}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode:
+                raise AssertionError(f"tools: {name} exited {proc.returncode}: {err[-2000:]}")
+            done[name] = (out, err)
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    report = json.loads(done["doctor"][0])
+    if report.get("platform") != "gpu" or not report.get("matmul_ok") or not isinstance(report.get("kernels"), list):
+        raise AssertionError(f"tools: doctor reported {report}")
+    log(f"tools: doctor: {json.dumps(report)}")
+    for name in profiles:
+        (trace,) = (tmp / name.replace(" ", "_")).glob("*.pt.trace.json")
+        events = json.loads(trace.read_text())["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        # The host's ranges; on the card each also shows as a
+        # gpu_user_annotation span.
+        steps = sum(1 for e in events if e.get("name") == "profile_step" and e.get("cat") == "user_annotation")
+        found = {k: sum(k in n for n in kernels) for k in P17_DECODE_KERNELS}
+        if steps != 3 or not kernels or (name == "decode" and not all(found.values())):
+            raise AssertionError(f"tools: profile {name}: {steps} profile_step ranges, kernels {found}")
+        route = [ln for ln in done[name][1].splitlines() if "attention_impl" in ln]
+        log(f"tools: profile {name}: {trace.stat().st_size} bytes, {steps} profile_step ranges, "
+            f"{len(kernels)} kernel events" + (f", K2 / K3 {found}" if name == "decode" else "")
+            + (f"; {route[0]}" if route else ""))
+
+
+def train_tensorboard(tmp: Path) -> None:
+    """17 (h): ``train --tensorboard-dir`` (with ``--metrics-log``) on phase
+    8's dataset and random 4096-d features, its event file read back with
+    ``read_scalars`` as the logged records."""
+    from tpucap_torch.utils import read_scalars
+
+    root = tmp / "cli"
+    root.mkdir()
+    ids = write_cli_dataset(root)
+    rng = np.random.default_rng(17)
+    np.savez(root / "features.npz", **{k: rng.normal(size=4096).astype(np.float32) for k in ids})
+    tb, metrics = root / "tb", root / "metrics.jsonl"
+    _, err, sec, _ = run_cli(["train", *CLI_MODEL, "--tokens", root / "tokens.txt", "--split", root / "train.txt",
+                              "--features", root / "features.npz", "--checkpoint-dir", root / "ckpt",
+                              "--epochs", 2, "--batch-size", CLI_TRAIN_BATCH, "--metrics-log", metrics,
+                              "--tensorboard-dir", tb])
+    history = [json.loads(ln) for ln in metrics.read_text().splitlines()]
+    want = [(k, h["epoch"], float(np.float32(v))) for h in history for k, v in h.items()
+            if k not in ("epoch", "step", "wall_time") and isinstance(v, (int, float))]
+    got = read_scalars(tb)
+    if got != want or not got:
+        raise AssertionError(f"tools: train --tensorboard-dir read back {got[:6]}, logged {want[:6]}")
+    log(f"tools: train {' '.join(CLI_MODEL)} --tensorboard-dir on phase 8's dataset ({CLI_SPLITS[0]} ids, 2 "
+        f"epochs, {sec:.2f} s): {len(got)} scalars read back, the logged records'")
+
+
+def run_tools(dev, tokenizer, smi: str) -> dict[str, int]:
+    """Phase 17, one launch window over (a)-(f) and (j): K2 and K3's kernels
+    once a counted step, K4 12 times a counted encoder pass, nothing else
+    (the profile subprocesses count in their own processes). -> its
+    launches."""
+    import tempfile
+
+    from tpucap_torch import ops
+
+    pipes = {p: served_pipeline(p, tokenizer) for p in ("f32", "bf16")}
+    works = {p: DialWork(pipe) for p, pipe in pipes.items()}
+    g = torch.Generator(device=dev).manual_seed(170)
+    feats = torch.randn((P17_ROWS, DEC_FEATURES), generator=g, device=dev)
+    log(f"tools: path A (resnet50 fused_blocks + lstm1, vocab {VOCAB}, beam {BEAM}, max_len {MAX_LEN}), "
+        f"{P17_ROWS} rows of {DEC_FEATURES}-d features")
+    ops.reset_launch_counts()
+    try:
+        for p, pipe in pipes.items():
+            sample_route(pipe, works[p], feats, p)
+        first_token_frequencies(pipes["f32"], works["f32"])
+        n_best_and_server(pipes["bf16"], feats.bfloat16())
+        sampling_times(pipes["bf16"], works["bf16"], feats.bfloat16(), smi)
+        counts = ops.launch_counts()
+    finally:
+        for work in reversed(list(works.values())):
+            work.close()
+    steps = sum(w.steps for w in works.values())
+    encodes = sum(w.encodes for w in works.values())
+    expect = {name: {"lstm_cell": steps, "merge_head": steps, "vocab_proj": steps,
+                     "identity_block": 12 * encodes}.get(name, 0) for name in counts}
+    log(f"tools: launches over phase 17 {counts}; {steps} counted steps, {encodes} encoder passes")
+    if counts != expect or not steps or not encodes:
+        raise AssertionError(f"tools: launches {counts}, the counted work asks for {expect}")
+    del pipes, works
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_subprocesses(Path(tmp))
+        train_tensorboard(Path(tmp))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5223,6 +5519,11 @@ def main() -> int:
     for name in counts:
         counts[name] += dialled[name]
     log(f"phase 16: {time.perf_counter() - t16:.2f} s")
+    t17 = time.perf_counter()
+    tooled = run_tools(dev, tokenizer, smi)
+    for name in counts:
+        counts[name] += tooled[name]
+    log(f"phase 17: {time.perf_counter() - t17:.2f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

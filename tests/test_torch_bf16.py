@@ -1,5 +1,6 @@
 """The bf16 main path of tpucap_torch against tpucap's, on the CPU, same
-weights (bridged), both sides with ``precision="bf16"``: the slice's
+weights (the port's seeded init carried to tpucap, then bridged back), both
+sides with ``precision="bf16"``: the slice's
 ResNet-50 at input 64 (BN statistics drawn at random, then folded, so
 every conv has a non-zero bias), lstm1, batch 4.
 
@@ -49,6 +50,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_cli import _build_with_ports_weights
 from tpucap.config import Config, DecodeConfig, DecoderConfig, EncoderConfig
 from tpucap.models.encoders import common as jcommon
 from tpucap.ops.preprocess import fused_preprocess as jax_preprocess
@@ -141,7 +143,7 @@ def pipelines():
     )
     jpipe.encoder = jpipe.encoder.__class__(input_size=SIZE)
     jpipe.fit_tokenizer(CORPUS)
-    jpipe.build(rng=jax.random.key(0))
+    _build_with_ports_weights(JaxPipeline.build)(jpipe)  # the port's init, carried to tpucap
     params = jax.tree.map(np.array, jpipe.params)
     rng = np.random.default_rng(22)
     for name, bn in params["encoder"].items():

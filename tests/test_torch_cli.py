@@ -11,9 +11,12 @@ file, --dump-captions, --coco-results; then --average-last 2 with beam);
 ``train --bundle-out`` writes a bundle the port loads. Each
 package initializes from its own generator, so the port's
 ``CaptioningPipeline.build`` installs ``convert.params_from_jax`` of
-tpucap's ``build()`` on the same config and tokenizer; both
-``_build_config``s set dropout_rate 0 (training parity needs dropout off).
-Nothing of tpucap changes.
+tpucap's ``build()`` on the same config and tokenizer; in the presets'
+fixture tpucap's ``build`` installs the port's seeded init instead
+(``_build_with_ports_weights``: torch's InceptionV3 and VGG16 inits take a
+second where tpucap's eager ones take tens); both ``_build_config``s set
+dropout_rate 0 (training parity needs dropout off). Nothing of tpucap
+changes.
 
 Tolerances: printed lines, captions, the dump and COCO files identical
 (paths to each package's own outputs replaced by one placeholder), except
@@ -49,6 +52,7 @@ import warnings
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -60,8 +64,9 @@ from tpucap.pipeline import CaptioningPipeline as JaxPipeline
 from tpucap.text import Tokenizer as JaxTokenizer
 from tpucap_torch import config as tcfg
 from tpucap_torch.checkpoint import CheckpointManager
-from tpucap_torch.convert import params_from_jax
+from tpucap_torch.convert import params_from_jax, params_to_numpy
 from tpucap_torch.pipeline import CaptioningPipeline
+from tpucap_torch.text import Tokenizer
 
 torch.set_num_threads(2)
 
@@ -100,6 +105,28 @@ def _recording_build(orig):
         if rng is None and init_params:
             _TPUCAP_PARAMS[_build_key(self.config, self.tokenizer)] = jax.tree.map(np.array, self.params)
         return out
+
+    return build
+
+
+def _build_with_ports_weights(orig):
+    """tpucap's ``build`` with the port's weights for the same config and
+    vocabulary (the port's own seeded init, carried across by
+    ``convert.params_to_numpy``): torch's init takes a second where tpucap's
+    eager one of InceptionV3 or VGG16 takes tens. The port's ``build``
+    needs no patch then: its own init is those weights."""
+
+    def build(self, rng=None, init_params=True):
+        orig(self, rng, init_params=False)
+        if init_params:
+            if rng is not None:
+                raise AssertionError("a keyed tpucap build has no port counterpart")
+            tconfig = tcfg.config_from_dict(json.loads(json.dumps(dataclasses.asdict(self.config))))
+            ttok = None if self.tokenizer is None else Tokenizer.from_json(self.tokenizer.to_json())
+            pipe = CaptioningPipeline(tconfig, tokenizer=ttok, device="cpu")
+            pipe.build()
+            self.params = jax.tree.map(jnp.asarray, params_to_numpy(pipe.params))
+        return self.params
 
     return build
 
@@ -325,8 +352,7 @@ def preset_runs(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jcli, "_build_config", _no_dropout(jcli._build_config))
         mp.setattr(tcli, "_build_config", _no_dropout(tcli._build_config))
-        mp.setattr(CaptioningPipeline, "build", _build_with_tpucaps_weights(CaptioningPipeline.build))
-        mp.setattr(JaxPipeline, "build", _recording_build(JaxPipeline.build))
+        mp.setattr(JaxPipeline, "build", _build_with_ports_weights(JaxPipeline.build))
         for pkg, main in mains.items():
             out = root / pkg
             out.mkdir()
@@ -498,6 +524,12 @@ def test_unported_flags_exit_before_any_file_is_read(argv, monkeypatch):
         "--prefix": "--prefix supports --method greedy|beam (no ensemble)",
         "--include-words": "--include-words supports --method beam only (no ensemble/prefix/dump-attention)",
     }
+    if argv[-2] == "--tensorboard-dir":
+        # Ported: accepted; without a card the device's error comes first,
+        # before any file is read.
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcli.main(argv)
+        return
     if argv[-2] in ported:
         with pytest.raises(SystemExit) as jerr:
             jcli.main(argv)
@@ -545,4 +577,5 @@ def test_commands_without_a_card_raise(monkeypatch):
     assert out.returncode != 0 and "no CUDA device" in out.stderr
     helped = subprocess.run([sys.executable, "-m", "tpucap_torch", "--help"], cwd=ROOT,
                             capture_output=True, text=True, timeout=120)
-    assert helped.returncode == 0 and "{extract,train,caption,score,evaluate,compare,export,serve}" in helped.stdout
+    assert helped.returncode == 0 and (
+        "{extract,train,caption,score,evaluate,compare,export,serve,doctor,profile}" in helped.stdout)

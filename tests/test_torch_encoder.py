@@ -1,6 +1,7 @@
 """tpucap_torch's ResNet-50, BN folding and fused identity block (kernel
-K4's plain version) against tpucap's, on params bridged through
-params_from_jax (HWIO -> OIHW), at input 64, batch 2, f32.
+K4's plain version) against tpucap's, on the port's seeded init carried to
+tpucap by params_to_numpy and back through params_from_jax (HWIO <-> OIHW),
+at input 64, batch 2, f32.
 
 BN statistics are drawn at random so folding is not the identity.
 Tolerance: both sides run f32 convolutions that sum in different orders
@@ -36,7 +37,7 @@ from tpucap.models.encoders.tiny import TinyCNN as JaxTinyCNN
 from tpucap.models.encoders.vgg16 import VGG16 as JaxVGG16
 from tpucap.ops.pallas.bottleneck import fused_identity_block as jax_block
 from tpucap_torch import ops
-from tpucap_torch.convert import params_from_jax
+from tpucap_torch.convert import params_from_jax, params_to_numpy
 from tpucap_torch.models.encoders import VGG16, ResNet50, TinyCNN, build_encoder, resnet50
 from tpucap_torch.models.encoders.fold_bn import fold_resnet50
 from tpucap_torch.ops.bottleneck import fused_identity_block_plain
@@ -48,7 +49,9 @@ SIZE = 64
 
 @pytest.fixture(scope="module")
 def jax_params():
-    p = jax.tree.map(np.asarray, JaxResNet50().init(jax.random.key(0)))
+    """The port's seeded init in tpucap's layout (torch's init takes a
+    second where tpucap's eager one compiles op by op), BN drawn."""
+    p = params_to_numpy(ResNet50().init(torch.Generator().manual_seed(0)))
     rng = np.random.default_rng(0)
     for name, bn in p.items():
         if name.endswith("_bn"):
@@ -104,7 +107,7 @@ def test_resnet50_layout_and_options():
     assert (enc.input_size, enc.preprocess_mode, enc.feature_dim) == (224, "caffe", 2048)
     assert enc.spatial_positions == JaxResNet50().spatial_positions == 196
     tp = enc.init(torch.Generator().manual_seed(0))
-    jp = JaxResNet50().init(jax.random.key(0))
+    jp = jax.eval_shape(lambda: JaxResNet50().init(jax.random.key(0)))
     assert sorted(tp) == sorted(jp)
     for name in jp:
         for k, v in jp[name].items():
@@ -197,7 +200,9 @@ def test_fused_stages_route_only_their_identity_blocks(monkeypatch, stages, fold
 
 
 def _encoder_against_tpucap(jenc, tenc, size, batch, seed):
-    jp = jax.tree.map(np.asarray, jenc.init(jax.random.key(seed)))
+    jp = params_to_numpy(tenc.init(torch.Generator().manual_seed(seed)))  # carried to tpucap
+    want = jax.eval_shape(lambda: jenc.init(jax.random.key(seed)))
+    assert jax.tree.map(lambda a: a.shape, jp) == jax.tree.map(lambda a: a.shape, want)
     x = np.random.default_rng(seed).uniform(-120, 150, (batch, size, size, 3)).astype(np.float32)
     ref = np.asarray(jax.jit(jenc.apply)(jp, x))
     tp = params_from_jax(jp)

@@ -1,5 +1,6 @@
 """tpucap_torch's joint encoder + decoder training against tpucap's, on the
-CPU, same weights (bridged): ``vit_tiny`` (32 px, 2 x 64, 4 heads) and
+CPU, same weights (the port's seeded init carried to tpucap by
+``convert.params_to_numpy``, then back): ``vit_tiny`` (32 px, 2 x 64, 4 heads) and
 lstm1 (embed 16, hidden 32), vocab 50, batch 4, T = 8. The port runs
 ``attention_impl="flash"``: K5's ``FlashAttentionQKV``, whose forward and
 two backward kernels take their plain versions on the CPU. tpucap runs
@@ -94,10 +95,10 @@ def _batch(seed):
 
 
 def _params(seed):
-    return {
-        "encoder": jax.tree.map(np.asarray, jax_vit_tiny().init(jax.random.key(seed))),
-        "decoder": jax.tree.map(np.asarray, JaxDecoder(**DEC).init(jax.random.key(seed + 1))),
-    }
+    """The port's seeded init in tpucap's layout (numpy leaves): torch's
+    init is quick where tpucap's eager one compiles op by op."""
+    gen = torch.Generator().manual_seed(seed)
+    return params_to_numpy({"encoder": vit_tiny().init(gen), "decoder": MergeDecoder(**DEC).init(gen)})
 
 
 def _t(images, toks):
@@ -110,16 +111,26 @@ def _close_to_scale(got, want, share, what=""):
         np.testing.assert_allclose(np.asarray(g, np.float32), w, rtol=0, atol=share * np.abs(w).max(), err_msg=what)
 
 
+_VALUE_AND_GRAD = {}
+
+
+def _jax_value_and_grad(jdt):
+    """tpucap's joint loss and its gradients, one jit a compute dtype."""
+    if jdt not in _VALUE_AND_GRAD:
+        jenc, jdec = jax_vit_tiny(), JaxDecoder(**DEC)
+
+        def jfn(p, images, toks):
+            feats = jft.encode_for_decoder(
+                jenc, jloss.cast_floats(p["encoder"], jdt), jloss.cast_floats(images, jdt)
+            )
+            return jloss.caption_loss(jdec, p["decoder"], feats, toks, compute_dtype=jdt)[0]
+
+        _VALUE_AND_GRAD[jdt] = jax.jit(jax.value_and_grad(jfn))
+    return _VALUE_AND_GRAD[jdt]
+
+
 def _loss_and_grads(jp, images, toks, jdt=None, tdt=None):
-    jenc, jdec = jax_vit_tiny(), JaxDecoder(**DEC)
-
-    def jfn(p):
-        feats = jft.encode_for_decoder(
-            jenc, jloss.cast_floats(p["encoder"], jdt), jloss.cast_floats(jnp.asarray(images), jdt)
-        )
-        return jloss.caption_loss(jdec, p["decoder"], feats, jnp.asarray(toks), compute_dtype=jdt)[0]
-
-    jl, jg = jax.value_and_grad(jfn)(jax.tree.map(jnp.asarray, jp))
+    jl, jg = _jax_value_and_grad(jdt)(jax.tree.map(jnp.asarray, jp), jnp.asarray(images), jnp.asarray(toks))
     tp = trainable(params_from_jax(jp))
     x, tk = _t(images, toks)
     feats = encode_for_decoder(FLASH, cast_floats(tp["encoder"], tdt), cast_floats(x, tdt))
@@ -289,7 +300,7 @@ def _finetune_pipelines(rate):
         )
     )
     jpipe.fit_tokenizer(CAPTIONS)
-    jpipe.build(rng=jax.random.key(6))
+    jpipe.build(init_params=False)
     pipe = CaptioningPipeline(
         tcfg.Config(
             encoder=tcfg.encoder_config("vit_tiny"), decoder=tcfg.DecoderConfig(**dec),
@@ -299,8 +310,8 @@ def _finetune_pipelines(rate):
         device="cpu",
     )
     pipe.encoder = dataclasses.replace(pipe.encoder, attention_impl="flash")
-    pipe.build(init_params=False)
-    pipe.set_params(params_from_jax(jax.tree.map(np.asarray, jpipe.params)))
+    pipe.build(seed=6)  # the port's init, carried to tpucap
+    jpipe.params = jax.tree.map(jnp.asarray, params_to_numpy(pipe.params))
     rng = np.random.default_rng(90)
     images = {k: rng.uniform(-1, 1, size=(32, 32, 3)).astype(np.float32) for k in CAPTIONS}
     return jpipe, pipe, images
@@ -368,7 +379,7 @@ def test_joint_step_with_attention_reg_matches_tpucap():
     those the regularizer reaches directly (the attention MLP's
     ``att_feat``, ``att_hidden``, ``att_score`` and the initial state's
     ``init_h``, ``init_c``): within 1e-5 of the largest gradient (measured
-    7.8e-7). They sum the regularizer's cancelling terms: against an f64
+    7.8e-7 on tpucap's own init). They sum the regularizer's cancelling terms: against an f64
     evaluation of the same step tpucap's f32 values are off by up to
     1.2e-4 of their tensor's scale and the port's by 1.7e-5. The score bias, zero in
     theory, is rounding noise below 1e-5 of the largest gradient on each
@@ -382,7 +393,8 @@ def test_joint_step_with_attention_reg_matches_tpucap():
     lr, kw = 1e6, dict(vocab_size=V, feature_dim=128, embed_dim=16, hidden_dim=32, dropout_rate=0.0)
     jenc, tenc = JaxTinyCNN(features="spatial"), TinyCNN(features="spatial")
     jdec, tdec = jax_build_decoder("attention", **kw), build_decoder("attention", **kw)
-    jp = {"encoder": jenc.init(jax.random.key(19)), "decoder": jdec.init(jax.random.key(20))}
+    gen = torch.Generator().manual_seed(19)  # the port's init, carried to tpucap
+    jp = jax.tree.map(jnp.asarray, params_to_numpy({"encoder": tenc.init(gen), "decoder": tdec.init(gen)}))
     images, toks = _batch(21)
     jopt, topt = optax.sgd(lr), chain(scale_by_learning_rate(lr))
     jstate, jm = jft.make_joint_train_step(jenc, jdec, jopt, deterministic=True, attention_reg=1.0)(

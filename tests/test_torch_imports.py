@@ -1,8 +1,9 @@
 """tpucap_torch stands alone: no module of it, nor chip_smoke.py, imports
-jax, anything of tpucap, nltk, PIL, h5py, tensorflow, tf_keras or keras (its
-JPEG files go through its own decoder only, whatever the host has installed;
-its BLEU, METEOR and Porter stemmer are its own; it writes and reads Keras
-.h5 files with its own HDF5 code), and its JPEG decoder links no libjpeg; its
+jax, anything of tpucap, nltk, PIL, h5py, tensorflow, tensorboard, tf_keras
+or keras (its JPEG files go through its own decoder only, whatever the host
+has installed; its BLEU, METEOR and Porter stemmer are its own; it writes and
+reads Keras .h5 files with its own HDF5 code, and TensorBoard event files
+with its own writer), and its JPEG decoder links no libjpeg; its
 HTTP client imports only the standard library; scoring
 captions with every metric loads none of them either; its entry points
 refuse to run on the CPU
@@ -28,13 +29,15 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 
 # Runs in a fresh interpreter: a finder that refuses jax, tpucap, nltk, PIL and
-# the HDF5 / Keras stack, then every module of the package and chip_smoke, a
-# Keras .h5 written and read back by the port, then a look at sys.modules.
+# the HDF5 / Keras / TensorBoard stack, then every module of the package and
+# chip_smoke, a Keras .h5 and an event file written and read back by the port,
+# then a look at sys.modules.
 _REFUSE = """
 import importlib, importlib.abc, json, pkgutil, sys
 
 REFUSED = (
     "jax", "jaxlib", "tpucap", "nltk", "PIL", "h5py", "tensorflow", "tf_keras", "keras",
+    "tensorboard",
 )
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -65,6 +68,12 @@ with tempfile.TemporaryDirectory() as tmp:
     export_h5(dec, params, path, max_len=3)
     back = merge_decoder_params_from_keras(KerasH5Model(path))
 h5_ok = bool((back["out"]["kernel"] == params["out"]["kernel"].numpy()).all())
+from tpucap_torch.utils import MetricsLogger, read_scalars
+
+with tempfile.TemporaryDirectory() as tmp:
+    with MetricsLogger(tensorboard_dir=tmp) as log:
+        log.log({"epoch": 1, "loss": 0.5})
+    h5_ok = h5_ok and read_scalars(tmp) == [("loss", 1, 0.5)]
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 print(json.dumps({"imported": names, "loaded": loaded, "h5": h5_ok}))
 """
@@ -105,6 +114,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_tpucap():
         "tpucap_torch.text.porter", "tpucap_torch.checkpoint.hdf5",
         "tpucap_torch.checkpoint.keras_import", "tpucap_torch.checkpoint.keras_export",
         "tpucap_torch.serve", "tpucap_torch.serve_http", "tpucap_torch.client",
+        "tpucap_torch.decode.sample", "tpucap_torch.utils.events",
+        "tpucap_torch.utils.profiling", "tpucap_torch.utils.debug",
     } <= want
 
 

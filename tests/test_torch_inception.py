@@ -1,7 +1,8 @@
 """tpucap_torch's InceptionV3 (CONFIG_2 and CONFIG_5's encoder) and its
-``avg_pool_same`` against tpucap's, on the CPU, same params bridged through
-``convert.params_from_jax`` (the BatchNorm statistics drawn away from their
-init, so that every BN does something).
+``avg_pool_same`` against tpucap's, on the CPU, on the same params: the
+port's seeded init carried to tpucap by ``convert.params_to_numpy`` (the
+BatchNorm statistics drawn away from their init, so that every BN does
+something), then back through ``convert.params_from_jax``.
 
 Tolerances:
 - features, pooled (2048) and spatial (mixed7, 768), f32 both ways: 94
@@ -17,8 +18,8 @@ Tolerances:
 - bf16 (params cast to bf16 on both sides), input 75, BN folded: within
   1.5 % of the features' scale, about two bf16 ulps (measured 0.6 %
   pooled, spatial bit-identical at this size); the bf16 bound of
-  ``tests/test_torch_bf16.py``, kept in this file so that tpucap's
-  InceptionV3 init compiles once for both.
+  ``tests/test_torch_bf16.py``, kept in this file beside the f32 checks
+  on the same carried params.
 """
 
 import dataclasses
@@ -38,7 +39,7 @@ from tpucap.models.encoders.inception_v3 import InceptionV3 as JaxInceptionV3
 from tpucap.ops.preprocess import fused_preprocess
 from tpucap.pipeline import CaptioningPipeline as JaxPipeline
 from tpucap_torch import config as tcfg
-from tpucap_torch.convert import params_from_jax
+from tpucap_torch.convert import params_from_jax, params_to_numpy
 from tpucap_torch.core import tree_map
 from tpucap_torch.models.encoders import InceptionV3, build_encoder, fold_batch_norms
 from tpucap_torch.models.encoders.common import avg_pool_same
@@ -50,9 +51,11 @@ torch.set_num_threads(2)
 RTOL_SCALE = 1e-5
 
 
-def _params(enc, seed):
-    """tpucap's init, BatchNorm statistics drawn (numpy leaves)."""
-    params = jax.tree.map(np.asarray, enc.init(jax.random.key(seed)))
+def _params(features, seed):
+    """The port's seeded init (torch's, where tpucap's eager one costs tens
+    of seconds) in tpucap's layout, BatchNorm statistics drawn (numpy
+    leaves)."""
+    params = params_to_numpy(InceptionV3(features=features).init(torch.Generator().manual_seed(seed)))
     rng = np.random.default_rng(seed)
     for p in params.values():
         c = p["bn"]["beta"].shape[0]
@@ -89,7 +92,7 @@ CASES = [(75, "pooled", s, 2) for s in (0, 1, 2)] + [(75, "spatial", s, 2) for s
 def test_features_match_tpucap(size, features, seed, batch):
     jenc = JaxInceptionV3(features=features, input_size=size)
     enc = InceptionV3(features=features, input_size=size)
-    jp = _params(jenc, seed)
+    jp = _params(features, seed)
     x = np.random.default_rng(seed).uniform(-1, 1, size=(batch, size, size, 3)).astype(np.float32)
     want = _jax_apply(jenc)(jp, jnp.asarray(x))
     tp = params_from_jax(jp)
@@ -117,15 +120,8 @@ def test_features_match_tpucap(size, features, seed, batch):
 @pytest.mark.parametrize("features", ["pooled", "spatial"])
 def test_bf16_inception_v3_within_share_of_scale(features):
     jenc = JaxInceptionV3(features=features, input_size=75)
-    jp = jax.tree.map(np.asarray, jenc.init(jax.random.key(26)))
-    rng = np.random.default_rng(26)
-    for p in jp.values():
-        c = p["bn"]["beta"].shape[0]
-        p["bn"] = {"beta": rng.normal(size=c).astype(np.float32) * 0.2,
-                   "mean": rng.normal(size=c).astype(np.float32) * 0.2,
-                   "var": rng.uniform(0.3, 1.5, size=c).astype(np.float32)}
-    jp = jax_fold("inception_v3", jp)
-    x = rng.uniform(-1, 1, size=(2, 75, 75, 3)).astype(np.float32)
+    jp = jax_fold("inception_v3", _params(features, 26))
+    x = np.random.default_rng(27).uniform(-1, 1, size=(2, 75, 75, 3)).astype(np.float32)
     jpb = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), jp)
     want = np.asarray(jax.jit(jenc.apply)(jpb, jnp.asarray(x, jnp.bfloat16)), np.float32)
     tp = tree_map(lambda t: t.to(torch.bfloat16), params_from_jax(jp))
@@ -188,8 +184,17 @@ def test_caption_batch_matches_tpucaps_body():
                                decode=DecodeConfig(**decode), precision="f32"))
     jpipe.encoder = dataclasses.replace(jpipe.encoder, input_size=SIZE)
     jpipe.fit_tokenizer(CORPUS)
-    jpipe.build(rng=jax.random.key(0))
-    jpipe.params["encoder"] = _params(jpipe.encoder, 5)
+    jpipe.build(init_params=False)
+    pipe = CaptioningPipeline(
+        tcfg.Config(encoder=tcfg.encoder_config("inception_v3"), decoder=tcfg.DecoderConfig(**dec),
+                    decode=tcfg.DecodeConfig(**decode), precision="f32"),
+        tokenizer=Tokenizer.from_json(jpipe.tokenizer.to_json()),
+        device="cpu",
+    )
+    pipe.encoder = dataclasses.replace(pipe.encoder, input_size=SIZE)
+    pipe.build(seed=0)  # the port's decoder init, carried to tpucap
+    jpipe.params = {"encoder": _params("pooled", 5),
+                    "decoder": jax.tree.map(jnp.asarray, params_to_numpy(pipe.params["decoder"]))}
     jpipe.fold_bn()
     rng = np.random.default_rng(12)
     images = (rng.integers(0, 256, size=(4, 1, 1, 3)) * np.ones((1, 90, 80, 1))).astype(np.uint8)
@@ -201,14 +206,6 @@ def test_caption_batch_matches_tpucaps_body():
     d["feat_proj"]["bias"] = -feats.mean(axis=0) @ np.asarray(d["feat_proj"]["kernel"]) + 0.5
     d["out"]["kernel"] = d["out"]["kernel"] * 4
     d["out"]["bias"] = d["out"]["bias"].at[jpipe.tokenizer.word_index["endseq"]].add(0.5)
-    pipe = CaptioningPipeline(
-        tcfg.Config(encoder=tcfg.encoder_config("inception_v3"), decoder=tcfg.DecoderConfig(**dec),
-                    decode=tcfg.DecodeConfig(**decode), precision="f32"),
-        tokenizer=Tokenizer.from_json(jpipe.tokenizer.to_json()),
-        device="cpu",
-    )
-    pipe.encoder = dataclasses.replace(pipe.encoder, input_size=SIZE)
-    pipe.build(init_params=False)
     pipe.set_params(params_from_jax(jax.tree.map(np.asarray, jpipe.params)))
 
     start_id, end_id = jpipe._token_ids()

@@ -53,6 +53,8 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+import tpucap.checkpoint as jcheckpoint  # noqa: E402
+from test_torch_cli import _build_with_ports_weights  # noqa: E402
 from tpucap.checkpoint import keras_export as jexport  # noqa: E402
 from tpucap.checkpoint import keras_import as jimport  # noqa: E402
 from tpucap.data import (  # noqa: E402
@@ -490,11 +492,12 @@ class _Stop(Exception):
 
 @pytest.fixture(scope="module")
 def cli_runs(tmp_path_factory, encoder_files):
-    """Both CLIs on one dataset with the ResNet-50 file. The port's train
-    starts from tpucap's built decoder (recorded from tpucap's own train) and
-    both train with dropout 0 on tpucap's extracted features, so the
-    checkpoints agree; ``fit_finetune`` is replaced in both packages by a
-    recorder of the encoder it is handed."""
+    """Both CLIs on one dataset with the ResNet-50 file. tpucap's ``build``
+    installs the port's seeded weights (``_build_with_ports_weights``), so
+    both trainings start from one decoder, and both train with dropout 0 on
+    tpucap's extracted features, so the checkpoints agree; tpucap's Keras
+    read is made once a file; ``fit_finetune`` is replaced in both packages
+    by a recorder of the encoder it is handed."""
     root = tmp_path_factory.mktemp("cli_keras")
     img_dir, tokens, train, _ = generate_fixture_dataset(
         root / "data", n_images=4, image_size=32, seed=5)
@@ -504,7 +507,7 @@ def cli_runs(tmp_path_factory, encoder_files):
         load_descriptions(tokens), load_split(train)).values() for c in caps][: len(images)]
     h5 = str(encoder_files["resnet50"])
     feats = str(root / "tpucap" / "features.npz")
-    recorded, started, phase = {}, {}, {"record": False, "install": False, "score": False}
+    recorded, started, phase = {}, {}, {"score": False}
 
     def no_dropout(build_config):
         def build(args):
@@ -512,21 +515,17 @@ def cli_runs(tmp_path_factory, encoder_files):
             return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, dropout_rate=0.0))
         return build
 
-    def recording_build(orig):
-        def build(self, rng=None, init_params=True):
-            out = orig(self, rng, init_params)
-            if phase["record"]:
-                recorded["decoder"] = jax.tree.map(np.array, self.params["decoder"])
-            return out
-        return build
+    # tpucap's Keras read, once a file and arch (each command reads it
+    # again: tf_keras's load of the ResNet-50 file takes seconds).
+    keras_reads = {}
 
-    def tpucaps_decoder(orig):
-        def build(self, seed=None, init_params=True):
-            orig(self, seed, init_params)
-            if init_params and phase["install"]:
-                self.set_params({**self.params, "decoder": params_from_jax(recorded["decoder"])})
-            return self.params
-        return build
+    def cached_keras_read(orig):
+        def read(path, arch, **kw):
+            key = (str(path), arch, tuple(sorted(kw.items())))
+            if key not in keras_reads:
+                keras_reads[key] = orig(path, arch, **kw)
+            return jax.tree.map(jnp.array, keras_reads[key])
+        return read
 
     # score: the port's command scores tpucap's trained decoder on tpucap's
     # features, so that its lines differ from tpucap's by the score path's
@@ -581,8 +580,10 @@ def cli_runs(tmp_path_factory, encoder_files):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jcli, "_build_config", no_dropout(jcli._build_config))
         mp.setattr(tcli, "_build_config", no_dropout(tcli._build_config))
-        mp.setattr(JaxPipeline, "build", recording_build(JaxPipeline.build))
-        mp.setattr(CaptioningPipeline, "build", tpucaps_decoder(CaptioningPipeline.build))
+        # Both packages build the port's seeded weights (its decoder is the
+        # start of both trainings).
+        mp.setattr(JaxPipeline, "build", _build_with_ports_weights(JaxPipeline.build))
+        mp.setattr(jcheckpoint, "params_from_keras", cached_keras_read(jcheckpoint.params_from_keras))
         mp.setattr(JaxPipeline, "fit_finetune", fit_finetune_recorder("tpucap"))
         mp.setattr(CaptioningPipeline, "fit_finetune", fit_finetune_recorder("port"))
         mp.setattr(JaxPipeline, "score_captions", score_recorder(JaxPipeline.score_captions))
@@ -592,8 +593,6 @@ def cli_runs(tmp_path_factory, encoder_files):
             out.mkdir(exist_ok=True)
             result[pkg] = {"out": out}
             for name, argv in commands(out).items():
-                phase["record"] = pkg == "tpucap" and name == "train"
-                phase["install"] = pkg == "port" and name == "train"
                 phase["score"] = name == "score"
                 stdout, stderr = io.StringIO(), io.StringIO()
                 with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr), \

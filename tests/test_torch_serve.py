@@ -330,7 +330,8 @@ def test_dials_and_parallelism_refused_by_name(pipes):
     """The dials are served (the name is kept from when the port refused
     them): tpucap's admission checks with its texts, then prefixed and
     constrained requests, shared and per row, resolve to tpucap's server's
-    captions; parallelism other than none raises at construction."""
+    captions; parallelism other than none raises at construction; a
+    sampling server refuses both dials with tpucap's texts."""
     jpipe, pipe = pipes
     x = _rows(2, seed=10)
     word = next(w for w in pipe.tokenizer.word_index if w not in ("startseq", "endseq"))
@@ -381,8 +382,20 @@ def test_dials_and_parallelism_refused_by_name(pipes):
         assert rows == [f.result(60) for f in jsrv.submit_many(x, include_words_rows=[[], [word]])]
     with pytest.raises(NotImplementedError, match="parallelism='dp' is not ported"):
         CaptionServer(pipe, parallelism="dp")
-    with pytest.raises(NotImplementedError, match="decode/sample.py"):
-        CaptionServer(pipe, method="sample")
+    # Sampling is served too: neither dial, with tpucap's texts; a request
+    # is the synchronous generate(method="sample") of its batch (seed 0).
+    with JaxServer(jpipe, max_batch=2, method="sample") as jsrv, CaptionServer(
+        pipe, max_batch=2, method="sample"
+    ) as srv:
+        for kw in (dict(prefix=word), dict(include_words=[word])):
+            with pytest.raises(ValueError) as jerr:
+                jsrv.submit(x[0], **kw)
+            with pytest.raises(ValueError) as err:
+                srv.submit(x[0], **kw)
+            assert str(err.value) == str(jerr.value), kw
+        assert srv.submit(x[0]).result(60) == pipe.generate(x[:1], method="sample")[0]
+    with pytest.raises(NotImplementedError, match="'diverse' is not ported"):
+        CaptionServer(pipe, method="diverse")
 
 
 def test_warmup_runs_every_bucket(pipes, monkeypatch):

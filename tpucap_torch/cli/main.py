@@ -16,6 +16,8 @@ tpucap_torch.
     python -m tpucap_torch export   --checkpoint-dir DIR --out decoder.h5 [--bundle-out DIR]
     python -m tpucap_torch serve    --model-dir BUNDLE [--port 8000] [--extra-model NAME=BUNDLE]
     python -m tpucap_torch caption  --image photo.jpg --server HOST:PORT [--server-model NAME]
+    python -m tpucap_torch doctor   [--no-device-smoke]
+    python -m tpucap_torch profile  --workload decode|train|encoder --out DIR [--steps 3]
 
 (or ``tpucap-torch ...``). The parsers are tpucap's, flag for flag, and the
 commands print tpucap's lines. Artifacts: features as ``.npz`` (image id ->
@@ -67,7 +69,19 @@ field the port does not have raises NotImplementedError from
 ``config_from_dict``; a decoder it does not have (gru1, gru2, adaptive,
 transformer) raises NotImplementedError when the pipeline is built. All
 five presets run (``--preset config1`` ... ``config5``). tpucap's other
-subcommands (distill, doctor, profile, bench) are not registered.
+subcommands (distill, bench) are not registered.
+
+``doctor`` prints tpucap's report with the port's facts (torch, CUDA,
+``nvcc``, the kernel build directory where tpucap has its compile cache,
+the host JPEG decoder's and every kernel's build, a bf16 matmul on the
+device unless ``--no-device-smoke``); without a card it prints the device's
+error and exits 1. ``profile`` traces ``--steps`` iterations of a random
+decode (the pipeline's step: K2 + K3 for lstm1 on the card), train step or
+encoder pass with ``torch.profiler`` into a Chrome trace JSON under
+``--out`` (Perfetto or chrome://tracing; tpucap writes a TensorBoard
+profile), each iteration a ``profile_step`` range. ``train
+--tensorboard-dir DIR`` mirrors the per-epoch metrics as TensorBoard
+scalars, in event files the port writes itself (``utils/events.py``).
 """
 
 from __future__ import annotations
@@ -123,7 +137,6 @@ UNPORTED_FLAGS = {
         "data_parallel": (),
         "parallelism": ("none",),
         "model_devices": (),
-        "tensorboard_dir": (),
     },
     "caption": {
         "method": ("greedy",),
@@ -148,6 +161,8 @@ UNPORTED_FLAGS = {
         "include_encoder": (),
     },
     "serve": {"aot_bundle": ()},
+    "doctor": {},
+    "profile": {},
 }
 #: TrainConfig fields that the optimizer flags set, under their own names.
 _OPTIMIZER_FIELDS = (
@@ -546,7 +561,8 @@ def _train_features(args, pipe, prepared, features, karpathy) -> None:
     best_metric, best_mode = _monitor_keying(args)
     mgr = CheckpointManager(args.checkpoint_dir, best_metric=best_metric, best_mode=best_mode)
     # Made before training, as tpucap makes it: wall_time counts from here.
-    logger = MetricsLogger(args.metrics_log) if args.metrics_log else None
+    tb = args.tensorboard_dir
+    logger = MetricsLogger(args.metrics_log, tensorboard_dir=tb) if (args.metrics_log or tb) else None
     if args.lora_rank:
         # Adapters over the decoder; the merged result is written as a
         # pipeline bundle, the adapters too with --lora-out. The artifact is
@@ -696,8 +712,8 @@ def _train_finetune(args, pipe, prepared) -> None:
     if args.lora_out:
         pipe.save_lora(args.lora_out)
         print(f"LoRA adapters in {args.lora_out}")
-    if args.metrics_log:
-        logger = MetricsLogger(args.metrics_log)
+    if args.metrics_log or args.tensorboard_dir:
+        logger = MetricsLogger(args.metrics_log, tensorboard_dir=args.tensorboard_dir)
         for h in history:
             logger.log(h)
         logger.close()
@@ -1080,6 +1096,185 @@ def cmd_serve(args, device):
         print("drained; bye", file=sys.stderr)
 
 
+def _nvcc_version() -> str:
+    """The toolkit's release line (``nvcc --version``), or MISSING."""
+    import subprocess
+
+    from tpucap_torch import _build
+
+    try:
+        out = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout
+        return out.strip().splitlines()[-1]
+    except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+        return f"MISSING ({type(e).__name__})"
+
+
+def cmd_doctor(args, device):
+    """Environment diagnostics: platform and devices, library versions, the
+    host JPEG decoder's build, every kernel's build, and a one-matmul
+    device smoke (tpucap's layout; the kernel build directory stands where
+    tpucap has its compile cache). Without a card (and no
+    ``device="cpu"``) the report carries the device's error and the
+    command exits 1."""
+    import time
+
+    from tpucap_torch import __version__, _build
+
+    report = {}
+    t0 = time.perf_counter()
+    try:
+        dev = resolve_device(device)
+    except RuntimeError as e:
+        dev = None
+        report["platform"] = f"ERROR ({type(e).__name__}: {e})"
+        report["devices"] = []
+    else:
+        if dev.type == "cuda":
+            report["platform"] = "gpu"
+            report["devices"] = [torch.cuda.get_device_name(i)
+                                 for i in range(torch.cuda.device_count())]
+        else:
+            report["platform"] = dev.type
+            report["devices"] = [str(dev)]
+    report["device_query_s"] = round(time.perf_counter() - t0, 3)
+    report["torch"] = torch.__version__
+    report["cuda"] = torch.version.cuda or "none"
+    report["nvcc"] = _nvcc_version()
+    report["numpy"] = np.__version__
+    report["tpucap_torch"] = __version__
+    report["kernel_build_dir"] = str(_build.BUILD)
+    try:
+        from tpucap_torch.ops import jpeg
+
+        # Build the host decoder here, not mid-serving.
+        jpeg._lib()
+        report["jpeg_extension"] = "ok"
+    except Exception as e:
+        report["jpeg_extension"] = f"BUILD FAILED ({type(e).__name__}: {e})"
+    if dev is None:
+        print(json.dumps(report, indent=2))
+        raise SystemExit(1)
+    if dev.type != "cuda":
+        report["kernels"] = "skipped (cpu)"
+    else:
+        t0 = time.perf_counter()
+        try:
+            report["kernels"] = sorted(_build.build_all())
+        except Exception as e:
+            report["kernels"] = f"BUILD FAILED ({type(e).__name__}: {str(e).splitlines()[0]})"
+        report["kernel_build_s"] = round(time.perf_counter() - t0, 3)
+    if not args.no_device_smoke:
+        t0 = time.perf_counter()
+        x = torch.ones((512, 512), dtype=torch.bfloat16, device=dev)
+        y = x @ x
+        ok = bool(torch.isfinite(y).all())  # copies back: synchronizes
+        report["matmul_smoke_s"] = round(time.perf_counter() - t0, 3)
+        report["matmul_ok"] = ok
+    print(json.dumps(report, indent=2))
+
+
+def cmd_profile(args, device):
+    """Trace the configured workload with ``torch.profiler`` into a Chrome
+    trace JSON under ``--out`` (open it in Perfetto or chrome://tracing;
+    tpucap writes a TensorBoard profile instead). Random params (profiling
+    measures programs, not weights); the warm-up runs outside the trace.
+    Each traced iteration is a ``profile_step`` range. ``decode`` runs the
+    step the pipeline would (``pipeline.decode_step_fn``: K2 + K3 for lstm1
+    on the card) on params in ``--dtype``; ``train`` runs
+    ``make_train_step`` with Adam at 1e-3 on f32 features; ``encoder`` runs
+    ``encoder.apply`` on random images (unfolded params: the unfused
+    route)."""
+    from tpucap_torch.core import precision_flags, tree_map
+    from tpucap_torch.decode import beam_decode, greedy_decode
+    from tpucap_torch.models.decoders import build_decoder
+    from tpucap_torch.models.encoders import build_encoder
+    from tpucap_torch.pipeline import decode_step_fn
+    from tpucap_torch.train.loop import chain, make_train_step, scale_by_adam, scale_by_learning_rate
+    from tpucap_torch.utils import profile_trace
+
+    cfg = _build_config(args)
+    enc = build_encoder(cfg.encoder.name, cfg.encoder.features)
+    dec = build_decoder(
+        cfg.decoder.name,
+        vocab_size=cfg.vocab_size,
+        feature_dim=cfg.encoder.feature_dim,
+        embed_dim=cfg.decoder.embed_dim,
+        hidden_dim=cfg.decoder.hidden_dim,
+        num_layers=cfg.decoder.num_layers,
+        attention_dim=cfg.decoder.attention_dim,
+    )
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)  # noqa: E731
+    params = tree_map(lambda t: t.to(device), dec.init(torch.Generator().manual_seed(0)))
+    B = args.batch
+    if cfg.encoder.features == "spatial":
+        fshape = (B, enc.spatial_positions, cfg.encoder.feature_dim)
+    else:
+        fshape = (B, cfg.encoder.feature_dim)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    feats = torch.randn(fshape, generator=gen(1), device=device).to(dtype)
+
+    if args.workload == "decode":
+        kw = dict(start_id=1, end_id=2, max_len=cfg.decode.max_len)
+        engine = greedy_decode
+        if args.method == "beam":
+            kw.update(beam_width=args.beam_width, decoder=dec)
+            engine = beam_decode
+        dparams = tree_map(lambda t: t.to(dtype), params)
+        step = decode_step_fn(dec, device)
+
+        @torch.inference_mode()
+        def once():
+            res = engine(step, dparams, dec.init_state(dparams, feats), **kw)
+            return int(res.lengths.sum())
+
+    elif args.workload == "train":
+        from tpucap_torch.train import TrainState
+
+        opt = chain(scale_by_adam(), scale_by_learning_rate(1e-3))
+        state = TrainState.create(params, opt, gen(2))
+        step = make_train_step(
+            dec, opt,
+            compute_dtype=torch.bfloat16 if getattr(args, "train_precision", None) == "bf16" else None,
+        )
+        tokens = torch.randint(1, cfg.vocab_size, (B, cfg.decode.max_len + 1), generator=gen(3),
+                               device=device)
+        tfeats = feats.float()
+
+        def once():
+            nonlocal state
+            state, m = step(state, tfeats, tokens)
+            return float(m["loss"])
+
+    elif args.workload == "encoder":
+        enc_params = tree_map(lambda t: t.to(device, dtype), enc.init(torch.Generator().manual_seed(4)))
+        images = torch.rand((B, enc.input_size, enc.input_size, 3), generator=gen(5),
+                            device=device).to(dtype)
+        route = getattr(enc, "attention_impl", None)
+        if route is not None:
+            print(f"encoder {cfg.encoder.name}: attention_impl {route!r}", file=sys.stderr)
+
+        @torch.inference_mode()
+        def once():
+            return float(enc.apply(enc_params, images).flatten()[0])
+
+    else:
+        raise SystemExit(f"unknown workload {args.workload!r}")
+
+    with precision_flags(args.dtype):
+        print(f"compiling + warmup ({args.workload})...", file=sys.stderr)
+        once()
+        print(f"tracing {args.steps} steps -> {args.out}", file=sys.stderr)
+        with profile_trace(args.out, cuda=device.type == "cuda") as trace:
+            for _ in range(args.steps):
+                with torch.profiler.record_function("profile_step"):
+                    once()
+    print(
+        f"trace written: {trace.path}; view with Perfetto (ui.perfetto.dev) "
+        "or chrome://tracing"
+    )
+
+
 def refuse_unported_flags(parser, args) -> None:
     """SystemExit naming the first flag of ``args.cmd`` whose feature the
     port does not have and which was given a value the port does not take."""
@@ -1093,7 +1288,7 @@ def refuse_unported_flags(parser, args) -> None:
 
 
 def build_parser() -> tuple[argparse.ArgumentParser, dict]:
-    """tpucap's parser for the eight ported commands. -> (parser, the
+    """tpucap's parser for the ten ported commands. -> (parser, the
     subcommands' parsers by name)."""
     ap = argparse.ArgumentParser(prog="tpucap-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -1200,7 +1395,9 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
                    "(Show-Attend-Tell; attention decoder only)")
     _add_optimizer_flags(p)
     p.add_argument("--metrics-log", default=None, help="per-epoch JSONL records")
-    p.add_argument("--tensorboard-dir", default=None, help="not ported")
+    p.add_argument("--tensorboard-dir", default=None,
+                   help="also mirror per-epoch metrics as TensorBoard "
+                   "scalars (same logdir family as the profiler traces)")
     p.set_defaults(fn=cmd_train)
 
     p = caption = sub.add_parser("caption", help="caption image files")
@@ -1387,8 +1584,38 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
                    "gets its own micro-batcher (engine batch only)")
     _add_restore_flags(p)
     p.set_defaults(fn=cmd_serve)
+
+    p = doctor = sub.add_parser(
+        "doctor",
+        help="environment diagnostics (platform, devices, versions, "
+        "JPEG extension, kernel build, device smoke)",
+    )
+    p.add_argument("--no-device-smoke", action="store_true",
+                   help="skip the matmul probe on the device")
+    p.set_defaults(fn=cmd_doctor)
+
+    p = profile = sub.add_parser(
+        "profile",
+        help="capture a torch.profiler trace (Chrome trace JSON: Perfetto "
+        "or chrome://tracing) of a decode/train/encoder workload",
+    )
+    _add_common_model_flags(p)
+    _add_optimizer_flags(p)
+    p.add_argument("--workload", default="decode",
+                   choices=["decode", "train", "encoder"])
+    p.add_argument("--method", default="greedy",
+                   choices=["greedy", "beam"])
+    p.add_argument("--beam-width", type=int, default=3)
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--steps", type=int, default=3,
+                   help="traced iterations (after an untraced warmup)")
+    p.add_argument("--dtype", default="bf16", choices=["f32", "bf16"])
+    p.add_argument("--out", required=True,
+                   help="trace log dir (a Chrome trace JSON is written there)")
+    p.set_defaults(fn=cmd_profile)
     return ap, {"extract": extract, "train": train, "caption": caption, "score": score,
-                "evaluate": evaluate, "compare": compare, "export": export, "serve": serve}
+                "evaluate": evaluate, "compare": compare, "export": export, "serve": serve,
+                "doctor": doctor, "profile": profile}
 
 
 def main(argv=None, *, device=None):
@@ -1412,5 +1639,8 @@ def main(argv=None, *, device=None):
         return
     if args.cmd == "caption" and args.server:
         _caption_remote(args)  # no device here: the server's
+        return
+    if args.cmd == "doctor":
+        args.fn(args, device)  # reports a missing card itself
         return
     args.fn(args, resolve_device(device))

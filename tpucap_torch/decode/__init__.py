@@ -1,7 +1,8 @@
-"""Decode engines of the port: batched greedy and beam search on the
-device, forced-prefix priming and constrained (must-include) beam search,
-the continuous (slot-recycling) greedy and beam engines of the online
-server, and the ids -> caption join."""
+"""Decode engines of the port: batched greedy, beam search and ancestral
+sampling (temperature, top-k, top-p) on the device, forced-prefix priming
+and constrained (must-include) beam search, the continuous
+(slot-recycling) greedy and beam engines of the online server, and the
+ids -> caption join."""
 
 from tpucap_torch.decode.beam import BeamResult, beam_decode, normalized_scores
 from tpucap_torch.decode.constrained import (
@@ -13,6 +14,7 @@ from tpucap_torch.decode.continuous import ContinuousDecodeEngine, SlotState
 from tpucap_torch.decode.continuous_beam import BeamSlotState, ContinuousBeamEngine
 from tpucap_torch.decode.greedy import DecodeResult, greedy_decode
 from tpucap_torch.decode.prefix import prime_prefix
+from tpucap_torch.decode.sample import sample_decode
 from tpucap_torch.decode.text import ids_to_captions
 
 __all__ = [
@@ -30,4 +32,5 @@ __all__ = [
     "ids_to_captions",
     "normalized_scores",
     "prime_prefix",
+    "sample_decode",
 ]

@@ -128,6 +128,7 @@ from tpucap_torch.decode import (
     ids_to_captions,
     normalized_scores,
     prime_prefix,
+    sample_decode,
 )
 from tpucap_torch.models.decoders import MergeDecoder, build_decoder
 from tpucap_torch.models.encoders import build_encoder, fold_batch_norms
@@ -168,6 +169,19 @@ from tpucap_torch.train.scheduled import SCHEDULES, epsilon_for_epoch
 PARAMS_FILE = "params.npz"
 #: TrainConfig.val_metric values that greedy-decode the dev split.
 DECODE_MONITORS = ("bleu4", "cider", "rouge_l", "meteor")
+
+
+def decode_step_fn(decoder, device):
+    """The decode step on ``device``: kernels K2 + K3 on the card for a
+    1-layer merge decoder, the plain decoder step otherwise (lstm2, inject
+    and the attention decoder, as in the JAX package)."""
+    if (
+        torch.device(device).type == "cuda"
+        and isinstance(decoder, MergeDecoder)
+        and decoder.num_layers == 1
+    ):
+        return make_fused_merge_step(decoder)
+    return decoder.step
 
 
 class CaptioningPipeline:
@@ -396,16 +410,8 @@ class CaptioningPipeline:
     # -- decoding ----------------------------------------------------------
 
     def step_fn(self):
-        """The decode step: kernels K2 + K3 on the card for a 1-layer merge
-        decoder, the plain decoder step otherwise (lstm2, inject and the
-        attention decoder, as in the JAX package)."""
-        if (
-            self.device.type == "cuda"
-            and isinstance(self.decoder, MergeDecoder)
-            and self.decoder.num_layers == 1
-        ):
-            return make_fused_merge_step(self.decoder)
-        return self.decoder.step
+        """The decode step: ``decode_step_fn(self.decoder, self.device)``."""
+        return decode_step_fn(self.decoder, self.device)
 
     def _decode(self, dec_params, feats, method, beam_width):
         """The decode engine on ``feats``, under the pipeline's own precision
@@ -455,11 +461,104 @@ class CaptioningPipeline:
         )
 
     def generate(
-        self, features, *, method: str | None = None, beam_width: int | None = None
+        self,
+        features,
+        *,
+        method: str | None = None,
+        beam_width: int | None = None,
+        temperature: float = 1.0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        repetition_penalty: float = 1.0,
+        seed: int = 0,
+        parallelism: str | None = None,
     ) -> list[str]:
-        """Features (B, D) -> caption strings (sentinels stripped):
-        ``generate_submit(features, ...)()``."""
-        return self.generate_submit(features, method=method, beam_width=beam_width)()
+        """Features (B, D) -> caption strings (sentinels stripped).
+
+        method: 'greedy' | 'beam' (``generate_submit(features, ...)()``) |
+        'sample' (``decode/sample.py``; temperature, top_k, top_p,
+        repetition_penalty and seed apply to sampling only). ``seed`` seeds
+        a ``torch.Generator`` on the pipeline's device: the same seed gives
+        the same captions here, and other captions than tpucap's for that
+        seed (its draws come from a jax key). ``parallelism`` other than
+        none: sampling refuses it with tpucap's error, greedy and beam by
+        name (not ported)."""
+        method = method or self.config.decode.method
+        if parallelism not in (None, "none"):
+            if method == "sample":
+                raise ValueError("sampling decode does not support parallelism")
+            refuse_unported(parallelism=(parallelism, None))
+        if method != "sample":
+            return self.generate_submit(features, method=method, beam_width=beam_width)()
+        params = self._inference_params()
+        return self._sample_captions(
+            params["decoder"], self._features(params, features, images=False),
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            repetition_penalty=repetition_penalty, seed=seed,
+        )
+
+    @torch.inference_mode()
+    def _sample_captions(self, dec_params, feats, *, seed: int = 0, **dials) -> list[str]:
+        """Sampling decode of ``feats`` under the pipeline's flags, on the
+        given params snapshot; ``dials``: sample_decode's temperature,
+        top_k, top_p and repetition_penalty."""
+        with precision_flags(self.config.precision):
+            start_id, end_id = self._token_ids()
+            dcfg = self.config.decode
+            res = sample_decode(
+                self.step_fn(),
+                dec_params,
+                self.decoder.init_state(dec_params, feats),
+                generator=torch.Generator(device=self.device).manual_seed(seed),
+                start_id=start_id,
+                end_id=end_id,
+                max_len=dcfg.max_len,
+                min_len=dcfg.min_len,
+                banned_ids=self._banned_ids(),
+                no_repeat_ngram_size=dcfg.no_repeat_ngram_size,
+                **dials,
+            )
+        return self._captions(res)
+
+    @torch.inference_mode()
+    def generate_n_best(
+        self, features, *, n: int | None = None, beam_width: int | None = None
+    ) -> list[list[tuple[str, float]]]:
+        """Beam search's n-best list a row: for each of the B feature rows,
+        (caption, normalized score) pairs best first. ``n`` defaults to the
+        beam width; entry 0 is exactly ``generate(method='beam')`` (the
+        engine's own f32 ranking, ties to the lowest slot by a stable
+        sort). Scores are length-normalized when
+        ``config.decode.length_normalize``, raw log-prob sums otherwise."""
+        beam_width = beam_width or self.config.decode.beam_width
+        n = n or beam_width
+        if n > beam_width:
+            raise ValueError(
+                f"n={n} exceeds beam_width={beam_width} — only "
+                "beam_width hypotheses exist"
+            )
+        params = self._inference_params()
+        feats = self._features(params, features, images=False)
+        res = self._decode(params["decoder"], feats, "beam", beam_width)
+        _, end_id = self._token_ids()
+        dcfg = self.config.decode
+        lengths = res.beam_lengths
+        norm = normalized_scores(
+            res.beam_scores.float(),
+            lengths,
+            length_normalize=dcfg.length_normalize,
+            alpha=dcfg.alpha,
+            length_penalty=dcfg.length_penalty,
+        )
+        order = torch.sort(norm, dim=-1, descending=True, stable=True).indices[:, :n]
+        tokens = res.beam_tokens.gather(1, order[..., None].expand(-1, -1, res.beam_tokens.shape[-1]))
+        caps = ids_to_captions(
+            self.tokenizer, tokens.flatten(0, 1), lengths.gather(1, order).flatten(), end_id=end_id
+        )
+        scores = norm.gather(1, order).cpu().tolist()
+        return [
+            list(zip(caps[b * n:(b + 1) * n], scores[b])) for b in range(order.shape[0])
+        ]
 
     @torch.inference_mode()
     def generate_submit(

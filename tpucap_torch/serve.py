@@ -34,6 +34,11 @@ carries its dials; a batch with any constrained row splits those rows into
 a dispatch of their own (the 2^C banks must not tax the others), with C
 bucketed to 1, 2 or 4. In images mode each route encodes and decodes on one
 snapshot of the params. tpucap's continuous engines have no such dials.
+
+A batch server with ``method="sample"`` decodes each batch synchronously
+through the pipeline's sampling engine (``decode/sample.py``) at seed 0, as
+tpucap's does; it takes neither dial (tpucap's 400 texts). The continuous
+server stays greedy and beam, as in tpucap.
 """
 
 from __future__ import annotations
@@ -209,7 +214,10 @@ class CaptionServer:
     (``pipeline.encode_submit``: both on one snapshot of the params).
 
     decode kwargs (method/beam_width) are fixed at server construction.
-    ``parallelism`` other than none raises NotImplementedError.
+    method 'sample' decodes each batch synchronously (``generate``'s
+    sampling defaults, seed 0 a batch, as tpucap's server); in images mode
+    on one snapshot of the params. ``parallelism`` other than none raises
+    NotImplementedError.
     """
 
     def __init__(
@@ -232,11 +240,11 @@ class CaptionServer:
             raise ValueError("max_batch must be >= 1")
         refuse_unported(parallelism=(parallelism if parallelism != "none" else None, None))
         resolved = method or pipeline.config.decode.method
-        if resolved not in ("greedy", "beam"):
+        if resolved not in ("greedy", "beam", "sample"):
             raise NotImplementedError(
                 f"method {resolved!r} is not ported to tpucap_torch's server "
-                "(greedy|beam; sampling is decode/sample.py, ROADMAP queue 1, "
-                "item 6.3c)"
+                "(greedy|beam|sample; the rest of the decode toolkit is ROADMAP "
+                "queue 1, item 6.3c)"
             )
         # Per-request forced-prefix token cap, tpucap's admission rule.
         self._max_prefix_tokens = (
@@ -257,6 +265,9 @@ class CaptionServer:
         # a batch is left to overlap.
         self._depth = max(1, pipeline_depth)
         self._inflight: deque = deque()
+        # Sampling goes through the synchronous generate(), each batch
+        # under tpucap's default seed 0, as in tpucap.
+        self._async_ok = resolved != "sample"
         self._buckets = _buckets(max_batch)
         self._current_futs: tuple = ()  # batch mid-dispatch (wedge path)
         # Bounded admission: reject (Overloaded) rather than queue without
@@ -557,6 +568,12 @@ class CaptionServer:
                 else self._pipe.generate_continuation_submit
             )
             return submit(batch, prefixes, **kw)
+        if not self._async_ok:
+            params = self._pipe._inference_params()
+            with torch.inference_mode():
+                feats = self._pipe._features(params, batch, images=images)
+            captions = self._pipe._sample_captions(params["decoder"], feats)
+            return lambda: captions
         if images:
             return self._pipe.encode_submit(batch, **kw)
         return self._pipe.generate_submit(batch, **kw)

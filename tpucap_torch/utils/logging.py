@@ -1,6 +1,13 @@
-"""JSONL metrics logging (the JSONL half of ``tpucap.utils.logging``): one
-JSON object a record, appended, each with the seconds since the logger
-was made as ``wall_time`` unless the record has one."""
+"""Structured metrics logging (port of ``tpucap.utils.logging``): one JSON
+object a record, appended, each with the seconds since the logger was made
+as ``wall_time`` unless the record has one; with ``tensorboard_dir``, every
+int, float or bool field also as a TensorBoard scalar.
+
+The event files are the port's own (``utils/events.py``: TFRecord framing,
+CRC-32C, TF2's scalar form, written with the standard library), where
+tpucap writes them through TensorFlow's ``tf.summary``: TensorBoard reads
+either. ``read_scalars`` reads them back.
+"""
 
 from __future__ import annotations
 
@@ -8,16 +15,20 @@ import json
 import sys
 import time
 
+from tpucap_torch.utils.events import EventFileWriter
+
 
 class MetricsLogger:
     def __init__(self, path=None, *, echo: bool = False, tensorboard_dir=None):
-        """path: JSONL file (append). ``tensorboard_dir`` needs TensorFlow's
-        summary writer in tpucap and is not ported."""
-        if tensorboard_dir:
-            raise NotImplementedError("tensorboard_dir is not ported (it needs TensorFlow)")
+        """path: JSONL file (append). tensorboard_dir: also mirror numeric
+        fields as TensorBoard scalars in a new event file there. The step
+        comes from a 'step' or 'epoch' field when present, else a running
+        counter of ``log`` calls."""
         self._file = open(path, "a") if path else None
         self._echo = echo
         self._t0 = time.time()
+        self._tb = EventFileWriter(tensorboard_dir) if tensorboard_dir else None
+        self._tb_step = 0
 
     def log(self, record: dict) -> None:
         record = dict(record)
@@ -26,6 +37,14 @@ class MetricsLogger:
         if self._file:
             self._file.write(line + "\n")
             self._file.flush()
+        if self._tb is not None:
+            step = record.get("step", record.get("epoch", self._tb_step))
+            self._tb_step += 1
+            for k, v in record.items():
+                if k in ("step", "epoch", "wall_time"):
+                    continue
+                if isinstance(v, (int, float)):
+                    self._tb.add_scalar(k, v, int(step))
         if self._echo:
             print(line, file=sys.stderr)
 
@@ -33,6 +52,9 @@ class MetricsLogger:
         if self._file:
             self._file.close()
             self._file = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
 
     def __enter__(self):
         return self
