@@ -16,7 +16,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    phase 8's caption's 24 and its evaluate's and monitor's 64; in both
    dtypes at the continuous engine's 64 and 192 rows, phase 15, and at
    phase 16's dialled rows: 64 priming, 192 continuing, 384, 768 and 3072
-   constrained at C = 1, 2, 4; in f32 at phase 17's 4096-row draw);
+   constrained at C = 1, 2, 4; at phase 18's 320, 576 and 960 rows; in
+   f32 at phase 17's 4096-row draw);
    CUDA-event times of the kernel, the plain version and, where one PyTorch
    call computes the same function, that call; the least time the card
    could take (bound) from the bytes and operations of these inputs. K4
@@ -348,13 +349,43 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``profile_step`` ranges and kernel events, the decode trace K2's and K3's
    kernels; (h) ``train --tensorboard-dir`` on phase 8's dataset read back
    with ``read_scalars`` as the logged records;
-18. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
+18. the rest of the decode toolkit: path A (as phase 16) at 64 rows in
+   f32, seeds 0 and 1, and CONFIG_4 (VGG16's 14 x 14 grid, the attention
+   decoder) in f32: (a) diverse search at G = 1 is beam 3 (captions and
+   scores), and at diversity 0 every group of G = 3 is beam 3's but for
+   rows parted at a near-tie (counted; at most 8 of 64), with one step's
+   logits and logsumexp of one hypothesis in two rows compared bit for
+   bit;
+   (b) G = 3, k' = 3, diversity 0.5
+   (576 rows a step) token for token the plain step path's group by group,
+   normalized scores within P16_SCORE_ATOL, the rows whose group-0 and
+   group-1 captions differ counted; (c)-(e) token for token but for at
+   most 8 of 64 rows parted at a near-tie (logged, with the f32 logit gap
+   where one model decodes both): (c) a one-member ensemble against
+   ``generate``, greedy and beam 3; (d) seeds 0 + 1 against the plain step
+   path, weights [1, 0] against member 0's ``generate``; (e) path A's
+   lstm1 with CONFIG_4's attention decoder on one batch of 64 uint8 images,
+   each member through its own encoder (K1 both, K4 on path A), against
+   the plain step path; (f) ``generate_mbr`` from sample, beam and
+   diverse pools of 5: each pick in its pool and ``mbr_select``'s; (g)
+   ``generate_with_attention`` greedy on CONFIG_4: the teacher-forced maps
+   within P18_ALPHA_ATOL of a ``_step_full`` replay of the decode for t <
+   length, each summing to 1; (j) bf16 ms a step of diverse 3 x 3 against
+   beam 9 and of a two-member ensemble against one model, and ms a
+   ``generate_mbr`` call a source; one launch window over them: K2 and K3
+   once a counted step of each lstm1 member, K4 12 times a path-A encoder
+   pass, K1 once an image batch, nothing else; then (h) ``caption --method
+   diverse``, ``--method mbr --mbr-from beam`` and ``--ensemble-with`` on
+   phase 8's checkpoint (and a bundle of it) print the library calls'
+   lines, and ``--dump-attention`` on CONFIG_4 saved as a checkpoint writes
+   tpucap's keys and dtypes, as subprocesses side by side;
+19. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
    phase 9's counted serving runs for K1, K2 and K3, phase 10's counted
    steps and caption, phase 11's counted fits, decodes and commands,
    phase 12's counted monitor, joint fit, decodes and evaluates,
    phase 13's counted decodes, joint LoRA fits and caption, phase
    14's counted caption, path-A batch and re-imported decodes, phase
-   15's counted serving, phase 16's and phase 17's windows), then ``{"ok": true,
+   15's counted serving, phase 16's, 17's and 18's windows), then ``{"ok": true,
    "device": {...}}`` as the last line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
@@ -369,8 +400,10 @@ import importlib.util
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -588,7 +621,7 @@ def check_kernels(dev) -> dict[str, dict]:
     )
     # K2 + K3 inputs at every row count of the served and dialled decodes
     # (up to phase 16's 3072) and phase 17's first-token draw (4096, f32).
-    R = max(*P16_STEP_ROWS, P17_DRAW_ROWS)
+    R = max(*P16_STEP_ROWS, *P18_STEP_ROWS, P17_DRAW_ROWS)
     tall = dict(x=rnd(R, U, scale=0.05), h=rnd(R, U, scale=0.5), c=rnd(R, U), fe=rnd(R, U).relu())
 
     def check_head(label, fe, h32, wp, bp, dt):
@@ -625,9 +658,10 @@ def check_kernels(dev) -> dict[str, dict]:
         # The continuous engine's ticks (phase 15 (f)-(h)): its 64 lanes
         # greedy, 64 groups of BEAM lanes at beam BEAM; the dialled batch of
         # phase 16: P16_ROWS rows while priming (64), B·k while continuing
-        # (192), B·2^C·k constrained (384, 768 and 3072 at C = 1, 2, 4); in
-        # f32, phase 17's one-step draw of P17_DRAW_ROWS rows.
-        for r in P16_STEP_ROWS + ((P17_DRAW_ROWS,) if dt == torch.float32 else ()):
+        # (192), B·2^C·k constrained (384, 768 and 3072 at C = 1, 2, 4); phase
+        # 18's beam pool of 5 (320), diverse 3 x 3 (576) and pool 5 x 3
+        # (960); in f32, phase 17's one-step draw of P17_DRAW_ROWS rows.
+        for r in P16_STEP_ROWS + P18_STEP_ROWS + ((P17_DRAW_ROWS,) if dt == torch.float32 else ()):
             rows_r = tuple(tall[k][:r].to(dt) for k in ("x", "h", "c"))
             _, want_r = check_cell(f"B={r} E={U} U={U}", rows_r + cell[3:], dt)
             _, head_r = check_head(f"M={r}", tall["fe"][:r].to(dt), want_r[2], p["wp"], p["bp"], dt)
@@ -1795,11 +1829,10 @@ def check_cli_counts(label: str, counts: dict[str, int], decode_batches: int) ->
     return k2
 
 
-def run_cli_workflow(dev) -> None:
+def run_cli_workflow(dev, root: Path) -> None:
     """8: extract -> train -> caption -> evaluate on ``--preset config1``,
-    each command held to the library calls it stands for."""
-    import tempfile
-
+    each command held to the library calls it stands for, in ``root``
+    (phase 18 captions from its checkpoint ``root / "ckpt"``)."""
     from tpucap_torch import ops
     from tpucap_torch.checkpoint import CheckpointManager
     from tpucap_torch.cli.main import _build_config, build_parser
@@ -1812,165 +1845,163 @@ def run_cli_workflow(dev) -> None:
     from tpucap_torch.train.evaluate import METRICS, evaluate_captions
 
     preset = list(CLI_MODEL)
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        ids = write_cli_dataset(root)
-        feats_path, ckpt = root / "features.npz", root / "ckpt"
-        paths = [root / "images" / f"{k}.jpg" for k in ids]
-        cfg = _build_config(build_parser()[0].parse_args(["extract", *preset, "--images", "-", "--out", "-"]))
-        log(f"cli: {' '.join(preset)}: {cfg.encoder.name} {cfg.encoder.features} {cfg.encoder.feature_dim}-d "
-            f"at {build_encoder(cfg.encoder.name).input_size}, {cfg.decoder.name} embed {cfg.decoder.embed_dim} hidden {cfg.decoder.hidden_dim}, "
-            f"max_len {cfg.decode.max_len}, precision {cfg.precision}; {CLI_IMAGES} images (the six "
-            f"baseline fixtures in turn), {CLI_REFS} captions each, splits {CLI_SPLITS}")
+    ids = write_cli_dataset(root)
+    feats_path, ckpt = root / "features.npz", root / "ckpt"
+    paths = [root / "images" / f"{k}.jpg" for k in ids]
+    cfg = _build_config(build_parser()[0].parse_args(["extract", *preset, "--images", "-", "--out", "-"]))
+    log(f"cli: {' '.join(preset)}: {cfg.encoder.name} {cfg.encoder.features} {cfg.encoder.feature_dim}-d "
+        f"at {build_encoder(cfg.encoder.name).input_size}, {cfg.decoder.name} embed {cfg.decoder.embed_dim} hidden {cfg.decoder.hidden_dim}, "
+        f"max_len {cfg.decode.max_len}, precision {cfg.precision}; {CLI_IMAGES} images (the six "
+        f"baseline fixtures in turn), {CLI_REFS} captions each, splits {CLI_SPLITS}")
 
-        # (a) extract
-        ops.reset_launch_counts()
-        out, err, extract_s, _ = run_cli(["extract", *preset, "--images", root / "images", "--out",
-                                          feats_path, "--batch-size", CLI_EXTRACT_BATCH])
-        counts = ops.launch_counts()
-        if [line for _, line in out] != [f"wrote {CLI_IMAGES} features to {feats_path}"] or any(counts.values()):
-            raise AssertionError(f"cli extract: printed {out}, launches {counts}")
-        with np.load(feats_path) as z:
-            feats = {k: z[k] for k in z.files}
-        pipe = CaptioningPipeline(cfg, device=dev)
-        pipe.build()
-        want, lib_s = timed(lambda: pipe.extract_features(paths, batch_size=CLI_EXTRACT_BATCH))
-        if sorted(feats) != sorted(ids) or not all(
-            feats[k].dtype == np.float32 and np.array_equal(feats[k], w) for k, w in zip(ids, want)
-        ) or not np.isfinite(want).all():
-            raise AssertionError("cli extract: the rows differ from extract_features' on the same weights")
-        log(f"cli extract: {CLI_IMAGES} rows of {want.shape[1]}, bit for bit extract_features' on the same "
-            f"weights; the command {extract_s:.5f} s ({CLI_IMAGES / extract_s:.2f} images/s, VGG16's "
-            f"random build included), extract_features alone {lib_s:.5f} s "
-            f"({CLI_IMAGES / lib_s:.2f} images/s, host decode and resize included); no kernel launched")
+    # (a) extract
+    ops.reset_launch_counts()
+    out, err, extract_s, _ = run_cli(["extract", *preset, "--images", root / "images", "--out",
+                                      feats_path, "--batch-size", CLI_EXTRACT_BATCH])
+    counts = ops.launch_counts()
+    if [line for _, line in out] != [f"wrote {CLI_IMAGES} features to {feats_path}"] or any(counts.values()):
+        raise AssertionError(f"cli extract: printed {out}, launches {counts}")
+    with np.load(feats_path) as z:
+        feats = {k: z[k] for k in z.files}
+    pipe = CaptioningPipeline(cfg, device=dev)
+    pipe.build()
+    want, lib_s = timed(lambda: pipe.extract_features(paths, batch_size=CLI_EXTRACT_BATCH))
+    if sorted(feats) != sorted(ids) or not all(
+        feats[k].dtype == np.float32 and np.array_equal(feats[k], w) for k, w in zip(ids, want)
+    ) or not np.isfinite(want).all():
+        raise AssertionError("cli extract: the rows differ from extract_features' on the same weights")
+    log(f"cli extract: {CLI_IMAGES} rows of {want.shape[1]}, bit for bit extract_features' on the same "
+        f"weights; the command {extract_s:.5f} s ({CLI_IMAGES / extract_s:.2f} images/s, VGG16's "
+        f"random build included), extract_features alone {lib_s:.5f} s "
+        f"({CLI_IMAGES / lib_s:.2f} images/s, host decode and resize included); no kernel launched")
 
-        # (b) train; each save's params kept aside to hold the restores to.
-        saved: dict[int, list] = {}
-        real_save = CheckpointManager.save
+    # (b) train; each save's params kept aside to hold the restores to.
+    saved: dict[int, list] = {}
+    real_save = CheckpointManager.save
 
-        def keep(self, state, metrics=None):
-            saved[int(state.step)] = [t.detach().cpu().clone() for t in tree_leaves(state.params)]
-            return real_save(self, state, metrics)
+    def keep(self, state, metrics=None):
+        saved[int(state.step)] = [t.detach().cpu().clone() for t in tree_leaves(state.params)]
+        return real_save(self, state, metrics)
 
-        mlog = root / "metrics.jsonl"
-        ops.reset_launch_counts()
-        CheckpointManager.save = keep
-        try:
-            out, err, train_s, t0 = run_cli([
-                "train", *preset, "--tokens", root / "tokens.txt", "--split", root / "train.txt",
-                "--val-split", root / "dev.txt", "--val-metric", "bleu4", "--early-stopping-patience", 1,
-                "--epochs", CLI_EPOCHS, "--batch-size", CLI_TRAIN_BATCH, "--features", feats_path,
-                "--checkpoint-dir", ckpt, "--metrics-log", mlog])
-        finally:
-            CheckpointManager.save = real_save
-        counts = ops.launch_counts()
-        hist = [json.loads(line) for line in mlog.read_text().splitlines()]
-        n = len(hist)
-        steps_per_epoch = CLI_SPLITS[0] * CLI_REFS // CLI_TRAIN_BATCH
-        steps = [steps_per_epoch * (e + 1) for e in range(n)]
-        epoch_lines = [(t, line) for t, line in out if line.startswith("epoch ")]
-        if not 1 <= n <= CLI_EPOCHS or sorted(saved) != steps or len(epoch_lines) != n or not out[-1][1].startswith(
-            f"trained {n} epochs; final loss {hist[-1]['loss']:.4f}; checkpoints in {ckpt}"
-        ) or not all(np.isfinite(e[k]) for e in hist for k in ("loss", "val_loss", "val_bleu4")):
-            raise AssertionError(f"cli train: printed {out}, saved steps {sorted(saved)}, history {hist}")
-        k2 = check_cli_counts("cli train", counts, n * -(-CLI_SPLITS[1] // CLI_TRAIN_BATCH))
-        mgr = CheckpointManager(ckpt, best_metric="val_bleu4", best_mode="max")
-        kept, best = orbax_keeps([(s, e) for s, e in zip(steps, hist)], 3, "val_bleu4", maximize=True)
-        if mgr.all_steps() != kept or mgr.best_step() != best or any(
-            mgr.metrics(s) != {"val_loss": hist[i]["val_loss"], "val_bleu4": hist[i]["val_bleu4"]}
-            for i, s in enumerate(steps) if s in kept
-        ):
-            raise AssertionError(f"cli train: kept {mgr.all_steps()} best {mgr.best_step()}, orbax's rules "
-                                 f"give {kept} best {best}")
-        tok = load_tokenizer(ckpt / "tokenizer.json")
-        ref = CaptioningPipeline(cfg, tokenizer=tok, device=dev)
-        ref.build(init_params=False)
-        template = TrainState.create(tree_to(ref.decoder.init(torch.Generator()), dev),
-                                     build_optimizer(cfg.train), torch.Generator(device=dev))
-        for s in kept:
-            back = tree_leaves(mgr.restore(template, s).params)
-            if not all(b.dtype == a.dtype and torch.equal(b.cpu(), a) for a, b in zip(saved[s], back)):
-                raise AssertionError(f"cli train: step {s} restored differs from the saved params")
-        if ref.vocab_size != VOCAB:
-            raise AssertionError(f"cli train: vocabulary {ref.vocab_size} != {VOCAB}")
-        log(f"cli train: {CLI_SPLITS[0]} x {CLI_REFS} captions, batch {CLI_TRAIN_BATCH} ({steps_per_epoch} steps "
-            f"an epoch), f32, vocab {ref.vocab_size}, dev split {CLI_SPLITS[1]} ids, val_metric bleu4, "
-            f"patience 1: {n} of {CLI_EPOCHS} epochs, {train_s:.5f} s in all; saved steps {steps}, kept "
-            f"{kept}, best {best} (orbax's rules on the logged val_bleu4); each kept step restored bit for "
-            f"bit; the monitor's greedy decode launched K2 {k2}, K3 {counts['merge_head']} + "
-            f"{counts['vocab_proj']}")
-        last = t0
-        for e, (t, line) in zip(hist, epoch_lines):
-            log(f"cli train: epoch {e['epoch']}: loss {e['loss']:.6f} val_loss {e['val_loss']:.6f} val_bleu4 "
-                f"{e['val_bleu4']:.6g}; {t - last:.5f} s since the "
-                f"{'command started (setup included)' if last == t0 else 'last epoch line'}")
-            last = t
+    mlog = root / "metrics.jsonl"
+    ops.reset_launch_counts()
+    CheckpointManager.save = keep
+    try:
+        out, err, train_s, t0 = run_cli([
+            "train", *preset, "--tokens", root / "tokens.txt", "--split", root / "train.txt",
+            "--val-split", root / "dev.txt", "--val-metric", "bleu4", "--early-stopping-patience", 1,
+            "--epochs", CLI_EPOCHS, "--batch-size", CLI_TRAIN_BATCH, "--features", feats_path,
+            "--checkpoint-dir", ckpt, "--metrics-log", mlog])
+    finally:
+        CheckpointManager.save = real_save
+    counts = ops.launch_counts()
+    hist = [json.loads(line) for line in mlog.read_text().splitlines()]
+    n = len(hist)
+    steps_per_epoch = CLI_SPLITS[0] * CLI_REFS // CLI_TRAIN_BATCH
+    steps = [steps_per_epoch * (e + 1) for e in range(n)]
+    epoch_lines = [(t, line) for t, line in out if line.startswith("epoch ")]
+    if not 1 <= n <= CLI_EPOCHS or sorted(saved) != steps or len(epoch_lines) != n or not out[-1][1].startswith(
+        f"trained {n} epochs; final loss {hist[-1]['loss']:.4f}; checkpoints in {ckpt}"
+    ) or not all(np.isfinite(e[k]) for e in hist for k in ("loss", "val_loss", "val_bleu4")):
+        raise AssertionError(f"cli train: printed {out}, saved steps {sorted(saved)}, history {hist}")
+    k2 = check_cli_counts("cli train", counts, n * -(-CLI_SPLITS[1] // CLI_TRAIN_BATCH))
+    mgr = CheckpointManager(ckpt, best_metric="val_bleu4", best_mode="max")
+    kept, best = orbax_keeps([(s, e) for s, e in zip(steps, hist)], 3, "val_bleu4", maximize=True)
+    if mgr.all_steps() != kept or mgr.best_step() != best or any(
+        mgr.metrics(s) != {"val_loss": hist[i]["val_loss"], "val_bleu4": hist[i]["val_bleu4"]}
+        for i, s in enumerate(steps) if s in kept
+    ):
+        raise AssertionError(f"cli train: kept {mgr.all_steps()} best {mgr.best_step()}, orbax's rules "
+                             f"give {kept} best {best}")
+    tok = load_tokenizer(ckpt / "tokenizer.json")
+    ref = CaptioningPipeline(cfg, tokenizer=tok, device=dev)
+    ref.build(init_params=False)
+    template = TrainState.create(tree_to(ref.decoder.init(torch.Generator()), dev),
+                                 build_optimizer(cfg.train), torch.Generator(device=dev))
+    for s in kept:
+        back = tree_leaves(mgr.restore(template, s).params)
+        if not all(b.dtype == a.dtype and torch.equal(b.cpu(), a) for a, b in zip(saved[s], back)):
+            raise AssertionError(f"cli train: step {s} restored differs from the saved params")
+    if ref.vocab_size != VOCAB:
+        raise AssertionError(f"cli train: vocabulary {ref.vocab_size} != {VOCAB}")
+    log(f"cli train: {CLI_SPLITS[0]} x {CLI_REFS} captions, batch {CLI_TRAIN_BATCH} ({steps_per_epoch} steps "
+        f"an epoch), f32, vocab {ref.vocab_size}, dev split {CLI_SPLITS[1]} ids, val_metric bleu4, "
+        f"patience 1: {n} of {CLI_EPOCHS} epochs, {train_s:.5f} s in all; saved steps {steps}, kept "
+        f"{kept}, best {best} (orbax's rules on the logged val_bleu4); each kept step restored bit for "
+        f"bit; the monitor's greedy decode launched K2 {k2}, K3 {counts['merge_head']} + "
+        f"{counts['vocab_proj']}")
+    last = t0
+    for e, (t, line) in zip(hist, epoch_lines):
+        log(f"cli train: epoch {e['epoch']}: loss {e['loss']:.6f} val_loss {e['val_loss']:.6f} val_bleu4 "
+            f"{e['val_bleu4']:.6g}; {t - last:.5f} s since the "
+            f"{'command started (setup included)' if last == t0 else 'last epoch line'}")
+        last = t
 
-        # (c) caption, against caption_images on the best step's params
-        ref.set_params({"encoder": pipe.params["encoder"], "decoder": mgr.restore(template, best).params})
-        del pipe
-        # The f32 routes on these params at the rows the commands below
-        # decode: caption's CLI_CAPTIONED images x beam BEAM, and evaluate's
-        # (and the train monitor's) greedy batch of CLI_TRAIN_BATCH.
-        check_monitor_route(ref, np.repeat(np.stack([feats[k] for k in ids[:CLI_CAPTIONED]]), BEAM, axis=0),
-                            "cli caption route")
-        check_monitor_route(ref, np.stack([feats[k] for k in ids[-CLI_SPLITS[2]:]]), "cli evaluate route")
-        picked = paths[:CLI_CAPTIONED]
-        ops.reset_launch_counts()
-        out, err, caption_s, _ = run_cli(["caption", *preset, "--image", *picked, "--checkpoint-dir", ckpt,
-                                          "--val-metric", "bleu4"])
-        counts = ops.launch_counts()
-        steps_c = check_cli_counts("cli caption", counts, 1)
-        want = [f"{p}\t{c}" for p, c in zip(picked, ref.caption_images(picked, method="beam", beam_width=BEAM))]
-        if [line for _, line in out] != want or not err[0].startswith("note: no --keras-h5 given"):
-            raise AssertionError(f"cli caption: printed {out} {err}, caption_images gives {want}")
-        log(f"cli caption: {CLI_CAPTIONED} images, beam {BEAM}: the lines of caption_images on the best step; "
-            f"{caption_s:.5f} s (VGG16's random build and the restore included); launches {counts}: "
-            f"K2 {steps_c}, K3 {counts['merge_head']} + {counts['vocab_proj']} ({steps_c} decode steps)")
-        for _, line in out[:2]:
-            log(f"cli caption: {line!r}")
+    # (c) caption, against caption_images on the best step's params
+    ref.set_params({"encoder": pipe.params["encoder"], "decoder": mgr.restore(template, best).params})
+    del pipe
+    # The f32 routes on these params at the rows the commands below
+    # decode: caption's CLI_CAPTIONED images x beam BEAM, and evaluate's
+    # (and the train monitor's) greedy batch of CLI_TRAIN_BATCH.
+    check_monitor_route(ref, np.repeat(np.stack([feats[k] for k in ids[:CLI_CAPTIONED]]), BEAM, axis=0),
+                        "cli caption route")
+    check_monitor_route(ref, np.stack([feats[k] for k in ids[-CLI_SPLITS[2]:]]), "cli evaluate route")
+    picked = paths[:CLI_CAPTIONED]
+    ops.reset_launch_counts()
+    out, err, caption_s, _ = run_cli(["caption", *preset, "--image", *picked, "--checkpoint-dir", ckpt,
+                                      "--val-metric", "bleu4"])
+    counts = ops.launch_counts()
+    steps_c = check_cli_counts("cli caption", counts, 1)
+    want = [f"{p}\t{c}" for p, c in zip(picked, ref.caption_images(picked, method="beam", beam_width=BEAM))]
+    if [line for _, line in out] != want or not err[0].startswith("note: no --keras-h5 given"):
+        raise AssertionError(f"cli caption: printed {out} {err}, caption_images gives {want}")
+    log(f"cli caption: {CLI_CAPTIONED} images, beam {BEAM}: the lines of caption_images on the best step; "
+        f"{caption_s:.5f} s (VGG16's random build and the restore included); launches {counts}: "
+        f"K2 {steps_c}, K3 {counts['merge_head']} + {counts['vocab_proj']} ({steps_c} decode steps)")
+    for _, line in out[:2]:
+        log(f"cli caption: {line!r}")
 
-        # (d) evaluate, against pipe.evaluate on the same params
-        coco = root / "coco.json"
-        ops.reset_launch_counts()
-        out, err, eval_s, _ = run_cli([
-            "evaluate", *preset, "--tokens", root / "tokens.txt", "--split", root / "test.txt",
-            "--features", feats_path, "--checkpoint-dir", ckpt, "--val-metric", "bleu4", "--batch-size",
-            CLI_TRAIN_BATCH, "--metrics", ",".join(METRICS), "--coco-results", coco])
-        counts = ops.launch_counts()
-        steps_e = check_cli_counts("cli evaluate", counts, 1)
-        scores = json.loads(out[-1][1])
-        test = prepare_descriptions(load_descriptions(root / "tokens.txt"), load_split(root / "test.txt"))
-        (want_scores, caps), lib_s = timed(lambda: ref.evaluate(
-            test, feats, batch_size=CLI_TRAIN_BATCH, metrics=METRICS, return_captions=True))
-        _, decode_s = timed(lambda: ref.generate(np.stack([feats[k] for k in test])))
-        _, metric_s = timed(lambda: evaluate_captions(test, caps, metrics=METRICS))
-        rows = json.loads(coco.read_text())
-        bad = {k: v for k, v in scores.items() if v is not None and not np.isfinite(v)}
-        bad.update({k: scores[k] for k in ("bleu1", "bleu2", "bleu3", "bleu4", "rouge_l", "meteor")
-                    if not 0.0 <= scores[k] <= 1.0})
-        if scores != want_scores or bad or rows != [{"image_id": k, "caption": c} for k, c in caps.items()] \
-                or err != [f"wrote {len(test)} coco-format results to {coco}"]:
-            raise AssertionError(f"cli evaluate: scores {scores} ({bad} out of range), evaluate gives "
-                                 f"{want_scores}; printed {err}")
-        log(f"cli evaluate: {len(test)} test images x {CLI_REFS} references, greedy, batch {CLI_TRAIN_BATCH}, "
-            f"every metric: pipe.evaluate's scores on the best step; the command {eval_s:.5f} s (VGG16's "
-            f"random build and the restore included), pipe.evaluate {lib_s:.5f} s, its decode alone "
-            f"{decode_s:.5f} s, the metrics' host time {metric_s:.5f} s; launches {counts}: K2 {steps_e}, "
-            f"K3 {counts['merge_head']} + {counts['vocab_proj']}")
-        log(f"cli evaluate: scores { {k: (round(v, 6) if v is not None else None) for k, v in scores.items()} }")
+    # (d) evaluate, against pipe.evaluate on the same params
+    coco = root / "coco.json"
+    ops.reset_launch_counts()
+    out, err, eval_s, _ = run_cli([
+        "evaluate", *preset, "--tokens", root / "tokens.txt", "--split", root / "test.txt",
+        "--features", feats_path, "--checkpoint-dir", ckpt, "--val-metric", "bleu4", "--batch-size",
+        CLI_TRAIN_BATCH, "--metrics", ",".join(METRICS), "--coco-results", coco])
+    counts = ops.launch_counts()
+    steps_e = check_cli_counts("cli evaluate", counts, 1)
+    scores = json.loads(out[-1][1])
+    test = prepare_descriptions(load_descriptions(root / "tokens.txt"), load_split(root / "test.txt"))
+    (want_scores, caps), lib_s = timed(lambda: ref.evaluate(
+        test, feats, batch_size=CLI_TRAIN_BATCH, metrics=METRICS, return_captions=True))
+    _, decode_s = timed(lambda: ref.generate(np.stack([feats[k] for k in test])))
+    _, metric_s = timed(lambda: evaluate_captions(test, caps, metrics=METRICS))
+    rows = json.loads(coco.read_text())
+    bad = {k: v for k, v in scores.items() if v is not None and not np.isfinite(v)}
+    bad.update({k: scores[k] for k in ("bleu1", "bleu2", "bleu3", "bleu4", "rouge_l", "meteor")
+                if not 0.0 <= scores[k] <= 1.0})
+    if scores != want_scores or bad or rows != [{"image_id": k, "caption": c} for k, c in caps.items()] \
+            or err != [f"wrote {len(test)} coco-format results to {coco}"]:
+        raise AssertionError(f"cli evaluate: scores {scores} ({bad} out of range), evaluate gives "
+                             f"{want_scores}; printed {err}")
+    log(f"cli evaluate: {len(test)} test images x {CLI_REFS} references, greedy, batch {CLI_TRAIN_BATCH}, "
+        f"every metric: pipe.evaluate's scores on the best step; the command {eval_s:.5f} s (VGG16's "
+        f"random build and the restore included), pipe.evaluate {lib_s:.5f} s, its decode alone "
+        f"{decode_s:.5f} s, the metrics' host time {metric_s:.5f} s; launches {counts}: K2 {steps_e}, "
+        f"K3 {counts['merge_head']} + {counts['vocab_proj']}")
+    log(f"cli evaluate: scores { {k: (round(v, 6) if v is not None else None) for k, v in scores.items()} }")
 
-        # (e) a refused flag exits before any restore
-        absent = root / "absent"
-        try:
-            run_cli(["export", *preset, "--checkpoint-dir", absent, "--out", absent / "d", "--format", "aot"])
-        except SystemExit as e:
-            refusal = e.code
-        else:
-            raise AssertionError("cli: export --format aot ran")
-        if refusal in (0, None) or "--format aot" not in str(refusal) or absent.exists():
-            raise AssertionError(f"cli: export --format aot exited with {refusal!r}")
-        log(f"cli: export --format aot exits before any restore: {refusal!r}")
+    # (e) a refused flag exits before any restore
+    absent = root / "absent"
+    try:
+        run_cli(["export", *preset, "--checkpoint-dir", absent, "--out", absent / "d", "--format", "aot"])
+    except SystemExit as e:
+        refusal = e.code
+    else:
+        raise AssertionError("cli: export --format aot ran")
+    if refusal in (0, None) or "--format aot" not in str(refusal) or absent.exists():
+        raise AssertionError(f"cli: export --format aot exited with {refusal!r}")
+    log(f"cli: export --format aot exits before any restore: {refusal!r}")
 
 
 
@@ -5434,6 +5465,337 @@ def run_tools(dev, tokenizer, smi: str) -> dict[str, int]:
     return counts
 
 
+# -- phase 18: the rest of the decode toolkit ----------------------------------
+
+# Path A's 64 rows (the batch server's largest bucket) in f32, timed in bf16;
+# the diverse search's groups and penalty (G groups of BEAM beams: 576 rows a
+# step at 64 images), the MBR pools' size (the beam pool's width
+# max(P18_POOL, BEAM): 320 rows; the diverse pool P18_POOL groups of BEAM: 960
+# rows), the rows of K2 and K3's steps that phase 2 checks for it.
+P18_ROWS, P18_GROUPS, P18_DIVERSITY, P18_POOL = 64, 3, 0.5, 5
+P18_STEP_ROWS = (P18_ROWS * max(P18_POOL, BEAM), P18_ROWS * P18_GROUPS * BEAM, P18_ROWS * P18_POOL * BEAM)
+# Teacher-forced attention maps against the decode's own, and a map's sum.
+P18_ALPHA_ATOL = 1e-5
+
+
+def toolkit_encode(pipe, images) -> torch.Tensor:
+    """uint8 images -> the pipeline's features: K1, then its encoder (on
+    path A K4's 12 launches)."""
+    from tpucap_torch.ops.preprocess import fused_preprocess
+
+    enc = pipe.encoder
+    with torch.inference_mode():
+        x = fused_preprocess(images, enc.input_size, enc.preprocess_mode, out_dtype=pipe._infer_dtype())
+        return pipe._apply_encoder(pipe._inference_params()["encoder"], x)
+
+
+def same_captions(label: str, got: list[str], want: list[str], pipe=None, feats=None) -> int:
+    """Token for token, but for at most an eighth of the rows parted at a
+    near-tie: with random weights every row opens with the same words, and a
+    last-bit difference (a log-softmax, a row's logsumexp at another
+    alignment, the kernel route's logits) may part a row where two words
+    tie. Parted rows are logged, with the plain f32 logit gap at the first
+    differing word where ``pipe`` decodes both; more fail. -> their count."""
+    rows = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if rows:
+        why = logit_gaps(pipe, feats, got, want) if pipe is not None else [
+            f"row {i}: {got[i]!r} against {want[i]!r}" for i in rows]
+        log(f"{label}: {len(rows)} of {len(want)} rows parted at a near-tie: {why[:8]}")
+    if len(rows) > len(want) // 8:
+        raise AssertionError(f"{label}: {len(rows)} of {len(want)} rows differ: rows {rows[:8]}")
+    return len(rows)
+
+
+def toolkit_diverse(a, work, feats) -> None:
+    """18 (a), (b): diverse search at G = 1 is beam BEAM (captions and
+    scores); at diversity 0 every group is beam BEAM's but for rows parted
+    at a near-tie (at most an eighth); at G = P18_GROUPS,
+    k' = BEAM, P18_DIVERSITY the kernel path against the plain step path,
+    group by group."""
+    from tpucap_torch.core import precision_flags
+    from tpucap_torch.decode.beam import _tile_state
+
+    beam = [row[0] for row in a.generate_n_best(feats, n=1)]
+    one = a.generate_diverse(feats, num_groups=1, group_width=BEAM)
+    same_captions("diverse G = 1 against beam", [row[0][0] for row in one], [c for c, _ in beam])
+    if any(abs(row[0][1] - s) > 0 for row, (_, s) in zip(one, beam)):
+        raise AssertionError("diverse G = 1: normalized scores differ from beam's")
+    # At diversity 0 every group is beam BEAM in exact arithmetic. Rows of
+    # 7579 f32 logits start at every 4-byte offset mod 16, and the card's
+    # row reductions (logsumexp) round in an order that follows a row's
+    # alignment: identical hypotheses in another row of the step may part at
+    # a near-tie. Counted, with the normalized scores' gap, and probed below.
+    zero = a.generate_diverse(feats, num_groups=P18_GROUPS, group_width=BEAM, diversity=0.0)
+    parted = {g: [(i, row[g][1] - s) for i, (row, (c, s)) in enumerate(zip(zero, beam)) if row[g][0] != c]
+              for g in range(P18_GROUPS)}
+    if any(len(p) > P18_ROWS // 8 for p in parted.values()):
+        raise AssertionError(f"diverse diversity 0: rows apart from beam {BEAM}: {parted}")
+    params = a._inference_params()["decoder"]
+    start, _ = a._token_ids()
+    K = P18_GROUPS * BEAM
+    with torch.inference_mode(), precision_flags(a.config.precision):
+        state = a.decoder.init_state(params, feats)
+        probe = {}
+        for k in (BEAM, K):
+            logits, _ = a.step_fn()(params, _tile_state(state, k), torch.full(
+                (P18_ROWS * k,), start, dtype=torch.long, device=feats.device))
+            probe[k] = (logits, torch.logsumexp(logits.float(), dim=-1))
+    # The same hypothesis at row b*K (group 0) and b*K + BEAM (group 1) of one
+    # step, and at row b*BEAM of beam's step.
+    same = {name: (torch.equal(t[::K], t[BEAM::K]), torch.equal(t[::K], probe[BEAM][j][::BEAM]))
+            for j, (name, t) in enumerate((("logits", probe[K][0]), ("logsumexp", probe[K][1])))}
+    call = lambda: a.generate_diverse(  # noqa: E731
+        feats, num_groups=P18_GROUPS, group_width=BEAM, diversity=P18_DIVERSITY)
+    s0 = work.steps
+    got = call()
+    steps = work.steps - s0
+    want = plain_path(a, call)
+    for g in range(P18_GROUPS):
+        same_or_gaps(f"diverse group {g}", a, feats, [row[g][0] for row in got], [row[g][0] for row in want])
+    err = max(abs(x[1] - y[1]) for r, q in zip(got, want) for x, y in zip(r, q))
+    if not err <= P16_SCORE_ATOL:
+        raise AssertionError(f"diverse: normalized scores {err:.3g} from the plain path's")
+    differ = sum(row[0][0] != row[1][0] for row in got)
+    distinct = sum(len({c for c, _ in row}) for row in got) / len(got)
+    log(f"toolkit diverse: f32, {P18_ROWS} rows: G = 1 beam {BEAM}'s captions and scores; diversity 0: "
+        f"rows apart from beam {BEAM} by group (row, normalized score gap) {parted}; one step, the same "
+        f"hypothesis in group 0 and group 1 of {P18_ROWS * K} rows, and in beam's {P18_ROWS * BEAM} rows, "
+        f"bit for bit: {same}; G {P18_GROUPS} x k' "
+        f"{BEAM} ({P18_ROWS * P18_GROUPS * BEAM} rows a step, {steps} "
+        f"steps), diversity {P18_DIVERSITY}: token for token the plain step path's, normalized scores "
+        f"within {err:.3g}; group 0 and group 1 differ in {differ} of {P18_ROWS} rows, {distinct:.2f} "
+        f"distinct captions a row")
+
+
+def toolkit_ensemble(a, b, att, feats, pooled, grids) -> None:
+    """18 (c)-(e), each ``same_captions``: a singleton ensemble against
+    ``generate``; two lstm1 members (seeds 0 and 1) on the kernel path
+    against the plain step path, one-hot weights against member 0's
+    ``generate``; path A's lstm1 with CONFIG_4's
+    attention decoder, each on its own encoder's features of one image
+    batch (``pooled``, ``grids``), against the plain step path (the
+    attention member's step is plain either way)."""
+    both_plain = lambda fn: plain_path(a, lambda: plain_path(b, fn))  # noqa: E731
+    for method in ("greedy", "beam"):
+        want = a.generate(feats, method=method)
+        single = same_captions(f"ensemble singleton {method}", a.generate_ensemble(feats, [], method=method),
+                               want, a, feats)
+        pair = lambda: a.generate_ensemble(feats, [b], method=method)  # noqa: E731
+        got = pair()
+        paired = same_captions(f"ensemble pair {method}", got, both_plain(pair))
+        hot = same_captions(f"ensemble one-hot {method}",
+                            a.generate_ensemble(feats, [b], method=method, weights=[1.0, 0.0]), want, a, feats)
+        mixed = lambda: a.generate_ensemble([pooled, grids], [att], method=method)  # noqa: E731
+        het = mixed()
+        hetero = same_captions(f"ensemble lstm1 + attention {method}", het, plain_path(a, mixed))
+        log(f"toolkit ensemble {method}: f32, {P18_ROWS} rows, rows parted at a near-tie from the reference: "
+            f"the singleton against generate {single}; seeds 0 + 1 against the plain step path {paired} "
+            f"({sum(x != y for x, y in zip(got, want))} rows differ from member 0 alone); weights [1, 0] "
+            f"against member 0's generate {hot}; lstm1 (pooled) + attention ({tuple(grids.shape[1:])} grid) "
+            f"against the plain path {hetero}, {len(set(het))} distinct captions")
+
+
+def toolkit_mbr(a, feats) -> None:
+    """18 (f): ``generate_mbr`` from each source: every pick in its pool and
+    ``mbr_select``'s pick of the returned pools."""
+    from tpucap_torch.decode import mbr_select
+
+    for source in ("sample", "beam", "diverse"):
+        caps, pools = a.generate_mbr(feats, n_candidates=P18_POOL, candidates=source, return_candidates=True)
+        picks, utils = mbr_select(pools)
+        if len(pools) != P18_ROWS or any(len(p) != P18_POOL for p in pools) or caps != [
+                p[i] for p, i in zip(pools, picks)] or any(c not in p for c, p in zip(caps, pools)):
+            raise AssertionError(f"mbr {source}: picks {caps[:3]} of pools {pools[:1]}")
+        log(f"toolkit mbr {source}: {P18_ROWS} pools of {P18_POOL}: each pick in its pool and mbr_select's; "
+            f"{sum(len(set(p)) for p in pools) / P18_ROWS:.2f} distinct candidates a pool, mean utility "
+            f"{float(np.mean(utils)):.4f}")
+
+
+def toolkit_attention(att, grids) -> None:
+    """18 (g): ``generate_with_attention`` greedy on CONFIG_4 (f32): its
+    teacher-forced maps against those that a step-by-step replay of the
+    decode's tokens records through ``_step_full``, for t < length; every
+    such map sums to 1."""
+    from tpucap_torch.core import precision_flags
+
+    caps, alphas, lengths = att.generate_with_attention(grids, method="greedy")
+    if caps != att.generate(grids, method="greedy"):
+        raise AssertionError("attention maps: captions != generate(greedy)")
+    params = att._inference_params()["decoder"]
+    start, _ = att._token_ids()
+    dec = att.decoder
+    with torch.inference_mode(), precision_flags("f32"):
+        tokens = att._decode(params, grids, "greedy", BEAM).tokens
+        state = dec.init_state(params, grids)
+        last = torch.full((len(grids),), start, dtype=torch.long, device=grids.device)
+        replay = []
+        for t in range(int(lengths.max())):
+            _, state, alpha = dec._step_full(params, state, last)
+            replay.append(alpha.float().cpu().numpy())
+            last = tokens[:, t]
+    replay = np.stack(replay, axis=1)
+    live = np.arange(replay.shape[1])[None, :] < lengths[:, None]
+    err = float(np.abs(alphas[:, : replay.shape[1]] - replay)[live].max())
+    sums = float(np.abs(alphas[:, : replay.shape[1]].sum(-1) - 1.0)[live].max())
+    if alphas.shape != (len(grids), MAX_LEN, grids.shape[1]) or not (err <= P18_ALPHA_ATOL and sums <= P18_ALPHA_ATOL):
+        raise AssertionError(f"attention maps {alphas.shape}: replay within {err:.3g}, sums within {sums:.3g}")
+    log(f"toolkit attention maps: CONFIG_4 f32, {len(grids)} images, {grids.shape[1]} cells: alphas "
+        f"{alphas.shape}, within {err:.3g} of the decode's replay and summing to 1 within {sums:.3g} over "
+        f"{int(live.sum())} live steps; lengths {caption_lengths(caps)}")
+
+
+def toolkit_times(a, b, work, feats, smi: str) -> None:
+    """18 (j): bf16 at P18_ROWS rows: ms a step of diverse search (G
+    P18_GROUPS x k' BEAM) against beam search of the same rows, of a
+    two-member ensemble against one model, and one ``generate_mbr`` call a
+    source (medians of 3 calls after a warm one)."""
+    fb = feats.bfloat16()
+    rows = []
+
+    def per_step(label, call):
+        s0 = work.steps  # member 0's steps: one an engine step
+        call()
+        steps = work.steps - s0
+        ms = float(np.median([timed(call)[1] for _ in range(3)])) * 1e3
+        rows.append(f"{label} {ms / steps:.4f} ms a step ({steps} steps, {ms:.3f} ms)")
+
+    G = P18_GROUPS
+    per_step(f"diverse {G} x {BEAM}", lambda: a.generate_diverse(fb, num_groups=G, group_width=BEAM))
+    per_step(f"beam {G * BEAM}", lambda: a.generate(fb, method="beam", beam_width=G * BEAM))
+    per_step("ensemble of 2 greedy", lambda: a.generate_ensemble(fb, [b], method="greedy"))
+    per_step("greedy", lambda: a.generate(fb, method="greedy"))
+    for source in ("sample", "beam", "diverse"):
+        call = lambda: a.generate_mbr(fb, n_candidates=P18_POOL, candidates=source)  # noqa: E731
+        call()
+        ms = float(np.median([timed(call)[1] for _ in range(3)])) * 1e3
+        rows.append(f"mbr {source} ({P18_POOL} candidates) {ms:.3f} ms a call")
+    log(f"toolkit times: bf16, {P18_ROWS} rows: " + "; ".join(rows) + f" [{smi}]")
+
+
+def toolkit_cli(dev, cli_root: Path, att, tmp: Path) -> None:
+    """18 (h): ``caption --method diverse``, ``--method mbr --mbr-from
+    beam``, ``--ensemble-with`` (a bundle of the same checkpoint) on phase
+    8's checkpoint, and ``--dump-attention`` on CONFIG_4's attention decoder
+    saved as a checkpoint, as subprocesses side by side: the first three
+    print the lines of the library calls on the restored pipeline, the dump
+    holds tpucap's keys and dtypes and the printed captions."""
+    from tpucap_torch.checkpoint import CheckpointManager
+    from tpucap_torch.cli.main import _restore_pipeline, build_parser
+    from tpucap_torch.pipeline import CaptioningPipeline
+    from tpucap_torch.train import TrainState, build_optimizer
+
+    ckpt = cli_root / "ckpt"
+    images = [str(p) for p in sorted((cli_root / "images").glob("*.jpg"))[:CLI_CAPTIONED]]
+    base = ["caption", *CLI_MODEL, "--image", *images, "--checkpoint-dir", str(ckpt)]
+    pipe = _restore_pipeline(build_parser()[0].parse_args(base), dev)
+    bundle = tmp / "bundle"
+    pipe.save(bundle)
+    att_ckpt, dump = tmp / "att_ckpt", tmp / "att.npz"
+    CheckpointManager(att_ckpt).save(TrainState.create(
+        att.params["decoder"], build_optimizer(att.config.train), torch.Generator(device=dev)))
+    att.tokenizer.save(str(att_ckpt / "tokenizer.json"))
+    runs = {
+        "diverse": base + ["--method", "diverse", "--diverse-groups", str(P18_GROUPS)],
+        "mbr": base + ["--method", "mbr", "--mbr-from", "beam", "--mbr-candidates", str(P18_POOL)],
+        "ensemble": base + ["--ensemble-with", str(bundle)],
+        "dump-attention": ["caption", "--preset", "config4", "--decoder", "attention", "--image", *images,
+                           "--checkpoint-dir", str(att_ckpt), "--method", "greedy", "--dump-attention", str(dump)],
+    }
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-m", "tpucap_torch", *argv], cwd=ROOT, env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, argv in runs.items()}
+    done = {}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode:
+                raise AssertionError(f"toolkit cli {name} exited {proc.returncode}: {err[-2000:]}")
+            done[name] = out.splitlines()
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    wall = time.perf_counter() - t0
+    feats = pipe.extract_features(images)
+    other = CaptioningPipeline.load(bundle, device=dev)
+    want = {
+        "diverse": [f"{p}\t[group {g} {s:.3f}] {c}" for p, row in zip(images, pipe.generate_diverse(
+            feats, num_groups=P18_GROUPS, group_width=BEAM)) for g, (c, s) in enumerate(row)],
+        "mbr": [f"{p}\t{c}" for p, c in zip(images, pipe.generate_mbr(
+            feats, n_candidates=P18_POOL, candidates="beam", beam_width=BEAM))],
+        "ensemble": [f"{p}\t{c}" for p, c in zip(images, pipe.generate_ensemble(
+            [feats, other.extract_features(images)], [other], method="beam", beam_width=BEAM))],
+    }
+    for name, lines in want.items():
+        if done[name] != lines:
+            raise AssertionError(f"toolkit cli {name}: printed {done[name][:3]}, the library gives {lines[:3]}")
+    npz = np.load(dump)
+    caps = [ln.split("\t", 1)[1] for ln in done["dump-attention"]]
+    alphas, lengths = npz["alphas"], npz["lengths"]
+    live = np.arange(alphas.shape[1])[None, :] < lengths[:, None]
+    if (npz.files != ["alphas", "lengths", "captions", "images", "spatial_positions"]
+            or alphas.dtype != np.float32 or lengths.dtype != np.int32
+            or npz["spatial_positions"].dtype != np.int32 or list(npz["captions"]) != caps
+            or list(npz["images"]) != images or alphas.shape != (len(images), MAX_LEN, int(npz["spatial_positions"]))
+            or not np.allclose(alphas.sum(-1)[live], 1.0, atol=P18_ALPHA_ATOL)):
+        raise AssertionError(f"toolkit cli dump-attention: {npz.files} {alphas.shape} {alphas.dtype} {lengths}")
+    log(f"toolkit cli: caption {' '.join(CLI_MODEL)} on phase 8's checkpoint, {len(images)} images, as "
+        f"subprocesses side by side ({wall:.2f} s): --method diverse --diverse-groups {P18_GROUPS}, "
+        f"--method mbr --mbr-from beam and --ensemble-with its bundle printed the library calls' lines; "
+        f"--preset config4 --decoder attention --dump-attention wrote {npz.files}, alphas {alphas.shape} "
+        f"f32, lengths int32, each live map summing to 1")
+    for ln in done["diverse"][:P18_GROUPS]:
+        log(f"toolkit cli diverse: {ln!r}")
+
+
+def run_toolkit(dev, tokenizer, smi: str, cli_root: Path) -> dict[str, int]:
+    """Phase 18, one launch window over (a)-(g) and (j): K2 and K3's
+    kernels once a counted step of each lstm1 member, K4 12 times a counted
+    encoder pass of path A, K1 once an image batch, nothing else (the
+    attention decoder's step is plain); then the CLI's subprocesses. -> the
+    window's launches."""
+    from tpucap_torch import ops
+
+    a, b = (served_pipeline("f32", tokenizer, seed=s) for s in (0, 1))
+    att = preset_pipeline("config4", tokenizer)
+    att.config = dataclasses.replace(att.config, precision="f32")
+    works = [DialWork(a), DialWork(b)]
+    g = torch.Generator(device=dev).manual_seed(180)
+    feats = torch.randn((P18_ROWS, DEC_FEATURES), generator=g, device=dev)
+    images = torch.randint(0, 256, (P18_ROWS, IMAGE, IMAGE, 3), generator=g, device=dev, dtype=torch.uint8)
+    log(f"toolkit: path A (resnet50 fused_blocks + lstm1, vocab {VOCAB}, beam {BEAM}, max_len {MAX_LEN}) "
+        f"seeds 0 and 1, CONFIG_4 (vgg16 spatial + attention) in f32; {P18_ROWS} rows of {DEC_FEATURES}-d "
+        f"features, {P18_ROWS} uint8 images at {IMAGE}")
+    ops.reset_launch_counts()
+    try:
+        pooled, grids = toolkit_encode(a, images), toolkit_encode(att, images)
+        toolkit_diverse(a, works[0], feats)
+        toolkit_ensemble(a, b, att, feats, pooled, grids)
+        toolkit_mbr(a, feats)
+        toolkit_attention(att, grids)
+        for p in (a, b):
+            p.config = dataclasses.replace(p.config, precision="bf16")
+        toolkit_times(a, b, works[0], feats, smi)
+        counts = ops.launch_counts()
+    finally:
+        for work in reversed(works):
+            work.close()
+    steps = sum(w.steps for w in works)
+    encodes = sum(w.encodes for w in works)
+    expect = {name: {"preprocess_u8": 2, "lstm_cell": steps, "merge_head": steps, "vocab_proj": steps,
+                     "identity_block": 12 * encodes}.get(name, 0) for name in counts}
+    log(f"toolkit: launches over phase 18 {counts}; {steps} counted steps ({works[1].steps} of them member "
+        f"1's), {encodes} encoder passes")
+    if counts != expect or not works[1].steps or encodes != 1:
+        raise AssertionError(f"toolkit: launches {counts}, the counted work asks for {expect}")
+    del a, b
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        toolkit_cli(dev, cli_root, att, Path(tmp))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5476,7 +5838,17 @@ def main() -> int:
     run_bundle(pipe, batches[0])
     run_fit_validation(pipe)
     del pipe, batches
-    run_cli_workflow(dev)
+    cli_root = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        return run_phases(dev, tokenizer, smi, counts, fields, cli_root)
+    finally:
+        shutil.rmtree(cli_root, ignore_errors=True)
+
+
+def run_phases(dev, tokenizer, smi: str, counts: dict, fields: dict, cli_root: Path) -> int:
+    """Phases 8-18 (phase 8's dataset and checkpoint in ``cli_root``, which
+    phase 18 captions from), then the kernels line and the last line."""
+    run_cli_workflow(dev, cli_root)
     for name, c in run_presets(dev, tokenizer).items():
         counts[name] += c
     t10 = time.perf_counter()
@@ -5524,6 +5896,11 @@ def main() -> int:
     for name in counts:
         counts[name] += tooled[name]
     log(f"phase 17: {time.perf_counter() - t17:.2f} s")
+    t18 = time.perf_counter()
+    kitted = run_toolkit(dev, tokenizer, smi, cli_root)
+    for name in counts:
+        counts[name] += kitted[name]
+    log(f"phase 18: {time.perf_counter() - t18:.2f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

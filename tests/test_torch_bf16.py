@@ -63,6 +63,8 @@ from tpucap_torch.ops.preprocess import fused_preprocess
 from tpucap_torch.pipeline import CaptioningPipeline
 from tpucap_torch.text import Tokenizer
 
+from ports_init import jit_init
+
 torch.set_num_threads(2)
 
 SIZE = 64
@@ -261,7 +263,7 @@ def test_bf16_inject_and_attention_are_bit_identical(name):
 
     dims = dict(vocab_size=40, feature_dim=32, embed_dim=16, hidden_dim=32, dropout_rate=0.0)
     jdec, tdec = jax_build_decoder(name, **dims), build_decoder(name, **dims)
-    jp = jax.tree.map(np.asarray, jdec.init(jax.random.key(27)))
+    jp = jax.tree.map(np.asarray, jit_init(jdec, jax.random.key(27)))
     jpb = _bf16(jp)
     tpb = tree_map(lambda t: t.to(torch.bfloat16), params_from_jax(jp))
     rng = np.random.default_rng(27)

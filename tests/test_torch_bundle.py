@@ -32,6 +32,8 @@ from tpucap_torch.core import tree_leaves, tree_map
 from tpucap_torch.pipeline import CaptioningPipeline
 from tpucap_torch.text import Tokenizer
 
+from ports_init import build_on_ports_init
+
 torch.set_num_threads(2)
 
 CORPUS = {
@@ -139,7 +141,7 @@ def tpucap_bundle(tmp_path_factory):
         )
     )
     jpipe.fit_tokenizer(CORPUS)
-    jpipe.build(rng=jax.random.key(3))
+    build_on_ports_init(jpipe, 3)
     dec = jpipe.params["decoder"]
     dec["out"]["kernel"] = dec["out"]["kernel"] * 8
     path = tmp_path_factory.mktemp("tpucap") / "bundle"

@@ -47,6 +47,8 @@ from tpucap_torch.pipeline import CaptioningPipeline
 from tpucap_torch.text import Tokenizer
 from tpucap_torch.train import TrainState, build_optimizer
 
+from ports_init import build_on_ports_init
+
 torch.set_num_threads(2)
 
 
@@ -239,7 +241,7 @@ def test_fit_saves_tpucaps_steps_and_metrics(tmp_path, val_metric, patience, wit
         encoder=jcfg.encoder_config("vit_tiny"), decoder=jcfg.DecoderConfig(**dec),
         decode=jcfg.DecodeConfig(max_len=8), train=jcfg.TrainConfig(**tr), precision="f32"))
     jpipe.fit_tokenizer(caps)
-    jpipe.build(rng=jax.random.key(4))
+    build_on_ports_init(jpipe, 4)
     pipe = CaptioningPipeline(
         tcfg.Config(encoder=tcfg.encoder_config("vit_tiny"), decoder=tcfg.DecoderConfig(**dec),
                     decode=tcfg.DecodeConfig(max_len=8), train=tcfg.TrainConfig(**tr),

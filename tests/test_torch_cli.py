@@ -8,7 +8,9 @@ tiny_cnn features, lstm1 with max_len 12, three epochs at lr 0.01 with a
 dev split, the bleu4 monitor and patience 1, then beam captions of every
 image from the best checkpoint, and evaluate (every metric, METEOR's synonym
 file, --dump-captions, --coco-results; then --average-last 2 with beam);
-``train --bundle-out`` writes a bundle the port loads. Each
+``train --bundle-out`` writes a bundle the port loads; then caption's
+offline modes on that checkpoint: --method diverse, --method mbr from beam
+and diverse pools, --ensemble-with the bundle (uniform and weighted). Each
 package initializes from its own generator, so the port's
 ``CaptioningPipeline.build`` installs ``convert.params_from_jax`` of
 tpucap's ``build()`` on the same config and tokenizer; in the presets'
@@ -68,6 +70,8 @@ from tpucap_torch.convert import params_from_jax, params_to_numpy
 from tpucap_torch.pipeline import CaptioningPipeline
 from tpucap_torch.text import Tokenizer
 
+from ports_init import jit_build
+
 torch.set_num_threads(2)
 
 # The modules (each package's ``cli`` exports the function ``main``).
@@ -98,11 +102,15 @@ def _build_key(jconfig, jtok):
 
 
 def _recording_build(orig):
-    """tpucap's ``build``, its params recorded as numpy copies."""
+    """tpucap's ``build`` with its init jitted (``ports_init.jit_build``:
+    for tiny_cnn and lstm1 the eager build's bits, compiled once instead of
+    op by op), its params recorded as numpy copies."""
 
     def build(self, rng=None, init_params=True):
-        out = orig(self, rng, init_params)
-        if rng is None and init_params:
+        if not init_params:
+            return orig(self, rng, init_params)
+        out = jit_build(self, rng)
+        if rng is None:
             _TPUCAP_PARAMS[_build_key(self.config, self.tokenizer)] = jax.tree.map(np.array, self.params)
         return out
 
@@ -152,6 +160,19 @@ def _build_with_tpucaps_weights(orig):
     return build
 
 
+#: caption's offline decode modes, run on the workflow's checkpoint (the
+#: ensemble with the bundle that its train command wrote).
+TOOLKIT = {
+    "diverse": ["--method", "diverse", "--diverse-groups", "3"],
+    "mbr-beam": ["--method", "mbr", "--mbr-from", "beam", "--mbr-candidates", "3"],
+    "mbr-diverse": ["--method", "mbr", "--mbr-from", "diverse", "--mbr-metric", "bleu4",
+                    "--beam-width", "2"],
+    "ensemble": ["--ensemble-with", "<out>/bundle"],
+    "ensemble-weights": ["--method", "greedy", "--ensemble-with", "<out>/bundle",
+                         "--ensemble-weights", "0.3,0.7"],
+}
+
+
 def _workflow(data, out):
     img_dir, tokens, train, test = data
     feats, ckpt = f"{out}/features.npz", f"{out}/ckpt"
@@ -179,6 +200,11 @@ def _workflow(data, out):
         "evaluate-ngram": ["evaluate", *COMMON, "--no-repeat-ngram", "2", "--tokens", tokens,
                            "--features", feats, "--checkpoint-dir", ckpt, *MONITOR,
                            "--batch-size", "4", "--metrics", "bleu,cider,diversity"],
+        **{
+            f"caption-{name}": ["caption", *COMMON, "--image", *images, "--checkpoint-dir", ckpt,
+                                *MONITOR, *flags]
+            for name, flags in TOOLKIT.items()
+        },
     }
 
 
@@ -200,6 +226,7 @@ def runs(tmp_path_factory):
             out.mkdir()
             result[pkg] = {"out": out}
             for name, argv in _workflow(data, out).items():
+                argv = [a.replace("<out>", str(out)) for a in argv]
                 stdout, stderr = io.StringIO(), io.StringIO()
                 with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr), \
                         warnings.catch_warnings():
@@ -288,6 +315,19 @@ def test_cli_caption_with_no_repeat_ngram_matches_tpucap(runs):
         words = line.split("\t")[1].split()
         bigrams = list(zip(words, words[1:]))
         assert len(bigrams) == len(set(bigrams)), line
+
+
+@pytest.mark.parametrize("name", list(TOOLKIT))
+def test_cli_caption_toolkit_matches_tpucap(runs, name):
+    """--method diverse (a line a group, its 3-decimal score to the last
+    digit), --method mbr from beam and diverse pools, and --ensemble-with
+    the train command's bundle (uniform and weighted) print tpucap's
+    lines."""
+    ours, theirs = runs["port"], runs["tpucap"]
+    got, want = ours[f"caption-{name}"], theirs[f"caption-{name}"]
+    _same_rounded_lines(got[0], want[0])
+    assert got[1] == want[1]
+    assert len(got[0]) == (18 if name == "diverse" else 6)
 
 
 @pytest.mark.parametrize("name", ["evaluate", "evaluate-average", "evaluate-ngram"])
@@ -523,10 +563,15 @@ def test_unported_flags_exit_before_any_file_is_read(argv, monkeypatch):
         "--engine": "--extra-model needs --engine batch",
         "--prefix": "--prefix supports --method greedy|beam (no ensemble)",
         "--include-words": "--include-words supports --method beam only (no ensemble/prefix/dump-attention)",
+        "--dump-attention": "--dump-attention needs an attention decoder family "
+        "(attention|adaptive|transformer), got --decoder lstm1",
+        "--ensemble-weights": "--ensemble-weights needs --ensemble-with",
     }
-    if argv[-2] == "--tensorboard-dir":
-        # Ported: accepted; without a card the device's error comes first,
-        # before any file is read.
+    # Ported, and no check of tpucap's fires: without a card the device's
+    # error comes first, before any file is read.
+    no_card = ("--tensorboard-dir", "--mbr-candidates", "--mbr-from", "--mbr-metric",
+               "--diverse-groups", "--diversity", "--ensemble-with")
+    if argv[-2] in no_card or argv[-2:] in (["--method", "diverse"], ["--method", "mbr"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tcli.main(argv)
         return

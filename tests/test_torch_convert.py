@@ -31,6 +31,8 @@ from tpucap_torch.models.layers import dense
 from tpucap_torch.pipeline import CaptioningPipeline
 from tpucap_torch.text import Tokenizer
 
+from ports_init import build_on_ports_init
+
 torch.set_num_threads(2)
 
 CORPUS = {"img": [f"startseq w{a} w{b} endseq" for a in "abcd" for b in "xyz"]}
@@ -43,7 +45,7 @@ def _jax_pipeline():
                decode=DecodeConfig(max_len=6), precision="f32")
     )
     jpipe.fit_tokenizer(CORPUS)
-    jpipe.build(rng=jax.random.key(0))
+    build_on_ports_init(jpipe, 0)
     return jpipe
 
 

@@ -29,6 +29,8 @@ from tpucap_torch.convert import params_from_jax
 from tpucap_torch.decode import beam_decode, greedy_decode
 from tpucap_torch.models.decoders import build_decoder
 
+from ports_init import jit_init
+
 torch.set_num_threads(2)
 
 V, FEAT, START, END, MAXLEN, B = 23, 11, 1, 2, 12, 5
@@ -136,7 +138,7 @@ def test_tie_order_is_parent_then_word():
 @pytest.mark.parametrize("method", ["greedy", "beam"])
 def test_banned_ids_match_jax_engine(method):
     jdec = jax_build_decoder("lstm1", **DIMS)
-    jp = jdec.init(jax.random.key(3))
+    jp = jit_init(jdec, jax.random.key(3))
     tdec = build_decoder("lstm1", **DIMS)
     tp = params_from_jax(jax.tree.map(np.asarray, jp))
     feats = np.random.default_rng(3).normal(size=(B, FEAT)).astype(np.float32)
@@ -159,7 +161,7 @@ def test_primed_rows_match_jax_engine(method):
     """Per-row start ids and init_scores (a primed prefix's state): tokens
     exact, scores within 1e-5 absolute."""
     jdec = jax_build_decoder("lstm1", **DIMS)
-    jp = jdec.init(jax.random.key(5))
+    jp = jit_init(jdec, jax.random.key(5))
     tdec = build_decoder("lstm1", **DIMS)
     tp = params_from_jax(jax.tree.map(np.asarray, jp))
     rng = np.random.default_rng(5)

@@ -17,6 +17,8 @@ from tpucap.models.decoders import build_decoder as jax_build_decoder
 from tpucap_torch.convert import params_from_jax
 from tpucap_torch.models.decoders import build_decoder
 
+from ports_init import jit_init
+
 torch.set_num_threads(2)
 
 DIMS = dict(vocab_size=37, feature_dim=20, embed_dim=16, hidden_dim=24, dropout_rate=0.0)
@@ -27,7 +29,7 @@ ATOL = 1e-5
 def test_merge_decoder_steps_match_jax(name):
     jdec = jax_build_decoder(name, **DIMS)
     tdec = build_decoder(name, **DIMS)
-    jp = jdec.init(jax.random.key(0))
+    jp = jit_init(jdec, jax.random.key(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp))
 
     rng = np.random.default_rng(0)
@@ -52,7 +54,7 @@ def test_merge_decoder_steps_match_jax(name):
 
 @pytest.mark.parametrize("name", ["lstm1", "lstm2", "inject", "attention"])
 def test_port_init_has_the_jax_param_layout(name):
-    jp = jax_build_decoder(name, **DIMS).init(jax.random.key(0))
+    jp = jit_init(jax_build_decoder(name, **DIMS), jax.random.key(0))
     tp = build_decoder(name, **DIMS).init(torch.Generator().manual_seed(0))
     jflat = jax.tree_util.tree_flatten_with_path(jp)[0]
     assert len(jflat) == len(jax.tree_util.tree_leaves(tp))

@@ -37,6 +37,8 @@ from tpucap_torch.text import Tokenizer
 from tpucap_torch.text.embeddings import build_embedding_matrix, load_word_vectors
 from tpucap_torch.train import TrainState, build_optimizer
 
+from ports_init import build_on_ports_init
+
 torch.set_num_threads(2)
 
 jcli = importlib.import_module("tpucap.cli.main")
@@ -142,7 +144,7 @@ def test_set_pretrained_embeddings_matches_tpucap(tmp_path):
     line; the cached bf16 params are dropped."""
     jpipe = JaxPipeline(_config(jcfg))
     jpipe.fit_tokenizer({"a": CORPUS})
-    jpipe.build()
+    build_on_ports_init(jpipe)
     pipe = _port_pipe()
     rows = _vectors(["dog", "grass", "man", "startseq", "endseq", "unicorn"], 3)
     path = _write(tmp_path / "glove.txt", rows)

@@ -28,6 +28,8 @@ from tpucap_torch.convert import params_from_jax, params_to_numpy
 from tpucap_torch.pipeline import CaptioningPipeline
 from tpucap_torch.text import Tokenizer
 
+from ports_init import build_on_ports_init
+
 torch.set_num_threads(2)
 
 STEMS = ["dog", "run", "play", "jump", "ball", "grass", "man", "child", "red", "blue", "water",
@@ -68,7 +70,7 @@ def _pipelines(rate=0.0, **train):
         )
     )
     jpipe.fit_tokenizer(CAPTIONS)
-    jpipe.build(rng=jax.random.key(4))
+    build_on_ports_init(jpipe, 4)
     pipe = CaptioningPipeline(
         tcfg.Config(
             encoder=tcfg.encoder_config("vit_tiny"), decoder=tcfg.DecoderConfig(**dec),

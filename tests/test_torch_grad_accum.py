@@ -55,6 +55,8 @@ from tpucap_torch.train.loop import (
     trainable,
 )
 
+from ports_init import jit_init
+
 torch.set_num_threads(2)
 
 V, FD, B, T, GRID = 50, 24, 8, 8, 9
@@ -130,7 +132,7 @@ def _same_metrics(tm, jm):
 @pytest.mark.parametrize("name,reg,steps", [("lstm1", 0.0, 2), ("lstm1", 0.0, 4), ("attention", 1.0, 2)])
 def test_accumulated_step_matches_tpucap(name, reg, steps):
     jdec, tdec = _decoders(name)
-    jp = jax.tree.map(np.asarray, jdec.init(jax.random.key(20)))
+    jp = jax.tree.map(np.asarray, jit_init(jdec, jax.random.key(20)))
     jm, tm, jg, tg = _sgd_steps(
         lambda opt: jloop.make_train_step(jdec, opt, deterministic=True, attention_reg=reg, grad_accum_steps=steps),
         lambda opt: make_train_step(tdec, opt, deterministic=True, attention_reg=reg, grad_accum_steps=steps),
@@ -164,7 +166,7 @@ def test_accumulated_joint_step_matches_tpucap(steps):
 
 def test_accumulation_against_the_ports_own_full_batch():
     _, tdec = _decoders("attention")
-    p = params_from_jax(jax.tree.map(np.asarray, _decoders("attention")[0].init(jax.random.key(40))))
+    p = params_from_jax(jax.tree.map(np.asarray, jit_init(_decoders("attention")[0], jax.random.key(40))))
     feats, toks = _batch("attention", 41)
     f, t = torch.from_numpy(feats), torch.from_numpy(toks).long()
     g2, s2 = _port_accum(tdec, trainable(p), f, t, 2, 1.0)
@@ -187,7 +189,7 @@ def test_indivisible_batch_raises_tpucaps_error():
     jdec, tdec = _decoders("lstm1")
     feats, toks = _batch("lstm1", 50)
     opt = build_optimizer(tcfg.TrainConfig())
-    p = params_from_jax(jax.tree.map(np.asarray, jdec.init(jax.random.key(51))))
+    p = params_from_jax(jax.tree.map(np.asarray, jit_init(jdec, jax.random.key(51))))
     with pytest.raises(ValueError) as ours:
         make_train_step(tdec, opt, grad_accum_steps=3)(TrainState.create(p, opt, None), torch.from_numpy(feats), torch.from_numpy(toks).long())
     with pytest.raises(ValueError) as theirs:

@@ -75,6 +75,8 @@ from tpucap_torch.models.decoders import build_decoder  # noqa: E402
 from tpucap_torch.pipeline import CaptioningPipeline  # noqa: E402
 from tpucap_torch.text import load_tokenizer  # noqa: E402
 
+from ports_init import jit_init
+
 tf = pytest.importorskip("tensorflow")
 tf_keras = pytest.importorskip("tf_keras")
 
@@ -246,7 +248,7 @@ def _decoders(case, seed=0):
     name, extra, _ = FAMILIES[case]
     dims = dict(vocab_size=VOCAB, feature_dim=FEAT, embed_dim=EMB, hidden_dim=HID, **extra)
     jdec, tdec = jax_build_decoder(name, **dims), build_decoder(name, **dims)
-    jp = jax.tree.map(np.asarray, jdec.init(jax.random.key(seed)))
+    jp = jax.tree.map(np.asarray, jit_init(jdec, jax.random.key(seed)))
     jp["out"]["bias"] = jp["out"]["bias"] + np.eye(VOCAB, dtype=np.float32)[END] * 0.15
     return name, jdec, jp, tdec
 
@@ -406,7 +408,7 @@ def test_attention_import_refuses_ambiguous_dims(tmp_path):
                 attention_dim=HID)
     jdec = jax_build_decoder("attention", **dims)
     model = jexport.attention_decoder_to_keras(
-        jdec, jdec.init(jax.random.key(6)), max_len=3, positions=POS)
+        jdec, jit_init(jdec, jax.random.key(6)), max_len=3, positions=POS)
     for i, layer in enumerate(model.layers):
         if type(layer).__name__ == "Dense":
             layer._name = f"anon_{i}"

@@ -71,6 +71,8 @@ from tpucap_torch.pipeline import CaptioningPipeline
 from tpucap_torch.train import TrainState, build_optimizer
 from tpucap_torch.train import lora
 
+from ports_init import build_on_ports_init, jit_init
+
 torch.set_num_threads(2)
 
 tcli = importlib.import_module("tpucap_torch.cli.main")
@@ -153,7 +155,7 @@ def test_keystr_and_lora_targets_equal_tpucaps(name, kind):
 
 def _decoder_case(seed=3):
     jdec = jax_build_decoder("lstm1", **DIMS, dropout_rate=0.0)
-    jp = jax.tree.map(np.asarray, jdec.init(jax.random.key(seed)))
+    jp = jax.tree.map(np.asarray, jit_init(jdec, jax.random.key(seed)))
     return jdec, jp
 
 
@@ -227,7 +229,7 @@ def test_lora_train_step_matches_tpucap_over_three_steps(mode):
     dims = {**DIMS, "feature_dim": build_encoder("vit_tiny").feature_dim if mode == "joint" else FD}
     jdec = jax_build_decoder("lstm1", **dims, dropout_rate=0.0)
     tdec = build_decoder("lstm1", **dims, dropout_rate=0.0)
-    jbase = {"decoder": jax.tree.map(np.asarray, jdec.init(jax.random.key(11)))}
+    jbase = {"decoder": jax.tree.map(np.asarray, jit_init(jdec, jax.random.key(11)))}
     jenc = tenc = None
     B = 6
     rng = np.random.default_rng(12)
@@ -283,7 +285,7 @@ def _pipelines(encoder="tiny_cnn", feature_dim=None, **train):
         ))
     jpipe = JaxPipeline(made[0])
     jpipe.fit_tokenizer(DESC)
-    jpipe.build()
+    build_on_ports_init(jpipe)
     pipe = CaptioningPipeline(made[1], device="cpu")
     pipe.fit_tokenizer(DESC)
     pipe.build(init_params=False)

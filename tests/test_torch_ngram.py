@@ -28,6 +28,8 @@ from tpucap_torch.decode import beam_decode, greedy_decode
 from tpucap_torch.decode.ngram import NEG_INF, apply_ngram_ban, ngram_banned_mask
 from tpucap_torch.models.decoders import build_decoder
 
+from ports_init import jit_init
+
 torch.set_num_threads(2)
 
 V, FEAT, START, END, MAXLEN, B = 13, 11, 1, 2, 14, 6
@@ -80,7 +82,7 @@ def test_ban_is_neg_inf_where_the_mask_is(dtype):
 
 def _bridged(seed=3):
     jdec = jax_build_decoder("lstm1", **DIMS)
-    jp = jdec.init(jax.random.key(seed))
+    jp = jit_init(jdec, jax.random.key(seed))
     tdec = build_decoder("lstm1", **DIMS)
     tp = params_from_jax(jax.tree.map(np.asarray, jp))
     feats = np.random.default_rng(seed).normal(size=(B, FEAT)).astype(np.float32)

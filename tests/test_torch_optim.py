@@ -45,6 +45,8 @@ from tpucap_torch.pipeline import CaptioningPipeline
 from tpucap_torch.text import Tokenizer
 from tpucap_torch.train import TrainState, build_optimizer, encoder_learning_rate_optimizer
 
+from ports_init import build_on_ports_init
+
 torch.set_num_threads(2)
 
 STEPS = 6
@@ -277,7 +279,7 @@ def test_fit_with_sgd_momentum_cosine_and_warmup_matches_tpucap():
         )
     )
     jpipe.fit_tokenizer(CAPTIONS)
-    jpipe.build(rng=jax.random.key(4))
+    build_on_ports_init(jpipe, 4)
     pipe = CaptioningPipeline(
         tcfg.Config(
             encoder=tcfg.encoder_config("vit_tiny"), decoder=tcfg.DecoderConfig(**dec),

@@ -43,6 +43,8 @@ from tpucap_torch.pipeline import CaptioningPipeline
 from tpucap_torch.text import Tokenizer
 from tpucap_torch.train import PreemptionGuard, TrainState
 
+from ports_init import build_on_ports_init
+
 torch.set_num_threads(2)
 
 WORDS = "a b c d e f g h".split()
@@ -191,13 +193,13 @@ def _cut_and_resumed(pkg, root, after):
     if pkg == "jax":
         pipe = JaxPipeline(cfg)
         pipe.fit_tokenizer(DESC)
-        pipe.build(rng=jax.random.key(4))
+        build_on_ports_init(pipe, 4)
         init = jax.tree.map(np.asarray, pipe.params)
         mgr = JaxManager(str(root / pkg), best_metric="val_loss", max_to_keep=20)
     else:
         jpipe = JaxPipeline(_configs("jax", _FEATS_ENC, 0.0))
         jpipe.fit_tokenizer(DESC)
-        jpipe.build(rng=jax.random.key(4))
+        build_on_ports_init(jpipe, 4)
         pipe = CaptioningPipeline(cfg, tokenizer=Tokenizer.from_json(jpipe.tokenizer.to_json()), device="cpu")
         pipe.build(init_params=False)
         init = params_from_jax(jax.tree.map(np.asarray, jpipe.params))

@@ -42,6 +42,8 @@ from tpucap_torch.text import Tokenizer
 from tpucap_torch.train import TrainState, build_optimizer, make_train_step
 from tpucap_torch.train.scheduled import epsilon_for_epoch, scheduled_draws, scheduled_inputs
 
+from ports_init import build_on_ports_init, jit_init
+
 torch.set_num_threads(2)
 
 V, FD, B, T = 50, 24, 6, 8
@@ -77,7 +79,7 @@ def _decoders():
 
 
 def _init(jdec, seed):
-    return jax.tree.map(np.asarray, jdec.init(jax.random.key(seed)))
+    return jax.tree.map(np.asarray, jit_init(jdec, jax.random.key(seed)))
 
 
 def _t(*arrays):
@@ -259,7 +261,7 @@ def _pipelines(captions, rate=0.0, **train):
     tpucap's built weights, and seeded features of every image."""
     jpipe = JaxPipeline(_configs(jcfg, rate, train))
     jpipe.fit_tokenizer(captions)
-    jpipe.build(rng=jax.random.key(4))
+    build_on_ports_init(jpipe, 4)
     pipe = CaptioningPipeline(
         _configs(tcfg, rate, train), tokenizer=Tokenizer.from_json(jpipe.tokenizer.to_json()), device="cpu"
     )

@@ -38,6 +38,8 @@ from tpucap_torch.pipeline import CaptioningPipeline
 from tpucap_torch.serve import CaptionServer, Overloaded, _buckets, reload_together
 from tpucap_torch.text import Tokenizer
 
+from ports_init import build_on_ports_init
+
 torch.set_num_threads(2)
 
 DEC = dict(embed_dim=16, hidden_dim=32, dropout_rate=0.0)
@@ -93,7 +95,7 @@ def pipes():
 def _jax_params(jpipe, seed):
     """tpucap's random init from ``seed`` with a sharper head tilted toward
     endseq, so that captions differ from row to row and some end early."""
-    jpipe.build(rng=jax.random.key(seed))
+    build_on_ports_init(jpipe, seed)
     dec = jpipe.params["decoder"]
     dec["out"]["kernel"] = dec["out"]["kernel"] * 4
     dec["out"]["bias"] = dec["out"]["bias"].at[jpipe.tokenizer.word_index["endseq"]].add(0.5)
@@ -394,7 +396,7 @@ def test_dials_and_parallelism_refused_by_name(pipes):
                 srv.submit(x[0], **kw)
             assert str(err.value) == str(jerr.value), kw
         assert srv.submit(x[0]).result(60) == pipe.generate(x[:1], method="sample")[0]
-    with pytest.raises(NotImplementedError, match="'diverse' is not ported"):
+    with pytest.raises(NotImplementedError, match="'diverse' is not served"):
         CaptionServer(pipe, method="diverse")
 
 

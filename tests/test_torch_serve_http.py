@@ -47,6 +47,8 @@ from tpucap_torch.pipeline import CaptioningPipeline
 from tpucap_torch.serve_http import CaptionHTTPServer
 from tpucap_torch.text import Tokenizer
 
+from ports_init import build_on_ports_init
+
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -82,7 +84,7 @@ def _jax_pipe(seed):
         )
     )
     jpipe.fit_tokenizer(CORPUS)
-    jpipe.build(rng=jax.random.key(seed))
+    build_on_ports_init(jpipe, seed)
     dec = jpipe.params["decoder"]
     dec["out"]["kernel"] = dec["out"]["kernel"] * 4
     dec["out"]["bias"] = dec["out"]["bias"].at[jpipe.tokenizer.word_index["endseq"]].add(0.5)

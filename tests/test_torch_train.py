@@ -81,6 +81,8 @@ from tpucap_torch.train import (
 )
 from tpucap_torch.train.loop import grads_of, trainable
 
+from ports_init import build_on_ports_init, jit_init
+
 torch.set_num_threads(2)
 
 V, FD, B, T = 50, 24, 6, 8
@@ -115,7 +117,7 @@ def _batch(seed):
 
 
 def _init(jdec, seed):
-    return jax.tree.map(np.asarray, jdec.init(jax.random.key(seed)))
+    return jax.tree.map(np.asarray, jit_init(jdec, jax.random.key(seed)))
 
 
 def _t(feats, toks):
@@ -404,7 +406,7 @@ def _fit_pipelines(rate, epochs=3, batch_size=4):
         )
     )
     jpipe.fit_tokenizer(CAPTIONS)
-    jpipe.build(rng=jax.random.key(4))
+    build_on_ports_init(jpipe, 4)
     pipe = CaptioningPipeline(
         tcfg.Config(
             encoder=tcfg.encoder_config("vit_tiny"), decoder=tcfg.DecoderConfig(**dec),
@@ -518,7 +520,7 @@ def _grid_pipelines(name, reg, epochs=3):
         )
     )
     jpipe.fit_tokenizer(CAPTIONS)
-    jpipe.build(rng=jax.random.key(5))
+    build_on_ports_init(jpipe, 5)
     pipe = CaptioningPipeline(
         tcfg.Config(
             encoder=tcfg.encoder_config("vit_tiny", features), decoder=tcfg.DecoderConfig(**dec),

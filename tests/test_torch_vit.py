@@ -64,6 +64,8 @@ from tpucap_torch.ops.attention import (
     qkv_views,
 )
 
+from ports_init import jit_init
+
 torch.set_num_threads(2)
 
 DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -209,7 +211,19 @@ def test_flash_attention_bwd_attributes_take_the_kernels_dtypes_only():
 
 @pytest.fixture(scope="module")
 def vit_params():
-    return jax.tree.map(np.asarray, jax_vit_tiny().init(jax.random.key(5)))
+    return jax.tree.map(np.asarray, jit_init(jax_vit_tiny(), jax.random.key(5)))
+
+
+_REFERENCES: dict = {}
+
+
+def _vit_reference(features, jdt, jp, x):
+    """tpucap's jitted ViT apply, compiled once a features kind and dtype
+    (the flash and xla cases share it)."""
+    key = (features, jdt)
+    if key not in _REFERENCES:
+        _REFERENCES[key] = jax.jit(jax_vit_tiny(features).apply)
+    return _REFERENCES[key](jp, jnp.asarray(x, jdt))
 
 
 @pytest.mark.parametrize("features", ["pooled", "spatial"])
@@ -220,7 +234,7 @@ def test_vit_tiny_matches_jax(vit_params, features, impl, dt):
     x = np.random.default_rng(6).uniform(-1, 1, size=(2, 32, 32, 3)).astype(np.float32)
     tp = tree_map(lambda t: t.to(tdt), params_from_jax(vit_params))
     jp = jax.tree.map(lambda a: jnp.asarray(a, jdt), vit_params)
-    ref = jax.jit(jax_vit_tiny(features).apply)(jp, jnp.asarray(x, jdt))
+    ref = _vit_reference(features, jdt, jp, x)
     enc = dataclasses.replace(vit_tiny(features), attention_impl=impl)
     with torch.inference_mode():
         got = enc.apply(tp, torch.from_numpy(x).to(tdt))

@@ -44,7 +44,16 @@ and ``--lora-out FILE`` also writes the adapters as tpucap's artifact.
 ``caption``, ``score`` and ``evaluate`` build their restore template from
 the same optimizer flags; ``caption --prefix "a dog"`` continues a forced
 opening and ``caption --include-words W1,W2`` (beam only) captions that must
-hold the words, offline or through ``--server``. ``score`` prints each image's teacher-forced
+hold the words, offline or through ``--server``. Offline, ``caption
+--method diverse`` prints each group's best caption (``--diverse-groups``,
+``--diversity``), ``--method mbr`` picks the consensus caption of a pool
+(``--mbr-candidates``, ``--mbr-from sample|beam|diverse``, ``--mbr-metric
+cider|bleu4``), ``--ensemble-with BUNDLE`` (repeatable, with
+``--ensemble-weights``) decodes a product of experts with other models'
+bundles, each encoding with its own encoder, and ``--dump-attention
+OUT.npz`` writes an attention decoder's maps beside its captions. Only
+``--method speculative`` (with ``--draft-bundle``, ``--gamma``) is not
+ported. ``score`` prints each image's teacher-forced
 log-probability of its caption; ``compare`` is a paired bootstrap between
 two ``evaluate --dump-captions`` files, host numpy, needing no card.
 ``extract``, ``train --finetune-encoder``, ``caption``, ``score`` and
@@ -139,17 +148,9 @@ UNPORTED_FLAGS = {
         "model_devices": (),
     },
     "caption": {
-        "method": ("greedy",),
-        "dump_attention": (),
-        "mbr_candidates": (),
-        "mbr_from": (),
-        "mbr_metric": (),
-        "diverse_groups": (),
-        "diversity": (),
+        "method": ("greedy", "diverse", "mbr"),
         "draft_bundle": (),
         "gamma": (),
-        "ensemble_with": (),
-        "ensemble_weights": (),
     },
     "score": {},
     "evaluate": {"parallelism": ("none",), "model_devices": ()},
@@ -770,14 +771,34 @@ def _include_words(args) -> list[str] | None:
     return [w.strip() for w in args.include_words.split(",") if w.strip()]
 
 
+def _ensemble_weights(args) -> list[float] | None:
+    """--ensemble-weights W1,W2 -> the weights, checked against
+    --ensemble-with (tpucap's parse and texts)."""
+    if not args.ensemble_weights:
+        return None
+    if not args.ensemble_with:
+        raise SystemExit("--ensemble-weights needs --ensemble-with")
+    weights = [float(w) for w in args.ensemble_weights.split(",")]
+    if len(weights) != 1 + len(args.ensemble_with):
+        raise SystemExit(
+            f"{len(weights)} weights for {1 + len(args.ensemble_with)} ensemble members"
+        )
+    return weights
+
+
 def _validate_caption_flags(args) -> None:
     """tpucap's checks of ``caption --server`` and ``--server-model``, and
-    offline those of ``--prefix`` and ``--include-words``, with its
-    messages, before the unported-flag check."""
+    offline those of the ensemble's flags, ``--prefix``,
+    ``--include-words`` and ``--dump-attention``, in its order and with its
+    messages, before the unported-flag check and before any file is
+    read."""
     if args.server_model and not args.server:
         # --server-model without --server would be silently ignored.
         raise SystemExit("--server-model only applies with --server HOST:PORT")
     if not args.server:
+        _ensemble_weights(args)
+        if args.ensemble_with and args.method not in ("greedy", "beam"):
+            raise SystemExit("--ensemble-with supports --method greedy|beam")
         if args.prefix and (args.method not in ("greedy", "beam") or args.ensemble_with):
             raise SystemExit("--prefix supports --method greedy|beam (no ensemble)")
         if args.include_words and (
@@ -786,6 +807,18 @@ def _validate_caption_flags(args) -> None:
             raise SystemExit(
                 "--include-words supports --method beam only "
                 "(no ensemble/prefix/dump-attention)"
+            )
+        if args.dump_attention and (
+            args.method not in ("greedy", "beam") or args.ensemble_with or args.prefix
+        ):
+            raise SystemExit(
+                "--dump-attention supports --method greedy|beam (no ensemble/prefix)"
+            )
+        if args.dump_attention and args.decoder not in ("attention", "adaptive", "transformer"):
+            # Pooled families have no per-step attention distribution.
+            raise SystemExit(
+                "--dump-attention needs an attention decoder family "
+                f"(attention|adaptive|transformer), got --decoder {args.decoder}"
             )
         return
     if args.method in ("speculative", "diverse", "mbr"):
@@ -858,7 +891,41 @@ def cmd_caption(args, device):
         )
     pipe = _restore_pipeline(args, device)
     include_words = _include_words(args)
-    if include_words:
+    if args.method == "mbr":
+        feats = pipe.extract_features(list(args.image))
+        caps = pipe.generate_mbr(
+            feats,
+            n_candidates=args.mbr_candidates,
+            candidates=args.mbr_from,
+            metric=args.mbr_metric,
+            beam_width=args.beam_width,
+            diversity=args.diversity,
+        )
+    elif args.method == "diverse":
+        feats = pipe.extract_features(list(args.image))
+        diverse = pipe.generate_diverse(
+            feats,
+            num_groups=args.diverse_groups,
+            group_width=args.beam_width,
+            diversity=args.diversity,
+        )
+        for path, groups in zip(args.image, diverse):
+            for g, (cap, score) in enumerate(groups):
+                print(f"{path}\t[group {g} {score:.3f}] {cap}")
+        return
+    elif args.ensemble_with:
+        others = [CaptioningPipeline.load(b, device=device) for b in args.ensemble_with]
+        # Each member encodes with its own encoder: members may use
+        # different encoder families (pooled rows or a spatial grid).
+        feats = [p.extract_features(list(args.image)) for p in (pipe, *others)]
+        caps = pipe.generate_ensemble(
+            feats,
+            others,
+            method=args.method,
+            beam_width=args.beam_width,
+            weights=_ensemble_weights(args),
+        )
+    elif include_words:
         feats = pipe.extract_features(list(args.image))
         details = pipe.generate_constrained(
             feats, include_words, beam_width=args.beam_width, return_details=True
@@ -876,6 +943,25 @@ def cmd_caption(args, device):
         feats = pipe.extract_features(list(args.image))
         caps = pipe.generate_continuation(
             feats, args.prefix, method=args.method, beam_width=args.beam_width
+        )
+    elif args.dump_attention:
+        feats = pipe.extract_features(list(args.image))
+        caps, alphas, lengths = pipe.generate_with_attention(
+            feats, method=args.method, beam_width=args.beam_width
+        )
+        # alphas (B, T, L); spatial_positions reshapes L into the encoder's
+        # grid (196 -> 14 x 14) for upsampled heatmaps.
+        np.savez(
+            args.dump_attention,
+            alphas=alphas,
+            lengths=lengths,
+            captions=np.asarray(caps),
+            images=np.asarray([str(p) for p in args.image]),
+            spatial_positions=np.int32(pipe.encoder.spatial_positions),
+        )
+        print(
+            f"wrote attention maps {tuple(alphas.shape)} to {args.dump_attention}",
+            file=sys.stderr,
         )
     else:
         caps = pipe.caption_images(args.image, method=args.method, beam_width=args.beam_width)
@@ -1412,17 +1498,29 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--method", default="beam",
                    choices=["greedy", "beam", "speculative", "diverse", "mbr"],
-                   help="greedy or beam")
+                   help="greedy, beam, diverse or mbr (speculative is not ported)")
     p.add_argument("--beam-width", type=int, default=3)
     p.add_argument("--dump-attention", default=None, metavar="OUT.npz",
-                   help="not ported")
-    p.add_argument("--mbr-candidates", type=int, default=5, help="not ported")
+                   help="also write per-token attention maps "
+                   "(alphas/lengths/captions/spatial_positions) for "
+                   "heatmap overlays — attention/adaptive/transformer "
+                   "decoders, --method greedy|beam")
+    p.add_argument("--mbr-candidates", type=int, default=5,
+                   help="--method mbr: candidate pool size per image")
     p.add_argument("--mbr-from", default="sample",
-                   choices=["sample", "beam", "diverse"], help="not ported")
-    p.add_argument("--mbr-metric", default="cider", choices=["cider", "bleu4"],
-                   help="not ported")
-    p.add_argument("--diverse-groups", type=int, default=2, help="not ported")
-    p.add_argument("--diversity", type=float, default=0.5, help="not ported")
+                   choices=["sample", "beam", "diverse"],
+                   help="--method mbr: candidate pool source")
+    p.add_argument("--mbr-metric", default="cider",
+                   choices=["cider", "bleu4"],
+                   help="--method mbr: consensus utility")
+    p.add_argument("--diverse-groups", type=int, default=2,
+                   help="--method diverse: number of beam groups; each "
+                   "group is --beam-width wide and prints its own "
+                   "caption line")
+    p.add_argument("--diversity", type=float, default=0.5,
+                   help="--method diverse: Hamming penalty strength "
+                   "pushing later groups off earlier groups' words "
+                   "(0 = independent exact beams)")
     p.add_argument("--prefix", default=None,
                    help="forced caption opening ('a dog'): the decoder "
                    "is teacher-forced through it, then greedy/beam "
@@ -1434,11 +1532,22 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
                    "image; --method beam only. Prints the achieved "
                    "satisfaction per image on stderr when full "
                    "satisfaction was unreachable within --max-len")
-    p.add_argument("--draft-bundle", default=None, help="not ported")
-    p.add_argument("--gamma", type=int, default=4, help="not ported")
+    p.add_argument("--draft-bundle", default=None,
+                   help="--method speculative's draft bundle (not ported)")
+    p.add_argument("--gamma", type=int, default=4,
+                   help="speculative draft length per round (not ported)")
     p.add_argument("--ensemble-with", action="append", default=None,
-                   metavar="BUNDLE", help="not ported")
-    p.add_argument("--ensemble-weights", default=None, help="not ported")
+                   metavar="BUNDLE",
+                   help="pipeline.save() bundle of another trained "
+                   "model (repeatable); decode combines all models' "
+                   "per-step distributions as a product of experts "
+                   "(greedy|beam). Members may use different decoder "
+                   "families/encoders but must share the tokenizer; "
+                   "each member's features come from its own encoder")
+    p.add_argument("--ensemble-weights", default=None,
+                   help="comma-separated per-model weights (first = "
+                   "the --checkpoint-dir model), normalized to sum 1; "
+                   "default uniform")
     p.add_argument("--approx-topk", action="store_true",
                    help="tpucap's TPU approx_max_k; the port's top-k stays exact")
     p.add_argument("--keras-h5", default=None,

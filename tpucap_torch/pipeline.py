@@ -31,6 +31,14 @@
                                   images mode, ``encode_continuation_submit``
                                   / ``encode_constrained_submit`` (the
                                   encoder and the decode on one snapshot)
+    generate_diverse(features)    diverse beam search: the best caption of
+                                  each group (``decode/diverse.py``)
+    generate_mbr(features)        MBR (consensus) pick from a sampled,
+                                  n-best or diverse pool (``decode/mbr.py``)
+    generate_ensemble(features,   product-of-experts decode over several
+                      others)     pipelines (``decode/ensemble.py``)
+    generate_with_attention(      captions with the attention decoder's
+        features)                 maps, teacher-forced after the decode
 
     evaluate(descriptions,        decode features in padded batches, then
              features)            BLEU-1..4, CIDEr-D, ROUGE-L, METEOR and
@@ -122,10 +130,13 @@ from tpucap_torch.data.pipeline import caption_batch_stream, image_batch_loader,
 from tpucap_torch.data.preprocess import preprocess_batch
 from tpucap_torch.decode import (
     MAX_CONSTRAINTS,
+    EnsembleDecoder,
     beam_decode,
     constrained_beam_decode,
+    diverse_beam_decode,
     greedy_decode,
     ids_to_captions,
+    mbr_select,
     normalized_scores,
     prime_prefix,
     sample_decode,
@@ -915,6 +926,232 @@ class CaptioningPipeline:
             return out
 
         return finalize
+
+    @torch.inference_mode()
+    def generate_diverse(
+        self,
+        features,
+        *,
+        num_groups: int = 2,
+        group_width: int | None = None,
+        diversity: float = 0.5,
+    ) -> list[list[tuple[str, float]]]:
+        """Diverse beam search (``decode/diverse.py``): ``num_groups`` groups
+        of ``group_width`` beams, a Hamming penalty of strength
+        ``diversity`` pushing later groups off earlier groups' words. ->
+        per image, the best caption of each group in group order as
+        (caption, normalized score) pairs; scores are true log-probs under
+        the engine's ranking function, comparable with ``generate_n_best``.
+        ``group_width`` defaults to config.decode.beam_width; diversity=0
+        makes every group an independent exact beam search."""
+        dcfg = self.config.decode
+        group_width = group_width or dcfg.beam_width
+        params = self._inference_params()
+        dec_params = params["decoder"]
+        feats = self._features(params, features, images=False)
+        start_id, end_id = self._token_ids()
+        with precision_flags(self.config.precision):
+            res = diverse_beam_decode(
+                self.step_fn(),
+                dec_params,
+                self.decoder.init_state(dec_params, feats),
+                start_id=start_id,
+                end_id=end_id,
+                max_len=dcfg.max_len,
+                num_groups=num_groups,
+                group_width=group_width,
+                diversity=diversity,
+                min_len=dcfg.min_len,
+                banned_ids=self._banned_ids(),
+                no_repeat_ngram_size=dcfg.no_repeat_ngram_size,
+                length_normalize=dcfg.length_normalize,
+                alpha=dcfg.alpha,
+                length_penalty=dcfg.length_penalty,
+                decoder=self.decoder,
+            )
+        norm = normalized_scores(
+            res.scores.float(),
+            res.lengths,
+            length_normalize=dcfg.length_normalize,
+            alpha=dcfg.alpha,
+            length_penalty=dcfg.length_penalty,
+        ).cpu().tolist()
+        caps = ids_to_captions(
+            self.tokenizer, res.tokens.flatten(0, 1), res.lengths.flatten(), end_id=end_id
+        )
+        G = res.tokens.shape[1]
+        return [list(zip(caps[b * G:(b + 1) * G], norm[b])) for b in range(len(norm))]
+
+    def generate_mbr(
+        self,
+        features,
+        *,
+        n_candidates: int = 5,
+        candidates: str = "sample",
+        metric: str = "cider",
+        beam_width: int | None = None,
+        diversity: float = 0.5,
+        temperature: float = 1.0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        seed: int = 0,
+        return_candidates: bool = False,
+    ):
+        """Minimum-Bayes-risk (consensus) decoding: ``n_candidates``
+        captions an image, and the one that agrees most with the rest of
+        its pool (``decode/mbr.py``). ``candidates`` picks the pool:
+
+        - 'sample' (default): sampled decodes ``generate(method="sample",
+          seed=seed + i)`` for i < n (temperature, top_k, top_p apply);
+          deterministic given ``seed``, but the port's draws come from a
+          torch generator, so the pools differ from tpucap's for a seed;
+        - 'beam': the n-best list of a beam of width max(n, beam_width);
+        - 'diverse': the diverse beam groups (num_groups=n,
+          group_width=beam_width, ``diversity``).
+
+        -> caption strings; ``return_candidates=True`` gives
+        ``(captions, pools)``."""
+        if candidates not in ("sample", "beam", "diverse"):
+            raise ValueError(
+                f"unknown candidate source {candidates!r}; sample|beam|diverse"
+            )
+        if n_candidates < 1:
+            raise ValueError("n_candidates must be >= 1")
+        beam_width = beam_width or self.config.decode.beam_width
+        if candidates == "sample":
+            runs = [
+                self.generate(
+                    features, method="sample", temperature=temperature,
+                    top_k=top_k, top_p=top_p, seed=seed + i,
+                )
+                for i in range(n_candidates)
+            ]
+            pools = [list(caps) for caps in zip(*runs)]
+        else:
+            rows = (
+                self.generate_n_best(features, n=n_candidates, beam_width=max(n_candidates, beam_width))
+                if candidates == "beam"
+                else self.generate_diverse(
+                    features, num_groups=n_candidates, group_width=beam_width, diversity=diversity
+                )
+            )
+            pools = [[cap for cap, _ in row] for row in rows]
+        picks, _ = mbr_select(pools, metric=metric)
+        caps = [pool[i] for pool, i in zip(pools, picks)]
+        return (caps, pools) if return_candidates else caps
+
+    @torch.inference_mode()
+    def generate_ensemble(
+        self,
+        features,
+        others,
+        *,
+        method: str | None = None,
+        beam_width: int | None = None,
+        weights=None,
+    ) -> list[str]:
+        """Product-of-experts ensemble decode over this pipeline and
+        ``others`` (``decode/ensemble.py``): at every step each model's
+        softmax joins a weighted geometric mean (a weighted sum of
+        log-probs) and selection runs on it. Members may differ in decoder
+        family and encoder but must share the tokenizer. ``features``: one
+        array that every member takes, or a list of per-model arrays (pooled
+        rows for a merge model, a spatial grid for an attention model), each
+        cast to its member's inference dtype. ``weights`` (length 1 +
+        len(others)) are normalized to sum 1; default uniform. Each member
+        decodes from its own inference params with its own step
+        (``step_fn``: K2 + K3 on the card for a 1-layer merge decoder, with
+        its own weight copies); the whole decode runs under this (the lead)
+        pipeline's precision flags. A one-member ensemble gives
+        ``generate``'s captions."""
+        pipes = [self, *list(others)]
+        method = method or self.config.decode.method
+        if method not in ("greedy", "beam"):
+            raise ValueError(f"generate_ensemble supports greedy|beam, got {method!r}")
+        beam_width = beam_width or self.config.decode.beam_width
+        for i, p in enumerate(pipes[1:], 1):
+            if p.tokenizer is None or p.tokenizer.word_index != self.tokenizer.word_index:
+                raise ValueError(
+                    f"ensemble member {i} has a different tokenizer — "
+                    "members must share the vocabulary (same word "
+                    "indices), or their per-step distributions are "
+                    "not over the same events"
+                )
+        if isinstance(features, (list, tuple)):
+            if len(features) != len(pipes):
+                raise ValueError(
+                    f"{len(features)} feature arrays for {len(pipes)} "
+                    "models (pass one ndarray to share features)"
+                )
+        else:
+            features = [features] * len(pipes)
+        feats = tuple(
+            torch.as_tensor(f).to(self.device, p._infer_dtype()) for f, p in zip(features, pipes)
+        )
+        params = tuple(p._inference_params()["decoder"] for p in pipes)
+        ens = EnsembleDecoder(
+            [p.decoder for p in pipes],
+            weights=weights,
+            steps=[p.step_fn() for p in pipes],
+        )
+        start_id, end_id = self._token_ids()
+        dcfg = self.config.decode
+        with precision_flags(self.config.precision):
+            state = ens.init_state(params, feats)
+            common = dict(
+                start_id=start_id, end_id=end_id, max_len=dcfg.max_len, min_len=dcfg.min_len,
+                banned_ids=self._banned_ids(), no_repeat_ngram_size=dcfg.no_repeat_ngram_size,
+            )
+            if method == "greedy":
+                res = greedy_decode(ens.step, params, state, **common)
+            else:
+                res = beam_decode(
+                    ens.step, params, state, beam_width=beam_width,
+                    length_normalize=dcfg.length_normalize, alpha=dcfg.alpha,
+                    length_penalty=dcfg.length_penalty, approx_topk=dcfg.approx_topk,
+                    decoder=ens, **common,
+                )
+        return self._captions(res)
+
+    @torch.inference_mode()
+    def generate_with_attention(
+        self, features, *, method: str | None = None, beam_width: int | None = None
+    ):
+        """Captions with their attention maps (the Show-Attend-Tell
+        visualization, CONFIG_4). -> ``(captions, alphas, lengths)``: alphas
+        (B, T, L) f32 numpy, row t the softmax over the L grid cells that
+        the decoder attended to while emitting token t (rows past
+        lengths[b] come from pad inputs and mean nothing); lengths (B,)
+        int32. Reshape L to the encoder's grid (14 x 14 for VGG16) for
+        overlays.
+
+        Decodes with greedy or beam, then teacher-forces
+        ``[start, tokens[:-1]]`` through ``forward_hidden_with_alphas`` on
+        the same params snapshot and under the same precision flags: the
+        recurrence is deterministic, so the maps are those of the decode's
+        (chosen beam's) trajectory."""
+        if not hasattr(self.decoder, "forward_hidden_with_alphas"):
+            raise ValueError(
+                "generate_with_attention requires a decoder exposing "
+                "forward_hidden_with_alphas (the attention or transformer "
+                f"family); got {type(self.decoder).__name__}"
+            )
+        method = method or self.config.decode.method
+        beam_width = beam_width or self.config.decode.beam_width
+        if method not in ("greedy", "beam"):
+            raise ValueError(f"generate_with_attention supports greedy|beam, got {method!r}")
+        params = self._inference_params()
+        dec_params = params["decoder"]
+        feats = self._features(params, features, images=False)
+        res = self._decode(dec_params, feats, method, beam_width)
+        start_id, _ = self._token_ids()
+        tokens = res.tokens
+        # The input at step t is the previous output (the start token at 0).
+        tf_tokens = torch.cat([torch.full_like(tokens[:, :1], start_id), tokens[:, :-1]], dim=1)
+        with precision_flags(self.config.precision):
+            _, alphas = self.decoder.forward_hidden_with_alphas(dec_params, feats, tf_tokens)
+        alphas = alphas.float().cpu().numpy()
+        return self._captions(res), alphas, res.lengths.cpu().numpy().astype(np.int32)
 
     @torch.inference_mode()
     def score_captions(self, features, captions) -> list[dict]:

@@ -241,10 +241,14 @@ class CaptionServer:
         refuse_unported(parallelism=(parallelism if parallelism != "none" else None, None))
         resolved = method or pipeline.config.decode.method
         if resolved not in ("greedy", "beam", "sample"):
+            # tpucap's server runs a plain beam search for any other method
+            # name; the port refuses rather than run another method than the
+            # one asked for (the offline modes are the pipeline's
+            # generate_diverse / generate_mbr / generate_ensemble).
             raise NotImplementedError(
-                f"method {resolved!r} is not ported to tpucap_torch's server "
-                "(greedy|beam|sample; the rest of the decode toolkit is ROADMAP "
-                "queue 1, item 6.3c)"
+                f"method {resolved!r} is not served by tpucap_torch's server "
+                "(greedy|beam|sample; diverse, mbr and ensembles are offline "
+                "decode modes of the pipeline)"
             )
         # Per-request forced-prefix token cap, tpucap's admission rule.
         self._max_prefix_tokens = (

@@ -16,6 +16,13 @@ step for step, and gives its floats:
   weighs ``w * log(float_info.min)`` (0 under a zero weight);
 - ``bp * exp(fsum(w_i * log(p_i)))``.
 
+``sentence_bleu`` is NLTK's ``sentence_bleu(references, hypothesis,
+smoothing_function=SmoothingFunction().method1)``, the smoothed BLEU-4 of
+MBR reranking (``decode/mbr.py``): ``corpus_bleu`` of one sentence, where
+an order with no match counts as ``epsilon / denominator`` (epsilon 0.1)
+over its unnormalized denominator, as NLTK's ``Fraction(num, den,
+_normalize=False)`` keeps it: 0/5 becomes 0.1/5, not 0.1/1.
+
 It emits no warning where NLTK warns about an order without matches.
 """
 
@@ -65,10 +72,16 @@ def brevity_penalty(closest_ref_len: int, hyp_len: int) -> float:
     return math.exp(1 - closest_ref_len / hyp_len)
 
 
-def corpus_bleu(list_of_references, hypotheses, weights_list) -> list[float]:
+def corpus_bleu(
+    list_of_references, hypotheses, weights_list, *, smoothing: str = "method0"
+) -> list[float]:
     """NLTK's ``corpus_bleu(list_of_references, hypotheses, weights=
-    weights_list, smoothing_function=SmoothingFunction().method0)`` for a
-    list of weight tuples: one score per tuple."""
+    weights_list, smoothing_function=SmoothingFunction().<smoothing>)`` for
+    a list of weight tuples: one score per tuple. ``smoothing``: method0
+    (no smoothing) or method1 (epsilon 0.1 for an order without
+    matches)."""
+    if smoothing not in ("method0", "method1"):
+        raise ValueError(f"unknown smoothing {smoothing!r}; have method0|method1")
     if len(list_of_references) != len(hypotheses):
         raise ValueError(
             f"{len(list_of_references)} reference sets vs {len(hypotheses)} hypotheses"
@@ -88,13 +101,22 @@ def corpus_bleu(list_of_references, hypotheses, weights_list) -> list[float]:
     if numerators[1] == 0:
         return [0] * len(weights_list)
     p_n = [
-        Fraction(numerators[n], denominators[n]) if numerators[n] else sys.float_info.min
+        Fraction(numerators[n], denominators[n]) if numerators[n]
+        else 0.1 / denominators[n] if smoothing == "method1"
+        else sys.float_info.min
         for n in range(1, orders + 1)
     ]
     return [
         bp * math.exp(math.fsum(w * math.log(p) for w, p in zip(weights, p_n) if p > 0))
         for weights in weights_list
     ]
+
+
+def sentence_bleu(references, hypothesis, weights=(0.25, 0.25, 0.25, 0.25)) -> float:
+    """NLTK's ``sentence_bleu(references, hypothesis, weights,
+    smoothing_function=SmoothingFunction().method1)`` as a float (0.0 when
+    no unigram matches)."""
+    return float(corpus_bleu([references], [hypothesis], [weights], smoothing="method1")[0])
 
 
 def bleu_scores(references, hypotheses) -> dict[str, float]:
