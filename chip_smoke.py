@@ -379,14 +379,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    phase 8's checkpoint (and a bundle of it) print the library calls'
    lines, and ``--dump-attention`` on CONFIG_4 saved as a checkpoint writes
    tpucap's keys and dtypes, as subprocesses side by side;
-19. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
+19. the GRU and adaptive decoders (plain steps, as tpucap's are plain
+   XLA): (a) path A into gru1, then gru2 (embed and hidden 256, vocab
+   7579, beam 3, max_len 34, bf16): one batch of 256 with the counters
+   reset just before and read just after, K1 1, K4 12, K2 and K3 0,
+   captions/s and ms a decode step; (b) f32, 32 rows: gru1's first-step
+   logits on the card within P19_LOGIT_ATOL of the same step on the CPU,
+   then greedy decodes on both, rows parted at a near-tie logged, more
+   than 8 of 32 fail; (c) CONFIG_4's encoder (VGG16's 14 x 14 x 512 grid
+   at 224, caffe) into the adaptive decoder (embed, hidden and attention
+   256), beam 3, bf16, 64 images: K1 once and nothing else, ``val`` and
+   ``att_feat`` (64, 196, 256) inside every step; in f32 its
+   ``generate_with_attention`` beam maps (64, 34, 197), every row summing
+   to 1 within P18_ALPHA_ATOL, column 196 (beta) in [0, 1]; (d)
+   ``make_train_step`` for gru1 at bench.py --mode train's shapes (batch
+   256, T 35, bf16 compute) and for the adaptive decoder with
+   ``attention_reg=1.0`` at batch 64 on the 196-cell grid: step ms, no
+   launch, the loss falling over 5 steps on one batch; (e) a
+   ``CaptionHTTPServer`` on (a)'s gru1 pipeline answers four batches of 16
+   feature rows with ``generate``'s captions; (f) gru1 and gru2 through
+   ``export_h5`` and ``gru_merge_decoder_params_from_keras`` bit for bit,
+   their greedy and beam decodes token for token;
+20. a ``{"kernels": [...]}`` line (its launches: phase 3's batch plus
    phase 9's counted serving runs for K1, K2 and K3, phase 10's counted
    steps and caption, phase 11's counted fits, decodes and commands,
    phase 12's counted monitor, joint fit, decodes and evaluates,
    phase 13's counted decodes, joint LoRA fits and caption, phase
    14's counted caption, path-A batch and re-imported decodes, phase
-   15's counted serving, phase 16's, 17's and 18's windows), then ``{"ok": true,
-   "device": {...}}`` as the last line.
+   15's counted serving, phase 16's, 17's and 18's windows, phase 19's
+   counted batches), then ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 It imports torch and tpucap_torch only (no jax, nothing of tpucap).
 """
@@ -998,13 +1020,14 @@ def corpus(n_words: int) -> dict[str, list[str]]:
     return {"corpus": caps}
 
 
-def make_pipeline(precision: str, tokenizer=None, encoder: str = "resnet50", seed: int = 0):
+def make_pipeline(precision: str, tokenizer=None, encoder: str = "resnet50", seed: int = 0,
+                  decoder: str = "lstm1"):
     from tpucap_torch.config import Config, DecodeConfig, DecoderConfig, encoder_config
     from tpucap_torch.pipeline import CaptioningPipeline
 
     cfg = Config(
         encoder=encoder_config(encoder),
-        decoder=DecoderConfig(name="lstm1", embed_dim=WIDTH, hidden_dim=WIDTH),
+        decoder=DecoderConfig(name=decoder, embed_dim=WIDTH, hidden_dim=WIDTH),
         decode=DecodeConfig(method="beam", beam_width=BEAM, max_len=MAX_LEN),
         precision=precision,
     )
@@ -1033,10 +1056,12 @@ def timed(fn) -> tuple[object, float]:
     return r, time.perf_counter() - t0
 
 
-def run_path(dev, label: str, pipe, encoder_launches: dict[str, int]) -> dict[str, int]:
+def run_path(dev, label: str, pipe, encoder_launches: dict[str, int], work=None) -> dict[str, int]:
     """One full-width batch of ``pipe.caption_batch`` with the counters
     reset just before and read just after; then two more for the median.
-    ``encoder_launches``: the encoder kernels' launches per batch."""
+    ``encoder_launches``: the encoder kernels' launches per batch. With
+    ``work`` (a ``DialWork`` on ``pipe``: a decoder whose step is plain)
+    the decode steps are its counted steps and K2 and K3 launch nothing."""
     from tpucap_torch import ops
     from tpucap_torch.ops.preprocess import fused_preprocess
 
@@ -1056,15 +1081,18 @@ def run_path(dev, label: str, pipe, encoder_launches: dict[str, int]) -> dict[st
     enc_s = min(timed(encode)[1] for _ in range(3))
 
     ops.reset_launch_counts()
+    before = work.steps if work is not None else 0
     caps, batch_s = timed(lambda: pipe.caption_batch(images))
     counts = ops.launch_counts()
+    steps = counts["lstm_cell"] if work is None else work.steps - before
     more = [timed(lambda: pipe.caption_batch(images))[1] for _ in range(2)]
 
     if len(caps) != BATCH or not all(isinstance(c, str) for c in caps):
         raise AssertionError(f"{label}: caption_batch returned a malformed batch")
-    steps = counts["lstm_cell"]
     expect = {name: 0 for name in counts}
-    expect.update(preprocess_u8=1, lstm_cell=steps, merge_head=steps, vocab_proj=steps, **encoder_launches)
+    expect.update(preprocess_u8=1, **encoder_launches)
+    if work is None:
+        expect.update(lstm_cell=steps, merge_head=steps, vocab_proj=steps)
     if not 1 <= steps <= MAX_LEN or counts != expect:
         raise AssertionError(f"{label}: launch counts {counts} != {expect}")
     med = float(np.median([batch_s, *more]))
@@ -1216,19 +1244,29 @@ def train_decoder(dev) -> None:
     compute with f32 master params. The teacher-forced loop runs the plain
     cell under autograd (tpucap trains with its plain scan; K2 is
     forward-only), so no kernel of the port launches."""
+    decoder_train_steps(dev, "train decoder", "lstm1", (DEC_TRAIN_BATCH, DEC_FEATURES))
+
+
+def decoder_train_steps(dev, label: str, name: str, feat_shape: tuple, **step_kw) -> list[float]:
+    """``make_train_step`` of decoder ``name`` (embed and hidden WIDTH,
+    vocab VOCAB, the feature width feat_shape[-1]) on one batch of seeded
+    features and (batch, MAX_LEN + 1) tokens, bf16 compute with f32 master
+    params: a warm-up step, then 5 timed, no kernel launched (the training
+    loop is plain). -> the 5 losses."""
     from tpucap_torch import ops
     from tpucap_torch.config import TrainConfig
     from tpucap_torch.models.decoders import build_decoder
     from tpucap_torch.train import TrainState, build_optimizer, make_train_step
 
-    dec = build_decoder("lstm1", VOCAB, DEC_FEATURES, embed_dim=WIDTH, hidden_dim=WIDTH)
+    batch = feat_shape[0]
+    dec = build_decoder(name, VOCAB, feat_shape[-1], embed_dim=WIDTH, hidden_dim=WIDTH)
     params = tree_to(dec.init(torch.Generator().manual_seed(0)), dev)
     opt = build_optimizer(TrainConfig())
     state = TrainState.create(params, opt, torch.Generator(device=dev).manual_seed(0))
-    step = make_train_step(dec, opt, compute_dtype=torch.bfloat16, donate=True)
+    step = make_train_step(dec, opt, compute_dtype=torch.bfloat16, donate=True, **step_kw)
     g = torch.Generator(device=dev).manual_seed(8)
-    feats = torch.randn((DEC_TRAIN_BATCH, DEC_FEATURES), generator=g, device=dev)
-    tokens = torch.randint(1, VOCAB, (DEC_TRAIN_BATCH, MAX_LEN + 1), generator=g, device=dev)
+    feats = torch.randn(feat_shape, generator=g, device=dev)
+    tokens = torch.randint(1, VOCAB, (batch, MAX_LEN + 1), generator=g, device=dev)
     state, m = step(state, feats, tokens)  # warm-up: allocator, cuBLAS
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1239,13 +1277,16 @@ def train_decoder(dev) -> None:
         losses.append(float(m["loss"]))
     counts = ops.launch_counts()
     if any(counts.values()):
-        raise AssertionError(f"train_decoder: kernels launched {counts}; the training loop is plain")
+        raise AssertionError(f"{label}: kernels launched {counts}; the training loop is plain")
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train_decoder: losses {losses} not finite")
+        raise AssertionError(f"{label}: losses {losses} not finite")
     med = float(np.median(times))
-    log(f"train decoder: lstm1 batch {DEC_TRAIN_BATCH} T {MAX_LEN + 1} vocab {VOCAB} bf16 compute, f32 masters: "
-        f"step ms {[round(t * 1e3, 3) for t in times]} median {med * 1e3:.3f}; samples/s {DEC_TRAIN_BATCH / med:.2f}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses {[round(x, 4) for x in losses]}")
+    extra = "".join(f", {k} {v}" for k, v in step_kw.items())
+    log(f"{label}: {name} batch {batch} features {tuple(feat_shape[1:])} T {MAX_LEN + 1} vocab {VOCAB} bf16 "
+        f"compute, f32 masters{extra}: step ms {[round(t * 1e3, 3) for t in times]} median {med * 1e3:.3f}; "
+        f"samples/s {batch / med:.2f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+        f"losses {[round(x, 4) for x in losses]}")
+    return losses
 
 
 def tree_to(tree, dev):
@@ -5796,6 +5837,216 @@ def run_toolkit(dev, tokenizer, smi: str, cli_root: Path) -> dict[str, int]:
     return counts
 
 
+# Phase 19, the GRU and adaptive decoders: (b)'s rows, the most of them
+# that may part at a near-tie, and the f32 first-step logits' bound on the
+# card against the CPU (cuBLAS with TF32 off against the host's BLAS: the
+# same products summed in another order over K = 2048 and 256, logits of
+# O(1)); (c)'s images; (e)'s served batches and rows a batch; (f)'s decoded
+# rows.
+P19_ROWS, P19_PARTED, P19_LOGIT_ATOL = 32, 8, 1e-4
+P19_IMAGES, P19_SERVED, P19_SERVED_ROWS, P19_DECODED = 64, 4, 16, 64
+
+
+def gru_paths(dev, tokenizer) -> tuple[dict, dict[str, int]]:
+    """19 (a): path A (ResNet-50 BN folded with ``fused_blocks``) into gru1,
+    then gru2, at phase 3's widths, bf16: one batch of ``caption_batch``
+    with the counters reset just before and read just after (K1 1, K4 12,
+    K2 and K3 0: the GRU step is plain), captions/s and ms a decode step.
+    -> ({name: pipeline}, the counted batches' launches)."""
+    pipes, total = {}, {}
+    for name in ("gru1", "gru2"):
+        pipe = make_pipeline("bf16", tokenizer, decoder=name)
+        pipe.encoder = dataclasses.replace(pipe.encoder, fused_blocks=True)
+        log(f"decoders {name}: batch {BATCH} resnet50(fused_blocks=True)+{name} embed/hidden {WIDTH} beam "
+            f"{BEAM} vocab {VOCAB} max_len {MAX_LEN} bf16")
+        work = DialWork(pipe)
+        try:
+            counts = run_path(dev, f"decoders {name}", pipe, {"identity_block": 12}, work=work)
+        finally:
+            work.close()
+            del pipe.step_fn, pipe._apply_encoder  # the class's own again
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        pipes[name] = pipe
+    return pipes, total
+
+
+def gru_agreement(dev, pipe) -> None:
+    """19 (b): f32 (TF32 off), P19_ROWS rows of seeded features: gru1's
+    first decode step on the card against the same step on the CPU within
+    P19_LOGIT_ATOL, then greedy decodes of the rows on both; rows that part
+    (a near-tie taken the other way) are logged, more than P19_PARTED
+    fail."""
+    from tpucap_torch.core import precision_flags, tree_map
+    from tpucap_torch.decode import greedy_decode
+
+    dec, params = pipe.decoder, pipe.params["decoder"]  # f32 masters
+    start, end = pipe._token_ids()
+    feats = torch.randn((P19_ROWS, DEC_FEATURES), generator=torch.Generator().manual_seed(190))
+    out = {}
+    with torch.inference_mode(), precision_flags("f32"):
+        for where, p in (("card", params), ("cpu", tree_map(lambda t: t.cpu(), params))):
+            x = feats.to(dev if where == "card" else "cpu")
+            first = torch.full((P19_ROWS,), start, dtype=torch.long, device=x.device)
+            logits, _ = dec.step(p, dec.init_state(p, x), first)
+            res = greedy_decode(dec.step, p, dec.init_state(p, x), start_id=start, end_id=end, max_len=MAX_LEN)
+            out[where] = (logits.float().cpu(), res.tokens.cpu(), res.lengths.cpu())
+    err = max_err(out["card"][0], out["cpu"][0])
+    if not err <= P19_LOGIT_ATOL:
+        raise AssertionError(f"decoders gru1 f32: first-step logits {err:.3g} from the CPU's")
+    parted = []
+    for i in range(P19_ROWS):
+        a, b = out["card"][1][i], out["cpu"][1][i]
+        if not torch.equal(a, b):
+            t = int((a != b).nonzero()[0])
+            parted.append(f"row {i} from step {t}")
+    if parted:
+        log(f"decoders gru1 f32: {len(parted)} of {P19_ROWS} rows parted at a near-tie: {parted[:8]}")
+    if len(parted) > P19_PARTED:
+        raise AssertionError(f"decoders gru1 f32: {len(parted)} of {P19_ROWS} greedy rows differ from the CPU's")
+    log(f"decoders gru1 f32 (TF32 off), {P19_ROWS} rows: first-step logits (vocab {VOCAB}) within {err:.3g} "
+        f"of the CPU's (bound {P19_LOGIT_ATOL}); greedy tokens equal in {P19_ROWS - len(parted)} of "
+        f"{P19_ROWS} rows; lengths {out['card'][2].min().item()}-{out['card'][2].max().item()}")
+
+
+def adaptive_path(dev, tokenizer) -> tuple[object, dict[str, int]]:
+    """19 (c): CONFIG_4's encoder (VGG16's 14 x 14 x 512 grid at 224, caffe
+    mode) into the adaptive decoder (embed, hidden and attention 256), beam
+    BEAM, bf16, P19_IMAGES uint8 images: one ``caption_batch`` with the
+    counters reset just before and read just after (K1 1, nothing else: the
+    step is plain), ``val`` and ``att_feat`` (B, 196, .) inside every step
+    beside h (B * BEAM, .); then in f32 the images' grids (K1 1) and
+    ``generate_with_attention``'s beam maps: (B, max_len, 197), every row
+    summing to 1 within P18_ALPHA_ATOL, column 196 (the sentinel's beta) in
+    [0, 1]. -> (the pipeline, the launches)."""
+    from tpucap_torch import ops
+
+    pipe = preset_pipeline("config4", tokenizer, name="adaptive")
+    pipe.config = dataclasses.replace(pipe.config, precision="bf16")
+    enc, dec, cfg = pipe.encoder, pipe.decoder, pipe.config.decoder
+    L = enc.spatial_positions
+    g = torch.Generator(device=dev).manual_seed(191)
+    images = torch.randint(0, 256, (P19_IMAGES, enc.input_size, enc.input_size, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    pipe.caption_batch(images[:8])  # warm-up
+    shapes, steps = set(), []
+
+    def observe(p, state, token):
+        shapes.add((tuple(state["val"].shape), tuple(state["att_feat"].shape), tuple(state["h"].shape)))
+        steps.append(1)
+        return dec.step(p, state, token)
+
+    pipe.step_fn = lambda: observe
+    ops.reset_launch_counts()
+    try:
+        caps, s = timed(lambda: pipe.caption_batch(images))
+        counts = ops.launch_counts()
+    finally:
+        del pipe.step_fn
+    check_counts("decoders adaptive", counts, 1, decode=False)
+    want = ((P19_IMAGES, L, cfg.hidden_dim), (P19_IMAGES, L, cfg.attention_dim), (P19_IMAGES * BEAM, cfg.hidden_dim))
+    if shapes != {want} or len(caps) != P19_IMAGES:
+        raise AssertionError(f"decoders adaptive: state shapes in the beam {shapes}, expected {want}")
+    log(f"decoders adaptive: {P19_IMAGES} images at {enc.input_size} (caffe), vgg16 spatial {L} x "
+        f"{pipe.config.encoder.feature_dim} + adaptive "
+        f"(embed/hidden/attention {cfg.embed_dim}/{cfg.hidden_dim}/{cfg.attention_dim}), beam {BEAM}, bf16: "
+        f"caption_batch {s:.5f} s ({P19_IMAGES / s:.2f} captions/s, {len(steps)} steps); launches K1 1, no "
+        f"other kernel; inside every step val {want[0]} and att_feat {want[1]} beside h {want[2]}; "
+        f"{len(set(caps))} distinct captions; {caps[0]!r}")
+
+    pipe.config = dataclasses.replace(pipe.config, precision="f32")
+    ops.reset_launch_counts()
+    grids = toolkit_encode(pipe, images)
+    more = ops.launch_counts()
+    check_counts("decoders adaptive grids", more, 1, decode=False)
+    caps, alphas, lengths = pipe.generate_with_attention(grids, method="beam")
+    T = pipe.config.decode.max_len
+    sums = float(np.abs(alphas.sum(-1) - 1.0).max())
+    beta = alphas[..., L]
+    live = np.arange(T)[None, :] < lengths[:, None]
+    if (alphas.shape != (P19_IMAGES, T, L + 1) or not sums <= P18_ALPHA_ATOL
+            or not ((beta >= 0) & (beta <= 1)).all() or caps != pipe.generate(grids, method="beam")):
+        raise AssertionError(f"decoders adaptive maps {alphas.shape}: sums within {sums:.3g}, beta "
+                             f"{beta.min():.3g}-{beta.max():.3g}")
+    log(f"decoders adaptive maps: f32 beam {BEAM}, alphas {alphas.shape} (the grid's {L} columns, then the "
+        f"sentinel's beta), every row summing to 1 within {sums:.3g}; beta {beta.min():.4f}-{beta.max():.4f}, "
+        f"mean {float(beta[live].mean()):.4f} over {int(live.sum())} live steps; the captions generate's")
+    return pipe, {k: counts[k] + more[k] for k in counts}
+
+
+def gru_server(pipe) -> None:
+    """19 (e): a ``CaptionHTTPServer`` (batch engine, max_batch
+    P19_SERVED_ROWS) on (a)'s gru1 pipeline answers P19_SERVED batches of
+    P19_SERVED_ROWS feature rows, each one device batch (``/caption_batch``
+    through the features batcher), with ``generate``'s captions of the same
+    rows."""
+    from tpucap_torch import ops
+    from tpucap_torch.client import CaptionClient
+    from tpucap_torch.serve_http import CaptionHTTPServer
+
+    srv = CaptionHTTPServer(pipe, host="127.0.0.1", port=0, max_batch=P19_SERVED_ROWS)
+    addr = srv.serve_background()
+    g = np.random.default_rng(192)
+    ops.reset_launch_counts()
+    try:
+        client = CaptionClient(*addr)
+        t0 = time.perf_counter()
+        for i in range(P19_SERVED):
+            rows = g.normal(size=(P19_SERVED_ROWS, DEC_FEATURES)).astype(np.float32)
+            got = client.caption_features_many(rows)
+            want = pipe.generate(rows)
+            if got != want:
+                raise AssertionError(f"decoders gru1 server batch {i}: {got[:2]} against generate's {want[:2]}")
+        wall = time.perf_counter() - t0
+    finally:
+        srv.close()
+    check_counts("decoders gru1 server", ops.launch_counts(), 0, decode=False)
+    log(f"decoders gru1 server: {P19_SERVED} batches of {P19_SERVED_ROWS} feature rows through "
+        f"http://{addr[0]}:{addr[1]}, each generate's captions of its rows ({wall:.3f} s with the "
+        f"generate calls); no kernel launched")
+
+
+def gru_keras(pipes, root: Path) -> None:
+    """19 (f): gru1 and gru2 at vocab VOCAB through ``export_h5`` and
+    ``gru_merge_decoder_params_from_keras``: params bit for bit, then greedy
+    and beam tokens of P19_DECODED rows token for token (``reimport_decodes``)."""
+    from tpucap_torch.checkpoint import KerasH5Model, export_h5, gru_merge_decoder_params_from_keras
+
+    x = np.random.default_rng(193).normal(size=(P19_DECODED, DEC_FEATURES)).astype(np.float32)
+    for name, pipe in pipes.items():
+        path = root / f"{name}.h5"
+        _, export_s = timed(lambda: export_h5(pipe.decoder, pipe.params["decoder"], path, max_len=MAX_LEN))
+        view, read_s = timed(lambda: KerasH5Model(path))
+        log(f"decoders keras {name}: {len(view.layers)} layers, {path.stat().st_size / 2**20:.2f} MiB written "
+            f"in {export_s:.5f} s, read back {read_s:.5f} s")
+        counts = reimport_decodes(f"decoders keras {name}", pipe, gru_merge_decoder_params_from_keras(view), x)
+        if any(counts.values()):
+            raise AssertionError(f"decoders keras {name}: kernels launched {counts}; the GRU step is plain")
+
+
+def run_decoders(dev, tokenizer) -> dict[str, int]:
+    """Phase 19: (a) path A into gru1 and gru2, (b) gru1's f32 step on the
+    card against the CPU, (c) CONFIG_4's grid into the adaptive decoder and
+    its L+1 maps, (d) the two families' training steps, (e) a server on
+    gru1, (f) gru1 and gru2 through Keras ``.h5``. -> (a)'s and (c)'s
+    counted launches."""
+    pipes, counts = gru_paths(dev, tokenizer)
+    gru_agreement(dev, pipes["gru1"])
+    adaptive, more = adaptive_path(dev, tokenizer)
+    counts = {k: counts[k] + more[k] for k in counts}
+    L, D = adaptive.encoder.spatial_positions, adaptive.config.encoder.feature_dim
+    del adaptive
+    torch.cuda.empty_cache()
+    for name, shape, kw in (("gru1", (DEC_TRAIN_BATCH, DEC_FEATURES), {}),
+                            ("adaptive", (P19_IMAGES, L, D), {"attention_reg": 1.0})):
+        losses = decoder_train_steps(dev, "decoders train", name, shape, **kw)
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"decoders train {name}: losses {losses} do not fall on one batch")
+    gru_server(pipes["gru1"])
+    with tempfile.TemporaryDirectory() as tmp:
+        gru_keras(pipes, Path(tmp))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5846,7 +6097,7 @@ def main() -> int:
 
 
 def run_phases(dev, tokenizer, smi: str, counts: dict, fields: dict, cli_root: Path) -> int:
-    """Phases 8-18 (phase 8's dataset and checkpoint in ``cli_root``, which
+    """Phases 8-19 (phase 8's dataset and checkpoint in ``cli_root``, which
     phase 18 captions from), then the kernels line and the last line."""
     run_cli_workflow(dev, cli_root)
     for name, c in run_presets(dev, tokenizer).items():
@@ -5901,6 +6152,11 @@ def run_phases(dev, tokenizer, smi: str, counts: dict, fields: dict, cli_root: P
     for name in counts:
         counts[name] += kitted[name]
     log(f"phase 18: {time.perf_counter() - t18:.2f} s")
+    t19 = time.perf_counter()
+    decoded = run_decoders(dev, tokenizer)
+    for name in counts:
+        counts[name] += decoded[name]
+    log(f"phase 19: {time.perf_counter() - t19:.2f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

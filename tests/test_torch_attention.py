@@ -70,20 +70,21 @@ def test_steps_match_tpucap(name, num_layers):
     extra = {"num_layers": num_layers} if name == "inject" else {}
     jdec, jp, tdec, tp = _bridged(name, **extra)
     feats = _feats(name)
-    js = jdec.init_state(jp, jnp.asarray(feats))
+    js = jax.jit(jdec.init_state)(jp, jnp.asarray(feats))
     ts = tdec.init_state(tp, torch.from_numpy(feats))
     assert sorted(ts) == sorted(js)
     for key in js:
         np.testing.assert_allclose(ts[key].numpy(), np.asarray(js[key]), atol=ATOL, err_msg=key)
     rng = np.random.default_rng(1)
+    jstep = jax.jit(jdec.step)
     for t in range(4):
         tok = rng.integers(1, V, size=(B,))
-        jl, js = jdec.step(jp, js, jnp.asarray(tok, jnp.int32))
+        jl, js = jstep(jp, js, jnp.asarray(tok, jnp.int32))
         tl, ts = tdec.step(tp, ts, torch.from_numpy(tok))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, err_msg=f"step {t}")
         for key in js:
             np.testing.assert_allclose(ts[key].numpy(), np.asarray(js[key]), atol=ATOL, err_msg=key)
-    jh, _ = jdec.step_hidden(jp, js, jnp.asarray(tok, jnp.int32))
+    jh, _ = jax.jit(jdec.step_hidden)(jp, js, jnp.asarray(tok, jnp.int32))
     th, _ = tdec.step_hidden(tp, ts, torch.from_numpy(tok))
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=ATOL)
 
@@ -93,12 +94,12 @@ def test_attention_with_a_shared_grid_matches_tpucap():
     context as tpucap's, and as the same step on a grid tiled k times."""
     jdec, jp, tdec, tp = _bridged("attention")
     feats = _feats("attention")
-    js = jdec.init_state(jp, jnp.asarray(feats))
+    js = jax.jit(jdec.init_state)(jp, jnp.asarray(feats))
     ts = tdec.init_state(tp, torch.from_numpy(feats))
     h = np.random.default_rng(2).normal(size=(3 * B, DIMS["hidden_dim"])).astype(np.float32)
     js = dict(js, h=jnp.asarray(h), c=jnp.asarray(h))
     ts = dict(ts, h=torch.from_numpy(h), c=torch.from_numpy(h))
-    jctx, jalpha = jdec._attend(jp, js)
+    jctx, jalpha = jax.jit(jdec._attend)(jp, js)
     tctx, talpha = tdec._attend(tp, ts)
     assert tuple(talpha.shape) == (3 * B, L)
     np.testing.assert_allclose(talpha.numpy(), np.asarray(jalpha), atol=ATOL)
@@ -115,11 +116,11 @@ def test_forward_train_matches_tpucap(name):
     jdec, jp, tdec, tp = _bridged(name)
     feats = _feats(name)
     toks = np.random.default_rng(3).integers(1, V, size=(B, T))
-    want = jdec.forward_train(jp, jnp.asarray(feats), jnp.asarray(toks, jnp.int32))
+    want = jax.jit(jdec.forward_train)(jp, jnp.asarray(feats), jnp.asarray(toks, jnp.int32))
     got = tdec.forward_train(tp, torch.from_numpy(feats), torch.from_numpy(toks))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     if name == "attention":
-        wl, wa = jdec.forward_train_with_alphas(jp, jnp.asarray(feats), jnp.asarray(toks, jnp.int32))
+        wl, wa = jax.jit(jdec.forward_train_with_alphas)(jp, jnp.asarray(feats), jnp.asarray(toks, jnp.int32))
         gl, ga = tdec.forward_train_with_alphas(tp, torch.from_numpy(feats), torch.from_numpy(toks))
         assert tuple(ga.shape) == (B, T, L)
         np.testing.assert_allclose(ga.numpy(), np.asarray(wa), atol=ATOL)
@@ -166,7 +167,7 @@ def _shape_checked(dec, seen):
 def test_engines_match_tpucap(name, method):
     jdec, jp, tdec, tp = _bridged(name, seed=5)
     feats = _feats(name, seed=5, batch=5)
-    js = jdec.init_state(jp, jnp.asarray(feats))
+    js = jax.jit(jdec.init_state)(jp, jnp.asarray(feats))
     ts = tdec.init_state(tp, torch.from_numpy(feats))
     kw = dict(start_id=START, end_id=END, max_len=MAXLEN)
     if method == "beam":

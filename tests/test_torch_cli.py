@@ -606,9 +606,30 @@ def test_unported_config_fields_raise_from_build_config(argv, match):
     (["--decoder", "adaptive"], "adaptive"),
     (["--decoder", "transformer"], "transformer"),
 ])
-def test_unported_encoders_and_decoders_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.main(["extract", *argv, "--images", "/nonexistent", "--out", "o.npz"], device="cpu")
+def test_unported_encoders_and_decoders_raise(argv, match, monkeypatch):
+    """The transformer decoder raises when the pipeline is built; gru1,
+    gru2 and adaptive (ported) build from the CLI's config, the decoder
+    tpucap's class with tpucap's param shapes (``jax.eval_shape`` of its
+    init: nothing compiled)."""
+    if match == "transformer":
+        with pytest.raises(NotImplementedError, match=match):
+            tcli.main(["extract", *argv, "--images", "/nonexistent", "--out", "o.npz"], device="cpu")
+        return
+    line = ["train", "--encoder", "tiny_cnn", *argv, "--embed-dim", "16", "--hidden-dim", "24",
+            "--tokens", "t", "--features", "f"]
+    tok = Tokenizer()
+    tok.fit_on_texts(["startseq a dog runs endseq"])
+    pipe = CaptioningPipeline(tcli._build_config(tcli.build_parser()[0].parse_args(line)), tokenizer=tok,
+                              device="cpu")
+    pipe.build(seed=0)
+    jpipe = JaxPipeline(jcli._build_config(_tpucap_namespace(line, monkeypatch)),
+                        tokenizer=JaxTokenizer.from_json(tok.to_json()))
+    jpipe.build(init_params=False)
+    assert type(pipe.decoder).__name__ == type(jpipe.decoder).__name__
+    want = jax.eval_shape(jpipe.decoder.init, jax.random.key(0))
+    got = params_to_numpy(pipe.params["decoder"])
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    assert [a.shape for a in jax.tree.leaves(got)] == [a.shape for a in jax.tree.leaves(want)]
 
 
 def test_commands_without_a_card_raise(monkeypatch):

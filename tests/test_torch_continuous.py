@@ -3,7 +3,10 @@
 decoder and the soft-attention decoder (vocabulary 29, embed 8, hidden 16,
 12-d features or a 9 x 12 grid), tpucap's random weights carried across by
 ``convert.params_from_jax`` with the head tilted toward endseq so that
-lengths differ, 4 slots, max_len 8, seeded numpy features.
+lengths differ, 4 slots, max_len 8, seeded numpy features; the GRU (2
+layers) and adaptive decoders run through both engines unchanged (the
+adaptive decoder's greedy engine, like the attention decoder's, is held to
+``greedy_decode`` only).
 
 Both engines are driven by one host schedule: requests arrive at different
 sync groups, more of them than there are slots, so lanes and groups are
@@ -51,7 +54,13 @@ CASES = {
     "merge": dict(name="lstm1", dials={}),
     "merge_dials": dict(name="lstm1", dials=dict(min_len=3, banned_ids=(5, 7), no_repeat_ngram_size=2)),
     "attention": dict(name="attention", dials={}),
+    # A random GRU or adaptive decoder repeats one word to max_len; the
+    # bigram ban lets the endseq tilt end some requests early.
+    "gru2": dict(name="gru2", dials=dict(no_repeat_ngram_size=2)),
+    "adaptive": dict(name="adaptive", dials=dict(no_repeat_ngram_size=2)),
 }
+#: The families whose features are a spatial grid.
+GRIDDED = ("attention", "adaptive")
 
 
 @functools.cache
@@ -67,7 +76,7 @@ def _bridged(name, seed=0):
 
 
 def _feature(name, seed):
-    shape = (GRID, D) if name == "attention" else (D,)
+    shape = (GRID, D) if name in GRIDDED else (D,)
     return np.random.default_rng(100 + seed).normal(size=shape).astype(np.float32)
 
 
@@ -120,7 +129,7 @@ def _engines(case, beam, **extra):
     spec = CASES[case]
     jdec, jp, tdec, tp = _bridged(spec["name"])
     kw = dict(slots=SLOTS, start_id=START, end_id=END, max_len=MAX_LEN, **spec["dials"], **extra)
-    if spec["name"] == "attention":
+    if spec["name"] in GRIDDED:
         kw["feature_shape"] = (GRID, D)
     if beam:
         kw["beam_width"] = K
@@ -170,7 +179,7 @@ def test_greedy_engine_matches_tpucap(case):
     # one lane a request its greedy engine is held to greedy_decode (itself
     # held to tpucap's in test_torch_attention.py), saving a jit compile of
     # tpucap's engine.
-    got, views = _check(case, beam=False, against_tpucap=case != "attention")
+    got, views = _check(case, beam=False, against_tpucap=case not in GRIDDED)
     lengths = {int(r[1]) for r in got.values()}
     assert len(lengths) > 1, "every request ran to the same length: no recycling was shown"
     if case == "merge_dials":
@@ -183,7 +192,9 @@ def test_greedy_engine_matches_tpucap(case):
     ("merge", {}),
     ("merge_dials", dict(length_penalty="gnmt", alpha=0.7)),
     ("attention", {}),
-], ids=["merge", "merge_dials_gnmt", "attention"])
+    ("gru2", {}),
+    ("adaptive", {}),
+], ids=["merge", "merge_dials_gnmt", "attention", "gru2", "adaptive"])
 def test_beam_engine_matches_tpucap(case, extra):
     got, views = _check(case, beam=True, **extra)
     # The stable prefix never shrinks while a group runs, and is a prefix

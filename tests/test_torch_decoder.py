@@ -1,7 +1,8 @@
 """tpucap_torch's MergeDecoder (1 and 2 layers) against tpucap's on params
 bridged through tpucap_torch.convert.params_from_jax, dropout off; the
 param layout of every ported family (the inject and attention decoders'
-steps are held in ``test_torch_attention.py``).
+steps are held in ``test_torch_attention.py``, the GRU and adaptive
+decoders' in ``test_torch_gru.py`` and ``test_torch_adaptive.py``).
 
 Tolerance: f32 on both sides, differing only by summation order: 1e-5
 absolute on O(1) states and logits.
@@ -34,27 +35,28 @@ def test_merge_decoder_steps_match_jax(name):
 
     rng = np.random.default_rng(0)
     feats = rng.normal(size=(5, DIMS["feature_dim"])).astype(np.float32)
-    js = jdec.init_state(jp, jnp.asarray(feats))
+    js = jax.jit(jdec.init_state)(jp, jnp.asarray(feats))
     ts = tdec.init_state(tp, torch.from_numpy(feats))
     for key in ("fe", "h", "c"):
         assert tuple(ts[key].shape) == js[key].shape
         np.testing.assert_allclose(ts[key].numpy(), np.asarray(js[key]), atol=ATOL)
 
+    jstep = jax.jit(jdec.step)
     for t in range(4):
         tok = rng.integers(1, DIMS["vocab_size"], size=(5,))
-        jl, js = jdec.step(jp, js, jnp.asarray(tok, jnp.int32))
+        jl, js = jstep(jp, js, jnp.asarray(tok, jnp.int32))
         tl, ts = tdec.step(tp, ts, torch.from_numpy(tok))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, err_msg=f"step {t}")
         for key in ("h", "c"):
             np.testing.assert_allclose(ts[key].numpy(), np.asarray(js[key]), atol=ATOL)
-    hid_j, _ = jdec.step_hidden(jp, js, jnp.asarray(tok, jnp.int32))
+    hid_j, _ = jax.jit(jdec.step_hidden)(jp, js, jnp.asarray(tok, jnp.int32))
     hid_t, _ = tdec.step_hidden(tp, ts, torch.from_numpy(tok))
     np.testing.assert_allclose(hid_t.numpy(), np.asarray(hid_j), atol=ATOL)
 
 
-@pytest.mark.parametrize("name", ["lstm1", "lstm2", "inject", "attention"])
+@pytest.mark.parametrize("name", ["lstm1", "lstm2", "gru1", "gru2", "inject", "attention", "adaptive"])
 def test_port_init_has_the_jax_param_layout(name):
-    jp = jit_init(jax_build_decoder(name, **DIMS), jax.random.key(0))
+    jp = jax.eval_shape(jax_build_decoder(name, **DIMS).init, jax.random.key(0))  # shapes only
     tp = build_decoder(name, **DIMS).init(torch.Generator().manual_seed(0))
     jflat = jax.tree_util.tree_flatten_with_path(jp)[0]
     assert len(jflat) == len(jax.tree_util.tree_leaves(tp))
@@ -66,8 +68,9 @@ def test_port_init_has_the_jax_param_layout(name):
 
 
 def test_build_decoder_refuses_unported_families():
-    for name in ("gru1", "gru2", "adaptive", "transformer"):
-        with pytest.raises(NotImplementedError, match=name):
-            build_decoder(name, **DIMS)
+    """The transformer alone; gru1, gru2 and adaptive build (their layouts
+    above)."""
+    with pytest.raises(NotImplementedError, match="transformer"):
+        build_decoder("transformer", **DIMS)
     with pytest.raises(ValueError, match="unknown decoder"):
         build_decoder("lstm3", **DIMS)

@@ -12,7 +12,7 @@ port test file that imports tf_keras.
   tpucap's tree bit for bit (``assert_array_equal`` on every leaf, equal
   dtypes); refusals raise tpucap's texts.
 - Decoder import: the files tpucap's ``export_h5`` writes (merge 1 and 2
-  layers, inject 1 and 2, attention) and inline Keras topologies with
+  layers, GRU merge 1 and 2, inject 1 and 2, attention) and inline Keras topologies with
   auto-names (tests/test_keras_bridge_families.py's inject and
   Show-Attend-Tell, the reference ``define_model``): trees bit for bit, then
   greedy and beam tokens of the port's decode on the imported params equal
@@ -21,7 +21,8 @@ port test file that imports tf_keras.
   predictions equal those of tpucap's exported model bit for bit; tpucap's
   importer on it returns the params bit for bit; its parsed
   ``model_config`` and every attribute equal tpucap's file written after
-  ``clear_session()``.
+  ``clear_session()``; the adaptive decoder's export is refused with
+  tpucap's text.
 - CLI on one fixture dataset (4 JPEGs) with the ResNet-50 file:
   ``extract --keras-h5`` features within atol 1e-5 (the CLI tests' bound)
   plus rtol 2e-6 (ResNet-50 rows reach 20), ``caption --keras-h5`` lines
@@ -231,6 +232,8 @@ def test_import_refuses_a_weights_only_file(encoder_files):
 FAMILIES = {
     "merge1": ("lstm1", {}, {}),
     "merge2": ("lstm2", {}, {}),
+    "gru1": ("gru1", {}, {}),
+    "gru2": ("gru2", {}, {}),
     "inject1": ("inject", {}, {}),
     "inject2": ("inject", {"num_layers": 2}, {}),
     "attention": ("attention", {"attention_dim": ATT}, {"positions": POS}),
@@ -239,6 +242,8 @@ FAMILIES = {
 IMPORTERS = {
     "lstm1": "merge_decoder_params_from_keras",
     "lstm2": "merge_decoder_params_from_keras",
+    "gru1": "gru_merge_decoder_params_from_keras",
+    "gru2": "gru_merge_decoder_params_from_keras",
     "inject": "inject_decoder_params_from_keras",
     "attention": "attention_decoder_params_from_keras",
 }
@@ -470,6 +475,7 @@ def test_export_refuses_other_families():
     for fn, want in [
         (texport.inject_decoder_to_keras, "inject export needs an InjectDecoder; got MergeDecoder"),
         (texport.attention_decoder_to_keras, "attention export needs an AttentionDecoder"),
+        (texport.gru_merge_decoder_to_keras, "gru export needs a GruMergeDecoder; got MergeDecoder"),
     ]:
         with pytest.raises(ValueError, match=want):
             fn(dec, params, max_len=3)
@@ -479,6 +485,15 @@ def test_export_refuses_other_families():
 
     with pytest.raises(ValueError, match="no Keras topology for TransformerDecoder"):
         texport.export_h5(TransformerDecoder(), params, "x.h5", max_len=3)
+    # The adaptive family has no Keras topology: tpucap's text.
+    dims = dict(vocab_size=VOCAB, feature_dim=FEAT, attention_dim=ATT)
+    with pytest.raises(ValueError) as jerr:
+        jexport.decoder_to_keras(jax_build_decoder("adaptive", **dims), {}, max_len=3)
+    adaptive = build_decoder("adaptive", **dims)
+    with pytest.raises(ValueError) as err:
+        texport.export_h5(adaptive, adaptive.init(torch.Generator().manual_seed(0)), "x.h5", max_len=3)
+    assert str(err.value) == str(jerr.value)
+    assert str(err.value).startswith("no Keras topology for AdaptiveAttentionDecoder; have [")
 
 
 # ---------------------------------------------------------------------------

@@ -452,6 +452,63 @@ def test_precision_flags_hold_across_threads():
         m.allow_tf32, c.allow_tf32 = saved
 
 
+def test_training_steps_hold_their_flags_against_a_serving_thread(monkeypatch):
+    """Fault 3.31: an f32 ``fit`` on one thread while another runs bf16
+    blocks in a loop. Every read of the flags inside a training step (the
+    loss, wrapped) finds TF32 off, and after fit returns the flags are
+    those the other thread's blocks left: training changes none."""
+    from tpucap_torch.train import loop as tloop
+
+    m, c = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (m.allow_tf32, c.allow_tf32)
+    pipe = CaptioningPipeline(
+        tcfg.Config(
+            encoder=tcfg.encoder_config("tiny_cnn"),
+            decoder=tcfg.DecoderConfig(**DEC),
+            decode=tcfg.DecodeConfig(max_len=10),
+            train=tcfg.TrainConfig(precision="f32", epochs=3, batch_size=2),
+            precision="f32",
+        ),
+        device="cpu",
+    )
+    pipe.fit_tokenizer(CORPUS)
+    pipe.build(seed=0)
+    feats = {k: np.random.default_rng(i).normal(size=128).astype(np.float32) for i, k in enumerate(CORPUS)}
+    seen, real_loss = [], tloop.caption_loss_sums
+
+    def loss(*args, **kw):
+        seen.append((m.allow_tf32, c.allow_tf32))
+        time.sleep(0.002)  # the serving thread is waiting for the lock now
+        return real_loss(*args, **kw)
+
+    monkeypatch.setattr(tloop, "caption_loss_sums", loss)
+    stop, blocks = threading.Event(), []
+
+    def serving():
+        while not stop.is_set():
+            with precision_flags("bf16"):
+                blocks.append((m.allow_tf32, c.allow_tf32))
+                time.sleep(0.001)
+
+    apply_precision("bf16")  # TF32 on outside any block
+    server = threading.Thread(target=serving)
+    try:
+        server.start()
+        while not blocks:
+            time.sleep(0.001)
+        history = pipe.fit(CORPUS, feats, log=None)
+        stop.set()
+        server.join(timeout=30)
+        assert not server.is_alive()
+        assert len(history) == 3 and len(seen) == 3 * 4
+        assert set(seen) == {(False, False)}
+        assert set(blocks) == {(True, True)} and len(blocks) > len(seen)
+        assert (m.allow_tf32, c.allow_tf32) == (True, True)  # not reset by training
+    finally:
+        stop.set()
+        m.allow_tf32, c.allow_tf32 = saved
+
+
 def test_bf16_cache_never_keeps_a_replaced_tree(pipes, monkeypatch):
     """Fault 2: a reload lands while a bf16 cast of the old tree is in
     progress (forced inside the cast). The caller that began before the

@@ -21,13 +21,16 @@ and the tensors between them), and two things come out of it, as tf_keras
   ``backend`` / ``keras_version`` attributes tpucap's file has (they make
   Keras load the weights unchanged).
 
-Topologies: merge (1/2-layer, the reference ``define_model``), inject
-(image feature -> Dense(tanh) x2 -> the LSTM stack's ``initial_state``)
-and attention (Show-Attend-Tell unrolled over ``max_len`` steps with
-shared layers, built only from standard layers). The GRU merge exporter
-waits for the port's GRU decoder. Weight layouts need no transposition:
-Keras stores Dense kernels (in, out) and LSTM weights [kernel (E,4U),
-recurrent (U,4U), bias (4U,)] in i, f, c, o gate order, tpucap's formats.
+Topologies: merge (1/2-layer, the reference ``define_model``), GRU merge
+(the same over GRU(h), reset_after=True), inject (image feature ->
+Dense(tanh) x2 -> the LSTM stack's ``initial_state``) and attention
+(Show-Attend-Tell unrolled over ``max_len`` steps with shared layers, built
+only from standard layers); the adaptive and transformer families have no
+Keras topology, in tpucap as here. Weight layouts need no transposition:
+Keras stores Dense kernels (in, out), LSTM weights [kernel (E,4U),
+recurrent (U,4U), bias (4U,)] in i, f, c, o gate order and GRU weights
+[kernel (E,3U), recurrent (U,3U), bias (2,3U)] in z, r, h order, tpucap's
+formats.
 The port's tensors go back to that layout with ``convert.params_to_numpy``.
 """
 
@@ -165,6 +168,14 @@ class _Graph:
             **_lstm_cell_fields(units, layer=True),
         )
 
+    def gru(self, units: int, name: str, return_sequences: bool):
+        return self.layer(
+            "GRU",
+            name,
+            **_rnn_flags(return_sequences, False),
+            **_gru_fields(units),
+        )
+
     def rnn_lstm_cell(self, units: int, input_dim: int, name: str):
         """``RNN(LSTMCell(units), return_state=True)``: outputs (y, h, c)."""
         cell = self.layer("LSTMCell", **_lstm_cell_fields(units, layer=False))
@@ -264,6 +275,30 @@ def _lstm_cell_fields(units: int, *, layer: bool) -> dict:
         implementation=2,
     )
     return fields
+
+
+def _gru_fields(units: int) -> dict:
+    """A GRU layer's own config keys (GRU-v2, reset_after=True)."""
+    return {
+        "units": units,
+        "activation": "tanh",
+        "recurrent_activation": "sigmoid",
+        "use_bias": True,
+        "kernel_initializer": _initializer("GlorotUniform", seed=None),
+        "recurrent_initializer": _initializer("Orthogonal", gain=1.0, seed=None),
+        "bias_initializer": _initializer("Zeros"),
+        "kernel_regularizer": None,
+        "recurrent_regularizer": None,
+        "bias_regularizer": None,
+        "activity_regularizer": None,
+        "kernel_constraint": None,
+        "recurrent_constraint": None,
+        "bias_constraint": None,
+        "dropout": 0.0,
+        "recurrent_dropout": 0.0,
+        "implementation": 2,
+        "reset_after": True,
+    }
 
 
 def _map_graph(outputs: list[_Tensor]) -> tuple[list[_Layer], set]:
@@ -379,8 +414,52 @@ def _lstm_w(layer: _Layer, cell, cell_name: str = "lstm_cell") -> None:
     ]
 
 
+def _gru_w(layer: _Layer, cell) -> None:
+    stem = f"{layer.name}/gru_cell"
+    layer.weights = [
+        (f"{stem}/kernel:0", np.asarray(cell["kernel"])),
+        (f"{stem}/recurrent_kernel:0", np.asarray(cell["recurrent"])),
+        (f"{stem}/bias:0", np.asarray(cell["bias"])),
+    ]
+
+
 def _embedding_w(layer: _Layer, p) -> None:
     layer.weights = [(f"{layer.name}/embeddings:0", np.asarray(p["table"]))]
+
+
+def _merge_model(decoder, params, max_len: int, rnn: str) -> KerasModel:
+    """The reference ``define_model`` topology over a stack of ``rnn``
+    ("lstm" or "gru") layers named ``{rnn}_{i}``, carrying ``params``."""
+    params = _numpy_tree(params)
+    g = _Graph()
+    hid = decoder.hidden_dim
+    n_layers = len(params["cells"])
+    make, carry = (g.lstm, _lstm_w) if rnn == "lstm" else (g.gru, _gru_w)
+
+    inputs1 = g.input((decoder.feature_dim,), "image_features")
+    fe1 = g.dropout(decoder.dropout_rate)(inputs1)
+    feat_proj = g.dense(hid, "relu", name="feat_proj")
+    fe2 = feat_proj(fe1)
+    inputs2 = g.input((max_len,), "token_ids")
+    embedding = g.embedding(decoder.vocab_size, decoder.embed_dim, True, "embedding")
+    se = embedding(inputs2)
+    se = g.dropout(decoder.dropout_rate)(se)
+    rnns = []
+    for i in range(n_layers):
+        rnns.append(make(hid, f"{rnn}_{i}", return_sequences=i != n_layers - 1))
+        se = rnns[-1](se)
+    d1 = g.layer("Add")([fe2, se])
+    pre_out = g.dense(hid, "relu", name="pre_out")
+    out = g.dense(decoder.vocab_size, "softmax", name="out")
+    outputs = out(pre_out(d1))
+
+    _dense_w(feat_proj, params["feat_proj"])
+    _embedding_w(embedding, params["embedding"])
+    for layer, cell in zip(rnns, params["cells"]):
+        carry(layer, cell)
+    _dense_w(pre_out, params["pre_out"])
+    _dense_w(out, params["out"])
+    return g.model([inputs1, inputs2], [outputs])
 
 
 def merge_decoder_to_keras(decoder, params, *, max_len: int) -> KerasModel:
@@ -395,35 +474,20 @@ def merge_decoder_to_keras(decoder, params, *, max_len: int) -> KerasModel:
             "only MergeDecoder exports to the reference define_model "
             f"topology; got {type(decoder).__name__}"
         )
-    params = _numpy_tree(params)
-    g = _Graph()
-    hid = decoder.hidden_dim
-    n_layers = len(params["cells"])
+    return _merge_model(decoder, params, max_len, "lstm")
 
-    inputs1 = g.input((decoder.feature_dim,), "image_features")
-    fe1 = g.dropout(decoder.dropout_rate)(inputs1)
-    feat_proj = g.dense(hid, "relu", name="feat_proj")
-    fe2 = feat_proj(fe1)
-    inputs2 = g.input((max_len,), "token_ids")
-    embedding = g.embedding(decoder.vocab_size, decoder.embed_dim, True, "embedding")
-    se = embedding(inputs2)
-    se = g.dropout(decoder.dropout_rate)(se)
-    lstms = []
-    for i in range(n_layers):
-        lstms.append(g.lstm(hid, f"lstm_{i}", return_sequences=i != n_layers - 1))
-        se = lstms[-1](se)
-    d1 = g.layer("Add")([fe2, se])
-    pre_out = g.dense(hid, "relu", name="pre_out")
-    out = g.dense(decoder.vocab_size, "softmax", name="out")
-    outputs = out(pre_out(d1))
 
-    _dense_w(feat_proj, params["feat_proj"])
-    _embedding_w(embedding, params["embedding"])
-    for layer, cell in zip(lstms, params["cells"]):
-        _lstm_w(layer, cell)
-    _dense_w(pre_out, params["pre_out"])
-    _dense_w(out, params["out"])
-    return g.model([inputs1, inputs2], [outputs])
+def gru_merge_decoder_to_keras(decoder, params, *, max_len: int) -> KerasModel:
+    """The merge topology over GRU(h) carrying ``params``: the GRU analog
+    of :func:`merge_decoder_to_keras`, its GRU layers named ``gru_{i}``
+    (Keras's GRU defaults to reset_after=True, whose weights are the
+    port's layout)."""
+    if type(decoder).__name__ != "GruMergeDecoder":
+        raise ValueError(
+            "gru export needs a GruMergeDecoder; got "
+            f"{type(decoder).__name__}"
+        )
+    return _merge_model(decoder, params, max_len, "gru")
 
 
 def inject_decoder_to_keras(decoder, params, *, max_len: int) -> KerasModel:
@@ -569,6 +633,7 @@ def decoder_to_keras(decoder, params, *, max_len: int, **kwargs) -> KerasModel:
     """Dispatch to the family's builder."""
     builders = {
         "MergeDecoder": merge_decoder_to_keras,
+        "GruMergeDecoder": gru_merge_decoder_to_keras,
         "InjectDecoder": inject_decoder_to_keras,
         "AttentionDecoder": attention_decoder_to_keras,
     }
@@ -582,7 +647,7 @@ def decoder_to_keras(decoder, params, *, max_len: int, **kwargs) -> KerasModel:
 
 def export_h5(decoder, params, path, *, max_len: int, **kwargs) -> None:
     """Write a reference-loadable ``.h5`` full-model file (the reference's
-    checkpoint format). Dispatches on the decoder family: merge, inject and
-    attention export; attention also takes ``positions`` (the spatial grid
+    checkpoint format). Dispatches on the decoder family: merge, GRU merge,
+    inject and attention export; attention also takes ``positions`` (the spatial grid
     size, default 196)."""
     decoder_to_keras(decoder, params, max_len=max_len, **kwargs).save(path)

@@ -19,12 +19,12 @@ The importers below are tpucap's, rule for rule, on that view:
 - InceptionV3: matched by layer *order* (Keras auto-names those layers with
   process-global counters, so names aren't reproducible; creation order is —
   the ``conv_{i}`` keys follow the same source order).
-- The merge, inject and attention decoders: by topology and kernel shape.
+- The merge (LSTM and GRU), inject and attention decoders: by topology and
+  kernel shape.
 
 Kernel layouts need no transposition: Keras stores Conv2D kernels HWIO and
 Dense kernels (in, out), tpucap's layouts; ``convert.params_from_jax`` turns
-such a tree into the port's tensors (conv kernels OIHW). The GRU merge
-importer waits for the port's GRU decoder.
+such a tree into the port's tensors (conv kernels OIHW).
 """
 
 from __future__ import annotations
@@ -215,6 +215,64 @@ def inception_v3_params_from_keras(model) -> dict:
     return params
 
 
+def _merge_params(model, rnn_class: str, check_cell=None) -> dict:
+    """The merge topology's params, its recurrent layers those of class
+    ``rnn_class`` in model.layers order (``check_cell`` sees each one's
+    weights first). Dense layers are told apart by kernel shape: the
+    vocab-wide one is ``out``; of the other two, the one whose input is not
+    the hidden width is the image branch's, else model.layers order (depth
+    order: the image branch first)."""
+    embeddings = [l for l in model.layers if _layer_type(l) == "Embedding"]
+    rnns = [l for l in model.layers if _layer_type(l) == rnn_class]
+    denses = [l for l in model.layers if _layer_type(l) == "Dense"]
+    if len(embeddings) != 1 or not rnns:
+        raise ValueError(
+            f"unexpected topology: {len(embeddings)} embeddings, "
+            f"{len(rnns)} {rnn_class.lower()}s"
+        )
+    table = np.asarray(embeddings[0].get_weights()[0])
+    vocab = table.shape[0]
+    hidden = rnns[0].get_weights()[1].shape[0]  # recurrent kernel (U, gU)
+
+    out = None
+    hidden_denses = []
+    for l in denses:
+        dout = l.get_weights()[0].shape[1]
+        if dout == vocab and out is None:
+            out = _dense_params(l)
+        else:
+            hidden_denses.append(l)
+    if out is None or len(hidden_denses) != 2:
+        raise ValueError("could not identify the three Dense layers")
+    a, b = hidden_denses
+    if a.get_weights()[0].shape[0] != hidden:
+        feat_proj, pre_out = _dense_params(a), _dense_params(b)
+    elif b.get_weights()[0].shape[0] != hidden:
+        feat_proj, pre_out = _dense_params(b), _dense_params(a)
+    else:
+        feat_proj, pre_out = _dense_params(a), _dense_params(b)
+
+    cells = []
+    for l in rnns:
+        w = l.get_weights()
+        if check_cell is not None:
+            check_cell(w)
+        cells.append(
+            {
+                "kernel": np.asarray(w[0]),
+                "recurrent": np.asarray(w[1]),
+                "bias": np.asarray(w[2]),
+            }
+        )
+    return {
+        "feat_proj": feat_proj,
+        "embedding": {"table": table},
+        "cells": cells,
+        "pre_out": pre_out,
+        "out": out,
+    }
+
+
 def merge_decoder_params_from_keras(model) -> dict:
     """Import a reference-style Keras merge caption model into MergeDecoder
     params (SURVEY.md §2.1 #6; §5.4 '.h5->orbax import tool for parity
@@ -230,56 +288,27 @@ def merge_decoder_params_from_keras(model) -> dict:
     Dense layers are disambiguated by kernel shape; LSTMs by model.layers
     (topological) order, which for a stack equals depth order.
     """
-    embeddings = [l for l in model.layers if _layer_type(l) == "Embedding"]
-    lstms = [l for l in model.layers if _layer_type(l) == "LSTM"]
-    denses = [l for l in model.layers if _layer_type(l) == "Dense"]
-    if len(embeddings) != 1 or not lstms:
+    return _merge_params(model, "LSTM")
+
+
+def _reset_after_weights(w) -> None:
+    if len(w) != 3 or np.asarray(w[2]).ndim != 2:
         raise ValueError(
-            f"unexpected topology: {len(embeddings)} embeddings, "
-            f"{len(lstms)} lstms"
+            "expected reset_after=True GRU weights [kernel, "
+            f"recurrent, bias (2, 3U)]; got {[x.shape for x in w]} — "
+            "reset_after=False checkpoints use different cell math "
+            "and cannot import weight-for-weight"
         )
-    table = np.asarray(embeddings[0].get_weights()[0])
-    vocab = table.shape[0]
-    hidden = lstms[0].get_weights()[1].shape[0]  # recurrent kernel (U, 4U)
 
-    out = None
-    hidden_denses = []
-    for l in denses:
-        dout = l.get_weights()[0].shape[1]
-        if dout == vocab and out is None:
-            out = _dense_params(l)
-        else:
-            hidden_denses.append(l)
-    if out is None or len(hidden_denses) != 2:
-        raise ValueError("could not identify the three Dense layers")
-    # model.layers is depth-ordered: the image-branch Dense (fe) precedes
-    # the post-add Dense; when feature_dim != hidden the kernel shapes
-    # disambiguate regardless of order.
-    a, b = hidden_denses
-    if a.get_weights()[0].shape[0] != hidden:
-        feat_proj, pre_out = _dense_params(a), _dense_params(b)
-    elif b.get_weights()[0].shape[0] != hidden:
-        feat_proj, pre_out = _dense_params(b), _dense_params(a)
-    else:
-        feat_proj, pre_out = _dense_params(a), _dense_params(b)
 
-    cells = []
-    for l in lstms:
-        w = l.get_weights()
-        cells.append(
-            {
-                "kernel": np.asarray(w[0]),
-                "recurrent": np.asarray(w[1]),
-                "bias": np.asarray(w[2]),
-            }
-        )
-    return {
-        "feat_proj": feat_proj,
-        "embedding": {"table": table},
-        "cells": cells,
-        "pre_out": pre_out,
-        "out": out,
-    }
+def gru_merge_decoder_params_from_keras(model) -> dict:
+    """Import a merge-topology Keras GRU caption model into GruMergeDecoder
+    params: :func:`merge_decoder_params_from_keras` with GRU(h) in place of
+    LSTM(h). Keras GRU-v2 weights are [kernel (E, 3U), recurrent (U, 3U),
+    bias (2, 3U)] with reset_after=True, the port's own layout
+    (``models/layers.py::init_gru_cell``); the GRU layers are taken in
+    model.layers order and the hidden width from the recurrent kernel."""
+    return _merge_params(model, "GRU", _reset_after_weights)
 
 
 def _lstm_weight_layers(model):

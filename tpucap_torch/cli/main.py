@@ -75,9 +75,9 @@ The commands run on ``cuda``; ``main(argv, device="cpu")`` runs them on the
 CPU, which is how the tests drive them. A flag whose feature the port does
 not have raises SystemExit naming it, before any file is read; a config
 field the port does not have raises NotImplementedError from
-``config_from_dict``; a decoder it does not have (gru1, gru2, adaptive,
-transformer) raises NotImplementedError when the pipeline is built. All
-five presets run (``--preset config1`` ... ``config5``). tpucap's other
+``config_from_dict``; the transformer decoder, which it does not have,
+raises NotImplementedError when the pipeline is built (lstm1, lstm2, gru1,
+gru2, inject, attention and adaptive run). All five presets run (``--preset config1`` ... ``config5``). tpucap's other
 subcommands (distill, bench) are not registered.
 
 ``doctor`` prints tpucap's report with the port's facts (torch, CUDA,
@@ -949,8 +949,10 @@ def cmd_caption(args, device):
         caps, alphas, lengths = pipe.generate_with_attention(
             feats, method=args.method, beam_width=args.beam_width
         )
-        # alphas (B, T, L); spatial_positions reshapes L into the encoder's
-        # grid (196 -> 14 x 14) for upsampled heatmaps.
+        # alphas (B, T, L), or (B, T, L+1) for the adaptive family, whose
+        # last column is the sentinel weight beta ("don't look");
+        # spatial_positions reshapes L into the encoder's grid (196 -> 14 x
+        # 14) for upsampled heatmaps.
         np.savez(
             args.dump_attention,
             alphas=alphas,

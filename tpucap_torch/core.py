@@ -33,8 +33,9 @@ holds one process-wide re-entrant lock for its whole block, and
 ``apply_precision`` takes it too: two serving threads (a server's images and
 features batchers, or an f32 and a bf16 model behind one port) enqueue their
 flagged work one block at a time, each under the flags its own pipeline
-asked for. Code that sets the flags outside a block (training's
-``apply_precision``) is not held to this while another thread serves.
+asked for. Training takes a block of its own for every step (the training
+precision's flags, ``CaptioningPipeline._train_flags``), so a fit and a
+server in one process take turns between steps and leave no flag changed.
 """
 
 from __future__ import annotations

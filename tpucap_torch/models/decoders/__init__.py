@@ -2,17 +2,23 @@
 
 - ``lstm.MergeDecoder``: the merge LSTM, 1 or 2 layers;
 - ``lstm.InjectDecoder``: the image feature as the LSTM's initial state;
+- ``gru.GruMergeDecoder``: the merge topology over 1 (gru1) or 2 (gru2)
+  Keras GRU-v2 cells;
 - ``attention.AttentionDecoder``: Show-Attend-Tell soft attention over a
-  spatial feature grid.
+  spatial feature grid;
+- ``adaptive.AdaptiveAttentionDecoder``: attention over the grid and a
+  visual sentinel (Lu et al. 2017), maps (B, T, L+1).
 
-The GRU, adaptive and transformer families are not ported yet.
+The transformer family is not ported yet.
 """
 
+from tpucap_torch.models.decoders.adaptive import AdaptiveAttentionDecoder
 from tpucap_torch.models.decoders.attention import AttentionDecoder
+from tpucap_torch.models.decoders.gru import GruMergeDecoder
 from tpucap_torch.models.decoders.lstm import InjectDecoder, MergeDecoder
 
 #: tpucap's decoder families the port does not have.
-UNPORTED = ("gru1", "gru2", "adaptive", "transformer")
+UNPORTED = ("transformer",)
 
 
 def build_decoder(
@@ -35,6 +41,15 @@ def build_decoder(
             num_layers=2 if name == "lstm2" else num_layers,
             dropout_rate=dropout_rate,
         )
+    if name in ("gru1", "gru2"):
+        return GruMergeDecoder(
+            vocab_size=vocab_size,
+            feature_dim=feature_dim,
+            embed_dim=embed_dim,
+            hidden_dim=hidden_dim,
+            num_layers=2 if name == "gru2" else num_layers,
+            dropout_rate=dropout_rate,
+        )
     if name == "inject":
         return InjectDecoder(
             vocab_size=vocab_size,
@@ -53,12 +68,28 @@ def build_decoder(
             attention_dim=attention_dim,
             dropout_rate=dropout_rate,
         )
+    if name == "adaptive":
+        return AdaptiveAttentionDecoder(
+            vocab_size=vocab_size,
+            feature_dim=feature_dim,
+            embed_dim=embed_dim,
+            hidden_dim=hidden_dim,
+            attention_dim=attention_dim,
+            dropout_rate=dropout_rate,
+        )
     if name in UNPORTED:
         raise NotImplementedError(
             f"decoder {name!r} is not ported; tpucap_torch has lstm1, lstm2, "
-            "inject and attention"
+            "gru1, gru2, inject, attention and adaptive"
         )
     raise ValueError(f"unknown decoder {name!r}")
 
 
-__all__ = ["AttentionDecoder", "InjectDecoder", "MergeDecoder", "build_decoder"]
+__all__ = [
+    "AdaptiveAttentionDecoder",
+    "AttentionDecoder",
+    "GruMergeDecoder",
+    "InjectDecoder",
+    "MergeDecoder",
+    "build_decoder",
+]

@@ -1,9 +1,12 @@
-"""Dense / Embedding / LSTM / LayerNorm / dropout / attention primitives
-with Keras-default initialization (port of ``tpucap.models.layers``).
+"""Dense / Embedding / LSTM / GRU / LayerNorm / dropout / attention
+primitives with Keras-default initialization (port of
+``tpucap.models.layers``).
 
 Params are plain dicts of tensors in the JAX package's layout: a dense
 kernel is ``(in, out)``, an LSTM cell holds ``kernel (in, 4U)``,
-``recurrent (U, 4U)`` and ``bias (4U,)`` in Keras gate order i, f, g, o.
+``recurrent (U, 4U)`` and ``bias (4U,)`` in Keras gate order i, f, g, o, a
+GRU cell ``kernel (in, 3U)``, ``recurrent (U, 3U)`` and ``bias (2, 3U)``
+in Keras gate order z, r, h.
 Init draws from an explicit ``torch.Generator`` (CPU), so a seed fixes the
 weights; the numbers differ from ``jax.random``'s for the same seed.
 """
@@ -106,6 +109,41 @@ def lstm_cell_step(p, x, h, c):
         p["kernel"], p["recurrent"], p["bias"], x, h, c
     )
     return h_new.to(h.dtype), c_new.to(c.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GRU cell (Keras GRU-v2, reset_after=True)
+
+
+def init_gru_cell(gen, in_dim: int, units: int):
+    """Keras GRU-v2 defaults: kernel glorot (in, 3U), recurrent orthogonal
+    (U, 3U), bias (2, 3U) zeros, row 0 the input bias and row 1 the
+    recurrent bias (kept apart: the reset gate multiplies h@U + b_rec)."""
+    kernel = glorot_uniform(gen, (in_dim, 3 * units), in_dim, 3 * units)
+    recurrent = orthogonal(gen, units, 3 * units)
+    return {"kernel": kernel, "recurrent": recurrent, "bias": torch.zeros((2, 3 * units))}
+
+
+def gru_cell_step(p, x, h):
+    """One GRU step, Keras's gate order z, r, hh. x (B, in), h (B, U) -> h'
+    in h's dtype:
+
+        mx = x@W + b_in;  mh = h@U + b_rec     (two products, each split in 3)
+        z = sigmoid(mx_z + mh_z);  r = sigmoid(mx_r + mh_r)
+        hh = tanh(mx_h + r * mh_h)              (reset after the product)
+        h' = z*h + (1-z)*hh
+
+    The weights are cast to the operand's dtype and both products taken on
+    operands upcast to f32 (exact), so they accumulate in f32 as the JAX
+    package's ``preferred_element_type=f32`` dots do; the gate math is f32."""
+    mx = torch.matmul(x.float(), p["kernel"].to(x.dtype).float()) + p["bias"][0].float()
+    mh = torch.matmul(h.float(), p["recurrent"].to(h.dtype).float()) + p["bias"][1].float()
+    mx_z, mx_r, mx_h = torch.chunk(mx, 3, dim=-1)
+    mh_z, mh_r, mh_h = torch.chunk(mh, 3, dim=-1)
+    z = torch.sigmoid(mx_z + mh_z)
+    r = torch.sigmoid(mx_r + mh_r)
+    hh = torch.tanh(mx_h + r * mh_h)
+    return (z * h.float() + (1.0 - z) * hh).to(h.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -75,9 +75,10 @@
 the decoder's init_state -> beam search whose step, on the card with a
 1-layer MergeDecoder, is ``make_fused_merge_step`` (kernels K2 and K3: the
 JAX package's own drop-in step_fn hook). Otherwise (on the CPU, lstm2,
-``InjectDecoder``, the soft-attention ``AttentionDecoder``, whose
-per-image grids the beam keeps untiled) the step is the decoder's plain
-``step``. The encoder is ``EncoderConfig.name``'s: VGG16 (the default, fc2
+the GRU merge decoders gru1 and gru2, ``InjectDecoder``, the soft-attention
+``AttentionDecoder`` and the visual-sentinel ``AdaptiveAttentionDecoder``,
+whose per-image grids the beam keeps untiled) the step is the decoder's
+plain ``step``, as the JAX package runs them as plain XLA. The encoder is ``EncoderConfig.name``'s: VGG16 (the default, fc2
 features or the block5 grid, caffe mode), InceptionV3 (tf mode, 299),
 ResNet-50 (caffe mode), ViT-B/16 or vit_tiny (tf mode) or tiny_cnn (tf
 mode, 32). As in the JAX package the
@@ -184,8 +185,8 @@ DECODE_MONITORS = ("bleu4", "cider", "rouge_l", "meteor")
 
 def decode_step_fn(decoder, device):
     """The decode step on ``device``: kernels K2 + K3 on the card for a
-    1-layer merge decoder, the plain decoder step otherwise (lstm2, inject
-    and the attention decoder, as in the JAX package)."""
+    1-layer merge LSTM decoder, the plain decoder step otherwise (lstm2,
+    gru1, gru2, inject, attention and adaptive, as in the JAX package)."""
     if (
         torch.device(device).type == "cuda"
         and isinstance(decoder, MergeDecoder)
@@ -1121,9 +1122,10 @@ class CaptioningPipeline:
         visualization, CONFIG_4). -> ``(captions, alphas, lengths)``: alphas
         (B, T, L) f32 numpy, row t the softmax over the L grid cells that
         the decoder attended to while emitting token t (rows past
-        lengths[b] come from pad inputs and mean nothing); lengths (B,)
-        int32. Reshape L to the encoder's grid (14 x 14 for VGG16) for
-        overlays.
+        lengths[b] come from pad inputs and mean nothing); for the adaptive
+        family (B, T, L+1), the grid's weights and last the sentinel's beta
+        ("don't look"); lengths (B,) int32. Reshape the first L columns to
+        the encoder's grid (14 x 14 for VGG16) for overlays.
 
         Decodes with greedy or beam, then teacher-forces
         ``[start, tokens[:-1]]`` through ``forward_hidden_with_alphas`` on
@@ -1447,11 +1449,16 @@ class CaptioningPipeline:
             batch_size = n_rows
         if cfg.precision not in ("f32", "bf16"):
             raise ValueError(f"TrainConfig.precision={cfg.precision!r}; have f32|bf16")
-        # f32 training runs in full f32 (TF32 off); the inference policy is
-        # restored when training ends.
-        apply_precision("f32" if cfg.precision == "f32" else "bf16")
         compute_dtype = torch.bfloat16 if cfg.precision == "bf16" else None
         return batch_size, compute_dtype
+
+    def _train_flags(self):
+        """The matmul flags of one training step (``core.precision_flags``):
+        f32 training in full f32 (TF32 off), bf16 training under the bf16
+        policy. A block a step, not one for the whole fit, so a serving
+        thread's block can take the flags between steps and a step never
+        sees another thread's setting."""
+        return precision_flags("f32" if self.config.train.precision == "f32" else "bf16")
 
     def _run_epochs(
         self,
@@ -1548,12 +1555,14 @@ class CaptioningPipeline:
                                 continue
                             group = [np.stack(column) for column in zip(*pending)]
                             pending.clear()
-                            state, metrics = multi_step(state, *batch(*group), *extra)
+                            with self._train_flags():
+                                state, metrics = multi_step(state, *batch(*group), *extra)
                             n += spd  # the metrics come back summed over the group
                         else:
-                            state, metrics = step(state, *batch(*rows), *extra)
-                            if ema is not None:
-                                ema_update(ema, state.params, cfg.ema_decay)
+                            with self._train_flags():
+                                state, metrics = step(state, *batch(*rows), *extra)
+                                if ema is not None:
+                                    ema_update(ema, state.params, cfg.ema_decay)
                             n += 1
                         for k, v in metrics.items():
                             sums[k] = sums.get(k, 0.0) + v
@@ -1572,7 +1581,8 @@ class CaptioningPipeline:
                 # The tail shorter than spd, one step at a time (empty after
                 # a preemption: the guard is read at group boundaries only).
                 for rows in () if preempted else pending:
-                    state, metrics = step(state, *batch(*rows), *extra)
+                    with self._train_flags():
+                        state, metrics = step(state, *batch(*rows), *extra)
                     n += 1
                     for k, v in metrics.items():
                         sums[k] = sums.get(k, 0.0) + v
@@ -1710,9 +1720,10 @@ class CaptioningPipeline:
 
         def score(params) -> dict:
             sums: dict = {}
-            for vf, vt in chunks:
-                for k, v in eval_step(params, vf, vt).items():
-                    sums[k] = sums.get(k, 0.0) + v
+            with self._train_flags():
+                for vf, vt in chunks:
+                    for k, v in eval_step(params, vf, vt).items():
+                        sums[k] = sums.get(k, 0.0) + v
             _, vm = loss_from_sums(sums, attention_reg=cfg.attention_reg)
             out = {"val_loss": float(vm["loss"]), "val_accuracy": float(vm["accuracy"])}
             if metric:
@@ -1847,59 +1858,56 @@ class CaptioningPipeline:
             batches = StreamedBatches(row_ids, T, features, batch_size, prefetch)
         else:
             batches = MemoryBatches((F, T), batch_size)
-        try:
-            optimizer = build_optimizer(
-                cfg, total_steps=epochs * max(1, T.shape[0] // batch_size)
+        optimizer = build_optimizer(
+            cfg, total_steps=epochs * max(1, T.shape[0] // batch_size)
+        )
+        if self._freeze_embeddings:
+            # Updates, not gradients, are zeroed: adamw's decay cannot
+            # move the pretrained table either.
+            optimizer = freeze_subtree_updates(optimizer, lambda path: path[0] == "embedding")
+        use_ss, spd = self._dispatch_dials(cfg)
+        state = own_state(
+            TrainState.create(
+                self.params["decoder"], optimizer, self._train_generator()
             )
-            if self._freeze_embeddings:
-                # Updates, not gradients, are zeroed: adamw's decay cannot
-                # move the pretrained table either.
-                optimizer = freeze_subtree_updates(optimizer, lambda path: path[0] == "embedding")
-            use_ss, spd = self._dispatch_dials(cfg)
-            state = own_state(
-                TrainState.create(
-                    self.params["decoder"], optimizer, self._train_generator()
-                )
-            )
-            ema = self._make_ema(cfg, state.params)
+        )
+        ema = self._make_ema(cfg, state.params)
 
-            def make_step(multi_steps):
-                return make_train_step(
-                    self.decoder,
-                    optimizer,
-                    pad_id=0,
-                    label_smoothing=cfg.label_smoothing,
-                    attention_reg=cfg.attention_reg,
-                    grad_accum_steps=cfg.grad_accum_steps,
-                    compute_dtype=compute_dtype,
-                    donate=True,
-                    scheduled_sampling=use_ss,
-                    multi_steps=multi_steps,
-                )
+        def make_step(multi_steps):
+            return make_train_step(
+                self.decoder,
+                optimizer,
+                pad_id=0,
+                label_smoothing=cfg.label_smoothing,
+                attention_reg=cfg.attention_reg,
+                grad_accum_steps=cfg.grad_accum_steps,
+                compute_dtype=compute_dtype,
+                donate=True,
+                scheduled_sampling=use_ss,
+                multi_steps=multi_steps,
+            )
 
-            validate = (
-                None
-                if val_data is None
-                else self._validation(val_data, batch_size, compute_dtype)
-            )
-            state, history = self._run_epochs(
-                make_step(1),
-                state,
-                batches,
-                self._to_device,
-                epochs,
-                log,
-                validate,
-                checkpoint_manager,
-                resume,
-                guard,
-                ema,
-                multi_step=make_step(spd) if spd > 1 else None,
-                spd=spd,
-                ss=(cfg.scheduled_sampling, cfg.ss_schedule) if use_ss else None,
-            )
-        finally:
-            apply_precision(self.config.precision)
+        validate = (
+            None
+            if val_data is None
+            else self._validation(val_data, batch_size, compute_dtype)
+        )
+        state, history = self._run_epochs(
+            make_step(1),
+            state,
+            batches,
+            self._to_device,
+            epochs,
+            log,
+            validate,
+            checkpoint_manager,
+            resume,
+            guard,
+            ema,
+            multi_step=make_step(spd) if spd > 1 else None,
+            spd=spd,
+            ss=(cfg.scheduled_sampling, cfg.ss_schedule) if use_ss else None,
+        )
         self.params["decoder"] = state.params
         if ema is not None:
             self.ema_params = {"decoder": ema}
@@ -1991,69 +1999,63 @@ class CaptioningPipeline:
         )
         batch_size, compute_dtype = self._train_setup(T.shape[0], batch_size, log)
         if lora_rank:
-            try:
-                return self._fit_finetune_lora(
-                    store,
-                    F_idx,
-                    T,
-                    rank=lora_rank,
-                    alpha=lora_alpha,
-                    epochs=epochs,
-                    batch_size=batch_size,
-                    freeze_encoder=freeze_encoder,
-                    remat_encoder=remat_encoder,
-                    parallelism=parallelism,
-                    augment=augment,
-                    augment_shift=augment_shift,
-                    compute_dtype=compute_dtype,
-                    log=log,
-                )
-            finally:
-                apply_precision(self.config.precision)
-        try:
-            optimizer = build_optimizer(
-                cfg, total_steps=epochs * max(1, T.shape[0] // batch_size)
-            )
-            if encoder_lr_scale != 1.0 and not freeze_encoder:
-                optimizer = encoder_learning_rate_optimizer(
-                    optimizer, encoder_lr_scale=encoder_lr_scale
-                )
-            if self._freeze_embeddings:
-                # fit's rule on the joint tree.
-                optimizer = freeze_subtree_updates(
-                    optimizer, lambda path: path[:2] == ("decoder", "embedding")
-                )
-            params = {"encoder": self.params["encoder"], "decoder": self.params["decoder"]}
-            state = own_state(TrainState.create(params, optimizer, self._train_generator()))
-            ema = self._make_ema(cfg, state.params)
-            step = make_joint_train_step(
-                self.encoder,
-                self.decoder,
-                optimizer,
-                pad_id=0,
-                label_smoothing=cfg.label_smoothing,
-                attention_reg=cfg.attention_reg,
-                grad_accum_steps=cfg.grad_accum_steps,
+            return self._fit_finetune_lora(
+                store,
+                F_idx,
+                T,
+                rank=lora_rank,
+                alpha=lora_alpha,
+                epochs=epochs,
+                batch_size=batch_size,
                 freeze_encoder=freeze_encoder,
                 remat_encoder=remat_encoder,
+                parallelism=parallelism,
+                augment=augment,
+                augment_shift=augment_shift,
                 compute_dtype=compute_dtype,
-                augment_fn=make_augment_fn(flip=augment, max_shift=augment_shift),
-                donate=True,
+                log=log,
             )
-            state, history = self._run_epochs(
-                step,
-                state,
-                MemoryBatches((F_idx, T), batch_size),
-                lambda bi, bt: self._to_device(store[np.asarray(bi)], bt),
-                epochs,
-                log,
-                checkpoint_manager=checkpoint_manager,
-                resume=resume,
-                guard=guard,
-                ema=ema,
+        optimizer = build_optimizer(
+            cfg, total_steps=epochs * max(1, T.shape[0] // batch_size)
+        )
+        if encoder_lr_scale != 1.0 and not freeze_encoder:
+            optimizer = encoder_learning_rate_optimizer(
+                optimizer, encoder_lr_scale=encoder_lr_scale
             )
-        finally:
-            apply_precision(self.config.precision)
+        if self._freeze_embeddings:
+            # fit's rule on the joint tree.
+            optimizer = freeze_subtree_updates(
+                optimizer, lambda path: path[:2] == ("decoder", "embedding")
+            )
+        params = {"encoder": self.params["encoder"], "decoder": self.params["decoder"]}
+        state = own_state(TrainState.create(params, optimizer, self._train_generator()))
+        ema = self._make_ema(cfg, state.params)
+        step = make_joint_train_step(
+            self.encoder,
+            self.decoder,
+            optimizer,
+            pad_id=0,
+            label_smoothing=cfg.label_smoothing,
+            attention_reg=cfg.attention_reg,
+            grad_accum_steps=cfg.grad_accum_steps,
+            freeze_encoder=freeze_encoder,
+            remat_encoder=remat_encoder,
+            compute_dtype=compute_dtype,
+            augment_fn=make_augment_fn(flip=augment, max_shift=augment_shift),
+            donate=True,
+        )
+        state, history = self._run_epochs(
+            step,
+            state,
+            MemoryBatches((F_idx, T), batch_size),
+            lambda bi, bt: self._to_device(store[np.asarray(bi)], bt),
+            epochs,
+            log,
+            checkpoint_manager=checkpoint_manager,
+            resume=resume,
+            guard=guard,
+            ema=ema,
+        )
         self.params["encoder"] = state.params["encoder"]
         self.params["decoder"] = state.params["decoder"]
         if ema is not None:
@@ -2187,46 +2189,43 @@ class CaptioningPipeline:
         )
         # tpucap's fit_lora clamps the batch without a word.
         batch_size, compute_dtype = self._train_setup(T.shape[0], batch_size, None)
-        try:
-            alpha = float(rank if alpha is None else alpha)
-            scale = alpha / rank
-            base = self.params["decoder"]
-            adapters = init_lora(
-                base,
-                rank,
-                generator=self._lora_generator(),
-                target_keys=target_keys or DEFAULT_TARGET_KEYS,
+        alpha = float(rank if alpha is None else alpha)
+        scale = alpha / rank
+        base = self.params["decoder"]
+        adapters = init_lora(
+            base,
+            rank,
+            generator=self._lora_generator(),
+            target_keys=target_keys or DEFAULT_TARGET_KEYS,
+        )
+        if log:
+            n_ad, n_base = lora_param_counts(base, adapters)
+            log(
+                f"LoRA rank {rank}: {n_ad:,} trainable / {n_base:,} "
+                f"frozen params ({100.0 * n_ad / n_base:.2f}%)"
             )
-            if log:
-                n_ad, n_base = lora_param_counts(base, adapters)
-                log(
-                    f"LoRA rank {rank}: {n_ad:,} trainable / {n_base:,} "
-                    f"frozen params ({100.0 * n_ad / n_base:.2f}%)"
-                )
-            optimizer = build_optimizer(cfg, total_steps=epochs * max(1, F.shape[0] // batch_size))
-            step = make_lora_train_step(
-                self.decoder,
-                base,
-                optimizer,
-                scale=scale,
-                pad_id=0,
-                label_smoothing=cfg.label_smoothing,
-                attention_reg=cfg.attention_reg,
-                compute_dtype=compute_dtype,
-                donate=True,
-            )
-            state = own_state(TrainState.create(adapters, optimizer, self._train_generator()))
-            state, history = self._run_epochs(
-                step,
-                state,
-                MemoryBatches((F, T), batch_size),
-                self._to_device,
-                epochs,
-                log,
-                label="lora epoch",
-            )
-        finally:
-            apply_precision(self.config.precision)
+        optimizer = build_optimizer(cfg, total_steps=epochs * max(1, F.shape[0] // batch_size))
+        step = make_lora_train_step(
+            self.decoder,
+            base,
+            optimizer,
+            scale=scale,
+            pad_id=0,
+            label_smoothing=cfg.label_smoothing,
+            attention_reg=cfg.attention_reg,
+            compute_dtype=compute_dtype,
+            donate=True,
+        )
+        state = own_state(TrainState.create(adapters, optimizer, self._train_generator()))
+        state, history = self._run_epochs(
+            step,
+            state,
+            MemoryBatches((F, T), batch_size),
+            self._to_device,
+            epochs,
+            log,
+            label="lora epoch",
+        )
         self.lora_adapters, self.lora_meta = state.params, {"rank": rank, "alpha": alpha}
         if merge:
             self.params["decoder"] = self._merge_lora(base, state.params, scale)
