@@ -1247,19 +1247,21 @@ def train_decoder(dev) -> None:
     decoder_train_steps(dev, "train decoder", "lstm1", (DEC_TRAIN_BATCH, DEC_FEATURES))
 
 
-def decoder_train_steps(dev, label: str, name: str, feat_shape: tuple, **step_kw) -> list[float]:
+def decoder_train_steps(dev, label: str, name: str, feat_shape: tuple, decoder: dict | None = None,
+                        **step_kw) -> list[float]:
     """``make_train_step`` of decoder ``name`` (embed and hidden WIDTH,
-    vocab VOCAB, the feature width feat_shape[-1]) on one batch of seeded
-    features and (batch, MAX_LEN + 1) tokens, bf16 compute with f32 master
-    params: a warm-up step, then 5 timed, no kernel launched (the training
-    loop is plain). -> the 5 losses."""
+    vocab VOCAB, the feature width feat_shape[-1], ``decoder``'s other
+    ``build_decoder`` fields) on one batch of seeded features and (batch,
+    MAX_LEN + 1) tokens, bf16 compute with f32 master params: a warm-up
+    step, then 5 timed, no kernel launched (the training loop is plain).
+    -> the 5 losses."""
     from tpucap_torch import ops
     from tpucap_torch.config import TrainConfig
     from tpucap_torch.models.decoders import build_decoder
     from tpucap_torch.train import TrainState, build_optimizer, make_train_step
 
     batch = feat_shape[0]
-    dec = build_decoder(name, VOCAB, feat_shape[-1], embed_dim=WIDTH, hidden_dim=WIDTH)
+    dec = build_decoder(name, VOCAB, feat_shape[-1], embed_dim=WIDTH, hidden_dim=WIDTH, **(decoder or {}))
     params = tree_to(dec.init(torch.Generator().manual_seed(0)), dev)
     opt = build_optimizer(TrainConfig())
     state = TrainState.create(params, opt, torch.Generator(device=dev).manual_seed(0))
@@ -1281,7 +1283,7 @@ def decoder_train_steps(dev, label: str, name: str, feat_shape: tuple, **step_kw
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{label}: losses {losses} not finite")
     med = float(np.median(times))
-    extra = "".join(f", {k} {v}" for k, v in step_kw.items())
+    extra = "".join(f", {k} {v}" for k, v in {**(decoder or {}), **step_kw}.items())
     log(f"{label}: {name} batch {batch} features {tuple(feat_shape[1:])} T {MAX_LEN + 1} vocab {VOCAB} bf16 "
         f"compute, f32 masters{extra}: step ms {[round(t * 1e3, 3) for t in times]} median {med * 1e3:.3f}; "
         f"samples/s {batch / med:.2f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
@@ -6047,6 +6049,374 @@ def run_decoders(dev, tokenizer) -> dict[str, int]:
     return counts
 
 
+# Phase 20, the transformer decoder at tpucap's DecoderConfig defaults (2
+# layers, 4 heads, MLP 1024, max_positions 40; hidden WIDTH) and an MoE
+# variant (make_moe's 8 experts, top-2): (b)'s rows, the most of them that
+# may part at a near-tie, and the f32 first-step logits' bound on the card
+# against the CPU (phase 19's); (c)'s rows, longest prefix, rows that may
+# part, and the KV-cache capacity its prefixes need (8 words + MAX_LEN);
+# (d)'s admission waves and ticks a sync group; (f)'s batches, rows a
+# batch and the capacity-breaking prefix's words; (g)'s images and the
+# maps' row-sum bound.
+P20_EXPERTS, P20_TOP_K = 8, 2
+P20_ROWS, P20_PARTED, P20_LOGIT_ATOL = 32, 2, 1e-4
+P20_PREFIX_ROWS, P20_PREFIX_WORDS, P20_PREFIX_PARTED, P20_PREFIX_POSITIONS = 64, 8, 4, 48
+P20_WAVES, P20_TICKS = 3, 4
+P20_SERVED, P20_SERVED_ROWS, P20_OVER_WORDS = 4, 16, 7
+P20_IMAGES, P20_ALPHA_ATOL = 64, 1e-6
+
+
+def transformer_pipeline(precision: str, tokenizer, experts: int = 0, shrink: bool = True,
+                         features: str = "pooled", max_positions: int = 40):
+    """ResNet-50 (BN folded) into the transformer decoder at tpucap's
+    DecoderConfig defaults and hidden WIDTH, vocab VOCAB, beam BEAM,
+    max_len MAX_LEN, random weights from seed 0. ``shrink`` scales the
+    memory projection by 1e-3, as ``make_pipeline`` scales lstm1's image
+    branch, for ResNet-50's large, nearly alike features of noise images."""
+    from tpucap_torch.config import Config, DecodeConfig, DecoderConfig, encoder_config
+    from tpucap_torch.pipeline import CaptioningPipeline
+
+    cfg = Config(
+        encoder=encoder_config("resnet50", features),
+        decoder=DecoderConfig(name="transformer", hidden_dim=WIDTH, num_layers=2, max_positions=max_positions,
+                              num_experts=experts, moe_top_k=P20_TOP_K),
+        decode=DecodeConfig(method="beam", beam_width=BEAM, max_len=MAX_LEN),
+        precision=precision,
+    )
+    pipe = CaptioningPipeline(cfg, tokenizer=tokenizer)
+    pipe.build(seed=0)
+    if shrink:
+        pipe.params["decoder"]["mem_proj"]["kernel"].mul_(1e-3)
+    pipe.fold_bn()
+    return pipe
+
+
+def transformer_paths(dev, tokenizer) -> dict[str, int]:
+    """20 (a): path A into lstm1 (K2 + K3), the dense transformer and the
+    MoE one, bf16, beam BEAM then greedy: one batch of ``caption_batch``
+    each with the counters reset just before and read just after (K1 1, K4
+    12; K2 and K3 one a step for lstm1, none for the transformer), captions/s
+    and ms a decode step side by side. -> the counted batches' launches."""
+    total: dict[str, int] = {}
+    for label, experts in (("lstm1", None), ("transformer", 0), ("transformer moe", P20_EXPERTS)):
+        if experts is None:
+            pipe = served_pipeline("bf16", tokenizer)
+        else:
+            pipe = transformer_pipeline("bf16", tokenizer, experts=experts)
+            pipe.encoder = dataclasses.replace(pipe.encoder, fused_blocks=True)
+        d = pipe.config.decoder
+        log(f"transformer paths {label}: batch {BATCH} resnet50(fused_blocks=True)+{d.name} hidden "
+            f"{d.hidden_dim}" + ("" if experts is None else
+                                 f" layers {d.num_layers} heads {d.num_heads} mlp {d.mlp_dim} max_positions "
+                                 f"{d.max_positions} experts {d.num_experts} top-{d.moe_top_k}")
+            + f" vocab {VOCAB} max_len {MAX_LEN} bf16")
+        for method in ("beam", "greedy"):
+            pipe.config = dataclasses.replace(pipe.config, decode=dataclasses.replace(pipe.config.decode,
+                                                                                      method=method))
+            if experts is None:
+                counts = run_path(dev, f"transformer paths {label} {method}", pipe, {"identity_block": 12})
+            else:
+                work = DialWork(pipe)
+                try:
+                    counts = run_path(dev, f"transformer paths {label} {method}", pipe, {"identity_block": 12},
+                                      work=work)
+                finally:
+                    work.close()
+                    del pipe.step_fn, pipe._apply_encoder  # the class's own again
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        del pipe
+        torch.cuda.empty_cache()
+    return total
+
+
+@contextlib.contextmanager
+def router_picks():
+    """Record each MoE layer's sorted top-k expert indices (host tensors,
+    in call order) while the block runs."""
+    import tpucap_torch.models.decoders.transformer as tmod
+
+    picks, topk = [], tmod.topk_stable
+
+    def recorded(x, k):
+        vals, idx = topk(x, k)
+        picks.append(idx.sort(dim=-1).values.cpu())
+        return vals, idx
+
+    tmod.topk_stable = recorded
+    try:
+        yield picks
+    finally:
+        tmod.topk_stable = topk
+
+
+def transformer_agreement(pipe, label: str) -> None:
+    """20 (b): f32 (TF32 off), P20_ROWS rows of seeded features: the first
+    decode step on the card against the same step on the CPU within
+    P20_LOGIT_ATOL (rows whose router chose another top-k set in a layer are
+    logged and left out), greedy decodes on both, rows parted at a near-tie
+    logged, more than P20_PARTED fail; for the MoE model, the tokens of a
+    teacher-forced pass over the CPU's greedy captions whose top-k expert
+    set differs between card and CPU, counted."""
+    from tpucap_torch.core import precision_flags, tree_map
+    from tpucap_torch.decode import greedy_decode
+
+    dec, params = pipe.decoder, pipe.params["decoder"]
+    start, end = pipe._token_ids()
+    feats = torch.randn((P20_ROWS, DEC_FEATURES), generator=torch.Generator().manual_seed(200))
+    out = {}
+    with torch.inference_mode(), precision_flags("f32"):
+        for where, p in (("card", params), ("cpu", tree_map(lambda t: t.cpu(), params))):
+            x = feats.to(dev_of(p))
+            first = torch.full((P20_ROWS,), start, dtype=torch.long, device=x.device)
+            with router_picks() as picks:
+                logits, _ = dec.step(p, dec.init_state(p, x), first)
+            res = greedy_decode(dec.step, p, dec.init_state(p, x), start_id=start, end_id=end, max_len=MAX_LEN)
+            out[where] = (logits.float().cpu(), res.tokens.cpu(), res.lengths.cpu(), picks)
+        tokens, lengths = out["cpu"][1], out["cpu"][2]
+        forced = torch.cat([torch.full_like(tokens[:, :1], start), tokens[:, :-1]], dim=1)
+        routed = {}
+        for where, p in (("card", params), ("cpu", tree_map(lambda t: t.cpu(), params))):
+            with router_picks() as picks:
+                dec.forward_train(p, feats.to(dev_of(p)), forced.to(dev_of(p)))
+            routed[where] = picks
+    first_flip = torch.zeros(P20_ROWS, dtype=torch.bool)
+    for a, b in zip(out["card"][3], out["cpu"][3]):
+        first_flip |= (a != b).any(dim=-1).reshape(P20_ROWS, -1).any(dim=-1)
+    keep = ~first_flip
+    err = max_err(out["card"][0][keep], out["cpu"][0][keep])
+    if not err <= P20_LOGIT_ATOL:
+        raise AssertionError(f"transformer {label} f32: first-step logits {err:.3g} from the CPU's")
+    parted = []
+    for i in range(P20_ROWS):
+        a, b = out["card"][1][i], out["cpu"][1][i]
+        if not torch.equal(a, b):
+            parted.append(f"row {i} from step {int((a != b).nonzero()[0])}")
+    if parted:
+        log(f"transformer {label} f32: {len(parted)} of {P20_ROWS} rows parted at a near-tie: {parted[:8]}")
+    if len(parted) > P20_PARTED:
+        raise AssertionError(f"transformer {label} f32: {len(parted)} of {P20_ROWS} greedy rows differ from "
+                             "the CPU's")
+    moe = ""
+    if dec.num_experts:
+        live = (torch.arange(MAX_LEN)[None, :] < lengths[:, None])
+        changed = sum(int(((a != b).any(dim=-1) & live).sum()) for a, b in zip(routed["card"], routed["cpu"]))
+        moe = (f"; router: {int(first_flip.sum())} of {P20_ROWS} rows chose another top-{dec.moe_top_k} set "
+               f"at the first step, {changed} of {int(live.sum()) * dec.num_layers} token routings of a "
+               f"teacher-forced pass over the CPU's captions changed their set between card and CPU")
+    log(f"transformer {label} f32 (TF32 off), {P20_ROWS} rows: first-step logits (vocab {VOCAB}) within "
+        f"{err:.3g} of the CPU's (bound {P20_LOGIT_ATOL}); greedy tokens equal in {P20_ROWS - len(parted)} "
+        f"of {P20_ROWS} rows; lengths {lengths.min().item()}-{lengths.max().item()}{moe}")
+
+
+def dev_of(tree):
+    from tpucap_torch.core import tree_leaves
+
+    return tree_leaves(tree)[0].device
+
+
+def transformer_prefix(dev, tokenizer) -> None:
+    """20 (c): ``generate_continuation`` beam BEAM in f32 on
+    P20_PREFIX_ROWS rows with prefixes of 0 ... P20_PREFIX_WORDS words in
+    turn, the prefix primed in one ``step_chunk`` (the pipeline's route)
+    against the step loop (``prime_prefix`` without the decoder): captions
+    token for token but for at most P20_PREFIX_PARTED rows parted at a
+    near-tie (logged with the f32 logit gap), the ms of each prime."""
+    import tpucap_torch.pipeline as pipeline_mod
+
+    pipe = transformer_pipeline("f32", tokenizer, shrink=False, max_positions=P20_PREFIX_POSITIONS)
+    g = torch.Generator(device=dev).manual_seed(201)
+    feats = torch.randn((P20_PREFIX_ROWS, DEC_FEATURES), generator=g, device=dev)
+    rng, words = np.random.default_rng(202), vocab_words(tokenizer)
+    prefixes = [" ".join(str(w) for w in rng.choice(words, i % (P20_PREFIX_WORDS + 1), replace=False))
+                for i in range(P20_PREFIX_ROWS)]
+    prime, times = pipeline_mod.prime_prefix, {}
+
+    def routed(route):
+        def primed(step, *a, **kw):
+            if route == "scan":
+                kw["decoder"] = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = prime(step, *a, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(route, []).append(time.perf_counter() - t0)
+            return r
+        return primed
+
+    caps = {}
+    try:
+        for route in ("chunk", "scan", "chunk", "scan"):
+            pipeline_mod.prime_prefix = routed(route)
+            caps[route] = pipe.generate_continuation(feats, prefixes, method="beam")
+    finally:
+        pipeline_mod.prime_prefix = prime
+    for h, c in zip(prefixes, caps["chunk"]):
+        if not c.startswith(h):
+            raise AssertionError(f"transformer prefix: {c!r} does not open with {h!r}")
+    rows = [i for i, (a, b) in enumerate(zip(caps["chunk"], caps["scan"])) if a != b]
+    if rows:
+        log(f"transformer prefix: {len(rows)} of {P20_PREFIX_ROWS} rows parted at a near-tie: "
+            f"{logit_gaps(pipe, feats, caps['chunk'], caps['scan'])[:8]}")
+    if len(rows) > P20_PREFIX_PARTED:
+        raise AssertionError(f"transformer prefix: {len(rows)} of {P20_PREFIX_ROWS} chunk-primed captions "
+                             "differ from the step loop's")
+    log(f"transformer prefix: f32 beam {BEAM}, {P20_PREFIX_ROWS} rows, prefixes of 0-{P20_PREFIX_WORDS} words "
+        f"(padded to 8), max_positions {P20_PREFIX_POSITIONS}: the chunk-primed captions the step loop's in "
+        f"{P20_PREFIX_ROWS - len(rows)} of {P20_PREFIX_ROWS} rows; the prime {times['chunk'][1] * 1e3:.3f} ms "
+        f"in one step_chunk, {times['scan'][1] * 1e3:.3f} ms in 8 steps (warm calls; cold "
+        f"{times['chunk'][0] * 1e3:.3f} / {times['scan'][0] * 1e3:.3f}); {caps['chunk'][1]!r}")
+
+
+def drive_lanes(eng, feats: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Admit feats' rows in P20_WAVES waves, one a sync group of P20_TICKS
+    ticks, into lanes (request i in lane i), collect them as they finish.
+    -> (tokens, lengths) by request."""
+    n = feats.shape[0]
+    per = -(-n // P20_WAVES)
+    tokens = torch.zeros((n, MAX_LEN), dtype=torch.long)
+    lengths = torch.zeros((n,), dtype=torch.long)
+    state, admitted, left, syncs = eng.init_state(), 0, set(range(n)), 0
+    while left:
+        if admitted < n:
+            ids = list(range(admitted, min(n, admitted + per)))
+            idx, x = eng.pad_admission(ids, [feats[i].cpu().numpy() for i in ids])
+            state = eng.admit(state, idx, x)
+            admitted = ids[-1] + 1
+        state = eng.tick(state, P20_TICKS)
+        done = [i for i in torch.nonzero(eng.flags(state)[0]).flatten().tolist() if i in left]
+        if done:
+            (tok, lens, _), state = eng.collect(state, np.asarray(done))
+            tokens[done], lengths[done] = tok.cpu(), lens.cpu()
+            left -= set(done)
+        syncs += 1
+        if syncs > 4 * MAX_LEN:
+            raise AssertionError(f"continuous lanes: {sorted(left)[:8]} never finished")
+    return tokens, lengths
+
+
+def transformer_lanes(pipe) -> None:
+    """20 (d): f32, both continuous engines on the dense model, one lane or
+    beam group a request, P20_PREFIX_ROWS requests admitted in P20_WAVES
+    waves P20_TICKS ticks apart (lanes at different depths: per-lane
+    positions): the captions ``generate``'s, token for token."""
+    from tpucap_torch.decode import ContinuousBeamEngine, ContinuousDecodeEngine, ids_to_captions
+
+    start, end = pipe._token_ids()
+    g = torch.Generator(device=pipe.device).manual_seed(203)
+    feats = torch.randn((P20_PREFIX_ROWS, DEC_FEATURES), generator=g, device=pipe.device)
+    kw = dict(slots=P20_PREFIX_ROWS, start_id=start, end_id=end, max_len=MAX_LEN, precision="f32")
+    for method, eng in (("greedy", ContinuousDecodeEngine(pipe.decoder, pipe.params["decoder"], **kw)),
+                        ("beam", ContinuousBeamEngine(pipe.decoder, pipe.params["decoder"], beam_width=BEAM,
+                                                      **kw))):
+        (tokens, lengths), s = timed(lambda: drive_lanes(eng, feats))
+        got = ids_to_captions(pipe.tokenizer, tokens, lengths, end_id=end)
+        want = pipe.generate(feats, method=method)
+        if got != want:
+            why = logit_gaps(pipe, feats, got, want)
+            raise AssertionError(f"transformer lanes {method}: {len(why)} of {len(want)} captions differ "
+                                 f"from generate's: {why[:8]}")
+        log(f"transformer lanes {method}: f32, {P20_PREFIX_ROWS} requests in {P20_WAVES} waves "
+            f"{P20_TICKS} ticks apart, {P20_PREFIX_ROWS} slots: generate's captions token for token "
+            f"({s:.3f} s); lengths {lengths.min().item()}-{lengths.max().item()}")
+
+
+def transformer_server(pipe, tokenizer) -> None:
+    """20 (f): a batch ``CaptionServer`` (max_batch P20_SERVED_ROWS) on the
+    f32 dense model answers P20_SERVED batches of P20_SERVED_ROWS feature
+    rows with ``generate``'s captions, one of them with a shared prefix
+    (``generate_continuation``'s, primed in one step_chunk); a request
+    whose prefix breaks the KV capacity is refused alone, the batch beside
+    it answered."""
+    from tpucap_torch.serve import CaptionServer
+
+    g = np.random.default_rng(204)
+    words = vocab_words(tokenizer)
+    head = " ".join(str(w) for w in g.choice(words, 3, replace=False))
+    over = " ".join(str(w) for w in g.choice(words, P20_OVER_WORDS, replace=False))
+    t0 = time.perf_counter()
+    with CaptionServer(pipe, max_batch=P20_SERVED_ROWS) as srv:
+        for i in range(P20_SERVED):
+            rows = g.normal(size=(P20_SERVED_ROWS, DEC_FEATURES)).astype(np.float32)
+            if i == 1:
+                futs = srv.submit_many(rows, prefix=head)
+                try:
+                    srv.submit(rows[0], prefix=over)
+                except ValueError as e:
+                    refused = str(e)
+                else:
+                    raise AssertionError("transformer server: a prefix past the KV capacity was admitted")
+                want = pipe.generate_continuation(rows, head)
+            else:
+                futs = srv.submit_many(rows)
+                want = pipe.generate(rows)
+            got = [f.result(120) for f in futs]
+            if got != want:
+                raise AssertionError(f"transformer server batch {i}: {got[:2]} against the library's {want[:2]}")
+    if "max_positions" not in refused:
+        raise AssertionError(f"transformer server: the capacity refusal reads {refused!r}")
+    log(f"transformer server: {P20_SERVED} batches of {P20_SERVED_ROWS} f32 feature rows, each the library's "
+        f"captions (batch 1 with the prefix {head!r}, primed in one step_chunk); a {P20_OVER_WORDS}-word prefix "
+        f"refused alone: {refused!r} ({time.perf_counter() - t0:.3f} s)")
+
+
+def transformer_maps(dev, tokenizer) -> dict[str, int]:
+    """20 (g): ResNet-50's spatial grid (conv4, 14 x 14 x 1024 at 224, BN
+    folded) of P20_IMAGES uint8 images (K1 once, counted) into the dense
+    transformer, f32: ``generate_with_attention``'s beam maps (images, T,
+    196), every row summing to 1 within P20_ALPHA_ATOL, the captions
+    ``generate``'s. -> the encode's launches."""
+    from tpucap_torch import ops
+
+    pipe = transformer_pipeline("f32", tokenizer, features="spatial")
+    L = pipe.encoder.spatial_positions
+    g = torch.Generator(device=dev).manual_seed(205)
+    images = torch.randint(0, 256, (P20_IMAGES, IMAGE, IMAGE, 3), generator=g, device=dev, dtype=torch.uint8)
+    ops.reset_launch_counts()
+    grids = toolkit_encode(pipe, images)
+    counts = ops.launch_counts()
+    check_counts("transformer maps", counts, 1, decode=False)
+    (caps, alphas, lengths), s = timed(lambda: pipe.generate_with_attention(grids, method="beam"))
+    sums = float(np.abs(alphas.sum(-1) - 1.0).max())
+    if (alphas.shape != (P20_IMAGES, MAX_LEN, L) or not sums <= P20_ALPHA_ATOL
+            or caps != pipe.generate(grids, method="beam")):
+        raise AssertionError(f"transformer maps {alphas.shape}: sums within {sums:.3g}")
+    log(f"transformer maps: f32 beam {BEAM}, {P20_IMAGES} images, resnet50 spatial {L} x "
+        f"{pipe.config.encoder.feature_dim}: alphas {alphas.shape} (the last layer's head-averaged "
+        f"cross-attention), every row summing to 1 within {sums:.3g}, the largest weight a row "
+        f"{float(alphas.max(-1).mean()):.4f} on average; the captions generate's ({s:.3f} s)")
+    return counts
+
+
+def run_transformer(dev, tokenizer) -> dict[str, int]:
+    """Phase 20: (a) path A into lstm1, the dense and the MoE transformer,
+    (b) the f32 steps on the card against the CPU, (c) chunked priming
+    against the step loop, (d) both continuous engines, (e) the training
+    steps, (f) a batch server, (g) the maps on ResNet-50's grid. (b)-(d)
+    and (f) launch no kernel. -> (a)'s and (g)'s counted launches."""
+    from tpucap_torch import ops
+
+    counts = transformer_paths(dev, tokenizer)
+    dense = transformer_pipeline("f32", tokenizer, shrink=False)
+    moe = transformer_pipeline("f32", tokenizer, experts=P20_EXPERTS, shrink=False)
+    ops.reset_launch_counts()
+    transformer_agreement(dense, "dense")
+    transformer_agreement(moe, "moe")
+    del moe
+    transformer_prefix(dev, tokenizer)
+    transformer_lanes(dense)
+    transformer_server(dense, tokenizer)
+    check_launches("transformer (b)-(d), (f)", ops.launch_counts(), {}, decode=False)
+    del dense
+    torch.cuda.empty_cache()
+    for label, experts in (("dense", 0), ("moe", P20_EXPERTS)):
+        losses = decoder_train_steps(dev, f"transformer train {label}", "transformer", (DEC_TRAIN_BATCH, DEC_FEATURES),
+                                     decoder=dict(num_layers=2, num_experts=experts, moe_top_k=P20_TOP_K))
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"transformer train {label}: losses {losses} do not fall on one batch")
+    more = transformer_maps(dev, tokenizer)
+    return {k: counts[k] + more[k] for k in counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6097,7 +6467,7 @@ def main() -> int:
 
 
 def run_phases(dev, tokenizer, smi: str, counts: dict, fields: dict, cli_root: Path) -> int:
-    """Phases 8-19 (phase 8's dataset and checkpoint in ``cli_root``, which
+    """Phases 8-20 (phase 8's dataset and checkpoint in ``cli_root``, which
     phase 18 captions from), then the kernels line and the last line."""
     run_cli_workflow(dev, cli_root)
     for name, c in run_presets(dev, tokenizer).items():
@@ -6157,6 +6527,11 @@ def run_phases(dev, tokenizer, smi: str, counts: dict, fields: dict, cli_root: P
     for name in counts:
         counts[name] += decoded[name]
     log(f"phase 19: {time.perf_counter() - t19:.2f} s")
+    t20 = time.perf_counter()
+    transformed = run_transformer(dev, tokenizer)
+    for name in counts:
+        counts[name] += transformed[name]
+    log(f"phase 20: {time.perf_counter() - t20:.2f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -188,8 +188,8 @@ def test_config_json_layouts(tpucap_bundle):
     [
         ("train", "max_to_keep", 5),
         ("train", "checkpoint_dir", "elsewhere"),
-        ("train", "moe_aux_weight", 0.1),
-        ("decoder", "num_heads", 8),
+        ("mesh", "model_devices", 2),
+        ("mesh", "axis_name", "batch"),
         ("mesh", "n_devices", 4),
     ],
 )
@@ -200,6 +200,22 @@ def test_unported_config_field_away_from_default_raises(tpucap_bundle, section, 
     d[section][field] = value
     with pytest.raises(NotImplementedError, match=f"{section}.{field}"):
         tcfg.config_from_dict(d)
+
+
+def test_transformer_config_fields_round_trip(tpucap_bundle):
+    """The transformer's five DecoderConfig fields and
+    TrainConfig.moe_aux_weight, away from their defaults, read from
+    tpucap's layout and written back unchanged."""
+    _, path = tpucap_bundle
+    d = json.loads((path / "config.json").read_text())
+    d["decoder"].update(name="transformer", num_heads=8, mlp_dim=512, max_positions=48, num_experts=4,
+                        moe_top_k=1)
+    d["train"]["moe_aux_weight"] = 0.5
+    cfg = tcfg.config_from_dict(d)
+    assert (cfg.decoder.num_heads, cfg.decoder.mlp_dim, cfg.decoder.max_positions, cfg.decoder.num_experts,
+            cfg.decoder.moe_top_k, cfg.train.moe_aux_weight) == (8, 512, 48, 4, 1, 0.5)
+    assert _json(tcfg.config_to_dict(cfg)) == d
+    assert jcfg.config_from_dict(_json(tcfg.config_to_dict(cfg))) == jcfg.config_from_dict(d)
 
 
 def test_unknown_config_field_and_bpe_tokenizer_raise(tmp_path):

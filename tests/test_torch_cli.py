@@ -607,14 +607,9 @@ def test_unported_config_fields_raise_from_build_config(argv, match):
     (["--decoder", "transformer"], "transformer"),
 ])
 def test_unported_encoders_and_decoders_raise(argv, match, monkeypatch):
-    """The transformer decoder raises when the pipeline is built; gru1,
-    gru2 and adaptive (ported) build from the CLI's config, the decoder
-    tpucap's class with tpucap's param shapes (``jax.eval_shape`` of its
-    init: nothing compiled)."""
-    if match == "transformer":
-        with pytest.raises(NotImplementedError, match=match):
-            tcli.main(["extract", *argv, "--images", "/nonexistent", "--out", "o.npz"], device="cpu")
-        return
+    """gru1, gru2, adaptive and the transformer (all ported) build from the
+    CLI's config, the decoder tpucap's class with tpucap's fields and param
+    shapes (``jax.eval_shape`` of its init: nothing compiled)."""
     line = ["train", "--encoder", "tiny_cnn", *argv, "--embed-dim", "16", "--hidden-dim", "24",
             "--tokens", "t", "--features", "f"]
     tok = Tokenizer()
@@ -626,6 +621,7 @@ def test_unported_encoders_and_decoders_raise(argv, match, monkeypatch):
                         tokenizer=JaxTokenizer.from_json(tok.to_json()))
     jpipe.build(init_params=False)
     assert type(pipe.decoder).__name__ == type(jpipe.decoder).__name__
+    assert dataclasses.asdict(pipe.decoder) == dataclasses.asdict(jpipe.decoder)
     want = jax.eval_shape(jpipe.decoder.init, jax.random.key(0))
     got = params_to_numpy(pipe.params["decoder"])
     assert jax.tree.structure(got) == jax.tree.structure(want)

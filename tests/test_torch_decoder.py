@@ -2,11 +2,14 @@
 bridged through tpucap_torch.convert.params_from_jax, dropout off; the
 param layout of every ported family (the inject and attention decoders'
 steps are held in ``test_torch_attention.py``, the GRU and adaptive
-decoders' in ``test_torch_gru.py`` and ``test_torch_adaptive.py``).
+decoders' in ``test_torch_gru.py`` and ``test_torch_adaptive.py``, the
+transformer's in ``test_torch_transformer.py``).
 
 Tolerance: f32 on both sides, differing only by summation order: 1e-5
 absolute on O(1) states and logits.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 from tpucap.models.decoders import build_decoder as jax_build_decoder
-from tpucap_torch.convert import params_from_jax
+from tpucap_torch.convert import params_from_jax, params_to_numpy
 from tpucap_torch.models.decoders import build_decoder
 
 from ports_init import jit_init
@@ -68,9 +71,19 @@ def test_port_init_has_the_jax_param_layout(name):
 
 
 def test_build_decoder_refuses_unported_families():
-    """The transformer alone; gru1, gru2 and adaptive build (their layouts
-    above)."""
-    with pytest.raises(NotImplementedError, match="transformer"):
-        build_decoder("transformer", **DIMS)
+    """No family is left unported: the transformer builds, dense and MoE,
+    with tpucap's fields and param layout (shapes only); an unknown name
+    raises as tpucap's factory does."""
+    from tpucap_torch.models.decoders import UNPORTED
+
+    assert UNPORTED == ()
+    for moe in ({}, dict(num_experts=3, moe_top_k=1)):
+        kw = dict(DIMS, num_layers=2, num_heads=6, mlp_dim=40, max_positions=9, **moe)
+        jdec, tdec = jax_build_decoder("transformer", **kw), build_decoder("transformer", **kw)
+        assert dataclasses.asdict(tdec) == dataclasses.asdict(jdec)
+        jp = jax.eval_shape(jdec.init, jax.random.key(0))
+        tp = params_to_numpy(tdec.init(torch.Generator().manual_seed(0)))
+        assert jax.tree.structure(tp) == jax.tree.structure(jp)
+        assert [a.shape for a in jax.tree.leaves(tp)] == [a.shape for a in jax.tree.leaves(jp)]
     with pytest.raises(ValueError, match="unknown decoder"):
         build_decoder("lstm3", **DIMS)

@@ -12,8 +12,9 @@
   single rows; min_len, the n-gram ban and bad_words act on the
   continuation;
 - the refusals (a word outside the vocabulary, the method, the row count,
-  the KV-cache capacity rule, the chunked prefill of a ``step_chunk``
-  decoder) with tpucap's texts.
+  the KV-cache capacity rule) with tpucap's texts; a ``step_chunk``
+  decoder is primed in one chunk (the transformer's own parity is in
+  ``test_torch_transformer.py``).
 
 Tolerance: tokens, lengths, ``last`` and captions exact. Every state leaf
 within 1e-5 absolute and the prefix log-prob within 1e-5 absolute (f32;
@@ -220,13 +221,29 @@ def test_continuation_refusals_match_tpucap(pipes):
 
 
 def test_chunked_priming_refused_by_name():
-    """tpucap primes a ``step_chunk`` decoder (its KV-cache transformer) in
-    one chunked prefill; the port has no such decoder and refuses it."""
+    """A decoder with ``step_chunk`` (tpucap's KV-cache transformer, now
+    ported) is primed in one chunk over [start, p0, .., p_{P-2}], as
+    tpucap's ``_prime_chunked``, never through the step loop: ``pos`` set to
+    each row's length, ``last`` its last prefix token (start for an empty
+    one), logp summed over its own length."""
 
     class Chunked:
-        def step_chunk(self, *a):
-            raise AssertionError("not reached")
+        def __init__(self):
+            self.chunks = []
 
-    state = {"h": torch.zeros(2, 3)}
-    with pytest.raises(NotImplementedError, match=r"step_chunk.*item 6\.2"):
-        prime_prefix(None, None, state, np.ones((2, 1)), np.ones(2), start_id=START, decoder=Chunked())
+        def step_chunk(self, params, state, tokens):
+            self.chunks.append(tokens.clone())
+            B, C = tokens.shape
+            logits = torch.zeros((B, C, 5))
+            logits[:, :, 3] = 1.0
+            return logits, dict(state, pos=state["pos"] + C)
+
+    dec = Chunked()
+    state = {"pos": torch.zeros(3, dtype=torch.int32)}
+    prefix, lengths = np.array([[3, 4, 3], [4, 0, 0], [0, 0, 0]]), np.array([3, 1, 0])
+    got, last, logp = prime_prefix(None, None, state, prefix, lengths, start_id=START, decoder=dec)
+    assert len(dec.chunks) == 1 and dec.chunks[0].tolist() == [[START, 3, 4], [START, 4, 0], [START, 0, 0]]
+    assert got["pos"].tolist() == [3, 1, 0] and got["pos"].dtype == torch.int32
+    assert last.tolist() == [3, 4, START]
+    lp = np.log(np.e / (np.e + 4.0)), np.log(1.0 / (np.e + 4.0))
+    np.testing.assert_allclose(logp.numpy(), [2 * lp[0] + lp[1], lp[1], 0.0], atol=1e-6)

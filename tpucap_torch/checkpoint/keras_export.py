@@ -25,8 +25,9 @@ Topologies: merge (1/2-layer, the reference ``define_model``), GRU merge
 (the same over GRU(h), reset_after=True), inject (image feature ->
 Dense(tanh) x2 -> the LSTM stack's ``initial_state``) and attention
 (Show-Attend-Tell unrolled over ``max_len`` steps with shared layers, built
-only from standard layers); the adaptive and transformer families have no
-Keras topology, in tpucap as here. Weight layouts need no transposition:
+only from standard layers). The adaptive and transformer families (the
+MoE transformer too) have no Keras topology, in tpucap as here: their
+export raises tpucap's ``no Keras topology for <class>; have [...]``. Weight layouts need no transposition:
 Keras stores Dense kernels (in, out), LSTM weights [kernel (E,4U),
 recurrent (U,4U), bias (4U,)] in i, f, c, o gate order and GRU weights
 [kernel (E,3U), recurrent (U,3U), bias (2,3U)] in z, r, h order, tpucap's

@@ -75,9 +75,9 @@ The commands run on ``cuda``; ``main(argv, device="cpu")`` runs them on the
 CPU, which is how the tests drive them. A flag whose feature the port does
 not have raises SystemExit naming it, before any file is read; a config
 field the port does not have raises NotImplementedError from
-``config_from_dict``; the transformer decoder, which it does not have,
-raises NotImplementedError when the pipeline is built (lstm1, lstm2, gru1,
-gru2, inject, attention and adaptive run). All five presets run (``--preset config1`` ... ``config5``). tpucap's other
+``config_from_dict``. Every decoder family runs (lstm1, lstm2, gru1,
+gru2, inject, attention, adaptive and transformer, dense or with
+``--num-experts``). All five presets run (``--preset config1`` ... ``config5``). tpucap's other
 subcommands (distill, bench) are not registered.
 
 ``doctor`` prints tpucap's report with the port's facts (torch, CUDA,
@@ -260,13 +260,16 @@ def _add_common_model_flags(p):
     p.add_argument("--embed-dim", type=int, default=256)
     p.add_argument("--hidden-dim", type=int, default=256)
     p.add_argument("--num-layers", type=int, default=None,
-                   help="decoder depth (default: 1; lstm2 forces 2)")
+                   help="decoder depth (default: 1; lstm2 forces 2, "
+                   "transformer defaults to 2)")
     p.add_argument("--num-heads", type=int, default=4,
                    help="attention heads (transformer decoder only)")
     p.add_argument("--mlp-dim", type=int, default=1024,
                    help="MLP width (transformer decoder only)")
     p.add_argument("--num-experts", type=int, default=0,
-                   help="MoE experts per layer (transformer decoder only)")
+                   help="transformer decoder only: MoE experts per layer "
+                   "(0 = dense MLP); top-2 routed. Pass the SAME value "
+                   "used at training time when restoring a checkpoint")
     p.add_argument("--max-len", type=int, default=34)
     p.add_argument("--length-penalty", default=None,
                    choices=["simple", "gnmt"],
@@ -306,9 +309,10 @@ def _build_config(args) -> Config:
     """tpucap's config resolution from the flags, made in tpucap's
     config.json layout and read by ``config_from_dict``, so a field the
     port does not have (a mesh) raises NotImplementedError away from
-    tpucap's default. The
-    transformer decoder's fields, which no ported decoder reads, keep
-    tpucap's defaults."""
+    tpucap's default. The transformer's fields come from ``--num-heads``,
+    ``--mlp-dim`` and ``--num-experts`` (``moe_top_k`` keeps its default),
+    its KV-cache capacity ``max_positions`` from the decode budget,
+    max(40, max_len + 2), and its depth defaults to 2."""
     if getattr(args, "preset", None):
         d = config_to_dict(PRESETS[args.preset])
         # Explicit flags override the preset.
@@ -344,6 +348,11 @@ def _build_config(args) -> Config:
             embed_dim=args.embed_dim,
             hidden_dim=args.hidden_dim,
             num_layers=num_layers,
+            num_heads=getattr(args, "num_heads", 4),
+            mlp_dim=getattr(args, "mlp_dim", 1024),
+            # The KV-cache and positional capacity tracks the decode budget.
+            max_positions=max(40, args.max_len + 2),
+            num_experts=getattr(args, "num_experts", 0),
         ),
         decode=DecodeConfig(
             method=getattr(args, "method", None) or "greedy",
@@ -1291,6 +1300,10 @@ def cmd_profile(args, device):
         hidden_dim=cfg.decoder.hidden_dim,
         num_layers=cfg.decoder.num_layers,
         attention_dim=cfg.decoder.attention_dim,
+        num_heads=cfg.decoder.num_heads,
+        mlp_dim=cfg.decoder.mlp_dim,
+        max_positions=cfg.decoder.max_positions,
+        num_experts=cfg.decoder.num_experts,
     )
     gen = lambda seed: torch.Generator(device=device).manual_seed(seed)  # noqa: E731
     params = tree_map(lambda t: t.to(device), dec.init(torch.Generator().manual_seed(0)))

@@ -39,6 +39,16 @@ class DecoderConfig:
     num_layers: int = 1
     dropout_rate: float = 0.5
     attention_dim: int = 256  # attention MLP width (attention decoder only)
+    # The transformer decoder only:
+    num_heads: int = 4
+    mlp_dim: int = 1024
+    # Positional table and KV-cache capacity; must hold decode.max_len + 1
+    # (the start token and the generated tokens).
+    max_positions: int = 40
+    # Mixture-of-experts MLP: 0 = dense; > 0 = that many experts a layer,
+    # top-k routed.
+    num_experts: int = 0
+    moe_top_k: int = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +114,10 @@ class TrainConfig:
     # The monitor: 'loss' (val_loss, min) | 'bleu4' | 'cider' | 'rouge_l' |
     # 'meteor' (a greedy decode of the dev split each epoch, max).
     val_metric: str = "loss"
+    # The Switch load-balance loss weight of an MoE decoder. tpucap reads
+    # it in its expert-parallel step alone; no training step of the port
+    # reads it (as tpucap's single-device step does not).
+    moe_aux_weight: float = 0.01
     # Microbatches a step's batch is split into, accumulated in sum form
     # (the full-batch update at 1/A of the activation memory); 1 = off.
     grad_accum_steps: int = 1
@@ -201,18 +215,11 @@ PRESETS = {
 #: is tpucap's alone.
 UNPORTED = {
     "encoder": {},
-    "decoder": {
-        "num_heads": 4,
-        "mlp_dim": 1024,
-        "max_positions": 40,
-        "num_experts": 0,
-        "moe_top_k": 2,
-    },
+    "decoder": {},
     "decode": {},
     "train": {
         "checkpoint_dir": "checkpoints",
         "max_to_keep": 3,
-        "moe_aux_weight": 0.01,
     },
     "mesh": {"n_devices": None, "axis_name": "data", "model_devices": 1},
 }

@@ -11,9 +11,9 @@ is the whole caption's log-probability: the prefix tokens scored
 teacher-forced under the engines' full-softmax normalizer, plus the
 continuation.
 
-The JAX package primes a decoder that has ``step_chunk`` (its KV-cache
-transformer) in one chunked prefill forward instead; the port has no such
-decoder (ROADMAP item 6.2), so that branch raises.
+A decoder that has ``step_chunk`` (the KV-cache transformer) is primed as
+the JAX package primes it (``_prime_chunked``): in one chunked forward over
+the padded prefix.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ def prime_prefix(step_fn, params, state, prefix, lengths, *, start_id: int, deco
     prefix: (B, P) ints, row b's forced tokens in prefix[b, :lengths[b]]
         (entries past a row's length are ignored).
     lengths: (B,) per-row prefix lengths (0 = no prefix).
+    decoder: optional; one with ``step_chunk`` is primed in one chunked
+        forward instead of P steps (``_prime_chunked``).
 
     -> ``(state, last, logp)``: the state advanced by lengths[b]
     teacher-forced steps per row; last (B,) the token the continuation
@@ -45,10 +47,7 @@ def prime_prefix(step_fn, params, state, prefix, lengths, *, start_id: int, deco
     if P == 0:
         return state, last, acc
     if decoder is not None and hasattr(decoder, "step_chunk"):
-        raise NotImplementedError(
-            "chunked prefix priming (step_chunk, the KV-cache transformer) is "
-            "not ported to tpucap_torch (ROADMAP queue 1, item 6.2)"
-        )
+        return _prime_chunked(decoder, params, state, prefix, lengths, start_id=start_id)
     for i in range(P):
         logits, new_state = step_fn(params, state, last)
         logits = logits.float()
@@ -63,3 +62,27 @@ def prime_prefix(step_fn, params, state, prefix, lengths, *, start_id: int, deco
         last = torch.where(active, tok, last)
         acc = acc + torch.where(active, lp, 0.0)
     return state, last, acc
+
+
+def _prime_chunked(decoder, params, state, prefix, lengths, *, start_id: int):
+    """KV-cache prefill: the chunk [start, p0, .., p_{P-2}] (the step loop's
+    inputs) in one ``step_chunk``, so logits[:, c] scores p_c; each row's
+    f32 log-probs summed over its own length. A short row is repaired after
+    the chunk: ``pos`` is overwritten with ``lengths``, and the K/V the
+    chunk wrote at its positions [lengths[b], P) stay, never seen: a query
+    at position q sees keys <= q, and the decode writes position q in the
+    step that first queries it."""
+    B, P = prefix.shape
+    chunk = torch.cat([torch.full_like(prefix[:, :1], start_id), prefix[:, :-1]], dim=1)
+    logits, new_state = decoder.step_chunk(params, state, chunk)
+    logits = logits.float()  # (B, P, V)
+    tok_lp = logits.gather(2, prefix[..., None])[..., 0] - torch.logsumexp(logits, dim=-1)
+    valid = torch.arange(P, device=prefix.device)[None, :] < lengths[:, None]
+    logp = torch.where(valid, tok_lp, 0.0).sum(dim=1)
+    new_state = dict(new_state, pos=lengths.to(new_state["pos"].dtype))
+    last = torch.where(
+        lengths > 0,
+        prefix.gather(1, torch.clamp(lengths - 1, min=0)[:, None])[:, 0],
+        torch.full_like(lengths, start_id),
+    )
+    return new_state, last, logp

@@ -7,18 +7,20 @@
 - ``attention.AttentionDecoder``: Show-Attend-Tell soft attention over a
   spatial feature grid;
 - ``adaptive.AdaptiveAttentionDecoder``: attention over the grid and a
-  visual sentinel (Lu et al. 2017), maps (B, T, L+1).
-
-The transformer family is not ported yet.
+  visual sentinel (Lu et al. 2017), maps (B, T, L+1);
+- ``transformer.TransformerDecoder``: a pre-LN causal Transformer with
+  cross-attention, an incremental KV cache and an optional
+  mixture-of-experts MLP.
 """
 
 from tpucap_torch.models.decoders.adaptive import AdaptiveAttentionDecoder
 from tpucap_torch.models.decoders.attention import AttentionDecoder
 from tpucap_torch.models.decoders.gru import GruMergeDecoder
 from tpucap_torch.models.decoders.lstm import InjectDecoder, MergeDecoder
+from tpucap_torch.models.decoders.transformer import TransformerDecoder
 
 #: tpucap's decoder families the port does not have.
-UNPORTED = ("transformer",)
+UNPORTED = ()
 
 
 def build_decoder(
@@ -30,6 +32,11 @@ def build_decoder(
     num_layers: int = 1,
     dropout_rate: float = 0.5,
     attention_dim: int = 256,
+    num_heads: int = 4,
+    mlp_dim: int = 1024,
+    max_positions: int = 40,
+    num_experts: int = 0,
+    moe_top_k: int = 2,
 ):
     """Factory keyed by config.DecoderConfig.name, with tpucap's arguments."""
     if name in ("lstm1", "lstm2"):
@@ -77,10 +84,18 @@ def build_decoder(
             attention_dim=attention_dim,
             dropout_rate=dropout_rate,
         )
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"decoder {name!r} is not ported; tpucap_torch has lstm1, lstm2, "
-            "gru1, gru2, inject, attention and adaptive"
+    if name == "transformer":
+        return TransformerDecoder(
+            vocab_size=vocab_size,
+            feature_dim=feature_dim,
+            hidden_dim=hidden_dim,
+            num_layers=num_layers,
+            num_heads=num_heads,
+            mlp_dim=mlp_dim,
+            max_positions=max_positions,
+            dropout_rate=dropout_rate,
+            num_experts=num_experts,
+            moe_top_k=moe_top_k,
         )
     raise ValueError(f"unknown decoder {name!r}")
 
@@ -91,5 +106,6 @@ __all__ = [
     "GruMergeDecoder",
     "InjectDecoder",
     "MergeDecoder",
+    "TransformerDecoder",
     "build_decoder",
 ]

@@ -37,8 +37,9 @@
                                   n-best or diverse pool (``decode/mbr.py``)
     generate_ensemble(features,   product-of-experts decode over several
                       others)     pipelines (``decode/ensemble.py``)
-    generate_with_attention(      captions with the attention decoder's
-        features)                 maps, teacher-forced after the decode
+    generate_with_attention(      captions with the attention, adaptive or
+        features)                 transformer decoder's maps,
+                                  teacher-forced after the decode
 
     evaluate(descriptions,        decode features in padded batches, then
              features)            BLEU-1..4, CIDEr-D, ROUGE-L, METEOR and
@@ -77,8 +78,13 @@ the decoder's init_state -> beam search whose step, on the card with a
 JAX package's own drop-in step_fn hook). Otherwise (on the CPU, lstm2,
 the GRU merge decoders gru1 and gru2, ``InjectDecoder``, the soft-attention
 ``AttentionDecoder`` and the visual-sentinel ``AdaptiveAttentionDecoder``,
-whose per-image grids the beam keeps untiled) the step is the decoder's
-plain ``step``, as the JAX package runs them as plain XLA. The encoder is ``EncoderConfig.name``'s: VGG16 (the default, fc2
+whose per-image grids the beam keeps untiled, and the KV-cache
+``TransformerDecoder``, dense or MoE, whose cross-attention memory it keeps
+untiled) the step is the decoder's plain ``step``, as the JAX package runs
+them as plain XLA. A forced prefix primes the transformer in one
+``step_chunk`` forward (``decode/prefix.py``). Training reads no MoE
+load-balance loss (``TrainConfig.moe_aux_weight``), as tpucap's
+single-device step does not. The encoder is ``EncoderConfig.name``'s: VGG16 (the default, fc2
 features or the block5 grid, caffe mode), InceptionV3 (tf mode, 299),
 ResNet-50 (caffe mode), ViT-B/16 or vit_tiny (tf mode) or tiny_cnn (tf
 mode, 32). As in the JAX package the
@@ -186,7 +192,8 @@ DECODE_MONITORS = ("bleu4", "cider", "rouge_l", "meteor")
 def decode_step_fn(decoder, device):
     """The decode step on ``device``: kernels K2 + K3 on the card for a
     1-layer merge LSTM decoder, the plain decoder step otherwise (lstm2,
-    gru1, gru2, inject, attention and adaptive, as in the JAX package)."""
+    gru1, gru2, inject, attention, adaptive and transformer, as in the JAX
+    package)."""
     if (
         torch.device(device).type == "cuda"
         and isinstance(decoder, MergeDecoder)
@@ -280,6 +287,12 @@ class CaptioningPipeline:
         from a seeded ``torch.Generator`` (``config.train.seed`` unless
         ``seed`` is given)."""
         d = self.config.decoder
+        if d.name == "transformer" and d.max_positions < self.config.decode.max_len + 1:
+            raise ValueError(
+                f"decoder.max_positions {d.max_positions} cannot hold "
+                f"decode.max_len {self.config.decode.max_len} generated "
+                "tokens plus the start token"
+            )
         self.decoder = build_decoder(
             d.name,
             vocab_size=self.vocab_size,
@@ -289,6 +302,11 @@ class CaptioningPipeline:
             num_layers=d.num_layers,
             dropout_rate=d.dropout_rate,
             attention_dim=d.attention_dim,
+            num_heads=d.num_heads,
+            mlp_dim=d.mlp_dim,
+            max_positions=d.max_positions,
+            num_experts=d.num_experts,
+            moe_top_k=d.moe_top_k,
         )
         if init_params:
             gen = torch.Generator().manual_seed(
@@ -1124,7 +1142,8 @@ class CaptioningPipeline:
         the decoder attended to while emitting token t (rows past
         lengths[b] come from pad inputs and mean nothing); for the adaptive
         family (B, T, L+1), the grid's weights and last the sentinel's beta
-        ("don't look"); lengths (B,) int32. Reshape the first L columns to
+        ("don't look"); for the transformer the last layer's head-averaged
+        cross-attention (L = 1 on pooled features); lengths (B,) int32. Reshape the first L columns to
         the encoder's grid (14 x 14 for VGG16) for overlays.
 
         Decodes with greedy or beam, then teacher-forces
